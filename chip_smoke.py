@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch / H100 port (neuronx_distributed_training_torch).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the repo checkout beside this file; it imports nothing
+of JAX.  Phases, each of which fails the run if it fails:
+
+1. report the card (``nvidia-smi`` name and power limit) and build the CUDA
+   kernels from ``neuronx_distributed_training_torch/csrc`` (one ``nvcc`` per
+   source, in parallel);
+2. hold each kernel (flash forward, dq, dk/dv) against its plain PyTorch
+   version in bf16: causal + GQA at full Llama-3-8B width (s=4096), and
+   key-padding (with fully masked rows), segment, sliding-window, q_offset and
+   head_dim-64 cases at smaller s;
+3. time each kernel, its plain version and, as a yardstick only,
+   ``F.scaled_dot_product_attention`` at the main-path shape (b=1, nh=32,
+   nkv=8, s=8192, d=128, causal), and compare kernel and plain there too;
+4. run the trainer CLI for 3 steps at Llama-3-8B widths cut to 4 layers
+   (seq 8192, gbs 4, mbs 1: 4 microbatches) with the kernel launch counters
+   set to 0 just before and read just after: each kernel must have launched
+   layers x microbatches x steps = 48 times, loss and grad_norm must be finite
+   and the step-0 loss near its expected value.
+
+The line before the last holds the card's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
+it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+MAIN = dict(b=1, s=8192, nh=32, nkv=8, d=128)  # Llama-3-8B attention, seq 8192
+LAYERS, MICROBATCHES, STEPS = 4, 4, 3
+CLI_ARGS = [
+    "--config", str(REPO / "examples/conf/hf_llama3_8B_config.yaml"),
+    "--set", f"model.num_layers={LAYERS}",
+    "--set", "distributed_strategy.tensor_model_parallel_size=1",
+    "--set", "distributed_strategy.sequence_parallel=false",
+    "--set", "data.synthetic=true",
+    "--set", f"data.global_batch_size={MICROBATCHES}",
+    "--set", f"trainer.max_steps={STEPS}",
+]
+# tolerances, kernel vs plain version on the same bf16 inputs.  The kernel
+# rounds the unnormalized p to bf16 for the p v product (the plain version
+# keeps p in fp32) and both round o to bf16, so each element of o may differ
+# by about one bf16 ulp of itself plus a rounding noise that scales with its
+# row: o_err is max |o_k - o_p| / (2^-7 (|o_p| + rms_row(o_p))), and a sound
+# kernel reads about 1 (an emulation of its rounding on the CPU gives 0.97 at
+# s=4096), so the limit leaves room for one more ulp.  An error the size of a
+# typical |o| reads about 64.  lse is fp32 in both; the gradients are fp32
+# sums of bf16-rounded outputs, held relative to each gradient's largest entry.
+TOL_O = 2.0
+TOL_LSE_ABS = 1e-3
+TOL_GRAD_REL = 2e-2
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-9))
+
+
+def abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def o_err(o_k, o_p) -> float:
+    """max |o_k - o_p| per element in units of 2^-7 (|o_p| + rms of its row)."""
+    ok_, op = o_k.float(), o_p.float()
+    unit = (op.abs() + op.pow(2).mean(-1, keepdim=True).sqrt()) * 2.0 ** -7
+    # rows with no visible key are 0 in the plain version: any output there fails
+    return float(((ok_ - op).abs() / unit.clamp_min(1e-30)).max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def make_inputs(torch, b, sq, skv, nh, nkv, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(
+            torch.bfloat16)
+
+    return randn(b, sq, nh, d), randn(b, skv, nkv, d), randn(b, skv, nkv, d), randn(b, sq, nh, d)
+
+
+def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=None,
+               q_offset=0, mask=None, seg=None, seed=0):
+    q, k, v, do = make_inputs(torch, b, sq, skv, nh, nkv, d, seed)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kvm = None if mask is None else mask.to(torch.int32).contiguous()
+    segi = None if seg is None else seg.to(torch.int32).contiguous()
+    with torch.no_grad():
+        o_k, lse_k = fa.flash_fwd(q, k, v, kvm, segi, **kw)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, kvm, segi, **kw)
+    # gradients through the autograd Function (its backward runs the dq and
+    # dk/dv kernels) against the plain backward of the plain forward
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    o = fa.flash_attention(qg, kg, vg, causal=causal, sliding_window=window,
+                           q_offset=q_offset, attention_mask=mask, segment_ids=seg)
+    o.backward(do)
+    with torch.no_grad():
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, kvm, segi, **kw)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, kvm, segi, **kw)
+    torch.cuda.synchronize()
+    res = {
+        "o_err": o_err(o_k, o_p), "o_abs": abs_err(o_k, o_p),
+        "lse_abs": abs_err(lse_k, lse_p),
+        "dq_rel": rel_err(qg.grad, dq_p), "dk_rel": rel_err(kg.grad, dk_p),
+        "dv_rel": rel_err(vg.grad, dv_p),
+    }
+    ok = (res["o_err"] <= TOL_O and res["lse_abs"] <= TOL_LSE_ABS
+          and max(res["dq_rel"], res["dk_rel"], res["dv_rel"]) <= TOL_GRAD_REL
+          and all(math.isfinite(x) for x in res.values()))
+    if mask is not None:
+        # rows with no visible key: o = 0, lse = NEG_INF, zero gradient
+        dead = lse_p <= fa.NEG_INF / 2
+        if bool(dead.any()):
+            dead_rows = dead.transpose(1, 2)[..., None]  # [b, sq, nh, 1]
+            ok = ok and bool((lse_k[dead] == fa.NEG_INF).all())
+            ok = ok and bool((o_k.masked_select(dead_rows) == 0).all())
+            ok = ok and bool((qg.grad.masked_select(dead_rows) == 0).all())
+            res["masked_rows"] = int(dead.sum())
+        # no gradient reaches padded keys
+        pad = (mask == 0)[:, :, None, None]
+        ok = ok and bool((kg.grad.masked_select(pad) == 0).all())
+        ok = ok and bool((vg.grad.masked_select(pad) == 0).all())
+    log(f"check {name}: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items())
+        + f" (tol o_err {TOL_O:g}, lse {TOL_LSE_ABS:g} abs, grads {TOL_GRAD_REL:g} rel)"
+        + ("" if ok else "  <-- FAIL"))
+    return ok
+
+
+def phase_checks(torch, fa) -> None:
+    m = MAIN
+    ok = check_case(torch, fa, "causal+gqa s=4096", b=1, sq=4096, skv=4096, nh=m["nh"],
+                    nkv=m["nkv"], d=m["d"], seed=1)
+    s = 1024
+    left_pad = torch.ones(2, s, dtype=torch.int32, device="cuda")
+    left_pad[1, :300] = 0  # rows < 300 of batch 1 see no key
+    left_pad[0, 900:] = 0
+    ok &= check_case(torch, fa, "key padding s=1024", b=2, sq=s, skv=s, nh=8, nkv=2, d=128,
+                     mask=left_pad, seed=2)
+    seg = torch.zeros(2, s, dtype=torch.int32, device="cuda")
+    seg[0, 100:] = 1
+    seg[0, 700:] = 2
+    seg[1, 333:] = 1
+    ok &= check_case(torch, fa, "segments s=1024", b=2, sq=s, skv=s, nh=8, nkv=2, d=128,
+                     seg=seg, seed=3)
+    ok &= check_case(torch, fa, "sliding window 300 s=1024", b=1, sq=s, skv=s, nh=8, nkv=2,
+                     d=128, window=300, seed=4)
+    ok &= check_case(torch, fa, "q_offset 512 sq=512 skv=1024", b=1, sq=512, skv=s, nh=8,
+                     nkv=2, d=128, q_offset=512, seed=5)
+    ok &= check_case(torch, fa, "non-causal d=64 s=512", b=2, sq=512, skv=512, nh=4, nkv=4,
+                     d=64, causal=False, seed=6)
+    if not ok:
+        fail("a kernel disagrees with its plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: times at the main-path shape
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bounds_ms(peaks):
+    """Least time for each function at the main-path shape: the larger of the
+    bytes it must move (each input read once, each output written once) over
+    the memory rate and its operations over the tensor cores' bf16 rate,
+    counting the causal half only.  The backward's fp32 products (p and ds
+    times a bf16 operand) are kept exact as three bf16 products each (see
+    csrc/flash_bwd.cu), so they count three times."""
+    bf16_rate, bw = peaks
+    b, s, nh, nkv, d = (MAIN[k] for k in ("b", "s", "nh", "nkv", "d"))
+    pairs = b * nh * s * (s + 1) / 2  # visible (query, key) pairs
+    q_bytes, kv_bytes, row_bytes = 2 * b * s * nh * d, 2 * b * s * nkv * d, 4 * b * nh * s
+    work = {
+        # q k^T and p v
+        "flash_fwd": (4 * d * pairs, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
+        # q k^T and do v^T; ds k as three products
+        "flash_dq": ((4 + 3 * 2) * d * pairs,
+                     2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes),
+        # q k^T and do v^T; p^T do and ds^T q as three products each
+        "flash_dkv": ((4 + 2 * 3 * 2) * d * pairs,
+                      2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * kv_bytes),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / bf16_rate, nbytes / bw
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_times(torch, fa, card: str, peaks) -> dict:
+    import torch.nn.functional as F
+
+    m = MAIN
+    q, k, v, do = make_inputs(torch, m["b"], m["s"], m["s"], m["nh"], m["nkv"], m["d"], 11)
+    kw = dict(causal=True, window=None, q_offset=0)
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        res = {"flash_fwd": {}, "flash_dq": {}, "flash_dkv": {}}
+        res["flash_fwd"]["ms"] = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), 10)
+        res["flash_dq"]["ms"] = cuda_ms(
+            torch, lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw), 5)
+        res["flash_dkv"]["ms"] = cuda_ms(
+            torch, lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw), 5)
+        # kernel against plain at this shape, one function at a time to bound memory
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        res["flash_fwd"]["max_abs_err"] = max(abs_err(o, o_p), abs_err(lse, lse_p))
+        main_o_err = o_err(o, o_p)
+        fwd_ok = main_o_err <= TOL_O and abs_err(lse, lse_p) <= TOL_LSE_ABS
+        log(f"check flash_fwd at the main-path shape: o_err={main_o_err:.3f} "
+            f"(tol {TOL_O:g}), lse_abs={abs_err(lse, lse_p):.3e} (tol {TOL_LSE_ABS:g})")
+        del o_p, lse_p
+        res["flash_fwd"]["plain_ms"] = cuda_ms(
+            torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), 2)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+        res["flash_dq"]["max_abs_err"] = abs_err(dq, dq_p)
+        dq_ok = rel_err(dq, dq_p) <= TOL_GRAD_REL
+        del dq, dq_p
+        res["flash_dq"]["plain_ms"] = cuda_ms(
+            torch, lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, **kw), 2)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+        res["flash_dkv"]["max_abs_err"] = max(abs_err(dk, dk_p), abs_err(dv, dv_p))
+        dkv_ok = max(rel_err(dk, dk_p), rel_err(dv, dv_p)) <= TOL_GRAD_REL
+        del dk, dv, dk_p, dv_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["flash_dkv"]["plain_ms"] = cuda_ms(
+            torch, lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw), 2)
+        # yardstick only: one library call computing the forward
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        res["flash_fwd"]["library_ms"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True), 10)
+    qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                       enable_gqa=True).backward(dot)
+
+    sdpa_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, 5) - res["flash_fwd"]["library_ms"]
+    res["flash_dq"]["library_ms"] = None  # no single library call computes dq alone
+    res["flash_dkv"]["library_ms"] = None
+    for name, (bound, by) in bounds_ms(peaks).items():
+        res[name]["bound_ms"] = bound
+        res[name]["bound_by"] = by
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
+            f" ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} [{card}]")
+    log(f"time sdpa backward (fwd+bwd minus fwd, yardstick for dq + dk/dv together): "
+        f"{sdpa_bwd_ms:.3f} ms [{card}]")
+    del q, k, v, do, o, lse, delta, qg, kg, vg, dot
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (fwd_ok and dq_ok and dkv_ok):
+        fail("a kernel disagrees with its plain version at the main-path shape")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the trainer
+# ---------------------------------------------------------------------------
+
+
+def phase_trainer(torch, fa, card: str) -> dict:
+    from neuronx_distributed_training_torch.trainer import cli
+
+    fa.reset_counters()
+    history = cli.main(CLI_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    fallbacks = dict(fa.FALLBACKS)
+    expect = LAYERS * MICROBATCHES * STEPS
+    vocab, hidden = 128256, 4096
+    # random init: final-norm output has rms 1, lm_head ~ 0.02 x (normal cut
+    # at +-2 sigma, whose std is 0.8796), so logits ~ N(0, sigma^2) with
+    # sigma^2 = hidden * (0.02 * 0.8796)^2 and E[loss] = ln(vocab) + sigma^2 / 2
+    expected_loss0 = math.log(vocab) + hidden * (0.02 * 0.879626) ** 2 / 2
+    for rec in history:
+        log(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+            f"{rec['grad_norm']:.4f} step {rec['step_seconds']:.3f} s, "
+            f"{rec['tokens_per_sec']:.1f} tokens/s, MFU {rec['mfu']:.4f} [{card}]")
+    log(f"train launches {launches} fallbacks {fallbacks} (expected {expect} each)")
+    if len(history) != STEPS:
+        fail(f"trainer ran {len(history)} steps, expected {STEPS}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in history):
+        fail("non-finite loss or grad_norm")
+    loss0 = history[0]["loss"]
+    log(f"step-0 loss {loss0:.4f}: expected {expected_loss0:.4f} (ln vocab "
+        f"{math.log(vocab):.4f} + sigma^2/2)")
+    if abs(loss0 - expected_loss0) > 0.5:
+        fail(f"step-0 loss {loss0} not within 0.5 of {expected_loss0:.4f}")
+    if any(n != expect for n in launches.values()) or fallbacks["core"]:
+        fail(f"kernel launches {launches} (fallbacks {fallbacks}), expected {expect} each")
+    return launches
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(REPO))
+    try:
+        from neuronx_distributed_training_torch.ops import flash_attention as fa
+        from neuronx_distributed_training_torch.utils import build as kbuild
+        from neuronx_distributed_training_torch.utils import perf
+    except ImportError as e:
+        fail(f"the port's package is not beside this script ({e})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    log(f"card: {card}")
+    name = torch.cuda.get_device_name(0)
+    peaks = perf.card_peaks(name)
+    if peaks is None:
+        fail(f"no published peaks for card {name!r} in utils/perf.py CARD_PEAKS")
+    t0 = time.perf_counter()
+    try:
+        kbuild.build_all()
+    except RuntimeError as e:
+        fail(str(e))
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {kbuild.last_build_seconds if kbuild.last_build_seconds else 0.0:.1f} s)")
+    for log_file in sorted(kbuild.BUILD_DIR.glob("*.log")):
+        for line in log_file.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {log_file.name.split('-')[0]}: {line.strip()}")
+
+    phase_checks(torch, fa)
+    times = phase_times(torch, fa, card, peaks)
+    launches = phase_trainer(torch, fa, card)
+
+    replaces = {
+        "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
+                      "neuronx_distributed_training_tpu/ops/flash_attention.py:112"),
+        "flash_dq": ("neuronx_distributed_training_torch/csrc/flash_bwd.cu",
+                     "neuronx_distributed_training_tpu/ops/flash_attention.py:253"),
+        "flash_dkv": ("neuronx_distributed_training_torch/csrc/flash_bwd.cu",
+                      "neuronx_distributed_training_tpu/ops/flash_attention.py:318"),
+    }
+    kernels = []
+    for kname, (src, rep) in replaces.items():
+        t = times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[kname], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

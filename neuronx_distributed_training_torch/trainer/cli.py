@@ -1,0 +1,67 @@
+#!/usr/bin/env python
+"""Training CLI of the port (counterpart of the JAX package's ``trainer/cli.py``):
+
+    python -m neuronx_distributed_training_torch.trainer.cli \\
+        --config examples/conf/hf_llama3_8B_config.yaml [--set key.path=value ...] \\
+        [--device cpu]
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card it
+raises rather than falling back to the CPU.  ``TRAIN_ITERS`` overrides
+``trainer.max_steps``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional
+
+logger = logging.getLogger("nxdt.torch.train")
+
+
+def parse_overrides(pairs: list[str]) -> dict:
+    out = {}
+    for p in pairs:
+        if "=" not in p:
+            raise SystemExit(f"override must be key.path=value, got {p!r}")
+        k, _, v = p.partition("=")
+        try:
+            import yaml
+
+            out[k] = yaml.safe_load(v)
+        except Exception:
+            out[k] = v
+    return out
+
+
+def main(argv: Optional[list[str]] = None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", required=True, help="YAML config (reference schema)")
+    ap.add_argument("--set", dest="overrides", action="append", default=[],
+                    metavar="KEY=VAL", help="dotted config override")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' must be asked for)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    overrides = parse_overrides(args.overrides)
+    if os.environ.get("TRAIN_ITERS"):
+        overrides["trainer.max_steps"] = int(os.environ["TRAIN_ITERS"])
+    cfg = load_config(args.config, overrides)
+    trainer = Trainer.from_config(cfg, device=args.device)
+    history = trainer.fit()
+    if history:
+        last = history[-1]
+        logger.info("done: loss %.4f grad_norm %.4f consumed_samples %d", last["loss"],
+                    last["grad_norm"], last["consumed_samples"])
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,26 @@
+"""Device selection shared by the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU; without a
+card they raise instead of carrying on on the CPU.  TF32 is switched off for
+matrix products and convolutions: the JAX reference computes fp32 products in
+fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
+    """``None`` means the card (``cuda``); ``"cpu"`` must be asked for."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to run "
+            "on the CPU explicitly"
+        )
+    return dev

@@ -1,0 +1,288 @@
+"""The port's flash attention against the JAX package's Pallas flash attention.
+
+On the CPU the port's wrappers run the plain PyTorch version of each kernel
+(forward, dq, dk/dv) under the same autograd Functions that launch the CUDA
+kernels on the card; the JAX side runs its Pallas kernels in interpret mode at
+block_q = block_kv = 128 (as tests/test_flash_attention.py does), so d = 128
+and s is a multiple of 128.  Tolerance (fp32): outputs rtol / atol 1e-5, the
+scalar loss rtol 2e-4, gradients 1e-4 of each gradient's largest entry.  The
+CUDA kernels themselves are held against the plain versions on the card by
+``chip_smoke.py`` (this file imports jax, which the card's machine lacks).
+"""
+
+import importlib.util
+import zlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_training_torch.ops import flash_attention as tfa
+from neuronx_distributed_training_torch.utils import build as kbuild
+from neuronx_distributed_training_tpu.ops import flash_attention as jfa
+
+D = 128
+BLK = dict(block_q=128, block_kv=128, interpret=True)
+
+
+def _qkv(seed, b, sq, skv, nh, nkv, d=D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, nh, d)).astype(np.float32),
+            rng.standard_normal((b, skv, nkv, d)).astype(np.float32),
+            rng.standard_normal((b, skv, nkv, d)).astype(np.float32),
+            rng.standard_normal((b, sq, nh, d)).astype(np.float32))
+
+
+def _pad(b, s, valid):
+    m = np.zeros((b, s), np.int32)
+    for i, n in enumerate(valid):
+        m[i, :n] = 1
+    return m
+
+
+def _seg(b, s, bounds):
+    seg = np.zeros((b, s), np.int32)
+    for bi in range(b):
+        prev, sid = 0, 1
+        for cut in bounds[bi] + [s]:
+            seg[bi, prev:cut] = sid
+            prev, sid = cut, sid + 1
+    return seg
+
+
+def _port(q, k, v, cot, **kw):
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    kw = {k_: (torch.tensor(v_) if isinstance(v_, np.ndarray) else v_) for k_, v_ in kw.items()}
+    o = tfa.flash_attention(*ts, **kw)
+    loss = (o * torch.tensor(cot)).sum()
+    loss.backward()
+    return o.detach().numpy(), float(loss.detach()), [t.grad.numpy() for t in ts]
+
+
+def _jax(q, k, v, cot, **kw):
+    kw = {k_: (jnp.asarray(v_) if isinstance(v_, np.ndarray) else v_) for k_, v_ in kw.items()}
+
+    def f(q, k, v):
+        o = jfa.flash_attention(q, k, v, **kw, **BLK)
+        return jnp.sum(o * cot), o
+
+    (loss, o), g = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+    return np.asarray(o), float(loss), [np.asarray(x) for x in g]
+
+
+def _assert_grads(tg, jg):
+    for a, b, name in zip(tg, jg, "qkv"):
+        err = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
+        assert err < 1e-4, f"d{name} rel err {err}"
+
+
+CASES = [
+    # (name, b, sq, skv, nh, nkv, kwargs)
+    ("causal_mha", 1, 256, 256, 2, 2, dict(causal=True)),
+    ("causal_gqa", 2, 256, 256, 4, 2, dict(causal=True)),
+    ("window", 1, 256, 256, 2, 1, dict(causal=True, sliding_window=100)),
+    ("cross_noncausal_mqa", 1, 256, 512, 2, 1, dict(causal=False)),
+    ("q_offset", 1, 128, 256, 2, 2, dict(causal=True, q_offset=128)),
+    ("padding_causal", 2, 256, 256, 4, 2,
+     dict(causal=True, attention_mask=_pad(2, 256, [219, 129]))),
+    ("padding_noncausal", 2, 256, 256, 2, 1,
+     dict(causal=False, attention_mask=_pad(2, 256, [219, 129]))),
+    ("segments", 2, 256, 256, 4, 2,
+     dict(causal=True, segment_ids=_seg(2, 256, [[100, 180], [37]]))),
+    ("segments_padding", 1, 256, 256, 2, 2,
+     dict(causal=True, segment_ids=_seg(1, 256, [[90]]), attention_mask=_pad(1, 256, [200]))),
+]
+
+
+@pytest.mark.parametrize("name,b,sq,skv,nh,nkv,kw", CASES, ids=[c[0] for c in CASES])
+def test_flash_matches_jax_fwd_and_grad(name, b, sq, skv, nh, nkv, kw):
+    q, k, v, cot = _qkv(zlib.crc32(name.encode()) % 1000, b, sq, skv, nh, nkv)
+    to, tl, tg = _port(q, k, v, cot, **kw)
+    jo, jl, jg = _jax(q, k, v, cot, **kw)
+    np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
+    assert np.isclose(tl, jl, rtol=2e-4), (tl, jl)
+    _assert_grads(tg, jg)
+
+
+def test_plain_kernels_match_pallas_kernels():
+    """Each plain version against its Pallas kernel, called directly."""
+    q, k, v, do = _qkv(7, 1, 256, 256, 4, 2)
+    kvm = _pad(1, 256, [200])
+    kw = dict(causal=True, window=None, q_offset=0)
+    qt, kt, vt, dot = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v, do))
+    jo, jlse = jfa._fwd_pallas(qt, kt, vt, jnp.asarray(kvm), None, sm_scale=D ** -0.5,
+                               bq=128, bkv=128, interpret=True, **kw)
+    to, tlse = tfa.flash_fwd_plain(*(torch.tensor(x) for x in (q, k, v)), torch.tensor(kvm),
+                                   **kw)
+    np.testing.assert_allclose(to.numpy(), np.swapaxes(np.asarray(jo), 1, 2), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[..., 0], rtol=1e-5, atol=1e-5)
+    jdq, jdk, jdv = jfa._bwd_pallas((qt, kt, vt, jnp.asarray(kvm), None, jo, jlse), dot,
+                                    sm_scale=D ** -0.5, bq=128, bkv=128, interpret=True, **kw)
+    tdo = torch.tensor(do)
+    delta = (tdo * to).sum(-1).transpose(1, 2).contiguous()
+    args = (*(torch.tensor(x) for x in (q, k, v)), tdo, tlse, delta, torch.tensor(kvm))
+    tdq = tfa.flash_dq_plain(*args, **kw)
+    tdk, tdv = tfa.flash_dkv_plain(*args, **kw)
+    _assert_grads([tdq.numpy(), tdk.numpy(), tdv.numpy()],
+                  [np.swapaxes(np.asarray(x), 1, 2) for x in (jdq, jdk, jdv)])
+
+
+def test_lse_variant_with_lse_cotangent():
+    """(o, lse) with both cotangents non-zero: the backward folds dlse into
+    delta; fully masked rows (left padding) carry lse = NEG_INF."""
+    b, s = 2, 256
+    q, k, v, cot = _qkv(11, b, s, s, 2, 1)
+    rng = np.random.default_rng(12)
+    lcot = rng.standard_normal((b, 2, s)).astype(np.float32)
+    mask = np.ones((b, s), np.int32)
+    mask[1, :70] = 0  # rows < 70 of batch 1 see no key
+
+    def jf(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, causal=True,
+                                              attention_mask=jnp.asarray(mask), **BLK)
+        return jnp.sum(o * cot) + jnp.sum(jnp.where(lse > -1e29, lse, 0.0) * lcot), (o, lse)
+
+    (jl, (jo, jlse)), jg = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2),
+                                                      has_aux=True))(q, k, v)
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    to, tlse = tfa.flash_attention_with_lse(*ts, causal=True, attention_mask=torch.tensor(mask))
+    tl = (to * torch.tensor(cot)).sum() + (
+        torch.where(tlse > -1e29, tlse, 0.0) * torch.tensor(lcot)).sum()
+    tl.backward()
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tlse.detach().numpy(), np.asarray(jlse), rtol=1e-5, atol=1e-5)
+    assert np.isclose(float(tl.detach()), float(jl), rtol=2e-4)
+    _assert_grads([t.grad.numpy() for t in ts], [np.asarray(x) for x in jg])
+    # fully masked rows: o = 0, lse = NEG_INF, and no gradient
+    assert np.all(tlse.detach().numpy()[1, :, :70] == tfa.NEG_INF)
+    assert np.all(to.detach().numpy()[1, :70] == 0)
+    assert np.all(ts[0].grad.numpy()[1, :70] == 0)
+
+
+def test_no_grad_leak_to_padded_keys():
+    b, s, valid = 1, 256, 100
+    q, k, v, cot = _qkv(13, b, s, s, 2, 2)
+    _, _, (_, dk, dv) = _port(q, k, v, cot, causal=True, attention_mask=_pad(b, s, [valid]))
+    assert np.all(dk[:, valid:] == 0) and np.all(dv[:, valid:] == 0)
+
+
+def test_no_cross_segment_leak():
+    b, s = 1, 256
+    q, k, v, _ = _qkv(14, b, s, s, 2, 2)
+    seg = torch.tensor(_seg(b, s, [[128]]))
+    args = [torch.tensor(a) for a in (q, k, v)]
+    o1 = tfa.flash_attention(*args, causal=True, segment_ids=seg)
+    args[1][:, :128] += 1.0
+    args[2][:, :128] -= 1.0
+    o2 = tfa.flash_attention(*args, causal=True, segment_ids=seg)
+    assert torch.equal(o1[:, 128:], o2[:, 128:])
+    assert not torch.allclose(o1[:, :128], o2[:, :128])
+
+
+def test_cross_attention_segments_rejected():
+    q, k, v, _ = _qkv(15, 1, 128, 256, 2, 2)
+    with pytest.raises(ValueError, match="self-attention"):
+        tfa.flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=False,
+                            segment_ids=torch.zeros(1, 128, dtype=torch.int32))
+
+
+def test_chip_smoke_o_check_scales_with_each_element():
+    """``chip_smoke.py`` holds the forward kernel's o to its plain version per
+    element (``o_err``, limit ``TOL_O``).  The kernel's own rounding (the
+    unnormalized p rounded to bf16 before p v) stays inside the limit; a stale
+    V tile near the end of the sequence, or an error of a tenth of a row's rms
+    on the last rows, fails it by far."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    s, nh, nkv = 1024, 4, 1
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, s, h, D, generator=g).bfloat16() for h in (nh, nkv, nkv))
+    o_p, _ = tfa.flash_fwd_plain(q, k, v)
+    scores = tfa._masked_scores(q, k, None, None, True, None, 0)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    o_kernel = ((p.bfloat16().float() @ tfa._heads_first(v, nh // nkv)) / p.sum(-1, keepdim=True))
+    o_kernel = o_kernel.transpose(1, 2).bfloat16()
+    assert smoke.o_err(o_kernel, o_p) < smoke.TOL_O
+    tile = s // 64 - 2
+    v_stale = v.clone()
+    v_stale[:, tile * 64:(tile + 1) * 64] = v[:, (tile - 1) * 64:tile * 64]
+    assert smoke.o_err(tfa.flash_fwd_plain(q, k, v_stale)[0], o_p) > 50 * smoke.TOL_O
+    o_off = o_p.float().clone()
+    rms = o_off[:, -64:].pow(2).mean(-1, keepdim=True).sqrt()
+    o_off[:, -64:] += 0.1 * rms
+    assert smoke.o_err(o_off.bfloat16(), o_p) > 5 * smoke.TOL_O
+    assert smoke.abs_err(o_off.bfloat16(), o_p) < 3e-2  # what an absolute bound would pass
+
+
+def test_tileable_predicate_and_counted_fallback():
+    assert tfa.flash_tileable(8192, 8192, 128, 32, 8)  # the main path tiles
+    assert tfa.flash_tileable(64, 128, 64, 4, 4)
+    assert not tfa.flash_tileable(96, 96, 128, 2, 2)  # not a multiple of 64
+    assert not tfa.flash_tileable(128, 128, 96, 2, 2)  # head dim not 64/128
+    assert not tfa.flash_tileable(128, 128, 128, 3, 2)  # heads not grouped
+    tfa.reset_counters()
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 40, 2, 32)).astype(np.float32))
+               for _ in range(3))
+    from neuronx_distributed_training_torch.ops.attention import core_attention
+
+    o = tfa.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(o, core_attention(q, k, v, causal=True), rtol=1e-5, atol=1e-5)
+    assert tfa.FALLBACKS["core"] == 1
+    with pytest.raises(ValueError, match="not tileable"):
+        tfa.flash_attention_with_lse(q, k, v)
+
+
+def test_cpu_tensors_take_the_plain_versions_uncounted():
+    tfa.reset_counters()
+    q, k, v, cot = _qkv(17, 1, 128, 128, 2, 1)
+    _port(q, k, v, cot, causal=True)
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert tfa.FALLBACKS["core"] == 0
+
+
+def test_card_request_raises_when_the_library_cannot_load(monkeypatch):
+    """A CUDA request launches the kernel or raises: stub a card tensor and a
+    library that cannot load, and no wrapper may fall back to the plain path."""
+
+    def broken_load(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(tfa, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(tfa, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(tfa.kbuild, "load", broken_load)
+    tfa.reset_counters()
+    q, k, v, do = (torch.tensor(x) for x in _qkv(18, 1, 64, 64, 2, 1))
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(RuntimeError, match="cannot load flash_fwd"):
+        tfa.flash_fwd(q, k, v)
+    with pytest.raises(RuntimeError, match="cannot load flash_bwd"):
+        tfa.flash_dq(q, k, v, do, lse, lse)
+    with pytest.raises(RuntimeError, match="cannot load flash_bwd"):
+        tfa.flash_dkv(q, k, v, do, lse, lse)
+    with pytest.raises(RuntimeError, match="cannot load"):
+        tfa.flash_attention(q, k, v)
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_kernel_inputs_are_checked(monkeypatch):
+    monkeypatch.setattr(tfa, "_on_cpu", lambda t: False)
+    q, k, v, _ = (torch.tensor(x) for x in _qkv(19, 1, 64, 64, 2, 1))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tfa.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="do not tile"):
+        tfa.flash_fwd(q[:, :40], k[:, :40], v[:, :40])
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kbuild.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kbuild.build_all()
