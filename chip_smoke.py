@@ -9,10 +9,12 @@ of JAX.  Phases, each of which fails the run if it fails:
 1. report the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``neuronx_distributed_training_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
+   ``ptxas`` must report no spill for the forward and dk/dv kernels;
 2. hold each kernel (flash forward, dq, dk/dv) against its plain PyTorch
    version in bf16: causal + GQA at full Llama-3-8B width (s=4096), and
-   key-padding (with fully masked rows), segment, sliding-window, q_offset and
-   head_dim-64 cases at smaller s;
+   key-padding (with fully masked rows), segment, sliding-window, q_offset,
+   head_dim-64, ragged-tile (s=1088, half a 128-row tile past the end) and
+   fused-QKV (q, k, v strided views of one projection) cases at smaller s;
 3. time each kernel, its plain version and, as a yardstick only,
    ``F.scaled_dot_product_attention`` at the main-path shape (b=1, nh=32,
    nkv=8, s=8192, d=128, causal), and compare kernel and plain there too;
@@ -32,6 +34,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -113,9 +116,23 @@ def make_inputs(torch, b, sq, skv, nh, nkv, d, seed):
     return randn(b, sq, nh, d), randn(b, skv, nkv, d), randn(b, skv, nkv, d), randn(b, sq, nh, d)
 
 
+def fused_views(torch, qkv, nh, nkv, d):
+    """q, k, v as strided views of one fused [b, s, (nh + 2 nkv) d] projection,
+    split and reshaped as models/llama.py does."""
+    b, s = qkv.shape[:2]
+    q, k, v = torch.split(qkv, [nh * d, nkv * d, nkv * d], dim=-1)
+    return q.reshape(b, s, nh, d), k.reshape(b, s, nkv, d), v.reshape(b, s, nkv, d)
+
+
 def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=None,
-               q_offset=0, mask=None, seg=None, seed=0):
+               q_offset=0, mask=None, seg=None, seed=0, fused=False):
     q, k, v, do = make_inputs(torch, b, sq, skv, nh, nkv, d, seed)
+    qkv = None
+    if fused:  # self-attention only (sq == skv)
+        qkv = torch.cat([x.reshape(b, sq, -1) for x in (q, k, v)], dim=-1)
+        q, k, v = fused_views(torch, qkv, nh, nkv, d)
+        if q.is_contiguous() or v.stride(1) != (nh + 2 * nkv) * d:
+            fail(f"{name}: the fused views are not strided views")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     kvm = None if mask is None else mask.to(torch.int32).contiguous()
     segi = None if seg is None else seg.to(torch.int32).contiguous()
@@ -124,10 +141,19 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, kvm, segi, **kw)
     # gradients through the autograd Function (its backward runs the dq and
     # dk/dv kernels) against the plain backward of the plain forward
-    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
-    o = fa.flash_attention(qg, kg, vg, causal=causal, sliding_window=window,
-                           q_offset=q_offset, attention_mask=mask, segment_ids=seg)
-    o.backward(do)
+    if fused:  # the kernels read the views; the gradients land in the fused leaf
+        qkv_g = qkv.clone().requires_grad_(True)
+        o = fa.flash_attention(*fused_views(torch, qkv_g, nh, nkv, d), causal=causal,
+                               sliding_window=window, q_offset=q_offset,
+                               attention_mask=mask, segment_ids=seg)
+        o.backward(do)
+        dq_k, dk_k, dv_k = fused_views(torch, qkv_g.grad, nh, nkv, d)
+    else:
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        o = fa.flash_attention(qg, kg, vg, causal=causal, sliding_window=window,
+                               q_offset=q_offset, attention_mask=mask, segment_ids=seg)
+        o.backward(do)
+        dq_k, dk_k, dv_k = qg.grad, kg.grad, vg.grad
     with torch.no_grad():
         delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
         dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, kvm, segi, **kw)
@@ -136,8 +162,8 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
     res = {
         "o_err": o_err(o_k, o_p), "o_abs": abs_err(o_k, o_p),
         "lse_abs": abs_err(lse_k, lse_p),
-        "dq_rel": rel_err(qg.grad, dq_p), "dk_rel": rel_err(kg.grad, dk_p),
-        "dv_rel": rel_err(vg.grad, dv_p),
+        "dq_rel": rel_err(dq_k, dq_p), "dk_rel": rel_err(dk_k, dk_p),
+        "dv_rel": rel_err(dv_k, dv_p),
     }
     ok = (res["o_err"] <= TOL_O and res["lse_abs"] <= TOL_LSE_ABS
           and max(res["dq_rel"], res["dk_rel"], res["dv_rel"]) <= TOL_GRAD_REL
@@ -149,12 +175,12 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
             dead_rows = dead.transpose(1, 2)[..., None]  # [b, sq, nh, 1]
             ok = ok and bool((lse_k[dead] == fa.NEG_INF).all())
             ok = ok and bool((o_k.masked_select(dead_rows) == 0).all())
-            ok = ok and bool((qg.grad.masked_select(dead_rows) == 0).all())
+            ok = ok and bool((dq_k.masked_select(dead_rows) == 0).all())
             res["masked_rows"] = int(dead.sum())
         # no gradient reaches padded keys
         pad = (mask == 0)[:, :, None, None]
-        ok = ok and bool((kg.grad.masked_select(pad) == 0).all())
-        ok = ok and bool((vg.grad.masked_select(pad) == 0).all())
+        ok = ok and bool((dk_k.masked_select(pad) == 0).all())
+        ok = ok and bool((dv_k.masked_select(pad) == 0).all())
     log(f"check {name}: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items())
         + f" (tol o_err {TOL_O:g}, lse {TOL_LSE_ABS:g} abs, grads {TOL_GRAD_REL:g} rel)"
@@ -184,6 +210,12 @@ def phase_checks(torch, fa) -> None:
                      nkv=2, d=128, q_offset=512, seed=5)
     ok &= check_case(torch, fa, "non-causal d=64 s=512", b=2, sq=512, skv=512, nh=4, nkv=4,
                      d=64, causal=False, seed=6)
+    # s = 17 x 64: the last 128-row tile of the forward and dk/dv kernels is
+    # half past the end (zero-filled by TMA, its stores skipped)
+    ok &= check_case(torch, fa, "ragged tile s=1088", b=1, sq=1088, skv=1088, nh=8, nkv=2,
+                     d=128, seed=7)
+    ok &= check_case(torch, fa, "fused qkv views s=1024", b=2, sq=s, skv=s, nh=8, nkv=2,
+                     d=128, seed=8, fused=True)
     if not ok:
         fail("a kernel disagrees with its plain version")
 
@@ -211,7 +243,7 @@ def bounds_ms(peaks):
     the memory rate and its operations over the tensor cores' bf16 rate,
     counting the causal half only.  The backward's fp32 products (p and ds
     times a bf16 operand) are kept exact as three bf16 products each (see
-    csrc/flash_bwd.cu), so they count three times."""
+    csrc/flash_bwd.cu and csrc/flash_dkv.cu), so they count three times."""
     bf16_rate, bw = peaks
     b, s, nh, nkv, d = (MAIN[k] for k in ("b", "s", "nh", "nkv", "d"))
     pairs = b * nh * s * (s + 1) / 2  # visible (query, key) pairs
@@ -345,6 +377,29 @@ def phase_trainer(torch, fa, card: str) -> dict:
     return launches
 
 
+def ptxas_report(log_text: str) -> dict:
+    """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
+    from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
+                      line.strip())
+        if m:
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", m.group(1))
+            name = (k.group(1), int(k.group(2))) if k else None
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -364,10 +419,10 @@ def main() -> None:
 
     card = card_line()
     log(f"card: {card}")
-    name = torch.cuda.get_device_name(0)
-    peaks = perf.card_peaks(name)
+    device_name = torch.cuda.get_device_name(0)
+    peaks = perf.card_peaks(device_name)
     if peaks is None:
-        fail(f"no published peaks for card {name!r} in utils/perf.py CARD_PEAKS")
+        fail(f"no published peaks for card {device_name!r} in utils/perf.py CARD_PEAKS")
     t0 = time.perf_counter()
     try:
         kbuild.build_all()
@@ -375,10 +430,21 @@ def main() -> None:
         fail(str(e))
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kbuild.last_build_seconds if kbuild.last_build_seconds else 0.0:.1f} s)")
-    for log_file in sorted(kbuild.BUILD_DIR.glob("*.log")):
-        for line in log_file.read_text().splitlines():
+    ptxas = {}
+    for lib_name, lib in kbuild.build_all().items():
+        text = lib.with_suffix(".log").read_text()
+        for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"ptxas {log_file.name.split('-')[0]}: {line.strip()}")
+                log(f"ptxas {lib_name}: {line.strip()}")
+        ptxas.update(ptxas_report(text))
+    for kname in ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel"):
+        for d in (64, 128):
+            if "registers" not in ptxas.get((kname, d), {}):
+                fail(f"no ptxas report for {kname}<{d}>")
+    spilling = {f"{k}<{d}>": r for (k, d), r in ptxas.items()
+                if k != "flash_dq_kernel" and (r.get("spill_stores") or r.get("spill_loads"))}
+    if spilling:
+        fail(f"ptxas reports spills: {spilling}")
 
     phase_checks(torch, fa)
     times = phase_times(torch, fa, card, peaks)
@@ -389,7 +455,7 @@ def main() -> None:
                       "neuronx_distributed_training_tpu/ops/flash_attention.py:112"),
         "flash_dq": ("neuronx_distributed_training_torch/csrc/flash_bwd.cu",
                      "neuronx_distributed_training_tpu/ops/flash_attention.py:253"),
-        "flash_dkv": ("neuronx_distributed_training_torch/csrc/flash_bwd.cu",
+        "flash_dkv": ("neuronx_distributed_training_torch/csrc/flash_dkv.cu",
                       "neuronx_distributed_training_tpu/ops/flash_attention.py:318"),
     }
     kernels = []
@@ -400,10 +466,11 @@ def main() -> None:
             "launches": launches[kname], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "registers": ptxas[(kname + "_kernel", MAIN["d"])]["registers"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 

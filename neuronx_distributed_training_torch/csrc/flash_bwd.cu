@@ -1,31 +1,26 @@
-// Flash-attention backward for Hopper (sm_90a): the dq kernel and the dk/dv
-// kernel.
+// Flash-attention dq kernel for Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` (launched by
-// `_bwd_pallas`) in neuronx_distributed_training_tpu/ops/flash_attention.py.
-// Both recompute p = exp(s - lse) per tile (0 on rows whose lse is NEG_INF),
-// then ds = p * (do v^T - delta) * scale; delta = rowsum(do * o) (minus the lse
+// Replaces the TPU kernel `_dq_kernel` (launched by `_bwd_pallas`) in
+// neuronx_distributed_training_tpu/ops/flash_attention.py.  It recomputes
+// p = exp(s - lse) per tile (0 on rows whose lse is NEG_INF), then
+// ds = p * (do v^T - delta) * scale; delta = rowsum(do * o) (minus the lse
 // cotangent in the lse variant) comes in precomputed, as in the TPU code.
-//   dq kernel:  one block per (q tile, q head); loops over the visible kv tiles
-//               and accumulates dq = sum ds k.
-//   dkv kernel: one block per (kv tile, kv head); loops over the GQA group x the
-//               visible q tiles and accumulates dv = sum p^T do and
-//               dk = sum ds^T q, so each block owns its dk/dv tile (no atomics).
+// One block per (q tile, q head) loops over the visible kv tiles and
+// accumulates dq = sum ds k.
 //
 // Precision, as on the TPU: s = q k^T and dp = do v^T take bf16 operands, whose
 // products are exact in fp32, and run on the tensor cores with fp32
-// accumulation.  p and ds stay fp32 and so do their products (ds k, p^T do,
-// ds^T q), because rounding ds to bf16 biases dq: each fp32 operand is split
-// exactly into three bf16 parts (hi + mid + lo), so ds k = hi k + mid k + lo k
-// with every product exact and all sums in fp32, on the tensor cores.
+// accumulation.  ds stays fp32 and so does its product ds k, because rounding
+// ds to bf16 biases dq: each fp32 operand is split exactly into three bf16
+// parts (hi + mid + lo), so ds k = hi k + mid k + lo k with every product exact
+// and all sums in fp32, on the tensor cores.
 //
-// Bound on the card: per visible (query, key) pair the dq kernel does 4d bf16
-// operations for s and dp plus 3 x 2d for the split ds k, the dk/dv kernel 4d
-// plus 2 x 3 x 2d; at the main-path shape (b=1, nh=32, nkv=8, s=8192, d=128,
-// causal) that is ~1.4 and ~2.1 TFLOP per call against ~0.2 GB of traffic, so
-// both kernels are bound by tensor-core operations.  Left for later:
-// cp.async / TMA pipelining of the tiles (they load synchronously; two blocks
-// per SM overlap one's loads with the other's math), and wgmma.
+// Bound on the card: per visible (query, key) pair the kernel does 4d bf16
+// operations for s and dp plus 3 x 2d for the split ds k; at the main-path
+// shape (b=1, nh=32, nkv=8, s=8192, d=128, causal) that is ~1.4 TFLOP per call
+// against ~0.2 GB of traffic, so it is bound by tensor-core operations.  Left
+// for later: cp.async / TMA pipelining of the tiles (they load synchronously;
+// two blocks per SM overlap one's loads with the other's math), and wgmma.
 #include <climits>
 
 #include "flash_common.cuh"
@@ -206,106 +201,12 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(const BwdParams p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(256) flash_dkv_kernel(const BwdParams p) {
-  constexpr int LD = D + 8, NT = 256, NJ = D / 16;  // NJ: n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BKV * LD;
-  bf16* Qs = Vs + BKV * LD;
-  bf16* dOs = Qs + BQ * LD;
-  float* Ps = reinterpret_cast<float*>(dOs + BQ * LD);
-  float* dSs = Ps + BQ * LDS;
-  __shared__ float lse_s[BQ], delta_s[BQ];
-  __shared__ int kvm_s[BKV], segk_s[BKV], segq_s[BQ];
-  __shared__ int segk_min;
-
-  const int ki = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int kv0 = ki * BKV;
-  load_tile<D, LD, BKV, NT>(Ks, p.k + bi * p.k_sb + kh * p.k_sh + (long long)kv0 * p.k_ss,
-                            p.k_ss, tid);
-  load_tile<D, LD, BKV, NT>(Vs, p.v + bi * p.v_sb + kh * p.v_sh + (long long)kv0 * p.v_ss,
-                            p.v_ss, tid);
-  if (tid == 0) segk_min = INT_MAX;
-  __syncthreads();
-  if (tid < BKV) {
-    if (p.kvm) kvm_s[tid] = p.kvm[(long long)bi * p.skv + kv0 + tid];
-    if (p.seg) {
-      segk_s[tid] = p.seg[(long long)bi * p.skv + kv0 + tid];
-      atomicMin(&segk_min, segk_s[tid]);
-    }
-  }
-  // an all-padding kv tile gets dk = dv = 0 without any work
-  const bool any_key = __syncthreads_or(!p.kvm || (tid < BKV && kvm_s[tid] > 0));
-
-  // this warp's dk/dv block: kv rows rb..rb+15, columns cb..cb+D/2-1
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int rb = (warp & 3) * 16, cb = (warp >> 2) * (D / 2);
-  float dk[NJ][4], dv[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const int nqb = p.sq / BQ;
-  for (int gi = 0; any_key && gi < p.group; ++gi) {
-    const int h = kh * p.group + gi;
-    for (int qi = 0; qi < nqb; ++qi) {
-      if (!tile_visible(qi, ki, p.causal, p.window, p.q_offset)) continue;
-      if (p.seg) {  // min(segment of the kv tile) <= max(segment of the q tile)
-        const int ok = tid < BQ ? (p.seg[(long long)bi * p.sq + qi * BQ + tid] >= segk_min) : 0;
-        if (!__syncthreads_or(ok)) continue;
-      }
-      __syncthreads();  // the previous q tile's reads are done
-      load_tile<D, LD, BQ, NT>(
-          Qs, p.q + bi * p.q_sb + h * p.q_sh + (long long)qi * BQ * p.q_ss, p.q_ss, tid);
-      load_tile<D, LD, BQ, NT>(
-          dOs, p.dout + bi * p.do_sb + h * p.do_sh + (long long)qi * BQ * p.do_ss, p.do_ss, tid);
-      if (tid < BQ) {
-        const long long row = ((long long)bi * p.nh + h) * p.sq + qi * BQ + tid;
-        lse_s[tid] = p.lse[row];
-        delta_s[tid] = p.delta[row];
-        if (p.seg) segq_s[tid] = p.seg[(long long)bi * p.sq + qi * BQ + tid];
-      }
-      __syncthreads();
-      tile_p_ds<D>(p, Qs, dOs, Ks, Vs, lse_s, delta_s, kvm_s, segq_s, segk_s, Ps, dSs, qi, ki);
-      __syncthreads();
-      // dv += p^T do and dk += ds^T q, p and ds kept exact in fp32 (three bf16 parts)
-      mma_split_fp32<NJ, LD>(
-          dv, [&](int r, int c) { return Ps[c * LDS + rb + r]; }, dOs + cb, lane);
-      mma_split_fp32<NJ, LD>(
-          dk, [&](int r, int c) { return dSs[c * LDS + rb + r]; }, Qs + cb, lane);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long off =
-        bi * p.dk_sb + kh * p.dk_sh + (long long)(kv0 + rb + g + 8 * r) * p.dk_ss + cb + t * 2;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      *reinterpret_cast<uint32_t*>(p.dk + off + j * 8) = pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(p.dv + off + j * 8) = pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-  }
-}
-
-template <int D>
 static int launch_dq(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = 4 * BQ * (D + 8) * sizeof(bf16) + BQ * LDS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   flash_dq_kernel<D><<<dim3(p.sq / BQ, p.nh, p.b), 256, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-static int launch_dkv(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem = 4 * BQ * (D + 8) * sizeof(bf16) + 2 * BQ * LDS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_dkv_kernel<D><<<dim3(p.skv / BKV, p.nkv, p.b), 256, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -351,23 +252,5 @@ extern "C" int nxdt_flash_dq(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128) return launch_dq<128>(p, st);
   if (d == 64) return launch_dq<64>(p, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int nxdt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, const void* kvm,
-                              const void* seg, void* dk, void* dv, int b, int sq, int skv,
-                              int nh, int nkv, int d, const long long* strides, long long dk_sb,
-                              long long dk_ss, long long dk_sh, float scale, int causal,
-                              int window, int q_offset, void* stream) {
-  using namespace nxdt;
-  BwdParams p = make_params(q, k, v, dout, lse, delta, kvm, seg, b, sq, skv, nh, nkv, strides,
-                            scale, causal, window, q_offset);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128) return launch_dkv<128>(p, st);
-  if (d == 64) return launch_dkv<64>(p, st);
   return (int)cudaErrorInvalidValue;
 }

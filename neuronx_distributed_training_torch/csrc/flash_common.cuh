@@ -1,10 +1,13 @@
-// Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_dkv.cu).
 //
 // Layout contract: q/o are [b, sq, nh, d] and k/v [b, skv, nkv, d] (the model's
 // layout), read through element strides with the head dim contiguous; lse and
-// delta are plain fp32 [b, nh, sq].  Tiles are BQ x BKV = 64 x 64 with
-// d in {64, 128}.  Masked scores are set to NEG_INF (-1e30) exactly as the TPU
-// kernels do; a row with no visible key yields o = 0 and lse = NEG_INF.
+// delta are plain fp32 [b, nh, sq]; d is 64 or 128.  Masked scores are set to
+// NEG_INF (-1e30) exactly as the TPU kernels do; a row with no visible key
+// yields o = 0 and lse = NEG_INF.  The 64 x 64 tiles (BQ, BKV) and the
+// cp.async / ldmatrix / mma.sync helpers below serve the dq kernel; the
+// forward and dk/dv kernels choose their own tiles (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -7,243 +7,358 @@
 // packed segments, GQA by index (kv head = h / (nh / nkv), K/V never repeated),
 // and exact skipping of fully masked kv tiles.
 //
-// Design: one block of 4 warps owns a 64-row q tile of one head; each warp owns
-// 16 rows.  The TPU grid's sequential kv dimension is a loop inside the block,
-// over the visible kv tiles only; the next tile's K and V stream into a second
-// shared-memory buffer (cp.async) while this one is computed.  q k^T and p v run
-// on the tensor cores with mma.sync m16n8k16 (bf16 operands, fp32
-// accumulators, K and V fragments by ldmatrix); p is rounded to bf16 for the
-// p v product exactly where the TPU kernel does `p.astype(v.dtype)`.  The
-// running max, sum and output tile stay in registers (the accumulator fragment
-// layout tells each thread its rows).  Late q tiles, the longest under causal
-// masking, are scheduled first.
-//
 // Bound on the card: at the main-path shape (b=1, nh=32, nkv=8, s=8192, d=128,
 // causal) the work is 4*nh*s^2*d/2 ~ 550 GFLOP per call against ~0.1 GB of
-// traffic, so the forward is bound by tensor-core operations.  Left for later:
-// Hopper's wgmma and TMA in place of mma.sync and cp.async, and warp
-// specialisation.
+// traffic, so the forward is bound by tensor-core operations; the design feeds
+// wgmma, the only way to Hopper's full tensor-core rate.
+//
+// Design (warp-specialised, one CTA per 128-row q tile of one head):
+// - Roles.  Warpgroups 0 and 1 are consumers, each owning 64 q rows (wgmma's
+//   M); warpgroup 2 is the producer, of which one warp works and gives its
+//   registers to the consumers (setmaxnreg 40 / 232, in one if/else by role).
+// - The kv ring.  The producer loads the Q tile once and streams K and V tiles
+//   of 128 rows through a 2-stage shared-memory ring with TMA (128B swizzle),
+//   completion counted in bytes on a "full" mbarrier per stage; consumers hand
+//   a stage back on its "empty" mbarrier.
+// - Products.  S = Q K^T is wgmma m64n128k16 with both operands in shared
+//   memory (both K-major).  p is rounded to bf16 in registers, exactly where
+//   the TPU kernel does `p.astype(v.dtype)`, and feeds O += P V as wgmma's
+//   register A operand; V [kv, d] is MN-major for B (transpose bit set).
+// - Softmax.  m, l and the rescale stay in registers, in log2 units (exp2
+//   with log2(e) * scale folded in); lse is written in natural log.
+// - Masks.  The producer decides which kv tiles are live and which of them
+//   straddle the causal diagonal, the window edge, padding, a segment edge
+//   or the end of the keys; only those take the per-element mask.
+// - Scheduling.  blockIdx.x is the head and blockIdx.y walks the q tiles from
+//   the last (the longest under causal masking) to the first.
+//
+// Where the trouble lies:
+// - Tensor maps for strided views: v arrives as a view of the fused QKV
+//   projection (seq stride (nh + 2 nkv) d).  Each operand is a 4-D map
+//   (d, s, h, b) built from the strides the wrapper passes; a 128B-swizzled
+//   box row is at most 64 bf16, so d = 128 takes two boxes per tile.
+// - cuTensorMapEncodeTiled is taken from the driver through the runtime's
+//   entry-point lookup (its signature differs across CUDA 12.x; see
+//   hopper.cuh), and each map is passed by value in a __grid_constant__
+//   parameter block.
+// - Producer and consumers must walk the same tiles: the skips depend on the
+//   data (padding, segments), so only the producer decides, and it publishes
+//   each live tile's index and mask flag in the stage; index -1 ends the walk.
+// - wgmma descriptors: LBO / SBO of the 128B-swizzled layouts and the 32-byte
+//   k16 step are in hopper.cuh.  Accumulator arrays take compile-time indices
+//   only (fully unrolled loops), or they spill.
+// - Ragged tiles: when sq % 128 == 64 the second consumer's rows lie past sq;
+//   TMA fills them with zeros and their stores of o and lse are skipped.
 #include <climits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace nxdt {
+namespace fwd {
 
-struct FwdParams {
-  const bf16 *q, *k, *v;
+using namespace hopper;
+
+constexpr int BM = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int BN = 128;  // kv rows per tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;
+constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct Smem {
+  bf16 q[D / 64][BM * 64];  // 128B-swizzled column halves, 1024-byte aligned
+  bf16 k[STAGES][D / 64][BN * 64];
+  bf16 v[STAGES][D / 64][BN * 64];
+  int kvm[STAGES][BN];  // key padding and key segments of a masked tile
+  int segk[STAGES][BN];
+  int tile[STAGES];    // kv tile index, -1 ends the walk
+  int masked[STAGES];  // 1: the tile needs the per-element mask
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+
+struct Params {
+  CUtensorMap tq, tk, tv;
   const int *kvm, *seg;
   bf16* o;
   float* lse;
   int b, sq, skv, nh, nkv, group;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
-  float scale;
+  long long o_sb, o_ss, o_sh;
+  float scale_log2;  // d^-1/2 * log2(e)
   int causal, window, q_offset;
 };
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffff, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffff, x, 1);
+  return x + __shfl_xor_sync(0xffffffff, x, 2);
+}
+
+// One warp: load Q, then walk the kv tiles, publishing the live ones.
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_kernel(const FwdParams p) {
-  constexpr int LD = D + 8, NT = 128, KS = D / 16, ON = D / 8, SN = BKV / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;         // two K buffers, then two V buffers
-  bf16* Vs = Ks + 2 * BKV * LD;
-  __shared__ int kvm_s[2][BKV];
-  __shared__ int segk_s[2][BKV];
-  __shared__ int segq_max;
-
-  // the causal diagonal makes late q tiles the longest: schedule them first
-  const int qi = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+__device__ __forceinline__ void produce(const Params& p, Smem<D>& sm, int h, int qi, int bi) {
+  const int lane = threadIdx.x & 31;
   const int kh = h / p.group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows of the q tile: r0 and r0 + 8
+  const int q_lo = qi * BM, q_rows = min(BM, p.sq - q_lo);
+  if (lane == 0) {
+    mbar_arrive_expect_tx(&sm.q_full, BM * D * 2);
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf) tma_load_4d(sm.q[hf], &p.tq, &sm.q_full, hf * 64, q_lo, h, bi);
+  }
+  int segq_min = INT_MAX, segq_max = INT_MIN;
+  if (p.seg) {
+    for (int r = lane; r < q_rows; r += 32) {
+      const int s = p.seg[(long long)bi * p.sq + q_lo + r];
+      segq_min = min(segq_min, s);
+      segq_max = max(segq_max, s);
+    }
+    warp_minmax(segq_min, segq_max);
+  }
+  const int qpos_lo = p.q_offset + q_lo, qpos_hi = qpos_lo + q_rows - 1;
+  const int nkb = (p.skv + BN - 1) / BN;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int ki = 0; ki < nkb; ++ki) {
+    const int kv_lo = ki * BN, kv_n = min(BN, p.skv - kv_lo), kv_hi = kv_lo + kv_n - 1;
+    if (p.causal && kv_lo > qpos_hi) break;  // and every later tile
+    if (p.window >= 0 && kv_hi <= qpos_lo - p.window) continue;
+    bool whole = kv_n == BN && (!p.causal || kv_hi <= qpos_lo) &&
+                 (p.window < 0 || kv_lo > qpos_hi - p.window);
+    if (p.kvm) {
+      bool any = false, all = true;
+      for (int c = lane; c < kv_n; c += 32) {
+        const bool on = p.kvm[(long long)bi * p.skv + kv_lo + c] > 0;
+        any = any || on;
+        all = all && on;
+      }
+      if (!__any_sync(0xffffffff, any)) continue;  // all padding
+      whole = whole && __all_sync(0xffffffff, all);
+    }
+    if (p.seg) {
+      int mn = INT_MAX, mx = INT_MIN;
+      for (int c = lane; c < kv_n; c += 32) {
+        const int s = p.seg[(long long)bi * p.skv + kv_lo + c];
+        mn = min(mn, s);
+        mx = max(mx, s);
+      }
+      warp_minmax(mn, mx);
+      if (mn > segq_max) continue;  // ahead of every query segment
+      whole = whole && mn == mx && segq_min == segq_max && mn == segq_min;
+    }
+    mbar_wait(&sm.empty[stage], phase ^ 1);
+    if (!whole) {
+      for (int c = lane; c < BN; c += 32) {
+        const bool in = c < kv_n;
+        if (p.kvm) sm.kvm[stage][c] = in ? p.kvm[(long long)bi * p.skv + kv_lo + c] : 0;
+        if (p.seg) sm.segk[stage][c] = in ? p.seg[(long long)bi * p.skv + kv_lo + c] : 0;
+      }
+    }
+    if (lane == 0) {
+      sm.tile[stage] = ki;
+      sm.masked[stage] = !whole;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.full[stage], 2 * BN * D * 2);
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) {
+        tma_load_4d(sm.k[stage][hf], &p.tk, &sm.full[stage], hf * 64, kv_lo, kh, bi);
+        tma_load_4d(sm.v[stage][hf], &p.tv, &sm.full[stage], hf * 64, kv_lo, kh, bi);
+      }
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  mbar_wait(&sm.empty[stage], phase ^ 1);
+  if (lane == 0) {
+    sm.tile[stage] = -1;
+    mbar_arrive(&sm.full[stage]);
+  }
+}
 
-  load_tile<D, LD, BQ, NT>(Qs, p.q + bi * p.q_sb + h * p.q_sh + (long long)qi * BQ * p.q_ss,
-                           p.q_ss, tid);
+// One warpgroup: 64 q rows of the tile through every published kv tile.
+template <int D>
+__device__ __forceinline__ void consume(const Params& p, Smem<D>& sm, int h, int qi, int bi) {
+  constexpr int SN = BN / 2, ON = D / 2;  // accumulator floats per thread: S, O
+  const int c = threadIdx.x / 128, w = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_lo = qi * BM, q_rows = min(BM, p.sq - q_lo);
+  const int row0 = c * 64 + w * 16 + g;  // this thread's rows of the tile: row0, row0 + 8
+  const int qpos0 = p.q_offset + q_lo + row0, qpos1 = qpos0 + 8;
   int segq0 = 0, segq1 = 0;
   if (p.seg) {
-    if (tid == 0) segq_max = INT_MIN;
-    __syncthreads();
-    const int* segq = p.seg + (long long)bi * p.sq + qi * BQ;
-    if (tid < BQ) atomicMax(&segq_max, segq[tid]);
-    segq0 = segq[r0];
-    segq1 = segq[r0 + 8];
-  }
-  __syncthreads();
-
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const bf16* ap = Qs + r0 * LD + kk * 16 + t * 2;
-    qf[kk][0] = ld32(ap);
-    qf[kk][1] = ld32(ap + 8 * LD);
-    qf[kk][2] = ld32(ap + 8);
-    qf[kk][3] = ld32(ap + 8 * LD + 8);
+    if (row0 < q_rows) segq0 = p.seg[(long long)bi * p.sq + q_lo + row0];
+    if (row0 + 8 < q_rows) segq1 = p.seg[(long long)bi * p.sq + q_lo + row0 + 8];
   }
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[ON][4];
+  float o[ON];
 #pragma unroll
-  for (int on = 0; on < ON; ++on)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[on][e] = 0.f;
-  const int qpos0 = p.q_offset + qi * BQ + r0, qpos1 = qpos0 + 8;
+  for (int i = 0; i < ON; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const uint32_t q_base = smem_u32(sm.q[0]);
+  mbar_wait(&sm.q_full, 0);
 
-  const bf16* kbase = p.k + bi * p.k_sb + kh * p.k_sh;
-  const bf16* vbase = p.v + bi * p.v_sb + kh * p.v_sh;
-  const int* kvm_row = p.kvm ? p.kvm + (long long)bi * p.skv : nullptr;
-  const int* segk_row = p.seg ? p.seg + (long long)bi * p.skv : nullptr;
-  const int nkb = p.skv / BKV;
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(&sm.full[stage], phase);
+    const int ki = sm.tile[stage];
+    if (ki < 0) break;
+    const bool masked = sm.masked[stage] != 0;
+    const uint32_t k_base = smem_u32(sm.k[stage][0]), v_base = smem_u32(sm.v[stage][0]);
 
-  // the next kv tile at or after `ki` that some query of this q tile may see;
-  // fully masked tiles (causal / window, all-padding, ahead of every query
-  // segment) are never loaded or computed.  Block-uniform.
-  auto next_live = [&](int ki) {
-    for (; ki < nkb; ++ki) {
-      if (!tile_visible(qi, ki, p.causal, p.window, p.q_offset)) continue;
-      const int kv = ki * BKV + tid;
-      if (kvm_row && !__syncthreads_or(tid < BKV && kvm_row[kv] > 0)) continue;
-      if (segk_row && !__syncthreads_or(tid < BKV && segk_row[kv] <= segq_max)) continue;
-      return ki;
-    }
-    return nkb;
-  };
-  auto issue = [&](int ki, int buf) {
-    const int kv0 = ki * BKV;
-    load_tile_async<D, LD, BKV, NT>(Ks + buf * BKV * LD, kbase + (long long)kv0 * p.k_ss,
-                                    p.k_ss, tid);
-    load_tile_async<D, LD, BKV, NT>(Vs + buf * BKV * LD, vbase + (long long)kv0 * p.v_ss,
-                                    p.v_ss, tid);
-    cp_async_commit();
-    if (tid < BKV) {
-      if (kvm_row) kvm_s[buf][tid] = kvm_row[kv0 + tid];
-      if (segk_row) segk_s[buf][tid] = segk_row[kv0 + tid];
-    }
-  };
+    float s[SN];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, desc_kmajor<BM>(q_base, c * 64, kk), desc_kmajor<BN>(k_base, 0, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-  int ki = next_live(0), buf = 0;
-  if (ki < nkb) issue(ki, 0);
-  while (ki < nkb) {
-    const int nxt = next_live(ki + 1);
-    if (nxt < nkb) {
-      issue(nxt, buf ^ 1);  // overlaps this tile's math
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kb = Ks + buf * BKV * LD;
-    const bf16* Vb = Vs + buf * BKV * LD;
-    const int kv0 = ki * BKV;
-
-    float s[SN][4];
+    // accumulator entry 4j + e: row row0 + 8 (e >> 1), column 8j + 2t + (e & 1)
 #pragma unroll
-    for (int nt = 0; nt < SN; ++nt)
+    for (int i = 0; i < SN; ++i) s[i] *= p.scale_log2;
+    if (masked) {
+      const int kv0 = ki * BN;
+      const bool kvm = p.kvm != nullptr, seg = p.seg != nullptr;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < SN; ++nt) {
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 2) {
-        // b fragments of k steps kk and kk + 1 for kv rows nt*8.. (K row-major)
-        uint32_t b[4];
-        ldmatrix_x4(b, Kb + (nt * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
-        mma16816(s[nt], qf[kk], b[0], b[1]);
-        mma16816(s[nt], qf[kk + 1], b[2], b[3]);
+      for (int i = 0; i < SN; ++i) {
+        const int col = (i >> 2) * 8 + t * 2 + (i & 1), r = (i >> 1) & 1;
+        const int kv = kv0 + col;
+        const bool ok = kv < p.skv && pos_visible(r ? qpos1 : qpos0, kv, p.causal, p.window) &&
+                        (!kvm || sm.kvm[stage][col] > 0) &&
+                        (!seg || sm.segk[stage][col] == (r ? segq1 : segq0));
+        if (!ok) s[i] = NEG_INF;
       }
     }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < SN; ++i) {
+      if ((i >> 1) & 1)
+        mx1 = fmaxf(mx1, s[i]);
+      else
+        mx0 = fmaxf(mx0, s[i]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < SN; ++i) {
+      if ((i >> 1) & 1) {
+        s[i] = exp2_approx(s[i] - m1);
+        ls1 += s[i];
+      } else {
+        s[i] = exp2_approx(s[i] - m0);
+        ls0 += s[i];
+      }
+    }
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[i] *= ((i >> 1) & 1) ? a1 : a0;
 
-    float mx[2] = {NEG_INF, NEG_INF};
+    // p (unnormalized) in bf16 as wgmma's register A operand, one k16 slice of
+    // kv columns per 8 accumulator entries
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < SN; ++nt)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t * 2 + (e & 1);
-        const int r = e >> 1;
-        bool ok = pos_visible(r ? qpos1 : qpos0, kv0 + col, p.causal, p.window);
-        if (kvm_row) ok = ok && kvm_s[buf][col] > 0;
-        if (segk_row) ok = ok && segk_s[buf][col] == (r ? segq1 : segq0);
-        const float x = ok ? s[nt][e] * p.scale : NEG_INF;
-        s[nt][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    float alpha[2];
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+    fence_regs(o);  // the rescaling of o stays before the fence
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      if constexpr (D == 128)
+        wgmma_rs_n128(o, pa[kk], desc_mnmajor<BN>(v_base, kk));
+      else
+        wgmma_rs_n64(o, pa[kk], desc_mnmajor<BN>(v_base, kk));
     }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < SN; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = pv;
-        ls[e >> 1] += pv;
-      }
-    l[0] = alpha[0] * l[0] + ls[0];
-    l[1] = alpha[1] * l[1] + ls[1];
-#pragma unroll
-    for (int on = 0; on < ON; ++on) {
-      acc[on][0] *= alpha[0];
-      acc[on][1] *= alpha[0];
-      acc[on][2] *= alpha[1];
-      acc[on][3] *= alpha[1];
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int on = 0; on < ON; on += 2) {
-        // b fragments of output column tiles on and on + 1 (V row-major, transposed)
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                 on * 8 + (lane >> 4) * 8);
-        mma16816(acc[on], a, b[0], b[1]);
-        mma16816(acc[on + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-    ki = nxt;
-    buf ^= 1;
   }
 
-  float* lse = p.lse + ((long long)bi * p.nh + h) * p.sq + qi * BQ;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  float* lse = p.lse + ((long long)bi * p.nh + h) * p.sq + q_lo;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffff, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffff, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= q_rows) continue;  // past sq (ragged last tile)
+    const float m = r ? m1 : m0, l = r ? l1 : l0;
     // a row with no visible key keeps m = NEG_INF: output 0, lse NEG_INF
-    const bool vis = m[r] > NEG_INF / 2;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    const int row = r0 + r * 8;
-    bf16* orow = p.o + bi * p.o_sb + h * p.o_sh + (long long)(qi * BQ + row) * p.o_ss;
+    const bool vis = m > NEG_INF / 2;
+    const float inv = vis ? 1.f / l : 0.f;
+    bf16* orow = p.o + bi * p.o_sb + h * p.o_sh + (long long)(q_lo + row) * p.o_ss;
 #pragma unroll
-    for (int on = 0; on < ON; ++on) {
-      const float x0 = vis ? acc[on][2 * r] / l_safe : 0.f;
-      const float x1 = vis ? acc[on][2 * r + 1] / l_safe : 0.f;
-      *reinterpret_cast<uint32_t*>(orow + on * 8 + t * 2) = pack_bf16(x0, x1);
-    }
-    if (t == 0) lse[row] = vis ? m[r] + logf(l_safe) : NEG_INF;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + t * 2) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (t == 0) lse[row] = vis ? (m + log2f(l)) * LN2 : NEG_INF;
   }
 }
 
 template <int D>
-static int launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  const size_t smem = 5 * BQ * (D + 8) * sizeof(bf16);  // Q + 2 x (K + V)
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<D><<<dim3(p.sq / BQ, p.nh, p.b), 128, smem, stream>>>(p);
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(__grid_constant__ const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  // align the tiles to 1024 bytes, offsetting the shared array itself so
+  // that the compiler still sees shared (not generic) addresses
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int h = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y, bi = blockIdx.z;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 288) produce<D>(p, sm, h, qi, bi);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<D>(p, sm, h, qi, bi);
+  }
+}
+
+template <int D>
+static int launch(Params& p, const void* q, const void* k, const void* v, const long long* st,
+                  cudaStream_t stream) {
+  int err = make_tmap(&p.tq, q, p.b, p.sq, p.nh, D, st[0], st[1], st[2], BM);
+  if (!err) err = make_tmap(&p.tk, k, p.b, p.skv, p.nkv, D, st[3], st[4], st[5], BN);
+  if (!err) err = make_tmap(&p.tv, v, p.b, p.skv, p.nkv, D, st[6], st[7], st[8], BN);
+  if (err) return err;
+  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the tiles to 1024 bytes
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_kernel<D><<<dim3(p.nh, (p.sq + BM - 1) / BM, p.b), THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+}  // namespace fwd
 }  // namespace nxdt
 
 extern "C" int nxdt_flash_fwd(const void* q, const void* k, const void* v, const void* kvm,
@@ -254,22 +369,18 @@ extern "C" int nxdt_flash_fwd(const void* q, const void* k, const void* v, const
                               long long o_ss, long long o_sh, float scale, int causal,
                               int window, int q_offset, void* stream) {
   using namespace nxdt;
-  FwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  fwd::Params p;
   p.kvm = static_cast<const int*>(kvm);
   p.seg = static_cast<const int*>(seg);
   p.o = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
   p.b = b; p.sq = sq; p.skv = skv; p.nh = nh; p.nkv = nkv; p.group = nh / nkv;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  p.scale = scale; p.causal = causal; p.window = window; p.q_offset = q_offset;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128) return launch_fwd<128>(p, st);
-  if (d == 64) return launch_fwd<64>(p, st);
+  p.scale_log2 = scale * hopper::LOG2E;
+  p.causal = causal; p.window = window; p.q_offset = q_offset;
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 128) return fwd::launch<128>(p, q, k, v, st, s);
+  if (d == 64) return fwd::launch<64>(p, q, k, v, st, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,8 +4,8 @@ JAX package's ``ops/flash_attention.py``).
 Kernels (CUDA C++ for sm_90a under ``csrc/``, built by ``utils/build.py``):
 
 - ``flash_fwd`` (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel``;
-- ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace ``_dq_kernel``
-  and ``_dkv_kernel``.
+- ``flash_dq`` (``csrc/flash_bwd.cu``) replaces ``_dq_kernel``;
+- ``flash_dkv`` (``csrc/flash_dkv.cu``) replaces ``_dkv_kernel``.
 
 Each kernel has a wrapper of the same name and a plain PyTorch version
 (``*_plain``) beside it.  A wrapper takes the plain version only for tensors on
@@ -19,9 +19,11 @@ Semantics kept from the TPU kernels: scale ``1/sqrt(d)``; masked scores are
 the backward zeroes p there; causal / sliding-window masking with
 ``q_offset``; a key-padding mask; packed segments; GQA by index; exact
 skipping of fully masked tiles.  The port's lse is a plain fp32
-``[b, nh, sq]``.  Tiles are 64 x 64 with head_dim 64 or 128 (the TPU's
-128-lane rule is a Mosaic constraint); other shapes fall back, counted in
-``FALLBACKS``, to ``core_attention``.
+``[b, nh, sq]``.  The forward and dk/dv kernels read their bf16 operands
+through TMA tensor maps (``tma_geometry``) in 128-row tiles, dq in 64 x 64
+tiles; sequence lengths must be multiples of 64 and head_dim 64 or 128 (the
+TPU's 128-lane rule is a Mosaic constraint).  Other shapes fall back, counted
+in ``FALLBACKS``, to ``core_attention``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def flash_tileable(sq: int, skv: int, d: int, nh: int, nkv: int) -> bool:
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +168,9 @@ _STRIDES12 = _LL * 12
 _PLL = ctypes.POINTER(_LL)
 _EXACT_DTYPES = {"lse": torch.float32, "delta": torch.float32, "kvm": torch.int32,
                  "seg": torch.int32}
+#: launcher error codes from this value up: a tensor map could not be encoded
+#: (the code less this value is the driver's CUresult)
+_ERR_TMAP = 1000
 
 
 def _fn(lib_name: str, sym: str, argtypes):
@@ -176,6 +185,24 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def tma_geometry(t: torch.Tensor):
+    """The 4-D TMA tensor map through which the forward and dk/dv kernels read
+    a bf16 ``[b, s, h, d]`` operand (``make_tmap`` in ``csrc/hopper.cuh``
+    builds the same one from the element strides): dims innermost first
+    ``(d, s, h, b)`` and the byte strides of ``s``, ``h`` and ``b``.  Raises
+    ValueError on a layout no tensor map can describe: the head dim must be
+    contiguous, the base 16-byte aligned and every stride a multiple of 16
+    bytes below 2^40 (the map ignores the stride of a dimension of size 1)."""
+    b, s, h, d = t.shape
+    sb, ss, sh, sd = t.stride()
+    size = t.element_size()
+    strides = tuple(16 if n == 1 else st * size for n, st in ((s, ss), (h, sh), (b, sb)))
+    if sd != 1 or t.data_ptr() % 16 or any(x % 16 or not 0 <= x < 2 ** 40 for x in strides):
+        raise ValueError(f"no TMA tensor map for strides {t.stride()} (element size {size}) "
+                         f"at address offset {t.data_ptr() % 16} mod 16")
+    return (d, s, h, b), strides
+
+
 def _check(what: str, tensors: dict, q: torch.Tensor, k: torch.Tensor) -> None:
     """Raise on what the kernels do not take."""
     b, sq, nh, d = q.shape
@@ -186,11 +213,12 @@ def _check(what: str, tensors: dict, q: torch.Tensor, k: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.device != q.device or t.device.type != "cuda":
+        if t.device != q.device or not _on_card(t):
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
         if name in _EXACT_DTYPES:
-            if t.dtype != _EXACT_DTYPES[name] or not t.is_contiguous():
-                raise ValueError(f"{what}: {name} must be a contiguous "
+            # 16-byte aligned: the dk/dv kernel copies their rows in bulk
+            if t.dtype != _EXACT_DTYPES[name] or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be a contiguous, 16-byte aligned "
                                  f"{_EXACT_DTYPES[name]} tensor")
             continue
         if t.dtype not in KERNEL_DTYPES:
@@ -199,6 +227,10 @@ def _check(what: str, tensors: dict, q: torch.Tensor, k: torch.Tensor) -> None:
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} needs a contiguous, 16-byte aligned head dim "
                              f"and strides that are multiples of 8 (got {t.stride()})")
+        try:
+            tma_geometry(t)
+        except ValueError as e:
+            raise ValueError(f"{what}: {name}: {e}") from None
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -206,6 +238,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _raise_on(err: int, what: str) -> None:
+    if err >= _ERR_TMAP:
+        raise RuntimeError(f"{what}: a TMA tensor map could not be encoded (CUresult "
+                           f"{err - _ERR_TMAP})")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
@@ -265,7 +300,7 @@ def flash_dkv(q, k, v, do, lse, delta, kvm=None, seg=None, *, causal=True, windo
                                window=window, q_offset=q_offset)
     _check("flash_dkv", dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, kvm=kvm, seg=seg),
            q, k)
-    fn = _fn("flash_bwd", "nxdt_flash_dkv",
+    fn = _fn("flash_dkv", "nxdt_flash_dkv",
              [_VP] * 10 + [_I] * 6 + [_PLL] + [_LL] * 3 + [_F, _I, _I, _I, _VP])
     b, sq, nh, d = q.shape
     skv, nkv = k.shape[1], k.shape[2]

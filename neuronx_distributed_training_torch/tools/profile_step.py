@@ -24,7 +24,7 @@ from neuronx_distributed_training_torch.trainer.loop import Trainer
 
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 #: kernel-name substrings -> category of the breakdown (first match wins)
-CATEGORIES = (("flash attention", ("nxdt::flash",)),
+CATEGORIES = (("flash attention", FLASH_KERNELS),
               ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
               ("elementwise / reduction / copy", ("",)))
 

@@ -10,6 +10,7 @@ CUDA kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py`` (this file imports jax, which the card's machine lacks).
 """
 
+import functools
 import importlib.util
 import zlib
 from pathlib import Path
@@ -264,7 +265,7 @@ def test_card_request_raises_when_the_library_cannot_load(monkeypatch):
         tfa.flash_fwd(q, k, v)
     with pytest.raises(RuntimeError, match="cannot load flash_bwd"):
         tfa.flash_dq(q, k, v, do, lse, lse)
-    with pytest.raises(RuntimeError, match="cannot load flash_bwd"):
+    with pytest.raises(RuntimeError, match="cannot load flash_dkv"):
         tfa.flash_dkv(q, k, v, do, lse, lse)
     with pytest.raises(RuntimeError, match="cannot load"):
         tfa.flash_attention(q, k, v)
@@ -286,3 +287,170 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kbuild.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kbuild.build_all()
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the Hopper dk/dv kernel (csrc/flash_dkv.cu), emulated
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+#: emulated dk/dv against the plain version and against JAX, relative to each
+#: gradient's largest entry: both read ~5e-7 at the shape below, while bf16
+#: operands in place of the exact split miss JAX by ~2e-3
+DKV_EMULATION_TOL = 1e-5
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _split3(x: torch.Tensor):
+    """The kernel's ``split3``: x = hi + mid + lo, each part bf16."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, _bf16(x - hi - mid)
+
+
+def _dkv_hopper_emulation(q, k, v, do, lse, delta, kvm, seg, *, causal, window=None,
+                          q_offset=0, exact_split=True):
+    """dk, dv as the kernel computes them: the transposed products S^T = K Q^T
+    and dP^T = V dO^T (kv rows first), p = exp2(s * scale * log2 e -
+    lse * log2 e) and 0 where lse is NEG_INF, and each fp32 operand of
+    p^T do and ds^T q split into hi + mid + lo bf16 parts whose products are
+    summed in fp32, smallest first.  ``exact_split=False`` rounds p and ds to
+    bf16 instead."""
+    b, sq, nh, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    scale = d ** -0.5
+
+    def heads(x, n):  # [b, s, h, d] -> [b, nkv, n, s, d]; q head h = kv head * group + g
+        return x.float().permute(0, 2, 1, 3).reshape(b, nkv, n, x.shape[1], d)
+
+    qh, doh, kh, vh = heads(q, group), heads(do, group), heads(k, 1), heads(v, 1)
+    st, dpt = kh @ qh.transpose(-1, -2), vh @ doh.transpose(-1, -2)  # [b, nkv, g, skv, sq]
+    ok = tfa._visible(b, sq, skv, causal, window, q_offset, kvm, seg, q.device)
+    x = torch.where(ok.transpose(-1, -2)[:, :, None], st * (scale * LOG2E), tfa.NEG_INF)
+    lse_t = lse.view(b, nkv, group, 1, sq)
+    p = torch.where(lse_t > tfa.NEG_INF / 2, torch.exp2(x - lse_t * LOG2E), 0.0)
+    ds = p * (dpt - delta.view(b, nkv, group, 1, sq)) * scale
+
+    def product(a, y):
+        if not exact_split:
+            return _bf16(a) @ y
+        hi, mid, lo = _split3(a)
+        return lo @ y + mid @ y + hi @ y
+
+    dk, dv = product(ds, qh).sum(2), product(p, doh).sum(2)
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+@functools.lru_cache(maxsize=1)
+def _dkv_case():
+    """b=2, s=256, nh=4, nkv=2, d=64, causal, key padding and packed segments:
+    bf16-valued inputs, the plain forward's lse and delta, the plain dk/dv and
+    the JAX package's `_bwd_pallas` (interpret mode) dk/dv."""
+    b, s, nh, nkv, d = 2, 256, 4, 2, 64
+    q, k, v, do = (_bf16(torch.tensor(x)) for x in _qkv(21, b, s, s, nh, nkv, d))
+    kvm, seg = _pad(b, s, [200, 256]), _seg(b, s, [[90, 170], [130]])
+    kw = dict(causal=True, window=None, q_offset=0)
+    o, lse = tfa.flash_fwd_plain(q, k, v, torch.tensor(kvm), torch.tensor(seg), **kw)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, torch.tensor(kvm), torch.tensor(seg))
+    plain = tfa.flash_dkv_plain(*args, **kw)
+    qt, kt, vt, dot = (jnp.swapaxes(jnp.asarray(x.numpy()), 1, 2) for x in (q, k, v, do))
+    jkw = dict(sm_scale=d ** -0.5, bq=128, bkv=128, interpret=True, **kw)
+    jo, jlse = jfa._fwd_pallas(qt, kt, vt, jnp.asarray(kvm), jnp.asarray(seg), **jkw)
+    _, jdk, jdv = jfa._bwd_pallas((qt, kt, vt, jnp.asarray(kvm), jnp.asarray(seg), jo, jlse),
+                                  dot, **jkw)
+    jax_dkv = tuple(np.swapaxes(np.asarray(x), 1, 2) for x in (jdk, jdv))
+    return args, kw, plain, jax_dkv
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+def test_dkv_kernel_arithmetic_matches(reference):
+    """The kernel's dk/dv arithmetic (transposed products, exp2 with log2 e
+    folded in, three-way split products) against the plain version and the
+    JAX package's Pallas backward, within DKV_EMULATION_TOL."""
+    args, kw, plain, jax_dkv = _dkv_case()
+    dk, dv = _dkv_hopper_emulation(*args, **kw)
+    ref = plain if reference == "plain" else jax_dkv
+    assert _rel(dk, ref[0]) < DKV_EMULATION_TOL
+    assert _rel(dv, ref[1]) < DKV_EMULATION_TOL
+    # padded keys get no gradient
+    assert torch.all(dk[0, 200:] == 0) and torch.all(dv[0, 200:] == 0)
+
+
+def test_dkv_bf16_operands_miss_jax_beyond_tolerance():
+    """Why the kernel splits p and ds instead of rounding them to bf16: the
+    rounded products miss the JAX dk and dv by far more than the tolerance."""
+    args, kw, _, (jdk, jdv) = _dkv_case()
+    dk, dv = _dkv_hopper_emulation(*args, **kw, exact_split=False)
+    assert _rel(dk, jdk) > 20 * DKV_EMULATION_TOL
+    assert _rel(dv, jdv) > 20 * DKV_EMULATION_TOL
+
+
+def test_three_way_split_is_exact():
+    """hi + mid + lo reproduces each fp32 operand exactly, over magnitudes
+    from 1e-13 to 1e4 and both signs."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(200_000, generator=g) * torch.exp(
+        torch.empty(200_000).uniform_(-30.0, 10.0, generator=g))
+    x = torch.cat([x, torch.tensor([0.0, 1.0, -1.0, 1.0 + 2.0 ** -23, 3.0 ** 0.5])])
+    hi, mid, lo = _split3(x)
+    assert torch.equal((hi + mid) + lo, x)
+    assert torch.equal(torch.stack([hi, mid, lo]), _bf16(torch.stack([hi, mid, lo])))
+
+
+# ---------------------------------------------------------------------------
+# the TMA tensor maps of the forward and dk/dv kernels
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_tma_geometry_of_fused_qkv_views():
+    """q, k and v split out of one fused [b, s, (nh + 2 nkv) d] projection, as
+    models/llama.py does, are strided views; each maps to a 4-D tensor map
+    (d, s, h, b) with the seq stride of the fused row."""
+    b, s, nh, nkv, d = 2, 128, 8, 2, 128
+    width = (nh + 2 * nkv) * d
+    qkv = torch.zeros(b, s, width, dtype=torch.bfloat16)
+    q, k, v = _chip_smoke().fused_views(torch, qkv, nh, nkv, d)
+    assert not v.is_contiguous() and v.stride() == (s * width, width, d, 1)
+    for t, h in ((q, nh), (k, nkv), (v, nkv)):
+        dims, strides = tfa.tma_geometry(t)
+        assert dims == (d, s, h, b)
+        assert strides == (width * 2, d * 2, s * width * 2)
+    # a contiguous operand: the head stride is d, the seq stride h * d
+    assert tfa.tma_geometry(torch.zeros(1, s, nkv, d, dtype=torch.bfloat16)) == (
+        (d, s, nkv, 1), (nkv * d * 2, d * 2, 16))
+
+
+def test_check_raises_on_a_stride_tma_cannot_take(monkeypatch):
+    """The fused views pass the kernels' input check; a seq pitch that is not
+    a multiple of 16 bytes (here 8 * 128 + 4 elements) cannot be a tensor map
+    and raises, as does a head dim that is not contiguous."""
+    monkeypatch.setattr(tfa, "_on_card", lambda t: True)
+    b, s, nh, nkv, d = 1, 128, 4, 2, 128
+    q, k, v = _chip_smoke().fused_views(
+        torch, torch.zeros(b, s, (nh + 2 * nkv) * d, dtype=torch.bfloat16), nh, nkv, d)
+    tfa._check("flash_fwd", dict(q=q, k=k, v=v), q, k)
+    odd = torch.zeros(b, s, nh * d + 4, dtype=torch.bfloat16)[..., :nh * d].view(b, s, nh, d)
+    with pytest.raises(ValueError, match="strides that are multiples of 8"):
+        tfa._check("flash_fwd", dict(q=odd, k=k, v=v), odd, k)
+    with pytest.raises(ValueError, match="no TMA tensor map"):
+        tfa.tma_geometry(odd)
+    with pytest.raises(ValueError, match="no TMA tensor map"):
+        tfa.tma_geometry(q.transpose(2, 3))
