@@ -9,15 +9,18 @@ of JAX.  Phases, each of which fails the run if it fails:
 1. report the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``neuronx_distributed_training_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
-   ``ptxas`` must report no spill for the forward and dk/dv kernels;
+   ``ptxas`` must report no spill for any of the three kernels;
 2. hold each kernel (flash forward, dq, dk/dv) against its plain PyTorch
    version in bf16: causal + GQA at full Llama-3-8B width (s=4096), and
    key-padding (with fully masked rows), segment, sliding-window, q_offset,
-   head_dim-64, ragged-tile (s=1088, half a 128-row tile past the end) and
-   fused-QKV (q, k, v strided views of one projection) cases at smaller s;
-3. time each kernel, its plain version and, as a yardstick only,
-   ``F.scaled_dot_product_attention`` at the main-path shape (b=1, nh=32,
-   nkv=8, s=8192, d=128, causal), and compare kernel and plain there too;
+   head_dim-64, ragged-tile (s=1088, half a 128-row tile past the end),
+   ragged tile with key padding and segments, non-causal sliding window with
+   key padding, and fused-QKV (q, k, v strided views of one projection) cases
+   at smaller s;
+3. time each kernel (``tools/kernel_times.py``), its plain version and, as a
+   yardstick only, ``F.scaled_dot_product_attention`` at the main-path shape
+   (b=1, nh=32, nkv=8, s=8192, d=128, causal), and compare kernel and plain
+   there too;
 4. run the trainer CLI for 3 steps at Llama-3-8B widths cut to 4 layers
    (seq 8192, gbs 4, mbs 1: 4 microbatches) with the kernel launch counters
    set to 0 just before and read just after: each kernel must have launched
@@ -41,7 +44,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-MAIN = dict(b=1, s=8192, nh=32, nkv=8, d=128)  # Llama-3-8B attention, seq 8192
 LAYERS, MICROBATCHES, STEPS = 4, 4, 3
 CLI_ARGS = [
     "--config", str(REPO / "examples/conf/hf_llama3_8B_config.yaml"),
@@ -64,6 +66,7 @@ CLI_ARGS = [
 TOL_O = 2.0
 TOL_LSE_ABS = 1e-3
 TOL_GRAD_REL = 2e-2
+PLAIN_ITERS = 2  # timed calls of each plain version (~100 ms and tens of GB each)
 
 
 def fail(msg: str) -> None:
@@ -125,7 +128,9 @@ def fused_views(torch, qkv, nh, nkv, d):
 
 
 def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=None,
-               q_offset=0, mask=None, seg=None, seed=0, fused=False):
+               q_offset=0, mask=None, seg=None, seed=0, fused=False, with_lse=False):
+    """``with_lse`` takes the gradients through ``flash_attention_with_lse``,
+    which keeps a window when not causal (and takes no segments)."""
     q, k, v, do = make_inputs(torch, b, sq, skv, nh, nkv, d, seed)
     qkv = None
     if fused:  # self-attention only (sq == skv)
@@ -141,18 +146,20 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, kvm, segi, **kw)
     # gradients through the autograd Function (its backward runs the dq and
     # dk/dv kernels) against the plain backward of the plain forward
+    def attend(qa, ka, va):
+        akw = dict(causal=causal, sliding_window=window, q_offset=q_offset,
+                   attention_mask=mask)
+        if with_lse:
+            return fa.flash_attention_with_lse(qa, ka, va, **akw)[0]
+        return fa.flash_attention(qa, ka, va, segment_ids=seg, **akw)
+
     if fused:  # the kernels read the views; the gradients land in the fused leaf
         qkv_g = qkv.clone().requires_grad_(True)
-        o = fa.flash_attention(*fused_views(torch, qkv_g, nh, nkv, d), causal=causal,
-                               sliding_window=window, q_offset=q_offset,
-                               attention_mask=mask, segment_ids=seg)
-        o.backward(do)
+        attend(*fused_views(torch, qkv_g, nh, nkv, d)).backward(do)
         dq_k, dk_k, dv_k = fused_views(torch, qkv_g.grad, nh, nkv, d)
     else:
         qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
-        o = fa.flash_attention(qg, kg, vg, causal=causal, sliding_window=window,
-                               q_offset=q_offset, attention_mask=mask, segment_ids=seg)
-        o.backward(do)
+        attend(qg, kg, vg).backward(do)
         dq_k, dk_k, dv_k = qg.grad, kg.grad, vg.grad
     with torch.no_grad():
         delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
@@ -188,8 +195,8 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
     return ok
 
 
-def phase_checks(torch, fa) -> None:
-    m = MAIN
+def phase_checks(torch, fa, kt) -> None:
+    m = kt.MAIN
     ok = check_case(torch, fa, "causal+gqa s=4096", b=1, sq=4096, skv=4096, nh=m["nh"],
                     nkv=m["nkv"], d=m["d"], seed=1)
     s = 1024
@@ -210,10 +217,28 @@ def phase_checks(torch, fa) -> None:
                      nkv=2, d=128, q_offset=512, seed=5)
     ok &= check_case(torch, fa, "non-causal d=64 s=512", b=2, sq=512, skv=512, nh=4, nkv=4,
                      d=64, causal=False, seed=6)
-    # s = 17 x 64: the last 128-row tile of the forward and dk/dv kernels is
-    # half past the end (zero-filled by TMA, its stores skipped)
+    # s = 17 x 64: the last 128-row tile of all three kernels is half past the
+    # end (zero-filled by TMA, its stores skipped; in dq the bulk copies bring
+    # only the rows that exist and the second consumer computes nothing)
     ok &= check_case(torch, fa, "ragged tile s=1088", b=1, sq=1088, skv=1088, nh=8, nkv=2,
                      d=128, seed=7)
+    # the producer's kv-tile walk on the ragged tile, with padding and segments
+    # skipping and flagging tiles (the CPU tests hold the walk's rule itself)
+    rs = 1088
+    r_pad = torch.ones(2, rs, dtype=torch.int32, device="cuda")
+    r_pad[0, :200] = 0  # rows < 200 of batch 0 see no key
+    r_pad[1, 1000:] = 0
+    r_seg = torch.zeros(2, rs, dtype=torch.int32, device="cuda")
+    r_seg[0, 500:] = 1
+    r_seg[1, 130:] = 1
+    r_seg[1, 700:] = 2
+    ok &= check_case(torch, fa, "ragged tile + padding + segments s=1088", b=2, sq=rs,
+                     skv=rs, nh=8, nkv=2, d=128, mask=r_pad, seg=r_seg, seed=9)
+    nc_pad = torch.ones(2, rs, dtype=torch.int32, device="cuda")
+    nc_pad[1, 960:] = 0  # the last two 64-row kv tiles of batch 1 hold no key
+    ok &= check_case(torch, fa, "non-causal window 200 + padding s=1088", b=2, sq=rs,
+                     skv=rs, nh=8, nkv=2, d=128, causal=False, window=200, mask=nc_pad,
+                     seed=10, with_lse=True)
     ok &= check_case(torch, fa, "fused qkv views s=1024", b=2, sq=s, skv=s, nh=8, nkv=2,
                      d=128, seed=8, fused=True)
     if not ok:
@@ -225,27 +250,15 @@ def phase_checks(torch, fa) -> None:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bounds_ms(peaks):
+def bounds_ms(kt, peaks):
     """Least time for each function at the main-path shape: the larger of the
     bytes it must move (each input read once, each output written once) over
     the memory rate and its operations over the tensor cores' bf16 rate,
     counting the causal half only.  The backward's fp32 products (p and ds
     times a bf16 operand) are kept exact as three bf16 products each (see
-    csrc/flash_bwd.cu and csrc/flash_dkv.cu), so they count three times."""
+    csrc/flash_dq.cu and csrc/flash_dkv.cu), so they count three times."""
     bf16_rate, bw = peaks
-    b, s, nh, nkv, d = (MAIN[k] for k in ("b", "s", "nh", "nkv", "d"))
+    b, s, nh, nkv, d = (kt.MAIN[k] for k in ("b", "s", "nh", "nkv", "d"))
     pairs = b * nh * s * (s + 1) / 2  # visible (query, key) pairs
     q_bytes, kv_bytes, row_bytes = 2 * b * s * nh * d, 2 * b * s * nkv * d, 4 * b * nh * s
     work = {
@@ -265,52 +278,43 @@ def bounds_ms(peaks):
     return out
 
 
-def phase_times(torch, fa, card: str, peaks) -> dict:
+def phase_times(torch, fa, kt, card: str, peaks) -> dict:
     import torch.nn.functional as F
 
-    m = MAIN
-    q, k, v, do = make_inputs(torch, m["b"], m["s"], m["s"], m["nh"], m["nkv"], m["d"], 11)
-    kw = dict(causal=True, window=None, q_offset=0)
+    q, k, v, do, o, lse, delta = kt.main_path_tensors()
+    res = {name: {"ms": ms} for name, ms in kt.kernel_ms(q, k, v, do, lse, delta).items()}
     with torch.no_grad():
-        o, lse = fa.flash_fwd(q, k, v, **kw)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        res = {"flash_fwd": {}, "flash_dq": {}, "flash_dkv": {}}
-        res["flash_fwd"]["ms"] = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), 10)
-        res["flash_dq"]["ms"] = cuda_ms(
-            torch, lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw), 5)
-        res["flash_dkv"]["ms"] = cuda_ms(
-            torch, lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw), 5)
         # kernel against plain at this shape, one function at a time to bound memory
-        o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v)
         res["flash_fwd"]["max_abs_err"] = max(abs_err(o, o_p), abs_err(lse, lse_p))
         main_o_err = o_err(o, o_p)
         fwd_ok = main_o_err <= TOL_O and abs_err(lse, lse_p) <= TOL_LSE_ABS
         log(f"check flash_fwd at the main-path shape: o_err={main_o_err:.3f} "
             f"(tol {TOL_O:g}), lse_abs={abs_err(lse, lse_p):.3e} (tol {TOL_LSE_ABS:g})")
         del o_p, lse_p
-        res["flash_fwd"]["plain_ms"] = cuda_ms(
-            torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), 2)
-        dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
-        dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+        res["flash_fwd"]["plain_ms"] = kt.cuda_ms(
+            lambda: fa.flash_fwd_plain(q, k, v), PLAIN_ITERS)
+        dq = fa.flash_dq(q, k, v, do, lse, delta)
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta)
         res["flash_dq"]["max_abs_err"] = abs_err(dq, dq_p)
         dq_ok = rel_err(dq, dq_p) <= TOL_GRAD_REL
         del dq, dq_p
-        res["flash_dq"]["plain_ms"] = cuda_ms(
-            torch, lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, **kw), 2)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
-        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+        res["flash_dq"]["plain_ms"] = kt.cuda_ms(
+            lambda: fa.flash_dq_plain(q, k, v, do, lse, delta), PLAIN_ITERS)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta)
         res["flash_dkv"]["max_abs_err"] = max(abs_err(dk, dk_p), abs_err(dv, dv_p))
         dkv_ok = max(rel_err(dk, dk_p), rel_err(dv, dv_p)) <= TOL_GRAD_REL
         del dk, dv, dk_p, dv_p
         gc.collect()
         torch.cuda.empty_cache()
-        res["flash_dkv"]["plain_ms"] = cuda_ms(
-            torch, lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw), 2)
+        res["flash_dkv"]["plain_ms"] = kt.cuda_ms(
+            lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta), PLAIN_ITERS)
         # yardstick only: one library call computing the forward
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        res["flash_fwd"]["library_ms"] = cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                          enable_gqa=True), 10)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        res["flash_fwd"]["library_ms"] = kt.cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                   enable_gqa=True))
     qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -318,10 +322,10 @@ def phase_times(torch, fa, card: str, peaks) -> dict:
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                        enable_gqa=True).backward(dot)
 
-    sdpa_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, 5) - res["flash_fwd"]["library_ms"]
+    sdpa_bwd_ms = kt.cuda_ms(sdpa_fwd_bwd) - res["flash_fwd"]["library_ms"]
     res["flash_dq"]["library_ms"] = None  # no single library call computes dq alone
     res["flash_dkv"]["library_ms"] = None
-    for name, (bound, by) in bounds_ms(peaks).items():
+    for name, (bound, by) in bounds_ms(kt, peaks).items():
         res[name]["bound_ms"] = bound
         res[name]["bound_by"] = by
     for name, r in res.items():
@@ -331,6 +335,9 @@ def phase_times(torch, fa, card: str, peaks) -> dict:
             f"{r['max_abs_err']:.3e} [{card}]")
     log(f"time sdpa backward (fwd+bwd minus fwd, yardstick for dq + dk/dv together): "
         f"{sdpa_bwd_ms:.3f} ms [{card}]")
+    bwd_ms = res["flash_dq"]["ms"] + res["flash_dkv"]["ms"]
+    log(f"time dq + dk/dv kernels: {bwd_ms:.3f} ms, {bwd_ms / sdpa_bwd_ms:.3f}x the sdpa "
+        f"backward [{card}]")
     del q, k, v, do, o, lse, delta, qg, kg, vg, dot
     gc.collect()
     torch.cuda.empty_cache()
@@ -410,6 +417,7 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     try:
         from neuronx_distributed_training_torch.ops import flash_attention as fa
+        from neuronx_distributed_training_torch.tools import kernel_times as kt
         from neuronx_distributed_training_torch.utils import build as kbuild
         from neuronx_distributed_training_torch.utils import perf
     except ImportError as e:
@@ -442,18 +450,18 @@ def main() -> None:
             if "registers" not in ptxas.get((kname, d), {}):
                 fail(f"no ptxas report for {kname}<{d}>")
     spilling = {f"{k}<{d}>": r for (k, d), r in ptxas.items()
-                if k != "flash_dq_kernel" and (r.get("spill_stores") or r.get("spill_loads"))}
+                if r.get("spill_stores") or r.get("spill_loads")}
     if spilling:
         fail(f"ptxas reports spills: {spilling}")
 
-    phase_checks(torch, fa)
-    times = phase_times(torch, fa, card, peaks)
+    phase_checks(torch, fa, kt)
+    times = phase_times(torch, fa, kt, card, peaks)
     launches = phase_trainer(torch, fa, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
                       "neuronx_distributed_training_tpu/ops/flash_attention.py:112"),
-        "flash_dq": ("neuronx_distributed_training_torch/csrc/flash_bwd.cu",
+        "flash_dq": ("neuronx_distributed_training_torch/csrc/flash_dq.cu",
                      "neuronx_distributed_training_tpu/ops/flash_attention.py:253"),
         "flash_dkv": ("neuronx_distributed_training_torch/csrc/flash_dkv.cu",
                       "neuronx_distributed_training_tpu/ops/flash_attention.py:318"),
@@ -466,7 +474,7 @@ def main() -> None:
             "launches": launches[kname], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "registers": ptxas[(kname + "_kernel", MAIN["d"])]["registers"],
+            "registers": ptxas[(kname + "_kernel", kt.MAIN["d"])]["registers"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

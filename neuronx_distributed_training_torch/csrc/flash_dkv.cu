@@ -60,10 +60,7 @@
 //   in the stage; q tile -1 ends the walks.
 // - Registers: see "Two walks"; fully unrolled loops keep every array index
 //   a constant.
-#include <climits>
-
-#include "flash_common.cuh"
-#include "hopper.cuh"
+#include "flash_pipeline.cuh"
 
 namespace nxdt {
 namespace dkv {
@@ -102,59 +99,6 @@ struct Params {
   float scale, scale_log2;
   int causal, window, q_offset;
 };
-
-// x = hi + mid + lo exactly, each part bf16: bf16 keeps 8 significand bits,
-// so three parts hold fp32's 24.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// acc (64 x D, fp32) += X (64 x 64, fp32, this thread's accumulator-layout
-// entries i at x[256 i] in shared memory, split exactly into three bf16 parts)
-// @ Y (64 x D, MN-major tile at y_base): three register-A wgmmas per k16
-// slice.  The parts of two slices are live at a time: a slice is split while
-// the previous one's products run.
-template <int D>
-__device__ __forceinline__ void mma_split(float (&acc)[D / 2], const float* x, uint32_t y_base) {
-  uint32_t parts[2][3][4];  // [slice parity][lo, mid, hi][A fragment]
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t(&a)[3][4] = parts[kk & 1];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      split3(x[(8 * kk + 2 * j) * 256], x[(8 * kk + 2 * j + 1) * 256], a[2][j], a[1][j],
-             a[0][j]);
-    if (kk == 0) fence_regs(acc);
-    fence_regs(a);  // the split stays before the fence
-    wgmma_fence();
-    const uint64_t b = desc_mnmajor<BM>(y_base, kk);
-#pragma unroll
-    for (int part = 0; part < 3; ++part) {  // smallest first
-      if constexpr (D == 128)
-        wgmma_rs_n128(acc, a[part], b);
-      else
-        wgmma_rs_n64(acc, a[part], b);
-    }
-    wgmma_commit();
-    if (kk < 3) {
-      wgmma_wait<1>();  // the previous slice is done: its parts may be reused
-      if (kk > 0) fence_regs(parts[(kk - 1) & 1]);
-    }
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  fence_regs(parts[0]);
-  fence_regs(parts[1]);
-}
 
 // One warp: load K and V, then walk the (GQA head, q tile) pairs, publishing
 // the live ones.
@@ -291,6 +235,7 @@ __device__ __forceinline__ void consume(const Params& p, Smem<D>& sm, int kh, in
   int pass = 0;
   float st[32], dpt[32];  // S^T and dP^T of a tile
   float* stash = &sm.stash[0][threadIdx.x];
+  const auto stashed = [stash](int i) { return stash[i * 256]; };  // entry i of this thread
   const uint32_t k_base = smem_u32(sm.k[0]), v_base = smem_u32(sm.v[0]);
   mbar_wait(&sm.kv_full, 0);
 
@@ -363,7 +308,7 @@ __device__ __forceinline__ void consume(const Params& p, Smem<D>& sm, int kh, in
     if (pass == 0) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) stash[i * 256] = st[i];
-      mma_split<D>(acc, stash, do_base);  // dv += p^T do
+      mma_split<D>(acc, stashed, do_base);  // dv += p^T do
     } else {
       wgmma_wait<0>();
       fence_regs(dpt);
@@ -372,7 +317,7 @@ __device__ __forceinline__ void consume(const Params& p, Smem<D>& sm, int kh, in
         const int col = (i >> 2) * 8 + t * 2 + (i & 1);
         stash[i * 256] = st[i] * (dpt[i] - sm.delta[stage][col]) * p.scale;
       }
-      mma_split<D>(acc, stash, q_base);  // dk += ds^T q
+      mma_split<D>(acc, stashed, q_base);  // dk += ds^T q
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);

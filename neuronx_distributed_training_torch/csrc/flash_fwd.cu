@@ -28,7 +28,8 @@
 //   with log2(e) * scale folded in); lse is written in natural log.
 // - Masks.  The producer decides which kv tiles are live and which of them
 //   straddle the causal diagonal, the window edge, padding, a segment edge
-//   or the end of the keys; only those take the per-element mask.
+//   or the end of the keys; only those take the per-element mask.  The walk
+//   is `stream_kv_tiles` in flash_pipeline.cuh, shared with the dq kernel.
 // - Scheduling.  blockIdx.x is the head and blockIdx.y walks the q tiles from
 //   the last (the longest under causal masking) to the first.
 //
@@ -49,10 +50,7 @@
 //   only (fully unrolled loops), or they spill.
 // - Ragged tiles: when sq % 128 == 64 the second consumer's rows lie past sq;
 //   TMA fills them with zeros and their stores of o and lse are skipped.
-#include <climits>
-
-#include "flash_common.cuh"
-#include "hopper.cuh"
+#include "flash_pipeline.cuh"
 
 namespace nxdt {
 namespace fwd {
@@ -61,6 +59,7 @@ using namespace hopper;
 
 constexpr int BM = 128;  // q rows per CTA: two consumer warpgroups of 64
 constexpr int BN = 128;  // kv rows per tile
+// (BM and BN are BLOCK_Q and FWD_BLOCK_KV in tests/test_torch_flash_attention.py)
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
@@ -102,85 +101,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // One warp: load Q, then walk the kv tiles, publishing the live ones.
 template <int D>
 __device__ __forceinline__ void produce(const Params& p, Smem<D>& sm, int h, int qi, int bi) {
-  const int lane = threadIdx.x & 31;
-  const int kh = h / p.group;
   const int q_lo = qi * BM, q_rows = min(BM, p.sq - q_lo);
-  if (lane == 0) {
+  if ((threadIdx.x & 31) == 0) {
     mbar_arrive_expect_tx(&sm.q_full, BM * D * 2);
 #pragma unroll
     for (int hf = 0; hf < D / 64; ++hf) tma_load_4d(sm.q[hf], &p.tq, &sm.q_full, hf * 64, q_lo, h, bi);
   }
-  int segq_min = INT_MAX, segq_max = INT_MIN;
-  if (p.seg) {
-    for (int r = lane; r < q_rows; r += 32) {
-      const int s = p.seg[(long long)bi * p.sq + q_lo + r];
-      segq_min = min(segq_min, s);
-      segq_max = max(segq_max, s);
-    }
-    warp_minmax(segq_min, segq_max);
-  }
-  const int qpos_lo = p.q_offset + q_lo, qpos_hi = qpos_lo + q_rows - 1;
-  const int nkb = (p.skv + BN - 1) / BN;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int ki = 0; ki < nkb; ++ki) {
-    const int kv_lo = ki * BN, kv_n = min(BN, p.skv - kv_lo), kv_hi = kv_lo + kv_n - 1;
-    if (p.causal && kv_lo > qpos_hi) break;  // and every later tile
-    if (p.window >= 0 && kv_hi <= qpos_lo - p.window) continue;
-    bool whole = kv_n == BN && (!p.causal || kv_hi <= qpos_lo) &&
-                 (p.window < 0 || kv_lo > qpos_hi - p.window);
-    if (p.kvm) {
-      bool any = false, all = true;
-      for (int c = lane; c < kv_n; c += 32) {
-        const bool on = p.kvm[(long long)bi * p.skv + kv_lo + c] > 0;
-        any = any || on;
-        all = all && on;
-      }
-      if (!__any_sync(0xffffffff, any)) continue;  // all padding
-      whole = whole && __all_sync(0xffffffff, all);
-    }
-    if (p.seg) {
-      int mn = INT_MAX, mx = INT_MIN;
-      for (int c = lane; c < kv_n; c += 32) {
-        const int s = p.seg[(long long)bi * p.skv + kv_lo + c];
-        mn = min(mn, s);
-        mx = max(mx, s);
-      }
-      warp_minmax(mn, mx);
-      if (mn > segq_max) continue;  // ahead of every query segment
-      whole = whole && mn == mx && segq_min == segq_max && mn == segq_min;
-    }
-    mbar_wait(&sm.empty[stage], phase ^ 1);
-    if (!whole) {
-      for (int c = lane; c < BN; c += 32) {
-        const bool in = c < kv_n;
-        if (p.kvm) sm.kvm[stage][c] = in ? p.kvm[(long long)bi * p.skv + kv_lo + c] : 0;
-        if (p.seg) sm.segk[stage][c] = in ? p.seg[(long long)bi * p.skv + kv_lo + c] : 0;
-      }
-    }
-    if (lane == 0) {
-      sm.tile[stage] = ki;
-      sm.masked[stage] = !whole;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.full[stage], 2 * BN * D * 2);
-#pragma unroll
-      for (int hf = 0; hf < D / 64; ++hf) {
-        tma_load_4d(sm.k[stage][hf], &p.tk, &sm.full[stage], hf * 64, kv_lo, kh, bi);
-        tma_load_4d(sm.v[stage][hf], &p.tv, &sm.full[stage], hf * 64, kv_lo, kh, bi);
-      }
-    }
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-  mbar_wait(&sm.empty[stage], phase ^ 1);
-  if (lane == 0) {
-    sm.tile[stage] = -1;
-    mbar_arrive(&sm.full[stage]);
-  }
+  stream_kv_tiles<BN, STAGES, D>(p, sm, h / p.group, bi, q_lo, q_rows);
 }
 
 // One warpgroup: 64 q rows of the tile through every published kv tile.

@@ -10,8 +10,8 @@
 //   K-major operand (K contiguous: q, k, v as A of a q k^T-style product, or
 //     as B when its rows are the N index): SBO = 1024 (next 8 rows), LBO
 //     unused; a k16 step inside a half advances the start by 32 bytes.
-//   MN-major operand (N contiguous, rows along K: v in p v, do and q in the
-//     dk/dv products): SBO = 1024 (next 8 rows of K), LBO = the byte distance
+//   MN-major operand (N contiguous, rows along K: v in p v, k in ds k, do and
+//     q in the dk/dv products): SBO = 1024 (next 8 rows of K), LBO = the byte distance
 //     between the two 64-column halves; a k16 step advances 16 rows (2048 B).
 #pragma once
 

@@ -4,7 +4,7 @@ JAX package's ``ops/flash_attention.py``).
 Kernels (CUDA C++ for sm_90a under ``csrc/``, built by ``utils/build.py``):
 
 - ``flash_fwd`` (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel``;
-- ``flash_dq`` (``csrc/flash_bwd.cu``) replaces ``_dq_kernel``;
+- ``flash_dq`` (``csrc/flash_dq.cu``) replaces ``_dq_kernel``;
 - ``flash_dkv`` (``csrc/flash_dkv.cu``) replaces ``_dkv_kernel``.
 
 Each kernel has a wrapper of the same name and a plain PyTorch version
@@ -19,11 +19,13 @@ Semantics kept from the TPU kernels: scale ``1/sqrt(d)``; masked scores are
 the backward zeroes p there; causal / sliding-window masking with
 ``q_offset``; a key-padding mask; packed segments; GQA by index; exact
 skipping of fully masked tiles.  The port's lse is a plain fp32
-``[b, nh, sq]``.  The forward and dk/dv kernels read their bf16 operands
-through TMA tensor maps (``tma_geometry``) in 128-row tiles, dq in 64 x 64
-tiles; sequence lengths must be multiples of 64 and head_dim 64 or 128 (the
-TPU's 128-lane rule is a Mosaic constraint).  Other shapes fall back, counted
-in ``FALLBACKS``, to ``core_attention``.
+``[b, nh, sq]``.  All three kernels read their bf16 operands through TMA
+tensor maps (``tma_geometry``): the forward and dq in 128-row q tiles against
+kv tiles of 128 and 64 rows, dk/dv in 128-row kv tiles against 64-row q
+tiles.  Sequence lengths must be multiples of 64 (a last 128-row tile may be
+half past the end) and head_dim 64 or 128 (the TPU's 128-lane rule is a Mosaic
+constraint).  Other shapes fall back, counted in ``FALLBACKS``, to
+``core_attention``.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import torch
 from neuronx_distributed_training_torch.utils import build as kbuild
 
 NEG_INF = -1e30
-BLOCK_Q = 64
-BLOCK_KV = 64
+#: sequence lengths the kernels take are multiples of this
+SEQ_MULTIPLE = 64
 HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16,)
 
@@ -56,7 +58,7 @@ def reset_counters() -> None:
 
 def flash_tileable(sq: int, skv: int, d: int, nh: int, nkv: int) -> bool:
     """True when these shapes run the Hopper kernels (no fallback)."""
-    return (sq % BLOCK_Q == 0 and skv % BLOCK_KV == 0 and d in HEAD_DIMS
+    return (sq % SEQ_MULTIPLE == 0 and skv % SEQ_MULTIPLE == 0 and d in HEAD_DIMS
             and nh % nkv == 0)
 
 
@@ -186,9 +188,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def tma_geometry(t: torch.Tensor):
-    """The 4-D TMA tensor map through which the forward and dk/dv kernels read
-    a bf16 ``[b, s, h, d]`` operand (``make_tmap`` in ``csrc/hopper.cuh``
-    builds the same one from the element strides): dims innermost first
+    """The 4-D TMA tensor map through which the kernels read a bf16
+    ``[b, s, h, d]`` operand (``make_tmap`` in ``csrc/hopper.cuh`` builds the
+    same one from the element strides): dims innermost first
     ``(d, s, h, b)`` and the byte strides of ``s``, ``h`` and ``b``.  Raises
     ValueError on a layout no tensor map can describe: the head dim must be
     contiguous, the base 16-byte aligned and every stride a multiple of 16
@@ -216,7 +218,7 @@ def _check(what: str, tensors: dict, q: torch.Tensor, k: torch.Tensor) -> None:
         if t.device != q.device or not _on_card(t):
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
         if name in _EXACT_DTYPES:
-            # 16-byte aligned: the dk/dv kernel copies their rows in bulk
+            # 16-byte aligned: the dq and dk/dv kernels copy their rows in bulk
             if t.dtype != _EXACT_DTYPES[name] or not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be a contiguous, 16-byte aligned "
                                  f"{_EXACT_DTYPES[name]} tensor")
@@ -278,7 +280,7 @@ def flash_dq(q, k, v, do, lse, delta, kvm=None, seg=None, *, causal=True, window
                               window=window, q_offset=q_offset)
     _check("flash_dq", dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, kvm=kvm, seg=seg),
            q, k)
-    fn = _fn("flash_bwd", "nxdt_flash_dq",
+    fn = _fn("flash_dq", "nxdt_flash_dq",
              [_VP] * 9 + [_I] * 6 + [_PLL] + [_LL] * 3 + [_F, _I, _I, _I, _VP])
     b, sq, nh, d = q.shape
     skv, nkv = k.shape[1], k.shape[2]

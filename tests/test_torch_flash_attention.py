@@ -263,7 +263,7 @@ def test_card_request_raises_when_the_library_cannot_load(monkeypatch):
     lse = torch.zeros(1, 2, 64)
     with pytest.raises(RuntimeError, match="cannot load flash_fwd"):
         tfa.flash_fwd(q, k, v)
-    with pytest.raises(RuntimeError, match="cannot load flash_bwd"):
+    with pytest.raises(RuntimeError, match="cannot load flash_dq"):
         tfa.flash_dq(q, k, v, do, lse, lse)
     with pytest.raises(RuntimeError, match="cannot load flash_dkv"):
         tfa.flash_dkv(q, k, v, do, lse, lse)
@@ -290,7 +290,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the arithmetic of the Hopper dk/dv kernel (csrc/flash_dkv.cu), emulated
+# the arithmetic of the Hopper dq and dk/dv kernels (csrc/flash_dq.cu,
+# csrc/flash_dkv.cu), emulated
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
@@ -298,6 +299,14 @@ LOG2E = 1.4426950408889634
 #: gradient's largest entry: both read ~5e-7 at the shape below, while bf16
 #: operands in place of the exact split miss JAX by ~2e-3
 DKV_EMULATION_TOL = 1e-5
+#: emulated dq against the plain version and against JAX, relative to its
+#: largest entry: the emulation differs from both only by fp32 summation order
+#: and the exact split (~5e-7 at the shape below), while ds rounded to bf16
+#: misses JAX by ~2e-3
+DQ_EMULATION_TOL = 1e-5
+#: kv rows per tile of the dq kernel (`BN` in csrc/flash_dq.cu) and of the
+#: forward (csrc/flash_fwd.cu); both take 128-row q tiles
+DQ_BLOCK_KV, FWD_BLOCK_KV, BLOCK_Q = 64, 128, 128
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -345,11 +354,40 @@ def _dkv_hopper_emulation(q, k, v, do, lse, delta, kvm, seg, *, causal, window=N
     return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
+def _dq_hopper_emulation(q, k, v, do, lse, delta, kvm, seg, *, causal, window=None,
+                         q_offset=0, exact_split=True):
+    """dq as the kernel computes it: per kv tile of the kernel's width,
+    S = Q K^T and dP = dO V^T, p = exp2(s * scale * log2 e - lse * log2 e) and
+    0 where lse is NEG_INF, ds = p (dp - delta) scale, and dQ += ds K with ds
+    split into hi + mid + lo bf16 parts whose products are summed in fp32,
+    smallest first.  ``exact_split=False`` rounds ds to bf16 instead."""
+    b, sq, nh, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    qh, doh = tfa._heads_first(q), tfa._heads_first(do)  # [b, nh, s, d]
+    kh, vh = tfa._heads_first(k, nh // nkv), tfa._heads_first(v, nh // nkv)
+    ok = tfa._visible(b, sq, skv, causal, window, q_offset, kvm, seg, q.device)
+    lse_ = lse[..., None]
+    dq = torch.zeros_like(qh)
+    for lo in range(0, skv, DQ_BLOCK_KV):
+        kt, vt = kh[:, :, lo:lo + DQ_BLOCK_KV], vh[:, :, lo:lo + DQ_BLOCK_KV]
+        s, dp = qh @ kt.transpose(-1, -2), doh @ vt.transpose(-1, -2)
+        x = torch.where(ok[..., lo:lo + DQ_BLOCK_KV], s * (scale * LOG2E), tfa.NEG_INF)
+        p = torch.where(lse_ > tfa.NEG_INF / 2, torch.exp2(x - lse_ * LOG2E), 0.0)
+        ds = p * (dp - delta[..., None]) * scale
+        if exact_split:
+            for part in reversed(_split3(ds)):
+                dq += part @ kt
+        else:
+            dq += _bf16(ds) @ kt
+    return dq.transpose(1, 2)
+
+
 @functools.lru_cache(maxsize=1)
 def _dkv_case():
     """b=2, s=256, nh=4, nkv=2, d=64, causal, key padding and packed segments:
-    bf16-valued inputs, the plain forward's lse and delta, the plain dk/dv and
-    the JAX package's `_bwd_pallas` (interpret mode) dk/dv."""
+    bf16-valued inputs, the plain forward's lse and delta, the plain (dq, dk,
+    dv) and the JAX package's `_bwd_pallas` (interpret mode) (dq, dk, dv)."""
     b, s, nh, nkv, d = 2, 256, 4, 2, 64
     q, k, v, do = (_bf16(torch.tensor(x)) for x in _qkv(21, b, s, s, nh, nkv, d))
     kvm, seg = _pad(b, s, [200, 256]), _seg(b, s, [[90, 170], [130]])
@@ -357,14 +395,13 @@ def _dkv_case():
     o, lse = tfa.flash_fwd_plain(q, k, v, torch.tensor(kvm), torch.tensor(seg), **kw)
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, torch.tensor(kvm), torch.tensor(seg))
-    plain = tfa.flash_dkv_plain(*args, **kw)
+    plain = (tfa.flash_dq_plain(*args, **kw), *tfa.flash_dkv_plain(*args, **kw))
     qt, kt, vt, dot = (jnp.swapaxes(jnp.asarray(x.numpy()), 1, 2) for x in (q, k, v, do))
     jkw = dict(sm_scale=d ** -0.5, bq=128, bkv=128, interpret=True, **kw)
     jo, jlse = jfa._fwd_pallas(qt, kt, vt, jnp.asarray(kvm), jnp.asarray(seg), **jkw)
-    _, jdk, jdv = jfa._bwd_pallas((qt, kt, vt, jnp.asarray(kvm), jnp.asarray(seg), jo, jlse),
-                                  dot, **jkw)
-    jax_dkv = tuple(np.swapaxes(np.asarray(x), 1, 2) for x in (jdk, jdv))
-    return args, kw, plain, jax_dkv
+    jgrads = jfa._bwd_pallas((qt, kt, vt, jnp.asarray(kvm), jnp.asarray(seg), jo, jlse),
+                             dot, **jkw)
+    return args, kw, plain, tuple(np.swapaxes(np.asarray(x), 1, 2) for x in jgrads)
 
 
 def _rel(a, b) -> float:
@@ -377,11 +414,11 @@ def test_dkv_kernel_arithmetic_matches(reference):
     """The kernel's dk/dv arithmetic (transposed products, exp2 with log2 e
     folded in, three-way split products) against the plain version and the
     JAX package's Pallas backward, within DKV_EMULATION_TOL."""
-    args, kw, plain, jax_dkv = _dkv_case()
+    args, kw, plain, jax_grads = _dkv_case()
     dk, dv = _dkv_hopper_emulation(*args, **kw)
-    ref = plain if reference == "plain" else jax_dkv
-    assert _rel(dk, ref[0]) < DKV_EMULATION_TOL
-    assert _rel(dv, ref[1]) < DKV_EMULATION_TOL
+    ref = plain if reference == "plain" else jax_grads
+    assert _rel(dk, ref[1]) < DKV_EMULATION_TOL
+    assert _rel(dv, ref[2]) < DKV_EMULATION_TOL
     # padded keys get no gradient
     assert torch.all(dk[0, 200:] == 0) and torch.all(dv[0, 200:] == 0)
 
@@ -389,10 +426,32 @@ def test_dkv_kernel_arithmetic_matches(reference):
 def test_dkv_bf16_operands_miss_jax_beyond_tolerance():
     """Why the kernel splits p and ds instead of rounding them to bf16: the
     rounded products miss the JAX dk and dv by far more than the tolerance."""
-    args, kw, _, (jdk, jdv) = _dkv_case()
+    args, kw, _, (_, jdk, jdv) = _dkv_case()
     dk, dv = _dkv_hopper_emulation(*args, **kw, exact_split=False)
     assert _rel(dk, jdk) > 20 * DKV_EMULATION_TOL
     assert _rel(dv, jdv) > 20 * DKV_EMULATION_TOL
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+def test_dq_kernel_arithmetic_matches(reference):
+    """The dq kernel's arithmetic (kv tiles of its width, exp2 with log2 e
+    folded in, p = 0 on rows whose lse is NEG_INF, ds split three ways)
+    against the plain version and the JAX package's Pallas backward, within
+    DQ_EMULATION_TOL, on inputs with key padding and packed segments."""
+    args, kw, plain, jax_grads = _dkv_case()
+    dq = _dq_hopper_emulation(*args, **kw)
+    ref = plain if reference == "plain" else jax_grads
+    assert _rel(dq, ref[0]) < DQ_EMULATION_TOL
+    assert torch.isfinite(dq).all()
+
+
+def test_dq_bf16_ds_misses_jax_beyond_tolerance():
+    """Why the kernel splits ds instead of rounding it to bf16: the rounded
+    product misses the JAX dq by far more than the tolerance, which the split
+    one meets (``test_dq_kernel_arithmetic_matches[jax]``)."""
+    args, kw, _, (jdq, _, _) = _dkv_case()
+    assert _rel(_dq_hopper_emulation(*args, **kw, exact_split=False), jdq) > (
+        20 * DQ_EMULATION_TOL)
 
 
 def test_three_way_split_is_exact():
@@ -454,3 +513,84 @@ def test_check_raises_on_a_stride_tma_cannot_take(monkeypatch):
         tfa.tma_geometry(odd)
     with pytest.raises(ValueError, match="no TMA tensor map"):
         tfa.tma_geometry(q.transpose(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# the producer's kv-tile walk, shared by the forward and dq kernels
+# ---------------------------------------------------------------------------
+
+
+def _kv_walk(bi, qi, *, sq, skv, block_kv, causal, window, q_offset, kvm, seg):
+    """{kv tile: whole} for the q tile qi of batch bi, by the rules of
+    ``stream_kv_tiles`` in csrc/flash_pipeline.cuh: a tile missing from the
+    result is skipped, a whole one takes no per-element mask, the others are
+    flagged for it."""
+    q_lo = qi * BLOCK_Q
+    q_rows = min(BLOCK_Q, sq - q_lo)
+    qpos_lo, qpos_hi = q_offset + q_lo, q_offset + q_lo + q_rows - 1
+    segq = None if seg is None else seg[bi, q_lo:q_lo + q_rows]
+    walk = {}
+    for ki in range(-(-skv // block_kv)):
+        kv_lo = ki * block_kv
+        kv_n = min(block_kv, skv - kv_lo)
+        kv_hi = kv_lo + kv_n - 1
+        if causal and kv_lo > qpos_hi:
+            break
+        if window is not None and kv_hi <= qpos_lo - window:
+            continue
+        whole = (kv_n == block_kv and (not causal or kv_hi <= qpos_lo)
+                 and (window is None or kv_lo > qpos_hi - window))
+        if kvm is not None:
+            keys = kvm[bi, kv_lo:kv_lo + kv_n] > 0
+            if not keys.any():
+                continue
+            whole = whole and bool(keys.all())
+        if seg is not None:
+            segk = seg[bi, kv_lo:kv_lo + kv_n]
+            if segk.min() > segq.max():
+                continue
+            whole = whole and segk.min() == segk.max() == segq.min() == segq.max()
+        walk[ki] = bool(whole)
+    return walk
+
+
+WALK_CASES = [
+    # (name, b, sq, skv, kwargs); 576 = 4.5 q tiles: the last one is ragged
+    ("causal", 1, 512, 512, dict(causal=True)),
+    ("window", 1, 512, 512, dict(causal=True, window=100)),
+    ("window_noncausal", 1, 512, 512, dict(causal=False, window=150)),
+    ("q_offset", 1, 256, 512, dict(causal=True, q_offset=200)),
+    ("padding", 2, 512, 512, dict(causal=False, kvm=_pad(2, 512, [300, 64]))),
+    ("segments", 2, 512, 512, dict(causal=True, seg=_seg(2, 512, [[100, 300], [257]]))),
+    ("ragged_padding_segments", 2, 576, 576,
+     dict(causal=True, kvm=_pad(2, 576, [576, 500]), seg=_seg(2, 576, [[130], [64, 448]]))),
+]
+
+
+@pytest.mark.parametrize("block_kv", [DQ_BLOCK_KV, FWD_BLOCK_KV], ids=["dq", "fwd"])
+@pytest.mark.parametrize("name,b,sq,skv,kw", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_kv_tile_walk_is_exact(name, b, sq, skv, kw, block_kv):
+    """At 128-row q tiles: a tile the walk skips holds no visible (query, key)
+    pair and a tile it takes whole holds only visible pairs, against the
+    plain versions' ``_visible``; every case skips or takes whole at least
+    one tile, and flags at least one."""
+    kw = dict(dict(window=None, q_offset=0, kvm=None, seg=None), **kw)
+    kvm = None if kw["kvm"] is None else torch.tensor(kw["kvm"])
+    seg = None if kw["seg"] is None else torch.tensor(kw["seg"])
+    ok = tfa._visible(b, sq, skv, kw["causal"], kw["window"], kw["q_offset"], kvm, seg, "cpu")
+    kinds = {"skipped": 0, "whole": 0, "flagged": 0}
+    for bi in range(b):
+        for qi in range(-(-sq // BLOCK_Q)):
+            walk = _kv_walk(bi, qi, sq=sq, skv=skv, block_kv=block_kv, **kw)
+            for ki in range(-(-skv // block_kv)):
+                pairs = ok[min(bi, ok.shape[0] - 1), 0, qi * BLOCK_Q:(qi + 1) * BLOCK_Q,
+                           ki * block_kv:(ki + 1) * block_kv]
+                if ki not in walk:
+                    kinds["skipped"] += 1
+                    assert not pairs.any(), (bi, qi, ki)
+                elif walk[ki]:
+                    kinds["whole"] += 1
+                    assert pairs.all(), (bi, qi, ki)
+                else:
+                    kinds["flagged"] += 1
+    assert kinds["skipped"] + kinds["whole"] > 0 and kinds["flagged"] > 0, kinds
