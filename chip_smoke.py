@@ -25,7 +25,30 @@ of JAX.  Phases, each of which fails the run if it fails:
    (seq 8192, gbs 4, mbs 1: 4 microbatches) with the kernel launch counters
    set to 0 just before and read just after: each kernel must have launched
    layers x microbatches x steps = 48 times, loss and grad_norm must be finite
-   and the step-0 loss near its expected value.
+   and the step-0 loss near its expected value;
+5. data, checkpoint and resume, at the same width and depth through the same
+   CLI: write a Megatron ``.bin/.idx`` corpus from a seed under ``build/``
+   (after checking there is disk for two checkpoints), then
+   A. train with ``max_steps=3``, checkpoint every 2 steps (async, top-1 +
+      last), SIGTERM raised at step 2's boundary: one save, at step 2, with
+      its integrity sidecar;
+   B. the same exp dir with ``resume_if_exists``: verify step 2's sidecar
+      and resume from it (consumed_samples 8), train step 3, one save at
+      step 3 (its cadence save and the final save fall on the same step),
+      retention as the save_top_k=1 + keep-last rule gives;
+   C. a fresh exp dir (A and B's deleted first), 3 steps straight, a
+      cadence save at step 2 whose write and digests must still be in flight
+      when step 3 ends, and the final save at step 3;
+   B's step 3 must equal C's bit for bit (loss, grad_norm, the blake2b
+   digest of every parameter and optimizer leaf, from the two step-3
+   sidecars), each run must launch each kernel 16 times per step with no
+   fallback, and C's step-0 loss must be near its expected value.  It prints
+   the checkpoint's bytes, the saves' staging and write seconds, the verify
+   and restore seconds and the step times (C's step 3 beside the steps with
+   no save in flight), and deletes the exp dirs.  (Run A keeps
+   ``max_steps=3``: the Megatron sample order depends on
+   ``max_steps x global_batch_size``.)  The cell's settings are those of
+   ``neuronx_distributed_training_torch/tools/step_times.py``.
 
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
@@ -36,24 +59,19 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import math
 import re
+import signal
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-LAYERS, MICROBATCHES, STEPS = 4, 4, 3
-CLI_ARGS = [
-    "--config", str(REPO / "examples/conf/hf_llama3_8B_config.yaml"),
-    "--set", f"model.num_layers={LAYERS}",
-    "--set", "distributed_strategy.tensor_model_parallel_size=1",
-    "--set", "distributed_strategy.sequence_parallel=false",
-    "--set", "data.synthetic=true",
-    "--set", f"data.global_batch_size={MICROBATCHES}",
-    "--set", f"trainer.max_steps={STEPS}",
-]
+VOCAB, HIDDEN = 128256, 4096
+SEQ = 8192
+PHASE5_SEED = 20261016
 # tolerances, kernel vs plain version on the same bf16 inputs.  The kernel
 # rounds the unnormalized p to bf16 for the p v product (the plain version
 # keeps p in fp32) and both round o to bf16, so each element of o may differ
@@ -351,37 +369,284 @@ def phase_times(torch, fa, kt, card: str, peaks) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_trainer(torch, fa, card: str) -> dict:
+def phase_trainer(torch, fa, cell, card: str) -> dict:
+    """``cell`` is ``tools/step_times.py``, which holds the cell's settings."""
     from neuronx_distributed_training_torch.trainer import cli
 
     fa.reset_counters()
-    history = cli.main(CLI_ARGS)
+    history = cli.main(cell.CLI_ARGS)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     fallbacks = dict(fa.FALLBACKS)
-    expect = LAYERS * MICROBATCHES * STEPS
-    vocab, hidden = 128256, 4096
-    # random init: final-norm output has rms 1, lm_head ~ 0.02 x (normal cut
-    # at +-2 sigma, whose std is 0.8796), so logits ~ N(0, sigma^2) with
-    # sigma^2 = hidden * (0.02 * 0.8796)^2 and E[loss] = ln(vocab) + sigma^2 / 2
-    expected_loss0 = math.log(vocab) + hidden * (0.02 * 0.879626) ** 2 / 2
+    expect = cell.LAYERS * cell.MICROBATCHES * cell.STEPS
     for rec in history:
         log(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
             f"{rec['grad_norm']:.4f} step {rec['step_seconds']:.3f} s, "
             f"{rec['tokens_per_sec']:.1f} tokens/s, MFU {rec['mfu']:.4f} [{card}]")
     log(f"train launches {launches} fallbacks {fallbacks} (expected {expect} each)")
-    if len(history) != STEPS:
-        fail(f"trainer ran {len(history)} steps, expected {STEPS}")
+    if len(history) != cell.STEPS:
+        fail(f"trainer ran {len(history)} steps, expected {cell.STEPS}")
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in history):
         fail("non-finite loss or grad_norm")
     loss0 = history[0]["loss"]
-    log(f"step-0 loss {loss0:.4f}: expected {expected_loss0:.4f} (ln vocab "
-        f"{math.log(vocab):.4f} + sigma^2/2)")
-    if abs(loss0 - expected_loss0) > 0.5:
-        fail(f"step-0 loss {loss0} not within 0.5 of {expected_loss0:.4f}")
+    log(f"step-0 loss {loss0:.4f}: expected {expected_loss0():.4f} (ln vocab "
+        f"{math.log(VOCAB):.4f} + sigma^2/2)")
+    if abs(loss0 - expected_loss0()) > 0.5:
+        fail(f"step-0 loss {loss0} not within 0.5 of {expected_loss0():.4f}")
     if any(n != expect for n in launches.values()) or fallbacks["core"]:
         fail(f"kernel launches {launches} (fallbacks {fallbacks}), expected {expect} each")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Megatron data, checkpoint and bitwise resume
+# ---------------------------------------------------------------------------
+
+
+def expected_loss0() -> float:
+    """Random init: final-norm output has rms 1, lm_head ~ 0.02 x (normal cut
+    at +-2 sigma, whose std is 0.8796), so logits ~ N(0, sigma^2) with
+    sigma^2 = hidden * (0.02 * 0.8796)^2 and E[loss] = ln(vocab) + sigma^2 / 2."""
+    return math.log(VOCAB) + HIDDEN * (0.02 * 0.879626) ** 2 / 2
+
+
+def checkpoint_bytes(layers: int) -> int:
+    """fp32 params, mu and nu of Llama-3-8B width at ``layers`` layers (the
+    mixed_precision policy keeps no separate master)."""
+    h, inter, nh, nkv, d = HIDDEN, 14336, 32, 8, 128
+    per_layer = h * (nh + 2 * nkv) * d + nh * d * h + h * 2 * inter + inter * h + 2 * h
+    n = 2 * VOCAB * h + layers * per_layer + h
+    return 3 * 4 * n
+
+
+def write_corpus(prefix: Path, min_tokens: int) -> int:
+    """A Megatron corpus from a seed: int32 tokens in [0, vocab), documents
+    of 100-20,000 tokens, at least ``min_tokens`` in all."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.data.megatron import write_indexed_dataset
+
+    rng = np.random.default_rng(PHASE5_SEED)
+    docs, total = [], 0
+    while total < min_tokens:
+        n = int(rng.integers(100, 20001))
+        docs.append(rng.integers(0, VOCAB, n, dtype=np.int64).astype(np.int32))
+        total += n
+    prefix.parent.mkdir(parents=True, exist_ok=True)
+    write_indexed_dataset(prefix, docs)
+    return total
+
+
+class AtStepEnd(logging.Handler):
+    """Calls ``action`` in this process when the trainer logs the end of step
+    ``index`` (before that boundary's checkpoint save)."""
+
+    def __init__(self, index: int, action):
+        super().__init__()
+        self.prefix, self.action = f"step {index}:", action
+
+    def emit(self, record):
+        if record.getMessage().startswith(self.prefix):
+            self.action()
+
+
+def run_cli(cli, args: list, *handlers: AtStepEnd):
+    """``cli.run(args)`` with ``handlers`` on the trainer's logger."""
+    train_log = logging.getLogger("nxdt.torch.train")
+    for h in handlers:
+        train_log.addHandler(h)
+    try:
+        return cli.run(args)
+    finally:
+        for h in handlers:
+            train_log.removeHandler(h)
+
+
+def free_cuda(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_resume(torch, fa, cell, card: str) -> dict:
+    """Runs A (preempted after step 2: one save), B (resumed, trains step 3,
+    saves once) and C (3 steps straight, saving at steps 2 and 3, so step 3
+    runs over step 2's write) through the CLI on a Megatron corpus; B's step 3
+    must equal C's bit for bit.  ``cell`` is ``tools/step_times.py``."""
+    import shutil
+
+    from neuronx_distributed_training_torch.checkpoint import integrity as ck_integrity
+    from neuronx_distributed_training_torch.checkpoint.manager import retained_steps
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t_phase = time.perf_counter()
+    work, nmb = cell.WORK, cell.MICROBATCHES
+    ck_bytes = checkpoint_bytes(cell.LAYERS)
+    # two steps on disk at once: B's and C's second save beside the first
+    need = 2 * ck_bytes + (8 << 30)
+    work.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(work).free
+    log(f"resume: torch {torch.__version__}; a checkpoint holds {ck_bytes} bytes; {free} "
+        f"bytes free under {work}, {need} needed")
+    if free < need:
+        fail(f"not enough disk under {work}: {free / 2**30:.1f} GiB free, "
+             f"{need / 2**30:.1f} GiB needed for two checkpoints of {ck_bytes / 2**30:.1f} GiB")
+    prefix = work / "corpus" / "llama3_random"
+    n_tokens = write_corpus(prefix, min_tokens=2 * nmb * cell.STEPS * (SEQ + 1))
+    log(f"resume: corpus {prefix} ({n_tokens} tokens, seed {PHASE5_SEED})")
+    exp_resume, exp_straight = work / "exp_resume", work / "exp_straight"
+    for d in (exp_resume, exp_straight):
+        shutil.rmtree(d, ignore_errors=True)
+    data_args = cell.MODEL_ARGS + [
+        "--set", f"data.data_prefix={prefix}",
+        "--set", "data.synthetic=false",
+        "--set", "exp_manager.name=phase5",
+        "--set", "exp_manager.checkpoint_callback_params.save_top_k=1",
+        "--set", "exp_manager.checkpoint_callback_params.monitor=loss",
+        "--set", "exp_manager.checkpoint_callback_params.async_checkpointing=true",
+    ]
+    resume_args = data_args + ["--set", f"exp_manager.exp_dir={exp_resume}",
+                               "--set", "exp_manager.resume_if_exists=true"]
+    expect = cell.LAYERS * nmb
+    report: dict = {}
+
+    def launched(steps: int, what: str) -> dict:
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        log(f"resume {what}: launches {launches} fallbacks {fallbacks} "
+            f"(expected {expect * steps} each)")
+        if any(n != expect * steps for n in launches.values()) or fallbacks["core"]:
+            fail(f"run {what}: launches {launches} (fallbacks {fallbacks}), expected "
+                 f"{expect} each per step")
+        return launches
+
+    def check_retention(ck, losses: dict, what: str) -> None:
+        want = retained_steps({s: {"loss": v} for s, v in losses.items()}, 1, "loss")
+        left = set(ck.all_steps())
+        log(f"resume {what}: retention left steps {sorted(left)}; the rule gives "
+            f"{sorted(want)} (losses {losses})")
+        if left != want:
+            fail(f"run {what}: retention left {sorted(left)}, the save_top_k=1 + keep-last "
+                 f"rule gives {sorted(want)}")
+
+    try:
+        # A: max_steps 3 (the data order and LR schedule are those of a
+        # 3-step run) preempted by SIGTERM at step 2's boundary; the stop
+        # replaces the cadence save at step 2 with one drained save
+        fa.reset_counters()
+        t0 = time.perf_counter()
+        ta, ha = run_cli(cli, resume_args + [
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=2"],
+            AtStepEnd(1, lambda: signal.raise_signal(signal.SIGTERM)))
+        report["run_a_seconds"] = time.perf_counter() - t0
+        launched(2, "A")
+        ck_a, save_a = ta.checkpointer, dict(ta.checkpointer.last_save)
+        if ta.stop_class != "preemption" or len(ha) != 2 or ck_a.committed_steps != [2]:
+            fail(f"run A: stop {ta.stop_class}, {len(ha)} steps, saves {ck_a.committed_steps}; "
+                 f"expected a preemption after 2 steps and one save at step 2")
+        if not ck_integrity.read_sidecar(ck_a.directory, 2):
+            fail("run A: the step-2 checkpoint carries no integrity sidecar")
+        report.update(ck_bytes=save_a["bytes"], save_a=save_a,
+                      process_group_mode=ck_a.process_group_mode,
+                      step_a1_seconds=ha[1]["step_seconds"], loss_a0=ha[0]["loss"])
+        ck_dir, run_dir = ck_a.directory, ta.exp.log_dir
+        del ta, ck_a
+        free_cuda(torch)
+
+        # B: same exp dir, resumes from step 2 and trains step 3; its cadence
+        # save (every 3) and the final save fall on step 3: one write
+        fa.reset_counters()
+        t0 = time.perf_counter()
+        tb, hb = cli.run(resume_args + [
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=3"])
+        report["run_b_seconds"] = time.perf_counter() - t0
+        launched(1, "B")
+        ck_b = tb.checkpointer
+        if tb.exp.log_dir != run_dir:
+            fail(f"run B opened {tb.exp.log_dir}, not run A's {run_dir}")
+        if ck_b.last_restore.get("step") != 2 or len(hb) != 1 or hb[0]["step"] != 2:
+            fail(f"run B: restored {ck_b.last_restore}, trained {[r['step'] for r in hb]}; "
+                 f"expected a resume from step 2 and step index 2 trained")
+        trail = ck_b.integrity_trail
+        if trail.get("verified_step") != 2 or trail.get("walk_back_count") or \
+                trail.get("quarantined_steps") or trail.get("legacy_restore"):
+            fail(f"run B: step 2's sidecar did not verify cleanly: {trail}")
+        if hb[0]["consumed_samples"] - nmb != 8:
+            fail(f"run B resumed at consumed_samples {hb[0]['consumed_samples'] - nmb}, "
+                 f"expected 8")
+        if ck_b.committed_steps != [3]:
+            fail(f"run B saved steps {ck_b.committed_steps}, expected [3] (the final save of an "
+                 f"already saved step must write nothing)")
+        check_retention(ck_b, {2: ha[1]["loss"], 3: hb[0]["loss"]}, "B")
+        digests_b = ck_integrity.read_sidecar(ck_dir, 3)["leaves"]
+        report.update(save_b=dict(ck_b.last_save), restore_b=dict(ck_b.last_restore),
+                      loss_b=hb[0]["loss"], grad_norm_b=hb[0]["grad_norm"],
+                      step_b_seconds=hb[0]["step_seconds"])
+        del tb, ck_b
+        free_cuda(torch)
+        shutil.rmtree(exp_resume)  # room for C's two checkpoints
+
+        # C: 3 steps straight in a fresh exp dir, a cadence save at step 2
+        # (step 3 trains while it is written and hashed) and the final save
+        # at step 3, whose sidecar gives C's leaf digests
+        in_flight: list[bool] = []
+        fa.reset_counters()
+        t0 = time.perf_counter()
+        tc, hc = run_cli(cli, data_args + [
+            "--set", f"exp_manager.exp_dir={exp_straight}",
+            "--set", "exp_manager.resume_if_exists=false",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=2"],
+            AtStepEnd(2, lambda: in_flight.append(any(exp_straight.rglob("2.tmp-*")))))
+        report["run_c_seconds"] = time.perf_counter() - t0
+        launched(3, "C")
+        ck_c = tc.checkpointer
+        if ck_c.committed_steps != [2, 3] or in_flight != [True]:
+            fail(f"run C saved steps {ck_c.committed_steps} (expected [2, 3]); step 2's write "
+                 f"in flight through step 3: {in_flight}")
+        check_retention(ck_c, {2: hc[1]["loss"], 3: hc[2]["loss"]}, "C")
+        digests_c = ck_integrity.read_sidecar(ck_c.directory, 3)["leaves"]
+        report["save_c"] = dict(ck_c.last_save)
+        del tc, ck_c
+        free_cuda(torch)
+    finally:
+        for d in (exp_resume, exp_straight):
+            shutil.rmtree(d, ignore_errors=True)
+
+    if [r["loss"] for r in ha] != [r["loss"] for r in hc[:2]]:
+        fail(f"run A's steps differ from run C's: {[r['loss'] for r in ha]} vs "
+             f"{[r['loss'] for r in hc[:2]]}")
+    same = {k: (report[f"{k}_b"], hc[2][k]) for k in ("loss", "grad_norm")}
+    diff_leaves = sorted(f"{item}/{n}" for item in digests_c for n in digests_c[item]
+                         if digests_b.get(item, {}).get(n) != digests_c[item][n])
+    n_leaves = sum(len(v) for v in digests_c.values())
+    log(f"resume: step 3 resumed (B) vs straight (C): loss {same['loss'][0]!r} vs "
+        f"{same['loss'][1]!r}, grad_norm {same['grad_norm'][0]!r} vs {same['grad_norm'][1]!r}, "
+        f"{n_leaves - len(diff_leaves)}/{n_leaves} leaf digests equal")
+    if any(b != c for b, c in same.values()) or diff_leaves or not n_leaves:
+        fail(f"resumed step 3 is not bit for bit the straight run's: {same}, leaves that "
+             f"differ: {diff_leaves[:8]}")
+    loss0 = hc[0]["loss"]
+    if not all(math.isfinite(r["loss"]) for r in hc) or abs(loss0 - expected_loss0()) > 0.5:
+        fail(f"run C step-0 loss {loss0}, expected finite and within 0.5 of "
+             f"{expected_loss0():.4f}")
+    sa, sb, sc, rb = report["save_a"], report["save_b"], report["save_c"], report["restore_b"]
+    log(f"resume: checkpoint {sa['bytes']} bytes; save A: staged {sa['stage_seconds']:.3f} s, "
+        f"written {sa['write_seconds']:.3f} s (digests {sa['digest_seconds']:.3f} s); restore "
+        f"in B: verify (read + re-hash) {rb['verify_seconds']:.3f} s, copy to the card "
+        f"{rb['restore_seconds']:.3f} s; save B: staged {sb['stage_seconds']:.3f} s, written "
+        f"{sb['write_seconds']:.3f} s (digests {sb['digest_seconds']:.3f} s); C's save at "
+        f"step 3: staged {sc['stage_seconds']:.3f} s, written {sc['write_seconds']:.3f} s "
+        f"(digests {sc['digest_seconds']:.3f} s); DCP process group: "
+        f"{report['process_group_mode']} [{card}]")
+    log(f"resume: step times with no save in flight: A's second step "
+        f"{report['step_a1_seconds']:.3f} s, B's step {report['step_b_seconds']:.3f} s, C's "
+        f"first two {hc[0]['step_seconds']:.3f}, {hc[1]['step_seconds']:.3f} s; over step 2's "
+        f"in-flight write and digests: C's third {hc[2]['step_seconds']:.3f} s [{card}]")
+    log(f"resume: runs A {report['run_a_seconds']:.1f} s, B {report['run_b_seconds']:.1f} s, "
+        f"C {report['run_c_seconds']:.1f} s; step-0 loss {loss0:.4f} (expected "
+        f"{expected_loss0():.4f}) [{card}]")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"resume: phase wall time {report['phase_seconds']:.1f} s [{card}]")
+    return report
 
 
 def ptxas_report(log_text: str) -> dict:
@@ -418,6 +683,7 @@ def main() -> None:
     try:
         from neuronx_distributed_training_torch.ops import flash_attention as fa
         from neuronx_distributed_training_torch.tools import kernel_times as kt
+        from neuronx_distributed_training_torch.tools import step_times as cell
         from neuronx_distributed_training_torch.utils import build as kbuild
         from neuronx_distributed_training_torch.utils import perf
     except ImportError as e:
@@ -456,7 +722,14 @@ def main() -> None:
 
     phase_checks(torch, fa, kt)
     times = phase_times(torch, fa, kt, card, peaks)
-    launches = phase_trainer(torch, fa, card)
+    try:
+        launches = phase_trainer(torch, fa, cell, card)
+    finally:
+        import shutil
+
+        shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
+    free_cuda(torch)
+    phase_resume(torch, fa, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",

@@ -1,0 +1,600 @@
+"""Checkpoint manager on ``torch.distributed.checkpoint`` (counterpart of the
+JAX package's orbax-backed ``checkpoint/manager.py``, one process).
+
+- save: the state is staged to host memory (pinned buffers for device
+  tensors, reused from save to save), which is all the training step waits
+  for; with ``async_checkpointing`` the two items (``params``,
+  ``opt_state``) are then written by ``dcp.async_save`` threads while a
+  commit thread hashes the same staged bytes for the integrity sidecar (few
+  threads in all, so that the step keeps the cores it needs),
+  writes ``meta.json`` and the sidecar, and renames the staging dir
+  ``<step>.tmp-*`` to ``<step>`` (step discovery sees committed steps only);
+- retention keeps the best ``save_top_k`` steps by ``monitor`` (lowest
+  value) plus the newest one, the JAX package's orbax preservation policy;
+- a step that is already saved is not saved again (``save`` returns False),
+  as under orbax;
+- a failed async save fails the run: the error re-raises at the next
+  ``save``/``wait``;
+- restore verifies first (``checkpoint/integrity.py``), walks back past
+  corrupt steps, and copies the saved values into the live tensors (device,
+  dtype and strides kept);
+- ``save_bf16`` stores floating params in bf16 (restore casts back up),
+  ``use_master_weights_in_ckpt: false`` drops the fp32 master (restore
+  re-seeds it from the params).
+
+The layout is DCP's, which later slices (ZeRO-1, TP) reshard.  Checkpoints
+written by the JAX package (orbax) are not read.  Without a process group
+DCP runs with ``no_dist`` (``integrity.dcp_kwargs``).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import errno
+import json
+import logging
+import os
+import shutil
+import threading
+import time
+import uuid
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from neuronx_distributed_training_torch.checkpoint import integrity as ck_integrity
+from neuronx_distributed_training_torch.checkpoint.integrity import (
+    ITEMS,
+    META_NAME,
+    SIDECAR_NAME,
+    CheckpointIntegrityError,
+    IntegrityConfig,
+    SaveAuditor,
+)
+from neuronx_distributed_training_torch.models.llama import named_params as flatten_tree
+from neuronx_distributed_training_torch.utils.io import atomic_write_json
+
+logger = logging.getLogger(__name__)
+
+#: errno values treated as transient save-I/O failures: worth a bounded retry
+TRANSIENT_SAVE_ERRNOS = frozenset({
+    errno.ENOSPC, errno.EIO, errno.EAGAIN, errno.EBUSY, errno.ETIMEDOUT,
+    errno.EINTR, errno.EDQUOT,
+})
+#: retries of a transiently failed save, and the first backoff (doubling)
+SAVE_RETRIES = 3
+SAVE_RETRY_BACKOFF_SECONDS = 0.5
+#: threads an async save runs beside the training step: DCP writers per
+#: item, and blake2b workers at the lowest CPU priority (see
+#: :func:`_background_priority`) on half the cores, which the step's host
+#: threads still feel when every core hashes
+WRITER_THREADS = 1
+SAVE_DIGEST_WORKERS = max(1, (os.cpu_count() or 1) // 2)
+_OPT_GROUPS = ("mu", "nu", "master")
+
+
+def is_transient_save_error(exc: BaseException) -> bool:
+    """Is ``exc`` (or anything in its cause/context chain, or a rank's
+    failure inside DCP's ``CheckpointException``) a transient I/O error worth
+    retrying?"""
+    seen: set[int] = set()
+    todo: list[BaseException] = [exc]
+    while todo:
+        cur = todo.pop()
+        if id(cur) in seen:
+            continue
+        seen.add(id(cur))
+        if isinstance(cur, TimeoutError):
+            return True
+        if isinstance(cur, OSError) and cur.errno in TRANSIENT_SAVE_ERRNOS:
+            return True
+        todo += [e for e in (cur.__cause__ or cur.__context__,
+                             *dict(getattr(cur, "failures", None) or {}).values())
+                 if isinstance(e, BaseException)]
+    return False
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """The reference's ``exp_manager.checkpoint_callback_params`` knobs plus
+    ``save_bf16`` / ``async_checkpointing`` and the integrity block."""
+
+    dir: str | Path = "checkpoints"
+    save_top_k: int = 3
+    every_n_train_steps: int = 100
+    async_save: bool = True
+    monitor: str = "loss"  # metric whose lowest value defines "best"
+    save_bf16: bool = False
+    use_master_weights_in_ckpt: bool = True
+    integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+
+    @classmethod
+    def from_config(cls, cfg: dict[str, Any]) -> "CheckpointConfig":
+        em = dict(cfg.get("exp_manager", {}) or {})
+        cb = dict(em.get("checkpoint_callback_params", {}) or {})
+        return cls(
+            dir=em.get("explicit_log_dir") or em.get("exp_dir") or "checkpoints",
+            save_top_k=int(cb.get("save_top_k", 3)),
+            every_n_train_steps=int(cb.get("every_n_train_steps", 100)),
+            async_save=bool(cb.get("async_checkpointing", em.get("async_checkpointing", True))),
+            monitor=str(cb.get("monitor", "loss")),
+            save_bf16=bool(em.get("save_bf16", cb.get("save_bf16", False))),
+            use_master_weights_in_ckpt=bool(cb.get("use_master_weights_in_ckpt", True)),
+            integrity=ck_integrity.parse_checkpoint_block(em.get("checkpoint")),
+        )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a resume needs."""
+
+    params: Any
+    opt_state: Any
+    step: int
+    consumed_samples: int
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def retained_steps(metrics_by_step: dict[int, dict], save_top_k: int, monitor: str) -> set[int]:
+    """The steps the JAX package's orbax policy keeps: ``BestN(n=save_top_k,
+    reverse=True)`` (the lowest ``monitor`` values; steps saved without
+    metrics are always kept) plus ``LatestN(1)``, the newest step, which a
+    resume needs; everything when ``save_top_k <= 0``."""
+    steps = sorted(metrics_by_step)
+    if save_top_k <= 0 or not steps:
+        return set(steps)
+    keep = {s for s in steps if not metrics_by_step[s]}
+    with_metrics = [s for s in steps if metrics_by_step[s]]
+    ranked = sorted(with_metrics,
+                    key=lambda s: float(metrics_by_step[s].get(monitor, float("inf"))),
+                    reverse=True)
+    keep.update(ranked[-save_top_k:])
+    keep.add(steps[-1])
+    return keep
+
+
+def state_trees(params: Any, opt_state: dict, *, save_bf16: bool = False,
+                keep_master: bool = True) -> dict[str, dict[str, torch.Tensor]]:
+    """The two items a checkpoint holds, as flat dicts of the live tensors:
+    ``params`` (bf16 floating leaves with ``save_bf16``) and ``opt_state``
+    (``mu/<name>``, ``nu/<name>``, ``master/<name>``, and ``step`` as an
+    int64 scalar)."""
+    flat = flatten_tree(params)
+    if save_bf16:
+        flat = {n: (t.to(torch.bfloat16) if t.is_floating_point() else t)
+                for n, t in flat.items()}
+    groups = [g for g in _OPT_GROUPS if g in opt_state and (g != "master" or keep_master)]
+    opt_flat = {f"{g}/{n}": t for g in groups for n, t in opt_state[g].items()}
+    opt_flat["step"] = torch.tensor(int(opt_state["step"]), dtype=torch.int64)
+    return {"params": flat, "opt_state": opt_flat}
+
+
+def _background_priority() -> None:
+    """Lower this thread, and the threads it starts, to the lowest CPU
+    priority (Linux: the nice value is per thread and inherited).  The save's
+    hashing then yields the cores to the training step's host threads (its
+    Python thread and the autograd engine), which otherwise wait for a core
+    at every hand-off."""
+    try:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    except (AttributeError, OSError) as e:
+        logger.debug("checkpoint commit thread keeps its priority: %s", e)
+
+
+def _dcp():
+    import torch.distributed.checkpoint as dcp
+
+    return dcp
+
+
+def _staged_writer(path: Path):
+    """A DCP FileSystemWriter whose staging is the identity: the state dict
+    handed to ``async_save`` is already the host copy the sidecar hashes, so
+    DCP writes exactly those bytes and makes no second copy."""
+    dcp = _dcp()
+
+    class _HostStagedWriter(dcp.FileSystemWriter):
+        def stage(self, state_dict):
+            return state_dict
+
+    return _HostStagedWriter(str(path), thread_count=WRITER_THREADS)
+
+
+class Checkpointer:
+    """Save/restore ``TrainState`` with retention, async writes, integrity
+    sidecars and verified auto-resume."""
+
+    def __init__(self, config: CheckpointConfig):
+        self.config = config
+        self.directory = Path(config.dir).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        #: restore/audit trail (quarantined steps, walk-backs, verify seconds)
+        self.integrity_trail: dict[str, Any] = {}
+        #: facts of the last committed save: step, bytes, stage/write/digest seconds
+        self.last_save: dict[str, Any] = {}
+        #: every step this checkpointer wrote, in order
+        self.committed_steps: list[int] = []
+        #: facts of the last restore: step, bytes, verify and read/copy seconds
+        self.last_restore: dict[str, Any] = {}
+        #: how DCP ran the last save: "no_dist" or "process group"
+        self.process_group_mode: Optional[str] = None
+        self._pending: Optional[concurrent.futures.Future] = None
+        self._commit_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="nxdt-ckpt-commit",
+            initializer=_background_priority)
+        self._pinned: dict[tuple, torch.Tensor] = {}
+        self._audit_pending: list[int] = []
+        self._auditor: Optional[SaveAuditor] = None
+        if config.integrity.enabled and config.integrity.audit:
+            self._auditor = SaveAuditor(self.directory)
+
+    def _trail(self) -> dict[str, Any]:
+        self.integrity_trail.setdefault("quarantined_steps", [])
+        self.integrity_trail.setdefault("verify_seconds", 0.0)
+        return self.integrity_trail
+
+    # -- discovery ------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        """Committed steps (digit-named dirs; staging and quarantined dirs
+        are invisible)."""
+        if not self.directory.exists():
+            return []
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.is_dir() and p.name.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # -- save -----------------------------------------------------------------
+
+    def _stage(self, key: tuple, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if t.device.type != "cuda":
+            return t.clone()
+        buf = self._pinned.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    def save(self, state: TrainState, *, metrics: Optional[dict[str, float]] = None,
+             force: bool = False) -> bool:
+        """Stage and write one step (asynchronously with ``async_save``).
+        Returns False without writing when the step is already saved (or,
+        unless ``force``, older than the newest saved step)."""
+        self.wait()  # one save at a time; a failed previous save raises here
+        step = int(state.step)
+        steps = self.all_steps()
+        if step in steps or (not force and steps and step < steps[-1]):
+            logger.info("checkpoint step %d: already saved (newest %s); not saved again",
+                        step, steps[-1])
+            return False
+        t0 = time.perf_counter()
+        trees = state_trees(state.params, state.opt_state, save_bf16=self.config.save_bf16,
+                            keep_master=self.config.use_master_weights_in_ckpt)
+        staged = {item: {n: self._stage((item, n), t) for n, t in tree.items()}
+                  for item, tree in trees.items()}
+        if any(t.device.type == "cuda" for tree in trees.values() for t in tree.values()):
+            torch.cuda.synchronize()
+        stage_seconds = time.perf_counter() - t0
+        del trees
+        master_in = any(n.startswith("master/") for n in staged["opt_state"])
+        meta = {
+            "step": step,
+            "consumed_samples": int(state.consumed_samples),
+            "save_bf16": bool(self.config.save_bf16),
+            "master_in_ckpt": master_in,
+            "metrics": {k: float(v) for k, v in (metrics or {}).items()},
+            **state.extra,
+        }
+        tmp = self.directory / f"{step}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        tmp.mkdir(parents=True)
+        dcp = _dcp()
+        t_write = time.perf_counter()
+        try:
+            kw = ck_integrity.dcp_kwargs(dcp.async_save if self.config.async_save else dcp.save)
+            self.process_group_mode = "no_dist" if kw else "process group"
+            if self.config.async_save:
+                futures = [dcp.async_save(staged[item], storage_writer=_staged_writer(tmp / item),
+                                          **kw) for item in ITEMS]
+                self._pending = self._commit_pool.submit(
+                    self._commit, step, tmp, staged, meta, futures, stage_seconds, t_write)
+            else:
+                for item in ITEMS:
+                    dcp.save(staged[item], storage_writer=_staged_writer(tmp / item), **kw)
+                self._commit(step, tmp, staged, meta, [], stage_seconds, t_write)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        if self._auditor is not None:
+            self._audit_pending.append(step)
+        return True
+
+    def _commit(self, step, tmp: Path, staged, meta, futures, stage_seconds, t_write) -> None:
+        """Hash the staged bytes (while DCP writes them), wait for the
+        writes, add meta and sidecar, rename into place, apply retention."""
+        try:
+            digest_seconds = 0.0
+            sidecar = None
+            if self.config.integrity.enabled:
+                t = time.perf_counter()
+                sidecar = ck_integrity.build_sidecar(step=step, trees=staged, meta=meta,
+                                                     workers=SAVE_DIGEST_WORKERS)
+                digest_seconds = time.perf_counter() - t
+            for f in futures:
+                f.result()
+            atomic_write_json(tmp / META_NAME, meta)
+            if sidecar is not None:
+                atomic_write_json(tmp / SIDECAR_NAME, sidecar)
+            os.rename(tmp, self.directory / str(step))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        nbytes = sum(t.numel() * t.element_size() for tree in staged.values()
+                     for t in tree.values())
+        self.committed_steps.append(step)
+        self.last_save = {"step": step, "bytes": nbytes, "stage_seconds": stage_seconds,
+                          "write_seconds": time.perf_counter() - t_write,
+                          "digest_seconds": digest_seconds,
+                          "async": bool(self.config.async_save)}
+        logger.info("checkpoint step %d committed: %d bytes, staged in %.3f s, written in "
+                    "%.3f s (digests %.3f s, %s)", step, nbytes, stage_seconds,
+                    self.last_save["write_seconds"], digest_seconds,
+                    "async" if self.config.async_save else "sync")
+        self._apply_retention()
+
+    def _apply_retention(self) -> None:
+        steps = self.all_steps()
+        metrics = {}
+        for s in steps:
+            try:
+                metrics[s] = dict(json.loads(
+                    (self.directory / str(s) / META_NAME).read_text()).get("metrics") or {})
+            except (OSError, ValueError):
+                metrics[s] = {}
+        keep = retained_steps(metrics, self.config.save_top_k, self.config.monitor)
+        for s in steps:
+            if s not in keep:
+                shutil.rmtree(self.directory / str(s), ignore_errors=True)
+                logger.info("checkpoint step %d removed by retention (save_top_k=%d on %s, "
+                            "keep last)", s, self.config.save_top_k, self.config.monitor)
+
+    # -- post-commit save audit -----------------------------------------------
+
+    def _audit(self) -> None:
+        """Hand committed steps to the auditor and quarantine finished
+        failures (no save is in flight when this runs)."""
+        if self._auditor is None:
+            return
+        pending, self._audit_pending = self._audit_pending, []
+        for s in pending:
+            self._auditor.schedule(s)
+        trail = self._trail()
+        for v in self._auditor.poll():
+            if v.status != "corrupt":
+                continue
+            logger.error("post-commit save audit FAILED for step %d: %s", v.step,
+                         "; ".join(v.failures[:4]))
+            if self.config.integrity.quarantine:
+                ck_integrity.apply_quarantine(self.directory, v.step, reason="save-audit",
+                                              failures=v.failures)
+                trail.setdefault("audit_quarantined", []).append(v.step)
+                if v.step not in trail["quarantined_steps"]:
+                    trail["quarantined_steps"].append(v.step)
+            else:
+                trail.setdefault("corrupt_steps_unquarantined", []).append(v.step)
+        trail["audit"] = self._auditor.stats.to_dict()
+
+    def save_with_retry(self, state: TrainState, *, metrics: Optional[dict[str, float]] = None,
+                        force: bool = False, drain: bool = False) -> bool:
+        """:meth:`save` with up to :data:`SAVE_RETRIES` retries, backing off
+        exponentially, on transient I/O errors, cleaning up the partial save
+        between attempts.  ``drain=True`` waits for the async write inside
+        the loop (the stop path), so a background write error counts as a
+        failed attempt."""
+        attempts = 1 + SAVE_RETRIES
+        delay = SAVE_RETRY_BACKOFF_SECONDS
+        last: Optional[BaseException] = None
+        for attempt in range(attempts):
+            try:
+                saved = self.save(state, metrics=metrics, force=force)
+                if drain:
+                    self.wait()
+                return saved
+            except (Exception, ck_integrity._CheckpointException()) as e:  # noqa: BLE001
+                self._cleanup_failed_save()
+                if not is_transient_save_error(e):
+                    raise
+                last = e
+                remaining = attempts - 1 - attempt
+                if remaining == 0:
+                    break
+                logger.warning("checkpoint save at step %d failed transiently (%s: %s); "
+                               "retrying in %.2fs (%d attempt%s left)", state.step,
+                               type(e).__name__, e, delay, remaining,
+                               "s" if remaining != 1 else "")
+                time.sleep(delay)
+                delay *= 2.0
+        assert last is not None
+        raise last
+
+    def _cleanup_failed_save(self) -> None:
+        """Drop what a failed save left: the in-flight future (its error is
+        being handled) and every staging dir."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            try:
+                pending.result()
+            except BaseException:  # noqa: BLE001 — already being handled
+                pass
+        for p in self.directory.glob("*.tmp-*"):
+            shutil.rmtree(p, ignore_errors=True)
+
+    def wait(self) -> None:
+        """Block until the in-flight async save commits; its failure raises."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+        self._audit()
+
+    # -- restore --------------------------------------------------------------
+
+    def verify_step(self, step: int, *, keep: Optional[dict] = None):
+        return ck_integrity.verify_step(self.directory, step, keep=keep)
+
+    def verified_latest_step(self, *, quarantine: Optional[bool] = None,
+                             keep: Optional[dict] = None) -> Optional[int]:
+        """The newest step that passes verification, walking back past
+        corrupt steps (each quarantined unless ``quarantine`` is off).
+        ``None`` when no checkpoint exists; raises
+        :class:`CheckpointIntegrityError` when steps exist but none verifies."""
+        quarantine = self.config.integrity.quarantine if quarantine is None else quarantine
+        steps = sorted(self.all_steps(), reverse=True)
+        if not steps:
+            return None
+        trail = self._trail()
+        verdicts = []
+        walked = 0
+        for step in steps:
+            v = self.verify_step(step, keep=keep)
+            verdicts.append(v)
+            trail["verify_seconds"] = round(trail["verify_seconds"] + v.seconds, 3)
+            if v.status == "gone":
+                logger.warning("checkpoint step %d vanished mid-verification; skipping", step)
+                continue
+            if v.passed:
+                if v.status == "legacy":
+                    logger.warning("checkpoint step %d predates integrity sidecars; restoring "
+                                   "UNVERIFIED (legacy checkpoint)", step)
+                    trail["legacy_restore"] = True
+                if walked:
+                    logger.warning("integrity walk-back: restored step is %d, %d newer "
+                                   "step(s) quarantined as corrupt", step, walked)
+                trail["verified_step"] = int(step)
+                trail["walk_back_count"] = walked
+                return int(step)
+            walked += 1
+            if quarantine:
+                ck_integrity.apply_quarantine(
+                    self.directory, step,
+                    reason=v.failures[0] if v.failures else "digest-mismatch",
+                    failures=v.failures)
+                if step not in trail["quarantined_steps"]:
+                    trail["quarantined_steps"].append(int(step))
+            else:
+                trail.setdefault("corrupt_steps_unquarantined", [])
+                if step not in trail["corrupt_steps_unquarantined"]:
+                    trail["corrupt_steps_unquarantined"].append(int(step))
+        if all(v.status == "gone" for v in verdicts):
+            return None
+        detail = "; ".join(f"step {v.step}: {v.failures[0] if v.failures else v.status}"
+                           for v in verdicts)
+        raise CheckpointIntegrityError(
+            f"every retained checkpoint under {self.directory} failed integrity "
+            f"verification ({detail}); auto-resume cannot proceed: restore from an older "
+            f"backup or relaunch fresh (quarantined step dirs keep the evidence, see "
+            f"{ck_integrity.LEDGER_NAME})", verdicts)
+
+    def _resolve_step(self, step: Optional[int], verify: Optional[bool], keep: dict, *,
+                      quarantine: Optional[bool] = None, what: str = "checkpoint") -> int:
+        icfg = self.config.integrity
+        do_verify = icfg.enabled and icfg.verify_restore if verify is None else bool(verify)
+        if step is None:
+            step = (self.verified_latest_step(quarantine=quarantine, keep=keep) if do_verify
+                    else self.latest_step())
+        elif do_verify:
+            v = self.verify_step(step, keep=keep)
+            if not v.passed:
+                raise CheckpointIntegrityError(
+                    f"{what} step {step} under {self.directory} failed integrity "
+                    f"verification: {'; '.join(v.failures[:4]) or v.status}", [v])
+            if v.status == "legacy":
+                logger.warning("checkpoint step %d predates integrity sidecars; restoring "
+                               "UNVERIFIED (legacy checkpoint)", step)
+                self._trail()["legacy_restore"] = True
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found under {self.directory}")
+        return int(step)
+
+    def _read(self, step: int, item: str, keep: dict) -> dict[str, torch.Tensor]:
+        return keep[item] if item in keep else ck_integrity.read_item(
+            self.directory / str(step), item, pin_memory=torch.cuda.is_available())
+
+    @staticmethod
+    @torch.no_grad()
+    def _copy_into(dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor], what: str):
+        missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+        if missing or extra:
+            raise ValueError(f"checkpoint {what} does not match the model: missing "
+                             f"{missing[:4]}, unexpected {extra[:4]}")
+        for n, t in dst.items():
+            if tuple(src[n].shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint {what} leaf {n}: shape {tuple(src[n].shape)}, "
+                                 f"model {tuple(t.shape)}")
+            t.copy_(src[n])  # casts a save_bf16 leaf back up to the live dtype
+
+    def restore(self, params_template: Any, opt_template: dict, *, step: Optional[int] = None,
+                verify: Optional[bool] = None) -> TrainState:
+        """Restore the newest verified (or the given) step into the live
+        tensors ``params_template`` / ``opt_template`` (updated in place, so
+        device, dtype and strides stay those of the model) and return them."""
+        keep: dict = {}
+        t0 = time.perf_counter()
+        step = self._resolve_step(step, verify, keep)
+        verify_seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        meta = json.loads((self.directory / str(step) / META_NAME).read_text())
+        params = self._read(step, "params", keep)
+        opt = self._read(step, "opt_state", keep)
+        self._copy_into(flatten_tree(params_template), params, "params")
+        groups = [g for g in _OPT_GROUPS if g in opt_template]
+        live = {f"{g}/{n}": t for g in groups for n, t in opt_template[g].items()}
+        if "master" in opt_template and not meta.get("master_in_ckpt", True):
+            # the master was dropped at save time: re-seed it from the params
+            self._copy_into(opt_template["master"], params, "params (as master)")
+            live = {k: v for k, v in live.items() if not k.startswith("master/")}
+        self._copy_into(live, {k: v for k, v in opt.items() if k != "step"}, "opt_state")
+        opt_template["step"] = int(opt["step"])
+        if any(t.device.type == "cuda" for t in live.values()):
+            torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for d in (params, opt) for t in d.values())
+        self.last_restore = {"step": step, "bytes": nbytes, "verify_seconds": verify_seconds,
+                             "restore_seconds": time.perf_counter() - t1}
+        saved_step, consumed = int(meta.pop("step")), int(meta.pop("consumed_samples"))
+        for k in ("save_bf16", "master_in_ckpt", "metrics"):
+            meta.pop(k, None)
+        return TrainState(params=params_template, opt_state=opt_template, step=saved_step,
+                          consumed_samples=consumed, extra=meta)
+
+    def restore_params_only(self, params_template: Any, *, step: Optional[int] = None,
+                            verify: Optional[bool] = None) -> Any:
+        """Weights without optimizer or loop state (the reference's
+        ``weight_init_only`` warm start), verified but never quarantined:
+        the source is usually someone else's run dir."""
+        keep: dict = {}
+        step = self._resolve_step(step, verify, keep, quarantine=False, what="warm-start")
+        self._copy_into(flatten_tree(params_template), self._read(step, "params", keep),
+                        "params")
+        return params_template
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            if self._auditor is not None:
+                self._auditor.drain(self.config.integrity.audit_deadline_seconds)
+                self._audit()
+                self._auditor.close(timeout=0)
+            self._commit_pool.shutdown(wait=True)
+            self._pinned.clear()
+
+    def __enter__(self) -> "Checkpointer":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()

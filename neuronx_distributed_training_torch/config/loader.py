@@ -3,10 +3,10 @@
 A copy of its loader: plain YAML + ``${a.b.c}`` interpolation + the
 ``${multiply:x,y}`` / ``${add:x,y}`` resolvers + dotted overrides, resolving
 to the same dict.  ``validate_config`` keeps the checks that need nothing
-but the config; the knob blocks whose parsers live with subsystems this port
-does not have yet (pipeline schedules, overlap, telemetry, elastic,
-checkpoint integrity, the autotune topology table) are not validated here —
-the trainer logs them as ignored.
+but the config, and validates the ``exp_manager.checkpoint`` block; the knob
+blocks whose parsers live with subsystems this port does not have yet
+(pipeline schedules, overlap, telemetry, elastic, the autotune topology
+table) are not validated here — the trainer logs them as ignored.
 
 The reference is driven by Hydra/OmegaConf YAML whose root keys are
 ``name, model_source, seed, trainer, exp_manager, distributed_strategy, data,
@@ -249,6 +249,17 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError(
             f"unknown model_alignment_strategy {align!r}; supported: {'/'.join(aligns)}"
         )
+
+    # exp_manager.checkpoint: the checkpoint-integrity knobs, unknown keys
+    # rejected with a did-you-mean hint (checkpoint_callback_params keeps its
+    # reference-schema home)
+    em = cfg.get("exp_manager", {}) or {}
+    if isinstance(em, Mapping) and "checkpoint" in em:
+        from neuronx_distributed_training_torch.checkpoint.integrity import (
+            parse_checkpoint_block,
+        )
+
+        parse_checkpoint_block(em.get("checkpoint"))
 
 def batch_schedule(cfg: ConfigDict, n_devices: int) -> dict[str, int]:
     """Derived batch math, identical to the reference (``base.py:54-57``):

@@ -16,9 +16,22 @@ same global order and slices its own rows, so there is no cross-host coordinatio
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import re
+from typing import Iterator, Optional
 
 import numpy as np
+
+# The reference encodes progress in checkpoint names, e.g.
+# ``…-step=1000-consumed_samples=128000.0.ckpt`` (data/base.py:40-47).
+_CONSUMED_RE = re.compile(r"consumed_samples[=_](\d+(?:\.\d+)?)")
+
+
+def consumed_samples_from_name(name: str) -> Optional[int]:
+    """Extract consumed-samples from a checkpoint tag/filename
+    (reference ``data/base.py:40-47``)."""
+    m = _CONSUMED_RE.search(name)
+    return int(float(m.group(1))) if m else None
+
 
 @dataclasses.dataclass
 class PretrainingSampler:
@@ -91,3 +104,15 @@ class RandomSampler:
 
     def state(self) -> int:
         return self.consumed_samples
+
+
+def dp_shard(batch_idx: np.ndarray, dp_rank: int, dp_size: int) -> np.ndarray:
+    """Slice one DP rank's rows out of a global-batch index array (the
+    ``DistributedSampler(num_replicas=dp, rank=r)`` role, reference
+    ``hf_data_module.py:16-22``)."""
+    if batch_idx.shape[0] % dp_size != 0:
+        raise ValueError(
+            f"global batch {batch_idx.shape[0]} not divisible by dp_size {dp_size}"
+        )
+    per = batch_idx.shape[0] // dp_size
+    return batch_idx[dp_rank * per : (dp_rank + 1) * per]

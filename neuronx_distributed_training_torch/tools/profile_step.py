@@ -44,7 +44,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
     cfg = load_config(args.config, {**parse_overrides(args.overrides), "trainer.max_steps": 2})
-    trainer = Trainer.from_config(cfg)
+    trainer = Trainer.from_config(cfg, enable_checkpointing=False)  # steps only, no fit
     batches = trainer.data_module.global_batches()
 
     def step():

@@ -7,7 +7,17 @@
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.  ``TRAIN_ITERS`` overrides
-``trainer.max_steps``.
+``trainer.max_steps``.  The data source is ``data.data_prefix`` (a Megatron
+``.bin/.idx`` corpus, or ``[weight, prefix, ...]`` for a blend),
+``data.train_dir`` (an arrow directory) or ``data.synthetic: true``.
+Checkpoints go to ``<exp_dir>/<name>/version_N/checkpoints/<step>/``; with
+``exp_manager.resume_if_exists`` a restart reuses the newest version and
+resumes from its newest checkpoint that verifies.
+
+Exit codes (the JAX CLI's, where this slice reaches them): 0 for a run that
+reached ``max_steps`` and for a graceful stop that checkpointed
+(``trainer.max_time``, SIGTERM), so an orchestrator just restarts; any
+failure (a failed save, no checkpoint that verifies) raises.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ def parse_overrides(pairs: list[str]) -> dict:
     return out
 
 
-def main(argv: Optional[list[str]] = None) -> list[dict]:
+def run(argv: Optional[list[str]] = None):
+    """Parse the arguments, build the trainer and fit; returns
+    ``(trainer, history)``."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True, help="YAML config (reference schema)")
@@ -58,9 +70,14 @@ def main(argv: Optional[list[str]] = None) -> list[dict]:
     history = trainer.fit()
     if history:
         last = history[-1]
-        logger.info("done: loss %.4f grad_norm %.4f consumed_samples %d", last["loss"],
-                    last["grad_norm"], last["consumed_samples"])
-    return history
+        logger.info("done: loss %.4f grad_norm %.4f consumed_samples %d%s", last["loss"],
+                    last["grad_norm"], last["consumed_samples"],
+                    f" (stopped: {trainer.stop_class})" if trainer.stop_class else "")
+    return trainer, history
+
+
+def main(argv: Optional[list[str]] = None) -> list[dict]:
+    return run(argv)[1]
 
 
 if __name__ == "__main__":

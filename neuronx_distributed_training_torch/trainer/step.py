@@ -3,7 +3,9 @@
 
 Microbatch gradient accumulation in ``grad_accum_dtype``, divided by the
 number of microbatches, then the AdamW update with global-norm clipping.
-Metrics: ``loss``, ``lr`` and ``grad_norm``.
+Metrics: ``loss``, ``lr`` and ``grad_norm``.  The loss function carries the
+label convention: the trainer builds it with ``shift_labels=False`` for data
+whose rows come pre-shifted (Megatron corpora).
 """
 
 from __future__ import annotations
@@ -65,3 +67,19 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                 "grad_norm": opt_metrics["grad_norm"]}
 
     return train_step
+
+
+def make_eval_step(loss_fn: LossFn, *, num_microbatches: int = 1) -> Callable:
+    """``eval_step(params, batch) -> mean loss`` over the microbatches, with
+    no gradients (the validation loss)."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        mbs = microbatch_split(batch, num_microbatches)
+        total = None
+        for i in range(num_microbatches):
+            loss = loss_fn(params, {k: v[i] for k, v in mbs.items()})[0].float()
+            total = loss if total is None else total + loss
+        return total / num_microbatches
+
+    return eval_step
