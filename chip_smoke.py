@@ -48,7 +48,30 @@ of JAX.  Phases, each of which fails the run if it fails:
    no save in flight), and deletes the exp dirs.  (Run A keeps
    ``max_steps=3``: the Megatron sample order depends on
    ``max_steps x global_batch_size``.)  The cell's settings are those of
-   ``neuronx_distributed_training_torch/tools/step_times.py``.
+   ``neuronx_distributed_training_torch/tools/step_times.py``;
+6. SFT with LoRA through the same CLI, on a jsonl of seeded printable-ASCII
+   ``input``/``output`` records that this script writes under
+   ``build/chip_smoke/sft/`` (char tokenizer, packed into seq-4096 rows,
+   3 steps of 4 microbatches, checkpointing off):
+   L. ``hf_llama3_8B_SFT_lora_config.yaml`` at Llama-3-8B's full 32 layers,
+      rank-16 adapters on qkv, o, gate_up and down: step-0 loss near its
+      expected value, finite loss and grad norm, every ``lora_b`` still zero
+      after step 0 (the warmup's lr is 0 there) and changed after step 1,
+      every adapter moved and every frozen leaf bit for bit as it was after
+      step 3, each kernel launched layers x microbatches times in each step
+      with no fallback; it prints the step times, tokens/s, MFU and peak
+      device memory;
+   S. run L with ``sft.segment_mask=true``: the trained batches carry
+      ``segment_ids`` with rows of more than one segment, positions restart
+      at each segment, the same launch counts, a finite loss that differs
+      from run L's; the three kernels' times inside the run (CUDA events
+      around each call);
+   F. ``hf_llama3_8B_SFT_config.yaml`` (full fine-tune) at 4 layers: finite
+      loss, every leaf moved, the launch counts.
+
+Phase 2 also holds the three kernels at the main-path width (b 1, nh 32,
+nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
+6's corpus, and times them there with and without those segments.
 
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
@@ -72,6 +95,9 @@ REPO = Path(__file__).resolve().parent
 VOCAB, HIDDEN = 128256, 4096
 SEQ = 8192
 PHASE5_SEED = 20261016
+SFT_SEED = 20261023  # its first packed row holds 3 records (phase 2 tests it)
+SFT_SEQ, SFT_MICRO, SFT_STEPS = 4096, 4, 3
+SFT_LORA_LAYERS, SFT_FULL_LAYERS = 32, 4
 # tolerances, kernel vs plain version on the same bf16 inputs.  The kernel
 # rounds the unnormalized p to bf16 for the p v product (the plain version
 # keeps p in fp32) and both round o to bf16, so each element of o may differ
@@ -213,7 +239,7 @@ def check_case(torch, fa, name, *, b, sq, skv, nh, nkv, d, causal=True, window=N
     return ok
 
 
-def phase_checks(torch, fa, kt) -> None:
+def phase_checks(torch, fa, kt, card: str) -> None:
     m = kt.MAIN
     ok = check_case(torch, fa, "causal+gqa s=4096", b=1, sq=4096, skv=4096, nh=m["nh"],
                     nkv=m["nkv"], d=m["d"], seed=1)
@@ -259,8 +285,35 @@ def phase_checks(torch, fa, kt) -> None:
                      seed=10, with_lse=True)
     ok &= check_case(torch, fa, "fused qkv views s=1024", b=2, sq=s, skv=s, nh=8, nkv=2,
                      d=128, seed=8, fused=True)
+    # the segment path at the main-path width, on a real packing layout
+    seg = torch.as_tensor(sft_first_row_segments(), device="cuda")[None]
+    ok &= check_case(torch, fa, f"packed segments ({int(seg.max())} records) s={SFT_SEQ}", b=1,
+                     sq=SFT_SEQ, skv=SFT_SEQ, nh=m["nh"], nkv=m["nkv"], d=m["d"], seg=seg,
+                     seed=12)
     if not ok:
         fail("a kernel disagrees with its plain version")
+    segment_times(torch, fa, kt, seg, card)
+
+
+def segment_times(torch, fa, kt, seg, card: str) -> dict:
+    """CUDA-event ms per call of each kernel at b 1, nh 32, nkv 8, d 128,
+    s 4096, causal, with and without the packed segments ``seg``."""
+    m = kt.MAIN
+    q, k, v, do = make_inputs(torch, 1, SFT_SEQ, SFT_SEQ, m["nh"], m["nkv"], m["d"], 13)
+    out = {}
+    with torch.no_grad():
+        for label, sg in (("no segments", None), ("packed segments", seg.to(torch.int32))):
+            o, lse = fa.flash_fwd(q, k, v, None, sg)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            out[label] = {
+                "flash_fwd": kt.cuda_ms(lambda: fa.flash_fwd(q, k, v, None, sg)),
+                "flash_dq": kt.cuda_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, None, sg)),
+                "flash_dkv": kt.cuda_ms(
+                    lambda: fa.flash_dkv(q, k, v, do, lse, delta, None, sg)),
+            }
+            log(f"time at s={SFT_SEQ}, {label}: " + ", ".join(
+                f"{n} {ms:.3f} ms" for n, ms in out[label].items()) + f" [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +702,275 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 6: SFT with sequence packing and LoRA
+# ---------------------------------------------------------------------------
+
+
+def sft_corpus() -> Path:
+    """A jsonl of ``input``/``output`` records of printable ASCII from
+    ``SFT_SEED`` (inputs of 50-1,500 characters, outputs of 50-2,500), with
+    at least twice the tokens 3 steps of 4 rows of 4096 hold; written once
+    per run under ``build/chip_smoke/sft/``."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    path = cell.WORK / "sft" / "train.jsonl"
+    if path.exists():
+        return path
+    rng = np.random.default_rng(SFT_SEED)
+    need = 2 * SFT_STEPS * SFT_MICRO * SFT_SEQ
+    lines, total = [], 0
+
+    def text(lo: int, hi: int) -> str:
+        return rng.integers(32, 127, int(rng.integers(lo, hi + 1)), dtype=np.uint8).tobytes() \
+            .decode("ascii")
+
+    while total < need:
+        rec = {"input": text(50, 1500), "output": text(50, 2500)}
+        total += len(rec["input"]) + len(rec["output"]) + 2  # + bos, + eos
+        lines.append(json.dumps(rec))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text("\n".join(lines) + "\n")
+    tmp.replace(path)
+    log(f"sft: corpus {path}: {len(lines)} records, {total} tokens (seed {SFT_SEED})")
+    return path
+
+
+def sft_first_row_segments():
+    """``segment_ids`` of the first packed row of the phase-6 corpus, as the
+    SFT data module packs it (char tokenizer, seq 4096)."""
+    from neuronx_distributed_training_torch.data.build import CharTokenizer
+    from neuronx_distributed_training_torch.data.modules import SFTDataModule
+
+    dm = SFTDataModule(str(sft_corpus()), CharTokenizer(512), SFT_SEQ, SFT_MICRO,
+                       segment_mask=True)
+    return dm.arrays["segment_ids"][0]
+
+
+def sft_args(config: str, layers: int, *extra: str) -> list:
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    return ["--config", str(REPO / "examples" / "conf" / config),
+            "--set", f"model.num_layers={layers}",
+            "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", f"data.global_batch_size={SFT_MICRO}",
+            "--set", f"trainer.max_steps={SFT_STEPS}",
+            "--set", "trainer.log_every_n_steps=1",
+            "--set", f"data.train_dir={sft_corpus()}",
+            "--set", "data.tokenizer.library=char",
+            "--set", f"exp_manager.exp_dir={cell.WORK / 'exp_sft'}",
+            "--set", "exp_manager.resume_if_exists=false",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=0",
+            *extra]
+
+
+def trained_batches(trainer, steps: int) -> list:
+    """The host batches of the first ``steps`` steps, from a copy of the
+    data module's sampler (the trainer's own sampler is not touched)."""
+    import dataclasses
+    import itertools
+
+    from neuronx_distributed_training_torch.data.loader import process_global_batch
+
+    dm = trainer.data_module
+    sampler = dataclasses.replace(dm.sampler, consumed_samples=0)
+    return [process_global_batch(dm.fetch_rows(idx), input_names=dm.input_names)
+            for idx in itertools.islice(iter(sampler), steps)]
+
+
+class KernelEvents:
+    """CUDA events around every call of the three kernel wrappers while
+    installed (the autograd Function calls them by module attribute)."""
+
+    def __init__(self, torch, fa):
+        self.torch, self.fa = torch, fa
+        self.events = {n: [] for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+        self.real = {n: getattr(fa, n) for n in self.events}
+
+    def __enter__(self):
+        for name, fn in self.real.items():
+            def timed(*a, _fn=fn, _name=name, **kw):
+                start = self.torch.cuda.Event(enable_timing=True)
+                end = self.torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*a, **kw)
+                end.record()
+                self.events[_name].append((start, end))
+                return out
+            setattr(self.fa, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.fa, name, fn)
+
+    def ms(self) -> dict:
+        """{kernel: (median, mean) ms per call}."""
+        import statistics
+
+        self.torch.cuda.synchronize()
+        out = {}
+        for n, ev in self.events.items():
+            if ev:
+                t = [s.elapsed_time(e) for s, e in ev]
+                out[n] = (statistics.median(t), statistics.fmean(t))
+        return out
+
+
+def run_sft(torch, fa, name: str, args: list, card: str, *, layers: int, check_b=False,
+            timed=False) -> dict:
+    """Build the trainer through the CLI, train 3 steps, and check launches
+    per step, finite metrics, and which leaves moved.  Returns the report."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t = cli.build(args)
+    flat = llama.named_params(t.params)
+    trainable = set(flat) if t.trainable is None else t.trainable
+    frozen_host = {n: p.detach().cpu() for n, p in flat.items() if n not in trainable}
+    trainable_before = {n: flat[n].detach().clone() for n in trainable}
+    per_step: list = []
+    b_state: list = []
+
+    def at_step_end():
+        torch.cuda.synchronize()
+        per_step.append(dict(fa.LAUNCHES))
+        if check_b:
+            nonzero = [bool(flat[n].any()) for n in trainable if n.endswith("lora_b")]
+            b_state.append((any(nonzero), all(nonzero)))
+
+    handlers = [AtStepEnd(i, at_step_end) for i in range(SFT_STEPS)]
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    train_log = logging.getLogger("nxdt.torch.train")
+    for h in handlers:
+        train_log.addHandler(h)
+    t0 = time.perf_counter()
+    try:
+        if timed:
+            with KernelEvents(torch, fa) as ke:
+                history = t.fit()
+            kernel_ms = ke.ms()
+        else:
+            history, kernel_ms = t.fit(), None
+    finally:
+        for h in handlers:
+            train_log.removeHandler(h)
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fallbacks = dict(fa.FALLBACKS)
+    expect = layers * SFT_MICRO
+    steps = [{k: v - (per_step[i - 1][k] if i else 0) for k, v in per_step[i].items()}
+             for i in range(len(per_step))]
+    for rec in history:
+        log(f"sft {name} step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+            f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e}, step {rec['step_seconds']:.3f} s, "
+            f"{rec['tokens_per_sec']:.1f} tokens/s, MFU {rec['mfu']:.4f} (utils/perf.py: 3 x "
+            f"forward, skipped weight gradients not discounted) [{card}]")
+    log(f"sft {name}: {layers} layers, launches per step {steps} fallbacks {fallbacks} "
+        f"(expected {expect} each); peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); fit {run_seconds:.1f} s [{card}]")
+    if len(history) != SFT_STEPS or len(steps) != SFT_STEPS:
+        fail(f"sft {name}: trained {len(history)} steps, expected {SFT_STEPS}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in history):
+        fail(f"sft {name}: non-finite loss or grad_norm")
+    if any(n != expect for st in steps for n in st.values()) or fallbacks["core"]:
+        fail(f"sft {name}: launches per step {steps} (fallbacks {fallbacks}), expected "
+             f"{expect} of each kernel")
+    unmoved = [n for n in trainable if torch.equal(flat[n], trainable_before[n])]
+    if unmoved:
+        fail(f"sft {name}: trainable leaves that did not move: {sorted(unmoved)[:6]}")
+    changed = [n for n, h in frozen_host.items() if not torch.equal(flat[n].detach().cpu(), h)]
+    if changed:
+        fail(f"sft {name}: frozen leaves changed: {sorted(changed)[:6]}")
+    if check_b and b_state[:2] != [(False, False), (True, True)]:
+        fail(f"sft {name}: (any, every) lora_b non-zero after steps 0 and 1: {b_state[:2]}; "
+             f"expected all still zero after step 0 (lr 0) and all changed after step 1")
+    log(f"sft {name}: {len(trainable)} trainable leaves all moved, {len(frozen_host)} frozen "
+        f"leaves bit for bit")
+    report = {"history": history, "launches": per_step[-1], "peak_bytes": peak,
+              "kernel_ms": kernel_ms, "trainer": t, "run_seconds": run_seconds}
+    return report
+
+
+def phase_sft(torch, fa, card: str) -> dict:
+    """Runs L (LoRA, 32 layers), S (L with segment_mask) and F (full
+    fine-tune, 4 layers) of the SFT configs through the CLI."""
+    import shutil
+
+    import numpy as np
+
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    try:
+        lora = "hf_llama3_8B_SFT_lora_config.yaml"
+        rep = run_sft(torch, fa, "L", sft_args(lora, SFT_LORA_LAYERS), card,
+                      layers=SFT_LORA_LAYERS, check_b=True)
+        t = rep.pop("trainer")
+        if "segment_ids" in t.data_module.input_names:
+            fail("sft L: the batches carry segment_ids without segment_mask")
+        loss0 = rep["history"][0]["loss"]
+        log(f"sft L: step-0 loss {loss0:.4f}: expected {expected_loss0():.4f}")
+        if abs(loss0 - expected_loss0()) > 0.5:
+            fail(f"sft L: step-0 loss {loss0} not within 0.5 of {expected_loss0():.4f}")
+        out["L"] = rep
+        del t
+        free_cuda(torch)
+
+        rep = run_sft(torch, fa, "S", sft_args(lora, SFT_LORA_LAYERS,
+                                               "--set", "model_alignment_strategy.sft."
+                                               "segment_mask=true"), card,
+                      layers=SFT_LORA_LAYERS, timed=True)
+        t = rep.pop("trainer")
+        batches = trained_batches(t, SFT_STEPS)
+        multi = 0
+        for b in batches:
+            if "segment_ids" not in b:
+                fail("sft S: a trained batch carries no segment_ids")
+            seg = torch.as_tensor(b["segment_ids"])
+            pos = llama.positions_for(torch.as_tensor(b["input_ids"]), segment_ids=seg)
+            starts = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
+                                seg[:, 1:] != seg[:, :-1]], dim=1)
+            steps_ok = (pos[:, 1:] == pos[:, :-1] + 1) | starts[:, 1:]
+            if not (bool((pos[starts] == 0).all()) and bool(steps_ok.all())):
+                fail("sft S: positions do not restart at each segment")
+            multi += int((np.asarray(b["segment_ids"]).max(axis=1) > 1).sum())
+        log(f"sft S: {multi} of {SFT_STEPS * SFT_MICRO} trained rows hold more than one "
+            f"segment; positions restart at every segment")
+        if not multi:
+            fail("sft S: no trained row holds more than one segment")
+        ls, ll = [r["loss"] for r in rep["history"]], [r["loss"] for r in out["L"]["history"]]
+        if ls == ll:
+            fail(f"sft S: losses equal run L's ({ls}): the segment mask changed nothing")
+        log(f"sft S: kernel ms per call inside the run (CUDA events, median / mean of "
+            f"{SFT_STEPS * SFT_MICRO * SFT_LORA_LAYERS} calls each): " + ", ".join(
+                f"{n} {med:.3f} / {mean:.3f}" for n, (med, mean) in rep["kernel_ms"].items())
+            + f" [{card}]")
+        out["S"] = rep
+        del t, batches
+        free_cuda(torch)
+
+        rep = run_sft(torch, fa, "F", sft_args("hf_llama3_8B_SFT_config.yaml",
+                                               SFT_FULL_LAYERS), card, layers=SFT_FULL_LAYERS)
+        del rep["trainer"]
+        out["F"] = rep
+        free_cuda(torch)
+    finally:
+        shutil.rmtree(cell.WORK / "exp_sft", ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"sft: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -720,7 +1042,7 @@ def main() -> None:
     if spilling:
         fail(f"ptxas reports spills: {spilling}")
 
-    phase_checks(torch, fa, kt)
+    phase_checks(torch, fa, kt, card)
     times = phase_times(torch, fa, kt, card, peaks)
     try:
         launches = phase_trainer(torch, fa, cell, card)
@@ -730,6 +1052,8 @@ def main() -> None:
         shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
     free_cuda(torch)
     phase_resume(torch, fa, cell, card)
+    free_cuda(torch)
+    sft = phase_sft(torch, fa, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -748,6 +1072,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "registers": ptxas[(kname + "_kernel", kt.MAIN["d"])]["registers"],
+            "launches_by_path": {"pretrain": launches[kname],
+                                 **{f"sft_{r}": sft[r]["launches"][kname] for r in "LSF"}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -20,7 +20,10 @@ JAX package's orbax-backed ``checkpoint/manager.py``, one process).
   dtype and strides kept);
 - ``save_bf16`` stores floating params in bf16 (restore casts back up),
   ``use_master_weights_in_ckpt: false`` drops the fp32 master (restore
-  re-seeds it from the params).
+  re-seeds it from the params);
+- under LoRA the ``params`` item holds the whole tree, frozen base included,
+  and ``opt_state`` the adapters' state only (the optimizer keeps none for
+  frozen leaves).
 
 The layout is DCP's, which later slices (ZeRO-1, TP) reshard.  Checkpoints
 written by the JAX package (orbax) are not read.  Without a process group
@@ -556,7 +559,10 @@ class Checkpointer:
         live = {f"{g}/{n}": t for g in groups for n, t in opt_template[g].items()}
         if "master" in opt_template and not meta.get("master_in_ckpt", True):
             # the master was dropped at save time: re-seed it from the params
-            self._copy_into(opt_template["master"], params, "params (as master)")
+            # (the trainable ones: under LoRA the frozen base has no master)
+            self._copy_into(opt_template["master"],
+                            {n: t for n, t in params.items() if n in opt_template["master"]},
+                            "params (as master)")
             live = {k: v for k, v in live.items() if not k.startswith("master/")}
         self._copy_into(live, {k: v for k, v in opt.items() if k != "step"}, "opt_state")
         opt_template["step"] = int(opt["step"])

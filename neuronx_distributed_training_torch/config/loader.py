@@ -239,16 +239,51 @@ def validate_config(cfg: ConfigDict) -> None:
                 f"{sorted(at_keys)}" + did_you_mean(unknown, at_keys)
             )
 
+    # model alignment: a root-level key, a bare string ("dpo") or a one-key
+    # block ({sft: {packing: true}})
+    aligns = ("sft", "dpo", "orpo", "kto")
     if isinstance(model, Mapping) and "model_alignment_strategy" in model:
         raise ValueError(
-            "model_alignment_strategy must sit at the config ROOT, not under model:"
+            "model_alignment_strategy must sit at the config ROOT (the "
+            "reference schema, hf_llama3_8B_DPO_config.yaml:7), not under "
+            "model: — nested it would be silently ignored"
         )
     align = cfg.get("model_alignment_strategy", None)
-    aligns = ("sft", "dpo", "orpo", "kto")
-    if isinstance(align, str) and align.lower() not in aligns:
-        raise ValueError(
-            f"unknown model_alignment_strategy {align!r}; supported: {'/'.join(aligns)}"
-        )
+    if isinstance(align, str):
+        if align.lower() not in aligns:
+            raise ValueError(
+                f"unknown model_alignment_strategy {align!r}; supported: "
+                f"{'/'.join(aligns)}"
+            )
+    elif isinstance(align, Mapping) and align:
+        chosen = [k for k in aligns if k in align]
+        if len(chosen) > 1:
+            raise ValueError(
+                f"model_alignment_strategy must name exactly one of "
+                f"{'/'.join(aligns)}, got {chosen}"
+            )
+        if not chosen:
+            raise ValueError(
+                f"model_alignment_strategy block names none of "
+                f"{'/'.join(aligns)}: got keys {sorted(align)}"
+            )
+        kto_blk = dict(align.get("kto") or {})
+        if (str(kto_blk.get("kl_estimator", "batch_mean")) == "mismatched"
+                and pp > 1):
+            raise ValueError(
+                "kto.kl_estimator: mismatched is not supported under pipeline "
+                "parallelism (the KL forward would need its own pipelined "
+                "pass); use the default batch_mean estimator with pp"
+            )
+        sft_blk = dict(align.get("sft") or {})
+        if sft_blk.get("segment_mask") and (cp > 1 or cp_aware):
+            raise ValueError(
+                "sft.segment_mask: true (block-diagonal attention inside "
+                "packed rows) is supported by the flash and core attention "
+                "paths only — not under context parallelism "
+                f"(context_parallel_size={cp} / ring, ulysses or zigzag "
+                "fusions); disable the CP fusion or segment_mask"
+            )
 
     # exp_manager.checkpoint: the checkpoint-integrity knobs, unknown keys
     # rejected with a did-you-mean hint (checkpoint_callback_params keeps its

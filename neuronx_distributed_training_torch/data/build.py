@@ -6,11 +6,17 @@
 - ``data.data_prefix``: Megatron mmap pretraining, one prefix or the blended
   ``[weight, path, weight, path, ...]`` form;
 - ``data.train_dir`` (and ``val_dir``): a pretokenized arrow directory;
-- ``data.synthetic: true``: random tokens, only when asked for.
+- ``data.synthetic: true``: random tokens, only when asked for;
+- ``model_alignment_strategy: {sft: {...}}``: ``SFTDataModule`` over the
+  jsonl / json / arrow records of ``data.train_dir`` (and ``val_dir``),
+  tokenized by ``data.tokenizer`` (an HF tokenizer, or the offline
+  ``library: char`` one), with ``packing`` (default on), ``segment_mask``,
+  ``data.dev_choose_samples`` (a head-N subset) and the prompt templates of
+  ``data/templates.py``.
 
 A config with no data source is an error, never a silent random-token run.
-The alignment strategies' data modules are not ported yet: SFT's (packing
-and prompt templates) is ROADMAP queue 1 item 8, DPO/ORPO/KTO's item 14.
+DPO/ORPO/KTO's preference data modules are not ported yet (ROADMAP queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from neuronx_distributed_training_torch.data.loader import (
 from neuronx_distributed_training_torch.data.modules import (
     BlendedMegatronDataModule,
     MegatronDataModule,
+    SFTDataModule,
+    load_alignment_records,
 )
+from neuronx_distributed_training_torch.data.templates import build_template
 
 
 def alignment_strategy(cfg: Any) -> tuple[str, dict]:
@@ -43,6 +52,42 @@ def alignment_strategy(cfg: Any) -> tuple[str, dict]:
         f"model_alignment_strategy must be a string or contain one of "
         f"sft/dpo/orpo/kto, got keys {list(blk)}"
     )
+
+
+class CharTokenizer:
+    """Offline char-level tokenizer (``tokenizer.library: char``) for smoke
+    runs and tests where no HF tokenizer files exist: each UTF-8 byte maps to
+    ``3 + byte % (vocab_size - 3)``."""
+
+    bos_token_id = 1
+    eos_token_id = 2
+
+    def __init__(self, vocab_size: int = 512):
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str) -> list[int]:
+        return [3 + (b % (self.vocab_size - 3)) for b in text.encode()]
+
+
+def build_tokenizer(data_cfg: dict) -> Any:
+    """The tokenizer of ``data.tokenizer``: ``library: char`` (offline), else
+    an HF tokenizer from ``type`` (or ``name``), a directory or hub name,
+    loaded by ``transformers`` (imported here, not at module import)."""
+    tok_cfg = dict(data_cfg.get("tokenizer") or {})
+    library = str(tok_cfg.get("library", "huggingface")).lower()
+    if library == "char":
+        return CharTokenizer(int(tok_cfg.get("vocab_size", 512)))
+    name = tok_cfg.get("type") or tok_cfg.get("name")
+    if not name:
+        raise ValueError("data.tokenizer.type is required for this data path")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"data.tokenizer.type {str(name)!r} is an HF tokenizer; loading it needs "
+            f"the 'transformers' package, which is not installed here (use "
+            f"data.tokenizer.library: char for an offline run)") from e
+    return AutoTokenizer.from_pretrained(str(name))
 
 
 def build_data_module(
@@ -63,16 +108,30 @@ def build_data_module(
               or (cfg.get("model", {}) or {}).get("encoder_seq_length")
               or (cfg.get("model", {}) or {}).get("max_position_embeddings")
               or 2048)
-    strategy, _ = alignment_strategy(cfg)
+    strategy, strat_params = alignment_strategy(cfg)
     train_dir = data.get("train_dir")
     val_dir = data.get("val_dir")
     data_prefix = data.get("data_prefix")
     max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 1000))
 
     if strategy == "sft":
-        raise NotImplementedError(
-            "the SFT data module (packing, prompt templates) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+        tokenizer = build_tokenizer(data)
+        packing = bool(strat_params.get("packing", True))
+        segment_mask = bool(strat_params.get("segment_mask", False))
+        n_head = data.get("dev_choose_samples")
+        template = build_template(data, tokenizer)
+
+        def sft(path):
+            records = load_alignment_records(path)
+            if n_head:
+                records = records[: int(n_head)]
+            return SFTDataModule(records, tokenizer, seq, gbs, packing=packing,
+                                 segment_mask=segment_mask, seed=seed, template=template)
+
+        if not train_dir:
+            raise ValueError("SFT needs data.train_dir (jsonl/json/arrow)")
+        return sft(train_dir), (sft(val_dir) if val_dir else None)
+
     if strategy in ("dpo", "orpo", "kto"):
         raise NotImplementedError(
             f"the {strategy.upper()} preference data module is not ported yet "

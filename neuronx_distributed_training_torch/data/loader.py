@@ -270,7 +270,7 @@ def process_global_batch(
 
 class DataModule:
     """Base: sampler + row fetch + batch processing.  Subclasses implement
-    ``fetch_rows``."""
+    ``fetch_rows``; ``input_names`` lists the keys a batch keeps."""
 
     def __init__(
         self,
@@ -280,10 +280,13 @@ class DataModule:
         shuffle: bool = False,
         seed: int = 1234,
         consumed_samples: int = 0,
+        input_names: Sequence[str] = ("input_ids", "labels", "loss_mask"),
         io_retries: int = 3,
         io_retry_backoff_seconds: float = 0.5,
     ):
         self.global_batch_size = global_batch_size
+        #: the batch keys the model sees (``process_global_batch`` drops others)
+        self.input_names = tuple(input_names)
         self.io_retries = int(io_retries)
         self.io_retry_backoff_seconds = float(io_retry_backoff_seconds)
         #: cumulative count of transient-read retries
@@ -346,7 +349,7 @@ class DataModule:
     def global_batches(self) -> Iterator[dict[str, np.ndarray]]:
         """Yield processed host-side global batches (numpy)."""
         for idx in self.sampler:
-            yield process_global_batch(self._fetch_with_retry(idx))
+            yield process_global_batch(self._fetch_with_retry(idx), input_names=self.input_names)
 
 
 class HFDataModule(DataModule):

@@ -13,7 +13,10 @@ Plain functions over a parameter tree of tensors:
 Linear weights are ``[in, out]`` as in the JAX package.  Where JAX stacks the
 layers on a leading dim and scans, the port keeps one dict per layer and loops
 (``tools/convert.py`` bridges the two).  ``named_params`` flattens the tree to
-dotted names (``layers.0.attn.qkv.w``) for the optimizer.
+dotted names (``layers.0.attn.qkv.w``) for the optimizer.  LoRA
+(``peft/lora.py``) adds ``lora_a``, ``lora_b`` and ``lora_scale`` beside a
+target linear's ``w`` (``layers.0.attn.qkv.lora_a``); the forward carries them
+through the layer's compute-dtype cast to ``ops/linear.py``.
 
 Remat (``activations_checkpoint_granularity``): ``full`` checkpoints each
 layer; ``selective`` recomputes only ``core_attention`` (its scores and

@@ -1,10 +1,14 @@
 """Linear and embedding primitives (counterpart of the JAX package's
-``ops/linear.py``, one device, no LoRA yet).
+``ops/linear.py``, one device).
 
 Weights are stored ``[in, out]`` so ``x @ w`` is the product, as in the JAX
 package; the embedding table is ``[vocab, hidden]``.  Init draws a normal
 truncated at two standard deviations, times ``stddev``, from an explicit
 ``torch.Generator``.
+
+A linear dict may carry LoRA adapters (``peft/lora.py``): ``lora_a [in, r]``,
+``lora_b [r, out]`` and ``lora_scale`` (alpha / r), and ``apply_linear`` adds
+``((x @ a) @ b) * scale`` with all three cast to the output dtype.
 """
 
 from __future__ import annotations
@@ -29,7 +33,12 @@ def apply_linear(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    return x @ w
+    y = x @ w
+    if "lora_a" in params:
+        a = params["lora_a"].to(y.dtype)
+        b = params["lora_b"].to(y.dtype)
+        y = y + ((x @ a) @ b) * params["lora_scale"].to(y.dtype)
+    return y
 
 
 def init_embedding(gen: torch.Generator, vocab_size: int, hidden: int, *,

@@ -6,6 +6,12 @@ dotted names play the role of the JAX tree paths (``decay_mask`` matches the
 same substrings).  Unlike the JAX function, ``adamw_update`` updates params
 and moments in place: JAX donates those buffers, and in place is how the port
 keeps one copy of each; fp32 gradients are clipped in place too.  The arithmetic and its order are the JAX package's.
+
+The dicts hold the trainable leaves only.  Under LoRA the JAX package passes
+every leaf with a ``trainable_mask`` that zeroes the frozen leaves'
+gradients and weight decay, which leaves them exactly as they were and
+outside the clipping norm; the port passes the adapters alone
+(``trainer/step.py``), so a frozen leaf has no state here at all.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ The JAX tree, as numpy arrays: ``{"embed": {"embedding": [V, H]},
 "layers": {... leaves stacked on a leading [L, ...] dim ...},
 "final_norm": {"scale": [H]}, "lm_head": {"w": [H, V]}}`` with linear weights
 ``[in, out]``.  The port keeps the same names and layouts but one dict per
-layer (``models/llama.py``).  This module imports neither JAX nor the JAX
+layer (``models/llama.py``).  LoRA leaves cross like any other: ``lora_a``
+``[L, in, r]``, ``lora_b`` ``[L, r, out]`` and ``lora_scale`` ``[L]`` become
+one ``[in, r]``, ``[r, out]`` and 0-d tensor per layer, and back.  This module imports neither JAX nor the JAX
 package: the caller hands over ``np.asarray`` leaves.
 """
 

@@ -9,7 +9,9 @@ Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.  ``TRAIN_ITERS`` overrides
 ``trainer.max_steps``.  The data source is ``data.data_prefix`` (a Megatron
 ``.bin/.idx`` corpus, or ``[weight, prefix, ...]`` for a blend),
-``data.train_dir`` (an arrow directory) or ``data.synthetic: true``.
+``data.train_dir`` (an arrow directory; jsonl / json / arrow records under
+``model_alignment_strategy: {sft: ...}``) or ``data.synthetic: true``.
+``model.lora`` trains rank-r adapters on a frozen base.
 Checkpoints go to ``<exp_dir>/<name>/version_N/checkpoints/<step>/``; with
 ``exp_manager.resume_if_exists`` a restart reuses the newest version and
 resumes from its newest checkpoint that verifies.
@@ -45,9 +47,8 @@ def parse_overrides(pairs: list[str]) -> dict:
     return out
 
 
-def run(argv: Optional[list[str]] = None):
-    """Parse the arguments, build the trainer and fit; returns
-    ``(trainer, history)``."""
+def build(argv: Optional[list[str]] = None):
+    """Parse the arguments and build the trainer (not yet trained)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True, help="YAML config (reference schema)")
@@ -66,7 +67,13 @@ def run(argv: Optional[list[str]] = None):
     if os.environ.get("TRAIN_ITERS"):
         overrides["trainer.max_steps"] = int(os.environ["TRAIN_ITERS"])
     cfg = load_config(args.config, overrides)
-    trainer = Trainer.from_config(cfg, device=args.device)
+    return Trainer.from_config(cfg, device=args.device)
+
+
+def run(argv: Optional[list[str]] = None):
+    """Parse the arguments, build the trainer and fit; returns
+    ``(trainer, history)``."""
+    trainer = build(argv)
     history = trainer.fit()
     if history:
         last = history[-1]

@@ -12,7 +12,10 @@
 
 ``Trainer.from_config`` builds the llama model, the AdamW state, the LR
 schedule and the data module from ``data/build.py``; Megatron rows come
-pre-shifted, so the model then runs with ``shift_labels=False``.  The resume
+pre-shifted, so the model then runs with ``shift_labels=False`` (SFT rows
+do not, and the model shifts them).  With ``model.lora`` the adapters are
+added after init (``peft/lora.py``, drawn from ``seed + 1``) and only they
+train: the frozen base gets no gradient and no optimizer state.  The resume
 state ``consumed_samples`` is derived from trained steps, never from the
 sampler, which the prefetch thread runs ahead.
 
@@ -45,6 +48,7 @@ from neuronx_distributed_training_torch.data.loader import DataModule, PrefetchI
 from neuronx_distributed_training_torch.models import llama
 from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, init_opt_state
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
+from neuronx_distributed_training_torch.peft import LoraConfig, add_lora, trainable_mask
 from neuronx_distributed_training_torch.trainer.exp_manager import ExpManager
 from neuronx_distributed_training_torch.trainer.step import make_eval_step, make_train_step
 from neuronx_distributed_training_torch.utils import perf
@@ -101,11 +105,7 @@ def check_supported(cfg: ConfigDict) -> None:
         raise ValueError(f"unknown architecture {arch!r}")
     strategy, _ = alignment_strategy(cfg)
     if strategy in ("dpo", "orpo", "kto"):
-        # SFT trains with the plain loss; its data module (packing,
-        # templates) is what is missing, and data/build.py says so
         raise _unsupported(f"model_alignment_strategy {strategy} (DPO/ORPO/KTO)", "14")
-    if model.get("lora"):
-        raise _unsupported("LoRA (model.lora)", "14")
 
 
 def _log_ignored(cfg: ConfigDict) -> None:
@@ -141,6 +141,8 @@ class Trainer:
     max_steps: int
     seq_len: int
     peak_tflops: Optional[float]
+    #: names of the leaves that train (the LoRA adapters); None: every leaf
+    trainable: Optional[set] = None
     step: int = 0
     #: why the finished run stopped early ("max_time", "preemption"; None
     #: for a run that reached max_steps)
@@ -167,7 +169,20 @@ class Trainer:
         shift_labels = not getattr(data_module, "labels_pre_shifted", False)
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = llama.init_params(mc, policy, generator=gen, device=dev)
-        opt_state = init_opt_state(llama.named_params(params), policy)
+        trainable = None
+        lora_block = dict(model_block.get("lora", {}) or {})
+        if lora_block:
+            lora_cfg = LoraConfig.from_config(lora_block)
+            params = add_lora(params, lora_cfg,
+                              torch.Generator(device=dev).manual_seed(seed + 1))
+            trainable = {n for n, m in trainable_mask(llama.named_params(params)).items() if m}
+            if lora_cfg.dropout and "model.lora.lora_dropout" not in _logged_ignored:
+                _logged_ignored.add("model.lora.lora_dropout")
+                logger.info("model.lora.lora_dropout %g: parsed, not applied, as in the JAX "
+                            "package", lora_cfg.dropout)
+        flat = llama.named_params(params)
+        opt_state = init_opt_state(
+            {n: t for n, t in flat.items() if trainable is None or n in trainable}, policy)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
@@ -178,7 +193,7 @@ class Trainer:
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
-            num_microbatches=nm)
+            num_microbatches=nm, trainable=trainable)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
         exp = ExpManager.from_config(cfg)
         checkpointer = None
@@ -188,10 +203,12 @@ class Trainer:
             checkpointer = Checkpointer(ck_cfg)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
         logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
-                    "(shift_labels=%s); run dir %s", mc, nm, sched["micro_batch_size"], policy,
-                    dev, type(data_module).__name__, shift_labels, exp.log_dir)
+                    "(shift_labels=%s); trainable %s; run dir %s", mc, nm,
+                    sched["micro_batch_size"], policy, dev, type(data_module).__name__,
+                    shift_labels, "all leaves" if trainable is None else
+                    f"{len(trainable)} of {len(flat)} leaves (LoRA)", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
-                   opt_state=opt_state, train_step=step_fn,
+                   opt_state=opt_state, train_step=step_fn, trainable=trainable,
                    eval_step=make_eval_step(loss_fn, num_microbatches=nm),
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,

@@ -6,11 +6,20 @@ number of microbatches, then the AdamW update with global-norm clipping.
 Metrics: ``loss``, ``lr`` and ``grad_norm``.  The loss function carries the
 label convention: the trainer builds it with ``shift_labels=False`` for data
 whose rows come pre-shifted (Megatron corpora).
+
+``trainable`` (a set of ``named_params`` names; None means every leaf) is the
+LoRA freeze.  The JAX package multiplies the gradients by its
+``trainable_mask``, so a frozen leaf there has zero gradient, zero moments,
+no weight decay and the update ``w - lr * 0``; it takes no part in the
+clipping norm.  The port gets the same numbers by leaving frozen leaves out:
+they get no ``requires_grad``, no gradient and no optimizer state, and the
+optimizer's dicts (``opt_state``, built by ``init_opt_state`` over the
+trainable leaves) hold the trainable leaves only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -29,16 +38,18 @@ def microbatch_split(batch: dict[str, torch.Tensor], num_microbatches: int):
 
 
 def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable,
-                    policy: DtypePolicy, *, num_microbatches: int = 1) -> Callable:
+                    policy: DtypePolicy, *, num_microbatches: int = 1,
+                    trainable: Optional[set[str]] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``)."""
 
     def train_step(params, opt_state, batch):
         flat = named_params(params)
-        names = list(flat)
+        names = [n for n in flat if trainable is None or n in trainable]
+        for n, p in flat.items():
+            p.requires_grad_(trainable is None or n in trainable)
+        flat = {n: flat[n] for n in names}
         leaves = [flat[n] for n in names]
-        for p in leaves:
-            p.requires_grad_(True)
         mbs = microbatch_split(batch, num_microbatches)
         loss_sum = None
         grad_sum = None

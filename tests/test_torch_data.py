@@ -210,7 +210,7 @@ def test_build_data_module_errors_match_jax(tmp_path):
     assert t_build.build_data_module(_cfgs({"synthetic": True})[0], sched) == (None, None)
 
 
-@pytest.mark.parametrize("strategy,item", [("sft", "item 8"), ({"dpo": {}}, "item 14"),
+@pytest.mark.parametrize("strategy,item", [("orpo", "item 14"), ({"dpo": {}}, "item 14"),
                                            ("kto", "item 14")])
 def test_alignment_data_modules_name_their_roadmap_item(strategy, item):
     cfg = t_loader.load_config({"data": {"global_batch_size": 4, "micro_batch_size": 2,

@@ -13,9 +13,15 @@
   Megatron corpus, give the same loss at every step within the fp32
   tolerance of ``test_torch_step.py`` (rtol 1e-5), and a port that shifted
   the pre-shifted labels again would not;
+- SFT with LoRA: the port's trainer and the JAX trainer, from the same
+  weights (adapters included) on the same char-tokenized jsonl, give the same
+  loss at every step within rtol 1e-5 (fp32), with ``segment_mask`` off and
+  on; a LoRA run resumed from a checkpoint equals a straight run bit for
+  bit, and ``fit`` leaves the frozen base bit for bit as it was; the CLI
+  trains the LoRA SFT config at a tiny width on the CPU;
 - the port imports neither ``jax`` nor the JAX package (checked in a fresh
   subprocess, since this test process imported jax already, and by a source
-  scan), the data, checkpoint and exp-manager modules included.
+  scan), the data, checkpoint, exp-manager, SFT and LoRA modules included.
 """
 
 import re
@@ -38,11 +44,12 @@ from neuronx_distributed_training_tpu.trainer import cli as j_cli
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neuronx_distributed_training_torch"
 CONFIGS = sorted((REPO / "examples" / "conf").glob("*.yaml"))
-#: the modules of the data / checkpoint / exp-manager slice
+#: the modules of the data / checkpoint / exp-manager slice and the SFT / LoRA slice
 NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "data._native", "data.build", "data.modules", "data.megatron", "data.megatron.dataset",
     "data.megatron.index", "checkpoint", "checkpoint.integrity", "checkpoint.manager",
-    "trainer.exp_manager", "utils.io"))
+    "trainer.exp_manager", "utils.io", "data.packing", "data.templates", "peft",
+    "peft.lora"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -119,7 +126,7 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     ({"model.moe.num_experts": 4}, "item 13"),
     ({"model_source": "megatron"}, "item 14"),
     ({"model_alignment_strategy": "dpo"}, "item 14"),
-    ({"model_alignment_strategy": "sft"}, "item 8"),
+    ({"model_alignment_strategy": "kto"}, "item 14"),
     ({"model.fusions.chunked_ce": 4}, "item 2"),
 ])
 def test_unported_knobs_are_rejected_with_their_roadmap_item(override, item):
@@ -155,7 +162,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 34  # every module of the port was imported
 
 
 def test_port_sources_mention_no_jax_import():
@@ -411,3 +418,166 @@ def test_trainer_losses_match_jax_on_a_megatron_corpus(tmp_path):
     shifted = _port_losses_from_jax_weights(tmp_path, tmp_path / "t" / "corpus", jparams,
                                             shift_labels=True)
     assert not np.allclose(shifted, jax_losses, rtol=FP32_LOSS_RTOL, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# SFT with LoRA: the port's trainer against the JAX trainer, resume, freeze
+# ---------------------------------------------------------------------------
+
+SFT_LORA = REPO / "examples" / "conf" / "hf_llama3_8B_SFT_lora_config.yaml"
+#: the tiny width both trainers and the CLI case run at
+TINY_WIDTH = {"model.vocab_size": 128, "model.hidden_size": 64, "model.intermediate_size": 128,
+              "model.num_layers": 2, "model.num_attention_heads": 4,
+              "model.num_key_value_heads": 2}
+
+
+def _sft_jsonl(path, n=120, seed=21):
+    import json
+
+    rng = np.random.default_rng(seed)
+
+    def text(lo, hi):
+        return "".join(chr(int(c)) for c in rng.integers(32, 127, int(rng.integers(lo, hi))))
+
+    path.write_text("\n".join(json.dumps({"input": text(3, 25), "output": text(3, 30)})
+                              for _ in range(n)))
+    return path
+
+
+def _sft_lora_cfg(tmp_path, data, exp, *, segment_mask=False, max_steps=4, precision="fp32",
+                  every=0):
+    return {
+        "name": "sft_lora", "model_source": "hf", "seed": 5,
+        "model_alignment_strategy": {"sft": {"packing": True, "segment_mask": segment_mask}},
+        "trainer": {"max_steps": max_steps, "log_every_n_steps": 1},
+        "exp_manager": {"exp_dir": str(tmp_path / exp), "create_tensorboard_logger": False,
+                        "log_files": False, "resume_if_exists": True,
+                        "telemetry": {"compile_census": False},
+                        "checkpoint_callback_params": {"save_top_k": 2,
+                                                       "every_n_train_steps": every}},
+        "distributed_strategy": {"tensor_model_parallel_size": 1},
+        "data": {"global_batch_size": 4, "micro_batch_size": 2, "seq_length": 64,
+                 "train_dir": str(data), "tokenizer": {"library": "char", "vocab_size": 128}},
+        "model": {"vocab_size": 128, "hidden_size": 64, "intermediate_size": 128,
+                  "num_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
+                  "max_position_embeddings": 64,
+                  "lora": {"lora_rank": 4, "lora_alpha": 16, "lora_dropout": 0.05,
+                           "target_modules": ["qkv_proj", "o_proj", "gate_up_proj",
+                                              "down_proj"]},
+                  "optim": {"name": "adamw_fp32OptState", "lr": 1e-2, "weight_decay": 0.1,
+                            "sched": {"name": "CosineAnnealing", "warmup_steps": 0,
+                                      "max_steps": max_steps}}},
+        "precision": {"type": precision},
+    }
+
+
+def _frozen(trainer):
+    from neuronx_distributed_training_torch.models import llama as t_llama
+
+    return {n: p.detach().clone() for n, p in t_llama.named_params(trainer.params).items()
+            if n not in trainer.trainable}
+
+
+@pytest.mark.parametrize("segment_mask", [False, True])
+def test_sft_lora_trainer_losses_match_jax(tmp_path, segment_mask):
+    """4 steps of the port's trainer and the JAX trainer (one CPU device)
+    with LoRA on the same packed SFT jsonl, from the JAX trainer's weights
+    and adapters: every step's loss within the fp32 tolerance, the batches
+    carrying segment_ids when asked, and the base unchanged."""
+    import json
+
+    import jax
+
+    from neuronx_distributed_training_torch.models import llama as t_llama
+    from neuronx_distributed_training_torch.optim.adamw import init_opt_state
+    from neuronx_distributed_training_torch.tools.convert import params_from_jax
+    from neuronx_distributed_training_tpu.trainer.loop import Trainer as JTrainer
+
+    data = _sft_jsonl(tmp_path / "train.jsonl")
+    jt = JTrainer.from_config(
+        j_loader.load_config(_sft_lora_cfg(tmp_path, data, "jax", segment_mask=segment_mask)),
+        devices=jax.devices()[:1], enable_checkpointing=False)
+    jparams = jax.tree_util.tree_map(np.asarray, jt.params)
+    jt.fit()
+    lines = (jt.exp.log_dir / "metrics.jsonl").read_text().splitlines()
+    jax_losses = [json.loads(x)["loss"] for x in lines if "loss" in json.loads(x)]
+    assert len(jax_losses) == 4
+
+    t = _trainer(t_loader.load_config(_sft_lora_cfg(tmp_path, data, "port",
+                                                    segment_mask=segment_mask)),
+                 enable_checkpointing=False)
+    assert ("segment_ids" in t.data_module.input_names) == segment_mask
+    assert t.trainable == {n for n in t_llama.named_params(t.params)
+                           if n.endswith(("lora_a", "lora_b"))}
+    src = t_llama.named_params(params_from_jax(jparams, device="cpu"))
+    with torch.no_grad():
+        for n, p in t_llama.named_params(t.params).items():
+            p.copy_(src[n])
+    flat = t_llama.named_params(t.params)
+    t.opt_state = init_opt_state({n: flat[n] for n in t.trainable}, t.policy)
+    frozen = _frozen(t)
+    losses = [r["loss"] for r in t.fit()]
+    np.testing.assert_allclose(losses, jax_losses, rtol=FP32_LOSS_RTOL, atol=0)
+    assert losses[0] != losses[-1]
+    after = _frozen(t)
+    assert all(torch.equal(frozen[n], after[n]) for n in frozen)
+
+
+def test_sft_lora_segment_mask_changes_the_loss(tmp_path):
+    data = _sft_jsonl(tmp_path / "train.jsonl")
+    runs = [_trainer(t_loader.load_config(_sft_lora_cfg(tmp_path, data, f"e{m}",
+                                                        segment_mask=m, max_steps=1)),
+                     enable_checkpointing=False).fit()[0]["loss"] for m in (False, True)]
+    assert np.isfinite(runs).all() and runs[0] != runs[1]
+
+
+def test_sft_lora_resume_bitwise_and_frozen_base(tmp_path):
+    """A LoRA run checkpointed at step 2 and resumed to step 4 equals a
+    straight 4-step run bit for bit (loss, grad_norm, every param and
+    optimizer leaf); the checkpoint holds the whole param tree and the
+    adapters' optimizer state only; fit leaves the frozen base as it was."""
+    data = _sft_jsonl(tmp_path / "train.jsonl")
+    straight = _trainer(t_loader.load_config(
+        _sft_lora_cfg(tmp_path, data, "a", precision="mixed_precision", every=2)))
+    base = _frozen(straight)
+    hs = straight.fit()
+    after = _frozen(straight)
+    assert base.keys() == after.keys() and all(torch.equal(base[n], after[n]) for n in base)
+    first = _trainer(t_loader.load_config(
+        _sft_lora_cfg(tmp_path, data, "b", precision="mixed_precision", max_steps=4, every=2)))
+    first.max_steps = 2
+    first.fit()
+    assert first.checkpointer.committed_steps == [2]
+    second = _trainer(t_loader.load_config(
+        _sft_lora_cfg(tmp_path, data, "b", precision="mixed_precision", every=2)))
+    hr = second.fit()
+    assert second.checkpointer.last_restore["step"] == 2
+    assert [r["step"] for r in hr] == [2, 3]
+    assert [(r["loss"], r["grad_norm"]) for r in hr] == [(r["loss"], r["grad_norm"])
+                                                         for r in hs[2:]]
+    a, b = _state(straight), _state(second)
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
+    opt = {k.split("/", 2)[2] for k in a if k.startswith("opt_state/mu/")}
+    assert opt == straight.trainable
+    assert {k.split("/", 1)[1] for k in a if k.startswith("params/")} >= set(base)
+
+
+def test_cli_trains_the_sft_lora_config_on_cpu_and_needs_the_card_otherwise(tmp_path,
+                                                                           monkeypatch):
+    data = _sft_jsonl(tmp_path / "train.jsonl")
+    args = ["--config", str(SFT_LORA), "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", "data.global_batch_size=4", "--set", "data.seq_length=64",
+            "--set", "trainer.max_steps=2", "--set", f"data.train_dir={data}",
+            "--set", "data.tokenizer.library=char", "--set", "data.tokenizer.vocab_size=128",
+            "--set", f"exp_manager.exp_dir={tmp_path / 'exp'}"]
+    for k, v in TINY_WIDTH.items():
+        args += ["--set", f"{k}={v}"]
+    trainer, history = t_cli.run(args + ["--device", "cpu"])
+    assert len(history) == 2 and all(np.isfinite(r["loss"]) for r in history)
+    assert abs(history[0]["loss"] - np.log(128)) < 0.5
+    assert len(trainer.trainable) == 2 * 4 * 2 and "segment_ids" not in trainer.data_module.arrays
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cli.run(args)
