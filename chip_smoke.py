@@ -84,7 +84,9 @@ import gc
 import json
 import logging
 import math
+import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -422,8 +424,9 @@ def phase_times(torch, fa, kt, card: str, peaks) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_trainer(torch, fa, cell, card: str) -> dict:
-    """``cell`` is ``tools/step_times.py``, which holds the cell's settings."""
+def phase_trainer(torch, fa, cell, card: str) -> tuple:
+    """``cell`` is ``tools/step_times.py``, which holds the cell's settings.
+    Returns the launch counts and the run's history."""
     from neuronx_distributed_training_torch.trainer import cli
 
     fa.reset_counters()
@@ -448,7 +451,7 @@ def phase_trainer(torch, fa, cell, card: str) -> dict:
         fail(f"step-0 loss {loss0} not within 0.5 of {expected_loss0():.4f}")
     if any(n != expect for n in launches.values()) or fallbacks["core"]:
         fail(f"kernel launches {launches} (fallbacks {fallbacks}), expected {expect} each")
-    return launches
+    return launches, history
 
 
 # ---------------------------------------------------------------------------
@@ -503,16 +506,21 @@ class AtStepEnd(logging.Handler):
             self.action()
 
 
-def run_cli(cli, args: list, *handlers: AtStepEnd):
-    """``cli.run(args)`` with ``handlers`` on the trainer's logger."""
+def run_cli_handlers(fn, *handlers: AtStepEnd):
+    """``fn()`` with ``handlers`` on the trainer's logger."""
     train_log = logging.getLogger("nxdt.torch.train")
     for h in handlers:
         train_log.addHandler(h)
     try:
-        return cli.run(args)
+        return fn()
     finally:
         for h in handlers:
             train_log.removeHandler(h)
+
+
+def run_cli(cli, args: list, *handlers: AtStepEnd):
+    """``cli.run(args)`` with ``handlers`` on the trainer's logger."""
+    return run_cli_handlers(lambda: cli.run(args), *handlers)
 
 
 def free_cuda(torch) -> None:
@@ -525,8 +533,6 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
     saves once) and C (3 steps straight, saving at steps 2 and 3, so step 3
     runs over step 2's write) through the CLI on a Megatron corpus; B's step 3
     must equal C's bit for bit.  ``cell`` is ``tools/step_times.py``."""
-    import shutil
-
     from neuronx_distributed_training_torch.checkpoint import integrity as ck_integrity
     from neuronx_distributed_training_torch.checkpoint.manager import retained_steps
     from neuronx_distributed_training_torch.trainer import cli
@@ -902,7 +908,6 @@ def run_sft(torch, fa, name: str, args: list, card: str, *, layers: int, check_b
 def phase_sft(torch, fa, card: str) -> dict:
     """Runs L (LoRA, 32 layers), S (L with segment_mask) and F (full
     fine-tune, 4 layers) of the SFT configs through the CLI."""
-    import shutil
 
     import numpy as np
 
@@ -969,6 +974,205 @@ def phase_sft(torch, fa, card: str) -> dict:
     out["phase_seconds"] = time.perf_counter() - t_phase
     log(f"sft: phase wall time {out['phase_seconds']:.1f} s [{card}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: data parallelism under torchrun, and the non-finite step skip
+# ---------------------------------------------------------------------------
+
+
+def torchrun_cell(cell, nproc: int, exp: Path, timeout: float, *extra: str) -> dict:
+    """Phase 4's cell under ``torchrun --standalone --nproc_per_node nproc``
+    (NCCL, ``zero1: true`` unless ``extra`` overrides it), as a subprocess;
+    returns rank 0's JSON line."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", "neuronx_distributed_training_torch.tools.step_times",
+           "--steps", str(cell.STEPS), "--set", "distributed_strategy.zero1=true",
+           "--set", f"exp_manager.exp_dir={exp}", *extra]
+    log(f"dp: {' '.join(cmd[1:])}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    try:
+        out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"torchrun --nproc_per_node {nproc} did not finish in {timeout:.0f} s")
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    for line in (out.stdout + out.stderr).splitlines():
+        if any(k in line for k in (" step ", "distributed via", "zero1")):
+            log(f"dp rank log: {line.strip()[:300]}")
+    if out.returncode != 0:
+        fail(f"torchrun --nproc_per_node {nproc} exited {out.returncode}:\n"
+             f"{(out.stdout + out.stderr)[-3000:]}")
+    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+    if not lines:
+        fail(f"torchrun --nproc_per_node {nproc} printed no result line")
+    return json.loads(lines[-1])
+
+
+def phase_dp(torch, cell, history4: list, card: str) -> dict:
+    """7a: phase 4's cell under torchrun at world size 1 over NCCL with
+    ``zero1: true``: the same losses and grad norms bit for bit, each kernel
+    launched layers x microbatches x steps times, no fallback."""
+    t_phase = time.perf_counter()
+    log(f"dp: device memory held by this process before the launch: "
+        f"{torch.cuda.memory_allocated()} bytes")
+    rep = torchrun_cell(cell, 1, cell.WORK / "exp_dp1", 600)
+    expect = cell.LAYERS * cell.MICROBATCHES * cell.STEPS
+    want = ([r["loss"] for r in history4], [r["grad_norm"] for r in history4])
+    got = (rep["loss"], rep["grad_norm"])
+    log(f"dp: world size {rep['dp']}: losses {got[0]} grad_norms {got[1]}; phase 4: "
+        f"{want[0]} / {want[1]}")
+    log(f"dp: launches {rep['launches']} fallbacks {rep['fallbacks']} (expected {expect} each)")
+    med = sorted(rep["step_seconds"][1:])[len(rep["step_seconds"][1:]) // 2]
+    med4 = sorted(r["step_seconds"] for r in history4[1:])[(len(history4) - 1) // 2]
+    log(f"dp: step seconds {rep['step_seconds']} (median of steps 1-{cell.STEPS - 1} "
+        f"{med:.4f} s) against phase 4's {[r['step_seconds'] for r in history4]} "
+        f"({med4:.4f} s) [{card}]")
+    if rep["dp"] != 1 or got != want:
+        fail(f"torchrun at world size 1 is not phase 4 bit for bit: {got} vs {want}")
+    if any(n != expect for n in rep["launches"].values()) or rep["fallbacks"]["core"]:
+        fail(f"dp launches {rep['launches']} (fallbacks {rep['fallbacks']}), expected "
+             f"{expect} each")
+    n_cards = torch.cuda.device_count()
+    for n in (2, 4):
+        if n > n_cards:
+            break
+        repn = torchrun_cell(cell, n, cell.WORK / f"exp_dp{n}", 600)
+        log(f"dp: world size {n}: losses {repn['loss']} grad_norms {repn['grad_norm']} "
+            f"steps {repn['step_seconds']}, launches per rank {repn['launches']} [{card}]")
+        # the gloo tests' tolerance for dp against dp=1 (tests/test_torch_dp.py)
+        if not all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(repn["loss"], want[0])) or \
+                not all(math.isclose(a, b, rel_tol=1e-5)
+                        for a, b in zip(repn["grad_norm"], want[1])):
+            fail(f"dp={n} on the cards: losses {repn['loss']} / grad norms "
+                 f"{repn['grad_norm']}, phase 4 {want}")
+        if n == 2:
+            phase_dp2_extra(cell, repn, card)
+    if n_cards < 2:
+        log(f"dp: this machine shows {n_cards} card; dp=2 on the card was not run")
+    rep["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"dp: phase wall time {rep['phase_seconds']:.1f} s [{card}]")
+    return rep
+
+
+def phase_dp2_extra(cell, rep2: dict, card: str) -> None:
+    """With two cards: ZeRO-1 off trains bit for bit as on, and a run saved
+    at step 2 (each rank stages and writes its shards) and resumed from it
+    (rank 0 verifies, every rank loads its slices) trains step 3 bit for bit
+    as the straight run."""
+    off = torchrun_cell(cell, 2, cell.WORK / "exp_dp2_off", 600,
+                        "--set", "distributed_strategy.zero1=false")
+    log(f"dp: world size 2, zero1 off: losses {off['loss']}, steps {off['step_seconds']} "
+        f"[{card}]")
+    if (off["loss"], off["grad_norm"]) != (rep2["loss"], rep2["grad_norm"]):
+        fail(f"dp=2 zero1 off: {off['loss']} / {off['grad_norm']} differ from zero1 on "
+             f"{rep2['loss']} / {rep2['grad_norm']}")
+    exp = cell.WORK / "exp_dp2_resume"
+    shutil.rmtree(exp, ignore_errors=True)
+    try:
+        # (torchrun_cell empties the exp dir it is given; --exp-dir is kept)
+        runs = [torchrun_cell(cell, 2, cell.WORK / "exp_dp2_scratch", 900, "--steps",
+                              str(steps), "--save-every", str(steps), "--exp-dir", str(exp))
+                for steps in (2, 3)]
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    log(f"dp: world size 2, saved at step 2 then resumed: losses {runs[0]['loss']} + "
+        f"{runs[1]['loss']}, steps {runs[0]['step_seconds']} + {runs[1]['step_seconds']} "
+        f"[{card}]")
+    got = (runs[0]["loss"] + runs[1]["loss"], runs[0]["grad_norm"] + runs[1]["grad_norm"])
+    if got != (rep2["loss"], rep2["grad_norm"]):
+        fail(f"dp=2 save + resume: {got} differ from the straight run "
+             f"{(rep2['loss'], rep2['grad_norm'])}")
+
+
+SKIP_LAYERS = 2
+
+
+def device_digest(torch, t) -> tuple:
+    """Two int64 sums over a tensor's bit pattern (plain and position
+    weighted), taken on the card in chunks: equal digests, equal bits."""
+    bits = t.detach().reshape(-1).view({1: torch.int8, 2: torch.int16,
+                                        4: torch.int32}[t.element_size()])
+    s1 = s2 = 0
+    for i in range(0, bits.numel(), 1 << 26):
+        c = bits[i:i + (1 << 26)].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device, dtype=torch.int64) % 65521 + 1
+        s1 += int(c.sum())
+        s2 += int((c * w).sum())
+    return s1, s2
+
+
+def phase_skip(torch, fa, cell, card: str) -> None:
+    """7b: 3 steps at Llama-3-8B width and 2 layers, the step-1 batch with a
+    NaN ``loss_mask``: step 1 keeps params, mu, nu and the AdamW step bit
+    for bit (on-device digests), ``health/skipped_count`` is 1, and step 2
+    is finite and moves the params."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.data.loader import SyntheticDataModule
+    from neuronx_distributed_training_torch.models.llama import named_params
+    from neuronx_distributed_training_torch.trainer import cli
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    class PoisonedRows(SyntheticDataModule):
+        def global_batches(self):
+            for i, batch in enumerate(super().global_batches()):
+                if i == 1:
+                    batch["loss_mask"] = np.full_like(batch["loss_mask"], np.nan)
+                yield batch
+
+    t_phase = time.perf_counter()
+    args = cell.CLI_ARGS + ["--set", f"model.num_layers={SKIP_LAYERS}",
+                            "--set", f"exp_manager.exp_dir={cell.WORK / 'exp_skip'}"]
+    overrides = cli.parse_overrides([a for a in args[2:] if a != "--set"])
+    cfg = load_config(args[1], overrides)
+    health = cfg.exp_manager.telemetry.health
+    log(f"skip: telemetry.health {dict(health)}; {SKIP_LAYERS} layers")
+    data = PoisonedRows(cfg.model.vocab_size, cfg.data.seq_length, cfg.data.global_batch_size,
+                        seed=int(cfg.get("seed", 1234)))
+    fa.reset_counters()
+    trainer = Trainer.from_config(cfg, data_module=data, enable_checkpointing=False)
+    seen: list = []
+
+    def snapshot():
+        torch.cuda.synchronize()
+        o = trainer.opt_state
+        seen.append({
+            "params": [device_digest(torch, t) for t in named_params(trainer.params).values()],
+            "mu": [device_digest(torch, t) for t in o["mu"].values()],
+            "nu": [device_digest(torch, t) for t in o["nu"].values()],
+            "step": o["step"], "health": dict(o["health"])})
+
+    try:
+        history = run_cli_handlers(trainer.fit, *[AtStepEnd(i, snapshot) for i in range(3)])
+    finally:
+        shutil.rmtree(cell.WORK / "exp_skip", ignore_errors=True)
+    torch.cuda.synchronize()
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    expect = SKIP_LAYERS * cell.MICROBATCHES * 3
+    for r in history:
+        log(f"skip: step {r['step']}: loss {r['loss']} grad_norm {r['grad_norm']} "
+            f"updates_finite {r['health/updates_finite']} skipped_count "
+            f"{r['health/skipped_count']} ({r['step_seconds']:.3f} s) [{card}]")
+    log(f"skip: AdamW step after each step {[s['step'] for s in seen]}, health "
+        f"{seen[-1]['health'] if seen else None}; launches {launches} fallbacks {fallbacks}")
+    if len(seen) != 3 or len(history) != 3:
+        fail(f"skip: {len(history)} steps and {len(seen)} snapshots, expected 3")
+    kept = all(seen[1][k] == seen[0][k] for k in ("params", "mu", "nu", "step"))
+    if not kept or history[1]["health/skipped_count"] != 1.0 or \
+            history[1]["health/updates_finite"] != 0.0:
+        fail(f"skip: the NaN step was not skipped bit for bit: kept {kept}, metrics "
+             f"{ {k: v for k, v in history[1].items() if k.startswith('health/')} }")
+    if not math.isfinite(history[2]["loss"]) or seen[2]["params"] == seen[1]["params"] or \
+            seen[2]["step"] != 2 or seen[2]["health"]["skipped_count"] != 1:
+        fail(f"skip: step 2 did not train on: loss {history[2]['loss']}, step "
+             f"{seen[2]['step']}, health {seen[2]['health']}")
+    if any(n != expect for n in launches.values()) or fallbacks["core"]:
+        fail(f"skip: launches {launches} (fallbacks {fallbacks}), expected {expect} each")
+    log(f"skip: step 1 kept {len(seen[1]['params'])} params and their moments bit for bit; "
+        f"phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def ptxas_report(log_text: str) -> dict:
@@ -1045,15 +1249,17 @@ def main() -> None:
     phase_checks(torch, fa, kt, card)
     times = phase_times(torch, fa, kt, card, peaks)
     try:
-        launches = phase_trainer(torch, fa, cell, card)
+        launches, history4 = phase_trainer(torch, fa, cell, card)
     finally:
-        import shutil
-
         shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
     free_cuda(torch)
     phase_resume(torch, fa, cell, card)
     free_cuda(torch)
     sft = phase_sft(torch, fa, card)
+    free_cuda(torch)
+    dp = phase_dp(torch, cell, history4, card)
+    free_cuda(torch)
+    phase_skip(torch, fa, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -1073,7 +1279,8 @@ def main() -> None:
             "library_ms": t["library_ms"],
             "registers": ptxas[(kname + "_kernel", kt.MAIN["d"])]["registers"],
             "launches_by_path": {"pretrain": launches[kname],
-                                 **{f"sft_{r}": sft[r]["launches"][kname] for r in "LSF"}},
+                                 **{f"sft_{r}": sft[r]["launches"][kname] for r in "LSF"},
+                                 "pretrain_dp": dp["launches"][kname]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -29,6 +29,17 @@ bytes in 64 MiB chunks (chunks hash in parallel, hashlib releases the GIL);
 a group's digest is blake2b-128 over ``name|dtype|shape`` and the leaf
 digest of each leaf in name order.
 
+Under a process group each rank writes its own shards: a ZeRO-1 leaf is a
+``DTensor`` whose slice only its rank holds, and DCP spreads the writes of
+replicated leaves over the ranks.  Each rank hashes the slices it holds
+(rank 0 the replicated leaves, which every rank holds alike), rank 0 merges
+the records (:func:`sidecar_from_records`), and a sharded leaf's sidecar
+entry keeps one digest per shard with its offsets and sizes
+(``shards[item][name]``); its leaf digest is blake2b-128 over those.
+Verification reads each leaf whole and hashes the recorded slices, so a
+checkpoint verifies whatever the reader's world size, and a flipped byte
+in any rank's file shows.
+
 The knob block (validated at config load with did-you-mean hints):
 
 .. code-block:: yaml
@@ -231,6 +242,51 @@ def leaf_digests(flat: Mapping[str, Any], *, workers: int = 0) -> dict[str, str]
     return out
 
 
+def _shard_box(t) -> tuple[Any, list[int], list[int]]:
+    """``(local tensor, offsets, sizes)`` of what this rank holds of a
+    leaf: a DTensor's slice (``Shard(dim)`` on a 1-D mesh), else the whole."""
+    from neuronx_distributed_training_torch.optim.adamw import is_dtensor
+
+    if not is_dtensor(t):
+        return t, [0] * t.dim(), list(t.shape)
+    loc = t.to_local()
+    (placement,) = t.placements
+    offsets = [0] * t.dim()
+    offsets[placement.dim] = t.device_mesh.get_local_rank() * loc.shape[placement.dim]
+    return loc, offsets, list(loc.shape)
+
+
+def _combine_shards(records: list[dict]) -> str:
+    """The leaf digest of a sharded leaf (``records`` in offset order)."""
+    h = _hasher()
+    for r in records:
+        h.update(f"{r['offsets']}|{r['sizes']}|{r['digest']}".encode())
+    return h.hexdigest()
+
+
+def local_shard_records(trees: Mapping[str, Mapping[str, Any]], *, rank: int = 0,
+                        workers: int = 0) -> dict[str, dict[str, dict]]:
+    """This rank's digest records ``{item: {name: {offsets, sizes, digest}}}``
+    over the host tensors it hands DCP: every DTensor's slice, and on rank 0
+    the replicated leaves too."""
+    from neuronx_distributed_training_torch.optim.adamw import is_dtensor
+
+    pieces: dict[str, Any] = {}
+    where: dict[str, tuple] = {}
+    for item, flat in trees.items():
+        for name, t in flat.items():
+            if rank != 0 and not is_dtensor(t):
+                continue
+            loc, offsets, sizes = _shard_box(t)
+            key = f"{item}/{name}"
+            pieces[key], where[key] = loc, (item, name, offsets, sizes)
+    digests = leaf_digests(pieces, workers=workers)
+    out: dict[str, dict[str, dict]] = {item: {} for item in trees}
+    for key, (item, name, offsets, sizes) in where.items():
+        out[item][name] = {"offsets": offsets, "sizes": sizes, "digest": digests[key]}
+    return out
+
+
 def _group_of(item: str, path: str) -> str:
     """``params`` is one group; ``opt_state`` splits on its top-level key."""
     if item != "opt_state":
@@ -242,12 +298,9 @@ def _leaf_summary(t) -> dict[str, Any]:
     return {"dtype": str(t.dtype).replace("torch.", ""), "shape": list(t.shape)}
 
 
-def tree_digest_groups(item: str, flat: Mapping[str, Any], *, workers: int = 0
-                       ) -> tuple[dict[str, dict], dict[str, dict], dict[str, str]]:
-    """``(groups, structure, leaves)`` for one item's flat host tensors:
-    ``groups`` maps group -> ``{digest, leaves, bytes}``, ``structure`` maps
-    name -> ``{dtype, shape}``, ``leaves`` maps name -> leaf digest."""
-    leaves = leaf_digests(flat, workers=workers)
+def _groups(item: str, flat: Mapping[str, Any], leaves: Mapping[str, str]
+            ) -> tuple[dict[str, dict], dict[str, dict]]:
+    """``(groups, structure)`` of one item from its leaves' digests."""
     hashers: dict[str, Any] = {}
     counts: dict[str, int] = {}
     sizes: dict[str, int] = {}
@@ -263,23 +316,68 @@ def tree_digest_groups(item: str, flat: Mapping[str, Any], *, workers: int = 0
         sizes[g] = sizes.get(g, 0) + t.numel() * t.element_size()
     groups = {g: {"digest": h.hexdigest(), "leaves": counts[g], "bytes": sizes[g]}
               for g, h in hashers.items()}
+    return groups, structure
+
+
+def tree_digest_groups(item: str, flat: Mapping[str, Any], *, workers: int = 0,
+                       shards: Optional[Mapping[str, list]] = None
+                       ) -> tuple[dict[str, dict], dict[str, dict], dict[str, str]]:
+    """``(groups, structure, leaves)`` for one item's flat host tensors (whole
+    leaves): ``groups`` maps group -> ``{digest, leaves, bytes}``,
+    ``structure`` maps name -> ``{dtype, shape}``, ``leaves`` maps name ->
+    leaf digest.  A leaf named in ``shards`` (a sidecar's shard records) is
+    hashed slice by slice as recorded; its records' ``digest`` entries are
+    then the digests read back."""
+    shards = {} if shards is None else shards
+    pieces: dict[str, Any] = {}
+    for name, t in flat.items():
+        if name not in shards:
+            pieces[name] = t
+            continue
+        for i, r in enumerate(shards[name]):
+            sl = t
+            for d, (o, n) in enumerate(zip(r["offsets"], r["sizes"])):
+                sl = sl.narrow(d, o, n)
+            pieces[f"{name}\0{i}"] = sl
+    digests = leaf_digests(pieces, workers=workers)
+    leaves = {}
+    for name in flat:
+        if name in shards:
+            shards[name] = [dict(r, digest=digests[f"{name}\0{i}"])
+                            for i, r in enumerate(shards[name])]
+            leaves[name] = _combine_shards(shards[name])
+        else:
+            leaves[name] = digests[name]
+    groups, structure = _groups(item, flat, leaves)
     return groups, structure, leaves
 
 
-def build_sidecar(*, step: int, trees: Mapping[str, Mapping[str, Any]],
-                  meta: Mapping[str, Any], workers: int = 0) -> dict[str, Any]:
-    """The sidecar saved with every checkpoint, over the exact host tensors
-    handed to DCP (``trees``: item -> flat dict), hashed on ``workers``
-    threads (default: the CPU count)."""
+def sidecar_from_records(*, step: int, trees: Mapping[str, Mapping[str, Any]],
+                         records: list[Mapping[str, Mapping[str, dict]]],
+                         meta: Mapping[str, Any]) -> dict[str, Any]:
+    """The sidecar from every rank's :func:`local_shard_records` (``trees``
+    gives the names, dtypes and global shapes).  A leaf one record covers
+    whole keeps that digest; a sharded one lists its shards."""
     groups: dict[str, Any] = {}
     tree: dict[str, Any] = {}
     leaves: dict[str, Any] = {}
+    shards: dict[str, Any] = {}
     for item in ITEMS:
-        g, s, lv = tree_digest_groups(item, trees[item], workers=workers)
+        lv: dict[str, str] = {}
+        for name, t in trees[item].items():
+            recs = sorted((r[item][name] for r in records if name in r.get(item, {})),
+                          key=lambda r: r["offsets"])
+            if not recs:
+                raise ValueError(f"no rank hashed {item}/{name}")
+            if len(recs) == 1 and recs[0]["sizes"] == list(t.shape):
+                lv[name] = recs[0]["digest"]
+            else:
+                shards.setdefault(item, {})[name] = recs
+                lv[name] = _combine_shards(recs)
+        g, tree[item] = _groups(item, trees[item], lv)
         groups.update(g)
-        tree[item] = s
         leaves[item] = lv
-    return {
+    out = {
         "format": INTEGRITY_FORMAT,
         "algo": DIGEST_ALGO,
         "chunk_bytes": CHUNK_BYTES,
@@ -290,6 +388,19 @@ def build_sidecar(*, step: int, trees: Mapping[str, Mapping[str, Any]],
         "leaves": leaves,
         "meta_digest": json_digest(dict(meta)),
     }
+    if shards:
+        out["shards"] = shards
+    return out
+
+
+def build_sidecar(*, step: int, trees: Mapping[str, Mapping[str, Any]],
+                  meta: Mapping[str, Any], workers: int = 0) -> dict[str, Any]:
+    """The sidecar of a one-process save, over the exact host tensors handed
+    to DCP (``trees``: item -> flat dict), hashed on ``workers`` threads
+    (default: the CPU count)."""
+    return sidecar_from_records(
+        step=step, trees=trees, meta=meta,
+        records=[local_shard_records({i: trees[i] for i in ITEMS}, workers=workers)])
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +422,9 @@ def read_item(step_dir: Path, item: str, *, pin_memory: bool = False) -> dict[st
         if not isinstance(m, TensorStorageMetadata):
             raise ValueError(f"{item}/{key}: not a tensor entry ({type(m).__name__})")
         sd[key] = torch.empty(tuple(m.size), dtype=m.properties.dtype, pin_memory=pin_memory)
-    dcp.load(sd, storage_reader=dcp.FileSystemReader(str(path)), **dcp_kwargs(dcp.load))
+    # a rank-local read, under a process group too (only rank 0 verifies)
+    dcp.load(sd, storage_reader=dcp.FileSystemReader(str(path)),
+             **dcp_kwargs(dcp.load, local=True))
     return sd
 
 
@@ -322,16 +435,17 @@ def _CheckpointException() -> type:
     return CheckpointException
 
 
-def dcp_kwargs(fn) -> dict:
+def dcp_kwargs(fn, *, local: bool = False) -> dict:
     """How the DCP function ``fn`` (``save``, ``async_save``, ``load``) runs
     here: ``{}`` under a live process group, ``{"no_dist": True}`` for one
-    process alone.  A torch whose ``fn`` takes no ``no_dist`` is refused."""
+    process alone or (``local``) a read this rank makes on its own.  A torch
+    whose ``fn`` takes no ``no_dist`` is refused."""
     import inspect
 
     import torch
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
+    if not local and dist.is_available() and dist.is_initialized():
         return {}
     if "no_dist" in inspect.signature(fn).parameters:
         return {"no_dist": True}
@@ -426,7 +540,16 @@ def verify_step(directory, step: int, *, keep: Optional[dict] = None) -> StepVer
         except (Exception, _CheckpointException()) as e:  # noqa: BLE001 — read failure = corrupt
             failures.append(f"{item}: unreadable ({type(e).__name__}: {str(e)[:300]})")
             continue
-        got_groups, got_struct, got_leaves = tree_digest_groups(item, flat)
+        item_shards = {n: [dict(r) for r in recs] for n, recs in
+                       ((sidecar.get("shards") or {}).get(item) or {}).items()}
+        got_groups, got_struct, got_leaves = tree_digest_groups(item, flat, shards=item_shards)
+        for name, recs in sorted(item_shards.items()):
+            want = {tuple(r["offsets"]): r["digest"]
+                    for r in (sidecar["shards"][item].get(name) or [])}
+            for r in recs:
+                if want.get(tuple(r["offsets"])) != r["digest"]:
+                    failures.append(f"{item}/{name}: shard at offsets {r['offsets']} "
+                                    f"(sizes {r['sizes']}) digest mismatch")
         want_struct = dict((sidecar.get("tree") or {}).get(item) or {})
         for path in sorted(set(want_struct) | set(got_struct))[:2048]:
             if want_struct.get(path) != got_struct.get(path):

@@ -25,9 +25,28 @@ JAX package's orbax-backed ``checkpoint/manager.py``, one process).
   and ``opt_state`` the adapters' state only (the optimizer keeps none for
   frozen leaves).
 
-The layout is DCP's, which later slices (ZeRO-1, TP) reshard.  Checkpoints
-written by the JAX package (orbax) are not read.  Without a process group
-DCP runs with ``no_dist`` (``integrity.dcp_kwargs``).
+The layout is DCP's.  Checkpoints written by the JAX package (orbax) are not
+read.  Without a process group DCP runs with ``no_dist``
+(``integrity.dcp_kwargs``) and the path above is unchanged.  Under a process
+group (data parallelism):
+
+- ZeRO-1 state leaves are DTensors; each rank stages and writes its own
+  slices, and DCP spreads the replicated leaves' writes over the ranks;
+- the checkpointer's collectives run on a gloo group of its own, in one
+  thread per rank (the commit thread, or the caller's for a sync save):
+  both items are written with ``dcp.save``, each rank hashes what it holds,
+  rank 0 merges the digests into the sidecar, writes ``meta.json``, renames
+  the staging dir and applies retention, and a barrier ends the commit on
+  every rank;
+- restore: rank 0 verifies (and quarantines) and tells the others the step;
+  every rank then loads with ``dcp.load`` into its live tensors, which
+  reshards: a checkpoint saved at dp 2 restores at dp 1 and the other way
+  round;
+- a failed save is not retried (one rank alone cannot retry a collective).
+
+The health counters (``opt_state["health"]``) are saved beside ``step`` as
+int64 scalars ``health/<name>``; a checkpoint without them restores with
+``steps_seen`` set to its step, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +65,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from neuronx_distributed_training_torch.checkpoint import integrity as ck_integrity
 from neuronx_distributed_training_torch.checkpoint.integrity import (
@@ -57,6 +77,12 @@ from neuronx_distributed_training_torch.checkpoint.integrity import (
     SaveAuditor,
 )
 from neuronx_distributed_training_torch.models.llama import named_params as flatten_tree
+from neuronx_distributed_training_torch.optim.adamw import (
+    init_health_state,
+    is_dtensor,
+    local,
+    shard_of,
+)
 from neuronx_distributed_training_torch.utils.io import atomic_write_json
 
 logger = logging.getLogger(__name__)
@@ -162,8 +188,8 @@ def state_trees(params: Any, opt_state: dict, *, save_bf16: bool = False,
                 keep_master: bool = True) -> dict[str, dict[str, torch.Tensor]]:
     """The two items a checkpoint holds, as flat dicts of the live tensors:
     ``params`` (bf16 floating leaves with ``save_bf16``) and ``opt_state``
-    (``mu/<name>``, ``nu/<name>``, ``master/<name>``, and ``step`` as an
-    int64 scalar)."""
+    (``mu/<name>``, ``nu/<name>``, ``master/<name>``, ZeRO-1 leaves as
+    DTensors, and ``step`` and ``health/<name>`` as int64 scalars)."""
     flat = flatten_tree(params)
     if save_bf16:
         flat = {n: (t.to(torch.bfloat16) if t.is_floating_point() else t)
@@ -171,7 +197,13 @@ def state_trees(params: Any, opt_state: dict, *, save_bf16: bool = False,
     groups = [g for g in _OPT_GROUPS if g in opt_state and (g != "master" or keep_master)]
     opt_flat = {f"{g}/{n}": t for g in groups for n, t in opt_state[g].items()}
     opt_flat["step"] = torch.tensor(int(opt_state["step"]), dtype=torch.int64)
+    for k, v in (opt_state.get("health") or {}).items():
+        opt_flat[f"health/{k}"] = torch.tensor(int(v), dtype=torch.int64)
     return {"params": flat, "opt_state": opt_flat}
+
+
+def _is_scalar_key(key: str) -> bool:
+    return key == "step" or key.startswith("health/")
 
 
 def _background_priority() -> None:
@@ -229,8 +261,14 @@ class Checkpointer:
             initializer=_background_priority)
         self._pinned: dict[tuple, torch.Tensor] = {}
         self._audit_pending: list[int] = []
+        #: under a process group: the checkpointer's own gloo group and rank
+        self._pg = None
+        self._rank = 0
+        if dist.is_available() and dist.is_initialized():
+            self._pg = dist.new_group(backend="gloo")
+            self._rank = dist.get_rank()
         self._auditor: Optional[SaveAuditor] = None
-        if config.integrity.enabled and config.integrity.audit:
+        if config.integrity.enabled and config.integrity.audit and self._rank == 0:
             self._auditor = SaveAuditor(self.directory)
 
     def _trail(self) -> dict[str, Any]:
@@ -255,6 +293,13 @@ class Checkpointer:
     # -- save -----------------------------------------------------------------
 
     def _stage(self, key: tuple, t: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(t):
+            from torch.distributed.tensor import DTensor
+
+            # this rank's slice staged on the host, keeping its place in the
+            # whole leaf (t's spec: mesh, placements, global shape) for DCP;
+            # DTensor.from_local would move a host slice to a card mesh's device
+            return DTensor(self._stage(key, t.to_local()), t._spec, requires_grad=False)
         t = t.detach()
         if t.device.type != "cuda":
             return t.clone()
@@ -265,6 +310,12 @@ class Checkpointer:
         buf.copy_(t, non_blocking=True)
         return buf
 
+    def _broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank (the checkpointer's group)."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self._pg)
+        return box[0]
+
     def save(self, state: TrainState, *, metrics: Optional[dict[str, float]] = None,
              force: bool = False) -> bool:
         """Stage and write one step (asynchronously with ``async_save``).
@@ -274,8 +325,9 @@ class Checkpointer:
         step = int(state.step)
         steps = self.all_steps()
         if step in steps or (not force and steps and step < steps[-1]):
-            logger.info("checkpoint step %d: already saved (newest %s); not saved again",
-                        step, steps[-1])
+            if self._rank == 0:
+                logger.info("checkpoint step %d: already saved (newest %s); not saved again",
+                            step, steps[-1])
             return False
         t0 = time.perf_counter()
         trees = state_trees(state.params, state.opt_state, save_bf16=self.config.save_bf16,
@@ -295,11 +347,25 @@ class Checkpointer:
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
             **state.extra,
         }
-        tmp = self.directory / f"{step}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-        tmp.mkdir(parents=True)
+        tmp_name = f"{step}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        if self._pg is not None:
+            tmp_name = self._broadcast(tmp_name)  # rank 0's, on every rank
+        tmp = self.directory / tmp_name
+        tmp.mkdir(parents=True, exist_ok=self._pg is not None)
         dcp = _dcp()
         t_write = time.perf_counter()
         try:
+            if self._pg is not None:
+                # the writes run in the commit (collectives on this group)
+                self.process_group_mode = "process group"
+                if self.config.async_save:
+                    self._pending = self._commit_pool.submit(
+                        self._commit, step, tmp, staged, meta, None, stage_seconds, t_write)
+                else:
+                    self._commit(step, tmp, staged, meta, None, stage_seconds, t_write)
+                if self._auditor is not None:
+                    self._audit_pending.append(step)
+                return True
             kw = ck_integrity.dcp_kwargs(dcp.async_save if self.config.async_save else dcp.save)
             self.process_group_mode = "no_dist" if kw else "process group"
             if self.config.async_save:
@@ -320,7 +386,10 @@ class Checkpointer:
 
     def _commit(self, step, tmp: Path, staged, meta, futures, stage_seconds, t_write) -> None:
         """Hash the staged bytes (while DCP writes them), wait for the
-        writes, add meta and sidecar, rename into place, apply retention."""
+        writes, add meta and sidecar, rename into place, apply retention.
+        ``futures`` is None under a process group: see :meth:`_commit_group`."""
+        if futures is None:
+            return self._commit_group(step, tmp, staged, meta, stage_seconds, t_write)
         try:
             digest_seconds = 0.0
             sidecar = None
@@ -338,6 +407,45 @@ class Checkpointer:
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        self._committed(step, staged, stage_seconds, t_write, digest_seconds)
+        self._apply_retention()
+
+    def _commit_group(self, step, tmp: Path, staged, meta, stage_seconds, t_write) -> None:
+        """The commit under a process group, on every rank: write both items
+        (``dcp.save`` on the checkpointer's group), hash this rank's shards,
+        merge on rank 0 (sidecar, meta, rename, retention), then a barrier,
+        so that a rank's next save sees the step committed."""
+        dcp = _dcp()
+        for item in ITEMS:
+            dcp.save(staged[item], storage_writer=_staged_writer(tmp / item),
+                     process_group=self._pg)
+        digest_seconds = 0.0
+        records = None
+        if self.config.integrity.enabled:
+            t = time.perf_counter()
+            records = ck_integrity.local_shard_records(staged, rank=self._rank,
+                                                       workers=SAVE_DIGEST_WORKERS)
+            digest_seconds = time.perf_counter() - t
+        gathered = [None] * dist.get_world_size(self._pg) if self._rank == 0 else None
+        dist.gather_object(records, gathered, dst=0, group=self._pg)
+        error: Optional[BaseException] = None
+        if self._rank == 0:
+            try:
+                atomic_write_json(tmp / META_NAME, meta)
+                if records is not None:
+                    atomic_write_json(tmp / SIDECAR_NAME, ck_integrity.sidecar_from_records(
+                        step=step, trees=staged, records=gathered, meta=meta))
+                os.rename(tmp, self.directory / str(step))
+                self._apply_retention()
+            except BaseException as e:  # noqa: BLE001 — raised after the barrier
+                shutil.rmtree(tmp, ignore_errors=True)
+                error = e
+        dist.barrier(group=self._pg)
+        if error is not None:
+            raise error
+        self._committed(step, staged, stage_seconds, t_write, digest_seconds)
+
+    def _committed(self, step, staged, stage_seconds, t_write, digest_seconds) -> None:
         nbytes = sum(t.numel() * t.element_size() for tree in staged.values()
                      for t in tree.values())
         self.committed_steps.append(step)
@@ -345,11 +453,11 @@ class Checkpointer:
                           "write_seconds": time.perf_counter() - t_write,
                           "digest_seconds": digest_seconds,
                           "async": bool(self.config.async_save)}
-        logger.info("checkpoint step %d committed: %d bytes, staged in %.3f s, written in "
-                    "%.3f s (digests %.3f s, %s)", step, nbytes, stage_seconds,
-                    self.last_save["write_seconds"], digest_seconds,
-                    "async" if self.config.async_save else "sync")
-        self._apply_retention()
+        if self._rank == 0:
+            logger.info("checkpoint step %d committed: %d bytes, staged in %.3f s, written in "
+                        "%.3f s (digests %.3f s, %s)", step, nbytes, stage_seconds,
+                        self.last_save["write_seconds"], digest_seconds,
+                        "async" if self.config.async_save else "sync")
 
     def _apply_retention(self) -> None:
         steps = self.all_steps()
@@ -400,7 +508,7 @@ class Checkpointer:
         between attempts.  ``drain=True`` waits for the async write inside
         the loop (the stop path), so a background write error counts as a
         failed attempt."""
-        attempts = 1 + SAVE_RETRIES
+        attempts = 1 + SAVE_RETRIES if self._pg is None else 1
         delay = SAVE_RETRY_BACKOFF_SECONDS
         last: Optional[BaseException] = None
         for attempt in range(attempts):
@@ -435,8 +543,9 @@ class Checkpointer:
                 pending.result()
             except BaseException:  # noqa: BLE001 — already being handled
                 pass
-        for p in self.directory.glob("*.tmp-*"):
-            shutil.rmtree(p, ignore_errors=True)
+        if self._rank == 0:
+            for p in self.directory.glob("*.tmp-*"):
+                shutil.rmtree(p, ignore_errors=True)
 
     def wait(self) -> None:
         """Block until the in-flight async save commits; its failure raises."""
@@ -505,6 +614,32 @@ class Checkpointer:
 
     def _resolve_step(self, step: Optional[int], verify: Optional[bool], keep: dict, *,
                       quarantine: Optional[bool] = None, what: str = "checkpoint") -> int:
+        """The step to restore (verified, walking back past corrupt steps);
+        under a process group rank 0 decides and tells the others."""
+        if self._pg is None:
+            return self._resolve_step_local(step, verify, keep, quarantine=quarantine,
+                                            what=what)
+        out: Any = None
+        error: Optional[BaseException] = None
+        if self._rank == 0:
+            try:
+                out = ("ok", self._resolve_step_local(step, verify, {}, quarantine=quarantine,
+                                                      what=what))
+            except Exception as e:  # noqa: BLE001 — re-raised on every rank
+                error, out = e, (type(e).__name__, str(e))
+        out = self._broadcast(out)
+        if error is not None:
+            raise error
+        if out[0] == "ok":
+            return int(out[1])
+        if out[0] == "CheckpointIntegrityError":
+            raise CheckpointIntegrityError(f"(rank 0) {out[1]}")
+        if out[0] == "FileNotFoundError":
+            raise FileNotFoundError(f"(rank 0) {out[1]}")
+        raise RuntimeError(f"checkpoint resolution failed on rank 0: {out[0]}: {out[1]}")
+
+    def _resolve_step_local(self, step: Optional[int], verify: Optional[bool], keep: dict, *,
+                            quarantine: Optional[bool] = None, what: str = "checkpoint") -> int:
         icfg = self.config.integrity
         do_verify = icfg.enabled and icfg.verify_restore if verify is None else bool(verify)
         if step is None:
@@ -545,30 +680,51 @@ class Checkpointer:
                 verify: Optional[bool] = None) -> TrainState:
         """Restore the newest verified (or the given) step into the live
         tensors ``params_template`` / ``opt_template`` (updated in place, so
-        device, dtype and strides stay those of the model) and return them."""
+        device, dtype and strides stay those of the model, and a ZeRO-1
+        leaf takes this rank's slice) and return them."""
         keep: dict = {}
         t0 = time.perf_counter()
         step = self._resolve_step(step, verify, keep)
         verify_seconds = time.perf_counter() - t0
         t1 = time.perf_counter()
         meta = json.loads((self.directory / str(step) / META_NAME).read_text())
-        params = self._read(step, "params", keep)
-        opt = self._read(step, "opt_state", keep)
-        self._copy_into(flatten_tree(params_template), params, "params")
+        live_params = flatten_tree(params_template)
         groups = [g for g in _OPT_GROUPS if g in opt_template]
         live = {f"{g}/{n}": t for g in groups for n, t in opt_template[g].items()}
-        if "master" in opt_template and not meta.get("master_in_ckpt", True):
+        reseed_master = "master" in opt_template and not meta.get("master_in_ckpt", True)
+        if reseed_master:
+            live = {k: v for k, v in live.items() if not k.startswith("master/")}
+        if self._pg is None:
+            params = self._read(step, "params", keep)
+            opt = self._read(step, "opt_state", keep)
+            self._copy_into(live_params, params, "params")
+            self._copy_into(live, {k: v for k, v in opt.items() if not _is_scalar_key(k)},
+                            "opt_state")
+            scalars = {k: int(v) for k, v in opt.items() if _is_scalar_key(k)}
+            nbytes = sum(t.numel() * t.element_size() for d in (params, opt) for t in d.values())
+        else:
+            scalars = self._load_group(step, live_params, live)
+            nbytes = sum(t.numel() * t.element_size()
+                         for d in (live_params, live) for t in d.values())
+        if reseed_master:
             # the master was dropped at save time: re-seed it from the params
             # (the trainable ones: under LoRA the frozen base has no master)
-            self._copy_into(opt_template["master"],
-                            {n: t for n, t in params.items() if n in opt_template["master"]},
-                            "params (as master)")
-            live = {k: v for k, v in live.items() if not k.startswith("master/")}
-        self._copy_into(live, {k: v for k, v in opt.items() if k != "step"}, "opt_state")
-        opt_template["step"] = int(opt["step"])
-        if any(t.device.type == "cuda" for t in live.values()):
+            for n, t in opt_template["master"].items():
+                src = live_params[n].detach()
+                sh = shard_of(t)
+                if sh is not None:
+                    src = src.narrow(*sh)
+                local(t).copy_(src)
+        opt_template["step"] = scalars["step"]
+        if "health" in opt_template:
+            health = init_health_state()
+            saved = {k[len("health/"):]: v for k, v in scalars.items() if k != "step"}
+            # saved without the health counters: steps_seen restarts at the
+            # restored step, as in the JAX package
+            health.update(saved or {"steps_seen": scalars["step"]})
+            opt_template["health"] = health
+        if any(t.device.type == "cuda" for t in live_params.values()):
             torch.cuda.synchronize()
-        nbytes = sum(t.numel() * t.element_size() for d in (params, opt) for t in d.values())
         self.last_restore = {"step": step, "bytes": nbytes, "verify_seconds": verify_seconds,
                              "restore_seconds": time.perf_counter() - t1}
         saved_step, consumed = int(meta.pop("step")), int(meta.pop("consumed_samples"))
@@ -576,6 +732,26 @@ class Checkpointer:
             meta.pop(k, None)
         return TrainState(params=params_template, opt_state=opt_template, step=saved_step,
                           consumed_samples=consumed, extra=meta)
+
+    def _load_group(self, step: int, live_params: dict, live_opt: dict) -> dict[str, int]:
+        """Under a process group: ``dcp.load`` both items of ``step`` into the
+        live tensors, in place (DCP reads each rank's slices of a ZeRO-1 leaf,
+        whatever the world size at save); returns the int scalars."""
+        dcp = _dcp()
+        scalars: dict[str, torch.Tensor] = {}
+        for item, target in (("params", live_params), ("opt_state", live_opt)):
+            path = str(self.directory / str(step) / item)
+            saved = set(dcp.FileSystemReader(path).read_metadata().state_dict_metadata)
+            held = {k for k in saved if item == "opt_state" and _is_scalar_key(k)}
+            missing, extra = sorted(set(target) - saved), sorted(saved - set(target) - held)
+            if missing or extra:
+                raise ValueError(f"checkpoint {item} does not match the model: missing "
+                                 f"{missing[:4]}, unexpected {extra[:4]}")
+            sd = dict(target)
+            for k in held:
+                sd[k] = scalars[k] = torch.zeros((), dtype=torch.int64)
+            dcp.load(sd, storage_reader=dcp.FileSystemReader(path), process_group=self._pg)
+        return {k: int(v) for k, v in scalars.items()}
 
     def restore_params_only(self, params_template: Any, *, step: Optional[int] = None,
                             verify: Optional[bool] = None) -> Any:

@@ -3,10 +3,11 @@
 A copy of its loader: plain YAML + ``${a.b.c}`` interpolation + the
 ``${multiply:x,y}`` / ``${add:x,y}`` resolvers + dotted overrides, resolving
 to the same dict.  ``validate_config`` keeps the checks that need nothing
-but the config, and validates the ``exp_manager.checkpoint`` block; the knob
-blocks whose parsers live with subsystems this port does not have yet
-(pipeline schedules, overlap, telemetry, elastic, the autotune topology
-table) are not validated here — the trainer logs them as ignored.
+but the config, and validates the ``exp_manager.checkpoint`` block and the
+``exp_manager.telemetry.health`` block; the knob blocks whose parsers live
+with subsystems this port does not have yet (pipeline schedules, overlap,
+the other telemetry planes, elastic, the autotune topology table) are not
+validated here — the trainer logs them as ignored.
 
 The reference is driven by Hydra/OmegaConf YAML whose root keys are
 ``name, model_source, seed, trainer, exp_manager, distributed_strategy, data,
@@ -295,6 +296,13 @@ def validate_config(cfg: ConfigDict) -> None:
         )
 
         parse_checkpoint_block(em.get("checkpoint"))
+    # exp_manager.telemetry.health: the numerics health policy (the other
+    # telemetry planes are not ported; their blocks are not validated)
+    tel = em.get("telemetry") if isinstance(em, Mapping) else None
+    if isinstance(tel, Mapping) and "health" in tel:
+        from neuronx_distributed_training_torch.telemetry.health import HealthConfig
+
+        HealthConfig.from_config(tel.get("health"))
 
 def batch_schedule(cfg: ConfigDict, n_devices: int) -> dict[str, int]:
     """Derived batch math, identical to the reference (``base.py:54-57``):

@@ -4,7 +4,10 @@ retry, ``process_global_batch``, the prefetch thread, the batch token stats,
 ``HFDataModule`` and ``SyntheticDataModule``).
 
 Batches are numpy on the host; the trainer moves each global batch to the
-device once per step and splits it into microbatches there.  A daemon
+device once per step and splits it into microbatches there.  Under data
+parallelism every rank builds the same global batch (the samplers are
+deterministic) and computes its own rows of each microbatch
+(:func:`dp_rank_rows`), as the JAX package's ``shard_batch`` assumes.  A daemon
 thread (``PrefetchIterator``) keeps the next batches ready so a slow
 ``fetch_rows`` (arrow page-in, mmap faults) does not stall the step loop.
 """
@@ -266,6 +269,27 @@ def process_global_batch(
         if k not in out and k in batch:
             out[k] = np.asarray(batch[k])
     return out
+
+
+def dp_rank_rows(global_batch_size: int, num_microbatches: int, dp_rank: int,
+                 dp_size: int) -> np.ndarray:
+    """The global-batch rows data-parallel rank ``dp_rank`` computes, in
+    microbatch order (``[num_microbatches * micro_batch_size]``).
+
+    The train step splits the global batch microbatch-major
+    (``trainer/step.py::microbatch_split``: microbatch ``i`` is rows
+    ``i * mbs * dp ... (i + 1) * mbs * dp - 1``, as in the JAX package), and
+    the rank takes slice ``[r * mbs, (r + 1) * mbs)`` of each.  This is not
+    ``sampler.dp_shard``'s contiguous block per rank (NeMo's layout), which
+    would put other rows into each microbatch."""
+    if global_batch_size % (num_microbatches * dp_size):
+        raise ValueError(f"global batch {global_batch_size} not divisible by "
+                         f"num_microbatches * dp = {num_microbatches} * {dp_size}")
+    per_micro = global_batch_size // num_microbatches
+    mbs = per_micro // dp_size
+    return np.concatenate([np.arange(i * per_micro + dp_rank * mbs,
+                                     i * per_micro + (dp_rank + 1) * mbs)
+                           for i in range(num_microbatches)])
 
 
 class DataModule:

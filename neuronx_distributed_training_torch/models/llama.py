@@ -259,9 +259,33 @@ def logits_fn(params, hidden: torch.Tensor, cfg: LlamaConfig, policy: DtypePolic
                                    compute_dtype=policy.compute_dtype)
 
 
+def _loss_mask(batch: dict[str, torch.Tensor]):
+    loss_mask = batch.get("loss_mask")
+    attention_mask = batch.get("attention_mask")
+    if attention_mask is not None:
+        am = attention_mask.float()
+        loss_mask = am if loss_mask is None else loss_mask * am
+    return loss_mask
+
+
+def loss_token_count(batch: dict[str, torch.Tensor], *, shift_labels: bool = True):
+    """The loss denominator of ``forward`` on ``batch``: its count of loss
+    tokens (at least 1), as a 0-d fp32 tensor.  Under data parallelism the
+    trainer takes it on the whole microbatch and passes it to each rank's
+    ``forward`` (``ops/cross_entropy.py``)."""
+    labels, loss_mask = batch["labels"], _loss_mask(batch)
+    if shift_labels:
+        labels = labels[:, 1:]
+        loss_mask = None if loss_mask is None else loss_mask[:, 1:]
+    return ce_ops.loss_token_count(labels, loss_mask=loss_mask)
+
+
 def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: DtypePolicy, *,
-            positions=None, shift_labels: bool = True, return_logits: bool = False):
-    """Causal-LM forward -> (loss, aux); without labels -> (logits, aux)."""
+            positions=None, shift_labels: bool = True, return_logits: bool = False,
+            loss_denominator: Optional[torch.Tensor] = None):
+    """Causal-LM forward -> (loss, aux); without labels -> (logits, aux).
+    ``loss_denominator`` replaces this batch's own loss-token count (see
+    :func:`loss_token_count`)."""
     attention_mask = batch.get("attention_mask")
     hidden = hidden_states(params, batch["input_ids"], cfg, policy, positions=positions,
                            attention_mask=attention_mask,
@@ -271,10 +295,8 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
     labels = batch.get("labels")
     if labels is None:
         return logits, aux
-    loss_mask = batch.get("loss_mask")
-    if attention_mask is not None:
-        am = attention_mask.float()
-        loss_mask = am if loss_mask is None else loss_mask * am
+    loss_mask = _loss_mask(batch)
     if shift_labels:
         logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
-    return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask), aux
+    return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
+                                     denominator=loss_denominator), aux

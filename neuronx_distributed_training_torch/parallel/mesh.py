@@ -1,0 +1,159 @@
+"""The device mesh (counterpart of the JAX package's ``parallel/mesh.py``).
+
+The JAX package keeps one ``jax.sharding.Mesh`` whose named axes are the
+parallel groups; here the same axes name a ``torch.distributed``
+``DeviceMesh`` over the processes of the group, one card (or CPU process)
+each, outermost first:
+
+    (pipe, data, expert, context, model)
+
+``dp = world / (tp * pp * cp)`` as in the reference, and ``ep`` must divide
+it.  This slice runs data parallelism only; the trainer rejects tp, pp, cp
+and ep above 1 with the ROADMAP item that ports them.
+
+:class:`DataParallel` is what the train step and the optimizer need of the
+``data`` axis: the rank, the size, its process group, the 1-D mesh the
+ZeRO-1 state's DTensors live on, and the two collectives they run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+#: canonical mesh axis names, outermost first
+AXES = ("pipe", "data", "expert", "context", "model")
+
+#: the compound axis the global batch is split over (true data parallelism)
+DATA_AXES = ("data", "expert")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Parallel degrees, from the ``distributed_strategy`` block."""
+
+    tensor_model_parallel_size: int = 1
+    pipeline_model_parallel_size: int = 1
+    virtual_pipeline_model_parallel_size: int = 1
+    context_parallel_size: int = 1
+    expert_model_parallel_size: int = 1
+    sequence_parallel: bool = False
+
+    @classmethod
+    def from_config(cls, cfg: dict[str, Any]) -> "MeshConfig":
+        """Build from a ``distributed_strategy`` mapping (unknown keys ignored)."""
+        ds = dict(cfg or {})
+        vp = ds.get("virtual_pipeline_model_parallel_size")
+        return cls(
+            tensor_model_parallel_size=int(ds.get("tensor_model_parallel_size", 1)),
+            pipeline_model_parallel_size=int(ds.get("pipeline_model_parallel_size", 1)),
+            virtual_pipeline_model_parallel_size=int(vp) if vp else 1,
+            context_parallel_size=int(ds.get("context_parallel_size", 1)),
+            expert_model_parallel_size=int(ds.get("expert_model_parallel_size", 1)),
+            sequence_parallel=bool(ds.get("sequence_parallel", False)),
+        )
+
+    @property
+    def tp(self) -> int:
+        return self.tensor_model_parallel_size
+
+    @property
+    def pp(self) -> int:
+        return self.pipeline_model_parallel_size
+
+    @property
+    def cp(self) -> int:
+        return self.context_parallel_size
+
+    @property
+    def ep(self) -> int:
+        return self.expert_model_parallel_size
+
+    def validate(self, n_devices: int) -> None:
+        for name, v in (
+            ("tensor_model_parallel_size", self.tp),
+            ("pipeline_model_parallel_size", self.pp),
+            ("context_parallel_size", self.cp),
+            ("expert_model_parallel_size", self.ep),
+            ("virtual_pipeline_model_parallel_size", self.virtual_pipeline_model_parallel_size),
+        ):
+            if v < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+        denom = self.tp * self.pp * self.cp
+        if n_devices % denom != 0:
+            raise ValueError(
+                f"world size {n_devices} not divisible by tp*pp*cp = "
+                f"{self.tp}*{self.pp}*{self.cp} = {denom}")
+        dp = n_devices // denom
+        if dp % self.ep != 0:
+            raise ValueError(
+                f"data-parallel degree {dp} not divisible by "
+                f"expert_model_parallel_size {self.ep}")
+        if self.sequence_parallel and self.tp == 1:
+            raise ValueError(
+                "sequence_parallel requires tensor_model_parallel_size > 1 "
+                "(reference megatron_base_model.py:76-80)")
+
+    def dp_size(self, n_devices: int) -> int:
+        """True data-parallel degree: world / (tp * pp * cp)."""
+        return n_devices // (self.tp * self.pp * self.cp)
+
+    def shape(self, n_devices: int) -> dict[str, int]:
+        dp = self.dp_size(n_devices)
+        return {"pipe": self.pp, "data": dp // self.ep, "expert": self.ep,
+                "context": self.cp, "model": self.tp}
+
+
+def build_mesh(config: MeshConfig, *, device_type: str = "cuda"):
+    """The global ``DeviceMesh`` over the process group's ranks, with the
+    axes :data:`AXES` (``init_device_mesh``; the process group must be up).
+    ``device_type`` is ``"cuda"`` on cards, ``"cpu"`` for gloo runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = dist.get_world_size()
+    config.validate(n)
+    shape = config.shape(n)
+    return init_device_mesh(device_type, tuple(shape[a] for a in AXES), mesh_dim_names=AXES)
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    return int(dict(zip(mesh.mesh_dim_names, mesh.shape)).get(axis, 1))
+
+
+def dp_degree(mesh) -> int:
+    """True data-parallel degree (``data`` x ``expert`` axes)."""
+    return mesh_axis_size(mesh, "data") * mesh_axis_size(mesh, "expert")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """This process's place on the ``data`` axis."""
+
+    rank: int
+    size: int
+    group: Any  # the data axis's ProcessGroup
+    mesh: Any  # the 1-D DeviceMesh of the data axis (ZeRO-1 DTensors)
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "DataParallel":
+        dm = mesh["data"]
+        return cls(rank=dm.get_local_rank(), size=dm.size(), group=dm.get_group(), mesh=dm)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the data axis, in place (the identity on one rank)."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_gather_into(self, out: torch.Tensor, local: torch.Tensor, dim: int) -> None:
+        """``out`` (the whole leaf) <- every rank's ``local`` slice, laid
+        end to end along ``dim`` in rank order."""
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(local) for _ in range(self.size)]
+        dist.all_gather(parts, local.contiguous(), group=self.group)
+        out.copy_(torch.cat(parts, dim=dim))

@@ -4,12 +4,21 @@ checkpointing off, phase 5 on a Megatron corpus), and its step times printed
 as one JSON line:
 
     python -m neuronx_distributed_training_torch.tools.step_times [--steps N]
-        [--save-every K]
+        [--save-every K] [--set key.path=value ...]
+
+Under torchrun (``torchrun --standalone --nproc_per_node N -m
+neuronx_distributed_training_torch.tools.step_times ...``) the cell trains
+data parallel over NCCL, as ``chip_smoke.py`` phase 7a runs it; rank 0
+prints the line.  The line holds the step seconds, losses and grad norms,
+and the flash kernels' launch and fallback counts of the run.
 
 With ``--save-every K`` the run checkpoints asynchronously every K steps
 (top-1 + last, into a scratch exp dir under ``build/`` that is deleted at the
 end), so the steps after each save train while it is written and hashed: at
-this cell a save is 23 GB and takes tens of seconds.
+this cell a save is 23 GB and takes tens of seconds.  With ``--exp-dir DIR``
+the checkpoints go to DIR instead, which is kept, and a run resumes from
+its newest checkpoint there (``chip_smoke.py`` phase 7a saves at dp=2 and
+resumes so).
 
 Run as ``PYTHONPATH=<checkout> python <path of this file>`` it drives that
 checkout's trainer with this file's cell settings, so two commits (a ``git
@@ -21,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -52,25 +62,43 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--save-every", type=int, default=0)
+    ap.add_argument("--exp-dir", default=None,
+                    help="with --save-every: checkpoint into (and resume from) this exp dir, kept")
+    ap.add_argument("--set", dest="overrides", action="append", default=[],
+                    metavar="KEY=VAL", help="more config overrides, after the cell's")
     args = ap.parse_args(argv)
     import neuronx_distributed_training_torch as pkg
+    from neuronx_distributed_training_torch.ops import flash_attention as fa
     from neuronx_distributed_training_torch.trainer import cli
 
     overrides = ["--set", f"trainer.max_steps={args.steps}"]
-    exp = WORK / "exp_step_times"
+    for o in args.overrides:
+        overrides += ["--set", o]
+    exp = Path(args.exp_dir) if args.exp_dir else WORK / "exp_step_times"
+    # a scratch exp dir is emptied before and after, by one rank under torchrun
+    scratch = os.environ.get("RANK", "0") == "0" and not args.exp_dir
     if args.save_every:
-        shutil.rmtree(exp, ignore_errors=True)
+        if scratch:
+            shutil.rmtree(exp, ignore_errors=True)
         ck = "exp_manager.checkpoint_callback_params"
         overrides += ["--set", f"exp_manager.exp_dir={exp}",
+                      "--set", f"exp_manager.resume_if_exists={bool(args.exp_dir)}",
                       "--set", f"{ck}.every_n_train_steps={args.save_every}",
                       "--set", f"{ck}.save_top_k=1", "--set", f"{ck}.async_checkpointing=true"]
+    fa.reset_counters()
     try:
-        history = cli.main(CLI_ARGS + overrides)
+        trainer, history = cli.run(CLI_ARGS + overrides)
     finally:
-        shutil.rmtree(exp, ignore_errors=True)
-    print(json.dumps({"package": str(Path(pkg.__file__).resolve().parent),
-                      "step_seconds": [r["step_seconds"] for r in history],
-                      "loss": [r["loss"] for r in history]}), flush=True)
+        if scratch and args.save_every:
+            shutil.rmtree(exp, ignore_errors=True)
+    if trainer.is_rank0:
+        print(json.dumps({"package": str(Path(pkg.__file__).resolve().parent),
+                          "dp": 1 if trainer.dp is None else trainer.dp.size,
+                          "step_seconds": [r["step_seconds"] for r in history],
+                          "loss": [r["loss"] for r in history],
+                          "grad_norm": [r["grad_norm"] for r in history],
+                          "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS)}),
+              flush=True)
 
 
 if __name__ == "__main__":

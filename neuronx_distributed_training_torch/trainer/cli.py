@@ -6,7 +6,17 @@
         [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
-raises rather than falling back to the CPU.  ``TRAIN_ITERS`` overrides
+raises rather than falling back to the CPU.  Data parallel (ZeRO-1 with
+``distributed_strategy.zero1``, the default) under torchrun, one process per
+card over NCCL, or per CPU process over gloo with ``--device cpu``:
+
+    torchrun --standalone --nproc_per_node N \
+        -m neuronx_distributed_training_torch.trainer.cli --config ... [--device cpu]
+
+``utils/launch.py`` reads the rendezvous (torchrun's ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``; else
+``NXDT_*``, SLURM or Open MPI) and starts the process group, which the run
+ends.  ``TRAIN_ITERS`` overrides
 ``trainer.max_steps``.  The data source is ``data.data_prefix`` (a Megatron
 ``.bin/.idx`` corpus, or ``[weight, prefix, ...]`` for a blend),
 ``data.train_dir`` (an arrow directory; jsonl / json / arrow records under
@@ -62,20 +72,29 @@ def build(argv: Optional[list[str]] = None):
 
     from neuronx_distributed_training_torch.config.loader import load_config
     from neuronx_distributed_training_torch.trainer.loop import Trainer
+    from neuronx_distributed_training_torch.utils.launch import initialize_distributed
 
     overrides = parse_overrides(args.overrides)
     if os.environ.get("TRAIN_ITERS"):
         overrides["trainer.max_steps"] = int(os.environ["TRAIN_ITERS"])
     cfg = load_config(args.config, overrides)
+    initialize_distributed(device=args.device)
     return Trainer.from_config(cfg, device=args.device)
 
 
 def run(argv: Optional[list[str]] = None):
     """Parse the arguments, build the trainer and fit; returns
-    ``(trainer, history)``."""
-    trainer = build(argv)
-    history = trainer.fit()
-    if history:
+    ``(trainer, history)``.  A process group the run started ends with it."""
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    try:
+        trainer = build(argv)
+        history = trainer.fit()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    if history and trainer.is_rank0:
         last = history[-1]
         logger.info("done: loss %.4f grad_norm %.4f consumed_samples %d%s", last["loss"],
                     last["grad_norm"], last["consumed_samples"],

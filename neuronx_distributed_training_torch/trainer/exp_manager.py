@@ -3,10 +3,14 @@ the JAX package's ``trainer/exp_manager.py``, without its telemetry planes).
 
 ``<exp_dir>/<name>/version_N/`` holds ``metrics.jsonl`` (one line per logged
 step), ``run_summary.json`` (written atomically), ``checkpoints/``, the
-per-rank log file and, when ``torch.utils.tensorboard`` imports, ``tb/``.
+per-rank log files and, when ``torch.utils.tensorboard`` imports, ``tb/``.
 With ``resume_if_exists`` the newest ``version_N`` is reused, so its
-checkpoints are found; otherwise a new version starts.  Profiling, tracing,
-W&B and MLflow are not ported (the trainer logs their knobs as ignored).
+checkpoints are found; otherwise a new version starts.  Under data
+parallelism rank 0 chooses the version (:func:`version_for_config`) and
+passes it to the others, and only the ``writer`` (rank 0) writes metrics,
+TensorBoard and the run summary; every rank keeps its own log file.
+Profiling, tracing, W&B and MLflow are not ported (the trainer logs their
+knobs as ignored).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 from neuronx_distributed_training_torch.utils.io import atomic_write_json
+from neuronx_distributed_training_torch.utils.launch import restart_log_dir
 
 logger = logging.getLogger(__name__)
 
@@ -44,12 +49,24 @@ def latest_version(base: Path) -> Optional[int]:
     return versions[-1] if versions else None
 
 
-def restart_log_dir(base_dir: str, env: Optional[dict] = None) -> str:
-    """Per-restart log directory: a SLURM relaunch writes under
-    ``restart_<N>/`` so earlier logs survive."""
-    env = os.environ if env is None else env
-    restart = int(env.get("SLURM_RESTART_COUNT", "0") or 0)
-    return os.path.join(base_dir, f"restart_{restart}") if restart > 0 else base_dir
+def choose_version(base: Path, resume_if_exists: bool) -> str:
+    """``version_N`` under ``base``: the newest with ``resume_if_exists``
+    (``version_0`` when there is none), else the first unused one."""
+    if resume_if_exists and base.exists():
+        v = latest_version(base)
+        return f"version_{v}" if v is not None else "version_0"
+    n = 0
+    while (base / f"version_{n}").exists():
+        n += 1
+    return f"version_{n}"
+
+
+def version_for_config(cfg: dict) -> str:
+    """The version directory ``ExpManager.from_config(cfg)`` would use."""
+    exp_dir, name = exp_root_and_name(cfg)
+    em = dict(cfg.get("exp_manager", {}) or {})
+    return choose_version(Path(str(exp_dir)) / str(name),
+                          bool(em.get("resume_if_exists", False)))
 
 
 def _coerce_scalar(v: Any) -> Optional[float]:
@@ -83,17 +100,13 @@ class ExpManager:
         log_files: bool = True,
         log_local_rank_0_only: bool = False,
         log_global_rank_0_only: bool = False,
+        writer: bool = True,
     ):
         base = Path(str(exp_dir)) / str(name)
         if version is None:
-            if resume_if_exists and base.exists():
-                v = latest_version(base)
-                version = f"version_{v}" if v is not None else "version_0"
-            else:
-                n = 0
-                while (base / f"version_{n}").exists():
-                    n += 1
-                version = f"version_{n}"
+            version = choose_version(base, resume_if_exists)
+        #: this process writes metrics, TensorBoard and the run summary
+        self.writer = bool(writer)
         self.log_dir = base / version
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self.checkpoint_dir = self.log_dir / "checkpoints"
@@ -103,7 +116,7 @@ class ExpManager:
         self._summary_lock = threading.Lock()
         self._warned_nonscalar: set[str] = set()
         self._tb = None
-        if create_tensorboard_logger:
+        if create_tensorboard_logger and self.writer:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -132,13 +145,16 @@ class ExpManager:
         return handler
 
     @classmethod
-    def from_config(cls, cfg: dict[str, Any]) -> "ExpManager":
+    def from_config(cls, cfg: dict[str, Any], *, version: Optional[str] = None,
+                    writer: bool = True) -> "ExpManager":
         """Build from the reference's ``exp_manager:`` block."""
         em = dict(cfg.get("exp_manager", {}) or {})
         exp_dir, name = exp_root_and_name(cfg)
         return cls(
             exp_dir=exp_dir,
             name=name,
+            version=version,
+            writer=writer,
             create_tensorboard_logger=bool(em.get("create_tensorboard_logger", True)),
             log_every_n_steps=int((cfg.get("trainer", {}) or {}).get("log_every_n_steps", 10)),
             resume_if_exists=bool(em.get("resume_if_exists", False)),
@@ -150,6 +166,8 @@ class ExpManager:
     def write_run_summary(self, section: dict[str, Any]) -> None:
         """Merge ``section`` into ``run_summary.json`` (atomic write: a kill
         mid-write never leaves a truncated document)."""
+        if not self.writer:
+            return
         with self._summary_lock:
             existing: dict[str, Any] = {}
             try:
@@ -164,7 +182,7 @@ class ExpManager:
         """Write the scalars (TensorBoard and ``metrics.jsonl``) every
         ``log_every_n_steps`` steps; a non-scalar value is dropped with a
         warning once per key."""
-        if not force and step % self.log_every_n_steps != 0:
+        if not self.writer or (not force and step % self.log_every_n_steps != 0):
             return
         flat: dict[str, float] = {}
         for k, v in metrics.items():

@@ -19,10 +19,26 @@ train: the frozen base gets no gradient and no optimizer state.  The resume
 state ``consumed_samples`` is derived from trained steps, never from the
 sampler, which the prefetch thread runs ahead.
 
+Under ``torch.distributed`` (``trainer/cli.py`` starts it under torchrun)
+the trainer is data parallel: ``dp`` is the world size, every rank builds
+the same global batch and computes its rows of each microbatch, gradients
+and loss are all-reduced, and with ``distributed_strategy.zero1`` (the
+default) the AdamW state is sharded over the ranks (``optim/adamw.py``).
+Params start from rank 0's.  Rank 0 alone logs the steps and writes the exp
+dir's ``metrics.jsonl``, TensorBoard and ``run_summary.json`` (each rank
+keeps its own log file); the stop decisions (``max_time``, SIGTERM) are
+agreed by an all-reduce at each step boundary, so every rank stops, and
+checkpoints, at the same step.
+
+``exp_manager.telemetry.health`` is acted on (``telemetry/health.py``):
+``skip_update`` keeps a non-finite step's state, ``halt`` stops at that step
+without a checkpoint (``stop_class = "health_halt"``), and the health
+counters are checkpointed with the optimizer state.
+
 Knobs this slice does not implement are rejected with the ROADMAP item that
 ports them; config blocks it does not act on are logged once as ignored
-(the telemetry planes, elastic replan, EMA, autotune, ZeRO-1, overlap and
-pipeline knobs).
+(the other telemetry planes and the health recorder's knobs, elastic
+replan, EMA, autotune, overlap and pipeline knobs).
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from neuronx_distributed_training_torch.checkpoint import (
     CheckpointConfig,
@@ -46,10 +63,24 @@ from neuronx_distributed_training_torch.config.loader import ConfigDict, batch_s
 from neuronx_distributed_training_torch.data.build import alignment_strategy, build_data_module
 from neuronx_distributed_training_torch.data.loader import DataModule, PrefetchIterator
 from neuronx_distributed_training_torch.models import llama
-from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, init_opt_state
+from neuronx_distributed_training_torch.optim.adamw import (
+    AdamWConfig,
+    init_opt_state,
+    opt_state_specs,
+)
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
+from neuronx_distributed_training_torch.parallel.mesh import (
+    DataParallel,
+    MeshConfig,
+    build_mesh,
+    dp_degree,
+)
 from neuronx_distributed_training_torch.peft import LoraConfig, add_lora, trainable_mask
-from neuronx_distributed_training_torch.trainer.exp_manager import ExpManager
+from neuronx_distributed_training_torch.telemetry.health import HealthConfig
+from neuronx_distributed_training_torch.trainer.exp_manager import (
+    ExpManager,
+    version_for_config,
+)
 from neuronx_distributed_training_torch.trainer.step import make_eval_step, make_train_step
 from neuronx_distributed_training_torch.utils import perf
 from neuronx_distributed_training_torch.utils.device import resolve_device
@@ -110,17 +141,51 @@ def check_supported(cfg: ConfigDict) -> None:
 
 def _log_ignored(cfg: ConfigDict) -> None:
     em = dict(cfg.get("exp_manager", {}) or {})
-    ignored = [f"exp_manager.{k}" for k in ("telemetry", "elastic", "ema") if k in em]
+    tel = em.get("telemetry")
+    ignored = []
+    if isinstance(tel, dict):
+        # the health policy is acted on; the other planes, and the health
+        # recorder's and watchdogs' knobs, are not
+        ignored += [f"exp_manager.telemetry.{k}" for k in tel if k != "health"]
+        ignored += [f"exp_manager.telemetry.health.{k}" for k in
+                    HealthConfig.from_config(tel.get("health")).ignored_knobs()]
+    elif tel is not None:
+        ignored.append("exp_manager.telemetry")
+    ignored += [f"exp_manager.{k}" for k in ("elastic", "ema") if k in em]
     ignored += [f"exp_manager.{k}" for k in ("create_wandb_logger", "create_mlflow_logger",
                                              "profile_start_step") if em.get(k)]
     ignored += [k for k in ("autotune",) if k in cfg]
     ds = dict(cfg.get("distributed_strategy", {}) or {})
-    ignored += [f"distributed_strategy.{k}" for k in ("zero1", "overlap", "pipeline") if k in ds]
+    ignored += [f"distributed_strategy.{k}" for k in ("overlap", "pipeline") if k in ds]
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
-        logger.info("ignored by this slice of the port (one device, no telemetry planes "
-                    "yet): %s", ", ".join(fresh))
+        logger.info("ignored by this slice of the port (data parallelism only, no "
+                    "telemetry planes but the health policy yet): %s", ", ".join(fresh))
+
+
+def _health_config(cfg: ConfigDict) -> HealthConfig:
+    tel = dict((cfg.get("exp_manager", {}) or {}).get("telemetry", {}) or {})
+    return HealthConfig.from_config(tel.get("health"))
+
+
+def _process_group() -> tuple[int, int]:
+    """``(rank, world size)`` of the running process group, ``(0, 1)``
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _broadcast_object(obj, device):
+    """Rank 0's ``obj`` on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, device=device)
+    return box[0]
+
+
+#: stop reasons folded across ranks at each step boundary (the largest wins)
+_STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
 
 
 @dataclasses.dataclass
@@ -143,10 +208,19 @@ class Trainer:
     peak_tflops: Optional[float]
     #: names of the leaves that train (the LoRA adapters); None: every leaf
     trainable: Optional[set] = None
+    health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
+    #: the data axis under a process group (None: one process, no group)
+    dp: Optional[DataParallel] = None
+    #: this process's rank in the process group (0 without one)
+    rank: int = 0
     step: int = 0
-    #: why the finished run stopped early ("max_time", "preemption"; None
-    #: for a run that reached max_steps)
+    #: why the finished run stopped early ("max_time", "preemption",
+    #: "health_halt"; None for a run that reached max_steps)
     stop_class: Optional[str] = None
+
+    @property
+    def is_rank0(self) -> bool:
+        return self.rank == 0
 
     @classmethod
     def from_config(cls, cfg: ConfigDict, *, device=None,
@@ -154,12 +228,20 @@ class Trainer:
                     val_data_module: Optional[DataModule] = None,
                     enable_checkpointing: bool = True) -> "Trainer":
         check_supported(cfg)
-        _log_ignored(cfg)
+        rank, world = _process_group()
+        if rank == 0:
+            _log_ignored(cfg)
+        health = _health_config(cfg)
         dev = resolve_device(device)
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
         model_block = dict(cfg.get("model", {}) or {})
         mc = llama.LlamaConfig.from_config(model_block)
-        sched = batch_schedule(cfg, n_devices=1)
+        ds = dict(cfg.get("distributed_strategy", {}) or {})
+        dp, dp_size = None, 1
+        if dist.is_available() and dist.is_initialized():
+            mesh = build_mesh(MeshConfig.from_config(ds), device_type=dev.type)
+            dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
+        sched = batch_schedule(cfg, n_devices=world)
         seed = int(cfg.get("seed", 1234))
         # data first: the module's label convention decides shift_labels
         if data_module is None:
@@ -181,38 +263,60 @@ class Trainer:
                 logger.info("model.lora.lora_dropout %g: parsed, not applied, as in the JAX "
                             "package", lora_cfg.dropout)
         flat = llama.named_params(params)
-        opt_state = init_opt_state(
-            {n: t for n, t in flat.items() if trainable is None or n in trainable}, policy)
+        if dp is not None:
+            # every rank starts from rank 0's weights
+            for t in flat.values():
+                dist.broadcast(t, src=0)
+        train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
+        zero1 = bool(ds.get("zero1", True))
+        specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
+                                health=health.enabled)
+        opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
+                                   dp=dp)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
-        def loss_fn(p, batch):
-            return llama.forward(p, batch, mc, policy, shift_labels=shift_labels)
+        def loss_fn(p, batch, denominator=None):
+            return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
+                                 loss_denominator=denominator)
+
+        def token_count_fn(batch):
+            return llama.loss_token_count(batch, shift_labels=shift_labels)
 
         nm = sched["num_microbatches"]
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
-            num_microbatches=nm, trainable=trainable)
+            num_microbatches=nm, trainable=trainable, health=health, dp=dp,
+            token_count_fn=token_count_fn)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
-        exp = ExpManager.from_config(cfg)
+        version = None
+        if dp is not None:
+            # rank 0 picks the version dir (a new one, or the newest to resume)
+            version = _broadcast_object(version_for_config(cfg) if rank == 0 else None, dev)
+        exp = ExpManager.from_config(cfg, version=version, writer=rank == 0)
         checkpointer = None
         if enable_checkpointing:
             ck_cfg = dataclasses.replace(CheckpointConfig.from_config(cfg),
                                          dir=exp.checkpoint_dir)
             checkpointer = Checkpointer(ck_cfg)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
-        logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
-                    "(shift_labels=%s); trainable %s; run dir %s", mc, nm,
-                    sched["micro_batch_size"], policy, dev, type(data_module).__name__,
-                    shift_labels, "all leaves" if trainable is None else
-                    f"{len(trainable)} of {len(flat)} leaves (LoRA)", exp.log_dir)
+        if rank == 0:
+            logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
+                        "(shift_labels=%s); trainable %s; dp %d, zero1 %s (%d of %d state "
+                        "leaves sharded); health %s; run dir %s", mc, nm,
+                        sched["micro_batch_size"], policy, dev, type(data_module).__name__,
+                        shift_labels, "all leaves" if trainable is None else
+                        f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, zero1,
+                        sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
+                        health.policy if health.enabled else "off", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
                    opt_state=opt_state, train_step=step_fn, trainable=trainable,
-                   eval_step=make_eval_step(loss_fn, num_microbatches=nm),
+                   eval_step=make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
+                                            token_count_fn=token_count_fn),
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
-                   peak_tflops=peak)
+                   peak_tflops=peak, health=health, dp=dp, rank=rank)
 
     # -- resume ---------------------------------------------------------------
 
@@ -230,8 +334,9 @@ class Trainer:
         state = self.checkpointer.restore(self.params, self.opt_state)
         self.params, self.opt_state, self.step = state.params, state.opt_state, state.step
         self.data_module.sampler.consumed_samples = state.consumed_samples
-        logger.info("resumed from step %d (consumed_samples=%d)", state.step,
-                    state.consumed_samples)
+        if self.is_rank0:
+            logger.info("resumed from step %d (consumed_samples=%d)", state.step,
+                        state.consumed_samples)
         return True
 
     # -- the loop -------------------------------------------------------------
@@ -252,6 +357,7 @@ class Trainer:
         limit_val = int(cfg_t.get("limit_val_batches", 10) or 10)
         ck_every = self.checkpointer.config.every_n_train_steps if self.checkpointer else 0
         max_time = parse_max_time(cfg_t.get("max_time"))
+        n_cards = 1 if self.dp is None else self.dp.size
         stop: dict[str, Optional[str]] = {"reason": None}
 
         def _on_sigterm(signum, frame):
@@ -282,14 +388,25 @@ class Trainer:
                 tokens = self.sched["global_batch_size"] * self.seq_len
                 rec.update(step_seconds=seconds, tokens_per_sec=tokens / seconds,
                            consumed_samples=self.consumed_samples)
-                rec["mfu"] = (perf.mfu(rec["tokens_per_sec"], flops_per_token, self.peak_tflops)
-                              if self.peak_tflops else math.nan)
-                logger.info("step %d: loss %.4f grad_norm %.4f lr %.3e | %.3f s, %.1f tokens/s, "
-                            "mfu %.4f", index, rec["loss"], rec["grad_norm"], rec["lr"],
-                            seconds, rec["tokens_per_sec"], rec["mfu"])
+                # per card: each of the dp ranks computes 1/dp of the tokens
+                rec["mfu"] = (perf.mfu(rec["tokens_per_sec"] / n_cards, flops_per_token,
+                                       self.peak_tflops) if self.peak_tflops else math.nan)
+                if self.is_rank0:
+                    logger.info("step %d: loss %.4f grad_norm %.4f lr %.3e | %.3f s, %.1f "
+                                "tokens/s, mfu %.4f", index, rec["loss"], rec["grad_norm"],
+                                rec["lr"], seconds, rec["tokens_per_sec"], rec["mfu"])
                 self.exp.log_metrics(self.step, {k: v for k, v in rec.items()
                                                  if not (k == "mfu" and math.isnan(v))})
                 history.append({"step": index, **rec})
+                if (self.health.enabled and self.health.policy == "halt"
+                        and rec["health/updates_finite"] == 0.0):
+                    # no checkpoint: the poisoned update was applied, and a
+                    # resume must find the last good save (the flag is the
+                    # same on every rank: it comes from all-reduced values)
+                    logger.error("health policy=halt: non-finite step %d; stopping without "
+                                 "a checkpoint (a resume restores the last good save)", index)
+                    self.stop_class = "health_halt"
+                    break
                 if (max_time is not None and stop["reason"] is None
                         and time.monotonic() - t_start > max_time):
                     stop["reason"] = f"max_time {cfg_t.get('max_time')}"
@@ -300,16 +417,24 @@ class Trainer:
                 # SIGTERM landing inside the cadence save below stops at the
                 # next boundary instead of saving this step twice
                 reason = stop["reason"]
-                if reason is not None and self.stop_class is None:
-                    self.stop_class = "max_time" if reason.startswith("max_time") else "preemption"
+                stop_class = (None if reason is None else
+                              "max_time" if reason.startswith("max_time") else "preemption")
+                if self.dp is not None:
+                    # every rank stops (and saves) at the step any rank stops at
+                    stop_class = self._agree_stop(stop_class)
+                    if stop_class is not None and reason is None:
+                        reason = stop["reason"] = f"{stop_class} on another rank"
+                if stop_class is not None and self.stop_class is None:
+                    self.stop_class = stop_class
                 if ck_every and self.step % ck_every == 0 and reason is None:
                     self.save_checkpoint(rec)
                 if reason is not None:
-                    logger.warning("stopping at step %d: %s; checkpointing for resume",
-                                   self.step, reason)
+                    if self.is_rank0:
+                        logger.warning("stopping at step %d: %s; checkpointing for resume",
+                                       self.step, reason)
                     self.save_checkpoint(rec, emergency=True)
                     break
-            if ck_every and stop["reason"] is None:
+            if ck_every and stop["reason"] is None and self.stop_class != "health_halt":
                 self.save_checkpoint(history[-1] if history else {})  # final save
         finally:
             if batches is not None:
@@ -331,6 +456,13 @@ class Trainer:
                 })
                 self.exp.close()
         return history
+
+    def _agree_stop(self, stop_class: Optional[str]) -> Optional[str]:
+        """The stop decision every rank takes at this boundary: the largest
+        of the ranks' (``_STOP_CODES``), by a MAX all-reduce."""
+        code = torch.tensor([_STOP_CODES[stop_class]], dtype=torch.int32, device=self.device)
+        dist.all_reduce(code, op=dist.ReduceOp.MAX, group=self.dp.group)
+        return {v: k for k, v in _STOP_CODES.items()}[int(code.item())]
 
     def validate(self, limit_batches: int) -> float:
         """Mean loss over up to ``limit_batches`` validation global batches."""

@@ -1,5 +1,5 @@
 """The training step (counterpart of the core of the JAX package's
-``trainer/step.py::make_train_step``, one device).
+``trainer/step.py::make_train_step``).
 
 Microbatch gradient accumulation in ``grad_accum_dtype``, divided by the
 number of microbatches, then the AdamW update with global-norm clipping.
@@ -15,6 +15,23 @@ clipping norm.  The port gets the same numbers by leaving frozen leaves out:
 they get no ``requires_grad``, no gradient and no optimizer state, and the
 optimizer's dicts (``opt_state``, built by ``init_opt_state`` over the
 trainable leaves) hold the trainable leaves only.
+
+``health`` (``telemetry/health.py::HealthConfig``, enabled): the grouped
+grad norms and the finite flag of ``optim/adamw.py``, the loss's
+finiteness as ``extra_finite``, the counters ``steps_seen``,
+``nonfinite_count``, ``skipped_count`` and ``last_nonfinite_step`` in
+``opt_state["health"]``, and the ``health/*`` metrics under the JAX names;
+``skip_update`` suppresses a non-finite step's update.
+
+``dp`` (``parallel/mesh.py::DataParallel``): data parallelism.  The step
+takes the global batch, which every rank holds, splits it microbatch-major
+as JAX does and computes this rank's rows of each microbatch
+(``data/loader.py::dp_rank_rows``); ``token_count_fn`` gives each whole
+microbatch's loss denominator, which the loss function takes as
+``loss_fn(params, batch, denominator)``.  The accumulated gradients and the
+loss are SUM all-reduced (in ``grad_accum_dtype``; in place, the identity on
+one rank) before the 1/num_microbatches scale and the update, so every rank
+sees JAX's loss and gradients.
 """
 
 from __future__ import annotations
@@ -23,12 +40,19 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from neuronx_distributed_training_torch.data.loader import dp_rank_rows
 from neuronx_distributed_training_torch.models.llama import named_params
-from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, adamw_update
+from neuronx_distributed_training_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_update,
+    global_norm,
+    init_health_state,
+)
+from neuronx_distributed_training_torch.telemetry.health import grad_group_of
 from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
 
-# loss_fn(params, batch) -> (loss, aux_dict)
-LossFn = Callable[[Any, dict[str, torch.Tensor]], tuple]
+# loss_fn(params, batch[, denominator]) -> (loss, aux_dict)
+LossFn = Callable[..., tuple]
 
 
 def microbatch_split(batch: dict[str, torch.Tensor], num_microbatches: int):
@@ -37,11 +61,36 @@ def microbatch_split(batch: dict[str, torch.Tensor], num_microbatches: int):
             for k, x in batch.items()}
 
 
+def _microbatches(batch, num_microbatches: int, dp, token_count_fn):
+    """``[(microbatch, denominator)]`` this rank computes; the denominator
+    (None without ``dp``) is taken on the whole microbatch."""
+    if dp is None:
+        mbs = microbatch_split(batch, num_microbatches)
+        return [({k: v[i] for k, v in mbs.items()}, None) for i in range(num_microbatches)]
+    whole = microbatch_split(batch, num_microbatches)
+    gbs = next(iter(batch.values())).shape[0]
+    rows = torch.as_tensor(dp_rank_rows(gbs, num_microbatches, dp.rank, dp.size),
+                           device=next(iter(batch.values())).device)
+    mine = microbatch_split({k: v.index_select(0, rows) for k, v in batch.items()},
+                            num_microbatches)
+    return [({k: v[i] for k, v in mine.items()},
+             token_count_fn({k: v[i] for k, v in whole.items()}))
+            for i in range(num_microbatches)]
+
+
+def _call_loss(loss_fn, params, mb, denominator):
+    return loss_fn(params, mb) if denominator is None else loss_fn(params, mb, denominator)
+
+
 def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable,
                     policy: DtypePolicy, *, num_microbatches: int = 1,
-                    trainable: Optional[set[str]] = None) -> Callable:
+                    trainable: Optional[set[str]] = None, health: Any = None,
+                    dp: Any = None, token_count_fn: Optional[Callable] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``)."""
+    health = health if health is not None and getattr(health, "enabled", False) else None
+    if dp is not None and token_count_fn is None:
+        raise ValueError("data parallelism needs token_count_fn (the loss denominator)")
 
     def train_step(params, opt_state, batch):
         flat = named_params(params)
@@ -50,11 +99,10 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             p.requires_grad_(trainable is None or n in trainable)
         flat = {n: flat[n] for n in names}
         leaves = [flat[n] for n in names]
-        mbs = microbatch_split(batch, num_microbatches)
         loss_sum = None
         grad_sum = None
-        for i in range(num_microbatches):
-            loss, _ = loss_fn(params, {k: v[i] for k, v in mbs.items()})
+        for mb, denom in _microbatches(batch, num_microbatches, dp, token_count_fn):
+            loss, _ = _call_loss(loss_fn, params, mb, denom)
             loss = loss.float()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(p, dtype=policy.grad_accum_dtype) if g is None
@@ -66,31 +114,73 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     a.add_(g)
                 loss_sum = loss_sum + loss.detach()
             del grads
+        if dp is not None:
+            for g in grad_sum:
+                dp.all_reduce_(g)
+            dp.all_reduce_(loss_sum)
         if num_microbatches > 1:
             inv = 1.0 / num_microbatches
             loss_sum = loss_sum * inv
             for g in grad_sum:
                 g.mul_(inv)
         lr = lr_schedule(opt_state["step"])
-        opt_metrics = adamw_update(flat, dict(zip(names, grad_sum)), opt_state, lr,
-                                   opt_cfg, policy)
-        return {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
-                "grad_norm": opt_metrics["grad_norm"]}
+        opt_metrics = adamw_update(
+            flat, dict(zip(names, grad_sum)), opt_state, lr, opt_cfg, policy,
+            grad_group_fn=grad_group_of if health is not None else None,
+            skip_nonfinite=health is not None and health.policy == "skip_update",
+            extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp)
+        metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
+                   "grad_norm": opt_metrics["grad_norm"]}
+        if health is not None:
+            metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat))
+        return metrics
 
     return train_step
 
 
-def make_eval_step(loss_fn: LossFn, *, num_microbatches: int = 1) -> Callable:
+def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params) -> dict:
+    """Advance the health counters (host ints; ``updates_finite`` is read
+    once) and return the ``health/*`` metrics under the JAX names."""
+    ok = bool(opt_metrics["updates_finite"])
+    prev = opt_state.setdefault("health", init_health_state())
+    # steps_seen counts step calls (the AdamW step freezes on a skip):
+    # steps_seen - 1 is the 0-based step just computed
+    seen = prev["steps_seen"] + 1
+    bad = 0 if ok else 1
+    hstate = {
+        "steps_seen": seen,
+        "nonfinite_count": prev["nonfinite_count"] + bad,
+        "skipped_count": prev["skipped_count"] + (bad if health.policy == "skip_update" else 0),
+        "last_nonfinite_step": seen - 1 if bad else prev["last_nonfinite_step"],
+    }
+    opt_state["health"] = hstate
+    out = {"health/updates_finite": float(ok),
+           "health/loss_finite": torch.isfinite(loss).float(),
+           **{f"health/{k}": float(hstate[k]) for k in
+              ("nonfinite_count", "skipped_count", "last_nonfinite_step")}}
+    for g, n in opt_metrics.get("group_norms", {}).items():
+        out[f"health/grad_norm/{g}"] = n
+    if health.param_norm:
+        # after the update (a skipped step's are the params it kept)
+        with torch.no_grad():
+            out["health/param_norm"] = global_norm(params.values())
+    return out
+
+
+def make_eval_step(loss_fn: LossFn, *, num_microbatches: int = 1, dp: Any = None,
+                   token_count_fn: Optional[Callable] = None) -> Callable:
     """``eval_step(params, batch) -> mean loss`` over the microbatches, with
-    no gradients (the validation loss)."""
+    no gradients (the validation loss); under ``dp`` each rank computes its
+    rows and the loss is SUM all-reduced, as in the train step."""
 
     @torch.no_grad()
     def eval_step(params, batch):
-        mbs = microbatch_split(batch, num_microbatches)
         total = None
-        for i in range(num_microbatches):
-            loss = loss_fn(params, {k: v[i] for k, v in mbs.items()})[0].float()
+        for mb, denom in _microbatches(batch, num_microbatches, dp, token_count_fn):
+            loss = _call_loss(loss_fn, params, mb, denom)[0].float()
             total = loss if total is None else total + loss
+        if dp is not None:
+            dp.all_reduce_(total)
         return total / num_microbatches
 
     return eval_step

@@ -44,12 +44,14 @@ from neuronx_distributed_training_tpu.trainer import cli as j_cli
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neuronx_distributed_training_torch"
 CONFIGS = sorted((REPO / "examples" / "conf").glob("*.yaml"))
-#: the modules of the data / checkpoint / exp-manager slice and the SFT / LoRA slice
+#: the modules of the data / checkpoint / exp-manager slice, the SFT / LoRA slice and
+#: the data-parallel slice
 NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "data._native", "data.build", "data.modules", "data.megatron", "data.megatron.dataset",
     "data.megatron.index", "checkpoint", "checkpoint.integrity", "checkpoint.manager",
     "trainer.exp_manager", "utils.io", "data.packing", "data.templates", "peft",
-    "peft.lora"))
+    "peft.lora", "telemetry", "telemetry.health", "parallel.mesh", "utils.launch",
+    "tools.zero1_bytes"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -144,6 +146,14 @@ def test_ignored_blocks_are_logged_once(caplog):
         t_loop._log_ignored(cfg)
     msgs = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
     assert len(msgs) == 1 and "exp_manager.telemetry" in msgs[0]
+    # the health policy and ZeRO-1 are acted on; the other telemetry planes,
+    # the health recorder's knobs and the overlap block are not
+    ignored = msgs[0].split(": ", 1)[1].split(", ")
+    assert {"exp_manager.telemetry.tensorstats", "exp_manager.telemetry.fleet",
+            "exp_manager.telemetry.health.ring_buffer_steps",
+            "distributed_strategy.overlap"} <= set(ignored)
+    assert not {"exp_manager.telemetry", "exp_manager.telemetry.health",
+                "distributed_strategy.zero1"} & set(ignored)
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
