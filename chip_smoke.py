@@ -72,6 +72,22 @@ of JAX.  Phases, each of which fails the run if it fails:
 Phase 2 also holds the three kernels at the main-path width (b 1, nh 32,
 nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
 6's corpus, and times them there with and without those segments.
+7. a. phase 4's cell under ``torchrun --nproc_per_node 1`` (NCCL, ZeRO-1):
+      phase 4's losses and grad norms bit for bit; with two and four cards
+      also dp=2 and dp=4;
+   b. the non-finite step skip: a NaN ``loss_mask`` at step 1 keeps the
+      params and moments bit for bit;
+8. tensor parallelism:
+   a. the three kernels at the per-rank head counts TP gives Llama-3-8B
+      (nh, nkv) = (16, 4), (8, 2), (4, 1) for tp 2, 4, 8: against their
+      plain versions at s 4096 (and on the packed segment row at tp 8),
+      timed at s 8192 (and s 4096 at tp 8) beside their bounds and grids;
+   b. with two or more cards, phase 4's cell at tp=2 with SP under
+      ``torchrun --nproc_per_node 2``: losses and grad norms within the
+      ``mixed_precision`` tolerance of phase 4's, 48 launches a kernel on
+      each rank, the step and peak memory per rank, and a save at step 2
+      resumed bit for bit; with four cards tp=4 and dp x tp = 2 x 2 too.
+      With one card it prints why it did not run.
 
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
@@ -323,15 +339,16 @@ def segment_times(torch, fa, kt, seg, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bounds_ms(kt, peaks):
-    """Least time for each function at the main-path shape: the larger of the
+def bounds_ms(kt, peaks, shape=None):
+    """Least time for each function at the main-path shape (or ``shape``,
+    a dict like ``kt.MAIN``): the larger of the
     bytes it must move (each input read once, each output written once) over
     the memory rate and its operations over the tensor cores' bf16 rate,
     counting the causal half only.  The backward's fp32 products (p and ds
     times a bf16 operand) are kept exact as three bf16 products each (see
     csrc/flash_dq.cu and csrc/flash_dkv.cu), so they count three times."""
     bf16_rate, bw = peaks
-    b, s, nh, nkv, d = (kt.MAIN[k] for k in ("b", "s", "nh", "nkv", "d"))
+    b, s, nh, nkv, d = ((shape or kt.MAIN)[k] for k in ("b", "s", "nh", "nkv", "d"))
     pairs = b * nh * s * (s + 1) / 2  # visible (query, key) pairs
     q_bytes, kv_bytes, row_bytes = 2 * b * s * nh * d, 2 * b * s * nkv * d, 4 * b * nh * s
     work = {
@@ -429,11 +446,15 @@ def phase_trainer(torch, fa, cell, card: str) -> tuple:
     Returns the launch counts and the run's history."""
     from neuronx_distributed_training_torch.trainer import cli
 
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_counters()
     history = cli.main(cell.CLI_ARGS)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     fallbacks = dict(fa.FALLBACKS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+    history[0]["peak_bytes"] = peak
     expect = cell.LAYERS * cell.MICROBATCHES * cell.STEPS
     for rec in history:
         log(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
@@ -984,7 +1005,7 @@ def phase_sft(torch, fa, card: str) -> dict:
 def torchrun_cell(cell, nproc: int, exp: Path, timeout: float, *extra: str) -> dict:
     """Phase 4's cell under ``torchrun --standalone --nproc_per_node nproc``
     (NCCL, ``zero1: true`` unless ``extra`` overrides it), as a subprocess;
-    returns rank 0's JSON line."""
+    returns rank 0's JSON line, with every rank's line under ``"ranks"``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), "-m", "neuronx_distributed_training_torch.tools.step_times",
            "--steps", str(cell.STEPS), "--set", "distributed_strategy.zero1=true",
@@ -1004,10 +1025,12 @@ def torchrun_cell(cell, nproc: int, exp: Path, timeout: float, *extra: str) -> d
     if out.returncode != 0:
         fail(f"torchrun --nproc_per_node {nproc} exited {out.returncode}:\n"
              f"{(out.stdout + out.stderr)[-3000:]}")
-    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
-    if not lines:
-        fail(f"torchrun --nproc_per_node {nproc} printed no result line")
-    return json.loads(lines[-1])
+    lines = sorted((json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")),
+                   key=lambda r: r["rank"])
+    if [r["rank"] for r in lines] != list(range(nproc)):
+        fail(f"torchrun --nproc_per_node {nproc} printed result lines of ranks "
+             f"{[r['rank'] for r in lines]}")
+    return dict(lines[0], ranks=lines)
 
 
 def phase_dp(torch, cell, history4: list, card: str) -> dict:
@@ -1084,6 +1107,154 @@ def phase_dp2_extra(cell, rep2: dict, card: str) -> None:
     if got != (rep2["loss"], rep2["grad_norm"]):
         fail(f"dp=2 save + resume: {got} differ from the straight run "
              f"{(rep2['loss'], rep2['grad_norm'])}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+#: tp degrees of phase 8a: Llama-3-8B's 32 q and 8 kv heads cut by tp
+TP_DEGREES = (2, 4, 8)
+#: the gloo tests' mixed_precision tolerance against one rank (tests/test_torch_tp.py)
+TP_LOSS_RTOL, TP_GRAD_NORM_RTOL = 1e-4, 2e-3
+
+
+def grid_ctas(kname: str, b: int, s: int, nh: int, nkv: int) -> int:
+    """CTAs a kernel launches (csrc: fwd and dq ``nh x ceil(s/128) x b``,
+    dk/dv ``nkv x ceil(s/128) x b``)."""
+    return (nkv if kname == "flash_dkv" else nh) * -(-s // 128) * b
+
+
+def phase_tp_kernels(torch, fa, kt, card: str, peaks) -> list:
+    """8a: the three kernels at the per-rank head counts tensor parallelism
+    gives them (b 1, d 128, causal, bf16): against their plain versions at
+    s 4096 with phase 2's tolerances (and on phase 2's packed segment row at
+    tp 8), then timed at s 8192 (and at s 4096 for tp 8, the SFT configs'
+    TP 8) with their bounds (the tp=1 bound divided by tp) and grids."""
+    t_phase = time.perf_counter()
+    m = kt.MAIN
+    ok = True
+    for tp in TP_DEGREES:
+        nh, nkv = m["nh"] // tp, m["nkv"] // tp
+        ok &= check_case(torch, fa, f"tp {tp}: nh {nh} nkv {nkv} s=4096", b=1, sq=4096,
+                         skv=4096, nh=nh, nkv=nkv, d=m["d"], seed=30 + tp)
+    seg = torch.as_tensor(sft_first_row_segments(), device="cuda")[None]
+    ok &= check_case(torch, fa, f"tp 8: nh 4 nkv 1 packed segments s={SFT_SEQ}", b=1,
+                     sq=SFT_SEQ, skv=SFT_SEQ, nh=m["nh"] // 8, nkv=m["nkv"] // 8, d=m["d"],
+                     seg=seg, seed=39)
+    if not ok:
+        fail("a kernel disagrees with its plain version at a per-rank head count")
+    rows = []
+    cases = [(tp, SEQ) for tp in TP_DEGREES] + [(8, SFT_SEQ)]
+    for tp, s in cases:
+        shape = dict(m, s=s, nh=m["nh"] // tp, nkv=m["nkv"] // tp)
+        gen = torch.Generator(device="cuda").manual_seed(40 + tp)
+        q, k, v, do = (kt.randn_bf16(gen, 1, s, h, m["d"])
+                       for h in (shape["nh"], shape["nkv"], shape["nkv"], shape["nh"]))
+        with torch.no_grad():
+            o, lse = fa.flash_fwd(q, k, v)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        ms = kt.kernel_ms(q, k, v, do, lse, delta)
+        bounds = bounds_ms(kt, peaks, shape)
+        for kname, t in ms.items():
+            row = {"tp": tp, "s": s, "nh": shape["nh"], "nkv": shape["nkv"], "ms": t,
+                   "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                   "grid_ctas": grid_ctas(kname, 1, s, shape["nh"], shape["nkv"]),
+                   "kernel": kname}
+            rows.append(row)
+            log(f"tp time {kname} tp {tp} (nh {row['nh']}, nkv {row['nkv']}) s={s}: "
+                f"{t:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / t:.3f} of bound, grid {row['grid_ctas']} CTAs [{card}]")
+        del q, k, v, do, o, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp kernels: phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return rows
+
+
+def _median(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def tp_run(cell, nproc: int, tp: int, name: str, ref: dict, card: str, *extra: str) -> dict:
+    """Phase 4's cell at ``tp`` with SP over ``nproc`` cards: each rank
+    launches each kernel layers x microbatches-per-rank x steps times with
+    no fallback, and the losses and grad norms follow ``ref`` (phase 4's)
+    within the mixed_precision tolerance."""
+    rep = torchrun_cell(cell, nproc, cell.WORK / f"exp_{name}", 900, "--tp", str(tp), "--sp",
+                        *extra)
+    dp = nproc // tp
+    expect = cell.LAYERS * (cell.MICROBATCHES // dp) * cell.STEPS
+    steps = rep["step_seconds"][1:]
+    log(f"tp: {name} (dp {rep['dp']} x tp {rep['tp']}, sp {rep['sp']}): losses {rep['loss']} "
+        f"grad_norms {rep['grad_norm']}; one card: {ref['loss']} / {ref['grad_norm']}")
+    log(f"tp: {name}: step seconds {rep['step_seconds']} (median of steps 1-"
+        f"{cell.STEPS - 1} {_median(steps):.4f} s, one card {_median(ref['step_seconds'][1:]):.4f}"
+        f" s); peak device memory per rank "
+        f"{[r['peak_bytes'] for r in rep['ranks']]} bytes (one card {ref['peak_bytes']}) "
+        f"[{card}]")
+    for r in rep["ranks"]:
+        if any(n != expect for n in r["launches"].values()) or r["fallbacks"]["core"]:
+            fail(f"tp {name}: rank {r['rank']} launches {r['launches']} (fallbacks "
+                 f"{r['fallbacks']}), expected {expect} each")
+        if (r["loss"], r["grad_norm"]) != (rep["loss"], rep["grad_norm"]):
+            fail(f"tp {name}: rank {r['rank']} logged other losses than rank 0")
+    if rep["tp"] != tp or not rep["sp"] or \
+            not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+                    for a, b in zip(rep["loss"], ref["loss"])) or \
+            not all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                    for a, b in zip(rep["grad_norm"], ref["grad_norm"])):
+        fail(f"tp {name}: losses {rep['loss']} / grad norms {rep['grad_norm']} against one "
+             f"card's {ref['loss']} / {ref['grad_norm']} (rtol {TP_LOSS_RTOL:g} / "
+             f"{TP_GRAD_NORM_RTOL:g})")
+    return rep
+
+
+def trainer_ref(history4: list) -> dict:
+    """Phase 4's losses, grad norms, step seconds and peak memory: what 8b
+    holds each tp run against."""
+    return {"loss": [r["loss"] for r in history4],
+            "grad_norm": [r["grad_norm"] for r in history4],
+            "step_seconds": [r["step_seconds"] for r in history4],
+            "peak_bytes": history4[0]["peak_bytes"]}
+
+
+def phase_tp(torch, cell, ref: dict, card: str) -> dict | None:
+    """8b, with two or more cards: ``torchrun --nproc_per_node 2`` of phase
+    4's cell at tp=2 with SP over NCCL against ``ref`` (phase 4's losses,
+    grad norms, step seconds and peak memory), and a tp=2 save at step 2
+    resumed to step 3 bit for bit; with four, tp=4 and dp x tp = 2 x 2 as
+    well.  With one card it says why it did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"tp: phase 8b (tp=2 with SP on two cards) not run: this machine shows "
+            f"{n_cards} card, NCCL takes one rank per card, and tp=2 needs two ranks")
+        return None
+    t_phase = time.perf_counter()
+    out = {"tp2": tp_run(cell, 2, 2, "tp2", ref, card)}
+    exp = cell.WORK / "exp_tp2_resume"
+    shutil.rmtree(exp, ignore_errors=True)
+    try:
+        runs = [torchrun_cell(cell, 2, cell.WORK / "exp_tp2_scratch", 900, "--tp", "2",
+                              "--sp", "--steps", str(steps), "--save-every", str(steps),
+                              "--exp-dir", str(exp)) for steps in (2, 3)]
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    got = (runs[0]["loss"] + runs[1]["loss"], runs[0]["grad_norm"] + runs[1]["grad_norm"])
+    log(f"tp: tp=2 saved at step 2 then resumed: losses {got[0]}, steps "
+        f"{runs[0]['step_seconds']} + {runs[1]['step_seconds']} [{card}]")
+    if got != (out["tp2"]["loss"], out["tp2"]["grad_norm"]):
+        fail(f"tp=2 save + resume: {got} differ from the straight run "
+             f"{(out['tp2']['loss'], out['tp2']['grad_norm'])}")
+    if n_cards >= 4:
+        out["tp4"] = tp_run(cell, 4, 4, "tp4", ref, card)
+        out["dp2_tp2"] = tp_run(cell, 4, 2, "dp2_tp2", ref, card)
+    else:
+        log(f"tp: this machine shows {n_cards} cards; tp=4 and dp x tp = 2 x 2 were not run")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"tp: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
 
 
 SKIP_LAYERS = 2
@@ -1260,6 +1431,9 @@ def main() -> None:
     dp = phase_dp(torch, cell, history4, card)
     free_cuda(torch)
     phase_skip(torch, fa, cell, card)
+    free_cuda(torch)
+    tp_rows = phase_tp_kernels(torch, fa, kt, card, peaks)
+    tp = phase_tp(torch, cell, trainer_ref(history4), card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -1280,7 +1454,11 @@ def main() -> None:
             "registers": ptxas[(kname + "_kernel", kt.MAIN["d"])]["registers"],
             "launches_by_path": {"pretrain": launches[kname],
                                  **{f"sft_{r}": sft[r]["launches"][kname] for r in "LSF"},
-                                 "pretrain_dp": dp["launches"][kname]},
+                                 "pretrain_dp": dp["launches"][kname],
+                                 **({} if tp is None else
+                                    {"pretrain_tp": tp["tp2"]["launches"][kname]})},
+            "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
+                                for r in tp_rows if r["kernel"] == kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -29,11 +29,12 @@ bytes in 64 MiB chunks (chunks hash in parallel, hashlib releases the GIL);
 a group's digest is blake2b-128 over ``name|dtype|shape`` and the leaf
 digest of each leaf in name order.
 
-Under a process group each rank writes its own shards: a ZeRO-1 leaf is a
-``DTensor`` whose slice only its rank holds, and DCP spreads the writes of
-replicated leaves over the ranks.  Each rank hashes the slices it holds
-(rank 0 the replicated leaves, which every rank holds alike), rank 0 merges
-the records (:func:`sidecar_from_records`), and a sharded leaf's sidecar
+Under a process group each rank writes its own shards: a ZeRO-1 or
+tensor-parallel leaf is a ``DTensor`` on the ``data`` or ``(data, model)``
+mesh whose block only its rank (or its replicas) holds, and DCP spreads the
+writes of replicated blocks over the ranks.  Each block is hashed by its
+first holder (rank 0 the plain replicated leaves), rank 0 merges the
+records (:func:`sidecar_from_records`), and a sharded leaf's sidecar
 entry keeps one digest per shard with its offsets and sizes
 (``shards[item][name]``); its leaf digest is blake2b-128 over those.
 Verification reads each leaf whole and hashes the recorded slices, so a
@@ -244,16 +245,31 @@ def leaf_digests(flat: Mapping[str, Any], *, workers: int = 0) -> dict[str, str]
 
 def _shard_box(t) -> tuple[Any, list[int], list[int]]:
     """``(local tensor, offsets, sizes)`` of what this rank holds of a
-    leaf: a DTensor's slice (``Shard(dim)`` on a 1-D mesh), else the whole."""
+    leaf: a DTensor's block (``Shard`` on any dims of a 1-D or 2-D mesh;
+    the leaves divide evenly), else the whole."""
     from neuronx_distributed_training_torch.optim.adamw import is_dtensor
 
     if not is_dtensor(t):
         return t, [0] * t.dim(), list(t.shape)
     loc = t.to_local()
-    (placement,) = t.placements
+    coord = t.device_mesh.get_coordinate()
     offsets = [0] * t.dim()
-    offsets[placement.dim] = t.device_mesh.get_local_rank() * loc.shape[placement.dim]
+    for i, placement in enumerate(t.placements):
+        if placement.is_shard():
+            offsets[placement.dim] += coord[i] * loc.shape[placement.dim]
     return loc, offsets, list(loc.shape)
+
+
+def _hashes_here(t, rank: int) -> bool:
+    """Does this rank hash ``t``?  A plain (replicated) tensor on rank 0; a
+    DTensor's block on the rank whose coordinate is 0 on every mesh dim the
+    leaf is replicated over, so each block is hashed once."""
+    from neuronx_distributed_training_torch.optim.adamw import is_dtensor
+
+    if not is_dtensor(t):
+        return rank == 0
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, t.placements) if not p.is_shard())
 
 
 def _combine_shards(records: list[dict]) -> str:
@@ -267,15 +283,13 @@ def _combine_shards(records: list[dict]) -> str:
 def local_shard_records(trees: Mapping[str, Mapping[str, Any]], *, rank: int = 0,
                         workers: int = 0) -> dict[str, dict[str, dict]]:
     """This rank's digest records ``{item: {name: {offsets, sizes, digest}}}``
-    over the host tensors it hands DCP: every DTensor's slice, and on rank 0
-    the replicated leaves too."""
-    from neuronx_distributed_training_torch.optim.adamw import is_dtensor
-
+    over the host tensors it hands DCP: every DTensor block it is the first
+    holder of (:func:`_hashes_here`), and on rank 0 the plain tensors."""
     pieces: dict[str, Any] = {}
     where: dict[str, tuple] = {}
     for item, flat in trees.items():
         for name, t in flat.items():
-            if rank != 0 and not is_dtensor(t):
+            if not _hashes_here(t, rank):
                 continue
             loc, offsets, sizes = _shard_box(t)
             key = f"{item}/{name}"

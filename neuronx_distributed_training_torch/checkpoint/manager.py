@@ -44,6 +44,20 @@ group (data parallelism):
   round;
 - a failed save is not retried (one rank alone cannot retry a collective).
 
+Tensor parallelism (``layouts`` from ``parallel/sharding.py``, ``tp`` the
+``parallel/mesh.py::TensorParallel``): every leaf is written as a DTensor on
+the 2-D ``(data, model)`` mesh whose global shape and layout are JAX's, so
+DCP reshards across tp as across dp.  A params leaf is ``[Replicate(),
+Shard(tp dim)]`` or replicated (DCP writes a replicated chunk once); a
+ZeRO-1 leaf adds its ``Shard(dim)`` on ``data``.  A fused leaf (``qkv``,
+``gate_up`` and their ``lora_b``, and their moments and master) is saved as
+its segments, ``<name>:q``, ``<name>:k``, ``<name>:v`` (``:gate``, ``:up``),
+at every tp including 1 and in one process too: a rank's local fused
+tensor is ``[q_r | k_r | v_r]``, which is no slice of the global ``[q | k |
+v]``.  A checkpoint saved at tp 2 therefore restores at tp 1 and the other
+way round; a restore loads a segment into a contiguous buffer and copies it
+into the live leaf.
+
 The health counters (``opt_state["health"]``) are saved beside ``step`` as
 int64 scalars ``health/<name>``; a checkpoint without them restores with
 ``steps_seen`` set to its step, as in the JAX package.
@@ -78,11 +92,13 @@ from neuronx_distributed_training_torch.checkpoint.integrity import (
 )
 from neuronx_distributed_training_torch.models.llama import named_params as flatten_tree
 from neuronx_distributed_training_torch.optim.adamw import (
+    dtensor_on,
     init_health_state,
     is_dtensor,
     local,
     shard_of,
 )
+from neuronx_distributed_training_torch.parallel.sharding import split_segments
 from neuronx_distributed_training_torch.utils.io import atomic_write_json
 
 logger = logging.getLogger(__name__)
@@ -184,22 +200,71 @@ def retained_steps(metrics_by_step: dict[int, dict], save_top_k: int, monitor: s
     return keep
 
 
+def saved_pieces(name: str, t: torch.Tensor, layouts: Optional[dict] = None, tp=None,
+                 cast=None) -> list[tuple[str, torch.Tensor, torch.Tensor]]:
+    """``(key, saved tensor, live local view)`` of what a checkpoint holds of
+    one leaf ``t`` (a param, or a state leaf that may be a ZeRO-1 DTensor):
+    the leaf whole, or a fused leaf's segments (``<name>:<segment>``); under
+    ``tp`` each as a DTensor on the ``(data, model)`` mesh (see the module
+    docstring).  Without ``layouts`` the leaf as it is.  ``cast`` maps the
+    local data before it is wrapped (``save_bf16``)."""
+    cast = cast or (lambda x: x)
+    layout = None if layouts is None else layouts.get(name)
+    if layout is None:
+        return [(name, cast(t), local(t))]
+    size = 1 if tp is None else tp.size
+    sh = shard_of(t)
+    out = []
+    for seg, view in split_segments(local(t), layout, size):
+        saved = cast(view)
+        if tp is not None:
+            saved = dtensor_on(saved, tp.state_mesh,
+                               (None if sh is None else sh[0], layout.dim))
+        out.append((f"{name}:{seg}" if seg else name, saved, view))
+    return out
+
+
+def _pieces(flat: dict, layouts, tp, prefix: str = "", cast=None) -> dict[str, tuple]:
+    return {prefix + k: (saved, view) for n, t in flat.items()
+            for k, saved, view in saved_pieces(n, t, layouts, tp, cast)}
+
+
 def state_trees(params: Any, opt_state: dict, *, save_bf16: bool = False,
-                keep_master: bool = True) -> dict[str, dict[str, torch.Tensor]]:
+                keep_master: bool = True, layouts: Optional[dict] = None,
+                tp=None) -> dict[str, dict[str, torch.Tensor]]:
     """The two items a checkpoint holds, as flat dicts of the live tensors:
     ``params`` (bf16 floating leaves with ``save_bf16``) and ``opt_state``
     (``mu/<name>``, ``nu/<name>``, ``master/<name>``, ZeRO-1 leaves as
-    DTensors, and ``step`` and ``health/<name>`` as int64 scalars)."""
-    flat = flatten_tree(params)
-    if save_bf16:
-        flat = {n: (t.to(torch.bfloat16) if t.is_floating_point() else t)
-                for n, t in flat.items()}
+    DTensors, and ``step`` and ``health/<name>`` as int64 scalars); with
+    ``layouts``, leaves as :func:`saved_pieces` gives them."""
+    cast = _to_bf16 if save_bf16 else None
+    flat = {k: saved for k, (saved, _) in
+            _pieces(flatten_tree(params), layouts, tp, cast=cast).items()}
     groups = [g for g in _OPT_GROUPS if g in opt_state and (g != "master" or keep_master)]
-    opt_flat = {f"{g}/{n}": t for g in groups for n, t in opt_state[g].items()}
+    opt_flat = {k: saved for g in groups
+                for k, (saved, _) in _pieces(opt_state[g], layouts, tp, f"{g}/").items()}
     opt_flat["step"] = torch.tensor(int(opt_state["step"]), dtype=torch.int64)
     for k, v in (opt_state.get("health") or {}).items():
         opt_flat[f"health/{k}"] = torch.tensor(int(v), dtype=torch.int64)
     return {"params": flat, "opt_state": opt_flat}
+
+
+def _to_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+
+def _views(pieces: dict) -> dict[str, torch.Tensor]:
+    """The live local views of :func:`_pieces` (one process: whole leaves)."""
+    return {k: view for k, (_, view) in pieces.items()}
+
+
+def dtensor_like(t, local_t: torch.Tensor):
+    """A DTensor with ``t``'s mesh, placements and global shape over
+    ``local_t``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local_t, t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def _is_scalar_key(key: str) -> bool:
@@ -241,8 +306,11 @@ class Checkpointer:
     """Save/restore ``TrainState`` with retention, async writes, integrity
     sidecars and verified auto-resume."""
 
-    def __init__(self, config: CheckpointConfig):
+    def __init__(self, config: CheckpointConfig, *, layouts: Optional[dict] = None, tp=None):
         self.config = config
+        #: the leaves' tensor-parallel layouts and the model axis (see
+        #: :func:`saved_pieces`); None: leaves are saved as they are
+        self.layouts, self.tp = layouts, tp
         self.directory = Path(config.dir).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         #: restore/audit trail (quarantined steps, walk-backs, verify seconds)
@@ -302,7 +370,7 @@ class Checkpointer:
             return DTensor(self._stage(key, t.to_local()), t._spec, requires_grad=False)
         t = t.detach()
         if t.device.type != "cuda":
-            return t.clone()
+            return t.clone(memory_format=torch.contiguous_format)
         buf = self._pinned.get(key)
         if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -331,7 +399,8 @@ class Checkpointer:
             return False
         t0 = time.perf_counter()
         trees = state_trees(state.params, state.opt_state, save_bf16=self.config.save_bf16,
-                            keep_master=self.config.use_master_weights_in_ckpt)
+                            keep_master=self.config.use_master_weights_in_ckpt,
+                            layouts=self.layouts, tp=self.tp)
         staged = {item: {n: self._stage((item, n), t) for n, t in tree.items()}
                   for item, tree in trees.items()}
         if any(t.device.type == "cuda" for tree in trees.values() for t in tree.values()):
@@ -688,29 +757,31 @@ class Checkpointer:
         verify_seconds = time.perf_counter() - t0
         t1 = time.perf_counter()
         meta = json.loads((self.directory / str(step) / META_NAME).read_text())
-        live_params = flatten_tree(params_template)
+        flat_params = flatten_tree(params_template)
+        live_params = _pieces(flat_params, self.layouts, self.tp)
         groups = [g for g in _OPT_GROUPS if g in opt_template]
-        live = {f"{g}/{n}": t for g in groups for n, t in opt_template[g].items()}
         reseed_master = "master" in opt_template and not meta.get("master_in_ckpt", True)
         if reseed_master:
-            live = {k: v for k, v in live.items() if not k.startswith("master/")}
+            groups.remove("master")
+        live = {k: v for g in groups
+                for k, v in _pieces(opt_template[g], self.layouts, self.tp, f"{g}/").items()}
         if self._pg is None:
             params = self._read(step, "params", keep)
             opt = self._read(step, "opt_state", keep)
-            self._copy_into(live_params, params, "params")
-            self._copy_into(live, {k: v for k, v in opt.items() if not _is_scalar_key(k)},
+            self._copy_into(_views(live_params), params, "params")
+            self._copy_into(_views(live), {k: v for k, v in opt.items() if not _is_scalar_key(k)},
                             "opt_state")
             scalars = {k: int(v) for k, v in opt.items() if _is_scalar_key(k)}
             nbytes = sum(t.numel() * t.element_size() for d in (params, opt) for t in d.values())
         else:
-            scalars = self._load_group(step, live_params, live)
-            nbytes = sum(t.numel() * t.element_size()
-                         for d in (live_params, live) for t in d.values())
+            scalars = self._load_group(step, {"params": live_params, "opt_state": live})
+            nbytes = sum(v.numel() * v.element_size()
+                         for d in (live_params, live) for _, v in d.values())
         if reseed_master:
             # the master was dropped at save time: re-seed it from the params
             # (the trainable ones: under LoRA the frozen base has no master)
             for n, t in opt_template["master"].items():
-                src = live_params[n].detach()
+                src = flat_params[n].detach()
                 sh = shard_of(t)
                 if sh is not None:
                     src = src.narrow(*sh)
@@ -723,7 +794,7 @@ class Checkpointer:
             # restored step, as in the JAX package
             health.update(saved or {"steps_seen": scalars["step"]})
             opt_template["health"] = health
-        if any(t.device.type == "cuda" for t in live_params.values()):
+        if any(t.device.type == "cuda" for t in flat_params.values()):
             torch.cuda.synchronize()
         self.last_restore = {"step": step, "bytes": nbytes, "verify_seconds": verify_seconds,
                              "restore_seconds": time.perf_counter() - t1}
@@ -733,13 +804,15 @@ class Checkpointer:
         return TrainState(params=params_template, opt_state=opt_template, step=saved_step,
                           consumed_samples=consumed, extra=meta)
 
-    def _load_group(self, step: int, live_params: dict, live_opt: dict) -> dict[str, int]:
-        """Under a process group: ``dcp.load`` both items of ``step`` into the
-        live tensors, in place (DCP reads each rank's slices of a ZeRO-1 leaf,
-        whatever the world size at save); returns the int scalars."""
+    def _load_group(self, step: int, targets: dict[str, dict]) -> dict[str, int]:
+        """Under a process group: ``dcp.load`` the items of ``step`` into the
+        live tensors (``targets``: item -> :func:`_pieces`), which reshards:
+        DCP reads each rank's slices whatever the dp and tp at save.  A piece
+        whose live view is not contiguous (a fused leaf's segment) is read
+        into a contiguous buffer and copied in; returns the int scalars."""
         dcp = _dcp()
         scalars: dict[str, torch.Tensor] = {}
-        for item, target in (("params", live_params), ("opt_state", live_opt)):
+        for item, target in targets.items():
             path = str(self.directory / str(step) / item)
             saved = set(dcp.FileSystemReader(path).read_metadata().state_dict_metadata)
             held = {k for k in saved if item == "opt_state" and _is_scalar_key(k)}
@@ -747,10 +820,20 @@ class Checkpointer:
             if missing or extra:
                 raise ValueError(f"checkpoint {item} does not match the model: missing "
                                  f"{missing[:4]}, unexpected {extra[:4]}")
-            sd = dict(target)
+            sd, copies = {}, []
+            for k, (saved_t, view) in target.items():
+                sd[k] = saved_t
+                if view.is_contiguous() and local(saved_t).data_ptr() == view.data_ptr():
+                    continue
+                buf = torch.empty(view.shape, dtype=view.dtype, device=view.device)
+                sd[k] = dtensor_like(saved_t, buf) if is_dtensor(saved_t) else buf
+                copies.append((buf, view))
             for k in held:
                 sd[k] = scalars[k] = torch.zeros((), dtype=torch.int64)
             dcp.load(sd, storage_reader=dcp.FileSystemReader(path), process_group=self._pg)
+            with torch.no_grad():
+                for buf, view in copies:
+                    view.copy_(buf)
         return {k: int(v) for k, v in scalars.items()}
 
     def restore_params_only(self, params_template: Any, *, step: Optional[int] = None,
@@ -760,8 +843,11 @@ class Checkpointer:
         the source is usually someone else's run dir."""
         keep: dict = {}
         step = self._resolve_step(step, verify, keep, quarantine=False, what="warm-start")
-        self._copy_into(flatten_tree(params_template), self._read(step, "params", keep),
-                        "params")
+        live = _pieces(flatten_tree(params_template), self.layouts, self.tp)
+        if self._pg is None:
+            self._copy_into(_views(live), self._read(step, "params", keep), "params")
+        else:
+            self._load_group(step, {"params": live})
         return params_template
 
     def close(self) -> None:

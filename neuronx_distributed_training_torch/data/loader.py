@@ -275,6 +275,9 @@ def dp_rank_rows(global_batch_size: int, num_microbatches: int, dp_rank: int,
                  dp_size: int) -> np.ndarray:
     """The global-batch rows data-parallel rank ``dp_rank`` computes, in
     microbatch order (``[num_microbatches * micro_batch_size]``).
+    ``dp_rank`` is the process's coordinate on the mesh's ``data`` axis
+    (``parallel/mesh.py::DataParallel.rank``), not its world rank: the tp
+    ranks of one dp group compute the same rows.
 
     The train step splits the global batch microbatch-major
     (``trainer/step.py::microbatch_split``: microbatch ``i`` is rows

@@ -1,5 +1,4 @@
-"""Llama-family decoder (counterpart of the JAX package's ``models/llama.py``,
-one device).
+"""Llama-family decoder (counterpart of the JAX package's ``models/llama.py``).
 
 Plain functions over a parameter tree of tensors:
 
@@ -22,6 +21,22 @@ Remat (``activations_checkpoint_granularity``): ``full`` checkpoints each
 layer; ``selective`` recomputes only ``core_attention`` (its scores and
 probs); on the flash path ``selective`` recomputes nothing, since the flash
 autograd Function saves only q, k, v, o and lse.
+
+Tensor parallelism (``tp``, a ``parallel/mesh.py::TensorParallel``): each
+rank holds its slices of the leaves (``parallel/sharding.py``) and so
+``nh/tp`` q heads and ``nkv/tp`` kv heads; q head ``i`` uses kv head ``i //
+(nh/nkv)`` locally as globally because tp divides nkv.  The activations
+cross the ranks through Megatron's regions (``parallel/tensor_parallel.py``):
+the vocab-parallel embedding, then per layer the column input (all-gather
+along the sequence under SP, else the copy region) before ``qkv`` and before
+``gate_up``, and the row output (reduce-scatter along the sequence under SP,
+else all-reduce) after ``o`` and after ``down``.  Under SP the residual
+stream and the norms hold the rank's ``s/tp`` slice of the sequence; RoPE,
+positions, the attention mask and segment ids stay whole, since attention
+sees the gathered sequence.  The final norm's output is gathered before the
+column-parallel ``lm_head``, whose ``[b, s, V/tp]`` logits go to the
+vocab-parallel cross-entropy ungathered.  ``tp`` None (or of size 1) is the
+one-device path, with no collective.
 """
 
 from __future__ import annotations
@@ -38,6 +53,8 @@ from neuronx_distributed_training_torch.ops import cross_entropy as ce_ops
 from neuronx_distributed_training_torch.ops import linear as linear_ops
 from neuronx_distributed_training_torch.ops import norm as norm_ops
 from neuronx_distributed_training_torch.ops import rope as rope_ops
+from neuronx_distributed_training_torch.parallel import sharding
+from neuronx_distributed_training_torch.parallel import tensor_parallel as tp_ops
 from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
 
 
@@ -109,45 +126,59 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen, cfg: LlamaConfig, dtype, device):
+def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut):
     h, d = cfg.hidden_size, cfg.head_size
     nh, nkv = cfg.num_attention_heads, cfg.kv_heads
     std = cfg.initializer_range
 
-    def lin(i, o):
-        return linear_ops.init_linear(gen, i, o, dtype=dtype, stddev=std, device=device)
+    def lin(module, i, o):
+        w = linear_ops.init_linear(gen, i, o, dtype=dtype, stddev=std, device=device)["w"]
+        return {"w": cut(module + ".w", w)}
 
     if cfg.fuse_qkv:
-        attn = {"qkv": lin(h, (nh + 2 * nkv) * d)}
+        attn = {"qkv": lin("attn.qkv", h, (nh + 2 * nkv) * d)}
     else:
-        attn = {"q": lin(h, nh * d), "k": lin(h, nkv * d), "v": lin(h, nkv * d)}
-    attn["o"] = lin(nh * d, h)
+        attn = {"q": lin("attn.q", h, nh * d), "k": lin("attn.k", h, nkv * d),
+                "v": lin("attn.v", h, nkv * d)}
+    attn["o"] = lin("attn.o", nh * d, h)
     return {
         "input_norm": norm_ops.init_rms_norm(h, dtype=dtype, device=device),
         "post_attn_norm": norm_ops.init_rms_norm(h, dtype=dtype, device=device),
         "attn": attn,
-        "mlp": {"gate_up": lin(h, 2 * cfg.intermediate_size),
-                "down": lin(cfg.intermediate_size, h)},
+        "mlp": {"gate_up": lin("mlp.gate_up", h, 2 * cfg.intermediate_size),
+                "down": lin("mlp.down", cfg.intermediate_size, h)},
     }
 
 
 def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
-                generator: torch.Generator, device=None):
-    """The full parameter tree in the policy's param dtype, drawn from
-    ``generator`` (which must live on ``device``)."""
+                generator: torch.Generator, device=None, tp_rank: int = 0, tp_size: int = 1):
+    """The parameter tree in the policy's param dtype, drawn from
+    ``generator`` (which must live on ``device``).  At ``tp_size > 1`` every
+    leaf is still drawn whole, in the same order, and the rank keeps its
+    slice (``parallel/sharding.py::shard_leaf``): a tp run starts from the
+    slices of the one-rank run's tensors, bit for bit, holding one whole
+    leaf more than its share at a time."""
     policy = policy or DtypePolicy()
     dtype = policy.param_dtype
+
+    def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+        return sharding.shard_leaf(t, sharding.leaf_layout(name, cfg), tp_rank, tp_size)
+
+    embedding = linear_ops.init_embedding(generator, cfg.vocab_size, cfg.hidden_size,
+                                          dtype=dtype, stddev=cfg.initializer_range,
+                                          device=device)["embedding"]
     params: dict[str, Any] = {
-        "embed": linear_ops.init_embedding(generator, cfg.vocab_size, cfg.hidden_size,
-                                           dtype=dtype, stddev=cfg.initializer_range,
-                                           device=device),
-        "layers": [_init_layer(generator, cfg, dtype, device) for _ in range(cfg.num_layers)],
+        "embed": {"embedding": cut("embed.embedding", embedding)},
+        "layers": [_init_layer(generator, cfg, dtype, device,
+                               lambda n, t: cut("layers.0." + n, t))
+                   for _ in range(cfg.num_layers)],
         "final_norm": norm_ops.init_rms_norm(cfg.hidden_size, dtype=dtype, device=device),
     }
+    del embedding
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = linear_ops.init_linear(
-            generator, cfg.hidden_size, cfg.vocab_size, dtype=dtype,
-            stddev=cfg.initializer_range, device=device)
+        w = linear_ops.init_linear(generator, cfg.hidden_size, cfg.vocab_size, dtype=dtype,
+                                   stddev=cfg.initializer_range, device=device)["w"]
+        params["lm_head"] = {"w": cut("lm_head.w", w)}
     return params
 
 
@@ -170,9 +201,15 @@ def named_params(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                     attention_mask=None, segment_ids=None):
+                     attention_mask=None, segment_ids=None, tp=None):
+    x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
-    nh, nkv, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_size
+    size = tp.size if tp_ops.active(tp) else 1
+    if cfg.num_attention_heads % size or cfg.kv_heads % size:
+        # the local GQA map (q head i -> kv head i // (nh/nkv)) needs both
+        raise ValueError(f"tp {size} must divide the {cfg.num_attention_heads} heads and "
+                         f"the {cfg.kv_heads} kv heads")
+    nh, nkv, d = cfg.num_attention_heads // size, cfg.kv_heads // size, cfg.head_size
     if cfg.fuse_qkv:
         qkv = linear_ops.apply_linear(lp["qkv"], x)
         q, k, v = torch.split(qkv, [nh * d, nkv * d, nkv * d], dim=-1)
@@ -197,23 +234,24 @@ def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
         out = checkpoint(attend, q, k, v, use_reentrant=False)
     else:
         out = attend(q, k, v)
-    return linear_ops.apply_linear(lp["o"], out.reshape(b, s, nh * d))
+    return tp_ops.leave_row(linear_ops.apply_linear(lp["o"], out.reshape(b, s, nh * d)), tp)
 
 
-def _mlp_block(lp, x):
+def _mlp_block(lp, x, tp=None):
+    x = tp_ops.enter_column(x, tp)
     gate, up = torch.chunk(linear_ops.apply_linear(lp["gate_up"], x), 2, dim=-1)
-    return linear_ops.apply_linear(lp["down"], F.silu(gate) * up)
+    return tp_ops.leave_row(linear_ops.apply_linear(lp["down"], F.silu(gate) * up), tp)
 
 
 def _decoder_layer(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                   attention_mask=None, segment_ids=None):
+                   attention_mask=None, segment_ids=None, tp=None):
     # cast inside the layer: one layer's compute-dtype copy at a time
     lp = policy.cast_to_compute(lp)
     h = norm_ops.apply_rms_norm(lp["input_norm"], x, eps=cfg.rms_norm_eps)
     x = x + _attention_block(lp["attn"], h, cos, sin, cfg, policy,
-                             attention_mask=attention_mask, segment_ids=segment_ids)
+                             attention_mask=attention_mask, segment_ids=segment_ids, tp=tp)
     h = norm_ops.apply_rms_norm(lp["post_attn_norm"], x, eps=cfg.rms_norm_eps)
-    return x + _mlp_block(lp["mlp"], h)
+    return x + _mlp_block(lp["mlp"], h, tp)
 
 
 def positions_for(input_ids: torch.Tensor, attention_mask=None, segment_ids=None) -> torch.Tensor:
@@ -234,10 +272,12 @@ def positions_for(input_ids: torch.Tensor, attention_mask=None, segment_ids=None
 
 
 def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy, *,
-                  positions=None, attention_mask=None, segment_ids=None) -> torch.Tensor:
-    """Embedding + decoder layers + final norm -> [batch, seq, hidden]."""
+                  positions=None, attention_mask=None, segment_ids=None,
+                  tp=None) -> torch.Tensor:
+    """Embedding + decoder layers + final norm -> [batch, seq, hidden] (the
+    rank's ``seq/tp`` slice of the sequence under SP)."""
     x = linear_ops.apply_embedding(params["embed"], input_ids,
-                                   compute_dtype=policy.compute_dtype)
+                                   compute_dtype=policy.compute_dtype, tp=tp)
     if positions is None:
         positions = positions_for(input_ids, attention_mask, segment_ids)
     inv_freq = rope_ops.rope_frequencies(
@@ -246,13 +286,16 @@ def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: Dty
     cos, sin = rope_ops.rope_cos_sin(positions, inv_freq, dtype=torch.float32)
     full = cfg.activations_checkpoint_granularity == "full"
     for lp in params["layers"]:
-        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids)
+        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids, tp)
         x = (checkpoint(_decoder_layer, *args, use_reentrant=False) if full
              else _decoder_layer(*args))
     return norm_ops.apply_rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
 
 
-def logits_fn(params, hidden: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy):
+def logits_fn(params, hidden: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy, tp=None):
+    """``[b, s, V]`` logits; with ``tp``, the rank's ``V/tp`` slice of the
+    vocab (the no-gather column-parallel ``lm_head``)."""
+    hidden = tp_ops.enter_column(hidden, tp)
     if cfg.tie_word_embeddings:
         return hidden @ params["embed"]["embedding"].to(policy.compute_dtype).T
     return linear_ops.apply_linear(params["lm_head"], hidden,
@@ -282,15 +325,16 @@ def loss_token_count(batch: dict[str, torch.Tensor], *, shift_labels: bool = Tru
 
 def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: DtypePolicy, *,
             positions=None, shift_labels: bool = True, return_logits: bool = False,
-            loss_denominator: Optional[torch.Tensor] = None):
+            loss_denominator: Optional[torch.Tensor] = None, tp=None):
     """Causal-LM forward -> (loss, aux); without labels -> (logits, aux).
     ``loss_denominator`` replaces this batch's own loss-token count (see
-    :func:`loss_token_count`)."""
+    :func:`loss_token_count`).  With ``tp`` the logits are the rank's vocab
+    slice, and every rank of the tp group returns the whole loss."""
     attention_mask = batch.get("attention_mask")
     hidden = hidden_states(params, batch["input_ids"], cfg, policy, positions=positions,
                            attention_mask=attention_mask,
-                           segment_ids=batch.get("segment_ids"))
-    logits = logits_fn(params, hidden, cfg, policy)
+                           segment_ids=batch.get("segment_ids"), tp=tp)
+    logits = logits_fn(params, hidden, cfg, policy, tp)
     aux: dict[str, Any] = {"logits": logits} if return_logits else {}
     labels = batch.get("labels")
     if labels is None:
@@ -299,4 +343,4 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
     if shift_labels:
         logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
     return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
-                                     denominator=loss_denominator), aux
+                                     denominator=loss_denominator, tp=tp), aux

@@ -1,5 +1,4 @@
-"""Cross-entropy (counterpart of the JAX package's ``ops/cross_entropy.py``,
-one device).
+"""Cross-entropy (counterpart of the JAX package's ``ops/cross_entropy.py``).
 
 Stable CE in fp32 with a masked mean over valid tokens; ``ignore_index``
 entries and ``loss_mask == 0`` positions contribute nothing.  The label logit
@@ -14,6 +13,15 @@ batch every rank holds) as ``denominator``: the rank's term is then
 ``local_sum / global_count``, and the SUM of the ranks' terms and gradients
 is the JAX loss and gradient, also when ranks hold different numbers of loss
 tokens.
+
+Vocab-parallel (``tp``): each rank holds ``[b, s, V/tp]`` logits, its slice
+of the vocab.  Where the JAX package gets the reductions from GSPMD, the
+port writes NxD's ``parallel_cross_entropy`` out (:class:`_VocabParallelCE`):
+a detached local max and an all-reduce MAX, the sum of exponentials and an
+all-reduce SUM, the label logit from the rank that owns the label and an
+all-reduce SUM (one non-zero term: exact); the backward is ``softmax_local -
+onehot_local`` times the incoming gradient, with no collective.  Masking,
+``ignore_index`` and the denominator are the one-device function's.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from neuronx_distributed_training_torch.parallel import tensor_parallel as tp_ops
 
 
 def _label_logit_and_lse(logits: torch.Tensor, labels: torch.Tensor):
@@ -31,6 +42,35 @@ def _label_logit_and_lse(logits: torch.Tensor, labels: torch.Tensor):
     return label_logit, lse
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token ``lse - label_logit`` over vocab-sharded fp32 logits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        rows = logits.shape[-1]
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+        e = torch.exp(logits - m)
+        sum_e = torch.sum(e, dim=-1, keepdim=True)
+        dist.all_reduce(sum_e, op=dist.ReduceOp.SUM, group=tp.group)
+        lse = torch.log(sum_e.squeeze(-1)) + m.squeeze(-1)
+        local = labels.long() - tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        local = local.masked_fill(~mine, 0)
+        label_logit = torch.gather(logits, -1, local[..., None]).squeeze(-1)
+        label_logit = label_logit.masked_fill(~mine, 0.0)
+        dist.all_reduce(label_logit, op=dist.ReduceOp.SUM, group=tp.group)
+        ctx.save_for_backward(e.div_(sum_e), local, mine)  # e is now the softmax
+        return lse - label_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        p, local, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, local[..., None], -(g * mine)[..., None])
+        return grad, None, None
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,  # [batch, seq, vocab]
     labels: torch.Tensor,  # [batch, seq]
@@ -39,11 +79,15 @@ def cross_entropy_loss(
     ignore_index: int = -100,
     reduction: str = "mean",  # "mean" | "sum" | "none"
     denominator: Optional[torch.Tensor] = None,  # "mean": the count to divide by
+    tp=None,  # parallel/mesh.py::TensorParallel: logits hold the rank's vocab slice
 ) -> torch.Tensor:
     valid = labels != ignore_index
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
-    label_logit, lse = _label_logit_and_lse(logits, safe_labels)
-    per_tok = lse - label_logit
+    if tp_ops.active(tp):
+        per_tok = _VocabParallelCE.apply(logits.float(), safe_labels, tp)
+    else:
+        label_logit, lse = _label_logit_and_lse(logits, safe_labels)
+        per_tok = lse - label_logit
     mask = _loss_mask(valid, loss_mask)
     per_tok = per_tok * mask
     if reduction == "none":

@@ -47,6 +47,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -96,24 +98,43 @@ def init_health_state() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def zero1_leaf_spec(shape, dp: int) -> Optional[int]:
-    """The dim a ZeRO-1 leaf of ``shape`` is sharded on over ``dp`` ranks:
-    the first that ``dp`` divides (JAX's first unsharded divisible dim; the
-    port has no tensor-parallel param specs yet), or ``None`` (replicated)."""
+def zero1_leaf_spec(shape, dp: int, tp_dim: Optional[int] = None) -> Optional[int]:
+    """The dim a ZeRO-1 leaf of global ``shape`` is sharded on over ``dp``
+    ranks: the first that ``dp`` divides and tensor parallelism does not
+    shard (``tp_dim``), as JAX extends a param spec on its first unsharded
+    divisible dim; or ``None`` (replicated)."""
     if dp <= 1:
         return None
     for i, d in enumerate(shape):
-        if int(d) % dp == 0:
+        if i != tp_dim and int(d) % dp == 0:
             return i
     return None
 
 
+def global_shape(t: torch.Tensor, layout=None, tp_size: int = 1) -> tuple:
+    """The global shape of a rank's local leaf ``t`` (its tp dim times
+    ``tp_size``)."""
+    shape = list(t.shape)
+    if layout is not None and layout.dim is not None:
+        shape[layout.dim] *= tp_size
+    return tuple(shape)
+
+
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
-                    policy=None, health: bool = False) -> dict:
+                    policy=None, health: bool = False, layouts: Optional[dict] = None,
+                    tp_size: int = 1) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
-    counters are replicated."""
-    moments = {n: zero1_leaf_spec(p.shape, dp) if zero1 else None for n, p in params.items()}
+    counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
+    the tp dim of each local leaf in ``params``."""
+    layouts = layouts or {}
+
+    def spec(n, p):
+        lay = layouts.get(n)
+        return zero1_leaf_spec(global_shape(p, lay, tp_size), dp,
+                               None if lay is None else lay.dim)
+
+    moments = {n: spec(n, p) if zero1 else None for n, p in params.items()}
     out: dict[str, Any] = {"step": None, "mu": moments, "nu": dict(moments)}
     if policy is not None and policy.param_dtype != policy.optimizer_dtype:
         out["master"] = dict(moments)
@@ -135,47 +156,78 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 
 def shard_of(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
-    """``(dim, start, length)`` of this rank's slice of a ZeRO-1 leaf;
-    ``None`` for a whole leaf."""
+    """``(dim, start, length)`` of this rank's slice of a ZeRO-1 leaf on the
+    ``data`` axis; ``None`` for a leaf the data axis does not shard."""
     if not is_dtensor(t):
         return None
-    (placement,) = t.placements
+    mesh = t.device_mesh
+    axis = list(mesh.mesh_dim_names or ("data",)).index("data")
+    placement = t.placements[axis]
+    if not placement.is_shard():
+        return None
     dim = placement.dim
     length = t.to_local().shape[dim]
-    return dim, t.device_mesh.get_local_rank() * length, length
+    return dim, mesh.get_local_rank(axis) * length, length
 
 
-def _sharded(full: torch.Tensor, dim: Optional[int], dp) -> torch.Tensor:
-    """``full`` as state: whole, or this rank's slice held as a DTensor."""
+def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """``local_t`` as this rank's block of a DTensor on ``mesh`` (1-D
+    ``data`` or 2-D ``(data, model)``), sharded on ``dims[i]`` over mesh dim
+    ``i`` (None: replicated); the global shape is the local one times the
+    mesh dims' sizes on the sharded dims."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    shape = list(local_t.shape)
+    for i, d in enumerate(dims):
+        if d is not None:
+            shape[d] *= mesh.size(i)
+    placements = [Replicate() if d is None else Shard(d) for d in dims]
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.insert(0, acc)
+        acc *= n
+    return DTensor.from_local(local_t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _sharded(full: torch.Tensor, dim: Optional[int], dp, tp=None, tp_dim=None) -> torch.Tensor:
+    """``full`` (the rank's local leaf) as state: whole, or this rank's
+    slice on the data axis held as a DTensor (on the 2-D mesh with ``tp``)."""
     if dim is None or dp is None:
         return full
-    from torch.distributed.tensor import DTensor, Shard
-
     length = full.shape[dim] // dp.size
     part = full.narrow(dim, dp.rank * length, length).contiguous()
-    return DTensor.from_local(part, dp.mesh, [Shard(dim)], run_check=False,
-                              shape=full.shape, stride=full.stride())
+    if tp is None:
+        return dtensor_on(part, dp.mesh, (dim,))
+    return dtensor_on(part, tp.state_mesh, (dim, tp_dim))
 
 
 def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = False,
-                   specs: Optional[dict] = None, dp=None) -> dict:
+                   specs: Optional[dict] = None, dp=None, tp=None,
+                   layouts: Optional[dict] = None) -> dict:
     """Step counter, moments in the optimizer dtype, fp32 master weights only
     when the params are stored in another dtype, and (``health``) the health
     counters.  With ``specs`` (``opt_state_specs``) and ``dp``
     (``parallel/mesh.py::DataParallel``) the sharded leaves hold this rank's
-    slice as DTensors."""
+    slice as DTensors, on the ``(data, model)`` mesh with ``tp`` and
+    ``layouts``."""
     odt = policy.optimizer_dtype
     dims = (specs or {}).get("mu", {})
+    layouts = layouts or {}
+
+    def held(n, full):
+        lay = layouts.get(n)
+        return _sharded(full, dims.get(n), dp, tp, None if lay is None else lay.dim)
+
     state: dict[str, Any] = {
         "step": 0,
-        "mu": {n: _sharded(torch.zeros(p.shape, dtype=odt, device=p.device), dims.get(n), dp)
+        "mu": {n: held(n, torch.zeros(p.shape, dtype=odt, device=p.device))
                for n, p in params.items()},
-        "nu": {n: _sharded(torch.zeros(p.shape, dtype=odt, device=p.device), dims.get(n), dp)
+        "nu": {n: held(n, torch.zeros(p.shape, dtype=odt, device=p.device))
                for n, p in params.items()},
     }
     if policy.param_dtype != odt:
-        state["master"] = {n: _sharded(p.detach().to(odt).clone(), dims.get(n), dp)
-                           for n, p in params.items()}
+        state["master"] = {n: held(n, p.detach().to(odt).clone()) for n, p in params.items()}
     if health:
         state["health"] = init_health_state()
     return state
@@ -186,47 +238,57 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
 # ---------------------------------------------------------------------------
 
 
-def global_norm(tensors) -> torch.Tensor:
-    total = None
-    for t in tensors:
-        s = torch.sum(torch.square(t.float()))
-        total = s if total is None else total + s
-    return torch.sqrt(total)
-
-
-def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable) -> dict:
-    """Per-group fp32 sums of squares (``group_fn(name) -> group``): the same
-    per-leaf reductions as ``global_norm``, whose total the caller takes as
-    the clipping norm."""
-    sums: dict[str, torch.Tensor] = {}
+def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=None,
+                     sharded=frozenset()) -> dict:
+    """Per-group fp32 sums of squares (``group_fn(name) -> group``) of the
+    global leaves whose local slices ``tensors`` holds.  With ``tp`` active
+    the tp-sharded leaves' sums (``sharded``: their names) are added over the
+    tp group in one all-reduce and each replicated leaf counts once; without
+    it every leaf is summed in order, as one rank holds it."""
+    on = tp_active(tp)
+    parts: dict[str, list] = {}
     for n, t in tensors.items():
-        key = group_fn(n)
+        acc = parts.setdefault(group_fn(n), [None, None])
+        i = 0 if on and n in sharded else 1
         s = torch.sum(torch.square(t.float()))
-        sums[key] = sums[key] + s if key in sums else s
-    return sums
+        acc[i] = s if acc[i] is None else acc[i] + s
+    if not on:
+        return {k: r for k, (_, r) in parts.items()}
+    zero = torch.zeros((), dtype=torch.float32, device=next(iter(tensors.values())).device)
+    summed = tp.all_reduce_(torch.stack([zero if a is None else a for a, _ in parts.values()]))
+    return {k: summed[i] if r is None else summed[i] + r
+            for i, (k, (_, r)) in enumerate(parts.items())}
+
+
+def global_norm(tensors, tp=None, sharded=frozenset()) -> torch.Tensor:
+    """The fp32 L2 norm of ``tensors`` (a dict of local leaves or an iterable
+    of tensors): the one group of ``grouped_sq_norms``."""
+    if not isinstance(tensors, dict):
+        tensors = dict(enumerate(tensors))
+    return torch.sqrt(grouped_sq_norms(tensors, lambda n: "all", tp, sharded)["all"])
 
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
                  opt_state: dict, lr, cfg: AdamWConfig, policy, *,
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
-                 extra_finite=None, dp=None) -> dict:
+                 extra_finite=None, dp=None, tp=None, tp_sharded=frozenset()) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
     ``updates_finite`` (a bool tensor) and, with ``grad_group_fn``,
     ``group_norms``.  ``grads`` are the full gradients (all-reduced under
-    data parallelism); ``dp`` gathers ZeRO-1's param slices."""
+    data parallelism) of the rank's local leaves; ``dp`` gathers ZeRO-1's
+    param slices; with ``tp`` the norm takes the leaves named in
+    ``tp_sharded`` as slices of their global leaf."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
+    group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded)
+    total = None
+    for v in group_sq.values():
+        total = v if total is None else total + v
+    gnorm = torch.sqrt(total)
     if grad_group_fn is not None:
-        group_sq = grouped_sq_norms(grads, grad_group_fn)
-        total = None
-        for s in group_sq.values():
-            total = s if total is None else total + s
-        gnorm = torch.sqrt(total)
         metrics["group_norms"] = {k: torch.sqrt(v) for k, v in group_sq.items()}
-    else:
-        gnorm = global_norm(grads.values())
     metrics["grad_norm"] = gnorm
     if skip_nonfinite or grad_group_fn is not None or extra_finite is not None:
         # a non-finite grad entry poisons the squared sums, so one isfinite

@@ -1,1 +1,2 @@
-"""Parallelism of the port: the device mesh and the data axis."""
+"""Parallelism of the port: the device mesh, the data and model axes, the
+tensor-parallel regions and the leaves' layouts."""

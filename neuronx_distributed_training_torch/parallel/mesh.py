@@ -8,12 +8,17 @@ each, outermost first:
     (pipe, data, expert, context, model)
 
 ``dp = world / (tp * pp * cp)`` as in the reference, and ``ep`` must divide
-it.  This slice runs data parallelism only; the trainer rejects tp, pp, cp
-and ep above 1 with the ROADMAP item that ports them.
+it.  ``model`` is innermost, so a tp group is consecutive ranks (on one
+host).  The port runs data and tensor parallelism (with Megatron sequence
+parallelism); the trainer rejects pp, cp and ep above 1 with the ROADMAP
+item that ports them.
 
 :class:`DataParallel` is what the train step and the optimizer need of the
-``data`` axis: the rank, the size, its process group, the 1-D mesh the
-ZeRO-1 state's DTensors live on, and the two collectives they run.
+``data`` axis: the rank, the size, its process group, the 1-D mesh of the
+axis, and the two collectives they run.  :class:`TensorParallel` is the
+same of the ``model`` axis, plus the sequence-parallel switch and the 2-D
+``(data, model)`` mesh that sharded state lives on as DTensors (ZeRO-1
+moments, and every leaf as a checkpoint writes it).
 """
 
 from __future__ import annotations
@@ -157,3 +162,30 @@ class DataParallel:
         parts = [torch.empty_like(local) for _ in range(self.size)]
         dist.all_gather(parts, local.contiguous(), group=self.group)
         out.copy_(torch.cat(parts, dim=dim))
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This process's place on the ``model`` axis."""
+
+    rank: int
+    size: int
+    group: Any  # the model axis's ProcessGroup
+    mesh: Any  # the 1-D DeviceMesh of the model axis
+    state_mesh: Any  # the 2-D ("data", "model") DeviceMesh of sharded state
+    sequence_parallel: bool = False
+
+    @classmethod
+    def from_mesh(cls, mesh, *, sequence_parallel: bool = False) -> "TensorParallel":
+        mm = mesh["model"]
+        return cls(rank=mm.get_local_rank(), size=mm.size(), group=mm.get_group(), mesh=mm,
+                   state_mesh=mesh["data", "model"],
+                   sequence_parallel=bool(sequence_parallel and mm.size() > 1))
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the model axis, in place (nothing on one rank)."""
+        import torch.distributed as dist
+
+        if self.size > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t

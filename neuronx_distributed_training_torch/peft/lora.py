@@ -1,5 +1,5 @@
 """LoRA as a transform of the parameter tree (counterpart of the JAX package's
-``peft/lora.py``, one device).
+``peft/lora.py``).
 
 - ``add_lora`` puts ``lora_a [in, r]``, ``lora_b [r, out]`` and
   ``lora_scale`` (alpha / r, an fp32 scalar) beside the ``w`` of every linear
@@ -11,8 +11,12 @@
 - ``merge_lora`` folds ``w + (a @ b) * scale`` back into the base weight.
 
 ``dropout`` is parsed from ``lora_dropout`` and applied nowhere, as in the JAX
-package.  The adapters' TP layouts (the JAX ``lora_param_specs``) come with
-tensor parallelism.
+package.  The adapters' TP layouts (the JAX ``lora_param_specs``) are in
+``parallel/sharding.py``: on a column layer (``qkv``, ``gate_up``) A is
+replicated and B holds the rank's output columns, by segment; on a row layer
+(``o``, ``down``) A holds the rank's input rows and B is replicated.  The
+replicated factor's gradient is a partial sum over tp, which the train step
+all-reduces.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import dataclasses
 from typing import Any
 
 import torch
+
+from neuronx_distributed_training_torch.parallel.sharding import ROW
 
 # the reference's target-module names, without the ``_proj`` suffix
 DEFAULT_TARGETS = ("qkv", "q", "k", "v", "o", "gate_up", "down")
@@ -56,12 +62,15 @@ def _is_linear(v) -> bool:
     return isinstance(v, dict) and isinstance(v.get("w"), torch.Tensor) and v["w"].ndim >= 2
 
 
-def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator) -> Any:
+def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_rank: int = 0,
+             tp_size: int = 1) -> Any:
     """The tree with adapters beside every target linear's ``w``: A is 0.02
     times a normal truncated at +-2, drawn from ``generator`` in tree order
     (the trainer seeds it with ``seed + 1``, as the JAX trainer keys its
     draw), B is zeros, so the adapted model starts as the base model.  The
-    base tensors are shared, not copied."""
+    base tensors are shared, not copied.  Under tensor parallelism ``params``
+    holds the rank's slices: A is drawn whole and a row layer's keeps the
+    rank's rows, so every tp draws the same numbers."""
 
     def visit(node):
         if isinstance(node, list):
@@ -73,9 +82,13 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator) -> Any:
             if k in cfg.target_modules and _is_linear(v):
                 w = v["w"]
                 in_dim, out_dim = w.shape[-2:]
-                a = torch.empty((in_dim, cfg.rank), dtype=torch.float32, device=w.device)
+                row = k in ROW and tp_size > 1
+                a = torch.empty((in_dim * tp_size if row else in_dim, cfg.rank),
+                                dtype=torch.float32, device=w.device)
                 torch.nn.init.trunc_normal_(a, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                             generator=generator)
+                if row:
+                    a = a[tp_rank * in_dim:(tp_rank + 1) * in_dim]
                 out[k] = {**v,
                           "lora_a": (0.02 * a).to(w.dtype),
                           "lora_b": torch.zeros((cfg.rank, out_dim), dtype=w.dtype,

@@ -4,13 +4,17 @@ checkpointing off, phase 5 on a Megatron corpus), and its step times printed
 as one JSON line:
 
     python -m neuronx_distributed_training_torch.tools.step_times [--steps N]
-        [--save-every K] [--set key.path=value ...]
+        [--save-every K] [--tp N [--sp]] [--set key.path=value ...]
 
 Under torchrun (``torchrun --standalone --nproc_per_node N -m
 neuronx_distributed_training_torch.tools.step_times ...``) the cell trains
-data parallel over NCCL, as ``chip_smoke.py`` phase 7a runs it; rank 0
-prints the line.  The line holds the step seconds, losses and grad norms,
-and the flash kernels' launch and fallback counts of the run.
+data parallel over NCCL, as ``chip_smoke.py`` phase 7a runs it, and with
+``--tp N`` (and ``--sp`` for sequence parallelism) tensor parallel over
+groups of N ranks, as phase 8b runs it; the default is the cell's
+``tp=1, sp=false``.  Every rank prints one line, rank 0's with
+``"rank": 0``.  A line holds the step seconds, losses and grad norms, the
+flash kernels' launch and fallback counts of the run on that rank, and the
+rank's peak device memory (``torch.cuda.max_memory_allocated``).
 
 With ``--save-every K`` the run checkpoints asynchronously every K steps
 (top-1 + last, into a scratch exp dir under ``build/`` that is deleted at the
@@ -64,6 +68,8 @@ def main(argv=None) -> None:
     ap.add_argument("--save-every", type=int, default=0)
     ap.add_argument("--exp-dir", default=None,
                     help="with --save-every: checkpoint into (and resume from) this exp dir, kept")
+    ap.add_argument("--tp", type=int, default=1, help="tensor_model_parallel_size")
+    ap.add_argument("--sp", action="store_true", help="sequence_parallel (with --tp > 1)")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="KEY=VAL", help="more config overrides, after the cell's")
     args = ap.parse_args(argv)
@@ -71,7 +77,11 @@ def main(argv=None) -> None:
     from neuronx_distributed_training_torch.ops import flash_attention as fa
     from neuronx_distributed_training_torch.trainer import cli
 
-    overrides = ["--set", f"trainer.max_steps={args.steps}"]
+    import torch
+
+    overrides = ["--set", f"trainer.max_steps={args.steps}",
+                 "--set", f"distributed_strategy.tensor_model_parallel_size={args.tp}",
+                 "--set", f"distributed_strategy.sequence_parallel={str(args.sp).lower()}"]
     for o in args.overrides:
         overrides += ["--set", o]
     exp = Path(args.exp_dir) if args.exp_dir else WORK / "exp_step_times"
@@ -91,14 +101,18 @@ def main(argv=None) -> None:
     finally:
         if scratch and args.save_every:
             shutil.rmtree(exp, ignore_errors=True)
-    if trainer.is_rank0:
-        print(json.dumps({"package": str(Path(pkg.__file__).resolve().parent),
-                          "dp": 1 if trainer.dp is None else trainer.dp.size,
-                          "step_seconds": [r["step_seconds"] for r in history],
-                          "loss": [r["loss"] for r in history],
-                          "grad_norm": [r["grad_norm"] for r in history],
-                          "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS)}),
-              flush=True)
+    print(json.dumps({"package": str(Path(pkg.__file__).resolve().parent),
+                      "rank": trainer.rank,
+                      "dp": 1 if trainer.dp is None else trainer.dp.size,
+                      "tp": 1 if trainer.tp is None else trainer.tp.size,
+                      "sp": bool(trainer.tp and trainer.tp.sequence_parallel),
+                      "step_seconds": [r["step_seconds"] for r in history],
+                      "loss": [r["loss"] for r in history],
+                      "grad_norm": [r["grad_norm"] for r in history],
+                      "peak_bytes": (torch.cuda.max_memory_allocated()
+                                     if torch.cuda.is_available() else None),
+                      "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS)}),
+          flush=True)
 
 
 if __name__ == "__main__":

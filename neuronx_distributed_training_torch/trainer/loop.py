@@ -20,15 +20,23 @@ state ``consumed_samples`` is derived from trained steps, never from the
 sampler, which the prefetch thread runs ahead.
 
 Under ``torch.distributed`` (``trainer/cli.py`` starts it under torchrun)
-the trainer is data parallel: ``dp`` is the world size, every rank builds
-the same global batch and computes its rows of each microbatch, gradients
-and loss are all-reduced, and with ``distributed_strategy.zero1`` (the
-default) the AdamW state is sharded over the ranks (``optim/adamw.py``).
-Params start from rank 0's.  Rank 0 alone logs the steps and writes the exp
-dir's ``metrics.jsonl``, TensorBoard and ``run_summary.json`` (each rank
-keeps its own log file); the stop decisions (``max_time``, SIGTERM) are
-agreed by an all-reduce at each step boundary, so every rank stops, and
-checkpoints, at the same step.
+the trainer is data and tensor parallel on the mesh of
+``parallel/mesh.py``: ``dp = world / tp``, every rank builds the same
+global batch and computes the rows of its data coordinate, so the tp ranks
+of a dp group compute the same rows.  Gradients of partial leaves are
+all-reduced over the model axis, then gradients and loss over the data
+axis, and with ``distributed_strategy.zero1`` (the default) the AdamW state
+is sharded over the data axis (``optim/adamw.py``).  With
+``tensor_model_parallel_size`` above 1 each rank holds its slices of the
+leaves (``parallel/sharding.py``), drawn whole and cut, and
+``sequence_parallel`` shards the activations' sequence between the
+column and row layers (``models/llama.py``).  Params start from the first
+rank of each data group.  Rank 0 of the world alone logs the steps and
+writes the exp dir's ``metrics.jsonl``, TensorBoard and ``run_summary.json``
+(each rank keeps its own log file); the stop decisions (``max_time``,
+SIGTERM) are agreed by an all-reduce at each step boundary, so every rank
+stops, and checkpoints, at the same step.  MFU divides the tokens by the
+world size: each card computes ``1/world`` of the step's FLOPs.
 
 ``exp_manager.telemetry.health`` is acted on (``telemetry/health.py``):
 ``skip_update`` keeps a non-finite step's state, ``halt`` stops at that step
@@ -69,9 +77,11 @@ from neuronx_distributed_training_torch.optim.adamw import (
     opt_state_specs,
 )
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
+from neuronx_distributed_training_torch.parallel import sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
     DataParallel,
     MeshConfig,
+    TensorParallel,
     build_mesh,
     dp_degree,
 )
@@ -114,8 +124,8 @@ def check_supported(cfg: ConfigDict) -> None:
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
+    _check_tensor_parallel(cfg, ds, model)
     for key, label, item in (
-        ("tensor_model_parallel_size", "tensor parallelism (tp > 1)", "7"),
         ("pipeline_model_parallel_size", "pipeline parallelism (pp > 1)", "12"),
         ("context_parallel_size", "context parallelism (cp > 1)", "11"),
         ("expert_model_parallel_size", "expert parallelism (ep > 1)", "13"),
@@ -139,6 +149,32 @@ def check_supported(cfg: ConfigDict) -> None:
         raise _unsupported(f"model_alignment_strategy {strategy} (DPO/ORPO/KTO)", "14")
 
 
+def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
+    """tp must divide the heads, the kv heads and the vocab (and, under
+    sequence parallelism, the sequence).  tp above the kv heads needs KV
+    replication (NxD's ``kv_replicator``), and a vocab tp does not divide
+    needs padding: neither is ported."""
+    tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
+    if tp == 1:
+        return
+    nh = int(model.get("num_attention_heads", 32))
+    nkv = int(model.get("num_key_value_heads") or nh)
+    vocab = int(model.get("vocab_size", 32000))
+    if tp > nkv:
+        raise _unsupported(f"tensor parallelism with tp {tp} above the {nkv} kv heads "
+                           f"(KV replication)", "7")
+    if vocab % tp:
+        raise _unsupported(f"a vocab of {vocab} that tp {tp} does not divide (padding, "
+                           f"ops/linear.py::pad_vocab_size)", "7")
+    for key, n in (("num_attention_heads", nh), ("num_key_value_heads", nkv)):
+        if n % tp:
+            raise ValueError(f"tensor_model_parallel_size {tp} must divide model.{key} {n}")
+    seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
+    if ds.get("sequence_parallel") and seq % tp:
+        raise ValueError(f"sequence_parallel: tensor_model_parallel_size {tp} must divide "
+                         f"data.seq_length {seq}")
+
+
 def _log_ignored(cfg: ConfigDict) -> None:
     em = dict(cfg.get("exp_manager", {}) or {})
     tel = em.get("telemetry")
@@ -160,7 +196,7 @@ def _log_ignored(cfg: ConfigDict) -> None:
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
-        logger.info("ignored by this slice of the port (data parallelism only, no "
+        logger.info("ignored by this slice of the port (data and tensor parallelism, no "
                     "telemetry planes but the health policy yet): %s", ", ".join(fresh))
 
 
@@ -211,6 +247,12 @@ class Trainer:
     health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
     #: the data axis under a process group (None: one process, no group)
     dp: Optional[DataParallel] = None
+    #: the model axis under a process group (None: one process, no group)
+    tp: Optional[TensorParallel] = None
+    #: the tensor-parallel layout of every leaf (parallel/sharding.py)
+    layouts: dict = dataclasses.field(default_factory=dict)
+    #: the process group's world size (1 without one)
+    world: int = 1
     #: this process's rank in the process group (0 without one)
     rank: int = 0
     step: int = 0
@@ -237,10 +279,16 @@ class Trainer:
         model_block = dict(cfg.get("model", {}) or {})
         mc = llama.LlamaConfig.from_config(model_block)
         ds = dict(cfg.get("distributed_strategy", {}) or {})
-        dp, dp_size = None, 1
+        mesh_cfg = MeshConfig.from_config(ds)
+        dp, dp_size, tp = None, 1, None
         if dist.is_available() and dist.is_initialized():
-            mesh = build_mesh(MeshConfig.from_config(ds), device_type=dev.type)
+            mesh = build_mesh(mesh_cfg, device_type=dev.type)
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
+            tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel)
+        elif mesh_cfg.tp > 1:
+            raise ValueError(f"tensor_model_parallel_size {mesh_cfg.tp} needs {mesh_cfg.tp} "
+                             f"processes: launch under torchrun (--nproc_per_node)")
+        tp_rank, tp_size = (0, 1) if tp is None else (tp.rank, tp.size)
         sched = batch_schedule(cfg, n_devices=world)
         seed = int(cfg.get("seed", 1234))
         # data first: the module's label convention decides shift_labels
@@ -250,13 +298,15 @@ class Trainer:
             val_data_module = val_data_module or cfg_val
         shift_labels = not getattr(data_module, "labels_pre_shifted", False)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = llama.init_params(mc, policy, generator=gen, device=dev)
+        params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
+                                   tp_size=tp_size)
         trainable = None
         lora_block = dict(model_block.get("lora", {}) or {})
         if lora_block:
             lora_cfg = LoraConfig.from_config(lora_block)
             params = add_lora(params, lora_cfg,
-                              torch.Generator(device=dev).manual_seed(seed + 1))
+                              torch.Generator(device=dev).manual_seed(seed + 1),
+                              tp_rank=tp_rank, tp_size=tp_size)
             trainable = {n for n, m in trainable_mask(llama.named_params(params)).items() if m}
             if lora_cfg.dropout and "model.lora.lora_dropout" not in _logged_ignored:
                 _logged_ignored.add("model.lora.lora_dropout")
@@ -264,21 +314,23 @@ class Trainer:
                             "package", lora_cfg.dropout)
         flat = llama.named_params(params)
         if dp is not None:
-            # every rank starts from rank 0's weights
+            # every rank starts from its data group's first rank's weights
+            src = dist.get_global_rank(dp.group, 0)
             for t in flat.values():
-                dist.broadcast(t, src=0)
+                dist.broadcast(t, src=src, group=dp.group)
+        layouts = sharding.leaf_layouts(flat, mc, sequence_parallel=mesh_cfg.sequence_parallel)
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
-                                health=health.enabled)
+                                health=health.enabled, layouts=layouts, tp_size=tp_size)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
-                                   dp=dp)
+                                   dp=dp, tp=tp, layouts=layouts)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
         def loss_fn(p, batch, denominator=None):
             return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
-                                 loss_denominator=denominator)
+                                 loss_denominator=denominator, tp=tp)
 
         def token_count_fn(batch):
             return llama.loss_token_count(batch, shift_labels=shift_labels)
@@ -288,7 +340,9 @@ class Trainer:
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
             num_microbatches=nm, trainable=trainable, health=health, dp=dp,
-            token_count_fn=token_count_fn)
+            token_count_fn=token_count_fn, tp=tp,
+            tp_partial=frozenset(n for n in train_flat if layouts[n].partial),
+            tp_sharded=frozenset(n for n in train_flat if layouts[n].sharded))
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
         version = None
         if dp is not None:
@@ -299,15 +353,16 @@ class Trainer:
         if enable_checkpointing:
             ck_cfg = dataclasses.replace(CheckpointConfig.from_config(cfg),
                                          dir=exp.checkpoint_dir)
-            checkpointer = Checkpointer(ck_cfg)
+            checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
         if rank == 0:
             logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
-                        "(shift_labels=%s); trainable %s; dp %d, zero1 %s (%d of %d state "
-                        "leaves sharded); health %s; run dir %s", mc, nm,
+                        "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, zero1 %s (%d of "
+                        "%d state leaves sharded); health %s; run dir %s", mc, nm,
                         sched["micro_batch_size"], policy, dev, type(data_module).__name__,
                         shift_labels, "all leaves" if trainable is None else
-                        f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, zero1,
+                        f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, tp_size,
+                        bool(tp and tp.sequence_parallel), zero1,
                         sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
                         health.policy if health.enabled else "off", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
@@ -316,7 +371,8 @@ class Trainer:
                                             token_count_fn=token_count_fn),
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
-                   peak_tflops=peak, health=health, dp=dp, rank=rank)
+                   peak_tflops=peak, health=health, dp=dp, tp=tp, layouts=layouts, rank=rank,
+                   world=world)
 
     # -- resume ---------------------------------------------------------------
 
@@ -357,7 +413,7 @@ class Trainer:
         limit_val = int(cfg_t.get("limit_val_batches", 10) or 10)
         ck_every = self.checkpointer.config.every_n_train_steps if self.checkpointer else 0
         max_time = parse_max_time(cfg_t.get("max_time"))
-        n_cards = 1 if self.dp is None else self.dp.size
+        n_cards = self.world
         stop: dict[str, Optional[str]] = {"reason": None}
 
         def _on_sigterm(signum, frame):
@@ -388,7 +444,7 @@ class Trainer:
                 tokens = self.sched["global_batch_size"] * self.seq_len
                 rec.update(step_seconds=seconds, tokens_per_sec=tokens / seconds,
                            consumed_samples=self.consumed_samples)
-                # per card: each of the dp ranks computes 1/dp of the tokens
+                # per card: each of the world's ranks computes 1/world of the FLOPs
                 rec["mfu"] = (perf.mfu(rec["tokens_per_sec"] / n_cards, flops_per_token,
                                        self.peak_tflops) if self.peak_tflops else math.nan)
                 if self.is_rank0:
@@ -459,9 +515,9 @@ class Trainer:
 
     def _agree_stop(self, stop_class: Optional[str]) -> Optional[str]:
         """The stop decision every rank takes at this boundary: the largest
-        of the ranks' (``_STOP_CODES``), by a MAX all-reduce."""
+        of the ranks' (``_STOP_CODES``), by a MAX all-reduce over the world."""
         code = torch.tensor([_STOP_CODES[stop_class]], dtype=torch.int32, device=self.device)
-        dist.all_reduce(code, op=dist.ReduceOp.MAX, group=self.dp.group)
+        dist.all_reduce(code, op=dist.ReduceOp.MAX)
         return {v: k for k, v in _STOP_CODES.items()}[int(code.item())]
 
     def validate(self, limit_batches: int) -> float:

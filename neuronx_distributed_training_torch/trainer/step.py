@@ -32,6 +32,19 @@ microbatch's loss denominator, which the loss function takes as
 loss are SUM all-reduced (in ``grad_accum_dtype``; in place, the identity on
 one rank) before the 1/num_microbatches scale and the update, so every rank
 sees JAX's loss and gradients.
+
+``tp`` (``parallel/mesh.py::TensorParallel``): tensor parallelism.  The loss
+function runs the rank's slices (``models/llama.py``), and every rank of a
+tp group computes the same rows (the data coordinate picks them) and gets
+the whole loss.  After the backward, the accumulated gradients of the
+leaves whose gradient is a partial sum over tp (``tp_partial``: the norm
+scales under sequence parallelism, LoRA's replicated factors) are SUM
+all-reduced over the model axis, in one flat buffer; then the data axis's
+all-reduce runs over the data group alone, and the loss is summed over data
+only (every tp rank already holds the whole loss).  The clipping norm counts
+the ``tp_sharded`` leaves' slices over tp and each replicated leaf once, so
+the skip decision and the clip factor are the same on every rank of the
+world, and every rank issues the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
     global_norm,
     init_health_state,
 )
+from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 from neuronx_distributed_training_torch.telemetry.health import grad_group_of
 from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
 
@@ -82,10 +96,21 @@ def _call_loss(loss_fn, params, mb, denominator):
     return loss_fn(params, mb) if denominator is None else loss_fn(params, mb, denominator)
 
 
+def _all_reduce_partial_(grads: list, tp) -> None:
+    """SUM over the model axis of ``grads``, in place, as one flat buffer."""
+    flat = tp.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable,
                     policy: DtypePolicy, *, num_microbatches: int = 1,
                     trainable: Optional[set[str]] = None, health: Any = None,
-                    dp: Any = None, token_count_fn: Optional[Callable] = None) -> Callable:
+                    dp: Any = None, token_count_fn: Optional[Callable] = None,
+                    tp: Any = None, tp_partial: frozenset = frozenset(),
+                    tp_sharded: frozenset = frozenset()) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``)."""
     health = health if health is not None and getattr(health, "enabled", False) else None
@@ -114,6 +139,9 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     a.add_(g)
                 loss_sum = loss_sum + loss.detach()
             del grads
+        partial = [g for n, g in zip(names, grad_sum) if n in tp_partial]
+        if tp_active(tp) and partial:
+            _all_reduce_partial_(partial, tp)
         if dp is not None:
             for g in grad_sum:
                 dp.all_reduce_(g)
@@ -128,17 +156,20 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             flat, dict(zip(names, grad_sum)), opt_state, lr, opt_cfg, policy,
             grad_group_fn=grad_group_of if health is not None else None,
             skip_nonfinite=health is not None and health.policy == "skip_update",
-            extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp)
+            extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
+            tp=tp, tp_sharded=tp_sharded)
         metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
                    "grad_norm": opt_metrics["grad_norm"]}
         if health is not None:
-            metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat))
+            metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat,
+                                           tp, tp_sharded))
         return metrics
 
     return train_step
 
 
-def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params) -> dict:
+def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp=None,
+                    tp_sharded=frozenset()) -> dict:
     """Advance the health counters (host ints; ``updates_finite`` is read
     once) and return the ``health/*`` metrics under the JAX names."""
     ok = bool(opt_metrics["updates_finite"])
@@ -163,7 +194,7 @@ def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params) ->
     if health.param_norm:
         # after the update (a skipped step's are the params it kept)
         with torch.no_grad():
-            out["health/param_norm"] = global_norm(params.values())
+            out["health/param_norm"] = global_norm(params, tp, tp_sharded)
     return out
 
 

@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (``tests/test_torch_dp.py``).
+"""One rank of the port's data- and tensor-parallel tests
+(``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/_torch_dp_worker.py <spec.json>
@@ -10,15 +11,24 @@ rank 0, ``.pt`` files of the trained state).  Imports torch and the port,
 never jax.
 
 A scenario is ``{"name", "cfg", "steps", "weights"?, "data"?, "max_steps"?,
-"dump"?}``:
-- ``weights``: a ``.pt`` dict of dotted param names to start from (the
-  optimizer state is re-initialised from them);
+"dump"?, "dump_init"?, "grads"?}``, or ``{"name", "kind": "units"}`` for the
+vocab-parallel cross-entropy and embedding against the plain ones:
+- ``weights``: a ``.pt`` dict of dotted param names to start from, global
+  leaves in the JAX layout, which each rank cuts to its tensor-parallel
+  slices (the optimizer state is re-initialised from them);
 - ``data``: ``{"kind": "sft_mask", "seed": s}`` for :class:`MaskedRows`,
   ``{"kind": "nan_rows", "step": i, "rows": [...]}`` for synthetic rows with
   a NaN ``loss_mask`` in those global rows of step ``i``;
 - ``max_steps``: stop the fit there (a preempted run; the config's
   ``max_steps`` still sets the schedule);
-- ``dump``: write the trained params and the gathered optimizer state.
+- ``dump``: write the trained params and the gathered optimizer state, as
+  global leaves in the JAX layout (the tp ranks' slices merged);
+- ``dump_init``: write the initial params so, before any step;
+- ``grads``: write the gradients the first step hands AdamW (after the tp
+  and dp all-reduces), merged so, to this path.
+
+Each rank also reports a digest of the rows of each microbatch it computed
+(``rows``), so a test sees which ranks compute the same rows.
 """
 
 from __future__ import annotations
@@ -42,9 +52,12 @@ from neuronx_distributed_training_torch.data.loader import (  # noqa: E402
 from neuronx_distributed_training_torch.models import llama  # noqa: E402
 from neuronx_distributed_training_torch.optim.adamw import (  # noqa: E402
     init_opt_state,
+    is_dtensor,
     local,
     opt_state_specs,
 )
+from neuronx_distributed_training_torch.parallel import sharding  # noqa: E402
+from neuronx_distributed_training_torch.trainer import step as step_mod  # noqa: E402
 from neuronx_distributed_training_torch.trainer.loop import Trainer  # noqa: E402
 from neuronx_distributed_training_torch.utils.launch import (  # noqa: E402
     initialize_distributed,
@@ -100,45 +113,154 @@ def _data(cfg, spec):
                    seed=int(cfg.get("seed", 1234)), step=d["step"], rows=d["rows"])
 
 
-def _gathered(t) -> torch.Tensor:
-    from torch.distributed.tensor import DTensor
+def _tp_local(t, layout, tp) -> torch.Tensor:
+    """The rank's tensor-parallel slice of a state leaf, gathered over the
+    data axis (a collective for a DTensor: every rank calls it)."""
+    if not is_dtensor(t):
+        return t.detach().clone()
+    full = t.full_tensor()
+    if layout.sharded and tp.size > 1:
+        full = full.chunk(tp.size, layout.dim)[tp.rank]
+    return full.detach().clone()
 
-    return t.full_tensor() if isinstance(t, DTensor) else t
+
+def merged(trainer, named: dict):
+    """The global leaves (JAX layout) of ``named`` (every rank's local
+    leaves), on world rank 0 (None on the others): the slices of the ranks
+    of data coordinate 0, which are world ranks 0 .. tp-1."""
+    import torch.distributed as dist
+
+    tp = trainer.tp
+    mine = {n: _tp_local(t, trainer.layouts[n.split("/")[-1]], tp) for n, t in named.items()}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    if dist.get_rank() != 0:
+        return None
+    return {n: sharding.merge_leaf([everyone[r][n] for r in range(tp.size)],
+                                   trainer.layouts[n.split("/")[-1]]) for n in mine}
+
+
+def _save(obj, path) -> None:
+    if obj is not None:
+        torch.save(obj, Path(path))
+
+
+def run_units(rank: int) -> dict:
+    """The vocab-parallel cross-entropy and embedding on this rank's vocab
+    slice, against the plain functions on the whole vocab: max abs
+    differences of the loss, the logits' and the table's gradients and the
+    embedding output (all ranks hold the same whole inputs)."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_training_torch.ops import cross_entropy as ce
+    from neuronx_distributed_training_torch.ops import linear
+    from neuronx_distributed_training_torch.parallel.mesh import (
+        MeshConfig,
+        TensorParallel,
+        build_mesh,
+    )
+
+    size = dist.get_world_size()
+    out = {}
+    for sp in (False, True):
+        mesh = build_mesh(MeshConfig(tensor_model_parallel_size=size, sequence_parallel=sp),
+                          device_type="cpu")
+        tp = TensorParallel.from_mesh(mesh, sequence_parallel=sp)
+        gen = torch.Generator().manual_seed(3)
+        b, s, v, h = 2, 8, 16, 4
+        logits = torch.randn(b, s, v, generator=gen, dtype=torch.float64).float()
+        labels = torch.randint(0, v, (b, s), generator=gen)
+        labels[0, :3] = -100  # ignore_index
+        labels[1, 0], labels[1, 1] = 0, v - 1  # in the first and the last shard
+        mask = (torch.rand(b, s, generator=gen) > 0.2).float()
+        rows = v // size
+        whole = logits.clone().requires_grad_(True)
+        want = ce.cross_entropy_loss(whole, labels, loss_mask=mask)
+        want.backward()
+        part = logits[..., tp.rank * rows:(tp.rank + 1) * rows].clone().requires_grad_(True)
+        got = ce.cross_entropy_loss(part, labels, loss_mask=mask, tp=tp)
+        got.backward()
+        table = torch.randn(v, h, generator=gen)
+        ids = torch.randint(0, v, (b, s), generator=gen)
+        dy = torch.randn(b, s, h, generator=gen)
+        t_whole = table.clone().requires_grad_(True)
+        e_want = linear.apply_embedding({"embedding": t_whole}, ids)
+        (e_want * dy).sum().backward()
+        t_part = table[tp.rank * rows:(tp.rank + 1) * rows].clone().requires_grad_(True)
+        e_got = linear.apply_embedding({"embedding": t_part}, ids, tp=tp)
+        seq = slice(tp.rank * s // size, (tp.rank + 1) * s // size) if sp else slice(None)
+        (e_got * dy[:, seq]).sum().backward()
+        out["sp" if sp else "no_sp"] = {
+            "loss": abs(float(got) - float(want)),
+            "dlogits": float((part.grad - whole.grad[..., tp.rank * rows:(tp.rank + 1) * rows])
+                             .abs().max()),
+            "embedding": float((e_got - e_want[:, seq]).abs().max()),
+            "dtable": float((t_part.grad - t_whole.grad[tp.rank * rows:(tp.rank + 1) * rows])
+                            .abs().max()),
+            "labels_per_shard": [int(((labels >= r * rows) & (labels < (r + 1) * rows)).sum())
+                                 for r in range(size)],
+        }
+    return out
 
 
 def run(spec: dict, rank: int) -> dict:
+    if spec.get("kind") == "units":
+        return run_units(rank)
     cfg = load_config(spec["cfg"])
     trainer = Trainer.from_config(cfg, device="cpu", data_module=_data(cfg, spec))
-    out: dict = {"zero1_shards": {}}
+    out: dict = {"zero1_shards": {}, "rows": []}
+    tp = trainer.tp
     if spec.get("weights"):
         src = torch.load(spec["weights"])
         with torch.no_grad():
             for n, p in llama.named_params(trainer.params).items():
-                p.copy_(src[n])
+                p.copy_(sharding.shard_leaf(src[n], trainer.layouts[n], tp.rank, tp.size))
         flat = llama.named_params(trainer.params)
+        flat = {n: t for n, t in flat.items() if trainer.trainable is None
+                or n in trainer.trainable}
         specs = opt_state_specs(flat, trainer.dp.size,
                                 zero1=bool(cfg.distributed_strategy.get("zero1", True)),
-                                policy=trainer.policy, health=trainer.health.enabled)
+                                policy=trainer.policy, health=trainer.health.enabled,
+                                layouts=trainer.layouts, tp_size=tp.size)
         trainer.opt_state = init_opt_state(flat, trainer.policy, health=trainer.health.enabled,
-                                           specs=specs, dp=trainer.dp)
+                                           specs=specs, dp=trainer.dp, tp=tp,
+                                           layouts=trainer.layouts)
     for n, t in trainer.opt_state["mu"].items():
         out["zero1_shards"][n] = [list(t.shape), list(local(t).shape)]
+    if spec.get("dump_init"):
+        _save(merged(trainer, llama.named_params(trainer.params)), spec["dump_init"])
     if spec.get("max_steps"):
         trainer.max_steps = int(spec["max_steps"])
-    history = trainer.fit()
+    microbatches, update = step_mod._microbatches, step_mod.adamw_update
+    captured: dict = {}
+
+    def record_rows(batch, *a, **kw):
+        mbs = microbatches(batch, *a, **kw)
+        out["rows"].append([float(mb["input_ids"].double().sum()) for mb, _ in mbs])
+        return mbs
+
+    def capture(params, grads, *a, **kw):
+        if not captured:
+            captured.update({n: g.detach().clone() for n, g in grads.items()})
+        return update(params, grads, *a, **kw)
+
+    step_mod._microbatches, step_mod.adamw_update = record_rows, capture
+    try:
+        history = trainer.fit()
+    finally:
+        step_mod._microbatches, step_mod.adamw_update = microbatches, update
+    if spec.get("grads"):
+        _save(merged(trainer, captured), spec["grads"])
     out["history"] = history
     out["stop_class"] = trainer.stop_class
     out["opt_step"] = trainer.opt_state["step"]
     out["health"] = trainer.opt_state.get("health")
     out["committed"] = trainer.checkpointer.committed_steps if trainer.checkpointer else []
     if spec.get("dump"):
-        state = {f"params/{n}": p.detach().clone()
-                 for n, p in llama.named_params(trainer.params).items()}
+        state = {f"params/{n}": p for n, p in llama.named_params(trainer.params).items()}
         for g in ("mu", "nu", "master"):
-            for n, t in trainer.opt_state.get(g, {}).items():
-                state[f"{g}/{n}"] = _gathered(t).detach().clone()
-        if rank == 0:
-            torch.save(state, Path(spec["dump"]))
+            state.update({f"{g}/{n}": t for n, t in trainer.opt_state.get(g, {}).items()})
+        _save(merged(trainer, state), spec["dump"])
     return out
 
 

@@ -445,7 +445,12 @@ def test_gone_step_is_skipped(tmp_path, monkeypatch):
 
 
 def test_save_audit_detects_post_commit_corruption(tmp_path):
-    ck = _save_steps(tmp_path, steps=(1,), integrity=IntegrityConfig(audit=True))
+    ck = M.Checkpointer(M.CheckpointConfig(dir=tmp_path, async_save=False,
+                                           integrity=IntegrityConfig(audit=True)))
+    p, o = _trees(1.0)
+    assert ck.save(M.TrainState(p, o, 1, 8), metrics={"loss": 9.0})
+    # corrupt before the auditor is handed the step (``wait`` hands it over;
+    # a corruption after that races the auditor's read)
     I.inject_corruption(ck.directory, 1, "byte_flip")
     ck.wait()  # hands step 1 to the auditor
     assert ck._auditor.drain(30)

@@ -48,6 +48,7 @@ from neuronx_distributed_training_torch.data.loader import dp_rank_rows
 from neuronx_distributed_training_torch.models import llama as t_llama
 from neuronx_distributed_training_torch.optim import adamw as t_adamw
 from neuronx_distributed_training_torch.parallel import mesh as t_mesh
+from neuronx_distributed_training_torch.parallel import sharding
 from neuronx_distributed_training_torch.tools.convert import params_from_jax
 from neuronx_distributed_training_torch.trainer import loop as t_loop
 from neuronx_distributed_training_torch.utils import launch as t_launch
@@ -369,8 +370,11 @@ def test_dp2_zero1_on_off_bitwise_shards_and_nan_on_one_rank(tmp_path):
     for r in ranks:
         assert [h["loss"] for h in r["z1"]["history"]] == [h["loss"] for h in
                                                             r["z0"]["history"]]
+        mc = t_llama.LlamaConfig.from_config(dp_cfg(tmp_path, "z1")["model"])
         for n, (full, part) in r["z1"]["zero1_shards"].items():
-            dim = t_adamw.zero1_leaf_spec(full, 2)
+            # the first divisible dim the (size-1) model axis does not
+            # shard, as JAX extends the param spec
+            dim = t_adamw.zero1_leaf_spec(full, 2, sharding.leaf_layout(n, mc).dim)
             assert dim is not None, n
             assert part == [s // 2 if i == dim else s for i, s in enumerate(full)], n
         assert all(part == full for full, part in r["z0"]["zero1_shards"].values())

@@ -51,7 +51,7 @@ NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "data.megatron.index", "checkpoint", "checkpoint.integrity", "checkpoint.manager",
     "trainer.exp_manager", "utils.io", "data.packing", "data.templates", "peft",
     "peft.lora", "telemetry", "telemetry.health", "parallel.mesh", "utils.launch",
-    "tools.zero1_bytes"))
+    "tools.zero1_bytes", "parallel.sharding", "parallel.tensor_parallel"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -119,7 +119,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"distributed_strategy.tensor_model_parallel_size": 2,
+    # tp above the tiny config's 2 kv heads needs KV replication
+    ({"distributed_strategy.tensor_model_parallel_size": 4,
       "distributed_strategy.sequence_parallel": True}, "item 7"),
     ({"distributed_strategy.pipeline_model_parallel_size": 2}, "item 12"),
     ({"distributed_strategy.context_parallel_size": 2,
@@ -146,6 +147,7 @@ def test_ignored_blocks_are_logged_once(caplog):
         t_loop._log_ignored(cfg)
     msgs = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
     assert len(msgs) == 1 and "exp_manager.telemetry" in msgs[0]
+    assert "data and tensor parallelism" in msgs[0] and "data parallelism only" not in msgs[0]
     # the health policy and ZeRO-1 are acted on; the other telemetry planes,
     # the health recorder's knobs and the overlap block are not
     ignored = msgs[0].split(": ", 1)[1].split(", ")
