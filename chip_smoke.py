@@ -11,8 +11,8 @@ of JAX.  Phases, each of which fails the run if it fails:
    source, in parallel);
    ``ptxas`` must report no spill for any of the three kernels;
 2. hold each kernel (flash forward, dq, dk/dv) against its plain PyTorch
-   version in bf16: causal + GQA at full Llama-3-8B width (s=4096), and
-   key-padding (with fully masked rows), segment, sliding-window, q_offset,
+   version in bf16: causal + GQA at full Llama-3-8B width (s=4096, and
+   s=2048, phase 9's shape), and key-padding (with fully masked rows), segment, sliding-window, q_offset,
    head_dim-64, ragged-tile (s=1088, half a 128-row tile past the end),
    ragged tile with key padding and segments, non-causal sliding window with
    key padding, and fused-QKV (q, k, v strided views of one projection) cases
@@ -89,6 +89,35 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       resumed bit for bit; with four cards tp=4 and dp x tp = 2 x 2 too.
       With one card it prints why it did not run.
 
+9. preference alignment through the same CLI, from the shipped configs at
+   Llama-3-8B widths cut to 4 layers (char tokenizer, seq 2048, gbs 4 at
+   mbs 1: 4 microbatches, 3 steps, tp 1 without SP), on seeded records this
+   script writes under ``build/chip_smoke/pref/`` (24 records, three to a
+   prompt); with L = 4 layers, M = 4 microbatches and n = 24 records:
+   D. ``hf_llama3_8B_DPO_config.yaml``: the reference pass over the train
+      set launches fwd 2 L n times and no dq or dk/dv, then each step
+      launches each kernel 2 L M times; step 0's loss is ln 2 within 1e-3
+      and its ``reward_margin`` and ``rewards_chosen`` 0 within 1e-3 (the
+      policy is the reference), every leaf moves;
+   D'. a fresh trainer on D's exp dir that only prepares the fit: it reads
+      the sidecar, launches nothing, and holds D's columns bit for bit; on
+      its initial weights the first pair's policy forward with the flash
+      kernels holds against the same forward with core attention (largest
+      logit gap within 0.25 of the logits' standard deviation) and equals
+      the pass's column for that pair bit for bit;
+   O. ``hf_llama3_8B_ORPO_config.yaml``: no pass (0 launches before step
+      0), step 0's ``orpo_nll`` within 0.5 of phase 4's expected loss, 2 L M
+      launches of each kernel a step;
+   K. ``hf_llama3_8B_KTO_config.yaml`` with ``kl_estimator=mismatched``: the
+      pass fills both columns (fwd 2 L n), step 0's loss is 0.5 x the mean
+      class weight and ``kto_kl`` 0, within 1e-3, and each step launches fwd
+      2 L M times and dq, dk/dv L M times (the KL forward has no backward).
+   Each run prints its step seconds, sequences/s, the MFU of the sequences
+   that run (two with a backward per pair; for KTO one with a backward and
+   one forward only) beside the logged ``tokens_per_sec`` and MFU (which
+   count a pair once), peak device memory, and the pass's seconds and
+   sequences/s; the exp dirs are deleted.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.
@@ -116,6 +145,8 @@ PHASE5_SEED = 20261016
 SFT_SEED = 20261023  # its first packed row holds 3 records (phase 2 tests it)
 SFT_SEQ, SFT_MICRO, SFT_STEPS = 4096, 4, 3
 SFT_LORA_LAYERS, SFT_FULL_LAYERS = 32, 4
+PREF_SEED = 20261030
+PREF_SEQ, PREF_LAYERS, PREF_RECORDS = 2048, 4, 24
 # tolerances, kernel vs plain version on the same bf16 inputs.  The kernel
 # rounds the unnormalized p to bf16 for the p v product (the plain version
 # keeps p in fp32) and both round o to bf16, so each element of o may differ
@@ -128,6 +159,13 @@ SFT_LORA_LAYERS, SFT_FULL_LAYERS = 32, 4
 TOL_O = 2.0
 TOL_LSE_ABS = 1e-3
 TOL_GRAD_REL = 2e-2
+# phase 9: the Llama-3-8B policy forward (4 layers, bf16, s 2048) on the
+# initial weights, flash kernels against core attention on the same row: the
+# largest logit gap over the core logits' standard deviation.  The two round
+# to bf16 at different points and a sound forward reads about 0.08 (phase 9
+# prints it); the limit is three times that.  A wrong mask, window or score
+# scale in the attention moves the logits by a good part of their spread.
+TOL_POLICY_LOGITS = 0.25
 PLAIN_ITERS = 2  # timed calls of each plain version (~100 ms and tens of GB each)
 
 
@@ -261,6 +299,9 @@ def phase_checks(torch, fa, kt, card: str) -> None:
     m = kt.MAIN
     ok = check_case(torch, fa, "causal+gqa s=4096", b=1, sq=4096, skv=4096, nh=m["nh"],
                     nkv=m["nkv"], d=m["d"], seed=1)
+    # phase 9's shape: the preference configs' seq_length at mbs 1
+    ok &= check_case(torch, fa, f"causal+gqa s={PREF_SEQ} (alignment)", b=1, sq=PREF_SEQ,
+                     skv=PREF_SEQ, nh=m["nh"], nkv=m["nkv"], d=m["d"], seed=13)
     s = 1024
     left_pad = torch.ones(2, s, dtype=torch.int32, device="cuda")
     left_pad[1, :300] = 0  # rows < 300 of batch 1 see no key
@@ -849,13 +890,17 @@ class KernelEvents:
 
 
 def run_sft(torch, fa, name: str, args: list, card: str, *, layers: int, check_b=False,
-            timed=False) -> dict:
+            timed=False, expect=None, prepare=None, tag="sft") -> dict:
     """Build the trainer through the CLI, train 3 steps, and check launches
-    per step, finite metrics, and which leaves moved.  Returns the report."""
+    per step (``expect``: {kernel: launches a step}, by default layers x
+    microbatches each), finite metrics, and which leaves moved.
+    ``prepare(trainer)`` runs after the build, before anything is counted,
+    and its result is the report's ``prepared``.  Returns the report."""
     from neuronx_distributed_training_torch.models import llama
     from neuronx_distributed_training_torch.trainer import cli
 
     t = cli.build(args)
+    prepared = prepare(t) if prepare is not None else None
     flat = llama.named_params(t.params)
     trainable = set(flat) if t.trainable is None else t.trainable
     frozen_host = {n: p.detach().cpu() for n, p in flat.items() if n not in trainable}
@@ -892,37 +937,38 @@ def run_sft(torch, fa, name: str, args: list, card: str, *, layers: int, check_b
     run_seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     fallbacks = dict(fa.FALLBACKS)
-    expect = layers * SFT_MICRO
+    expect = expect or {k: layers * SFT_MICRO for k in fa.LAUNCHES}
     steps = [{k: v - (per_step[i - 1][k] if i else 0) for k, v in per_step[i].items()}
              for i in range(len(per_step))]
     for rec in history:
-        log(f"sft {name} step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+        log(f"{tag} {name} step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
             f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e}, step {rec['step_seconds']:.3f} s, "
             f"{rec['tokens_per_sec']:.1f} tokens/s, MFU {rec['mfu']:.4f} (utils/perf.py: 3 x "
             f"forward, skipped weight gradients not discounted) [{card}]")
-    log(f"sft {name}: {layers} layers, launches per step {steps} fallbacks {fallbacks} "
-        f"(expected {expect} each); peak device memory {peak} bytes "
+    log(f"{tag} {name}: {layers} layers, launches per step {steps} fallbacks {fallbacks} "
+        f"(expected {expect}); peak device memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB); fit {run_seconds:.1f} s [{card}]")
     if len(history) != SFT_STEPS or len(steps) != SFT_STEPS:
-        fail(f"sft {name}: trained {len(history)} steps, expected {SFT_STEPS}")
+        fail(f"{tag} {name}: trained {len(history)} steps, expected {SFT_STEPS}")
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in history):
-        fail(f"sft {name}: non-finite loss or grad_norm")
-    if any(n != expect for st in steps for n in st.values()) or fallbacks["core"]:
-        fail(f"sft {name}: launches per step {steps} (fallbacks {fallbacks}), expected "
-             f"{expect} of each kernel")
+        fail(f"{tag} {name}: non-finite loss or grad_norm")
+    if any(st[k] != n for st in steps for k, n in expect.items()) or fallbacks["core"]:
+        fail(f"{tag} {name}: launches per step {steps} (fallbacks {fallbacks}), expected "
+             f"{expect}")
     unmoved = [n for n in trainable if torch.equal(flat[n], trainable_before[n])]
     if unmoved:
-        fail(f"sft {name}: trainable leaves that did not move: {sorted(unmoved)[:6]}")
+        fail(f"{tag} {name}: trainable leaves that did not move: {sorted(unmoved)[:6]}")
     changed = [n for n, h in frozen_host.items() if not torch.equal(flat[n].detach().cpu(), h)]
     if changed:
-        fail(f"sft {name}: frozen leaves changed: {sorted(changed)[:6]}")
+        fail(f"{tag} {name}: frozen leaves changed: {sorted(changed)[:6]}")
     if check_b and b_state[:2] != [(False, False), (True, True)]:
-        fail(f"sft {name}: (any, every) lora_b non-zero after steps 0 and 1: {b_state[:2]}; "
+        fail(f"{tag} {name}: (any, every) lora_b non-zero after steps 0 and 1: {b_state[:2]}; "
              f"expected all still zero after step 0 (lr 0) and all changed after step 1")
-    log(f"sft {name}: {len(trainable)} trainable leaves all moved, {len(frozen_host)} frozen "
+    log(f"{tag} {name}: {len(trainable)} trainable leaves all moved, {len(frozen_host)} frozen "
         f"leaves bit for bit")
     report = {"history": history, "launches": per_step[-1], "peak_bytes": peak,
-              "kernel_ms": kernel_ms, "trainer": t, "run_seconds": run_seconds}
+              "kernel_ms": kernel_ms, "trainer": t, "run_seconds": run_seconds,
+              "prepared": prepared}
     return report
 
 
@@ -994,6 +1040,243 @@ def phase_sft(torch, fa, card: str) -> dict:
         shutil.rmtree(cell.WORK / "exp_sft", ignore_errors=True)
     out["phase_seconds"] = time.perf_counter() - t_phase
     log(f"sft: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: preference alignment (DPO, ORPO, KTO)
+# ---------------------------------------------------------------------------
+
+
+def pref_corpus(kind: str) -> Path:
+    """Seeded printable-ASCII preference records under
+    ``build/chip_smoke/pref/``: ``PREF_RECORDS`` of them, three completions
+    to each prompt (prompts of 100-1,500 characters, completions of
+    100-1,500): ``prompt``/``chosen``/``rejected`` for ``dpo``,
+    ``prompt``/``completion``/``label`` (about half desirable) for ``kto``."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    path = cell.WORK / "pref" / f"{kind}.jsonl"
+    if path.exists():
+        return path
+    rng = np.random.default_rng(PREF_SEED + (kind == "kto"))
+
+    def text() -> str:
+        return rng.integers(32, 127, int(rng.integers(100, 1501)), dtype=np.uint8).tobytes() \
+            .decode("ascii")
+
+    prompts = [text() for _ in range(PREF_RECORDS // 3)]
+    recs = [{"prompt": prompts[i // 3], "completion": text(), "label": bool(rng.random() < 0.5)}
+            if kind == "kto" else {"prompt": prompts[i // 3], "chosen": text(), "rejected": text()}
+            for i in range(PREF_RECORDS)]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text("\n".join(json.dumps(r) for r in recs) + "\n")
+    tmp.replace(path)
+    return path
+
+
+def pref_args(config: str, kind: str, *extra: str) -> list:
+    """The CLI arguments of a phase-9 run: the shipped config at Llama-3-8B
+    widths cut to ``PREF_LAYERS`` layers, tp 1 without SP, the char tokenizer,
+    seq 2048 (the config's), gbs 4 at mbs 1 (4 microbatches), 3 steps, and
+    the checkpointer on (its dir holds the reference sidecar) with no saves
+    (phase 5 holds the saves)."""
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    return ["--config", str(REPO / "examples" / "conf" / config),
+            "--set", f"model.num_layers={PREF_LAYERS}",
+            "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", f"data.global_batch_size={SFT_MICRO}",
+            "--set", f"trainer.max_steps={SFT_STEPS}",
+            "--set", "trainer.log_every_n_steps=1",
+            "--set", f"data.train_dir={pref_corpus(kind)}",
+            "--set", "data.tokenizer.library=char",
+            "--set", f"exp_manager.exp_dir={cell.WORK / 'exp_pref'}",
+            "--set", "exp_manager.resume_if_exists=true",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=0",
+            *extra]
+
+
+def seq_flops(layers: int) -> float:
+    """Forward FLOPs of one sequence of ``PREF_SEQ`` at Llama-3-8B widths."""
+    from neuronx_distributed_training_torch.utils import perf
+
+    return PREF_SEQ * perf.llama_flops_per_token(
+        num_layers=layers, hidden_size=HIDDEN, intermediate_size=14336, num_attention_heads=32,
+        num_kv_heads=8, vocab_size=VOCAB, seq_len=PREF_SEQ, head_dim=128)
+
+
+def policy_against_core(torch, t, cols: dict, card: str) -> dict:
+    """The first pair's chosen and rejected rows through the policy forward
+    on the initial weights, once with the flash kernels (the model as
+    configured) and once with the plain core attention: the largest logit
+    gap over the core logits' standard deviation within
+    ``TOL_POLICY_LOGITS``, and the flash forward's sequence log-prob equal
+    to the reference pass's column for the row bit for bit (the same
+    forward at the same shape).  The log-probs' gap to core attention is
+    printed: a sum over a whole row, it is no sharper a test than the
+    logits."""
+    import dataclasses
+
+    from neuronx_distributed_training_torch.alignment.losses import sequence_logprobs
+    from neuronx_distributed_training_torch.models import llama
+
+    arr = t.data_module.arrays
+    res = {}
+    for side in ("chosen", "rejected"):
+        ids = torch.as_tensor(arr[f"{side}_input_ids"][:1], device=t.device)
+        mask = torch.as_tensor(arr[f"{side}_loss_mask"][:1], device=t.device)
+        logits, logps = {}, {}
+        with torch.no_grad():
+            for impl in ("flash", "core"):
+                mc = dataclasses.replace(t.model_cfg, attention_impl=impl)
+                logits[impl] = llama.forward(t.params, {"input_ids": ids}, mc, t.policy)[0]
+                logps[impl] = float(sequence_logprobs(logits[impl], ids, mask)[0])
+            diff = (logits["flash"].float() - logits["core"].float()).abs().max().item()
+            spread = logits["core"].float().std().item()
+        col = float(cols[f"reference_{side}_logps"][0])
+        res[side] = {"logits_gap_over_std": diff / spread, "logits_max_abs": diff,
+                     "logits_std": spread, "logps_flash": logps["flash"],
+                     "logps_core": logps["core"], "logps_gap": abs(logps["flash"] - logps["core"]),
+                     "column_gap": abs(col - logps["flash"])}
+        del logits
+    log(f"pref D': first pair's policy forward, flash kernels against core attention "
+        f"(tol logits gap / std {TOL_POLICY_LOGITS:g}; the column bit for bit): "
+        f"{json.dumps(res)} [{card}]")
+    bad = [side for side, r in res.items()
+           if not (r["logits_gap_over_std"] <= TOL_POLICY_LOGITS and r["column_gap"] == 0.0)]
+    if bad:
+        fail(f"pref D': the flash policy forward of the {bad} row disagrees with core "
+             f"attention or with the reference pass's column")
+    return res
+
+
+def reference_pass(torch, fa, t, name: str, card: str, peak_flops: float) -> dict:
+    """``t.pre_fit()`` with the launch counters set to 0 just before: its
+    seconds, launches and sequences/s (the forwards that ran: fwd launches
+    over layers; none when the sidecar held the columns)."""
+    fa.reset_counters()
+    t0 = time.perf_counter()
+    t.pre_fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    seqs = launches["flash_fwd"] // PREF_LAYERS
+    rate = seqs / seconds
+    mfu = rate * seq_flops(PREF_LAYERS) / peak_flops
+    log(f"pref {name}: reference pass {seqs} sequences in {seconds:.3f} s, {rate:.1f} "
+        f"sequences/s, MFU {mfu:.4f} (forward only), launches {launches} fallbacks "
+        f"{fallbacks} [{card}]")
+    if fallbacks["core"]:
+        fail(f"pref {name}: the reference pass fell back to core attention {fallbacks}")
+    return {"seconds": seconds, "launches": launches, "sequences": seqs,
+            "sequences_per_s": rate, "mfu": mfu}
+
+
+def pref_report(rep: dict, name: str, card: str, seqs_fwd_bwd: int, seqs_fwd: int,
+                peak_flops: float) -> None:
+    """Step seconds, sequences/s and the MFU of the sequences that run (a
+    sequence with a backward counts 3 forwards), beside the logged
+    ``tokens_per_sec``, which counts a pair once."""
+    for rec in rep["history"]:
+        flops = (3 * seqs_fwd_bwd + seqs_fwd) * seq_flops(PREF_LAYERS)
+        mfu = flops / rec["step_seconds"] / peak_flops
+        log(f"pref {name} step {rec['step']}: {rec['step_seconds']:.3f} s, "
+            f"{(seqs_fwd_bwd + seqs_fwd) / rec['step_seconds']:.2f} sequences/s, MFU "
+            f"{mfu:.4f} of the sequences that run ({seqs_fwd_bwd} with backward, {seqs_fwd} "
+            f"forward only); logged tokens/s {rec['tokens_per_sec']:.1f} and MFU "
+            f"{rec['mfu']:.4f} count gbs x seq; peak device memory {rep['peak_bytes']} bytes "
+            f"({rep['peak_bytes'] / 2**30:.2f} GiB) [{card}]")
+
+
+def phase_pref(torch, fa, card: str, peak_flops: float) -> dict:
+    """Runs D (DPO: the reference pass, then 3 steps), D' (a fresh trainer
+    on D's exp dir that only prepares the fit: the sidecar is read), O
+    (ORPO) and K (KTO, ``kl_estimator=mismatched``) through the CLI."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.tools import step_times as cell
+    from neuronx_distributed_training_torch.trainer import cli
+
+    layers, micro, n = PREF_LAYERS, SFT_MICRO, PREF_RECORDS
+    t_phase = time.perf_counter()
+    out: dict = {}
+    exp = cell.WORK / "exp_pref"
+    try:
+        for kind, config, name, extra in (
+                ("dpo", "hf_llama3_8B_DPO_config.yaml", "D", ()),
+                ("dpo", "hf_llama3_8B_ORPO_config.yaml", "O", ()),
+                ("kto", "hf_llama3_8B_KTO_config.yaml", "K",
+                 ("--set", "model_alignment_strategy.kto.kl_estimator=mismatched"))):
+            shutil.rmtree(exp, ignore_errors=True)
+            mismatched = name == "K"
+            args = pref_args(config, kind, *extra)
+            every = 2 * layers * micro
+            expect = {"flash_fwd": every, "flash_dq": every // (1 + mismatched),
+                      "flash_dkv": every // (1 + mismatched)}
+            rep = run_sft(torch, fa, name, args, card, layers=layers, expect=expect, tag="pref",
+                          prepare=lambda t, name=name: reference_pass(torch, fa, t, name, card,
+                                                                      peak_flops))
+            t = rep.pop("trainer")
+            ref = rep["prepared"]
+            want = ({"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0} if name == "O" else
+                    {"flash_fwd": 2 * layers * n, "flash_dq": 0, "flash_dkv": 0})
+            if ref["launches"] != want:
+                fail(f"pref {name}: reference-pass launches {ref['launches']}, expected {want}")
+            h0 = rep["history"][0]
+            if name == "D":
+                gap = abs(h0["loss"] - math.log(2))
+                log(f"pref D: step-0 loss {h0['loss']:.6f}, ln 2 {math.log(2):.6f}, gap {gap:.3g} "
+                    f"(expected 0: the policy is the reference); reward_margin "
+                    f"{h0['reward_margin']:.3g}, rewards_chosen {h0['rewards_chosen']:.3g}")
+                if gap > 1e-3 or abs(h0["reward_margin"]) > 1e-3 or \
+                        abs(h0["rewards_chosen"]) > 1e-3:
+                    fail("pref D: step 0 is not the reference's (loss ln 2, rewards 0)")
+                cols = {k: t.data_module.arrays[k].copy() for k in
+                        ("reference_chosen_logps", "reference_rejected_logps")}
+                sidecar = Path(t.checkpointer.config.dir) / "dpo_reference_logps.npz"
+                del t
+                free_cuda(torch)
+                again = cli.build(args)
+                ref2 = reference_pass(torch, fa, again, "D'", card, peak_flops)
+                same = all(np.array_equal(again.data_module.arrays[k], v)
+                           for k, v in cols.items())
+                log(f"pref D': sidecar {sidecar} exists {sidecar.exists()}, pass launches "
+                    f"{ref2['launches']}, columns equal D's bit for bit: {same}")
+                if not sidecar.exists() or any(ref2["launches"].values()) or not same:
+                    fail("pref D': the sidecar was not reused bit for bit with no launch")
+                out["D_policy_vs_core"] = policy_against_core(torch, again, cols, card)
+                out["D_ref"] = ref
+                again = None
+            elif name == "O":
+                e0 = expected_loss0()
+                log(f"pref O: step-0 orpo_nll {h0['orpo_nll']:.4f}, expected {e0:.4f}")
+                if abs(h0["orpo_nll"] - e0) > 0.5:
+                    fail(f"pref O: step-0 orpo_nll {h0['orpo_nll']} not within 0.5 of {e0:.4f}")
+            else:
+                labels = t.data_module.arrays["kto_labels"]
+                wd = float(t.cfg["model_alignment_strategy"]["kto"].get("desirable_weight", 1.0))
+                wu = float(t.cfg["model_alignment_strategy"]["kto"].get("undesirable_weight",
+                                                                        1.0))
+                want0 = 0.5 * float(np.mean(np.where(labels > 0.5, wd, wu)))
+                log(f"pref K: step-0 loss {h0['loss']:.6f}, expected 0.5 x mean class weight "
+                    f"{want0:.6f}; kto_kl {h0['kto_kl']:.3g}; {int(labels.sum())} of "
+                    f"{len(labels)} records desirable")
+                if abs(h0["loss"] - want0) > 1e-3 or abs(h0["kto_kl"]) > 1e-3:
+                    fail("pref K: step 0 is not the reference's (loss 0.5 x weight, kto_kl 0)")
+            t = None
+            pref_report(rep, name, card, 2 * micro if name != "K" else micro,
+                        micro if name == "K" else 0, peak_flops)
+            out[name] = rep
+            free_cuda(torch)
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pref: phase wall time {out['phase_seconds']:.1f} s [{card}]")
     return out
 
 
@@ -1434,6 +1717,8 @@ def main() -> None:
     free_cuda(torch)
     tp_rows = phase_tp_kernels(torch, fa, kt, card, peaks)
     tp = phase_tp(torch, cell, trainer_ref(history4), card)
+    free_cuda(torch)
+    pref = phase_pref(torch, fa, card, peaks[0])
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -1455,6 +1740,10 @@ def main() -> None:
             "launches_by_path": {"pretrain": launches[kname],
                                  **{f"sft_{r}": sft[r]["launches"][kname] for r in "LSF"},
                                  "pretrain_dp": dp["launches"][kname],
+                                 "align_dpo": pref["D"]["launches"][kname],
+                                 "align_dpo_ref": pref["D_ref"]["launches"][kname],
+                                 "align_orpo": pref["O"]["launches"][kname],
+                                 "align_kto": pref["K"]["launches"][kname],
                                  **({} if tp is None else
                                     {"pretrain_tp": tp["tp2"]["launches"][kname]})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

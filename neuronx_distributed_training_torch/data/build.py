@@ -12,11 +12,14 @@
   tokenized by ``data.tokenizer`` (an HF tokenizer, or the offline
   ``library: char`` one), with ``packing`` (default on), ``segment_mask``,
   ``data.dev_choose_samples`` (a head-N subset) and the prompt templates of
-  ``data/templates.py``.
+  ``data/templates.py``;
+- ``model_alignment_strategy: {dpo | orpo: {...}}``: ``DPODataModule`` over
+  prompt / chosen / rejected records, ``{kto: {...}}``: ``KTODataModule``
+  over prompt / completion / label records (with the block's
+  ``kl_estimator``), both with the block's ``max_prompt_length`` and
+  ``truncation_mode``.
 
 A config with no data source is an error, never a silent random-token run.
-DPO/ORPO/KTO's preference data modules are not ported yet (ROADMAP queue 1
-item 14).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from neuronx_distributed_training_torch.data.loader import (
 )
 from neuronx_distributed_training_torch.data.modules import (
     BlendedMegatronDataModule,
+    DPODataModule,
+    KTODataModule,
     MegatronDataModule,
     SFTDataModule,
     load_alignment_records,
@@ -133,9 +138,22 @@ def build_data_module(
         return sft(train_dir), (sft(val_dir) if val_dir else None)
 
     if strategy in ("dpo", "orpo", "kto"):
-        raise NotImplementedError(
-            f"the {strategy.upper()} preference data module is not ported yet "
-            f"(ROADMAP queue 1 item 14)")
+        tokenizer = build_tokenizer(data)
+        module_cls = KTODataModule if strategy == "kto" else DPODataModule
+
+        def pref(path):
+            extra = {}
+            if strategy == "kto":
+                extra["kl_estimator"] = str(strat_params.get("kl_estimator", "batch_mean"))
+            return module_cls(path, tokenizer, seq, gbs, seed=seed,
+                              max_prompt_length=strat_params.get("max_prompt_length"),
+                              truncation_mode=str(strat_params.get("truncation_mode",
+                                                                   "keep_start")),
+                              **extra)
+
+        if not train_dir:
+            raise ValueError(f"{strategy.upper()} needs data.train_dir (jsonl/json/arrow)")
+        return pref(train_dir), (pref(val_dir) if val_dir else None)
 
     if data_prefix:
         prefix = data_prefix

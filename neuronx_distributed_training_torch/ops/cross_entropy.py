@@ -71,6 +71,18 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad, None, None
 
 
+def logprobs_from_logits(logits: torch.Tensor, labels: torch.Tensor, *,
+                         tp=None) -> torch.Tensor:
+    """Per-token ``log p(label)`` in fp32 (the preference losses' helper).
+    Under ``tp`` the logits hold the rank's vocab slice: the value is the
+    negated :class:`_VocabParallelCE`, whose gradient reaches that slice
+    only, so the vocab is never gathered."""
+    if tp_ops.active(tp):
+        return -_VocabParallelCE.apply(logits.float(), labels, tp)
+    label_logit, lse = _label_logit_and_lse(logits, labels)
+    return label_logit - lse
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,  # [batch, seq, vocab]
     labels: torch.Tensor,  # [batch, seq]

@@ -38,6 +38,15 @@ SIGTERM) are agreed by an all-reduce at each step boundary, so every rank
 stops, and checkpoints, at the same step.  MFU divides the tokens by the
 world size: each card computes ``1/world`` of the step's FLOPs.
 
+Preference alignment (``model_alignment_strategy: dpo | orpo | kto``): the
+loss is the strategy's (``alignment/``) over the preference data module's
+batches, with the rows of each whole microbatch as its denominator, and its
+reward metrics are logged beside the loss.  DPO and KTO first run the
+frozen policy over the train and val sets (``pre_fit``, before the resume),
+streamed, with a resumable sidecar at the checkpoint dir's root.  The
+logged ``tokens_per_sec`` counts ``global_batch_size x seq_length`` as the
+JAX package does: a pair counts once, though two sequences run.
+
 ``exp_manager.telemetry.health`` is acted on (``telemetry/health.py``):
 ``skip_update`` keeps a non-finite step's state, ``halt`` stops at that step
 without a checkpoint (``stop_class = "health_halt"``), and the health
@@ -55,13 +64,18 @@ import dataclasses
 import itertools
 import logging
 import math
+import os
 import signal
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from neuronx_distributed_training_torch.alignment import dpo as dpo_mod
+from neuronx_distributed_training_torch.alignment import kto as kto_mod
+from neuronx_distributed_training_torch.alignment.orpo import make_orpo_loss_fn
 from neuronx_distributed_training_torch.checkpoint import (
     CheckpointConfig,
     Checkpointer,
@@ -144,9 +158,6 @@ def check_supported(cfg: ConfigDict) -> None:
         raise _unsupported("megatron GPT models", "14")
     if arch not in ("llama", "mistral"):
         raise ValueError(f"unknown architecture {arch!r}")
-    strategy, _ = alignment_strategy(cfg)
-    if strategy in ("dpo", "orpo", "kto"):
-        raise _unsupported(f"model_alignment_strategy {strategy} (DPO/ORPO/KTO)", "14")
 
 
 def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
@@ -220,6 +231,97 @@ def _broadcast_object(obj, device):
     return box[0]
 
 
+def _barrier(device) -> None:
+    """Every rank of the world reaches this point before any goes on."""
+    dist.all_reduce(torch.zeros(1, device=device))
+
+
+# -- preference alignment ----------------------------------------------------
+
+#: the preference strategies (``model_alignment_strategy``)
+PREFERENCE = ("dpo", "orpo", "kto")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferencePass:
+    """The frozen-policy pass of a DPO or KTO run: the column that marks a
+    module as done, the sidecar's file name, and
+    ``columns(params, batch) -> {column: fp32 rows}``."""
+
+    marker: str
+    sidecar: str
+    #: the pass's columns for a module with these array keys
+    names: Callable
+    columns: Callable
+
+
+def _preference_objective(strategy: str, params: dict, model_block: dict, mc, policy, *,
+                          tp, dp, micro_batch_size: int):
+    """``(loss_fn, ReferencePass or None)`` of a dpo / orpo / kto config.
+    ``beta`` is the strategy block's ``kl_beta``, else ``model.<name>.beta``,
+    else 0.1; KTO also reads the block's class weights and
+    ``kl_estimator``."""
+
+    def forward_logits(p, input_ids):
+        # input_ids alone, as the JAX package's preference forward: no
+        # key-padding mask, so the kernels take the pretraining route
+        return llama.forward(p, {"input_ids": input_ids}, mc, policy, tp=tp)[0]
+
+    beta = float(params.get("kl_beta",
+                            dict(model_block.get(strategy, {}) or {}).get("beta", 0.1)))
+    if strategy == "orpo":
+        return make_orpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp), None
+    if strategy == "dpo":
+        loss_fn = dpo_mod.make_dpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp)
+        sides = lambda keys: dpo_mod.DPO_SIDES  # noqa: E731
+        marker, sidecar = "reference_chosen_logps", "dpo_reference_logps.npz"
+    else:
+        loss_fn = kto_mod.make_kto_loss_fn(
+            forward_logits, beta=beta, desirable_weight=float(params.get("desirable_weight", 1.0)),
+            undesirable_weight=float(params.get("undesirable_weight", 1.0)),
+            kl_estimator=str(params.get("kl_estimator", "batch_mean")), tp=tp, dp=dp)
+        sides = kto_mod.kto_sides
+        marker, sidecar = "reference_logps", "kto_reference_logps.npz"
+
+    def columns(p, batch):
+        return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp,
+                                         micro_batch_size=micro_batch_size)
+
+    return loss_fn, ReferencePass(marker=marker, sidecar=sidecar,
+                                  names=lambda keys: sorted(sides(keys)), columns=columns)
+
+
+def _row_count(batch: dict) -> torch.Tensor:
+    """The preference loss's denominator: the rows (pairs or examples) of
+    the whole microbatch."""
+    rows = next(iter(batch.values()))
+    return torch.tensor(float(rows.shape[0]), device=rows.device)
+
+
+def _sidecar_load(path: Optional[str], tag: str):
+    """A reference-logp sidecar -> ``(done_upto, columns)``, or None when
+    there is none; an unreadable one (a crash mid-write) is recomputed."""
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as loaded:
+            files = [k for k in loaded.files if k != "_done_upto"]
+            done = int(loaded["_done_upto"]) if "_done_upto" in loaded.files else (
+                len(loaded[files[0]]) if files else 0)
+            return done, {k: np.array(loaded[k]) for k in files}
+    except Exception:  # noqa: BLE001 — any unreadable file is recomputed
+        logger.warning("%s sidecar %s unreadable; recomputing", tag, path)
+        return None
+
+
+def _sidecar_store(path: str, done: int, cols: dict) -> None:
+    """Write the sidecar atomically: a temporary file, then ``os.replace``."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, _done_upto=done, **cols)
+    os.replace(tmp, path)
+
+
 #: stop reasons folded across ranks at each step boundary (the largest wins)
 _STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
 
@@ -255,6 +357,8 @@ class Trainer:
     world: int = 1
     #: this process's rank in the process group (0 without one)
     rank: int = 0
+    #: the frozen-policy reference pass (DPO, KTO); None for other runs
+    reference: Optional[ReferencePass] = None
     step: int = 0
     #: why the finished run stopped early ("max_time", "preemption",
     #: "health_halt"; None for a run that reached max_steps)
@@ -328,12 +432,20 @@ class Trainer:
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
-        def loss_fn(p, batch, denominator=None):
-            return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
-                                 loss_denominator=denominator, tp=tp)
+        strategy, strat_params = alignment_strategy(cfg)
+        reference = None
+        if strategy in PREFERENCE:
+            loss_fn, reference = _preference_objective(
+                strategy, strat_params, model_block, mc, policy, tp=tp, dp=dp,
+                micro_batch_size=sched["micro_batch_size"])
+            token_count_fn = _row_count
+        else:
+            def loss_fn(p, batch, denominator=None):
+                return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
+                                     loss_denominator=denominator, tp=tp)
 
-        def token_count_fn(batch):
-            return llama.loss_token_count(batch, shift_labels=shift_labels)
+            def token_count_fn(batch):
+                return llama.loss_token_count(batch, shift_labels=shift_labels)
 
         nm = sched["num_microbatches"]
         step_fn = make_train_step(
@@ -372,7 +484,7 @@ class Trainer:
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
                    peak_tflops=peak, health=health, dp=dp, tp=tp, layouts=layouts, rank=rank,
-                   world=world)
+                   world=world, reference=reference)
 
     # -- resume ---------------------------------------------------------------
 
@@ -394,6 +506,109 @@ class Trainer:
             logger.info("resumed from step %d (consumed_samples=%d)", state.step,
                         state.consumed_samples)
         return True
+
+    # -- the reference pass (DPO, KTO) -----------------------------------------
+
+    def pre_fit(self) -> None:
+        """The frozen-policy reference pass over the train and the val
+        modules.  ``fit`` runs it before the resume, so the columns come
+        from the initial weights; a resumed run reads them back from the
+        sidecars its first run wrote at the checkpoint dir's root
+        (``dpo_reference_logps.npz``, ``kto_reference_logps.npz``,
+        ``*_val.npz``: the JAX package's names and keys).  A module that
+        already holds the columns is left as it is."""
+        if self.reference is None:
+            return
+        ck_dir = None if self.checkpointer is None else str(self.checkpointer.config.dir)
+        stem, ext = os.path.splitext(self.reference.sidecar)
+        for dm, suffix, tag in ((self.data_module, "", "train"),
+                                (self.val_data_module, "_val", "val")):
+            if dm is not None:
+                path = None if ck_dir is None else os.path.join(ck_dir, stem + suffix + ext)
+                self._attach_reference_columns(dm, path, tag)
+
+    def _attach_reference_columns(self, dm, sidecar: Optional[str], tag: str) -> None:
+        """The pass over one module, streamed in batches of
+        ``min(global_batch_size, n)`` rows (each run in ``micro_batch_size``
+        pieces), resuming at the sidecar's ``_done_upto`` cursor.  The
+        sidecar is spilled every ``total // 10`` batches and at the end; a
+        sidecar with another column set or another length is recomputed.
+        Under a process group rank 0 alone reads (and broadcasts) and writes
+        it, and every rank ends with the same columns."""
+        ref = self.reference
+        if not hasattr(dm, "attach_reference_logprobs") or ref.marker in dm.arrays:
+            return
+        n = dm.sampler.total_samples
+        bs = min(dm.global_batch_size, n)
+        names = ref.names(dm.arrays)
+        loaded = _sidecar_load(sidecar, tag) if self.is_rank0 else None
+        if self.dp is not None:
+            loaded = _broadcast_object(loaded, self.device)
+        done, cols = 0, {}
+        if loaded is not None:
+            done, cols = loaded
+            if sorted(cols) != names:
+                if self.is_rank0:
+                    logger.warning("%s sidecar %s has columns %s but this config needs %s; "
+                                   "recomputing", tag, sidecar, sorted(cols), names)
+                done, cols = 0, {}
+            elif any(len(v) != n for v in cols.values()):
+                if self.is_rank0:
+                    logger.warning("%s sidecar %s has %d-sample columns but the dataset has "
+                                   "%d; recomputing", tag, sidecar,
+                                   len(next(iter(cols.values()))), n)
+                done, cols = 0, {}
+            elif done >= n:
+                dm.attach_reference_logprobs(cols)
+                if self.is_rank0:
+                    logger.info("%s reference logps restored from %s", tag, sidecar)
+                return
+            elif self.is_rank0:
+                logger.info("%s reference pass resuming at %d/%d from %s", tag, done, n,
+                            sidecar)
+        if not cols:
+            cols = {k: np.empty((n,), np.float32) for k in names}
+        # batches restart at the cursor itself, so a resume under another
+        # global_batch_size still computes every remaining row
+        starts = list(range(done, n, bs))
+        log_every, spill_every = max(1, len(starts) // 20), max(1, len(starts) // 10)
+        batches = PrefetchIterator({k: v[i:min(i + bs, n)] for k, v in dm.arrays.items()}
+                                   for i in starts)
+        start_done, t0 = done, time.perf_counter()
+        try:
+            for j, (i, batch) in enumerate(zip(starts, batches)):
+                m = min(i + bs, n) - i
+                for k, v in self._reference_rows(batch, m, names).items():
+                    cols[k][i:i + m] = v
+                done = i + m
+                if self.is_rank0 and ((j + 1) % log_every == 0 or done >= n):
+                    rate = (done - start_done) / max(time.perf_counter() - t0, 1e-9)
+                    logger.info("%s reference-logp pass: %d/%d samples (%.0f samples/s, ETA "
+                                "%.0fs)", tag, done, n, rate, (n - done) / max(rate, 1e-9))
+                if (sidecar is not None and self.is_rank0
+                        and ((j + 1) % spill_every == 0 or done >= n)):
+                    _sidecar_store(sidecar, done, cols)
+        finally:
+            batches.close()
+        if self.dp is not None:
+            _barrier(self.device)  # the sidecar is whole before any rank goes on
+        dm.attach_reference_logprobs(cols)
+
+    def _reference_rows(self, batch: dict, m: int, names: list) -> dict:
+        """The columns of a pass batch's ``m`` rows.  Under data parallelism
+        each data rank computes its block of the rows (its tp ranks
+        together), and a SUM all-reduce over the data axis of the
+        zero-filled blocks gives every rank every row, exactly."""
+        rank, size = (0, 1) if self.dp is None else (self.dp.rank, self.dp.size)
+        per = -(-m // size)
+        lo, hi = min(rank * per, m), min((rank + 1) * per, m)
+        mine = {k: torch.as_tensor(v[lo:hi]).to(self.device) for k, v in batch.items()}
+        part = self.reference.columns(self.params, mine)
+        if self.dp is None:
+            return part
+        buf = torch.zeros(len(names), m, dtype=torch.float32, device=self.device)
+        buf[:, lo:hi] = torch.as_tensor(np.stack([part[k] for k in names])).to(self.device)
+        return dict(zip(names, self.dp.all_reduce_(buf).cpu().numpy()))
 
     # -- the loop -------------------------------------------------------------
 
@@ -429,6 +644,9 @@ class Trainer:
         batches = None
         resumed = False
         try:
+            # the reference pass before the resume: its columns come from the
+            # initial weights, never from trained ones
+            self.pre_fit()
             resumed = self.maybe_resume()
             # after the resume: the sampler's position is restored before
             # the prefetch thread's first fetch

@@ -3,7 +3,11 @@
 
 Microbatch gradient accumulation in ``grad_accum_dtype``, divided by the
 number of microbatches, then the AdamW update with global-norm clipping.
-Metrics: ``loss``, ``lr`` and ``grad_norm``.  The loss function carries the
+Metrics: ``loss``, ``lr`` and ``grad_norm``, and every scalar entry of the
+loss function's aux dict (the preference losses' rewards; non-scalars such
+as logits stay internal), averaged over the microbatches as the JAX package
+does.  A loss function under ``dp`` returns these already global (the
+preference losses all-reduce their numerators).  The loss function carries the
 label convention: the trainer builds it with ``shift_labels=False`` for data
 whose rows come pre-shifted (Megatron corpora).
 
@@ -96,6 +100,16 @@ def _call_loss(loss_fn, params, mb, denominator):
     return loss_fn(params, mb) if denominator is None else loss_fn(params, mb, denominator)
 
 
+def _scalar_aux(aux: dict) -> dict:
+    """The scalar entries of a loss function's aux dict, detached fp32."""
+    out = {}
+    for k, v in aux.items():
+        t = torch.as_tensor(v)
+        if t.ndim == 0:
+            out[k] = t.detach().float()
+    return out
+
+
 def _all_reduce_partial_(grads: list, tp) -> None:
     """SUM over the model axis of ``grads``, in place, as one flat buffer."""
     flat = tp.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
@@ -126,8 +140,12 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
         leaves = [flat[n] for n in names]
         loss_sum = None
         grad_sum = None
+        aux_sum: dict = {}
         for mb, denom in _microbatches(batch, num_microbatches, dp, token_count_fn):
-            loss, _ = _call_loss(loss_fn, params, mb, denom)
+            loss, aux = _call_loss(loss_fn, params, mb, denom)
+            for k, v in _scalar_aux(aux).items():
+                aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+            del aux
             loss = loss.float()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(p, dtype=policy.grad_accum_dtype) if g is None
@@ -160,6 +178,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             tp=tp, tp_sharded=tp_sharded)
         metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
                    "grad_norm": opt_metrics["grad_norm"]}
+        metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
+                        if k not in metrics})
         if health is not None:
             metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat,
                                            tp, tp_sharded))

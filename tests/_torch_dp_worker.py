@@ -28,7 +28,10 @@ vocab-parallel cross-entropy and embedding against the plain ones:
   and dp all-reduces), merged so, to this path.
 
 Each rank also reports a digest of the rows of each microbatch it computed
-(``rows``), so a test sees which ranks compute the same rows.
+(``rows``; of ``chosen_input_ids`` for preference pairs), so a test sees
+which ranks compute the same rows, and for KTO batches the desirable rows of
+each (``kto_desirable``).  A preference config builds its data module from
+its jsonl, and its reference pass runs from the ``weights``.
 """
 
 from __future__ import annotations
@@ -236,7 +239,11 @@ def run(spec: dict, rank: int) -> dict:
 
     def record_rows(batch, *a, **kw):
         mbs = microbatches(batch, *a, **kw)
-        out["rows"].append([float(mb["input_ids"].double().sum()) for mb, _ in mbs])
+        out["rows"].append([float(mb.get("input_ids", mb.get("chosen_input_ids")).double().sum())
+                            for mb, _ in mbs])
+        if "kto_labels" in batch:
+            out.setdefault("kto_desirable", []).append([float(mb["kto_labels"].sum())
+                                                        for mb, _ in mbs])
         return mbs
 
     def capture(params, grads, *a, **kw):

@@ -210,14 +210,34 @@ def test_build_data_module_errors_match_jax(tmp_path):
     assert t_build.build_data_module(_cfgs({"synthetic": True})[0], sched) == (None, None)
 
 
-@pytest.mark.parametrize("strategy,item", [("orpo", "item 14"), ({"dpo": {}}, "item 14"),
-                                           ("kto", "item 14")])
-def test_alignment_data_modules_name_their_roadmap_item(strategy, item):
-    cfg = t_loader.load_config({"data": {"global_batch_size": 4, "micro_batch_size": 2,
-                                         "train_dir": "x"},
-                                "model_alignment_strategy": strategy})
-    with pytest.raises(NotImplementedError, match=item):
-        t_build.build_data_module(cfg, t_loader.batch_schedule(cfg, 1))
+@pytest.mark.parametrize("strategy,module", [("orpo", "DPODataModule"),
+                                             ({"dpo": {}}, "DPODataModule"),
+                                             ("kto", "KTODataModule")])
+def test_alignment_data_modules_match_jax(tmp_path, strategy, module):
+    """The preference configs build the JAX package's module class, with its
+    arrays bit for bit."""
+    import json
+
+    rng = np.random.default_rng(2)
+    kto = module == "KTODataModule"
+    recs = [{"prompt": f"p{i % 3}", "completion": "c" * int(rng.integers(1, 20)),
+             "label": bool(i % 2)} if kto else
+            {"prompt": f"p{i % 3}", "chosen": "c" * int(rng.integers(1, 20)),
+             "rejected": "r" * int(rng.integers(1, 20))} for i in range(8)]
+    path = tmp_path / "pref.jsonl"
+    path.write_text("\n".join(json.dumps(r) for r in recs))
+    raw = {"data": {"global_batch_size": 4, "micro_batch_size": 2, "seq_length": 24,
+                    "train_dir": str(path), "tokenizer": {"library": "char"}},
+           "model_alignment_strategy": strategy}
+    tc, jc = t_loader.load_config(raw), j_loader.load_config(raw)
+    sched = t_loader.batch_schedule(tc, 1)
+    (t, t_val), (j, j_val) = (t_build.build_data_module(tc, sched),
+                              j_build.build_data_module(jc, sched))
+    assert type(t).__name__ == type(j).__name__ == module and t_val is j_val is None
+    assert t.arrays.keys() == j.arrays.keys()
+    for k in j.arrays:
+        np.testing.assert_array_equal(t.arrays[k], j.arrays[k])
+        assert t.arrays[k].dtype == j.arrays[k].dtype
 
 
 def test_hf_data_module_without_datasets_names_the_package(monkeypatch, tmp_path):

@@ -310,11 +310,20 @@ def test_build_data_module_sft_errors_match_jax(tmp_path):
             c = ld.load_config(cfg)
             with pytest.raises(ValueError, match=match):
                 bd.build_data_module(c, ld.batch_schedule(c, 1))
+    # the same config under dpo builds the JAX package's DPO module and arrays
     cfg = _sft_cfg(tmp_path)
-    cfg["model_alignment_strategy"] = {"dpo": {}}
-    c = t_loader.load_config(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_build.build_data_module(c, t_loader.batch_schedule(c, 1))
+    cfg["model_alignment_strategy"] = {"dpo": {"max_prompt_length": 16}}
+    pairs = [{"prompt": r.get("input", r.get("prompt")), "chosen": r.get("output", "c"),
+              "rejected": r.get("completion", r.get("output", ""))[::-1]}
+             for r in _records(4, n=16)]
+    pref = tmp_path / "pref.jsonl"
+    pref.write_text("\n".join(json.dumps(r) for r in pairs))
+    cfg["data"].update(train_dir=str(pref), val_dir=None)
+    tc, jc = t_loader.load_config(cfg), j_loader.load_config(cfg)
+    t_dm = t_build.build_data_module(tc, t_loader.batch_schedule(tc, 1))[0]
+    j_dm = j_build.build_data_module(jc, j_loader.batch_schedule(jc, 1))[0]
+    assert type(t_dm).__name__ == type(j_dm).__name__ == "DPODataModule"
+    _assert_same(t_dm.arrays, j_dm.arrays)
 
 
 @pytest.mark.parametrize("bad,match", [

@@ -44,14 +44,15 @@ from neuronx_distributed_training_tpu.trainer import cli as j_cli
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neuronx_distributed_training_torch"
 CONFIGS = sorted((REPO / "examples" / "conf").glob("*.yaml"))
-#: the modules of the data / checkpoint / exp-manager slice, the SFT / LoRA slice and
-#: the data-parallel slice
+#: the modules of the data / checkpoint / exp-manager slice, the SFT / LoRA slice, the
+#: data-parallel slice, the tensor-parallel slice and the preference-alignment slice
 NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "data._native", "data.build", "data.modules", "data.megatron", "data.megatron.dataset",
     "data.megatron.index", "checkpoint", "checkpoint.integrity", "checkpoint.manager",
     "trainer.exp_manager", "utils.io", "data.packing", "data.templates", "peft",
     "peft.lora", "telemetry", "telemetry.health", "parallel.mesh", "utils.launch",
-    "tools.zero1_bytes", "parallel.sharding", "parallel.tensor_parallel"))
+    "tools.zero1_bytes", "parallel.sharding", "parallel.tensor_parallel", "alignment",
+    "alignment.losses", "alignment.dpo", "alignment.orpo", "alignment.kto"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -128,14 +129,18 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     ({"model.fusions.ulysses_attention": True}, "item 11"),
     ({"model.moe.num_experts": 4}, "item 13"),
     ({"model_source": "megatron"}, "item 14"),
-    ({"model_alignment_strategy": "dpo"}, "item 14"),
-    ({"model_alignment_strategy": "kto"}, "item 14"),
     ({"model.fusions.chunked_ce": 4}, "item 2"),
 ])
 def test_unported_knobs_are_rejected_with_their_roadmap_item(override, item):
     cfg = t_loader.load_config(TINY, override)
     with pytest.raises(NotImplementedError, match=item):
         t_loop.Trainer.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["dpo", "kto"])
+def test_alignment_strategies_pass_check_supported(strategy):
+    """DPO and KTO (and ORPO) train in the port: check_supported accepts them."""
+    t_loop.check_supported(t_loader.load_config(TINY, {"model_alignment_strategy": strategy}))
 
 
 def test_ignored_blocks_are_logged_once(caplog):
