@@ -118,6 +118,27 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
    count a pair once), peak device memory, and the pass's seconds and
    sequences/s; the exp dirs are deleted.
 
+10. context parallelism:
+   a. the ring, zig-zag ring and Ulysses bodies of both virtual ranks of
+      cp 2 in this one process, a loopback standing in for the shifts, the
+      all-to-alls and the key mask's all-gather, forward and backward, at
+      ``hf_llama3_70B_CP_config.yaml``'s attention (64 q and 8 kv heads of
+      128, seq 32768, bf16) with the per-rank heads of tp 1 and tp 8, and
+      the ring with a window of 4096 (past chunks where whole tiles and rows
+      see no key): the stitched o and dq/dk/dv against ``flash_attention``
+      over the whole sequence and against the plain version (each query
+      head of kv head 0's group) at phase 2's tolerances, each case's
+      launches exact (ring 3, zig-zag 10, Ulysses 2) with no fallback; then
+      each kernel timed at each distinct per-rank call with its bound and
+      grid;
+   b. with two or more cards, phase 4's cell at cp 2 under ``torchrun
+      --nproc_per_node 2`` with each of ``ring_attention``,
+      ``zigzag_ring_attention`` and ``ulysses_attention``: losses and grad
+      norms within the ``mixed_precision`` tolerance of phase 4's, each
+      rank's launches exact, step seconds and peak memory per rank; with
+      four cards also the 70B CP config at its width and seq 32768, one
+      layer, tp 2 x cp 2.  With one card it prints why it did not run.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.
@@ -159,6 +180,16 @@ PREF_SEQ, PREF_LAYERS, PREF_RECORDS = 2048, 4, 24
 TOL_O = 2.0
 TOL_LSE_ABS = 1e-3
 TOL_GRAD_REL = 2e-2
+# phase 10a: a ring's (and zig-zag's) stitched o is merged in fp32 from the
+# chunks' o, which the forward kernel has already rounded to bf16, and is
+# then rounded again: one rounding more than one kernel call (JAX's ring
+# merges its chunks' bf16 o the same way).  Against the plain version a
+# sound ring reads up to about 2 in o_err's units at phase 10a's shapes on
+# an H100 (the phase prints its largest), so the stitched o is held at one
+# unit more than TOL_O, far below what a wrong chunk or merge reads;
+# Ulysses runs one kernel call a head group and keeps TOL_O.  lse and the
+# gradients keep phase 2's tolerances.
+TOL_O_STITCHED = 3.0
 # phase 9: the Llama-3-8B policy forward (4 layers, bf16, s 2048) on the
 # initial weights, flash kernels against core attention on the same row: the
 # largest logit gap over the core logits' standard deviation.  The two round
@@ -388,10 +419,17 @@ def bounds_ms(kt, peaks, shape=None):
     counting the causal half only.  The backward's fp32 products (p and ds
     times a bf16 operand) are kept exact as three bf16 products each (see
     csrc/flash_dq.cu and csrc/flash_dkv.cu), so they count three times."""
-    bf16_rate, bw = peaks
     b, s, nh, nkv, d = ((shape or kt.MAIN)[k] for k in ("b", "s", "nh", "nkv", "d"))
-    pairs = b * nh * s * (s + 1) / 2  # visible (query, key) pairs
-    q_bytes, kv_bytes, row_bytes = 2 * b * s * nh * d, 2 * b * s * nkv * d, 4 * b * nh * s
+    return bounds_for(peaks, b=b, sq=s, skv=s, nh=nh, nkv=nkv, d=d,
+                      pairs=b * nh * s * (s + 1) / 2)  # visible (query, key) pairs
+
+
+def bounds_for(peaks, *, b, sq, skv, nh, nkv, d, pairs) -> dict:
+    """:func:`bounds_ms` for a call of ``sq`` query rows against ``skv``
+    keys with ``pairs`` visible (query, key) pairs over all heads (a
+    context-parallel chunk: causal, whole, or cut by a window)."""
+    bf16_rate, bw = peaks
+    q_bytes, kv_bytes, row_bytes = 2 * b * sq * nh * d, 2 * b * skv * nkv * d, 4 * b * nh * sq
     work = {
         # q k^T and p v
         "flash_fwd": (4 * d * pairs, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
@@ -1540,6 +1578,349 @@ def phase_tp(torch, cell, ref: dict, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: context parallelism
+# ---------------------------------------------------------------------------
+
+#: hf_llama3_70B_CP_config.yaml's attention: 64 q and 8 kv heads of 128, seq 32768, cp 2
+CP_SHAPE = dict(nh=64, nkv=8, d=128, s=32768, cp=2)
+#: 10a's per-rank heads: those of tp 1 and tp 8
+CP_TP = (1, 8)
+CP_WINDOW = 4096
+#: launches of each kernel by one 10a case's bodies over the two virtual
+#: ranks: the ring's rank 0 computes its diagonal chunk, rank 1 that and its
+#: past chunk; zig-zag 2 cp + 1 = 5 pairs a rank; Ulysses one call a rank
+CP_BODY_LAUNCHES = {"ring": 3, "zigzag_ring": 10, "ulysses": 2}
+CP_FUSIONS = {"ring": "ring_attention", "zigzag_ring": "zigzag_ring_attention",
+              "ulysses": "ulysses_attention"}
+CP_70B_CONFIG = REPO / "examples" / "conf" / "hf_llama3_70B_CP_config.yaml"
+
+
+def loopback(torch, bodies: list) -> list:
+    """Drive the body generator of every virtual context rank in lock step
+    (``parallel/ring_attention.py``, ``parallel/ulysses.py``), answering each
+    round of yields as the group would: ``post`` (the handle is the previous
+    rank's tensors), ``wait`` (the handle back), ``all_to_all`` (chunk ``r`` of every rank's buffer to rank
+    ``r``), ``all_gather`` (every rank's slice along dim 1)."""
+    n = len(bodies)
+    requests = [next(b) for b in bodies]
+    while True:
+        op = requests[0][0]
+        sends = [r[1] for r in requests]
+        if op == "post":  # the handle is what the previous rank posted
+            recv = [sends[(r - 1) % n] for r in range(n)]
+        elif op == "wait":
+            recv = sends
+        elif op == "all_to_all":
+            recv = [[torch.stack([sends[i][j][r] for i in range(n)])
+                     for j in range(len(sends[0]))] for r in range(n)]
+        else:
+            recv = [[torch.cat([sends[i][j] for i in range(n)], dim=1)
+                     for j in range(len(sends[0]))] for r in range(n)]
+        out, done = [None] * n, 0
+        for r, body in enumerate(bodies):
+            try:
+                requests[r] = body.send(recv[r])
+            except StopIteration as stop:
+                out[r], done = stop.value, done + 1
+        if done:
+            if done != n:
+                fail(f"loopback: {done} of {n} bodies ended")
+            return out
+
+
+def cp_bodies(torch, ring, uly, impl: str, q, k, v, do, *, cp: int, window=None):
+    """o, dq, dk, dv of ``impl``'s bodies over ``cp`` virtual ranks, stitched
+    back to the whole sequence in its original order, and the merged lse
+    (None for Ulysses).  The ring and zig-zag bodies run their own backward
+    (``ring_backward``); Ulysses's goes through autograd, the loopback's
+    all-to-alls being torch ops."""
+    b, s, nh, d = q.shape
+    nkv, sq = k.shape[2], s // cp
+    if impl == "ulysses":
+        mult = uly.kv_replication(nkv, 1, cp)
+        parts = [[x[:, r * sq:(r + 1) * sq].detach().clone().requires_grad_(True)
+                  for r in range(cp)] for x in (q, k, v)]
+
+        def body(r):
+            kk, vv = (x[r].repeat_interleave(mult, dim=2) for x in parts[1:])
+            return uly.ulysses_body(parts[0][r], kk, vv, None, cp=cp, causal=True,
+                                    window=window)
+
+        o = torch.cat(loopback(torch, [body(r) for r in range(cp)]), dim=1)
+        o.backward(do)
+        return (o.detach(), *[torch.cat([p.grad for p in x], dim=1) for x in parts], None)
+    order = ring.zigzag_positions(s, cp, device=q.device) if impl == "zigzag_ring" else None
+    if order is not None:
+        q, k, v, do = (x.index_select(1, order) for x in (q, k, v, do))
+    rows = [slice(r * sq, (r + 1) * sq) for r in range(cp)]
+    plans = [ring.zigzag_plan(r, cp, sq, d, nh, nkv) if order is not None else
+             ring.ring_plan(r, cp, sq, d, nh, nkv, window=window) for r in range(cp)]
+    if any(p.route.name != "flash" for p in plans):
+        fail(f"cp {impl}: the chunks at these shapes do not take the flash route")
+    kvs = [torch.stack([k[:, x], v[:, x]]) for x in rows]
+    with torch.no_grad():
+        fwd = loopback(torch, [ring.ring_forward(q[:, rows[r]], kvs[r], None, plans[r])
+                               for r in range(cp)])
+        bwd = loopback(torch, [ring.ring_backward(q[:, rows[r]], kvs[r], None, *fwd[r],
+                                                  do[:, rows[r]], plans[r]) for r in range(cp)])
+    o, dq = torch.cat([f[0] for f in fwd], 1), torch.cat([g[0] for g in bwd], 1)
+    dk, dv = (torch.cat([g[1][i] for g in bwd], 1) for i in (0, 1))
+    lse = torch.cat([f[1] for f in fwd], 2)
+    del fwd, bwd, kvs
+    if order is not None:
+        inv = torch.argsort(order)
+        o, dq, dk, dv = (x.index_select(1, inv) for x in (o, dq, dk, dv))
+        lse = lse.index_select(2, inv)
+    return o, dq, dk, dv, lse
+
+
+def cp_check(torch, fa, ring, uly, name: str, impl: str, *, nh: int, nkv: int, window=None,
+             seed: int) -> dict:
+    """One 10a case at seq 32768, bf16, causal: every virtual rank's body,
+    forward and backward, with the launch counters set to 0 just before; the
+    stitched o and dq/dk/dv against ``flash_attention`` over the whole
+    sequence (its kernels) and against the plain version on kv head 0's
+    group of query heads (each query head alone: the plain scores of all
+    heads at this length would not fit), at phase 2's tolerances."""
+    d, s, cp = CP_SHAPE["d"], CP_SHAPE["s"], CP_SHAPE["cp"]
+    q, k, v, do = make_inputs(torch, 1, s, s, nh, nkv, d, seed)
+    fa.reset_counters()
+    o, dq, dk, dv, lse = cp_bodies(torch, ring, uly, impl, q, k, v, do, cp=cp, window=window)
+    torch.cuda.synchronize()
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    res = {"launches": launches}
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_f = fa.flash_attention(qg, kg, vg, causal=True, sliding_window=window)
+    o_f.backward(do)
+    o_f = o_f.detach()
+    res.update(o_err_flash=o_err(o, o_f), dq_rel_flash=rel_err(dq, qg.grad),
+               dk_rel_flash=rel_err(dk, kg.grad), dv_rel_flash=rel_err(dv, vg.grad))
+    del qg, kg, vg, o_f
+    kw = dict(causal=True, window=window)
+    dk_p = torch.zeros((1, s, 1, d), dtype=torch.float32, device="cuda")
+    dv_p = torch.zeros_like(dk_p)
+    worst = {"o_err": 0.0, "lse_abs": 0.0, "dq_rel": 0.0}
+    k0, v0 = k[:, :, :1], v[:, :, :1]
+    with torch.no_grad():
+        for j in range(nh // nkv):
+            qj, doj = q[:, :, j:j + 1], do[:, :, j:j + 1]
+            o_p, lse_p = fa.flash_fwd_plain(qj, k0, v0, **kw)
+            delta = (doj.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+            worst["o_err"] = max(worst["o_err"], o_err(o[:, :, j:j + 1], o_p))
+            if lse is not None:
+                worst["lse_abs"] = max(worst["lse_abs"], abs_err(lse[:, j:j + 1], lse_p))
+            dq_p = fa.flash_dq_plain(qj, k0, v0, doj, lse_p, delta, **kw)
+            worst["dq_rel"] = max(worst["dq_rel"], rel_err(dq[:, :, j:j + 1], dq_p))
+            del dq_p
+            dkj, dvj = fa.flash_dkv_plain(qj, k0, v0, doj, lse_p, delta, **kw)
+            dk_p += dkj.float()
+            dv_p += dvj.float()
+            del o_p, lse_p, delta, dkj, dvj
+    res.update(worst, dk_rel=rel_err(dk[:, :, :1], dk_p), dv_rel=rel_err(dv[:, :, :1], dv_p))
+    del q, k, v, do, o, dq, dk, dv, lse, dk_p, dv_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = CP_BODY_LAUNCHES[impl]
+    tol_o = TOL_O if impl == "ulysses" else TOL_O_STITCHED
+    ok = (max(res["o_err"], res["o_err_flash"]) <= tol_o and res["lse_abs"] <= TOL_LSE_ABS
+          and max(v for k_, v in res.items() if "_rel" in k_) <= TOL_GRAD_REL
+          and all(math.isfinite(v) for k_, v in res.items() if k_ != "launches")
+          and all(n == want for n in launches.values())
+          and not fallbacks["core"] and not fallbacks["blockwise"])
+    log(f"cp check {name}: " + " ".join(
+        f"{k_}={v:.3e}" if isinstance(v, float) else f"{k_}={v}" for k_, v in res.items())
+        + f" fallbacks={fallbacks} (launches {want} each; tol o_err {tol_o:g}, lse "
+        f"{TOL_LSE_ABS:g} abs, grads {TOL_GRAD_REL:g} rel)" + ("" if ok else "  <-- FAIL"))
+    if not ok:
+        fail(f"cp {name}: the bodies disagree with whole-sequence flash or the plain version, "
+             f"or launched other than {want} times each")
+    return res
+
+
+def visible_pairs(torch, sq: int, skv: int, *, causal: bool, window, q_offset: int) -> int:
+    """(query, key) pairs one head of a call sees: key ``j`` is visible to
+    query ``i`` when ``j <= q_offset + i`` (causal) and ``j > q_offset + i -
+    window`` (a window)."""
+    qpos = q_offset + torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(qpos, max=skv - 1) if causal else torch.full_like(qpos, skv - 1)
+    lo = (torch.clamp(qpos - window + 1, min=0) if window is not None
+          else torch.zeros_like(qpos))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def cp_calls(tp: int) -> dict:
+    """The distinct kernel calls of the 10a bodies at tp's per-rank heads:
+    ``label: (sq, skv, nh, nkv, causal, window, q_offset)``."""
+    s, cp = CP_SHAPE["s"], CP_SHAPE["cp"]
+    nh, nkv = CP_SHAPE["nh"] // tp, CP_SHAPE["nkv"] // tp
+    sq, hc = s // cp, s // (2 * cp)
+    mult = max(1, cp // nkv) if nkv % cp else 1  # Ulysses's kv replication
+    calls = {
+        "ring diagonal": (sq, sq, nh, nkv, True, None, 0),
+        "ring past chunk": (sq, sq, nh, nkv, False, None, 0),
+        "zig-zag diagonal half": (hc, hc, nh, nkv, True, None, 0),
+        "zig-zag whole half": (hc, hc, nh, nkv, False, None, 0),
+        "ulysses whole sequence": (s, s, nh // cp, nkv * mult // cp, True, None, 0),
+    }
+    if tp == 1:
+        calls["ring diagonal, window"] = (sq, sq, nh, nkv, True, CP_WINDOW, 0)
+        calls["ring past chunk, window"] = (sq, sq, nh, nkv, False, CP_WINDOW, sq)
+    return calls
+
+
+def cp_times(torch, fa, kt, peaks, card: str) -> list:
+    """CUDA-event ms of each kernel at each distinct per-rank call of the
+    bodies, beside its bound (by this call's visible pairs) and grid."""
+    rows = []
+    d = CP_SHAPE["d"]
+    for tp in CP_TP:
+        for label, (sq, skv, nh, nkv, causal, window, q_offset) in cp_calls(tp).items():
+            q, k, v, do = make_inputs(torch, 1, sq, skv, nh, nkv, d, 60 + tp)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            with torch.no_grad():
+                o, lse = fa.flash_fwd(q, k, v, **kw)
+                delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+                ms = {"flash_fwd": kt.cuda_ms(lambda: fa.flash_fwd(q, k, v, **kw)),
+                      "flash_dq": kt.cuda_ms(
+                          lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw)),
+                      "flash_dkv": kt.cuda_ms(
+                          lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw))}
+            pairs = nh * visible_pairs(torch, sq, skv, causal=causal, window=window,
+                                       q_offset=q_offset)
+            bounds = bounds_for(peaks, b=1, sq=sq, skv=skv, nh=nh, nkv=nkv, d=d, pairs=pairs)
+            for kname, t in ms.items():
+                row = {"tp": tp, "call": label, "sq": sq, "skv": skv, "nh": nh, "nkv": nkv,
+                       "causal": causal, "window": window, "q_offset": q_offset, "ms": t,
+                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                       "grid_ctas": (nkv if kname == "flash_dkv" else nh) * -(
+                           -(skv if kname == "flash_dkv" else sq) // 128),
+                       "kernel": kname}
+                rows.append(row)
+                log(f"cp time {kname} tp {tp} {label} (sq {sq}, skv {skv}, nh {nh}, nkv "
+                    f"{nkv}): {t:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}),"
+                    f" {row['bound_ms'] / t:.3f} of bound, grid {row['grid_ctas']} CTAs "
+                    f"[{card}]")
+            del q, k, v, do, o, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_cp_bodies(torch, fa, kt, card: str, peaks) -> dict:
+    """10a: the ring, zig-zag ring and Ulysses bodies of both virtual ranks
+    of cp 2 in this process (the loopback stands in for the point-to-point
+    shifts and the all-to-alls), forward and backward, at the 70B CP
+    config's attention (seq 32768, bf16) with the per-rank heads of tp 1 and
+    tp 8, plus the ring with a window of 4096 (past chunks where whole tiles
+    and rows see no key); then each distinct kernel call timed."""
+    from neuronx_distributed_training_torch.parallel import ring_attention as ring
+    from neuronx_distributed_training_torch.parallel import ulysses as uly
+
+    t_phase = time.perf_counter()
+    cases = {}
+    seed = 50
+    for tp in CP_TP:
+        nh, nkv = CP_SHAPE["nh"] // tp, CP_SHAPE["nkv"] // tp
+        for impl in ("ring", "zigzag_ring", "ulysses"):
+            name = f"{impl} tp {tp} (nh {nh}, nkv {nkv})"
+            cases[name] = cp_check(torch, fa, ring, uly, name, impl, nh=nh, nkv=nkv,
+                                   seed=seed)
+            seed += 1
+    name = f"ring tp 1 window {CP_WINDOW}"
+    cases[name] = cp_check(torch, fa, ring, uly, name, "ring", nh=CP_SHAPE["nh"],
+                           nkv=CP_SHAPE["nkv"], window=CP_WINDOW, seed=seed)
+    rows = cp_times(torch, fa, kt, peaks, card)
+    launches = {k: sum(c["launches"][k] for c in cases.values()) for k in fa.LAUNCHES}
+    stitched = max(max(c["o_err"], c["o_err_flash"]) for n, c in cases.items()
+                   if not n.startswith("ulysses"))
+    log(f"cp bodies: launches over the {len(cases)} cases {launches}; largest stitched "
+        f"(ring, zig-zag) o_err {stitched:.3f} of {TOL_O_STITCHED:g}; phase wall time "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"cases": cases, "rows": rows, "launches": launches}
+
+
+def cp_run_launches(fusion: str, cp_rank: int, layers: int, micro: int, steps: int) -> int:
+    """Each kernel's launches on one rank of a cp = 2 trainer run (the
+    forward's twice that under full remat, which runs it again in the
+    backward)."""
+    per = {"ring_attention": cp_rank + 1, "zigzag_ring_attention": 5,
+           "ulysses_attention": 1}[fusion]
+    return per * layers * micro * steps
+
+
+def phase_cp(torch, cell, ref: dict, card: str) -> dict | None:
+    """10b, with two or more cards: phase 4's cell (Llama-3-8B width, 4
+    layers, seq 8192) under ``torchrun --nproc_per_node 2`` at cp 2 with
+    each of the three fusions, against ``ref`` (phase 4's) within the
+    mixed_precision tolerance, with each rank's launches; with four cards,
+    the 70B CP config at its width and seq 32768, one layer, tp 2 x cp 2:
+    step seconds and peak memory per rank.  With one card it says why it
+    did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"cp: phase 10b (cp=2 on two cards) not run: this machine shows {n_cards} card, "
+            f"NCCL takes one rank per card, and cp=2 needs two ranks")
+        return None
+    t_phase = time.perf_counter()
+    out = {}
+    for impl, fusion in CP_FUSIONS.items():
+        rep = torchrun_cell(cell, 2, cell.WORK / f"exp_cp_{impl}", 900,
+                            "--set", "distributed_strategy.context_parallel_size=2",
+                            "--set", f"model.fusions.{fusion}=true")
+        steps = rep["step_seconds"][1:]
+        log(f"cp: {fusion} at cp {rep['cp']}: losses {rep['loss']} grad_norms "
+            f"{rep['grad_norm']}; one card: {ref['loss']} / {ref['grad_norm']}")
+        log(f"cp: {fusion}: step seconds {rep['step_seconds']} (median of steps 1-"
+            f"{cell.STEPS - 1} {_median(steps):.4f} s, one card "
+            f"{_median(ref['step_seconds'][1:]):.4f} s); peak device memory per rank "
+            f"{[r['peak_bytes'] for r in rep['ranks']]} bytes; launches per rank "
+            f"{[r['launches'] for r in rep['ranks']]} [{card}]")
+        for r in rep["ranks"]:
+            want = cp_run_launches(fusion, r["rank"], cell.LAYERS, cell.MICROBATCHES, cell.STEPS)
+            if any(n != want for n in r["launches"].values()) or any(r["fallbacks"].values()):
+                fail(f"cp {fusion}: rank {r['rank']} launches {r['launches']} (fallbacks "
+                     f"{r['fallbacks']}), expected {want} each")
+            if (r["loss"], r["grad_norm"]) != (rep["loss"], rep["grad_norm"]):
+                fail(f"cp {fusion}: rank {r['rank']} logged other losses than rank 0")
+        if rep["cp"] != 2 or \
+                not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+                        for a, b in zip(rep["loss"], ref["loss"])) or \
+                not all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                        for a, b in zip(rep["grad_norm"], ref["grad_norm"])):
+            fail(f"cp {fusion}: losses {rep['loss']} / grad norms {rep['grad_norm']} against "
+                 f"one card's {ref['loss']} / {ref['grad_norm']}")
+        out[impl] = rep
+    if n_cards >= 4:
+        rep = torchrun_cell(cell, 4, cell.WORK / "exp_cp_70b", 1500, "--config",
+                            str(CP_70B_CONFIG), "--tp", "2", "--sp",
+                            "--set", "distributed_strategy.context_parallel_size=2",
+                            "--set", "distributed_strategy.pipeline_model_parallel_size=1",
+                            "--set", "model.num_layers=1")
+        log(f"cp: 70B CP config, 1 layer, tp {rep['tp']} x cp {rep['cp']}, seq 32768: losses "
+            f"{rep['loss']} grad_norms {rep['grad_norm']} step seconds {rep['step_seconds']};"
+            f" peak device memory per rank {[r['peak_bytes'] for r in rep['ranks']]} bytes "
+            f"[{card}]")
+        for r in rep["ranks"]:
+            # world ranks lay out (context, model): the context rank is rank // tp;
+            # the config's full remat runs each forward twice
+            want = cp_run_launches("ring_attention", r["rank"] // 2, 1, cell.MICROBATCHES,
+                                   cell.STEPS)
+            want = {"flash_fwd": 2 * want, "flash_dq": want, "flash_dkv": want}
+            if r["launches"] != want or any(r["fallbacks"].values()):
+                fail(f"cp 70B: rank {r['rank']} launches {r['launches']} (fallbacks "
+                     f"{r['fallbacks']}), expected {want} each")
+        if not all(math.isfinite(x) for x in rep["loss"] + rep["grad_norm"]):
+            fail(f"cp 70B: non-finite losses {rep['loss']} / grad norms {rep['grad_norm']}")
+        out["70b_tp2_cp2"] = rep
+    else:
+        log(f"cp: this machine shows {n_cards} cards; the 70B CP config at tp 2 x cp 2 was "
+            f"not run")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"cp: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 SKIP_LAYERS = 2
 
 
@@ -1719,6 +2100,9 @@ def main() -> None:
     tp = phase_tp(torch, cell, trainer_ref(history4), card)
     free_cuda(torch)
     pref = phase_pref(torch, fa, card, peaks[0])
+    free_cuda(torch)
+    cp_bodies_rep = phase_cp_bodies(torch, fa, kt, card, peaks)
+    cp = phase_cp(torch, cell, trainer_ref(history4), card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -1745,9 +2129,16 @@ def main() -> None:
                                  "align_orpo": pref["O"]["launches"][kname],
                                  "align_kto": pref["K"]["launches"][kname],
                                  **({} if tp is None else
-                                    {"pretrain_tp": tp["tp2"]["launches"][kname]})},
+                                    {"pretrain_tp": tp["tp2"]["launches"][kname]}),
+                                 "cp_bodies": cp_bodies_rep["launches"][kname],
+                                 **({} if cp is None else
+                                    {"pretrain_cp": {impl: [r["launches"][kname]
+                                                            for r in cp[impl]["ranks"]]
+                                                     for impl in CP_FUSIONS}})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows if r["kernel"] == kname],
+            "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
+                                   for r in cp_bodies_rep["rows"] if r["kernel"] == kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -58,6 +58,13 @@ v]``.  A checkpoint saved at tp 2 therefore restores at tp 1 and the other
 way round; a restore loads a segment into a contiguous buffer and copies it
 into the live leaf.
 
+Context parallelism (``cp``): parameters and state are replicated over the
+``context`` axis, so the context ranks hand DCP equal shards (on their own
+``(data, model)`` meshes, at the same offsets of the same global leaves) and
+DCP's planner writes each once; context rank 0's ranks alone hash them.  The
+saved layout is the same as without cp, so a cp 2 save restores at cp 1 and
+the other way round.
+
 The health counters (``opt_state["health"]``) are saved beside ``step`` as
 int64 scalars ``health/<name>``; a checkpoint without them restores with
 ``steps_seen`` set to its step, as in the JAX package.
@@ -306,11 +313,15 @@ class Checkpointer:
     """Save/restore ``TrainState`` with retention, async writes, integrity
     sidecars and verified auto-resume."""
 
-    def __init__(self, config: CheckpointConfig, *, layouts: Optional[dict] = None, tp=None):
+    def __init__(self, config: CheckpointConfig, *, layouts: Optional[dict] = None, tp=None,
+                 cp=None):
         self.config = config
         #: the leaves' tensor-parallel layouts and the model axis (see
         #: :func:`saved_pieces`); None: leaves are saved as they are
         self.layouts, self.tp = layouts, tp
+        #: the context axis: its ranks hold the same state, and context rank
+        #: 0's shards alone are hashed (DCP writes one copy of equal shards)
+        self.cp = cp
         self.directory = Path(config.dir).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         #: restore/audit trail (quarantined steps, walk-backs, verify seconds)
@@ -492,8 +503,11 @@ class Checkpointer:
         records = None
         if self.config.integrity.enabled:
             t = time.perf_counter()
-            records = ck_integrity.local_shard_records(staged, rank=self._rank,
-                                                       workers=SAVE_DIGEST_WORKERS)
+            if self.cp is None or self.cp.rank == 0:
+                records = ck_integrity.local_shard_records(staged, rank=self._rank,
+                                                           workers=SAVE_DIGEST_WORKERS)
+            else:  # a replica over context of what context rank 0 hashes
+                records = {item: {} for item in staged}
             digest_seconds = time.perf_counter() - t
         gathered = [None] * dist.get_world_size(self._pg) if self._rank == 0 else None
         dist.gather_object(records, gathered, dst=0, group=self._pg)

@@ -204,19 +204,66 @@ def validate_config(cfg: ConfigDict) -> None:
     if moe.get("dropless") and (moe.get("capacity_factor") or 0) > 0:
         raise ValueError("moe.dropless=True requires capacity_factor unset/0")
 
+    # ---- context parallelism & attention kernels (the JAX package's rules
+    # and texts)
     seq = data.get("seq_length")
-    cp_aware = any(fusions.get(k) for k in
-                   ("zigzag_ring_attention", "ulysses_attention", "ring_attention"))
+    zigzag = bool(fusions.get("zigzag_ring_attention"))
+    ulysses = bool(fusions.get("ulysses_attention"))
+    cp_aware = zigzag or ulysses or bool(fusions.get("ring_attention"))
     if cp > 1 and not cp_aware:
         raise ValueError(
             f"context_parallel_size={cp} requires a context-parallel attention "
             f"fusion: set fusions.ring_attention, fusions.ulysses_attention, "
-            f"or fusions.zigzag_ring_attention"
+            f"or fusions.zigzag_ring_attention (flash_attention alone is "
+            f"single-chip and core attention would materialize the full "
+            f"O(seq^2) scores)"
         )
     if cp > 1 and seq is not None and int(seq) % cp != 0:
         raise ValueError(
-            f"data.seq_length={seq} must be divisible by context_parallel_size={cp}"
+            f"data.seq_length={seq} must be divisible by "
+            f"context_parallel_size={cp}"
         )
+    if zigzag:
+        if pp > 1:
+            raise ValueError(
+                "zigzag_ring_attention is not supported under pipeline "
+                "parallelism; use fusions.ring_attention for pp + cp configs"
+            )
+        if model.get("sliding_window"):
+            raise ValueError(
+                "zigzag_ring_attention does not support sliding_window; use "
+                "fusions.ring_attention (contiguous layout) for windowed models"
+            )
+        if cp > 1 and seq is not None and int(seq) % (2 * cp) != 0:
+            raise ValueError(
+                f"zigzag_ring_attention needs data.seq_length={seq} divisible "
+                f"by 2*context_parallel_size = {2 * cp} (two half-chunks per "
+                f"rank)"
+            )
+    n_heads = model.get("num_attention_heads")
+    if ulysses and cp > 1 and n_heads is not None and int(n_heads) % (tp * cp) != 0:
+        raise ValueError(
+            f"ulysses_attention: num_attention_heads={n_heads} must be "
+            f"divisible by tp*cp = {tp}*{cp} (use ring_attention when cp "
+            f"exceeds the head budget)"
+        )
+    if cp > 1 and pp > 1 and cp_aware and seq is not None:
+        # cp under pp runs JAX's blockwise body, whose kv block must divide
+        # the global sequence; the rule is JAX's, though the port's trainer
+        # rejects pp x cp until the pipeline is ported
+        from neuronx_distributed_training_torch.parallel.ring_attention import pick_bkv
+
+        want = int(fusions.get("flash_block_kv") or 512)
+        s = int(seq)
+        bkv, degraded = pick_bkv(s, want)
+        if degraded:
+            raise ValueError(
+                f"context-parallel-under-pipeline attention needs "
+                f"data.seq_length={s} to have a divisor near the kv block "
+                f"size {want} (largest available: {bkv}, an {s // bkv}-step "
+                f"scan with pathological compile/step time); pad seq_length "
+                f"to a smoother length (e.g. a multiple of {want})"
+            )
 
     prec = cfg.get("precision", {}) or {}
     ptype = prec.get("type") if isinstance(prec, Mapping) else prec

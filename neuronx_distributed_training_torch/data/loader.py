@@ -7,7 +7,9 @@ Batches are numpy on the host; the trainer moves each global batch to the
 device once per step and splits it into microbatches there.  Under data
 parallelism every rank builds the same global batch (the samplers are
 deterministic) and computes its own rows of each microbatch
-(:func:`dp_rank_rows`), as the JAX package's ``shard_batch`` assumes.  A daemon
+(:func:`dp_rank_rows`), as the JAX package's ``shard_batch`` assumes; under
+context parallelism each context rank of a data rank takes its slice of the
+sequence of those rows (:func:`context_parallel_batch`).  A daemon
 thread (``PrefetchIterator``) keeps the next batches ready so a slow
 ``fetch_rows`` (arrow page-in, mmap faults) does not stall the step loop.
 """
@@ -293,6 +295,66 @@ def dp_rank_rows(global_batch_size: int, num_microbatches: int, dp_rank: int,
     return np.concatenate([np.arange(i * per_micro + dp_rank * mbs,
                                      i * per_micro + (dp_rank + 1) * mbs)
                            for i in range(num_microbatches)])
+
+
+def next_token_targets(labels, loss_mask=None):
+    """Labels as next-token targets over the whole row (torch ``[b, s]``):
+    ``target[i] = labels[i + 1]``, the last slot ``IGNORE_INDEX``, and the
+    loss mask shifted with them (its last slot 0).  The in-model shift of a
+    whole row computes the same loss; under context parallelism a rank's
+    slice lacks its last token's target (the next rank's first token), so
+    the shift comes first."""
+    import torch
+
+    tgt = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)], dim=1)
+    if loss_mask is not None:
+        loss_mask = torch.cat([loss_mask[:, 1:], torch.zeros_like(loss_mask[:, :1])], dim=1)
+    return tgt, loss_mask
+
+
+def context_parallel_batch(batch: dict, cp_rank: int, cp_size: int, *, positions,
+                           shift_labels: bool = True, zigzag: bool = False) -> dict:
+    """Context rank ``cp_rank``'s part of a microbatch (torch ``[b, s]``
+    tensors, the rows ``dp_rank_rows`` gives the data rank): every context
+    rank of a data rank takes the same rows, and each its ``s/cp`` slice of
+    every per-token array, after what needs the whole row:
+
+    - ``positions``: the rows' RoPE positions, taken on the whole row by the
+      caller (``models/llama.py::positions_for``: for a padded row the count
+      of real tokens, ``cumsum(attention_mask) - 1``);
+    - ``labels`` become next-token targets (:func:`next_token_targets`)
+      unless the data comes pre-shifted (``shift_labels=False``, Megatron),
+      and ``loss_mask`` holds the attention mask (as the model's loss does)
+      shifted with them;
+    - ``zigzag``: then every array is permuted into the zig-zag layout
+      (``parallel/ring_attention.py::zigzag_positions``), so rank ``r``
+      holds chunks ``r`` and ``2 cp - 1 - r``: JAX's
+      ``zigzag_transform_batch`` (shift in the original order, then gather)
+      followed by the slice.
+
+    The key mask (``attention_mask``) travels with its slice: the ring
+    rotates it with K/V, Ulysses all-gathers it."""
+    ids = batch["input_ids"]
+    s = ids.shape[1]
+    if s % cp_size:
+        raise ValueError(f"sequence {s} not divisible by context_parallel_size {cp_size}")
+    labels, mask, am = batch.get("labels", ids), batch.get("loss_mask"), batch.get("attention_mask")
+    if am is not None:
+        mask = am.float() if mask is None else mask * am.float()
+    if shift_labels:
+        labels, mask = next_token_targets(labels, mask)
+    out = {"input_ids": ids, "labels": labels, "positions": positions}
+    if mask is not None:
+        out["loss_mask"] = mask
+    if am is not None:
+        out["attention_mask"] = am
+    if zigzag:
+        from neuronx_distributed_training_torch.parallel.ring_attention import zigzag_positions
+
+        order = zigzag_positions(s, cp_size, device=ids.device)
+        out = {k: v.index_select(1, order) for k, v in out.items()}
+    n = s // cp_size
+    return {k: v[:, cp_rank * n:(cp_rank + 1) * n] for k, v in out.items()}
 
 
 class DataModule:

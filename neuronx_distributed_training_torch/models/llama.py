@@ -37,6 +37,15 @@ sees the gathered sequence.  The final norm's output is gathered before the
 column-parallel ``lm_head``, whose ``[b, s, V/tp]`` logits go to the
 vocab-parallel cross-entropy ungathered.  ``tp`` None (or of size 1) is the
 one-device path, with no collective.
+
+Context parallelism (``cp``, a ``parallel/mesh.py::ContextParallel``): the
+model runs on the rank's ``s/cp`` slice of each row, cut by
+``data/loader.py::context_parallel_batch`` (contiguous, or in the zig-zag
+layout), which also carries the rank's RoPE positions (taken on the whole
+row) and next-token targets (shifted on the whole row).  Under SP that slice
+splits again over ``model``, as JAX's ``seq_axes`` puts ``context`` before
+``model``.  Attention is the only layer that crosses the context ranks
+(``ops/attention.py``: the ring, the zig-zag ring or Ulysses).
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ class LlamaConfig:
     initializer_range: float = 0.02
     sliding_window: Optional[int] = None
     fuse_qkv: bool = True
-    attention_impl: str = "core"  # "core" | "flash" (| CP impls, not ported)
+    attention_impl: str = "core"  # "core" | "flash" | "ring" | "ulysses" | "zigzag_ring"
+    context_parallel: bool = False  # distributed_strategy.context_parallel_size > 1
     activations_checkpoint_granularity: Optional[str] = "selective"
 
     @property
@@ -86,10 +96,13 @@ class LlamaConfig:
         return self.head_dim or self.hidden_size // self.num_attention_heads
 
     @classmethod
-    def from_config(cls, model_cfg: dict[str, Any]) -> "LlamaConfig":
-        """Build from the ``model:`` block (the parallelism knobs of
-        ``distributed_strategy:`` are not ported yet)."""
+    def from_config(cls, model_cfg: dict[str, Any],
+                    ds_cfg: Optional[dict[str, Any]] = None) -> "LlamaConfig":
+        """Build from the ``model:`` and ``distributed_strategy:`` blocks.
+        ``attention_impl`` follows the fusions in JAX's order: Ulysses, then
+        the zig-zag ring, then the ring, then flash."""
         m = dict(model_cfg or {})
+        ds = dict(ds_cfg or {})
         fusions = dict(m.get("fusions", {}) or {})
         if fusions.get("ulysses_attention"):
             impl = "ulysses"
@@ -116,6 +129,7 @@ class LlamaConfig:
             sliding_window=m.get("sliding_window"),
             fuse_qkv=bool(m.get("fuse_qkv", True)),
             attention_impl=impl,
+            context_parallel=int(ds.get("context_parallel_size", 1) or 1) > 1,
             activations_checkpoint_granularity=m.get(
                 "activations_checkpoint_granularity", "selective"),
         )
@@ -201,7 +215,7 @@ def named_params(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                     attention_mask=None, segment_ids=None, tp=None):
+                     attention_mask=None, segment_ids=None, tp=None, cp=None):
     x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
     size = tp.size if tp_ops.active(tp) else 1
@@ -225,7 +239,7 @@ def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
         return attn_ops.attention(
             q, k, v, impl=cfg.attention_impl, causal=True,
             sliding_window=cfg.sliding_window, softmax_dtype=policy.softmax_dtype,
-            attention_mask=attention_mask, segment_ids=segment_ids,
+            attention_mask=attention_mask, segment_ids=segment_ids, cp=cp, tp_size=size,
         )
 
     if (cfg.attention_impl == "core"
@@ -244,12 +258,13 @@ def _mlp_block(lp, x, tp=None):
 
 
 def _decoder_layer(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                   attention_mask=None, segment_ids=None, tp=None):
+                   attention_mask=None, segment_ids=None, tp=None, cp=None):
     # cast inside the layer: one layer's compute-dtype copy at a time
     lp = policy.cast_to_compute(lp)
     h = norm_ops.apply_rms_norm(lp["input_norm"], x, eps=cfg.rms_norm_eps)
     x = x + _attention_block(lp["attn"], h, cos, sin, cfg, policy,
-                             attention_mask=attention_mask, segment_ids=segment_ids, tp=tp)
+                             attention_mask=attention_mask, segment_ids=segment_ids, tp=tp,
+                             cp=cp)
     h = norm_ops.apply_rms_norm(lp["post_attn_norm"], x, eps=cfg.rms_norm_eps)
     return x + _mlp_block(lp["mlp"], h, tp)
 
@@ -273,9 +288,10 @@ def positions_for(input_ids: torch.Tensor, attention_mask=None, segment_ids=None
 
 def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy, *,
                   positions=None, attention_mask=None, segment_ids=None,
-                  tp=None) -> torch.Tensor:
+                  tp=None, cp=None) -> torch.Tensor:
     """Embedding + decoder layers + final norm -> [batch, seq, hidden] (the
-    rank's ``seq/tp`` slice of the sequence under SP)."""
+    rank's ``seq/tp`` slice of the sequence under SP).  Under ``cp``,
+    ``input_ids`` and ``positions`` are the context rank's slice."""
     x = linear_ops.apply_embedding(params["embed"], input_ids,
                                    compute_dtype=policy.compute_dtype, tp=tp)
     if positions is None:
@@ -286,7 +302,7 @@ def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: Dty
     cos, sin = rope_ops.rope_cos_sin(positions, inv_freq, dtype=torch.float32)
     full = cfg.activations_checkpoint_granularity == "full"
     for lp in params["layers"]:
-        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids, tp)
+        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids, tp, cp)
         x = (checkpoint(_decoder_layer, *args, use_reentrant=False) if full
              else _decoder_layer(*args))
     return norm_ops.apply_rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
@@ -325,21 +341,28 @@ def loss_token_count(batch: dict[str, torch.Tensor], *, shift_labels: bool = Tru
 
 def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: DtypePolicy, *,
             positions=None, shift_labels: bool = True, return_logits: bool = False,
-            loss_denominator: Optional[torch.Tensor] = None, tp=None):
+            loss_denominator: Optional[torch.Tensor] = None, tp=None, cp=None):
     """Causal-LM forward -> (loss, aux); without labels -> (logits, aux).
     ``loss_denominator`` replaces this batch's own loss-token count (see
     :func:`loss_token_count`).  With ``tp`` the logits are the rank's vocab
-    slice, and every rank of the tp group returns the whole loss."""
+    slice, and every rank of the tp group returns the whole loss.  With
+    ``cp`` the batch is a context rank's slice from
+    ``data/loader.py::context_parallel_batch``: its ``positions`` are used,
+    its labels are next-token targets already and its ``loss_mask`` holds the
+    attention mask, so nothing is shifted or masked again; the loss is the
+    rank's share (its tokens over ``loss_denominator``)."""
     attention_mask = batch.get("attention_mask")
+    if cp is not None:
+        positions, shift_labels = batch["positions"], False
     hidden = hidden_states(params, batch["input_ids"], cfg, policy, positions=positions,
                            attention_mask=attention_mask,
-                           segment_ids=batch.get("segment_ids"), tp=tp)
+                           segment_ids=batch.get("segment_ids"), tp=tp, cp=cp)
     logits = logits_fn(params, hidden, cfg, policy, tp)
     aux: dict[str, Any] = {"logits": logits} if return_logits else {}
     labels = batch.get("labels")
     if labels is None:
         return logits, aux
-    loss_mask = _loss_mask(batch)
+    loss_mask = batch.get("loss_mask") if cp is not None else _loss_mask(batch)
     if shift_labels:
         logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
     return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,

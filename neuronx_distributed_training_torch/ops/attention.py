@@ -1,8 +1,11 @@
 """Attention ops (counterpart of the JAX package's ``ops/attention.py``).
 
 ``core_attention`` is the numerics reference: naive attention with an fp32
-softmax.  ``attention`` dispatches between it and the flash kernels
-(``ops/flash_attention.py``).  Layout is ``[batch, seq, heads, head_dim]``; GQA
+softmax.  ``attention`` dispatches between it, the flash kernels
+(``ops/flash_attention.py``) and the context-parallel bodies
+(``parallel/ring_attention.py``, ``parallel/ulysses.py``), which take the
+context group ``cp`` and fall back to core attention without one, as the JAX
+package's do at cp == 1.  Layout is ``[batch, seq, heads, head_dim]``; GQA
 repeats K/V to the query heads on the fly.
 
 Unlike the JAX package there is no fallback when a kernel is missing: a kernel
@@ -96,16 +99,19 @@ def attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
-    impl: str = "core",  # "core" | "flash"
+    impl: str = "core",  # "core" | "flash" | "ring" | "ulysses" | "zigzag_ring"
     causal: bool = True,
     q_offset: int = 0,
     sliding_window: Optional[int] = None,
     softmax_dtype=torch.float32,
     attention_mask: Optional[torch.Tensor] = None,  # [b, skv] 1 = attend
     segment_ids: Optional[torch.Tensor] = None,  # [b, s] packed-record segments
+    cp=None,  # parallel/mesh.py::ContextParallel (the cp impls)
+    tp_size: int = 1,  # tensor-parallel degree (Ulysses's head rule)
 ) -> torch.Tensor:
-    """Dispatch between core and flash attention with the JAX package's
-    rejection rules; the context-parallel impls are not ported yet."""
+    """Dispatch between core, flash and the context-parallel attention with
+    the JAX package's rejection rules: zig-zag takes no padding mask and no
+    window, no cp impl takes segments or an explicit ``q_offset``."""
     if attention_mask is not None and impl == "zigzag_ring":
         raise ValueError(
             "zigzag_ring does not support attention_mask (padded batches); "
@@ -116,11 +122,30 @@ def attention(
             f"segment_ids (packed-sequence masking) is supported by the "
             f"flash and core paths only, not {impl!r}"
         )
-    if impl in _CP_IMPLS:
-        raise NotImplementedError(
-            f"{impl} attention is not ported yet (ROADMAP queue 1 item 11, "
-            f"context parallelism)"
+    if impl in _CP_IMPLS and q_offset:
+        what = {"ring": "ring attention derives global positions from the mesh",
+                "ulysses": "ulysses attention derives global positions from the mesh",
+                "zigzag_ring": "zigzag ring derives positions from the layout"}[impl]
+        raise ValueError(f"{what}; an explicit q_offset is not meaningful here")
+    if impl == "ring":
+        from neuronx_distributed_training_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, causal=causal, sliding_window=sliding_window, cp=cp,
+                              attention_mask=attention_mask)
+    if impl == "ulysses":
+        from neuronx_distributed_training_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=causal, sliding_window=sliding_window, cp=cp,
+                                 tp_size=tp_size, attention_mask=attention_mask)
+    if impl == "zigzag_ring":
+        from neuronx_distributed_training_torch.parallel.ring_attention import (
+            zigzag_ring_attention,
         )
+
+        if sliding_window is not None:
+            raise ValueError("zigzag ring does not support sliding_window; use "
+                             "ring_attention (contiguous layout) for windowed models")
+        return zigzag_ring_attention(q, k, v, causal=causal, cp=cp)
     if impl == "flash":
         from neuronx_distributed_training_torch.ops.flash_attention import flash_attention
 

@@ -46,8 +46,10 @@ KERNEL_DTYPES = (torch.bfloat16,)
 
 #: kernel launches per wrapper; the plain versions never count
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-#: flash_attention calls whose shapes do not tile and went to core_attention
-FALLBACKS = {"core": 0}
+#: calls whose shapes do not tile: flash_attention calls that went to
+#: core_attention, and context-parallel chunks that took the blockwise route
+#: (``parallel/ring_attention.py``)
+FALLBACKS = {"core": 0, "blockwise": 0}
 
 
 def reset_counters() -> None:

@@ -37,6 +37,11 @@ gradients (identical on every rank, so are the norm and the finite flag),
 updates this rank's slice and all-gathers the new param slices in the param
 dtype.  Elementwise arithmetic on a slice gives the same bits as on the
 whole leaf, so ZeRO-1 on and off train bit for bit alike.
+
+Context parallelism changes nothing here: the train step hands every
+context rank the same gradients (summed over ``(data, context)``), the
+specs and the norm stay over dp x tp, and the context ranks keep the same
+state and params bit for bit.
 """
 
 from __future__ import annotations

@@ -7,23 +7,32 @@ each, outermost first:
 
     (pipe, data, expert, context, model)
 
-``dp = world / (tp * pp * cp)`` as in the reference, and ``ep`` must divide
-it.  ``model`` is innermost, so a tp group is consecutive ranks (on one
-host).  The port runs data and tensor parallelism (with Megatron sequence
-parallelism); the trainer rejects pp, cp and ep above 1 with the ROADMAP
-item that ports them.
+``world = dp * cp * tp * pp`` and ``dp = world / (tp * pp * cp)`` as in the
+reference, and ``ep`` must divide it.  ``model`` is innermost, so a tp group
+is consecutive ranks (on one host), and a context group strides over tp.
+The port runs data, context and tensor parallelism (with Megatron sequence
+parallelism); the trainer rejects pp and ep above 1 with the ROADMAP item
+that ports them.
 
 :class:`DataParallel` is what the train step and the optimizer need of the
 ``data`` axis: the rank, the size, its process group, the 1-D mesh of the
 axis, and the two collectives they run.  :class:`TensorParallel` is the
 same of the ``model`` axis, plus the sequence-parallel switch and the 2-D
 ``(data, model)`` mesh that sharded state lives on as DTensors (ZeRO-1
-moments, and every leaf as a checkpoint writes it).
+moments, and every leaf as a checkpoint writes it).  :class:`ContextParallel`
+is the ``context`` axis: the ring's neighbours and the collectives the
+context-parallel attention runs (``parallel/ring_attention.py``,
+``parallel/ulysses.py``; Ulysses's key-mask all-gather is
+``parallel/tensor_parallel.py::gather_seq`` over its group), and the
+``(data, context)`` group over which the train step sums gradients and the
+loss.  Parameters and optimizer state are replicated over ``context``:
+ZeRO-1 shards over ``data`` alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -189,3 +198,88 @@ class TensorParallel:
         if self.size > 1:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
+
+
+def axes_group(mesh, axes: tuple):
+    """The process group over ``axes`` of ``mesh`` that holds this rank
+    (e.g. ``("data", "context")``), from ``dist.new_group`` on every such
+    group in the same order on every rank, as ``new_group`` requires."""
+    import torch.distributed as dist
+
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    size = math.prod(mesh.mesh.shape[i] for i in keep)
+    ranks = mesh.mesh.permute(*rest, *keep).reshape(-1, size)
+    mine = None
+    me = dist.get_rank()
+    for row in ranks.tolist():
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class ContextParallel:
+    """This process's place on the ``context`` axis."""
+
+    rank: int
+    size: int
+    group: Any  # the context axis's ProcessGroup
+    prev: int  # the world rank ring chunks arrive from (context rank - 1)
+    next: int  # the world rank ring chunks go to (context rank + 1)
+    reduce_group: Any  # the (data, context) group: gradient and loss sums
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "ContextParallel":
+        cm = mesh["context"]
+        ranks = [int(r) for r in cm.mesh.reshape(-1).tolist()]
+        r, n = cm.get_local_rank(), cm.size()
+        return cls(rank=r, size=n, group=cm.get_group(), prev=ranks[(r - 1) % n],
+                   next=ranks[(r + 1) % n], reduce_group=axes_group(mesh, ("data", "context")))
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the ``(data, context)`` group, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.reduce_group)
+        return t
+
+    def post(self, tensors: list) -> tuple:
+        """Start one ring shift: each tensor (None passes through) goes to
+        the next rank, and a buffer of its shape receives the previous
+        rank's, in one batch of point-to-point messages that runs beside
+        the kernels launched until :meth:`wait`.  Returns the handle."""
+        import torch.distributed as dist
+
+        ops, sent, out = [], [], []
+        for t in tensors:
+            if t is None:
+                out.append(None)
+                continue
+            t = t.contiguous()
+            buf = torch.empty_like(t)
+            ops += [dist.P2POp(dist.isend, t, self.next, group=self.group),
+                    dist.P2POp(dist.irecv, buf, self.prev, group=self.group)]
+            sent.append(t)
+            out.append(buf)
+        return dist.batch_isend_irecv(ops) if ops else [], sent, out
+
+    def wait(self, handle: tuple) -> list:
+        """End the shift :meth:`post` started: the tensors the previous rank
+        sent, in the order posted."""
+        reqs, _sent, out = handle  # _sent: the send buffers live until here
+        for req in reqs:
+            req.wait()
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t [cp, ...]``: chunk ``j`` goes to context rank ``j``; chunk
+        ``i`` of the result came from context rank ``i``."""
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out

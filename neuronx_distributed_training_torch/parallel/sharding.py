@@ -85,8 +85,9 @@ def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayou
         if leaf == "lora_b":
             return LeafLayout(partial=True)
     if leaf == "scale" and module.endswith("norm"):
-        # under SP the norms see a seq shard (JAX's ``seq_axes``; context
-        # parallelism is not ported), so their gradient is a partial sum
+        # under SP the norms see a seq shard (JAX's ``seq_axes``), so their
+        # gradient is a partial sum over tp (a partial sum over context, as
+        # every leaf's is under cp, is the train step's (data, context) sum)
         return LeafLayout(partial=bool(sequence_parallel))
     return REPLICATED
 

@@ -4,14 +4,18 @@ checkpointing off, phase 5 on a Megatron corpus), and its step times printed
 as one JSON line:
 
     python -m neuronx_distributed_training_torch.tools.step_times [--steps N]
-        [--save-every K] [--tp N [--sp]] [--set key.path=value ...]
+        [--save-every K] [--tp N [--sp]] [--config PATH] [--set key.path=value ...]
 
 Under torchrun (``torchrun --standalone --nproc_per_node N -m
 neuronx_distributed_training_torch.tools.step_times ...``) the cell trains
 data parallel over NCCL, as ``chip_smoke.py`` phase 7a runs it, and with
 ``--tp N`` (and ``--sp`` for sequence parallelism) tensor parallel over
 groups of N ranks, as phase 8b runs it; the default is the cell's
-``tp=1, sp=false``.  Every rank prints one line, rank 0's with
+``tp=1, sp=false``.  Context parallelism is ``--set
+distributed_strategy.context_parallel_size=2 --set
+model.fusions.ring_attention=true`` (phase 10b), and ``--config`` swaps the
+cell's model config for another one (phase 10b's 70B CP config), the cell's
+other settings kept.  Every rank prints one line, rank 0's with
 ``"rank": 0``.  A line holds the step seconds, losses and grad norms, the
 flash kernels' launch and fallback counts of the run on that rank, and the
 rank's peak device memory (``torch.cuda.max_memory_allocated``).
@@ -70,6 +74,7 @@ def main(argv=None) -> None:
                     help="with --save-every: checkpoint into (and resume from) this exp dir, kept")
     ap.add_argument("--tp", type=int, default=1, help="tensor_model_parallel_size")
     ap.add_argument("--sp", action="store_true", help="sequence_parallel (with --tp > 1)")
+    ap.add_argument("--config", default=None, help="another model config for the cell")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="KEY=VAL", help="more config overrides, after the cell's")
     args = ap.parse_args(argv)
@@ -95,9 +100,10 @@ def main(argv=None) -> None:
                       "--set", f"exp_manager.resume_if_exists={bool(args.exp_dir)}",
                       "--set", f"{ck}.every_n_train_steps={args.save_every}",
                       "--set", f"{ck}.save_top_k=1", "--set", f"{ck}.async_checkpointing=true"]
+    base = CLI_ARGS if args.config is None else CLI_ARGS[:1] + [args.config] + CLI_ARGS[2:]
     fa.reset_counters()
     try:
-        trainer, history = cli.run(CLI_ARGS + overrides)
+        trainer, history = cli.run(base + overrides)
     finally:
         if scratch and args.save_every:
             shutil.rmtree(exp, ignore_errors=True)
@@ -106,6 +112,7 @@ def main(argv=None) -> None:
                       "dp": 1 if trainer.dp is None else trainer.dp.size,
                       "tp": 1 if trainer.tp is None else trainer.tp.size,
                       "sp": bool(trainer.tp and trainer.tp.sequence_parallel),
+                      "cp": 1 if trainer.cp is None else trainer.cp.size,
                       "step_seconds": [r["step_seconds"] for r in history],
                       "loss": [r["loss"] for r in history],
                       "grad_norm": [r["grad_norm"] for r in history],

@@ -30,12 +30,19 @@ is sharded over the data axis (``optim/adamw.py``).  With
 ``tensor_model_parallel_size`` above 1 each rank holds its slices of the
 leaves (``parallel/sharding.py``), drawn whole and cut, and
 ``sequence_parallel`` shards the activations' sequence between the
-column and row layers (``models/llama.py``).  Params start from the first
-rank of each data group.  Rank 0 of the world alone logs the steps and
-writes the exp dir's ``metrics.jsonl``, TensorBoard and ``run_summary.json``
-(each rank keeps its own log file); the stop decisions (``max_time``,
-SIGTERM) are agreed by an all-reduce at each step boundary, so every rank
-stops, and checkpoints, at the same step.  MFU divides the tokens by the
+column and row layers (``models/llama.py``).  With
+``context_parallel_size`` above 1 (and a ring, zig-zag ring or Ulysses
+fusion) the world is ``dp x cp x tp``: the context ranks of a data rank
+take its rows and each computes its ``seq/cp`` slice of them
+(``data/loader.py::context_parallel_batch``, the zig-zag layout under
+``zigzag_ring_attention``, as JAX's loss hook), and gradients and the loss
+are summed over ``(data, context)`` (``trainer/step.py``).  Params start
+from the first rank of each ``(data, context)`` group.  Rank 0 of the
+world alone logs the steps and writes the exp dir's ``metrics.jsonl``,
+TensorBoard and ``run_summary.json`` (each rank keeps its own log file);
+the stop decisions (``max_time``, SIGTERM) are agreed by an all-reduce at
+each step boundary, so every rank stops, and checkpoints, at the same
+step.  MFU divides the tokens by the
 world size: each card computes ``1/world`` of the step's FLOPs.
 
 Preference alignment (``model_alignment_strategy: dpo | orpo | kto``): the
@@ -83,7 +90,11 @@ from neuronx_distributed_training_torch.checkpoint import (
 )
 from neuronx_distributed_training_torch.config.loader import ConfigDict, batch_schedule
 from neuronx_distributed_training_torch.data.build import alignment_strategy, build_data_module
-from neuronx_distributed_training_torch.data.loader import DataModule, PrefetchIterator
+from neuronx_distributed_training_torch.data.loader import (
+    DataModule,
+    PrefetchIterator,
+    context_parallel_batch,
+)
 from neuronx_distributed_training_torch.models import llama
 from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
@@ -93,6 +104,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
 from neuronx_distributed_training_torch.parallel import sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
+    ContextParallel,
     DataParallel,
     MeshConfig,
     TensorParallel,
@@ -128,62 +140,88 @@ def parse_max_time(value: Any) -> Optional[float]:
     return float(((d * 24 + h) * 60 + m) * 60 + s)
 
 
-def _unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+def _unsupported(reasons: list) -> NotImplementedError:
+    """One error naming each ``(what, entry, item)``: the ROADMAP queue 1
+    entry that ports it and its bracketed item number."""
+    return NotImplementedError("; ".join(
+        f"{what} is not ported yet (ROADMAP queue 1 entry {entry} [item {item}])"
+        for what, entry, item in reasons))
 
 
 def check_supported(cfg: ConfigDict) -> None:
     """Reject what this slice of the port does not implement, naming the
-    ROADMAP queue item that ports it."""
+    ROADMAP queue entry (and item) that ports each; a config with several
+    such knobs gets them all in one message."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
-    _check_tensor_parallel(cfg, ds, model)
-    for key, label, item in (
-        ("pipeline_model_parallel_size", "pipeline parallelism (pp > 1)", "12"),
-        ("context_parallel_size", "context parallelism (cp > 1)", "11"),
-        ("expert_model_parallel_size", "expert parallelism (ep > 1)", "13"),
-    ):
-        if int(ds.get(key, 1) or 1) > 1:
-            raise _unsupported(label, item)
-    for key in ("ring_attention", "ulysses_attention", "zigzag_ring_attention"):
-        if fusions.get(key):
-            raise _unsupported(f"fusions.{key}", "11")
+    reasons = _tensor_parallel_reasons(cfg, ds, model)
+    pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
+    cp = int(ds.get("context_parallel_size", 1) or 1)
+    strategy, _ = alignment_strategy(cfg)
+    if fusions.get("zigzag_ring_attention"):
+        # the JAX trainer's own rules: the zig-zag batch transform lives in
+        # the plain loss hook
+        if pp > 1:
+            raise NotImplementedError("zigzag_ring_attention under pipeline parallelism; use "
+                                      "fusions.ring_attention for pp + cp configs")
+        if strategy in PREFERENCE:
+            raise NotImplementedError("zigzag_ring_attention with preference alignment; use "
+                                      "fusions.ring_attention")
+    if pp > 1:
+        reasons.append(("pipeline parallelism (pp > 1)", "9", "12"))
+        if cp > 1:
+            reasons.append(("context parallelism under pipeline parallelism "
+                            "(blockwise_gspmd_attention)", "9", "12"))
+    if int(ds.get("expert_model_parallel_size", 1) or 1) > 1:
+        reasons.append(("expert parallelism (ep > 1)", "10", "13"))
+    if strategy in PREFERENCE and cp > 1:
+        reasons.append((f"preference alignment ({strategy}) under context parallelism "
+                        f"(per-sequence log-prob sums over the context group)", "4", "11"))
     if fusions.get("chunked_ce"):
-        raise _unsupported("fusions.chunked_ce (chunked_cross_entropy_from_hidden)", "2")
+        reasons.append(("fusions.chunked_ce (chunked_cross_entropy_from_hidden)", "5", "2"))
     arch = str(model.get("architecture", model.get("model_type", "llama"))).lower()
     if model.get("moe") or arch == "mixtral":
-        raise _unsupported("MoE (mixtral)", "13")
+        reasons.append(("MoE (mixtral)", "10", "13"))
     if str(cfg.get("model_source", "hf")).lower() == "megatron" or arch == "gpt":
-        raise _unsupported("megatron GPT models", "14")
-    if arch not in ("llama", "mistral"):
+        reasons.append(("megatron GPT models", "11", "14"))
+    elif arch not in ("llama", "mistral"):
         raise ValueError(f"unknown architecture {arch!r}")
+    if reasons:
+        raise _unsupported(reasons)
 
 
-def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
+def _tensor_parallel_reasons(cfg: ConfigDict, ds: dict, model: dict) -> list:
     """tp must divide the heads, the kv heads and the vocab (and, under
-    sequence parallelism, the sequence).  tp above the kv heads needs KV
-    replication (NxD's ``kv_replicator``), and a vocab tp does not divide
-    needs padding: neither is ported."""
+    sequence parallelism, each context rank's ``seq/cp``).  tp above the kv
+    heads needs KV replication (NxD's ``kv_replicator``), and a vocab tp does
+    not divide needs padding: neither is ported, and both are returned as
+    reasons; the rest raise ValueError."""
     tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
     if tp == 1:
-        return
+        return []
     nh = int(model.get("num_attention_heads", 32))
     nkv = int(model.get("num_key_value_heads") or nh)
     vocab = int(model.get("vocab_size", 32000))
+    reasons = []
     if tp > nkv:
-        raise _unsupported(f"tensor parallelism with tp {tp} above the {nkv} kv heads "
-                           f"(KV replication)", "7")
+        reasons.append((f"tensor parallelism with tp {tp} above the {nkv} kv heads "
+                        f"(KV replication)", "2a", "7"))
     if vocab % tp:
-        raise _unsupported(f"a vocab of {vocab} that tp {tp} does not divide (padding, "
-                           f"ops/linear.py::pad_vocab_size)", "7")
+        reasons.append((f"a vocab of {vocab} that tp {tp} does not divide (padding, "
+                        f"ops/linear.py::pad_vocab_size)", "2b", "7"))
+    if reasons:
+        return reasons
     for key, n in (("num_attention_heads", nh), ("num_key_value_heads", nkv)):
         if n % tp:
             raise ValueError(f"tensor_model_parallel_size {tp} must divide model.{key} {n}")
     seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
-    if ds.get("sequence_parallel") and seq % tp:
+    cp = int(ds.get("context_parallel_size", 1) or 1)
+    if ds.get("sequence_parallel") and (seq // cp) % tp:
         raise ValueError(f"sequence_parallel: tensor_model_parallel_size {tp} must divide "
-                         f"data.seq_length {seq}")
+                         f"data.seq_length {seq}" + (f" / context_parallel_size {cp}"
+                                                     if cp > 1 else ""))
+    return []
 
 
 def _log_ignored(cfg: ConfigDict) -> None:
@@ -351,6 +389,8 @@ class Trainer:
     dp: Optional[DataParallel] = None
     #: the model axis under a process group (None: one process, no group)
     tp: Optional[TensorParallel] = None
+    #: the context axis (None unless context_parallel_size > 1)
+    cp: Optional[ContextParallel] = None
     #: the tensor-parallel layout of every leaf (parallel/sharding.py)
     layouts: dict = dataclasses.field(default_factory=dict)
     #: the process group's world size (1 without one)
@@ -381,17 +421,22 @@ class Trainer:
         dev = resolve_device(device)
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
         model_block = dict(cfg.get("model", {}) or {})
-        mc = llama.LlamaConfig.from_config(model_block)
         ds = dict(cfg.get("distributed_strategy", {}) or {})
+        mc = llama.LlamaConfig.from_config(model_block, ds)
         mesh_cfg = MeshConfig.from_config(ds)
-        dp, dp_size, tp = None, 1, None
+        dp, dp_size, tp, cp = None, 1, None, None
         if dist.is_available() and dist.is_initialized():
             mesh = build_mesh(mesh_cfg, device_type=dev.type)
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
             tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel)
-        elif mesh_cfg.tp > 1:
-            raise ValueError(f"tensor_model_parallel_size {mesh_cfg.tp} needs {mesh_cfg.tp} "
-                             f"processes: launch under torchrun (--nproc_per_node)")
+            if mc.context_parallel:
+                cp = ContextParallel.from_mesh(mesh)
+        else:
+            for key, n in (("tensor_model_parallel_size", mesh_cfg.tp),
+                           ("context_parallel_size", mesh_cfg.cp)):
+                if n > 1:
+                    raise ValueError(f"{key} {n} needs {n} processes: launch under torchrun "
+                                     f"(--nproc_per_node)")
         tp_rank, tp_size = (0, 1) if tp is None else (tp.rank, tp.size)
         sched = batch_schedule(cfg, n_devices=world)
         seed = int(cfg.get("seed", 1234))
@@ -401,6 +446,10 @@ class Trainer:
                                                      vocab_size=mc.vocab_size)
             val_data_module = val_data_module or cfg_val
         shift_labels = not getattr(data_module, "labels_pre_shifted", False)
+        zigzag = mc.attention_impl == "zigzag_ring"
+        if zigzag and not shift_labels:
+            raise NotImplementedError("zigzag_ring_attention with a pre-shifted data module "
+                                      "(the zig-zag transform owns the label shift)")
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
                                    tp_size=tp_size)
@@ -418,10 +467,11 @@ class Trainer:
                             "package", lora_cfg.dropout)
         flat = llama.named_params(params)
         if dp is not None:
-            # every rank starts from its data group's first rank's weights
-            src = dist.get_global_rank(dp.group, 0)
+            # every rank starts from its (data, context) group's first rank's weights
+            group = dp.group if cp is None else cp.reduce_group
+            src = dist.get_global_rank(group, 0)
             for t in flat.values():
-                dist.broadcast(t, src=src, group=dp.group)
+                dist.broadcast(t, src=src, group=group)
         layouts = sharding.leaf_layouts(flat, mc, sequence_parallel=mesh_cfg.sequence_parallel)
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
@@ -441,8 +491,14 @@ class Trainer:
             token_count_fn = _row_count
         else:
             def loss_fn(p, batch, denominator=None):
+                if cp is not None:
+                    # the rank's slice, cut after what needs the whole row
+                    pos = llama.positions_for(batch["input_ids"], batch.get("attention_mask"),
+                                              batch.get("segment_ids"))
+                    batch = context_parallel_batch(batch, cp.rank, cp.size, positions=pos,
+                                                   shift_labels=shift_labels, zigzag=zigzag)
                 return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
-                                     loss_denominator=denominator, tp=tp)
+                                     loss_denominator=denominator, tp=tp, cp=cp)
 
             def token_count_fn(batch):
                 return llama.loss_token_count(batch, shift_labels=shift_labels)
@@ -454,7 +510,7 @@ class Trainer:
             num_microbatches=nm, trainable=trainable, health=health, dp=dp,
             token_count_fn=token_count_fn, tp=tp,
             tp_partial=frozenset(n for n in train_flat if layouts[n].partial),
-            tp_sharded=frozenset(n for n in train_flat if layouts[n].sharded))
+            tp_sharded=frozenset(n for n in train_flat if layouts[n].sharded), cp=cp)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
         version = None
         if dp is not None:
@@ -465,25 +521,27 @@ class Trainer:
         if enable_checkpointing:
             ck_cfg = dataclasses.replace(CheckpointConfig.from_config(cfg),
                                          dir=exp.checkpoint_dir)
-            checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp)
+            checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp, cp=cp)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
         if rank == 0:
             logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
-                        "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, zero1 %s (%d of "
-                        "%d state leaves sharded); health %s; run dir %s", mc, nm,
+                        "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, cp %d (%s), zero1 "
+                        "%s (%d of %d state leaves sharded); health %s; run dir %s", mc, nm,
                         sched["micro_batch_size"], policy, dev, type(data_module).__name__,
                         shift_labels, "all leaves" if trainable is None else
                         f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, tp_size,
-                        bool(tp and tp.sequence_parallel), zero1,
+                        bool(tp and tp.sequence_parallel), 1 if cp is None else cp.size,
+                        mc.attention_impl, zero1,
                         sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
                         health.policy if health.enabled else "off", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
                    opt_state=opt_state, train_step=step_fn, trainable=trainable,
                    eval_step=make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
-                                            token_count_fn=token_count_fn),
+                                            token_count_fn=token_count_fn, cp=cp),
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
-                   peak_tflops=peak, health=health, dp=dp, tp=tp, layouts=layouts, rank=rank,
+                   peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, layouts=layouts,
+                   rank=rank,
                    world=world, reference=reference)
 
     # -- resume ---------------------------------------------------------------

@@ -49,6 +49,17 @@ only (every tp rank already holds the whole loss).  The clipping norm counts
 the ``tp_sharded`` leaves' slices over tp and each replicated leaf once, so
 the skip decision and the clip factor are the same on every rank of the
 world, and every rank issues the same collectives in the same order.
+
+``cp`` (``parallel/mesh.py::ContextParallel``): context parallelism.  Every
+context rank of a data rank takes that rank's rows, and the loss function
+computes its slice of the sequence (``data/loader.py::
+context_parallel_batch``) against the whole microbatch's denominator.  Every
+parameter's gradient is then a partial sum over ``context``, so the
+gradients and the loss are SUM all-reduced over the ``(data, context)``
+group in place of the data axis alone; after that every rank holds the same
+gradients, and the grad norm, the finite flag (a non-finite value on any
+rank reaches every rank through the sum) and the update follow as without
+cp.  ZeRO-1 stays on the data axis: the context ranks hold the same state.
 """
 
 from __future__ import annotations
@@ -119,17 +130,26 @@ def _all_reduce_partial_(grads: list, tp) -> None:
         offset += g.numel()
 
 
+def _summing(dp, cp):
+    """The in-place SUM of gradients and losses across the ranks that split
+    the microbatches: ``(data, context)`` under cp, else the data axis."""
+    if cp is not None:
+        return cp.all_reduce_
+    return None if dp is None else dp.all_reduce_
+
+
 def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable,
                     policy: DtypePolicy, *, num_microbatches: int = 1,
                     trainable: Optional[set[str]] = None, health: Any = None,
                     dp: Any = None, token_count_fn: Optional[Callable] = None,
                     tp: Any = None, tp_partial: frozenset = frozenset(),
-                    tp_sharded: frozenset = frozenset()) -> Callable:
+                    tp_sharded: frozenset = frozenset(), cp: Any = None) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``)."""
     health = health if health is not None and getattr(health, "enabled", False) else None
     if dp is not None and token_count_fn is None:
         raise ValueError("data parallelism needs token_count_fn (the loss denominator)")
+    summed = _summing(dp, cp)
 
     def train_step(params, opt_state, batch):
         flat = named_params(params)
@@ -160,10 +180,10 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
         partial = [g for n, g in zip(names, grad_sum) if n in tp_partial]
         if tp_active(tp) and partial:
             _all_reduce_partial_(partial, tp)
-        if dp is not None:
+        if summed is not None:
             for g in grad_sum:
-                dp.all_reduce_(g)
-            dp.all_reduce_(loss_sum)
+                summed(g)
+            summed(loss_sum)
         if num_microbatches > 1:
             inv = 1.0 / num_microbatches
             loss_sum = loss_sum * inv
@@ -219,10 +239,12 @@ def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp
 
 
 def make_eval_step(loss_fn: LossFn, *, num_microbatches: int = 1, dp: Any = None,
-                   token_count_fn: Optional[Callable] = None) -> Callable:
+                   token_count_fn: Optional[Callable] = None, cp: Any = None) -> Callable:
     """``eval_step(params, batch) -> mean loss`` over the microbatches, with
-    no gradients (the validation loss); under ``dp`` each rank computes its
-    rows and the loss is SUM all-reduced, as in the train step."""
+    no gradients (the validation loss); under ``dp`` (and ``cp``) each rank
+    computes its rows (and slice) and the loss is SUM all-reduced, as in the
+    train step."""
+    summed = _summing(dp, cp)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -230,8 +252,8 @@ def make_eval_step(loss_fn: LossFn, *, num_microbatches: int = 1, dp: Any = None
         for mb, denom in _microbatches(batch, num_microbatches, dp, token_count_fn):
             loss = _call_loss(loss_fn, params, mb, denom)[0].float()
             total = loss if total is None else total + loss
-        if dp is not None:
-            dp.all_reduce_(total)
+        if summed is not None:
+            summed(total)
         return total / num_microbatches
 
     return eval_step

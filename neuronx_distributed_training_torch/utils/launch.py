@@ -12,7 +12,8 @@ pure function of an env mapping.
 :func:`initialize_distributed` starts ``torch.distributed``: NCCL with each
 process on ``cuda:LOCAL_RANK``, or gloo when the caller asked for the CPU.
 A run under torchrun gets a process group even at world size 1, so one card
-runs the same collectives as many.
+runs the same collectives as many.  The world is ``dp x cp x tp`` processes (pp and ep
+are not ported; ``parallel/mesh.py`` lays the ranks out), one card each.
 """
 
 from __future__ import annotations

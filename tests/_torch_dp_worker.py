@@ -1,5 +1,6 @@
-"""One rank of the port's data- and tensor-parallel tests
-(``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``).
+"""One rank of the port's data-, tensor- and context-parallel tests
+(``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_cp.py``).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/_torch_dp_worker.py <spec.json>
@@ -11,14 +12,21 @@ rank 0, ``.pt`` files of the trained state).  Imports torch and the port,
 never jax.
 
 A scenario is ``{"name", "cfg", "steps", "weights"?, "data"?, "max_steps"?,
-"dump"?, "dump_init"?, "grads"?}``, or ``{"name", "kind": "units"}`` for the
-vocab-parallel cross-entropy and embedding against the plain ones:
+"dump"?, "dump_init"?, "grads"?, "poison"?}``, or ``{"name", "kind": "units"}`` for
+the vocab-parallel cross-entropy and embedding against the plain ones, or
+``{"name", "kind": "cp_units"}`` for the ring, zig-zag ring and Ulysses
+attention over the world as one context group against core attention on the
+whole sequence:
 - ``weights``: a ``.pt`` dict of dotted param names to start from, global
   leaves in the JAX layout, which each rank cuts to its tensor-parallel
   slices (the optimizer state is re-initialised from them);
 - ``data``: ``{"kind": "sft_mask", "seed": s}`` for :class:`MaskedRows`,
   ``{"kind": "nan_rows", "step": i, "rows": [...]}`` for synthetic rows with
-  a NaN ``loss_mask`` in those global rows of step ``i``;
+  a NaN ``loss_mask`` in those global rows of step ``i``,
+  ``{"kind": "padded", "seed": s}`` for right-padded rows with an
+  ``attention_mask`` (:class:`PaddedRows`);
+- ``poison``: ``{"step": i, "cp_rank": r}``: at step ``i`` the ranks of
+  context coordinate ``r`` alone compute a NaN loss;
 - ``max_steps``: stop the fit there (a preempted run; the config's
   ``max_steps`` still sets the schedule);
 - ``dump``: write the trained params and the gathered optimizer state, as
@@ -27,7 +35,9 @@ vocab-parallel cross-entropy and embedding against the plain ones:
 - ``grads``: write the gradients the first step hands AdamW (after the tp
   and dp all-reduces), merged so, to this path.
 
-Each rank also reports a digest of the rows of each microbatch it computed
+Each rank also reports its mesh coordinates (``coords``) and a digest of its
+local params and moments after the fit (``state_digest``), and a digest of
+the rows of each microbatch it computed
 (``rows``; of ``chosen_input_ids`` for preference pairs), so a test sees
 which ranks compute the same rows, and for KTO batches the desirable rows of
 each (``kto_desirable``).  A preference config builds its data module from
@@ -88,6 +98,32 @@ class MaskedRows(DataModule):
         return masked_rows(idx, seq=self.seq_len, vocab=self.vocab_size, seed=self.seed)
 
 
+def padded_rows(idx, *, seq: int, vocab: int, seed: int) -> dict:
+    """Right-padded rows: a random count of real tokens (at least seq/4),
+    then pad id 0; ``loss_mask`` and ``attention_mask`` mark the real ones."""
+    ids = np.zeros((len(idx), seq), np.int32)
+    am = np.zeros((len(idx), seq), np.int32)
+    for r, i in enumerate(idx):
+        rng = np.random.default_rng(seed * 1_000_003 + int(i))
+        n = int(rng.integers(seq // 4, seq))
+        ids[r, :n] = rng.integers(1, vocab, n)
+        am[r, :n] = 1
+    return {"input_ids": ids, "labels": ids.copy(), "loss_mask": am.astype(np.float32),
+            "attention_mask": am}
+
+
+PADDED_NAMES = ("input_ids", "labels", "loss_mask", "attention_mask")
+
+
+class PaddedRows(DataModule):
+    def __init__(self, vocab_size: int, seq_len: int, global_batch_size: int, *, seed: int):
+        self.vocab_size, self.seq_len, self.seed = vocab_size, seq_len, seed
+        super().__init__(1 << 12, global_batch_size, input_names=PADDED_NAMES)
+
+    def fetch_rows(self, idx):
+        return padded_rows(idx, seq=self.seq_len, vocab=self.vocab_size, seed=self.seed)
+
+
 class NanRows(SyntheticDataModule):
     """Synthetic rows; the global batch of step ``step`` gets a NaN
     ``loss_mask`` in ``rows`` (how ``tests/test_health.py`` poisons one)."""
@@ -111,6 +147,9 @@ def _data(cfg, spec):
     m, data = cfg["model"], cfg["data"]
     if d["kind"] == "sft_mask":
         return MaskedRows(m["vocab_size"], data["seq_length"], data["global_batch_size"],
+                          seed=d["seed"])
+    if d["kind"] == "padded":
+        return PaddedRows(m["vocab_size"], data["seq_length"], data["global_batch_size"],
                           seed=d["seed"])
     return NanRows(m["vocab_size"], data["seq_length"], data["global_batch_size"],
                    seed=int(cfg.get("seed", 1234)), step=d["step"], rows=d["rows"])
@@ -206,9 +245,78 @@ def run_units(rank: int) -> dict:
     return out
 
 
+def run_cp_units() -> dict:
+    """The context-parallel attention over the world as one context group
+    (real point-to-point shifts, all-to-alls and all-gathers), fp32, against
+    core attention on the whole sequence: max abs differences of this rank's
+    o, dq, dk and dv, and how many chunks took the blockwise route and how
+    many calls the core fallback."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_training_torch.ops import attention as attn_ops
+    from neuronx_distributed_training_torch.ops import flash_attention as fa
+    from neuronx_distributed_training_torch.parallel.mesh import (
+        ContextParallel,
+        MeshConfig,
+        build_mesh,
+    )
+    from neuronx_distributed_training_torch.parallel.ring_attention import zigzag_positions
+
+    n = dist.get_world_size()
+    cp = ContextParallel.from_mesh(build_mesh(MeshConfig(context_parallel_size=n),
+                                              device_type="cpu"))
+    out = {}
+    # (name, impl, d, s per rank, window, padded)
+    for name, impl, d, sq, window, padded in (
+            ("ring_blockwise", "ring", 16, 16, None, True),
+            ("ring_flash", "ring", 64, 64, None, True),
+            ("ring_flash_window", "ring", 64, 64, 80, False),
+            ("zigzag_blockwise", "zigzag_ring", 16, 16, None, False),
+            ("zigzag_flash", "zigzag_ring", 64, 128, None, False),
+            ("ulysses_core", "ulysses", 16, 16, 24, True),
+            ("ulysses_flash", "ulysses", 64, 64, None, True)):
+        gen = torch.Generator().manual_seed(sum(map(ord, name)))
+        b, s, h, kvh = 2, sq * n, 4, 2
+        q, k, v, do = (torch.randn(b, s, x, d, generator=gen) for x in (h, kvh, kvh, h))
+        am = None
+        if padded:
+            am = torch.ones(b, s, dtype=torch.int32)
+            am[0, s - s // 3:] = 0
+            am[1, s - 5:] = 0
+        whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref = attn_ops.attention(*whole, impl="core", sliding_window=window,
+                                 attention_mask=am)
+        ref.backward(do)
+        want = [ref.detach()] + [x.grad for x in whole]
+        order = zigzag_positions(s, n) if impl == "zigzag_ring" else torch.arange(s)
+        mine = order[cp.rank * sq:(cp.rank + 1) * sq]
+        parts = [x.index_select(1, mine).clone().requires_grad_(True) for x in (q, k, v)]
+        before = dict(fa.FALLBACKS)
+        o = attn_ops.attention(*parts, impl=impl, sliding_window=window,
+                               attention_mask=None if am is None else am.index_select(1, mine),
+                               cp=cp)
+        o.backward(do.index_select(1, mine))
+        got = [o.detach()] + [x.grad for x in parts]
+        out[name] = {"errs": [float((g - w.index_select(1, mine)).abs().max())
+                              for g, w in zip(got, want)],
+                     **{k: fa.FALLBACKS[k] - before[k] for k in before}}
+    return out
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(local(t).detach().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def run(spec: dict, rank: int) -> dict:
     if spec.get("kind") == "units":
         return run_units(rank)
+    if spec.get("kind") == "cp_units":
+        return run_cp_units()
     cfg = load_config(spec["cfg"])
     trainer = Trainer.from_config(cfg, device="cpu", data_module=_data(cfg, spec))
     out: dict = {"zero1_shards": {}, "rows": []}
@@ -251,11 +359,23 @@ def run(spec: dict, rank: int) -> dict:
             captured.update({n: g.detach().clone() for n, g in grads.items()})
         return update(params, grads, *a, **kw)
 
+    call_loss = step_mod._call_loss
+    poison = spec.get("poison")
+
+    def poisoned_loss(*a, **kw):
+        loss, aux = call_loss(*a, **kw)
+        if trainer.step == poison["step"] and trainer.cp.rank == poison["cp_rank"]:
+            loss = loss * float("nan")
+        return loss, aux
+
     step_mod._microbatches, step_mod.adamw_update = record_rows, capture
+    if poison:
+        step_mod._call_loss = poisoned_loss
     try:
         history = trainer.fit()
     finally:
         step_mod._microbatches, step_mod.adamw_update = microbatches, update
+        step_mod._call_loss = call_loss
     if spec.get("grads"):
         _save(merged(trainer, captured), spec["grads"])
     out["history"] = history
@@ -263,6 +383,11 @@ def run(spec: dict, rank: int) -> dict:
     out["opt_step"] = trainer.opt_state["step"]
     out["health"] = trainer.opt_state.get("health")
     out["committed"] = trainer.checkpointer.committed_steps if trainer.checkpointer else []
+    out["coords"] = {"dp": trainer.dp.rank, "tp": tp.rank,
+                     "cp": 0 if trainer.cp is None else trainer.cp.rank}
+    out["state_digest"] = _digest(list(llama.named_params(trainer.params).values())
+                                  + [t for g in ("mu", "nu", "master")
+                                     for t in trainer.opt_state.get(g, {}).values()])
     if spec.get("dump"):
         state = {f"params/{n}": p for n, p in llama.named_params(trainer.params).items()}
         for g in ("mu", "nu", "master"):

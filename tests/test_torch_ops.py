@@ -202,6 +202,28 @@ def test_attention_dispatch_rules():
         t_attn.attention(q, q, q, impl="zigzag_ring", attention_mask=torch.ones(1, 4))
     with pytest.raises(ValueError, match="flash and core paths only"):
         t_attn.attention(q, q, q, impl="ring", segment_ids=torch.zeros(1, 4, dtype=torch.int32))
-    for impl in ("ring", "ulysses", "zigzag_ring"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            t_attn.attention(q, q, q, impl=impl)
+    with pytest.raises(ValueError, match="zigzag ring does not support sliding_window"):
+        t_attn.attention(q, q, q, impl="zigzag_ring", sliding_window=2)
+
+
+@pytest.mark.parametrize("impl,module,fn", [
+    ("ring", "ring_attention", "ring_attention"),
+    ("ulysses", "ulysses", "ulysses_attention"),
+    ("zigzag_ring", "ring_attention", "zigzag_ring_attention"),
+])
+def test_cp_impls_dispatch_to_their_modules(impl, module, fn, monkeypatch):
+    """Each context-parallel impl reaches its module's function with the
+    context group; without one it is core attention (JAX's cp == 1 rule),
+    and an explicit q_offset is rejected as in JAX."""
+    import importlib
+
+    q = torch.randn(1, 8, 2, 8, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(t_attn.attention(q, q, q, impl=impl), t_attn.core_attention(q, q, q))
+    with pytest.raises(ValueError, match="q_offset is not meaningful"):
+        t_attn.attention(q, q, q, impl=impl, q_offset=4)
+    mod = importlib.import_module(f"neuronx_distributed_training_torch.parallel.{module}")
+    seen = {}
+    monkeypatch.setattr(mod, fn, lambda *a, **kw: seen.update(kw) or a[0])
+    group = object()
+    assert t_attn.attention(q, q, q, impl=impl, cp=group) is q
+    assert seen["cp"] is group

@@ -124,9 +124,17 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     ({"distributed_strategy.tensor_model_parallel_size": 4,
       "distributed_strategy.sequence_parallel": True}, "item 7"),
     ({"distributed_strategy.pipeline_model_parallel_size": 2}, "item 12"),
+    # context parallelism under pipeline parallelism (blockwise_gspmd_attention)
+    ({"distributed_strategy.pipeline_model_parallel_size": 2,
+      "distributed_strategy.context_parallel_size": 2,
+      "model.fusions.ring_attention": True}, "blockwise_gspmd_attention.*entry 9 \\[item 12"),
+    # tp above the kv heads under cp too
     ({"distributed_strategy.context_parallel_size": 2,
-      "model.fusions.ring_attention": True}, "item 11"),
-    ({"model.fusions.ulysses_attention": True}, "item 11"),
+      "distributed_strategy.tensor_model_parallel_size": 4,
+      "model.fusions.ring_attention": True}, "kv heads.*entry 2a \\[item 7"),
+    # preference alignment under cp
+    ({"distributed_strategy.context_parallel_size": 2, "model.fusions.ring_attention": True,
+      "model_alignment_strategy": "dpo"}, "under context parallelism.*entry 4 \\[item 11"),
     ({"model.moe.num_experts": 4}, "item 13"),
     ({"model_source": "megatron"}, "item 14"),
     ({"model.fusions.chunked_ce": 4}, "item 2"),
@@ -135,6 +143,36 @@ def test_unported_knobs_are_rejected_with_their_roadmap_item(override, item):
     cfg = t_loader.load_config(TINY, override)
     with pytest.raises(NotImplementedError, match=item):
         t_loop.Trainer.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("fusion", ["ring_attention", "ulysses_attention",
+                                    "zigzag_ring_attention"])
+def test_context_parallel_fusions_are_accepted(fusion):
+    """cp 2 with each cp fusion passes check_supported; in one process the
+    trainer asks for torchrun (a context group needs cp processes)."""
+    cfg = t_loader.load_config(TINY, {"distributed_strategy.context_parallel_size": 2,
+                                      f"model.fusions.{fusion}": True})
+    t_loop.check_supported(cfg)
+    with pytest.raises(ValueError, match="context_parallel_size 2 needs 2 processes"):
+        t_loop.Trainer.from_config(cfg, device="cpu")
+
+
+def test_cp_fusion_at_cp1_trains_as_core_attention(tmp_path):
+    """At cp 1 the ring and Ulysses are core attention (JAX's fallback): one
+    step with either fusion gives the core run's loss bit for bit."""
+    losses = {}
+    for fusion in (None, "ring_attention", "ulysses_attention"):
+        over = {"trainer.max_steps": 1, "exp_manager.exp_dir": str(tmp_path / str(fusion)),
+                "exp_manager.create_tensorboard_logger": False,
+                "exp_manager.checkpoint_callback_params.every_n_train_steps": 0}
+        if fusion:
+            over[f"model.fusions.{fusion}"] = True
+        trainer = t_loop.Trainer.from_config(t_loader.load_config(TINY, over), device="cpu",
+                                             enable_checkpointing=False)
+        assert trainer.model_cfg.attention_impl == {None: "core", "ring_attention": "ring",
+                                                    "ulysses_attention": "ulysses"}[fusion]
+        losses[fusion] = trainer.fit()[0]["loss"]
+    assert losses["ring_attention"] == losses[None] == losses["ulysses_attention"]
 
 
 @pytest.mark.parametrize("strategy", ["dpo", "kto"])
