@@ -139,6 +139,24 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       four cards also the 70B CP config at its width and seq 32768, one
       layer, tp 2 x cp 2.  With one card it prints why it did not run.
 
+11. the dense Llama configs at their own meshes:
+   a. phase 4's cell again with ``model.fusions.chunked_ce=8`` (the fused
+      head + CE of ``hf_llama3.1_405B_config.yaml``, over 8 vocab blocks):
+      every microbatch's loss through the chunked head, losses and grad
+      norms within the ``mixed_precision`` tolerance of phase 4's, the flash
+      launches of phase 4, and a peak device memory below phase 4's; it
+      prints both runs' step seconds, tokens/s, MFU and peak memory;
+   b. the three kernels at the per-rank heads that KV replication gives the
+      flagship's tp 16 (2 q heads, 1 kv head) and tp 32 (1 and 1), s 8192:
+      against their plain versions at phase 2's tolerances, then timed with
+      their bounds and grids, as 8a;
+   c. with two or more cards, DPO from ``hf_llama3_8B_DPO_config.yaml`` (4
+      layers, seq 2048, phase 9's records) under torchrun at cp 2 with the
+      ring against cp 1: steps 0-1 (policy = reference) at ln 2 with grad
+      norms within the ``mixed_precision`` tolerance, step 2 within twice
+      the spread of two one-card attentions.  With one card it prints why
+      it did not run.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.
@@ -1921,6 +1939,164 @@ def phase_cp(torch, cell, ref: dict, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dense Llama configs at their own meshes
+# ---------------------------------------------------------------------------
+
+#: phase 11a: hf_llama3.1_405B_config.yaml's fusions.chunked_ce
+CHUNKED_CE = 8
+#: phase 11c: DPO's step 2, the first after a non-zero update (the config's
+#: warmup gives step 0 lr 0): Adam moves every weight by about lr whatever
+#: its gradient's size, and the DPO loss reads the policy-reference margin,
+#: a difference of sums over 2048 tokens, so equivalent attentions round
+#: it apart.  At cp 1 on an NVIDIA H100 80GB HBM3 (700 W) this step read
+#: 0.6607 with flash and 0.6380 with core attention, grad norms 429.3 and
+#: 414.1; step 2 is held to about twice that spread, steps 0-1 (the policy
+#: is the reference) to the mixed_precision tolerance.
+PREF_STEP2_LOSS_ATOL, PREF_STEP2_GRAD_NORM_RTOL = 0.05, 0.07
+#: phase 11b: the flagship's tp 16 and tp 32 over its 32 q and 8 kv heads:
+#: (tp, per-rank q heads, per-rank kv heads after replication)
+REPLICATED_TP = ((16, 2, 1), (32, 1, 1))
+
+
+def phase_chunked(torch, fa, cell, history4: list, launches4: dict, card: str) -> dict:
+    """11a: phase 4's cell again with ``model.fusions.chunked_ce=8`` (the
+    fused head + CE over 8 vocab blocks): each microbatch's loss goes
+    through the chunked head, the losses and grad norms follow phase 4's
+    within the mixed_precision tolerance, the flash kernels launch as in
+    phase 4, and the peak device memory is below phase 4's."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t_phase = time.perf_counter()
+    calls = []
+    fused = llama._chunked_head_loss
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return fused(*a, **kw)
+
+    llama._chunked_head_loss = counted
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    try:
+        history = cli.main(cell.CLI_ARGS + ["--set", f"model.fusions.chunked_ce={CHUNKED_CE}"])
+    finally:
+        llama._chunked_head_loss = fused
+        shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
+    torch.cuda.synchronize()
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    peak, peak4 = torch.cuda.max_memory_allocated(), history4[0]["peak_bytes"]
+    for name, hist, pk in (("unchunked (phase 4)", history4, peak4),
+                           (f"chunked_ce={CHUNKED_CE}", history, peak)):
+        for r in hist:
+            log(f"chunked: {name} step {r['step']}: loss {r['loss']:.6f} grad_norm "
+                f"{r['grad_norm']:.6f} step {r['step_seconds']:.3f} s, "
+                f"{r['tokens_per_sec']:.1f} tokens/s, MFU {r['mfu']:.4f} [{card}]")
+        log(f"chunked: {name}: peak device memory {pk} bytes ({pk / 2**30:.2f} GiB) [{card}]")
+    log(f"chunked: head calls {len(calls)}, launches {launches} (phase 4 {launches4}), "
+        f"fallbacks {fallbacks}; peak {peak / 2**30:.2f} GiB against phase 4's "
+        f"{peak4 / 2**30:.2f} GiB ({(peak4 - peak) / 2**30:.2f} GiB less) [{card}]")
+    expect_calls = cell.MICROBATCHES * cell.STEPS
+    if len(history) != cell.STEPS or len(calls) != expect_calls:
+        fail(f"chunked: {len(history)} steps and {len(calls)} chunked-head calls, expected "
+             f"{cell.STEPS} and {expect_calls}")
+    if launches != launches4 or fallbacks["core"]:
+        fail(f"chunked: launches {launches} (fallbacks {fallbacks}), phase 4 {launches4}")
+    for k, rtol in (("loss", TP_LOSS_RTOL), ("grad_norm", TP_GRAD_NORM_RTOL)):
+        got, want = [r[k] for r in history], [r[k] for r in history4]
+        if not all(math.isfinite(a) and math.isclose(a, b, rel_tol=rtol)
+                   for a, b in zip(got, want)):
+            fail(f"chunked: {k} {got} against phase 4's {want} (rtol {rtol:g})")
+    if peak >= peak4:
+        fail(f"chunked: peak device memory {peak} bytes, not below phase 4's {peak4}")
+    out = {"history": history, "launches": launches, "peak_bytes": peak,
+           "peak_bytes_unchunked": peak4, "phase_seconds": time.perf_counter() - t_phase}
+    log(f"chunked: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_replicated_kernels(torch, fa, kt, card: str, peaks) -> list:
+    """11b: the three kernels at the per-rank heads that KV replication
+    gives the flagship at tp 16 (2 q heads, 1 kv head) and tp 32 (1 and 1),
+    b 1, s 8192, d 128, causal, bf16: against their plain versions at phase
+    2's tolerances, then timed with their bounds (the per-rank work: the
+    tp=1 bound over tp) and grids, as 8a."""
+    t_phase = time.perf_counter()
+    m = kt.MAIN
+    ok = True
+    for tp, nh, nkv in REPLICATED_TP:
+        ok &= check_case(torch, fa, f"tp {tp}: nh {nh} nkv {nkv} (replicated) s={SEQ}", b=1,
+                         sq=SEQ, skv=SEQ, nh=nh, nkv=nkv, d=m["d"], seed=50 + tp)
+    if not ok:
+        fail("a kernel disagrees with its plain version at KV replication's per-rank heads")
+    rows = []
+    for tp, nh, nkv in REPLICATED_TP:
+        shape = dict(m, s=SEQ, nh=nh, nkv=nkv)
+        gen = torch.Generator(device="cuda").manual_seed(60 + tp)
+        q, k, v, do = (kt.randn_bf16(gen, 1, SEQ, h, m["d"]) for h in (nh, nkv, nkv, nh))
+        with torch.no_grad():
+            o, lse = fa.flash_fwd(q, k, v)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        ms = kt.kernel_ms(q, k, v, do, lse, delta)
+        bounds = bounds_ms(kt, peaks, shape)
+        for kname, t in ms.items():
+            row = {"tp": tp, "s": SEQ, "nh": nh, "nkv": nkv, "ms": t,
+                   "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                   "grid_ctas": grid_ctas(kname, 1, SEQ, nh, nkv), "kernel": kname}
+            rows.append(row)
+            log(f"replicated kv time {kname} tp {tp} (nh {nh}, nkv {nkv}) s={SEQ}: "
+                f"{t:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / t:.3f} of bound, grid {row['grid_ctas']} CTAs [{card}]")
+        del q, k, v, do, o, lse, delta
+    free_cuda(torch)
+    log(f"replicated kv kernels: phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return rows
+
+
+def phase_pref_cp(torch, cell, card: str) -> dict | None:
+    """11c, with two or more cards: DPO from ``hf_llama3_8B_DPO_config.yaml``
+    (Llama-3-8B width, 4 layers, seq 2048, gbs 4, 3 steps, phase 9's
+    records) under torchrun at cp 2 with the ring against the same at cp 1:
+    steps 0-1 (the policy is still the reference) at ln 2 with grad norms
+    within the mixed_precision tolerance, step 2 within
+    ``PREF_STEP2_*``, no fallback on either rank.  With one card it says
+    why it did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"pref cp: phase 11c (DPO at cp=2 on two cards) not run: this machine shows "
+            f"{n_cards} card, NCCL takes one rank per card, and cp=2 needs two ranks")
+        return None
+    t_phase = time.perf_counter()
+    base = ("--config", str(REPO / "examples" / "conf" / "hf_llama3_8B_DPO_config.yaml"),
+            "--set", f"data.train_dir={pref_corpus('dpo')}",
+            "--set", "data.tokenizer.library=char")
+    one = torchrun_cell(cell, 1, cell.WORK / "exp_dpo_cp1", 900, *base)
+    two = torchrun_cell(cell, 2, cell.WORK / "exp_dpo_cp2", 900, *base,
+                        "--set", "distributed_strategy.context_parallel_size=2",
+                        "--set", "model.fusions.ring_attention=true")
+    log(f"pref cp: DPO cp 2 (ring): losses {two['loss']} grad_norms {two['grad_norm']} step "
+        f"seconds {two['step_seconds']}; cp 1: {one['loss']} / {one['grad_norm']} / "
+        f"{one['step_seconds']}; peak per rank {[r['peak_bytes'] for r in two['ranks']]} bytes "
+        f"(cp 1 {one['peak_bytes']}); launches per rank {[r['launches'] for r in two['ranks']]}"
+        f" [{card}]")
+    for r in two["ranks"] + one["ranks"]:
+        if r["fallbacks"]["core"] or not all(r["launches"].values()):
+            fail(f"pref cp: rank {r['rank']} launches {r['launches']} fallbacks {r['fallbacks']}")
+    early = (all(abs(x - math.log(2)) <= 1e-3 for x in two["loss"][:2] + one["loss"][:2])
+             and all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                     for a, b in zip(two["grad_norm"][:2], one["grad_norm"][:2])))
+    late = (abs(two["loss"][2] - one["loss"][2]) <= PREF_STEP2_LOSS_ATOL
+            and math.isclose(two["grad_norm"][2], one["grad_norm"][2],
+                             rel_tol=PREF_STEP2_GRAD_NORM_RTOL))
+    if two["cp"] != 2 or len(two["loss"]) != 3 or not (early and late):
+        fail(f"pref cp: DPO at cp 2 {two['loss']} / {two['grad_norm']} against cp 1's "
+             f"{one['loss']} / {one['grad_norm']}")
+    out = {"cp1": one, "cp2": two, "phase_seconds": time.perf_counter() - t_phase}
+    log(f"pref cp: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 SKIP_LAYERS = 2
 
 
@@ -2103,6 +2279,11 @@ def main() -> None:
     free_cuda(torch)
     cp_bodies_rep = phase_cp_bodies(torch, fa, kt, card, peaks)
     cp = phase_cp(torch, cell, trainer_ref(history4), card)
+    free_cuda(torch)
+    chunked = phase_chunked(torch, fa, cell, history4, launches, card)
+    free_cuda(torch)
+    replicated_rows = phase_replicated_kernels(torch, fa, kt, card, peaks)
+    pref_cp = phase_pref_cp(torch, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -2134,9 +2315,13 @@ def main() -> None:
                                  **({} if cp is None else
                                     {"pretrain_cp": {impl: [r["launches"][kname]
                                                             for r in cp[impl]["ranks"]]
-                                                     for impl in CP_FUSIONS}})},
+                                                     for impl in CP_FUSIONS}}),
+                                 "pretrain_chunked_ce": chunked["launches"][kname],
+                                 **({} if pref_cp is None else
+                                    {"align_dpo_cp2": [r["launches"][kname]
+                                                       for r in pref_cp["cp2"]["ranks"]]})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
-                                for r in tp_rows if r["kernel"] == kname],
+                                for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                    for r in cp_bodies_rep["rows"] if r["kernel"] == kname],
         })

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from neuronx_distributed_training_torch.alignment.dpo import ForwardLogits, reference_columns
-from neuronx_distributed_training_torch.alignment.losses import kto_loss, sequence_logprobs
+from neuronx_distributed_training_torch.alignment.losses import count_once, kto_loss, side_logprobs
 
 KTO_SIDES = {"reference_logps": ("input_ids", "loss_mask")}
 KTO_KL_SIDES = {**KTO_SIDES, "reference_kl_logps": ("kl_input_ids", "kl_loss_mask")}
@@ -41,30 +41,29 @@ def compute_reference_logprobs_kto(params: Any, batches: Iterable[dict],
 
 def make_kto_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1,
                      desirable_weight: float = 1.0, undesirable_weight: float = 1.0,
-                     kl_estimator: str = "batch_mean", tp=None, dp=None):
+                     kl_estimator: str = "batch_mean", tp=None, dp=None, cp=None):
     """``loss_fn(params, batch, denominator=None) -> (loss, metrics)`` over
     KTO batches.  ``kl_estimator="mismatched"`` runs a second forward over
     ``kl_input_ids`` (prompt ``i`` + completion ``pair[i]``) for the paper's
     off-policy ``z0``.  The baseline carries no gradient, so that forward
     runs under ``torch.no_grad()``: autograd keeps none of its activations
-    and it has no backward."""
+    and it has no backward.  Under ``cp`` the batch is a context rank's
+    slices."""
 
     def loss_fn(params, batch, denominator=None):
-        logps = sequence_logprobs(forward_logits(params, batch["input_ids"]),
-                                  batch["input_ids"], batch.get("loss_mask"), tp=tp)
+        logps = side_logprobs(forward_logits, params, batch, "", tp=tp, cp=cp)
         kl_rewards = None
         if kl_estimator == "mismatched":
             if "kl_input_ids" not in batch:
                 raise KeyError("kl_estimator=mismatched needs kl_input_ids batches — build the "
                                "data module with kl_estimator='mismatched'")
             with torch.no_grad():
-                kl_logps = sequence_logprobs(forward_logits(params, batch["kl_input_ids"]),
-                                             batch["kl_input_ids"], batch.get("kl_loss_mask"),
-                                             tp=tp)
+                kl_logps = side_logprobs(forward_logits, params, batch, "kl_", tp=tp, cp=cp)
                 kl_rewards = beta * (kl_logps - batch["reference_kl_logps"])
-        return kto_loss(logps, batch["reference_logps"], batch["kto_labels"], beta=beta,
-                        desirable_weight=desirable_weight,
-                        undesirable_weight=undesirable_weight, kl_rewards=kl_rewards,
-                        denominator=denominator, dp=dp)
+        loss, metrics = kto_loss(logps, batch["reference_logps"], batch["kto_labels"], beta=beta,
+                                 desirable_weight=desirable_weight,
+                                 undesirable_weight=undesirable_weight, kl_rewards=kl_rewards,
+                                 denominator=denominator, dp=dp)
+        return count_once(loss, cp), metrics
 
     return loss_fn

@@ -22,6 +22,18 @@ DataParallel``), detached, in one buffer, so every rank returns the same
 values.  KTO's ``z0 = max(mean(r), 0)`` is taken over the whole
 microbatch the same way, before the loss.  Without ``dp`` the means are
 over the rows given.
+
+Context parallelism (``cp``, ``parallel/mesh.py::ContextParallel``): every
+context rank of a data rank holds the same rows, each its ``s/cp`` slice of
+every side (``data/loader.py::context_parallel_batch``: targets and
+positions taken on the whole row).  A row's log-prob (and its mask count,
+for ORPO's average) is then the SUM of the ranks' partial sums
+(:class:`_SumOverContext`: an all-reduce forward and the identity backward,
+so each rank's gradient reaches its own tokens and the train step's SUM
+over ``(data, context)`` counts each once; an all-reduce backward would give
+cp times the gradient).  Every context rank then computes the same loss
+and metrics; the metrics and KTO's ``z0`` are summed over data alone, and
+the loss's value counts once (:func:`count_once`).
 """
 
 from __future__ import annotations
@@ -34,6 +46,22 @@ import torch.nn.functional as F
 from neuronx_distributed_training_torch.ops.cross_entropy import logprobs_from_logits
 
 
+class _SumOverContext(torch.autograd.Function):
+    """SUM over the context group in forward; the identity in backward."""
+
+    @staticmethod
+    def forward(ctx, x, cp):
+        return cp.sum_context(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _context_sum(x: torch.Tensor, cp) -> torch.Tensor:
+    return x if cp is None or cp.size == 1 else _SumOverContext.apply(x, cp)
+
+
 def sequence_logprobs(
     logits: torch.Tensor,  # [b, s, vocab] (the rank's vocab slice under tp)
     labels: torch.Tensor,  # [b, s]
@@ -42,9 +70,12 @@ def sequence_logprobs(
     shift: bool = True,
     average: bool = False,
     tp=None,
+    cp=None,
 ) -> torch.Tensor:
     """Per-sequence sum (or mean) ``log p(label)`` over response tokens ->
-    ``[b]`` fp32; positions whose label is negative count nothing."""
+    ``[b]`` fp32; positions whose label is negative count nothing.  Under
+    ``cp`` the rows are a context rank's slices (``shift`` False: the labels
+    are targets already) and the sums run over the context group."""
     if shift:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -53,10 +84,35 @@ def sequence_logprobs(
     mask = (labels >= 0).float()
     if loss_mask is not None:
         mask = mask * loss_mask.float()
-    total = torch.sum(per_tok * mask, dim=-1)
+    total = _context_sum(torch.sum(per_tok * mask, dim=-1), cp)
     if average:
-        return total / torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+        count = _context_sum(torch.sum(mask, dim=-1), cp)
+        return total / torch.clamp(count, min=1.0)
     return total
+
+
+def side_logprobs(forward_logits, params, batch: dict, side: str, *, average: bool = False,
+                  tp=None, cp=None) -> torch.Tensor:
+    """:func:`sequence_logprobs` of one side of a preference batch, the
+    ``<side>input_ids`` row with its ``<side>loss_mask``
+    (``data/loader.py::PREFERENCE_SIDES``).  Under ``cp`` the batch is a
+    context rank's (``context_parallel_batch``): its ``<side>labels`` and
+    ``<side>positions`` come from the whole row."""
+    ids, mask = batch[side + "input_ids"], batch.get(side + "loss_mask")
+    if cp is None:
+        return sequence_logprobs(forward_logits(params, ids), ids, mask, average=average, tp=tp)
+    return sequence_logprobs(forward_logits(params, ids, batch[side + "positions"]),
+                             batch[side + "labels"], mask, shift=False, average=average,
+                             tp=tp, cp=cp)
+
+
+def count_once(loss: torch.Tensor, cp) -> torch.Tensor:
+    """A loss every context rank computes whole: its gradient on each rank
+    (each reaches that rank's tokens), its value on context rank 0 alone, so
+    that the train step's SUM over ``(data, context)`` holds it once."""
+    if cp is None or cp.size == 1 or cp.rank == 0:
+        return loss
+    return loss - loss.detach()
 
 
 def rows_mean(x: torch.Tensor, denominator) -> torch.Tensor:

@@ -7,32 +7,32 @@ from __future__ import annotations
 
 from neuronx_distributed_training_torch.alignment.dpo import ForwardLogits
 from neuronx_distributed_training_torch.alignment.losses import (
+    count_once,
     global_sums,
     orpo_loss,
     row_count,
     rows_mean,
-    sequence_logprobs,
+    side_logprobs,
 )
 
 
-def make_orpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=None, dp=None):
+def make_orpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=None, dp=None,
+                      cp=None):
     """``loss_fn(params, batch, denominator=None) -> (loss, metrics)``: two
     policy forwards, ``nll = -mean(chosen)``, the odds-ratio term, and
     ``rewards_chosen`` / ``rewards_rejected`` as ``beta`` times the mean
-    averaged log-probs."""
+    averaged log-probs (a context rank's slices under ``cp``: a row's sum
+    and its token count are both summed over the context group)."""
 
     def loss_fn(params, batch, denominator=None):
-        pc = sequence_logprobs(forward_logits(params, batch["chosen_input_ids"]),
-                               batch["chosen_input_ids"], batch.get("chosen_loss_mask"),
-                               average=True, tp=tp)
-        pr = sequence_logprobs(forward_logits(params, batch["rejected_input_ids"]),
-                               batch["rejected_input_ids"], batch.get("rejected_loss_mask"),
-                               average=True, tp=tp)
+        pc = side_logprobs(forward_logits, params, batch, "chosen_", average=True, tp=tp, cp=cp)
+        pr = side_logprobs(forward_logits, params, batch, "rejected_", average=True, tp=tp,
+                           cp=cp)
         loss, metrics = orpo_loss(pc, pr, -rows_mean(pc, denominator), beta=beta,
                                   denominator=denominator, dp=dp)
         sums = global_sums([pc.sum(), pr.sum()], dp) / row_count(pc, denominator)
         metrics["rewards_chosen"] = beta * sums[0]
         metrics["rewards_rejected"] = beta * sums[1]
-        return loss, metrics
+        return count_once(loss, cp), metrics
 
     return loss_fn

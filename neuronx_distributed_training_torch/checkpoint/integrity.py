@@ -245,8 +245,8 @@ def leaf_digests(flat: Mapping[str, Any], *, workers: int = 0) -> dict[str, str]
 
 def _shard_box(t) -> tuple[Any, list[int], list[int]]:
     """``(local tensor, offsets, sizes)`` of what this rank holds of a
-    leaf: a DTensor's block (``Shard`` on any dims of a 1-D or 2-D mesh;
-    the leaves divide evenly), else the whole."""
+    leaf: a DTensor's block (``Shard`` on any dims of a 1-, 2- or 3-D
+    mesh, in ``torch.chunk``'s blocks), else the whole."""
     from neuronx_distributed_training_torch.optim.adamw import is_dtensor
 
     if not is_dtensor(t):
@@ -256,7 +256,10 @@ def _shard_box(t) -> tuple[Any, list[int], list[int]]:
     offsets = [0] * t.dim()
     for i, placement in enumerate(t.placements):
         if placement.is_shard():
-            offsets[placement.dim] += coord[i] * loc.shape[placement.dim]
+            # torch.chunk's blocks: an uneven split (a padded vocab's real
+            # rows) has a shorter last block
+            block = -(-t.shape[placement.dim] // t.device_mesh.size(i))
+            offsets[placement.dim] += coord[i] * block
     return loc, offsets, list(loc.shape)
 
 

@@ -219,16 +219,34 @@ def saved_pieces(name: str, t: torch.Tensor, layouts: Optional[dict] = None, tp=
     layout = None if layouts is None else layouts.get(name)
     if layout is None:
         return [(name, cast(t), local(t))]
-    size = 1 if tp is None else tp.size
+    size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
     sh = shard_of(t)
+    zdim = None if sh is None else sh[0]
+    parts = layout.parts if layout.sharded else (None,)
     out = []
-    for seg, view in split_segments(local(t), layout, size):
+    for part, (seg, view) in zip(parts, split_segments(local(t), layout, size, rank)):
         saved = cast(view)
         if tp is not None:
-            saved = dtensor_on(saved, tp.state_mesh,
-                               (None if sh is None else sh[0], layout.dim))
+            saved = _on_state_mesh(saved, layout, part, tp, zdim)
         out.append((f"{name}:{seg}" if seg else name, saved, view))
     return out
+
+
+def _on_state_mesh(saved: torch.Tensor, layout, part, tp, zdim):
+    """A part's real entries as a DTensor of its global tensor: on the
+    ``(data, model)`` mesh; a kv head several ranks hold on the ``(data,
+    kv, replica)`` mesh, replicated over ``replica`` (DCP writes it once);
+    a padded vocab slice with the unpadded global shape (``torch.chunk``'s
+    blocks are the real rows)."""
+    if part is not None and part.replicas(tp.size) > 1:
+        return dtensor_on(saved, tp.kv_mesh, (zdim, layout.dim, None))
+    shape = None
+    if part is not None and part.padded and part.size % tp.size:
+        shape = list(saved.shape)
+        shape[layout.dim] = part.size
+        if zdim is not None:
+            shape[zdim] *= tp.state_mesh.size(0)  # ZeRO-1's even split over data
+    return dtensor_on(saved, tp.state_mesh, (zdim, layout.dim), shape)
 
 
 def _pieces(flat: dict, layouts, tp, prefix: str = "", cast=None) -> dict[str, tuple]:

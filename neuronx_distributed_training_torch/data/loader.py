@@ -312,8 +312,14 @@ def next_token_targets(labels, loss_mask=None):
     return tgt, loss_mask
 
 
-def context_parallel_batch(batch: dict, cp_rank: int, cp_size: int, *, positions,
-                           shift_labels: bool = True, zigzag: bool = False) -> dict:
+#: the key prefixes of a preference batch's per-token sides: DPO / ORPO's
+#: pairs, KTO's completion ("") and its mismatched-KL rows
+PREFERENCE_SIDES = ("chosen_", "rejected_", "", "kl_")
+
+
+def context_parallel_batch(batch: dict, cp_rank: int, cp_size: int, *, positions=None,
+                           shift_labels: bool = True, zigzag: bool = False,
+                           sides: Optional[Sequence[str]] = None) -> dict:
     """Context rank ``cp_rank``'s part of a microbatch (torch ``[b, s]``
     tensors, the rows ``dp_rank_rows`` gives the data rank): every context
     rank of a data rank takes the same rows, and each its ``s/cp`` slice of
@@ -333,7 +339,37 @@ def context_parallel_batch(batch: dict, cp_rank: int, cp_size: int, *, positions
       followed by the slice.
 
     The key mask (``attention_mask``) travels with its slice: the ring
-    rotates it with K/V, Ulysses all-gathers it."""
+    rotates it with K/V, Ulysses all-gathers it.
+
+    A preference batch (DPO / ORPO pairs, KTO rows) is split side by side
+    (``sides``, e.g. :data:`PREFERENCE_SIDES`): each ``<side>input_ids``
+    present with its
+    ``<side>loss_mask``, targets ``<side>labels`` (the ids shifted on the
+    whole row) and ``<side>positions`` (``0 .. s-1``, the preference
+    forward's); the per-row arrays (reference columns, ``kto_labels``) stay
+    whole."""
+    if sides is not None:
+        import torch
+
+        out = {k: v for k, v in batch.items() if v.ndim == 1}
+        for side in sides:
+            ids = batch.get(side + "input_ids")
+            if ids is None:
+                continue
+            pos = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
+            part = _split_rows({"input_ids": ids, "loss_mask": batch.get(side + "loss_mask")},
+                               cp_rank, cp_size, positions=pos, shift_labels=True,
+                               zigzag=False)
+            out.update({side + k: v for k, v in part.items()})
+        return out
+    return _split_rows(batch, cp_rank, cp_size, positions=positions,
+                       shift_labels=shift_labels, zigzag=zigzag)
+
+
+def _split_rows(batch: dict, cp_rank: int, cp_size: int, *, positions, shift_labels: bool,
+                zigzag: bool) -> dict:
+    """:func:`context_parallel_batch` of one side's ``input_ids`` and the
+    arrays that go with it."""
     ids = batch["input_ids"]
     s = ids.shape[1]
     if s % cp_size:

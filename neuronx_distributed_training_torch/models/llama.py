@@ -24,8 +24,12 @@ autograd Function saves only q, k, v, o and lse.
 
 Tensor parallelism (``tp``, a ``parallel/mesh.py::TensorParallel``): each
 rank holds its slices of the leaves (``parallel/sharding.py``) and so
-``nh/tp`` q heads and ``nkv/tp`` kv heads; q head ``i`` uses kv head ``i //
-(nh/nkv)`` locally as globally because tp divides nkv.  The activations
+``nh/tp`` q heads and ``nkv/tp`` kv heads, or, at tp above the kv heads,
+one kv head that ``tp/nkv`` ranks share (rank ``r`` holds head ``r //
+(tp/nkv)``); q head ``i`` uses kv head ``i // (nh/nkv)`` locally as
+globally, since tp and nkv divide one another.  A vocab tp does not divide
+is padded to ``ceil(V/tp)`` rows a rank, whose logits' padded columns are
+``-inf``.  The activations
 cross the ranks through Megatron's regions (``parallel/tensor_parallel.py``):
 the vocab-parallel embedding, then per layer the column input (all-gather
 along the sequence under SP, else the copy region) before ``qkv`` and before
@@ -35,7 +39,10 @@ stream and the norms hold the rank's ``s/tp`` slice of the sequence; RoPE,
 positions, the attention mask and segment ids stay whole, since attention
 sees the gathered sequence.  The final norm's output is gathered before the
 column-parallel ``lm_head``, whose ``[b, s, V/tp]`` logits go to the
-vocab-parallel cross-entropy ungathered.  ``tp`` None (or of size 1) is the
+vocab-parallel cross-entropy ungathered; with ``fusions.chunked_ce``
+(``vocab_chunks``) the head and the cross-entropy are one function over
+vocab blocks (``ops/cross_entropy.py::chunked_cross_entropy_from_hidden``),
+the logits never held whole, as in the JAX package's ``forward``.  ``tp`` None (or of size 1) is the
 one-device path, with no collective.
 
 Context parallelism (``cp``, a ``parallel/mesh.py::ContextParallel``): the
@@ -86,6 +93,7 @@ class LlamaConfig:
     attention_impl: str = "core"  # "core" | "flash" | "ring" | "ulysses" | "zigzag_ring"
     context_parallel: bool = False  # distributed_strategy.context_parallel_size > 1
     activations_checkpoint_granularity: Optional[str] = "selective"
+    vocab_chunks: Optional[int] = None  # fusions.chunked_ce: the fused head + CE
 
     @property
     def kv_heads(self) -> int:
@@ -132,6 +140,7 @@ class LlamaConfig:
             context_parallel=int(ds.get("context_parallel_size", 1) or 1) > 1,
             activations_checkpoint_granularity=m.get(
                 "activations_checkpoint_granularity", "selective"),
+            vocab_chunks=(int(fusions["chunked_ce"]) if fusions.get("chunked_ce") else None),
         )
 
 
@@ -214,16 +223,25 @@ def named_params(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def check_heads(nh: int, nkv: int, tp: int) -> None:
+    """tp must divide the heads, and divide or be divided by the kv heads
+    (the JAX package's texts): then the local GQA map, q head ``i`` -> kv
+    head ``i // (nh/nkv)``, holds on each rank's heads."""
+    if nh % tp:
+        raise ValueError(f"attention: num_heads {nh} must be divisible by tp {tp}")
+    if nkv % tp and tp % nkv:
+        raise ValueError(f"attention: kv_heads {nkv} and tp {tp} must divide one another "
+                         f"(got kvh%tp and tp%kvh both nonzero)")
+
+
 def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
                      attention_mask=None, segment_ids=None, tp=None, cp=None):
     x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
     size = tp.size if tp_ops.active(tp) else 1
-    if cfg.num_attention_heads % size or cfg.kv_heads % size:
-        # the local GQA map (q head i -> kv head i // (nh/nkv)) needs both
-        raise ValueError(f"tp {size} must divide the {cfg.num_attention_heads} heads and "
-                         f"the {cfg.kv_heads} kv heads")
-    nh, nkv, d = cfg.num_attention_heads // size, cfg.kv_heads // size, cfg.head_size
+    check_heads(cfg.num_attention_heads, cfg.kv_heads, size)
+    # above the kv heads the rank holds one, replicated (parallel/sharding.py)
+    nh, nkv, d = cfg.num_attention_heads // size, max(cfg.kv_heads // size, 1), cfg.head_size
     if cfg.fuse_qkv:
         qkv = linear_ops.apply_linear(lp["qkv"], x)
         q, k, v = torch.split(qkv, [nh * d, nkv * d, nkv * d], dim=-1)
@@ -309,13 +327,37 @@ def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: Dty
 
 
 def logits_fn(params, hidden: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy, tp=None):
-    """``[b, s, V]`` logits; with ``tp``, the rank's ``V/tp`` slice of the
-    vocab (the no-gather column-parallel ``lm_head``)."""
+    """``[b, s, V]`` logits; with ``tp``, the rank's ``ceil(V/tp)`` slice of
+    the vocab (the no-gather column-parallel ``lm_head``), whose padded
+    columns, past the vocab, are ``-inf``."""
     hidden = tp_ops.enter_column(hidden, tp)
     if cfg.tie_word_embeddings:
-        return hidden @ params["embed"]["embedding"].to(policy.compute_dtype).T
-    return linear_ops.apply_linear(params["lm_head"], hidden,
-                                   compute_dtype=policy.compute_dtype)
+        logits = hidden @ params["embed"]["embedding"].to(policy.compute_dtype).T
+    else:
+        logits = linear_ops.apply_linear(params["lm_head"], hidden,
+                                         compute_dtype=policy.compute_dtype)
+    if tp_ops.active(tp) and cfg.vocab_size % tp.size:
+        _, real = sharding.vocab_rows(cfg.vocab_size, tp.rank, tp.size)
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= real
+        logits = logits.masked_fill(pad, float("-inf"))
+    return logits
+
+
+def _chunked_head_loss(params, hidden, labels, loss_mask, cfg: LlamaConfig, *,
+                       shift_labels: bool, denominator, tp):
+    """The loss of ``fusions.chunked_ce``: the final hidden states through
+    the column region (gathered under SP), then the fused head + CE over
+    ``cfg.vocab_chunks`` vocab blocks (``ops/cross_entropy.py``); the
+    ``[b, s, V]`` logits are never held."""
+    x = tp_ops.enter_column(hidden, tp)
+    if shift_labels:
+        x, labels = x[:, :-1], labels[:, 1:]
+        loss_mask = None if loss_mask is None else loss_mask[:, 1:]
+    head_w = (params["embed"]["embedding"].T if cfg.tie_word_embeddings
+              else params["lm_head"]["w"])
+    return ce_ops.chunked_cross_entropy_from_hidden(
+        x, head_w, labels, num_chunks=cfg.vocab_chunks, loss_mask=loss_mask,
+        denominator=denominator, tp=tp, vocab_size=cfg.vocab_size)
 
 
 def _loss_mask(batch: dict[str, torch.Tensor]):
@@ -350,19 +392,29 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
     ``data/loader.py::context_parallel_batch``: its ``positions`` are used,
     its labels are next-token targets already and its ``loss_mask`` holds the
     attention mask, so nothing is shifted or masked again; the loss is the
-    rank's share (its tokens over ``loss_denominator``)."""
+    rank's share (its tokens over ``loss_denominator``).  With
+    ``cfg.vocab_chunks``, labels, no logits asked for and a plain head (tied,
+    or an ``lm_head`` without a LoRA adapter) the loss is the chunked head's
+    and ``aux`` is empty."""
     attention_mask = batch.get("attention_mask")
     if cp is not None:
         positions, shift_labels = batch["positions"], False
     hidden = hidden_states(params, batch["input_ids"], cfg, policy, positions=positions,
                            attention_mask=attention_mask,
                            segment_ids=batch.get("segment_ids"), tp=tp, cp=cp)
+    labels = batch.get("labels")
+    loss_mask = batch.get("loss_mask") if cp is not None else _loss_mask(batch)
+    head_plain = cfg.tie_word_embeddings or (
+        "lm_head" in params and "lora_a" not in params["lm_head"])
+    if cfg.vocab_chunks and labels is not None and not return_logits and head_plain:
+        # an lm_head LoRA adapter needs apply_linear: the plain head below
+        return _chunked_head_loss(params, hidden, labels, loss_mask, cfg,
+                                  shift_labels=shift_labels, denominator=loss_denominator,
+                                  tp=tp), {}
     logits = logits_fn(params, hidden, cfg, policy, tp)
     aux: dict[str, Any] = {"logits": logits} if return_logits else {}
-    labels = batch.get("labels")
     if labels is None:
         return logits, aux
-    loss_mask = batch.get("loss_mask") if cp is not None else _loss_mask(batch)
     if shift_labels:
         logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
     return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,

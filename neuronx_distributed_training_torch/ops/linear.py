@@ -63,7 +63,8 @@ def apply_embedding(params, ids: torch.Tensor, *, compute_dtype=None, tp=None) -
     """A gather of table rows, then the cast.
 
     With ``tp`` (``parallel/mesh.py::TensorParallel``) the table holds the
-    rank's rows of the vocab, ``[rank * V/tp, (rank + 1) * V/tp)``: ids
+    rank's ``rows`` of the vocab, ``[rank * rows, (rank + 1) * rows)`` (``rows
+    = ceil(V/tp)``, zero-padded past the vocab, where no id lands): ids
     outside them gather row 0 and are zeroed, then the ranks' outputs are
     summed (all-reduce), or, under sequence parallelism, reduce-scattered
     along the sequence.  Each element has one non-zero term, so the sum is
@@ -85,7 +86,8 @@ def apply_embedding(params, ids: torch.Tensor, *, compute_dtype=None, tp=None) -
 def pad_vocab_size(vocab_size: int, make_divisible_by: int, tp: int) -> int:
     """Pad vocab so it divides evenly across TP shards — the reference's
     ``make_vocab_size_divisible_by * tp`` padding (``data/base.py:66-89``).
-    Neither the JAX trainer nor the port calls it: the trainer rejects a
-    vocab that tp does not divide."""
+    Neither trainer calls it: the port pads each rank's slice to
+    ``pad_vocab_size(V, 1, tp) / tp`` rows inside the leaf's layout
+    (``parallel/sharding.py``), so configs and checkpoints keep the vocab."""
     multiple = make_divisible_by * tp
     return ((vocab_size + multiple - 1) // multiple) * multiple

@@ -38,6 +38,12 @@ updates this rank's slice and all-gathers the new param slices in the param
 dtype.  Elementwise arithmetic on a slice gives the same bits as on the
 whole leaf, so ZeRO-1 on and off train bit for bit alike.
 
+Tensor parallelism: the norm sums each sharded leaf's slices over tp and
+each replicated leaf once; a kv head that several ranks hold (tp above the
+kv heads) counts once, on the first of them, and a padded vocab slice's
+zero rows count nothing (``parallel/sharding.py::owned_views``).  Those
+rows' gradients are zero, so AdamW keeps them zero.
+
 Context parallelism changes nothing here: the train step hands every
 context rank the same gradients (summed over ``(data, context)``), the
 specs and the norm stay over dp x tp, and the context ranks keep the same
@@ -52,6 +58,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from neuronx_distributed_training_torch.parallel.sharding import owned_views
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 
 
@@ -116,18 +123,19 @@ def zero1_leaf_spec(shape, dp: int, tp_dim: Optional[int] = None) -> Optional[in
     return None
 
 
-def global_shape(t: torch.Tensor, layout=None, tp_size: int = 1) -> tuple:
-    """The global shape of a rank's local leaf ``t`` (its tp dim times
-    ``tp_size``)."""
+def global_shape(t: torch.Tensor, layout=None) -> tuple:
+    """The global shape of a rank's local leaf ``t``: its tp dim is the
+    layout's global size (JAX's, whatever replicated kv heads or padded
+    vocab rows the rank holds)."""
     shape = list(t.shape)
     if layout is not None and layout.dim is not None:
-        shape[layout.dim] *= tp_size
+        shape[layout.dim] = layout.global_size
     return tuple(shape)
 
 
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
-                    policy=None, health: bool = False, layouts: Optional[dict] = None,
-                    tp_size: int = 1) -> dict:
+                    policy=None, health: bool = False,
+                    layouts: Optional[dict] = None) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
     counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
@@ -136,7 +144,7 @@ def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = T
 
     def spec(n, p):
         lay = layouts.get(n)
-        return zero1_leaf_spec(global_shape(p, lay, tp_size), dp,
+        return zero1_leaf_spec(global_shape(p, lay), dp,
                                None if lay is None else lay.dim)
 
     moments = {n: spec(n, p) if zero1 else None for n, p in params.items()}
@@ -175,17 +183,21 @@ def shard_of(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
     return dim, mesh.get_local_rank(axis) * length, length
 
 
-def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple, shape=None) -> torch.Tensor:
     """``local_t`` as this rank's block of a DTensor on ``mesh`` (1-D
-    ``data`` or 2-D ``(data, model)``), sharded on ``dims[i]`` over mesh dim
-    ``i`` (None: replicated); the global shape is the local one times the
-    mesh dims' sizes on the sharded dims."""
+    ``data``, 2-D ``(data, model)`` or 3-D ``(data, kv, replica)``), sharded
+    on ``dims[i]`` over mesh dim ``i`` (None: replicated); the global shape
+    is ``shape``, by default the local one times the mesh dims' sizes on the
+    sharded dims (an uneven split gives ``shape``: the blocks are
+    ``torch.chunk``'s)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    shape = list(local_t.shape)
-    for i, d in enumerate(dims):
-        if d is not None:
-            shape[d] *= mesh.size(i)
+    if shape is None:
+        shape = list(local_t.shape)
+        for i, d in enumerate(dims):
+            if d is not None:
+                shape[d] *= mesh.size(i)
+    shape = list(shape)
     placements = [Replicate() if d is None else Shard(d) for d in dims]
     stride, acc = [], 1
     for n in reversed(shape):
@@ -243,19 +255,35 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
 # ---------------------------------------------------------------------------
 
 
+def _sq_sum(t: torch.Tensor, layout, tp) -> torch.Tensor:
+    """The fp32 sum of squares of what a rank's slice ``t`` adds to its
+    leaf's norm: all of it, or with a layout that replicates kv heads or pads
+    vocab rows at this tp, its owned views (``parallel/sharding.py``)."""
+    if layout is None or not layout.uneven(tp.size):
+        return torch.sum(torch.square(t.float()))
+    total = None
+    for v in owned_views(t, layout, tp.rank, tp.size):
+        s = torch.sum(torch.square(v.float()))
+        total = s if total is None else total + s
+    return torch.zeros((), dtype=torch.float32, device=t.device) if total is None else total
+
+
 def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=None,
                      sharded=frozenset()) -> dict:
     """Per-group fp32 sums of squares (``group_fn(name) -> group``) of the
     global leaves whose local slices ``tensors`` holds.  With ``tp`` active
-    the tp-sharded leaves' sums (``sharded``: their names) are added over the
-    tp group in one all-reduce and each replicated leaf counts once; without
-    it every leaf is summed in order, as one rank holds it."""
+    the tp-sharded leaves' sums (``sharded``: their names, or a dict of
+    their ``parallel/sharding.py`` layouts) are added over the tp group in
+    one all-reduce and each replicated leaf counts once, as does a kv head
+    that several ranks hold (with the layouts); without it every leaf is
+    summed in order, as one rank holds it."""
     on = tp_active(tp)
+    layouts = sharded if isinstance(sharded, dict) else {}
     parts: dict[str, list] = {}
     for n, t in tensors.items():
         acc = parts.setdefault(group_fn(n), [None, None])
         i = 0 if on and n in sharded else 1
-        s = torch.sum(torch.square(t.float()))
+        s = _sq_sum(t, layouts.get(n), tp) if i == 0 else torch.sum(torch.square(t.float()))
         acc[i] = s if acc[i] is None else acc[i] + s
     if not on:
         return {k: r for k, (_, r) in parts.items()}
@@ -284,7 +312,8 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     ``group_norms``.  ``grads`` are the full gradients (all-reduced under
     data parallelism) of the rank's local leaves; ``dp`` gathers ZeRO-1's
     param slices; with ``tp`` the norm takes the leaves named in
-    ``tp_sharded`` as slices of their global leaf."""
+    ``tp_sharded`` (a set, or a dict of their layouts) as slices of their
+    global leaf."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
     group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded)

@@ -175,7 +175,11 @@ class DataParallel:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """This process's place on the ``model`` axis."""
+    """This process's place on the ``model`` axis.  With ``kv_replicas``
+    above 1 (tp above the kv heads) the model axis also splits into
+    ``("kv", "replica")``: the ranks of a ``replica`` group hold the same kv
+    head (``parallel/sharding.py``), sum their gradients of it over
+    ``kv_group``, and a checkpoint writes it once from ``kv_mesh``."""
 
     rank: int
     size: int
@@ -183,13 +187,29 @@ class TensorParallel:
     mesh: Any  # the 1-D DeviceMesh of the model axis
     state_mesh: Any  # the 2-D ("data", "model") DeviceMesh of sharded state
     sequence_parallel: bool = False
+    kv_replicas: int = 1
+    kv_group: Any = None  # the ranks that share this rank's kv head
+    kv_mesh: Any = None  # the 3-D ("data", "kv", "replica") DeviceMesh
 
     @classmethod
-    def from_mesh(cls, mesh, *, sequence_parallel: bool = False) -> "TensorParallel":
+    def from_mesh(cls, mesh, *, sequence_parallel: bool = False,
+                  kv_replicas: int = 1) -> "TensorParallel":
         mm = mesh["model"]
+        kv_group = kv_mesh = None
+        if kv_replicas > 1:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            names = tuple(mesh.mesh_dim_names)
+            shape = tuple(mesh.mesh.shape)
+            split = DeviceMesh(mesh.device_type,
+                               mesh.mesh.reshape(*shape[:-1], shape[-1] // kv_replicas,
+                                                 kv_replicas),
+                               mesh_dim_names=names[:-1] + ("kv", "replica"))
+            kv_group, kv_mesh = split["replica"].get_group(), split["data", "kv", "replica"]
         return cls(rank=mm.get_local_rank(), size=mm.size(), group=mm.get_group(), mesh=mm,
                    state_mesh=mesh["data", "model"],
-                   sequence_parallel=bool(sequence_parallel and mm.size() > 1))
+                   sequence_parallel=bool(sequence_parallel and mm.size() > 1),
+                   kv_replicas=kv_replicas, kv_group=kv_group, kv_mesh=kv_mesh)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """SUM over the model axis, in place (nothing on one rank)."""
@@ -197,6 +217,13 @@ class TensorParallel:
 
         if self.size > 1:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_reduce_kv_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the ranks that share this rank's kv head, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.kv_group)
         return t
 
 
@@ -245,6 +272,14 @@ class ContextParallel:
 
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.reduce_group)
         return t
+
+    def sum_context(self, t: torch.Tensor) -> torch.Tensor:
+        """A new tensor: the SUM of ``t`` over the context axis alone."""
+        import torch.distributed as dist
+
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        return out
 
     def post(self, tensors: list) -> tuple:
         """Start one ring shift: each tensor (None passes through) goes to

@@ -12,20 +12,40 @@ Each dotted leaf name (``models/llama.py::named_params``) has a
   None)`` and ``P("model", None)``.  LoRA's ``lora_a`` takes the base
   weight's input layout and ``lora_b`` its output layout, as in
   ``lora_param_specs``;
-- ``segments``: for the fused leaves, ``(name, global size)`` of each part
-  along ``dim``.  JAX's ``qkv.w`` is ``[h, (nh + 2 nkv) d]`` laid out
-  ``[all q | all k | all v]`` and ``gate_up.w`` is ``[gate | up]``; a
-  Megatron rank needs its heads of each part, so rank ``r`` holds
-  ``[q_r | k_r | v_r]`` (and ``[gate_r | up_r]``, NxD's
-  ``ColumnParallel(stride=2)``): the concatenation of each segment's ``r``-th
-  slice, not the ``r``-th slice of the whole.  Conversion and checkpoints
-  go through the segments (:func:`split_segments`), so the global layout of
-  every saved tensor is JAX's whatever the tp;
+- ``parts``: the :class:`Part` s laid end to end along ``dim``: one for a
+  plain leaf, one per segment for the fused ones.  JAX's ``qkv.w`` is
+  ``[h, (nh + 2 nkv) d]`` laid out ``[all q | all k | all v]`` and
+  ``gate_up.w`` is ``[gate | up]``; a Megatron rank needs its heads of each
+  part, so rank ``r`` holds ``[q_r | k_r | v_r]`` (and ``[gate_r | up_r]``,
+  NxD's ``ColumnParallel(stride=2)``): the concatenation of each part's
+  ``r``-th piece, not the ``r``-th slice of the whole.  Conversion and
+  checkpoints go through the parts (:func:`split_segments`), so the global
+  layout of every saved tensor is JAX's whatever the tp;
 - ``partial``: the leaf is replicated but each rank's gradient is a partial
   sum over the tp group, which the train step all-reduces: the norm scales
   under sequence parallelism (each rank normalises a slice of the
   sequence), LoRA's ``lora_a`` on column layers and ``lora_b`` on row
   layers.
+
+Two kinds of part need no tp that divides them, as GSPMD needs none in the
+JAX package:
+
+- **replicated kv heads** (the ``k`` and ``v`` parts, of ``qkv`` or
+  unfused): at tp above the kv heads each head sits on ``tp / nkv``
+  consecutive ranks, rank ``r`` holding head ``r // (tp / nkv)``, which its
+  q heads ``r nh / tp ...`` attend to (NxD's ``kv_shared_group_size``, the
+  consecutive repeat of JAX's ``_cp_prep``).  A shard hands each rank its
+  head, a merge takes one replica per head, and the ranks that share a head
+  sum their gradients of it (``trainer/step.py``); the grad norm counts it
+  once (:func:`owned_views`);
+- **padded vocab slices** (``embed.embedding``, ``lm_head.w``): at a tp that
+  does not divide the vocab, each rank holds ``ceil(V / tp)`` rows (the
+  reference's ``pad_vocab_size``), rank ``r`` the real rows ``r ceil(V /
+  tp) ...`` and zero rows after them.  No id reaches a padded row, the
+  logits' padded columns are masked out of the cross-entropy
+  (``models/llama.py::logits_fn``, ``ops/cross_entropy.py``), so their
+  gradients are zero and AdamW keeps them zero; conversion and checkpoints
+  see the real rows alone, so the saved shape is ``[V, h]`` at any tp.
 """
 
 from __future__ import annotations
@@ -42,46 +62,110 @@ ROW = ("o", "down")
 
 
 @dataclasses.dataclass(frozen=True)
+class Part:
+    """One part of a sharded leaf along its dim: a fused leaf's segment, or
+    the whole of a plain leaf (``name`` "")."""
+
+    name: str
+    size: int  # global size along the dim
+    kv_heads: int = 0  # k / v parts: above this many ranks each head is replicated
+    padded: bool = False  # vocab rows: tp need not divide ``size``
+
+    def replicas(self, tp: int) -> int:
+        """How many consecutive ranks hold each piece (1: none repeated)."""
+        if self.kv_heads and tp > self.kv_heads:
+            if tp % self.kv_heads:
+                raise ValueError(f"tensor_model_parallel_size {tp} and the {self.kv_heads} kv "
+                                 f"heads must divide one another")
+            return tp // self.kv_heads
+        return 1
+
+    def piece(self, rank: int, tp: int) -> tuple[int, int, int]:
+        """``(global start, local length, real length)`` of rank ``rank``'s
+        piece: a padded piece's rows past the real ones are zero."""
+        rep = self.replicas(tp)
+        if rep > 1:
+            n = self.size // self.kv_heads
+            return (rank // rep) * n, n, n
+        if self.padded:
+            n = -(-self.size // tp)
+            return rank * n, n, max(0, min(n, self.size - rank * n))
+        if self.size % tp:
+            raise ValueError(f"a part of {self.size} is not divisible by tp {tp}")
+        n = self.size // tp
+        return rank * n, n, n
+
+
+@dataclasses.dataclass(frozen=True)
 class LeafLayout:
     dim: Optional[int] = None
-    segments: tuple = ()  # ((name, global size along dim), ...) of a fused leaf
+    parts: tuple = ()  # the Parts along dim, in order
     partial: bool = False
 
     @property
     def sharded(self) -> bool:
         return self.dim is not None
 
+    @property
+    def segments(self) -> tuple:
+        """``(name, global size)`` of each segment of a fused leaf (none for
+        a plain one)."""
+        return tuple((p.name, p.size) for p in self.parts if p.name)
+
+    @property
+    def global_size(self) -> int:
+        """The leaf's global size along ``dim`` (JAX's)."""
+        return sum(p.size for p in self.parts)
+
+    def uneven(self, tp: int) -> bool:
+        """Are some of its parts replicated or padded at ``tp``?"""
+        return tp > 1 and any(p.replicas(tp) > 1 or p.size % tp for p in self.parts)
+
 
 REPLICATED = LeafLayout()
 
 
 def fused_segments(cfg, module: str) -> tuple:
-    """``(name, global size)`` of a fused layer's output parts."""
+    """The :class:`Part` s of a fused layer's output."""
     d, nh, nkv = cfg.head_size, cfg.num_attention_heads, cfg.kv_heads
     if module == "qkv":
-        return (("q", nh * d), ("k", nkv * d), ("v", nkv * d))
+        return (Part("q", nh * d), Part("k", nkv * d, kv_heads=nkv),
+                Part("v", nkv * d, kv_heads=nkv))
     if module == "gate_up":
-        return (("gate", cfg.intermediate_size), ("up", cfg.intermediate_size))
+        return (Part("gate", cfg.intermediate_size), Part("up", cfg.intermediate_size))
     return ()
+
+
+def _plain_part(cfg, module: str, row: bool) -> tuple:
+    """The one :class:`Part` of a plain layer's sharded dim: its input for a
+    row layer, its output for a column one."""
+    d, nh, nkv = cfg.head_size, cfg.num_attention_heads, cfg.kv_heads
+    if row:
+        return (Part("", nh * d if module == "o" else cfg.intermediate_size),)
+    if module in ("k", "v"):
+        return (Part("", nkv * d, kv_heads=nkv),)
+    return (Part("", nh * d),)
 
 
 def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayout:
     """The layout of one dotted leaf name (``cfg``: ``models/llama.py::
-    LlamaConfig``, for the fused segments)."""
+    LlamaConfig``, for the parts' sizes)."""
     parts = name.split(".")
     leaf, module = parts[-1], parts[-2] if len(parts) > 1 else ""
+    vocab = (Part("", cfg.vocab_size, padded=True),)
     if name == "embed.embedding":
-        return LeafLayout(dim=0)
+        return LeafLayout(dim=0, parts=vocab)
     if name == "lm_head.w":
-        return LeafLayout(dim=1)
+        return LeafLayout(dim=1, parts=vocab)
     if module in COLUMN:
         if leaf in ("w", "lora_b"):
-            return LeafLayout(dim=1, segments=fused_segments(cfg, module))
+            return LeafLayout(dim=1, parts=fused_segments(cfg, module)
+                              or _plain_part(cfg, module, row=False))
         if leaf == "lora_a":
             return LeafLayout(partial=True)
     if module in ROW:
         if leaf in ("w", "lora_a"):
-            return LeafLayout(dim=0)
+            return LeafLayout(dim=0, parts=_plain_part(cfg, module, row=True))
         if leaf == "lora_b":
             return LeafLayout(partial=True)
     if leaf == "scale" and module.endswith("norm"):
@@ -96,6 +180,14 @@ def leaf_layouts(names, cfg, *, sequence_parallel: bool = False) -> dict[str, Le
     return {n: leaf_layout(n, cfg, sequence_parallel=sequence_parallel) for n in names}
 
 
+def vocab_rows(vocab_size: int, rank: int, size: int) -> tuple[int, int]:
+    """``(global start, real rows)`` of rank ``rank``'s vocab slice at tp
+    ``size`` (each rank holds ``ceil(V / size)`` rows, the last ones
+    zero-padded)."""
+    start, _, real = Part("", vocab_size, padded=True).piece(rank, size)
+    return start, real
+
+
 def _narrow(t, dim: int, start: int, length: int):
     """``t.narrow`` for a torch tensor or a numpy array (a view)."""
     if isinstance(t, torch.Tensor):
@@ -105,16 +197,34 @@ def _narrow(t, dim: int, start: int, length: int):
     return t[tuple(index)]
 
 
-def split_segments(t, layout: LeafLayout, size: int) -> list[tuple[str, Any]]:
-    """``(segment name, view)`` of each segment of a rank's local tensor
-    ``t`` (``[("", t)]`` for a leaf with no segments)."""
-    if not layout.segments:
+def _cat(pieces: list, dim: int):
+    if isinstance(pieces[0], torch.Tensor):
+        return torch.cat(pieces, dim=dim)
+    import numpy as np
+
+    return np.ascontiguousarray(np.concatenate(pieces, axis=dim))
+
+
+def split_segments(t, layout: LeafLayout, size: int, rank: int = 0) -> list[tuple[str, Any]]:
+    """``(part name, view)`` of each part of rank ``rank``'s local tensor
+    ``t`` at tp ``size``: its real entries (a padded part's zero rows left
+    out); ``[("", t)]`` for a replicated leaf."""
+    if not layout.sharded:
         return [("", t)]
-    out, start = [], 0
-    for seg, n in layout.segments:
-        out.append((seg, _narrow(t, layout.dim, start, n // size)))
-        start += n // size
+    out, offset = [], 0
+    for p in layout.parts:
+        _, n, real = p.piece(rank, size)
+        out.append((p.name, _narrow(t, layout.dim, offset, real)))
+        offset += n
     return out
+
+
+def owned_views(t, layout: LeafLayout, rank: int, size: int) -> list:
+    """The views of a sharded leaf's local tensor that count towards a norm
+    over the tp group: every real entry, a replicated kv head on the first
+    rank that holds it alone."""
+    return [v for p, (_, v) in zip(layout.parts, split_segments(t, layout, size, rank))
+            if rank % p.replicas(size) == 0]
 
 
 def shard_leaf(full, layout: LeafLayout, rank: int, size: int):
@@ -123,31 +233,34 @@ def shard_leaf(full, layout: LeafLayout, rank: int, size: int):
     for a replicated leaf."""
     if size == 1 or not layout.sharded:
         return full
-    dim = layout.dim
-    lengths = [n for _, n in layout.segments] or [full.shape[dim]]
-    out, start = [], 0
-    for n in lengths:
-        if n % size:
-            raise ValueError(f"dim {dim} part of {n} not divisible by tp {size}")
-        out.append(_narrow(full, dim, start + rank * (n // size), n // size))
-        start += n
-    if isinstance(full, torch.Tensor):
-        return torch.cat(out, dim=dim)
-    import numpy as np
+    dim, out, offset = layout.dim, [], 0
+    for p in layout.parts:
+        start, n, real = p.piece(rank, size)
+        piece = _narrow(full, dim, offset + start, real)
+        if real < n:
+            shape = list(piece.shape)
+            shape[dim] = n - real
+            if isinstance(full, torch.Tensor):
+                pad = torch.zeros(shape, dtype=full.dtype, device=full.device)
+            else:
+                import numpy as np
 
-    return np.ascontiguousarray(np.concatenate(out, axis=dim))
+                pad = np.zeros(shape, dtype=full.dtype)
+            piece = _cat([piece, pad], dim)
+        out.append(piece)
+        offset += p.size
+    return _cat(out, dim)
 
 
 def merge_leaf(parts: list, layout: LeafLayout) -> Any:
     """The global leaf from every rank's local tensor, in rank order (the
-    inverse of :func:`shard_leaf`; torch tensors or numpy arrays)."""
+    inverse of :func:`shard_leaf`; torch tensors or numpy arrays): each part
+    from the ranks in order, one replica of each replicated head, the real
+    rows of each padded slice."""
     if len(parts) == 1 or not layout.sharded:
         return parts[0]
-    size, dim = len(parts), layout.dim
-    segs = [[x for _, x in split_segments(p, layout, size)] for p in parts]
-    cols = [segs[r][i] for i in range(len(segs[0])) for r in range(size)]
-    if isinstance(parts[0], torch.Tensor):
-        return torch.cat(cols, dim=dim)
-    import numpy as np
-
-    return np.concatenate(cols, axis=dim)
+    size = len(parts)
+    views = [split_segments(t, layout, size, r) for r, t in enumerate(parts)]
+    cols = [views[r][i][1] for i, p in enumerate(layout.parts)
+            for r in range(0, size, p.replicas(size))]
+    return _cat(cols, layout.dim)

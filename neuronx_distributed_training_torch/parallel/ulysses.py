@@ -16,7 +16,11 @@ Ulysses needs ``h`` divisible by ``tp * cp``.  KV heads repeat
 (consecutively, so a query head's group still finds its kv head) until they
 divide ``tp * cp``; autograd sums the replicas' gradients.  tp divides the
 kv heads in the port, so the repeat is the same on each rank's local heads
-as on the global ones: tp 8 x cp 2 with 8 kv heads repeats each twice.
+as on the global ones: tp 8 x cp 2 with 8 kv heads repeats each twice.  At
+tp above the kv heads each rank holds one kv head, replicated over tp/nkv
+ranks (``parallel/sharding.py``), so the count it repeats is the one after
+that replication, tp: tp 32 x cp 2 with 8 kv heads repeats each rank's
+head twice, as JAX's repeat of 8 heads to 64 puts two copies on each.
 
 Like the ring, the body is a generator (:func:`ulysses_body`) that yields
 ``("all_to_all", buffers)`` and ``("all_gather", [mask])`` and is sent back
@@ -129,6 +133,7 @@ def ulysses_attention(
                      attention_mask=attention_mask)
     b, sq, h_l, _ = q.shape
     n, tp = cp.size, tp_size
+    # the kv heads after tp's replication (tp of them above the kv heads)
     h, kvh = h_l * tp, k.shape[2] * tp
     if h % (tp * n) != 0:
         raise ValueError(

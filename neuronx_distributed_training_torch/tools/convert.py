@@ -10,8 +10,11 @@ one ``[in, r]``, ``[r, out]`` and 0-d tensor per layer, and back.
 
 Under tensor parallelism (``tp_size > 1``) ``params_from_jax`` gives rank
 ``tp_rank``'s local tree (``parallel/sharding.py``: fused leaves are cut by
-segment, so rank r holds ``[q_r | k_r | v_r]``), and ``params_to_jax``
-merges the list of every rank's local tree back into JAX's global leaves.
+segment, so rank r holds ``[q_r | k_r | v_r]``; above the kv heads its k and
+v parts are the one head it shares with ``tp/nkv`` ranks; a vocab tp does
+not divide is padded with zero rows to ``ceil(V/tp)`` a rank), and
+``params_to_jax`` merges the list of every rank's local tree back into JAX's
+global leaves (one replica of each kv head, the real vocab rows).
 Both need the model's ``LlamaConfig`` for the segments.  This module imports
 neither JAX nor the JAX package: the caller hands over ``np.asarray`` leaves.
 """

@@ -3,7 +3,8 @@ from shapes (no card, no allocation): for each (data, tensor)-parallel
 degree, the bytes of ``mu``, ``nu`` and (when the params are stored in
 another dtype) ``master`` that one rank holds.  Each leaf is first cut to
 the rank's tensor-parallel slice (``parallel/sharding.py``; replicated
-leaves stay whole), then sharded over dp on the dim
+leaves stay whole, a kv head several ranks share counts on each, a vocab
+slice with its padding), then sharded over dp on the dim
 ``optim/adamw.py::zero1_leaf_spec`` picks from the global shape (never the
 tp dim), or kept whole where no dim divides.
 
@@ -59,9 +60,11 @@ def state_bytes_per_rank(shapes: dict[str, tuple], dp: int, policy: DtypePolicy,
         n = 1
         for s in shape:
             n *= s
-        tp_dim = leaf_layout(name, cfg).dim if tp > 1 else None
+        layout = leaf_layout(name, cfg)
+        tp_dim = layout.dim if tp > 1 else None
         if tp_dim is not None:
-            n //= tp
+            # the rank's pieces: a replicated kv head whole, a vocab slice padded
+            n = n // shape[tp_dim] * sum(p.piece(0, tp)[1] for p in layout.parts)
         dim = zero1_leaf_spec(shape, dp, tp_dim)
         if dim is not None:
             n //= dp

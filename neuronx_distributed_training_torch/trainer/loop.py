@@ -30,7 +30,11 @@ is sharded over the data axis (``optim/adamw.py``).  With
 ``tensor_model_parallel_size`` above 1 each rank holds its slices of the
 leaves (``parallel/sharding.py``), drawn whole and cut, and
 ``sequence_parallel`` shards the activations' sequence between the
-column and row layers (``models/llama.py``).  With
+column and row layers (``models/llama.py``).  tp may exceed the kv heads
+(each is then replicated over ``tp/nkv`` ranks, which sum its gradient,
+``TensorParallel.kv_group``) and need not divide the vocab (each rank's
+slice is padded to ``ceil(V/tp)`` rows); ``fusions.chunked_ce`` runs the
+head and the cross-entropy over vocab blocks.  With
 ``context_parallel_size`` above 1 (and a ring, zig-zag ring or Ulysses
 fusion) the world is ``dp x cp x tp``: the context ranks of a data rank
 take its rows and each computes its ``seq/cp`` slice of them
@@ -52,17 +56,23 @@ reward metrics are logged beside the loss.  DPO and KTO first run the
 frozen policy over the train and val sets (``pre_fit``, before the resume),
 streamed, with a resumable sidecar at the checkpoint dir's root.  The
 logged ``tokens_per_sec`` counts ``global_batch_size x seq_length`` as the
-JAX package does: a pair counts once, though two sequences run.
+JAX package does: a pair counts once, though two sequences run.  Under
+context parallelism (ring or Ulysses; zig-zag is refused as in JAX) each
+context rank takes its slice of every side of each microbatch and the
+sequence log-probs are summed over the context group
+(``alignment/losses.py``); the reference pass does the same, and its
+sidecar, written once, reads back at any cp.
 
 ``exp_manager.telemetry.health`` is acted on (``telemetry/health.py``):
 ``skip_update`` keeps a non-finite step's state, ``halt`` stops at that step
 without a checkpoint (``stop_class = "health_halt"``), and the health
 counters are checkpointed with the optimizer state.
 
-Knobs this slice does not implement are rejected with the ROADMAP item that
-ports them; config blocks it does not act on are logged once as ignored
-(the other telemetry planes and the health recorder's knobs, elastic
-replan, EMA, autotune, overlap and pipeline knobs).
+Knobs this slice does not implement (pipeline and expert parallelism, MoE,
+GPT) are rejected with the ROADMAP item that ports them; config blocks it
+does not act on are logged once as ignored (the other telemetry planes and
+the health recorder's knobs, elastic replan, EMA, autotune, overlap and
+pipeline knobs).
 """
 
 from __future__ import annotations
@@ -91,6 +101,7 @@ from neuronx_distributed_training_torch.checkpoint import (
 from neuronx_distributed_training_torch.config.loader import ConfigDict, batch_schedule
 from neuronx_distributed_training_torch.data.build import alignment_strategy, build_data_module
 from neuronx_distributed_training_torch.data.loader import (
+    PREFERENCE_SIDES,
     DataModule,
     PrefetchIterator,
     context_parallel_batch,
@@ -151,11 +162,16 @@ def _unsupported(reasons: list) -> NotImplementedError:
 def check_supported(cfg: ConfigDict) -> None:
     """Reject what this slice of the port does not implement, naming the
     ROADMAP queue entry (and item) that ports each; a config with several
-    such knobs gets them all in one message."""
+    such knobs gets them all in one message.  Pipeline and expert
+    parallelism, MoE and GPT are not ported; tp above the kv heads, a vocab
+    tp does not divide, ``fusions.chunked_ce`` and DPO / ORPO / KTO under
+    context parallelism are, so the dense Llama configs run at their own
+    meshes but for pp."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
-    reasons = _tensor_parallel_reasons(cfg, ds, model)
+    _check_tensor_parallel(cfg, ds, model)
+    reasons = []
     pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
     cp = int(ds.get("context_parallel_size", 1) or 1)
     strategy, _ = alignment_strategy(cfg)
@@ -175,53 +191,34 @@ def check_supported(cfg: ConfigDict) -> None:
                             "(blockwise_gspmd_attention)", "9", "12"))
     if int(ds.get("expert_model_parallel_size", 1) or 1) > 1:
         reasons.append(("expert parallelism (ep > 1)", "10", "13"))
-    if strategy in PREFERENCE and cp > 1:
-        reasons.append((f"preference alignment ({strategy}) under context parallelism "
-                        f"(per-sequence log-prob sums over the context group)", "4", "11"))
-    if fusions.get("chunked_ce"):
-        reasons.append(("fusions.chunked_ce (chunked_cross_entropy_from_hidden)", "5", "2"))
     arch = str(model.get("architecture", model.get("model_type", "llama"))).lower()
     if model.get("moe") or arch == "mixtral":
         reasons.append(("MoE (mixtral)", "10", "13"))
     if str(cfg.get("model_source", "hf")).lower() == "megatron" or arch == "gpt":
         reasons.append(("megatron GPT models", "11", "14"))
-    elif arch not in ("llama", "mistral"):
+    elif arch not in ("llama", "mistral", "mixtral"):
         raise ValueError(f"unknown architecture {arch!r}")
     if reasons:
         raise _unsupported(reasons)
 
 
-def _tensor_parallel_reasons(cfg: ConfigDict, ds: dict, model: dict) -> list:
-    """tp must divide the heads, the kv heads and the vocab (and, under
-    sequence parallelism, each context rank's ``seq/cp``).  tp above the kv
-    heads needs KV replication (NxD's ``kv_replicator``), and a vocab tp does
-    not divide needs padding: neither is ported, and both are returned as
-    reasons; the rest raise ValueError."""
+def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
+    """tp must divide the heads and divide or be divided by the kv heads
+    (above them each kv head is replicated, ``parallel/sharding.py``), and,
+    under sequence parallelism, divide each context rank's ``seq/cp``.  Any
+    vocab goes: each rank's slice is padded to ``ceil(V/tp)`` rows."""
     tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
     if tp == 1:
-        return []
+        return
     nh = int(model.get("num_attention_heads", 32))
     nkv = int(model.get("num_key_value_heads") or nh)
-    vocab = int(model.get("vocab_size", 32000))
-    reasons = []
-    if tp > nkv:
-        reasons.append((f"tensor parallelism with tp {tp} above the {nkv} kv heads "
-                        f"(KV replication)", "2a", "7"))
-    if vocab % tp:
-        reasons.append((f"a vocab of {vocab} that tp {tp} does not divide (padding, "
-                        f"ops/linear.py::pad_vocab_size)", "2b", "7"))
-    if reasons:
-        return reasons
-    for key, n in (("num_attention_heads", nh), ("num_key_value_heads", nkv)):
-        if n % tp:
-            raise ValueError(f"tensor_model_parallel_size {tp} must divide model.{key} {n}")
+    llama.check_heads(nh, nkv, tp)
     seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
     cp = int(ds.get("context_parallel_size", 1) or 1)
     if ds.get("sequence_parallel") and (seq // cp) % tp:
         raise ValueError(f"sequence_parallel: tensor_model_parallel_size {tp} must divide "
                          f"data.seq_length {seq}" + (f" / context_parallel_size {cp}"
                                                      if cp > 1 else ""))
-    return []
 
 
 def _log_ignored(cfg: ConfigDict) -> None:
@@ -245,8 +242,10 @@ def _log_ignored(cfg: ConfigDict) -> None:
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
-        logger.info("ignored by this slice of the port (data and tensor parallelism, no "
-                    "telemetry planes but the health policy yet): %s", ", ".join(fresh))
+        logger.info("ignored by this slice of the port (dense Llama under data and tensor "
+                    "parallelism, with replicated kv heads and padded vocab slices, and context "
+                    "parallelism; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
+                    "planes but the health policy yet): %s", ", ".join(fresh))
 
 
 def _health_config(cfg: ConfigDict) -> HealthConfig:
@@ -294,39 +293,57 @@ class ReferencePass:
 
 
 def _preference_objective(strategy: str, params: dict, model_block: dict, mc, policy, *,
-                          tp, dp, micro_batch_size: int):
+                          tp, dp, cp, micro_batch_size: int):
     """``(loss_fn, ReferencePass or None)`` of a dpo / orpo / kto config.
     ``beta`` is the strategy block's ``kl_beta``, else ``model.<name>.beta``,
     else 0.1; KTO also reads the block's class weights and
-    ``kl_estimator``."""
+    ``kl_estimator``.  Under ``cp`` the loss function takes the context
+    rank's slices of each microbatch's sides."""
 
-    def forward_logits(p, input_ids):
+    def forward_logits(p, input_ids, positions=None):
         # input_ids alone, as the JAX package's preference forward: no
         # key-padding mask, so the kernels take the pretraining route
-        return llama.forward(p, {"input_ids": input_ids}, mc, policy, tp=tp)[0]
+        batch = {"input_ids": input_ids}
+        if positions is not None:
+            batch["positions"] = positions
+        return llama.forward(p, batch, mc, policy, tp=tp, cp=cp)[0]
 
     beta = float(params.get("kl_beta",
                             dict(model_block.get(strategy, {}) or {}).get("beta", 0.1)))
     if strategy == "orpo":
-        return make_orpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp), None
+        return _context_split(make_orpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp,
+                                                cp=cp), cp), None
     if strategy == "dpo":
-        loss_fn = dpo_mod.make_dpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp)
+        loss_fn = dpo_mod.make_dpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp, cp=cp)
         sides = lambda keys: dpo_mod.DPO_SIDES  # noqa: E731
         marker, sidecar = "reference_chosen_logps", "dpo_reference_logps.npz"
     else:
         loss_fn = kto_mod.make_kto_loss_fn(
             forward_logits, beta=beta, desirable_weight=float(params.get("desirable_weight", 1.0)),
             undesirable_weight=float(params.get("undesirable_weight", 1.0)),
-            kl_estimator=str(params.get("kl_estimator", "batch_mean")), tp=tp, dp=dp)
+            kl_estimator=str(params.get("kl_estimator", "batch_mean")), tp=tp, dp=dp, cp=cp)
         sides = kto_mod.kto_sides
         marker, sidecar = "reference_logps", "kto_reference_logps.npz"
 
     def columns(p, batch):
-        return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp,
+        return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp, cp=cp,
                                          micro_batch_size=micro_batch_size)
 
-    return loss_fn, ReferencePass(marker=marker, sidecar=sidecar,
-                                  names=lambda keys: sorted(sides(keys)), columns=columns)
+    return _context_split(loss_fn, cp), ReferencePass(
+        marker=marker, sidecar=sidecar, names=lambda keys: sorted(sides(keys)), columns=columns)
+
+
+def _context_split(loss_fn, cp):
+    """``loss_fn`` on the context rank's slices of each preference
+    microbatch (its denominator, the rows, is taken on the whole one)."""
+    if cp is None:
+        return loss_fn
+
+    def split(p, batch, denominator=None):
+        return loss_fn(p, context_parallel_batch(batch, cp.rank, cp.size,
+                                                 sides=PREFERENCE_SIDES), denominator)
+
+    return split
 
 
 def _row_count(batch: dict) -> torch.Tensor:
@@ -428,7 +445,8 @@ class Trainer:
         if dist.is_available() and dist.is_initialized():
             mesh = build_mesh(mesh_cfg, device_type=dev.type)
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
-            tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel)
+            tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel,
+                                          kv_replicas=max(mesh_cfg.tp // mc.kv_heads, 1))
             if mc.context_parallel:
                 cp = ContextParallel.from_mesh(mesh)
         else:
@@ -476,7 +494,7 @@ class Trainer:
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
-                                health=health.enabled, layouts=layouts, tp_size=tp_size)
+                                health=health.enabled, layouts=layouts)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
                                    dp=dp, tp=tp, layouts=layouts)
         opt_block = dict(model_block.get("optim", {}) or {})
@@ -486,7 +504,7 @@ class Trainer:
         reference = None
         if strategy in PREFERENCE:
             loss_fn, reference = _preference_objective(
-                strategy, strat_params, model_block, mc, policy, tp=tp, dp=dp,
+                strategy, strat_params, model_block, mc, policy, tp=tp, dp=dp, cp=cp,
                 micro_batch_size=sched["micro_batch_size"])
             token_count_fn = _row_count
         else:
@@ -510,7 +528,7 @@ class Trainer:
             num_microbatches=nm, trainable=trainable, health=health, dp=dp,
             token_count_fn=token_count_fn, tp=tp,
             tp_partial=frozenset(n for n in train_flat if layouts[n].partial),
-            tp_sharded=frozenset(n for n in train_flat if layouts[n].sharded), cp=cp)
+            tp_sharded={n: layouts[n] for n in train_flat if layouts[n].sharded}, cp=cp)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
         version = None
         if dp is not None:

@@ -49,6 +49,11 @@ only (every tp rank already holds the whole loss).  The clipping norm counts
 the ``tp_sharded`` leaves' slices over tp and each replicated leaf once, so
 the skip decision and the clip factor are the same on every rank of the
 world, and every rank issues the same collectives in the same order.
+``tp_sharded`` maps each sharded leaf to its ``parallel/sharding.py``
+layout: at tp above the kv heads, the ranks that hold one kv head each have
+their q heads' share of its gradient, which is SUM all-reduced over those
+ranks (``tp.kv_group``, one flat buffer) before the data axis's sum, and
+the norm counts that head once.
 
 ``cp`` (``parallel/mesh.py::ContextParallel``): context parallelism.  Every
 context rank of a data rank takes that rank's rows, and the loss function
@@ -76,6 +81,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
     global_norm,
     init_health_state,
 )
+from neuronx_distributed_training_torch.parallel.sharding import split_segments
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 from neuronx_distributed_training_torch.telemetry.health import grad_group_of
 from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
@@ -121,13 +127,28 @@ def _scalar_aux(aux: dict) -> dict:
     return out
 
 
-def _all_reduce_partial_(grads: list, tp) -> None:
-    """SUM over the model axis of ``grads``, in place, as one flat buffer."""
-    flat = tp.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+def _flat_sum_(tensors: list, reduce_) -> None:
+    """``reduce_`` (an in-place SUM over a group) of ``tensors``, in place,
+    as one flat buffer."""
+    flat = reduce_(torch.cat([t.reshape(-1) for t in tensors]))
     offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def _kv_replica_views(grads: dict, layouts, tp) -> list:
+    """The views of ``grads`` (by name) that hold a kv head several tp ranks
+    share (``layouts``: the sharded leaves' ``parallel/sharding.py``
+    layouts), in name order."""
+    out = []
+    for n, g in grads.items():
+        lay = layouts.get(n) if isinstance(layouts, dict) else None
+        if lay is None or not lay.uneven(tp.size):
+            continue
+        out += [v for p, (_, v) in zip(lay.parts, split_segments(g, lay, tp.size, tp.rank))
+                if p.replicas(tp.size) > 1]
+    return out
 
 
 def _summing(dp, cp):
@@ -143,7 +164,7 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     trainable: Optional[set[str]] = None, health: Any = None,
                     dp: Any = None, token_count_fn: Optional[Callable] = None,
                     tp: Any = None, tp_partial: frozenset = frozenset(),
-                    tp_sharded: frozenset = frozenset(), cp: Any = None) -> Callable:
+                    tp_sharded=frozenset(), cp: Any = None) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``)."""
     health = health if health is not None and getattr(health, "enabled", False) else None
@@ -179,7 +200,12 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             del grads
         partial = [g for n, g in zip(names, grad_sum) if n in tp_partial]
         if tp_active(tp) and partial:
-            _all_reduce_partial_(partial, tp)
+            _flat_sum_(partial, tp.all_reduce_)
+        if tp_active(tp) and tp.kv_replicas > 1:
+            # each replica holds its q heads' share of the head's gradient
+            shared = _kv_replica_views(dict(zip(names, grad_sum)), tp_sharded, tp)
+            if shared:
+                _flat_sum_(shared, tp.all_reduce_kv_)
         if summed is not None:
             for g in grad_sum:
                 summed(g)

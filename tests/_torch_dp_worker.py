@@ -41,7 +41,10 @@ the rows of each microbatch it computed
 (``rows``; of ``chosen_input_ids`` for preference pairs), so a test sees
 which ranks compute the same rows, and for KTO batches the desirable rows of
 each (``kto_desirable``).  A preference config builds its data module from
-its jsonl, and its reference pass runs from the ``weights``.
+its jsonl, and its reference pass runs from the ``weights``; the rows that
+pass computed on this rank (``reference_rows``, 0 when a sidecar held them)
+and the train module's reference columns (``reference_columns``) are
+reported.
 """
 
 from __future__ import annotations
@@ -332,7 +335,7 @@ def run(spec: dict, rank: int) -> dict:
         specs = opt_state_specs(flat, trainer.dp.size,
                                 zero1=bool(cfg.distributed_strategy.get("zero1", True)),
                                 policy=trainer.policy, health=trainer.health.enabled,
-                                layouts=trainer.layouts, tp_size=tp.size)
+                                layouts=trainer.layouts)
         trainer.opt_state = init_opt_state(flat, trainer.policy, health=trainer.health.enabled,
                                            specs=specs, dp=trainer.dp, tp=tp,
                                            layouts=trainer.layouts)
@@ -368,6 +371,14 @@ def run(spec: dict, rank: int) -> dict:
             loss = loss * float("nan")
         return loss, aux
 
+    reference_rows = trainer._reference_rows
+    out["reference_rows"] = 0
+
+    def count_reference(batch, m, names):
+        out["reference_rows"] += m
+        return reference_rows(batch, m, names)
+
+    trainer._reference_rows = count_reference
     step_mod._microbatches, step_mod.adamw_update = record_rows, capture
     if poison:
         step_mod._call_loss = poisoned_loss
@@ -376,6 +387,9 @@ def run(spec: dict, rank: int) -> dict:
     finally:
         step_mod._microbatches, step_mod.adamw_update = microbatches, update
         step_mod._call_loss = call_loss
+    if trainer.reference is not None:
+        out["reference_columns"] = {k: trainer.data_module.arrays[k].tolist()
+                                    for k in trainer.reference.names(trainer.data_module.arrays)}
     if spec.get("grads"):
         _save(merged(trainer, captured), spec["grads"])
     out["history"] = history

@@ -299,13 +299,23 @@ def test_tp_ranks_of_a_dp_group_get_the_same_rows(gbs, nm, dp, tp):
 
 
 def test_tp_above_kv_heads_and_uneven_vocab_are_rejected():
+    """Once rejected (ROADMAP entries 2a and 2b), tp above the kv heads and a
+    vocab tp does not divide now pass ``check_supported``; kv heads and a tp
+    that do not divide one another, heads tp does not divide, and an SP
+    sequence tp does not divide are still refused with JAX's texts."""
     cfg = t_loader.load_config(TINY, {"distributed_strategy.tensor_model_parallel_size": 4,
                                       "distributed_strategy.sequence_parallel": True})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_loop.check_supported(cfg)
+    t_loop.check_supported(cfg)
     cfg = t_loader.load_config(TINY, {"distributed_strategy.tensor_model_parallel_size": 2,
                                       "model.vocab_size": 511})
-    with pytest.raises(NotImplementedError, match="item 7.*|pad"):
+    t_loop.check_supported(cfg)
+    cfg = t_loader.load_config(TINY, {"distributed_strategy.tensor_model_parallel_size": 4,
+                                      "model.num_attention_heads": 12,
+                                      "model.num_key_value_heads": 3})
+    with pytest.raises(ValueError, match="kv_heads 3 and tp 4 must divide one another"):
+        t_loop.check_supported(cfg)
+    cfg = t_loader.load_config(TINY, {"distributed_strategy.tensor_model_parallel_size": 8})
+    with pytest.raises(ValueError, match="num_heads 4 must be divisible by tp 8"):
         t_loop.check_supported(cfg)
     cfg = t_loader.load_config(TINY, {"distributed_strategy.tensor_model_parallel_size": 2,
                                       "distributed_strategy.sequence_parallel": True,
@@ -548,7 +558,7 @@ def test_tp2_gradients_equal_tp1(tp2_runs, case):
     ``lora_b`` on row layers, whose tp=2 gradients are partial sums.
     The LoRA weights carry a non-zero B, so the column layers' A has a
     gradient at step 0.  Without the train step's all-reduce of the partial
-    gradients (``trainer/step.py::_all_reduce_partial_``) this test fails:
+    gradients (``trainer/step.py::_flat_sum_``) this test fails:
     with that call removed, on a copy of the tree, the five norm scales'
     gradients were 16-78% off and the eight replicated LoRA factors' 61-86%,
     every other leaf within 5e-7.  ``dense_no_sp`` is tp=2 without SP,
