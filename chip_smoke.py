@@ -157,6 +157,37 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       the spread of two one-card attentions.  With one card it prints why
       it did not run.
 
+12. pipeline parallelism at vp 1 (``parallel/pipeline.py``):
+   a. phase 4's cell (Llama-3-8B width, 4 layers, seq 8192, mbs 1,
+      ``mixed_precision``, flash) through the pipeline executor, every
+      virtual rank in this one process through the library's loopback (one
+      card holds one NCCL rank): pp 2 and pp 4, each with ``1f1b`` and
+      ``wavefront``, at 4 and 8 microbatches, and pp 2 ``1f1b`` at 4
+      microbatches with a ``loss_mask`` that gives them different valid
+      counts; each against the unpipelined forward and backward on the same
+      weights and rows (normalized by the global count): the loss within
+      1e-4 and each gradient leaf within 2e-3 of its largest entry; the two
+      schedules against each other (their largest gap, and whether they are
+      bit for bit equal); launches summed over the virtual ranks exact (dq
+      and dk/dv layers x microbatches, fwd that under ``1f1b`` and twice
+      that under ``wavefront``, whose backward recomputes the stage); per
+      virtual rank the stage seconds (CUDA events) and the most
+      microbatches' graphs alive at once (``1f1b``: ``pp - r``; ``wavefront``
+      one, with its microbatches' stage inputs held), and per run the
+      process's peak device memory and the work table's predicted bubble;
+   b. ``hf_llama3_70B_config.yaml``'s width (hidden 8192, ffn 28672, 64 / 8
+      heads of 128, vocab 128256, seq 8192) at 2 layers, pp 2, 4
+      microbatches, ``1f1b``, against the unpipelined pass (its gradients
+      kept on the host) at 12a's bars, with the reckoned and the measured
+      peak; then the three kernels at this attention shape timed beside
+      their bounds and SDPA's forward and backward;
+   c. with two or more cards, phase 4's cell through the CLI under
+      ``torchrun --nproc_per_node 2`` at pp 2 (``schedule: 1f1b``) against
+      phase 4 (losses 1e-4, grad norms 2e-3), each rank's launches exact, a
+      save at step 2 resumed bit for bit at pp 2 and restored at pp 1; with
+      four cards pp 4 and pp 2 x tp 2 (SP).  With one card it prints why
+      it did not run.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.
@@ -2186,6 +2217,408 @@ def phase_skip(torch, fa, cell, card: str) -> None:
         f"phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+#: 12a's runs at phase 4's cell: (pp, microbatches), each with both schedules
+PP_RUNS = ((2, 4), (2, 8), (4, 4), (4, 8))
+PP_SCHEDULES = ("1f1b", "wavefront")
+#: each gradient leaf against the unpipelined one, relative to its largest
+#: entry (the loss is held at TP_LOSS_RTOL)
+PP_GRAD_REL = 2e-3
+PP_SEED = 20261101
+PP_70B_CONFIG = REPO / "examples" / "conf" / "hf_llama3_70B_config.yaml"
+PP_70B_LAYERS, PP_70B_MICRO = 2, 4
+#: the 70B configs' attention at seq 8192: 64 q and 8 kv heads of 128
+PP_70B_ATTN = dict(b=1, s=SEQ, nh=64, nkv=8, d=128)
+
+
+class StageTimer:
+    """A virtual rank's stage seconds, the ``timer`` of
+    ``parallel/pipeline.py::stage_body``: CUDA events around each of its
+    computations, summed after a synchronize."""
+
+    def __init__(self, torch):
+        self.torch, self.spans = torch, []
+
+    def __call__(self):
+        import contextlib
+
+        @contextlib.contextmanager
+        def span():
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            yield
+            ev[1].record()
+            self.spans.append(ev)
+
+        return span()
+
+    def total(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+
+
+def pp_model(torch, config: Path, layers: int, pp: int):
+    """``(LlamaConfig, DtypePolicy, params)`` of ``config`` cut to
+    ``layers`` layers at tp 1, as the trainer builds them on the card
+    (flash, ``mixed_precision``, random weights from the config's seed), the
+    whole model in this one process: the loopback's virtual ranks share it."""
+    from neuronx_distributed_training_torch.config import loader
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    cfg = loader.load_config(config, {"model.num_layers": layers,
+                                      "distributed_strategy.pipeline_model_parallel_size": pp,
+                                      "distributed_strategy.tensor_model_parallel_size": 1,
+                                      "distributed_strategy.sequence_parallel": False})
+    mc = llama.LlamaConfig.from_config(cfg["model"], cfg["distributed_strategy"])
+    policy = DtypePolicy.from_precision_config(cfg.get("precision"))
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.get("seed", 1234)))
+    params = llama.init_params(mc, policy, generator=gen, device="cuda")
+    for t in llama.named_params(params).values():
+        t.requires_grad_(True)
+    return mc, policy, params
+
+
+def pp_rows(torch, vocab: int, nm: int, masked: bool, seed: int) -> list:
+    """``nm`` microbatches of one seeded row each; ``masked``: microbatch m
+    loses the first ``m * SEQ / (2 nm)`` positions from its ``loss_mask``,
+    so the microbatches hold different valid counts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, vocab, (nm, 1, SEQ), generator=gen, device="cuda")
+    out = []
+    for m in range(nm):
+        mb = {"input_ids": ids[m], "labels": ids[m]}
+        if masked:
+            mask = torch.ones(1, SEQ, device="cuda")
+            mask[:, :(m * SEQ) // (2 * nm)] = 0.0
+            mb["loss_mask"] = mask
+        out.append(mb)
+    return out
+
+
+def pp_reference(torch, mc, policy, params, mbs: list, denom, *, host: bool) -> tuple:
+    """The unpipelined forward and backward on the same weights and rows,
+    normalized by the global count (the pipelined rule): ``(loss, {name:
+    fp32 gradient})``, on the host with ``host`` (12b: the card holds the
+    pipelined run next), else on the card.  The gradients accumulate in the
+    fp32 leaves' ``.grad`` (no second copy on the card), which is left
+    empty."""
+    from neuronx_distributed_training_torch.models import llama
+
+    leaves = llama.named_params(params)
+    loss = None
+    for mb in mbs:
+        lm = llama.forward(params, mb, mc, policy, loss_denominator=denom)[0].float()
+        lm.backward()
+        loss = lm.detach() if loss is None else loss + lm.detach()
+        del lm
+    out = {}
+    for n, t in leaves.items():
+        out[n] = t.grad.float().cpu() if host else t.grad
+        t.grad = None
+    free_cuda(torch)
+    return float(loss), out
+
+
+def pp_grad_gap(torch, grads: dict, ref: dict) -> tuple:
+    """``(largest gap over leaves, its leaf, bit for bit?)``: each leaf's
+    largest |difference| relative to the reference leaf's largest entry,
+    on the card (a host reference leaf is moved there one at a time)."""
+    worst, where, same = 0.0, None, True
+    for n, r in ref.items():
+        g = grads[n].float() if n in grads else torch.zeros_like(r, device="cuda")
+        r = r.to(g.device)
+        gap = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        same &= bool(torch.equal(g, r))
+        if gap > worst or where is None:
+            worst, where = gap, n
+    return worst, where, same
+
+
+def pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule: str, pp: int, policy,
+           card: str, tag: str) -> dict:
+    """One loopback step of every virtual rank, with the launch counters set
+    to 0 just before and read just after: the loss, the gradients (on the
+    card), the launches, each rank's stage seconds and in-flight counts, the
+    process's peak memory and the work table's predicted bubble."""
+    from neuronx_distributed_training_torch.models import llama
+
+    leaves = llama.named_params(params)
+    stats = [{} for _ in range(pp)]
+    timers = [StageTimer(torch) for _ in range(pp)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    t0 = time.perf_counter()
+    loss, grads = pipeline.loopback_step(params, hooks, mbs, denom, schedule, pp, leaves=leaves,
+                                         act_dtype=policy.compute_dtype,
+                                         grad_dtype=policy.grad_accum_dtype, stats=stats,
+                                         timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"loss": float(loss), "grads": grads, "launches": dict(fa.LAUNCHES),
+           "fallbacks": dict(fa.FALLBACKS), "stage_seconds": [t.total() for t in timers],
+           "stats": stats, "peak_bytes": torch.cuda.max_memory_allocated(), "wall": wall,
+           "bubble": pipeline.predicted_bubble_fraction(schedule, pp, len(mbs))}
+    for r in range(pp):
+        log(f"pp: {tag} rank {r}: stage {out['stage_seconds'][r]:.4f} s, graphs alive at most "
+            f"{stats[r]['graphs_max']}, stage inputs held at most {stats[r]['inputs_max']} "
+            f"[{card}]")
+    log(f"pp: {tag}: loss {out['loss']:.6f}, wall {wall:.3f} s for all {pp} virtual ranks "
+        f"in turn, peak device memory of the process {out['peak_bytes']} bytes "
+        f"({out['peak_bytes'] / 2**30:.2f} GiB), predicted bubble {out['bubble']:.4f}, "
+        f"launches {out['launches']} [{card}]")
+    return out
+
+
+def pp_check(tag: str, run: dict, ref_loss: float, ref: dict, *, layers: int, nm: int,
+             pp: int, schedule: str, torch) -> dict:
+    """12a / 12b's bars: loss and every leaf against the unpipelined pass,
+    exact launches (the wavefront's recompute counted), and the in-flight
+    counts of the schedule."""
+    gap, leaf, same = pp_grad_gap(torch, run["grads"], ref)
+    loss_rel = abs(run["loss"] - ref_loss) / abs(ref_loss)
+    log(f"pp: {tag}: against the unpipelined pass: loss {run['loss']:.6f} vs {ref_loss:.6f} "
+        f"(rel {loss_rel:.2e}, bar {TP_LOSS_RTOL:g}); largest gradient gap {gap:.3e} of its "
+        f"leaf's largest entry ({leaf}; bar {PP_GRAD_REL:g}); bit for bit {same}")
+    if not loss_rel <= TP_LOSS_RTOL or not gap <= PP_GRAD_REL:
+        fail(f"pp {tag}: against the unpipelined pass, loss rel {loss_rel:.3e}, gradient gap "
+             f"{gap:.3e} at {leaf}")
+    fwd = layers * nm * (2 if schedule == "wavefront" else 1)
+    want = {"flash_fwd": fwd, "flash_dq": layers * nm, "flash_dkv": layers * nm}
+    if run["launches"] != want or run["fallbacks"]["core"]:
+        fail(f"pp {tag}: launches {run['launches']} (fallbacks {run['fallbacks']}), "
+             f"expected {want}")
+    graphs = [s["graphs_max"] for s in run["stats"]]
+    inputs = [s["inputs_max"] for s in run["stats"]]
+    if schedule == "1f1b":
+        ok = graphs == [min(pp - r, nm) for r in range(pp)] and not any(inputs)
+    else:
+        ok = graphs == [1] * pp and inputs == [0] + [nm] * (pp - 1)
+    if not ok:
+        fail(f"pp {tag}: graphs alive {graphs}, stage inputs held {inputs} per rank")
+    return {"loss_rel": loss_rel, "grad_gap": gap, "bitwise_vs_unpipelined": same}
+
+
+def phase_pp_loopback(torch, fa, card: str) -> dict:
+    """12a: phase 4's cell (Llama-3-8B width, 4 layers, seq 8192, mbs 1,
+    ``mixed_precision``, flash) through the pipeline executor, every virtual
+    rank in this process: pp 2 and 4 at 4 and 8 microbatches with each
+    schedule, and pp 2 at 4 microbatches with an uneven ``loss_mask``,
+    each against the unpipelined pass on the same weights and rows, and the
+    two schedules against each other."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    cfg_path = REPO / "examples" / "conf" / "hf_llama3_8B_config.yaml"
+    mc, policy, params = pp_model(torch, cfg_path, 4, 1)
+    hooks = llama.pipeline_hooks(mc, policy)
+    out: dict = {"runs": {}}
+    cases: dict = {}
+    for pp, nm in PP_RUNS:
+        cases.setdefault((nm, False), []).append(pp)
+    cases[(4, True)] = [2]
+    for (nm, masked), pps in cases.items():
+        free_cuda(torch)
+        mbs = pp_rows(torch, mc.vocab_size, nm, masked, PP_SEED + nm)
+        denom = sum(llama.loss_token_count(mb) for mb in mbs)
+        t0 = time.perf_counter()
+        ref_loss, ref = pp_reference(torch, mc, policy, params, mbs, denom, host=False)
+        log(f"pp: unpipelined pass, {nm} microbatches{' masked' if masked else ''}: loss "
+            f"{ref_loss:.6f}, valid tokens {float(denom):.0f} ({time.perf_counter() - t0:.2f} s)"
+            f" [{card}]")
+        for pp in pps:
+            prev = None
+            for schedule in ("1f1b",) if masked else PP_SCHEDULES:
+                tag = f"pp{pp}_nm{nm}_{schedule}{'_masked' if masked else ''}"
+                run = pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule, pp,
+                             policy, card, tag)
+                rep = pp_check(tag, run, ref_loss, ref, layers=mc.num_layers, nm=nm, pp=pp,
+                               schedule=schedule, torch=torch)
+                grads = run.pop("grads")
+                if prev is not None:
+                    gap, leaf, same = pp_grad_gap(torch, grads, prev[1])
+                    same = same and run["loss"] == prev[0]
+                    loss_rel = abs(run["loss"] - prev[0]) / abs(prev[0])
+                    log(f"pp: pp{pp}_nm{nm}: wavefront against 1f1b: loss rel {loss_rel:.2e}, "
+                        f"largest gradient gap {gap:.3e} ({leaf}); bit for bit {same}")
+                    if not loss_rel <= TP_LOSS_RTOL or not gap <= PP_GRAD_REL:
+                        fail(f"pp pp{pp}_nm{nm}: the schedules disagree: loss rel "
+                             f"{loss_rel:.3e}, gradient gap {gap:.3e} at {leaf}")
+                    rep.update(vs_1f1b_gap=gap, vs_1f1b_bitwise=same)
+                prev = (run["loss"], grads)
+                out["runs"][tag] = {**rep, **run}
+                del grads
+                free_cuda(torch)
+            del prev
+        del ref, mbs
+    del params
+    free_cuda(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pp: 12a phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_pp_70b(torch, fa, kt, card: str, peaks) -> dict:
+    """12b: ``hf_llama3_70B_config.yaml``'s width (hidden 8192, ffn 28672,
+    64 / 8 heads of 128, vocab 128256, seq 8192) at 2 layers, pp 2 (a layer
+    a stage), 4 microbatches, ``1f1b``, through the loopback against the
+    unpipelined pass (its gradients kept on the host), at 12a's bars; then
+    the three kernels timed at this attention shape beside their bounds and
+    SDPA's time."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    mc, policy, params = pp_model(torch, PP_70B_CONFIG, PP_70B_LAYERS, 2)
+    n_params = sum(t.numel() for t in llama.named_params(params).values())
+    h, v, s = mc.hidden_size, mc.vocab_size, SEQ
+    reckon = {"params_and_grads": 2 * 4 * n_params,
+              # bf16 logits, their fp32 copy and the fp32 softmax of one row
+              "head": s * v * (2 + 4 + 4)}
+    log(f"pp: 12b: {n_params} params ({n_params / 1e9:.3f} B); reckoning: fp32 params and "
+        f"gradients {reckon['params_and_grads'] / 1e9:.1f} GB, one microbatch's head and CE "
+        f"{reckon['head'] / 1e9:.1f} GB [{card}]")
+    hooks = llama.pipeline_hooks(mc, policy)
+    mbs = pp_rows(torch, v, PP_70B_MICRO, False, PP_SEED + 70)
+    denom = sum(llama.loss_token_count(mb) for mb in mbs)
+    t0 = time.perf_counter()
+    ref_loss, ref = pp_reference(torch, mc, policy, params, mbs, denom, host=True)
+    log(f"pp: 12b unpipelined pass: loss {ref_loss:.6f} ({time.perf_counter() - t0:.2f} s) "
+        f"[{card}]")
+    run = pp_run(torch, fa, pipeline, hooks, params, mbs, denom, "1f1b", 2, policy, card,
+                 "70b_pp2_nm4_1f1b")
+    rep = pp_check("70b_pp2_nm4_1f1b", run, ref_loss, ref, layers=PP_70B_LAYERS,
+                   nm=PP_70B_MICRO, pp=2, schedule="1f1b", torch=torch)
+    run.pop("grads")
+    log(f"pp: 12b peak device memory {run['peak_bytes'] / 1e9:.1f} GB against the reckoning's "
+        f"{(reckon['params_and_grads'] + reckon['head']) / 1e9:.1f} GB plus the layers' "
+        f"activations, of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB "
+        f"[{card}]")
+    del params, ref, mbs
+    free_cuda(torch)
+    # the kernels at this attention shape, as phase 3
+    m = PP_70B_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED + 71)
+    q, k, vv, do = (kt.randn_bf16(gen, 1, m["s"], hh, m["d"])
+                    for hh in (m["nh"], m["nkv"], m["nkv"], m["nh"]))
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, vv)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = kt.kernel_ms(q, k, vv, do, lse, delta)
+    bounds = bounds_ms(kt, peaks, m)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, vv))
+    with torch.no_grad():
+        sdpa = kt.cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                                 enable_gqa=True))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    dot = do.transpose(1, 2)
+    sdpa_bwd = kt.cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True, enable_gqa=True).backward(dot)) - sdpa
+    rows = []
+    for kname, t in ms.items():
+        rows.append({"kernel": kname, "ms": t, "bound_ms": bounds[kname][0],
+                     "bound_by": bounds[kname][1], **m})
+        log(f"pp: 12b time {kname} at b 1, nh {m['nh']}, nkv {m['nkv']}, s {m['s']}, d "
+            f"{m['d']}: {t:.3f} ms, bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}), "
+            f"{bounds[kname][0] / t:.3f} of bound [{card}]")
+    log(f"pp: 12b sdpa forward {sdpa:.3f} ms, backward (fwd+bwd minus fwd) {sdpa_bwd:.3f} ms; "
+        f"dq + dk/dv kernels {ms['flash_dq'] + ms['flash_dkv']:.3f} ms [{card}]")
+    del q, k, vv, do, o, lse, delta, qh, kh, vh, qg, kg, vg, dot
+    free_cuda(torch)
+    out = {"run": {**rep, **run}, "reckoning": reckon, "n_params": n_params, "kernels": rows,
+           "sdpa_ms": sdpa, "sdpa_bwd_ms": sdpa_bwd,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"pp: 12b phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def pp_cli_run(cell, nproc: int, pp: int, name: str, ref: dict, card: str, *extra: str) -> dict:
+    """Phase 4's cell under torchrun at ``pp`` (``schedule: 1f1b``) over
+    ``nproc`` cards: losses and grad norms within the mixed_precision
+    tolerance of ``ref`` (phase 4's: every token counts, so the pipelined
+    and unpipelined rules agree), each rank's launches exact."""
+    rep = torchrun_cell(cell, nproc, cell.WORK / f"exp_{name}", 900,
+                        "--set", f"distributed_strategy.pipeline_model_parallel_size={pp}",
+                        "--set", "distributed_strategy.pipeline.schedule=1f1b", *extra)
+    tp = rep["tp"]
+    dp = nproc // (pp * tp)
+    expect = (cell.LAYERS // pp) * (cell.MICROBATCHES // dp) * cell.STEPS
+    log(f"pp: {name} (pp {rep['pp']}, dp {rep['dp']}, tp {tp}): losses {rep['loss']} grad_norms "
+        f"{rep['grad_norm']}; one card {ref['loss']} / {ref['grad_norm']}; step seconds "
+        f"{rep['step_seconds']}; peak device memory per rank "
+        f"{[r['peak_bytes'] for r in rep['ranks']]} bytes [{card}]")
+    for r in rep["ranks"]:
+        if any(n != expect for n in r["launches"].values()) or r["fallbacks"]["core"]:
+            fail(f"pp {name}: rank {r['rank']} launches {r['launches']} (fallbacks "
+                 f"{r['fallbacks']}), expected {expect} each")
+    if rep["pp"] != pp or \
+            not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+                    for a, b in zip(rep["loss"], ref["loss"])) or \
+            not all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                    for a, b in zip(rep["grad_norm"], ref["grad_norm"])):
+        fail(f"pp {name}: losses {rep['loss']} / grad norms {rep['grad_norm']} against one "
+             f"card's {ref['loss']} / {ref['grad_norm']}")
+    return rep
+
+
+def phase_pp_cli(torch, cell, ref: dict, card: str) -> dict | None:
+    """12c, with two or more cards: phase 4's cell through the CLI under
+    torchrun at pp 2 (``1f1b``) against phase 4, a save at step 2 resumed
+    at pp 2 bit for bit and restored at pp 1 (step 3 within the
+    mixed_precision tolerance); with four, pp 4 and pp 2 x tp 2 (SP).  With
+    one card it says why it did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"pp: phase 12c (the CLI at pp 2 under torchrun) not run: this machine shows "
+            f"{n_cards} card, NCCL takes one rank per card, and pp 2 needs two ranks")
+        return None
+    t_phase = time.perf_counter()
+    out = {"pp2": pp_cli_run(cell, 2, 2, "pp2", ref, card)}
+    exp = cell.WORK / "exp_pp2_resume"
+    pp2 = ["--set", "distributed_strategy.pipeline_model_parallel_size=2",
+           "--set", "distributed_strategy.pipeline.schedule=1f1b"]
+    copy = cell.WORK / "exp_pp2_at_pp1"
+    for d in (exp, copy):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        runs = [torchrun_cell(cell, 2, cell.WORK / "exp_pp2_scratch", 900, *pp2, "--steps", "2",
+                              "--save-every", "2", "--exp-dir", str(exp))]
+        shutil.copytree(exp, copy)
+        at1 = torchrun_cell(cell, 1, cell.WORK / "exp_pp1_scratch", 900, "--steps", "3",
+                            "--save-every", "3", "--exp-dir", str(copy))
+        runs.append(torchrun_cell(cell, 2, cell.WORK / "exp_pp2_scratch", 900, *pp2, "--steps",
+                                  "3", "--save-every", "3", "--exp-dir", str(exp)))
+    finally:
+        for d in (exp, copy):
+            shutil.rmtree(d, ignore_errors=True)
+    got = (runs[0]["loss"] + runs[1]["loss"], runs[0]["grad_norm"] + runs[1]["grad_norm"])
+    log(f"pp: pp 2 saved at step 2 then resumed: losses {got[0]}; restored at pp 1: step 3 "
+        f"loss {at1['loss']} grad_norm {at1['grad_norm']} [{card}]")
+    if got != (out["pp2"]["loss"], out["pp2"]["grad_norm"]):
+        fail(f"pp 2 save + resume: {got} differ from the straight run "
+             f"{(out['pp2']['loss'], out['pp2']['grad_norm'])}")
+    if len(at1["loss"]) != 1 or not math.isclose(at1["loss"][0], out["pp2"]["loss"][2],
+                                                 rel_tol=TP_LOSS_RTOL):
+        fail(f"pp 2 save restored at pp 1: step 3 {at1['loss']} against pp 2's "
+             f"{out['pp2']['loss'][2]}")
+    if n_cards >= 4:
+        out["pp4"] = pp_cli_run(cell, 4, 4, "pp4", ref, card)
+        out["pp2_tp2"] = pp_cli_run(cell, 4, 2, "pp2_tp2", ref, card, "--tp", "2", "--sp")
+    else:
+        log(f"pp: this machine shows {n_cards} cards; pp 4 and pp 2 x tp 2 were not run")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pp: 12c phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -2284,6 +2717,10 @@ def main() -> None:
     free_cuda(torch)
     replicated_rows = phase_replicated_kernels(torch, fa, kt, card, peaks)
     pref_cp = phase_pref_cp(torch, cell, card)
+    free_cuda(torch)
+    pp_loop = phase_pp_loopback(torch, fa, card)
+    pp_70b = phase_pp_70b(torch, fa, kt, card, peaks)
+    pp_cli = phase_pp_cli(torch, cell, trainer_ref(history4), card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -2319,11 +2756,19 @@ def main() -> None:
                                  "pretrain_chunked_ce": chunked["launches"][kname],
                                  **({} if pref_cp is None else
                                     {"align_dpo_cp2": [r["launches"][kname]
-                                                       for r in pref_cp["cp2"]["ranks"]]})},
+                                                       for r in pref_cp["cp2"]["ranks"]]}),
+                                 "pp_loopback": {tag: r["launches"][kname]
+                                                 for tag, r in pp_loop["runs"].items()},
+                                 "pp_loopback_70b": pp_70b["run"]["launches"][kname],
+                                 **({} if pp_cli is None else
+                                    {"pretrain_pp2": [r["launches"][kname]
+                                                      for r in pp_cli["pp2"]["ranks"]]})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                    for r in cp_bodies_rep["rows"] if r["kernel"] == kname],
+            "pp_70b_shape": [{k: v for k, v in r.items() if k != "kernel"}
+                             for r in pp_70b["kernels"] if r["kernel"] == kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

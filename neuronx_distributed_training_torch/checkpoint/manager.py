@@ -65,6 +65,17 @@ DCP's planner writes each once; context rank 0's ranks alone hash them.  The
 saved layout is the same as without cp, so a cp 2 save restores at cp 1 and
 the other way round.
 
+Pipeline parallelism (``pp``): a stage's ranks hold its layers alone, saved
+under their global names (``layers.<l>...``), and the embedding, the final
+norm and the head replicated over ``pipe``; DCP writes each replicated shard
+once and pipeline rank 0's ranks alone hash them, so the sidecar covers
+each leaf once and a pp 2 save holds the tensors of a pp 1 save.  A restore
+loads each rank's own leaves, and a saved leaf that no rank asks for fails
+it, so a save restores at any pp (and tp, dp) that cuts the same model.
+
+The checkpoint dir is a local path: a ``scheme://`` URI is refused
+(:func:`resolve_checkpoint_dir`).
+
 The health counters (``opt_state["health"]``) are saved beside ``step`` as
 int64 scalars ``health/<name>``; a checkpoint without them restores with
 ``steps_seen`` set to its step, as in the JAX package.
@@ -105,6 +116,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
     local,
     shard_of,
 )
+from neuronx_distributed_training_torch.parallel.pipeline import is_stage_leaf
 from neuronx_distributed_training_torch.parallel.sharding import split_segments
 from neuronx_distributed_training_torch.utils.io import atomic_write_json
 
@@ -187,6 +199,19 @@ class TrainState:
     step: int
     consumed_samples: int
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def resolve_checkpoint_dir(d: str | Path) -> Path:
+    """A local checkpoint dir as an absolute path.  A URI (``gs://``,
+    ``s3://``, any ``scheme://``) is refused: ``Path(uri).absolute()`` would
+    write a local directory literally named ``gs:``, the failure the JAX
+    package's ``resolve_checkpoint_dir`` guards against."""
+    s = str(d)
+    if "://" in s:
+        raise ValueError(
+            f"unsupported checkpoint URI scheme in {s!r}; the port writes "
+            f"local paths only (local paths need no scheme)")
+    return Path(s).absolute()
 
 
 def retained_steps(metrics_by_step: dict[int, dict], save_top_k: int, monitor: str) -> set[int]:
@@ -332,7 +357,7 @@ class Checkpointer:
     sidecars and verified auto-resume."""
 
     def __init__(self, config: CheckpointConfig, *, layouts: Optional[dict] = None, tp=None,
-                 cp=None):
+                 cp=None, pp=None):
         self.config = config
         #: the leaves' tensor-parallel layouts and the model axis (see
         #: :func:`saved_pieces`); None: leaves are saved as they are
@@ -340,7 +365,10 @@ class Checkpointer:
         #: the context axis: its ranks hold the same state, and context rank
         #: 0's shards alone are hashed (DCP writes one copy of equal shards)
         self.cp = cp
-        self.directory = Path(config.dir).absolute()
+        #: the pipe axis: a stage holds its layers, and pipeline rank 0 alone
+        #: hashes the leaves replicated over the stages
+        self.pp = pp
+        self.directory = resolve_checkpoint_dir(config.dir)
         self.directory.mkdir(parents=True, exist_ok=True)
         #: restore/audit trail (quarantined steps, walk-backs, verify seconds)
         self.integrity_trail: dict[str, Any] = {}
@@ -522,20 +550,36 @@ class Checkpointer:
         if self.config.integrity.enabled:
             t = time.perf_counter()
             if self.cp is None or self.cp.rank == 0:
-                records = ck_integrity.local_shard_records(staged, rank=self._rank,
+                mine = staged
+                if self.pp is not None and self.pp.rank > 0:
+                    # the replicated leaves are pipeline rank 0's to hash
+                    mine = {item: {k: t for k, t in tree.items() if is_stage_leaf(k)}
+                            for item, tree in staged.items()}
+                records = ck_integrity.local_shard_records(mine, rank=self._rank,
                                                            workers=SAVE_DIGEST_WORKERS)
             else:  # a replica over context of what context rank 0 hashes
                 records = {item: {} for item in staged}
             digest_seconds = time.perf_counter() - t
+        # under pp each stage holds other leaves: rank 0 learns every leaf's
+        # global shape and dtype, for the sidecar's tree
+        shapes = None if self.pp is None else {
+            item: {k: (tuple(t.shape), t.dtype) for k, t in tree.items()}
+            for item, tree in staged.items()}
         gathered = [None] * dist.get_world_size(self._pg) if self._rank == 0 else None
-        dist.gather_object(records, gathered, dst=0, group=self._pg)
+        dist.gather_object((records, shapes), gathered, dst=0, group=self._pg)
         error: Optional[BaseException] = None
         if self._rank == 0:
             try:
                 atomic_write_json(tmp / META_NAME, meta)
                 if records is not None:
+                    trees = {item: dict(tree) for item, tree in staged.items()}
+                    for _, theirs in gathered if self.pp is not None else ():
+                        for item, named in theirs.items():
+                            for k, (shape, dtype) in named.items():
+                                trees[item].setdefault(k, torch.empty(shape, dtype=dtype,
+                                                                      device="meta"))
                     atomic_write_json(tmp / SIDECAR_NAME, ck_integrity.sidecar_from_records(
-                        step=step, trees=staged, records=gathered, meta=meta))
+                        step=step, trees=trees, records=[r for r, _ in gathered], meta=meta))
                 os.rename(tmp, self.directory / str(step))
                 self._apply_retention()
             except BaseException as e:  # noqa: BLE001 — raised after the barrier
@@ -848,7 +892,11 @@ class Checkpointer:
             path = str(self.directory / str(step) / item)
             saved = set(dcp.FileSystemReader(path).read_metadata().state_dict_metadata)
             held = {k for k in saved if item == "opt_state" and _is_scalar_key(k)}
-            missing, extra = sorted(set(target) - saved), sorted(saved - set(target) - held)
+            # what every rank asks for: the stages' layers are the other ranks'
+            wanted = [None] * dist.get_world_size(self._pg)
+            dist.all_gather_object(wanted, sorted(target), group=self._pg)
+            missing = sorted(set(target) - saved)
+            extra = sorted(saved - set().union(*map(set, wanted)) - held)
             if missing or extra:
                 raise ValueError(f"checkpoint {item} does not match the model: missing "
                                  f"{missing[:4]}, unexpected {extra[:4]}")

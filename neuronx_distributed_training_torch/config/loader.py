@@ -3,10 +3,13 @@
 A copy of its loader: plain YAML + ``${a.b.c}`` interpolation + the
 ``${multiply:x,y}`` / ``${add:x,y}`` resolvers + dotted overrides, resolving
 to the same dict.  ``validate_config`` keeps the checks that need nothing
-but the config, and validates the ``exp_manager.checkpoint`` block and the
-``exp_manager.telemetry.health`` block; the knob blocks whose parsers live
-with subsystems this port does not have yet (pipeline schedules, overlap,
-the other telemetry planes, elastic, the autotune topology table) are not
+but the config, and validates the ``exp_manager.checkpoint`` block, the
+``exp_manager.telemetry.health`` block and the
+``distributed_strategy.pipeline`` block (a mapping with ``schedule`` alone,
+one of the five schedules, and a manual-backward schedule's config-shape
+gate, ``parallel/pipeline.py::blocked_1f1b_reason``); the knob blocks whose
+parsers live with subsystems this port does not have yet (overlap, the
+other telemetry planes, elastic, the autotune topology table) are not
 validated here — the trainer logs them as ignored.
 
 The reference is driven by Hydra/OmegaConf YAML whose root keys are
@@ -199,6 +202,54 @@ def validate_config(cfg: ConfigDict) -> None:
     mbs = data.get("micro_batch_size")
     if gbs is not None and mbs is not None and int(gbs) % int(mbs) != 0:
         raise ValueError(f"global_batch_size {gbs} not divisible by micro_batch_size {mbs}")
+
+    # ---- pipeline schedule (the JAX package's rules and texts; the
+    # model-family gate fires at the trainer's resolve_schedule)
+    pipe_raw = ds.get("pipeline", {}) or {}
+    if not isinstance(pipe_raw, Mapping):
+        raise ValueError(
+            f"distributed_strategy.pipeline must be a mapping of knobs "
+            f"(schedule: auto/1f1b/1f1b-interleaved/1f1b-zb/wavefront), got "
+            f"{type(pipe_raw).__name__}: {pipe_raw!r}"
+        )
+    pipe_knobs = dict(pipe_raw)
+    if pipe_knobs:
+        from neuronx_distributed_training_torch.parallel.pipeline import (
+            MANUAL_VJP_SCHEDULES,
+            PIPELINE_SCHEDULES,
+            blocked_1f1b_reason,
+        )
+
+        unknown = set(pipe_knobs) - {"schedule"}
+        if unknown:
+            raise ValueError(
+                f"unknown distributed_strategy.pipeline keys {sorted(unknown)}; "
+                f"supported: schedule ({'/'.join(PIPELINE_SCHEDULES)})"
+                + did_you_mean(unknown, {"schedule"})
+            )
+        sched_knob = str(pipe_knobs.get("schedule", "auto")).lower()
+        if sched_knob not in PIPELINE_SCHEDULES:
+            raise ValueError(
+                f"pipeline.schedule must be one of "
+                f"{'/'.join(PIPELINE_SCHEDULES)}, got {sched_knob!r}"
+            )
+        if sched_knob in MANUAL_VJP_SCHEDULES:
+            from neuronx_distributed_training_torch.data.build import alignment_strategy
+
+            try:
+                alignment, _ = alignment_strategy(cfg)
+            except ValueError:
+                # a malformed alignment block: its own check below rejects it
+                alignment = None
+            blocked = blocked_1f1b_reason({
+                "pipeline_model_parallel_size": pp,
+                "virtual_pipeline_model_parallel_size": int(vp),
+                "context_parallel_size": cp,
+                "alignment": alignment,
+                "lora": bool(dict(model.get("lora", {}) or {})),
+            }, sched_knob)
+            if blocked is not None:
+                raise ValueError(f"pipeline.schedule: {sched_knob}: {blocked}")
 
     moe = model.get("moe", {}) or {}
     if moe.get("dropless") and (moe.get("capacity_factor") or 0) > 0:

@@ -53,6 +53,12 @@ row) and next-token targets (shifted on the whole row).  Under SP that slice
 splits again over ``model``, as JAX's ``seq_axes`` puts ``context`` before
 ``model``.  Attention is the only layer that crosses the context ranks
 (``ops/attention.py``: the ring, the zig-zag ring or Ulysses).
+
+Pipeline parallelism: at ``pp_size > 1`` a stage's tree holds its layers
+and None for the other stages' (:func:`init_params`), so ``named_params``
+names every leaf by its global layer index; :func:`pipeline_hooks` gives the
+embedding, a stage's slice of layers and the head + CE that
+``parallel/pipeline.py`` runs stage by stage.
 """
 
 from __future__ import annotations
@@ -174,15 +180,25 @@ def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut):
 
 
 def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
-                generator: torch.Generator, device=None, tp_rank: int = 0, tp_size: int = 1):
+                generator: torch.Generator, device=None, tp_rank: int = 0, tp_size: int = 1,
+                pp_rank: int = 0, pp_size: int = 1):
     """The parameter tree in the policy's param dtype, drawn from
     ``generator`` (which must live on ``device``).  At ``tp_size > 1`` every
     leaf is still drawn whole, in the same order, and the rank keeps its
     slice (``parallel/sharding.py::shard_leaf``): a tp run starts from the
     slices of the one-rank run's tensors, bit for bit, holding one whole
-    leaf more than its share at a time."""
+    leaf more than its share at a time.  At ``pp_size > 1`` the same holds
+    of the layers: every layer is drawn, pipeline stage ``pp_rank`` keeps
+    its own (``parallel/pipeline.py::stage_layers``) and ``layers`` holds
+    None for the other stages' (the embedding, the final norm and the head
+    are kept on every stage)."""
     policy = policy or DtypePolicy()
     dtype = policy.param_dtype
+    mine = set(range(cfg.num_layers))
+    if pp_size > 1:
+        from neuronx_distributed_training_torch.parallel.pipeline import stage_layers
+
+        mine = set(stage_layers(cfg.num_layers, pp_rank, pp_size))
 
     def cut(name: str, t: torch.Tensor) -> torch.Tensor:
         return sharding.shard_leaf(t, sharding.leaf_layout(name, cfg), tp_rank, tp_size)
@@ -190,11 +206,17 @@ def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
     embedding = linear_ops.init_embedding(generator, cfg.vocab_size, cfg.hidden_size,
                                           dtype=dtype, stddev=cfg.initializer_range,
                                           device=device)["embedding"]
+    def layer(i):
+        if i in mine:
+            return _init_layer(generator, cfg, dtype, device,
+                               lambda n, t: cut("layers.0." + n, t))
+        # another stage's: drawn leaf by leaf (the generator advances), dropped
+        _init_layer(generator, cfg, dtype, device, lambda n, t: None)
+        return None
+
     params: dict[str, Any] = {
         "embed": {"embedding": cut("embed.embedding", embedding)},
-        "layers": [_init_layer(generator, cfg, dtype, device,
-                               lambda n, t: cut("layers.0." + n, t))
-                   for _ in range(cfg.num_layers)],
+        "layers": [layer(i) for i in range(cfg.num_layers)],
         "final_norm": norm_ops.init_rms_norm(cfg.hidden_size, dtype=dtype, device=device),
     }
     del embedding
@@ -206,11 +228,14 @@ def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
 
 
 def named_params(tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """Flatten a parameter tree to ``{dotted.name: tensor}`` (same tensors)."""
+    """Flatten a parameter tree to ``{dotted.name: tensor}`` (same tensors);
+    a None entry (another pipeline stage's layer) has no leaves."""
     out: dict[str, torch.Tensor] = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         name = f"{prefix}{k}"
+        if v is None:
+            continue
         if isinstance(v, torch.Tensor):
             out[name] = v
         else:
@@ -304,6 +329,23 @@ def positions_for(input_ids: torch.Tensor, attention_mask=None, segment_ids=None
     return idx.expand(b, s)
 
 
+def _rope(cfg: LlamaConfig, positions: torch.Tensor):
+    inv_freq = rope_ops.rope_frequencies(
+        cfg.head_size, theta=cfg.rope_theta,
+        position_interpolation_factor=cfg.rope_interpolation_factor)
+    return rope_ops.rope_cos_sin(positions, inv_freq, dtype=torch.float32)
+
+
+def _run_layers(layers, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
+                attention_mask=None, segment_ids=None, tp=None, cp=None) -> torch.Tensor:
+    full = cfg.activations_checkpoint_granularity == "full"
+    for lp in layers:
+        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids, tp, cp)
+        x = (checkpoint(_decoder_layer, *args, use_reentrant=False) if full
+             else _decoder_layer(*args))
+    return x
+
+
 def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: DtypePolicy, *,
                   positions=None, attention_mask=None, segment_ids=None,
                   tp=None, cp=None) -> torch.Tensor:
@@ -314,15 +356,9 @@ def hidden_states(params, input_ids: torch.Tensor, cfg: LlamaConfig, policy: Dty
                                    compute_dtype=policy.compute_dtype, tp=tp)
     if positions is None:
         positions = positions_for(input_ids, attention_mask, segment_ids)
-    inv_freq = rope_ops.rope_frequencies(
-        cfg.head_size, theta=cfg.rope_theta,
-        position_interpolation_factor=cfg.rope_interpolation_factor)
-    cos, sin = rope_ops.rope_cos_sin(positions, inv_freq, dtype=torch.float32)
-    full = cfg.activations_checkpoint_granularity == "full"
-    for lp in params["layers"]:
-        args = (lp, x, cos, sin, cfg, policy, attention_mask, segment_ids, tp, cp)
-        x = (checkpoint(_decoder_layer, *args, use_reentrant=False) if full
-             else _decoder_layer(*args))
+    cos, sin = _rope(cfg, positions)
+    x = _run_layers(params["layers"], x, cos, sin, cfg, policy, attention_mask, segment_ids,
+                    tp, cp)
     return norm_ops.apply_rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
 
 
@@ -419,3 +455,58 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
         logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
     return ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
                                      denominator=loss_denominator, tp=tp), aux
+
+
+def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool = True,
+                   tp=None):
+    """``(embed_fn, stage_fn, loss_fn, act_shape)`` for
+    ``parallel/pipeline.py`` (the JAX package's ``pipeline_hooks``, with the
+    head its ``onef1b_head_hooks`` wires: the final norm and the tied or
+    untied head weight):
+
+    - ``embed_fn(params, mb)``: the (vocab-parallel) embedding, the rank's
+      ``seq/tp`` slice under SP;
+    - ``stage_fn(layers, x, mb)``: a slice of decoder layers, RoPE from the
+      microbatch's ``positions`` (else from its attention mask or segment
+      ids, as :func:`forward`), with its attention mask and segment ids;
+    - ``loss_fn(params, y, mb) -> (loss_sum, valid_count)``: the final norm,
+      the head (``logits_fn``: the embedding's rows when tied, ``lm_head``
+      else) and the summed cross-entropy, masked as :func:`forward` masks;
+    - ``act_shape(mb)``: the shape of the activations that cross the stages.
+
+    A tied weight's gradient comes from the first stage's embedding and the
+    last stage's head; ``parallel/pipeline.py`` sums the two over ``pipe``
+    (JAX's ``fold_grads``).  The flash kernels run in the stage's layers as
+    in :func:`forward`."""
+    sp = tp.size if tp_ops.active(tp) and tp.sequence_parallel else 1
+
+    def embed_fn(params, mb):
+        return linear_ops.apply_embedding(params["embed"], mb["input_ids"],
+                                          compute_dtype=policy.compute_dtype, tp=tp)
+
+    def stage_fn(layers, x, mb):
+        ids, am, seg = mb["input_ids"], mb.get("attention_mask"), mb.get("segment_ids")
+        positions = mb.get("positions")
+        if positions is None:
+            positions = positions_for(ids, am, seg)
+        cos, sin = _rope(cfg, positions)
+        return _run_layers(layers, x, cos, sin, cfg, policy, am, seg, tp)
+
+    def loss_fn(params, y, mb):
+        h = norm_ops.apply_rms_norm(params["final_norm"], y, eps=cfg.rms_norm_eps)
+        logits = logits_fn(params, h, cfg, policy, tp)
+        labels, loss_mask = mb["labels"], _loss_mask(mb)
+        if shift_labels:
+            logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
+        loss_sum = ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
+                                             reduction="sum", tp=tp)
+        valid = (labels != -100).float()
+        if loss_mask is not None:
+            valid = valid * loss_mask.float()
+        return loss_sum, torch.sum(valid)
+
+    def act_shape(mb):
+        b, s = mb["input_ids"].shape
+        return (b, s // sp, cfg.hidden_size)
+
+    return embed_fn, stage_fn, loss_fn, act_shape

@@ -44,6 +44,12 @@ kv heads) counts once, on the first of them, and a padded vocab slice's
 zero rows count nothing (``parallel/sharding.py::owned_views``).  Those
 rows' gradients are zero, so AdamW keeps them zero.
 
+Pipeline parallelism: each stage holds its layers alone and the embedding,
+the final norm and the head replicated, so the norm adds the stages' layer
+sums over ``pipe`` and counts the replicated leaves once; a non-finite value
+on any stage reaches every stage through that sum, so the skip is one
+decision.  ZeRO-1 stays over the ``data`` ranks of a stage.
+
 Context parallelism changes nothing here: the train step hands every
 context rank the same gradients (summed over ``(data, context)``), the
 specs and the norm stay over dp x tp, and the context ranks keep the same
@@ -58,6 +64,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from neuronx_distributed_training_torch.parallel.pipeline import is_stage_leaf
 from neuronx_distributed_training_torch.parallel.sharding import owned_views
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 
@@ -269,43 +276,61 @@ def _sq_sum(t: torch.Tensor, layout, tp) -> torch.Tensor:
 
 
 def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=None,
-                     sharded=frozenset()) -> dict:
+                     sharded=frozenset(), pp=None) -> dict:
     """Per-group fp32 sums of squares (``group_fn(name) -> group``) of the
     global leaves whose local slices ``tensors`` holds.  With ``tp`` active
     the tp-sharded leaves' sums (``sharded``: their names, or a dict of
     their ``parallel/sharding.py`` layouts) are added over the tp group in
     one all-reduce and each replicated leaf counts once, as does a kv head
     that several ranks hold (with the layouts); without it every leaf is
-    summed in order, as one rank holds it."""
+    summed in order, as one rank holds it.  With ``pp``
+    (``parallel/mesh.py::PipelineParallel``) of more than one stage, the
+    sums of the leaves a stage holds alone (its layers') are then added over
+    the pipe group, in one all-reduce of the groups in name order, and the
+    leaves replicated over the stages count once."""
     on = tp_active(tp)
+    pipe = pp is not None and pp.size > 1
     layouts = sharded if isinstance(sharded, dict) else {}
-    parts: dict[str, list] = {}
+    parts: dict[tuple, list] = {}
     for n, t in tensors.items():
-        acc = parts.setdefault(group_fn(n), [None, None])
+        acc = parts.setdefault((group_fn(n), pipe and is_stage_leaf(n)), [None, None])
         i = 0 if on and n in sharded else 1
         s = _sq_sum(t, layouts.get(n), tp) if i == 0 else torch.sum(torch.square(t.float()))
         acc[i] = s if acc[i] is None else acc[i] + s
-    if not on:
-        return {k: r for k, (_, r) in parts.items()}
-    zero = torch.zeros((), dtype=torch.float32, device=next(iter(tensors.values())).device)
-    summed = tp.all_reduce_(torch.stack([zero if a is None else a for a, _ in parts.values()]))
-    return {k: summed[i] if r is None else summed[i] + r
-            for i, (k, (_, r)) in enumerate(parts.items())}
+    if on:
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(tensors.values())).device)
+        summed = tp.all_reduce_(torch.stack([zero if a is None else a
+                                             for a, _ in parts.values()]))
+        sums = {k: summed[i] if r is None else summed[i] + r
+                for i, (k, (_, r)) in enumerate(parts.items())}
+    else:
+        sums = {k: r for k, (_, r) in parts.items()}
+    if not pipe:
+        return {g: v for (g, _), v in sums.items()}
+    owned = sorted(k for k in sums if k[1])
+    if owned:
+        for k, v in zip(owned, pp.all_reduce_(torch.stack([sums[k] for k in owned]))):
+            sums[k] = v
+    out: dict = {}
+    for (g, _), v in sums.items():
+        out[g] = v if g not in out else out[g] + v
+    return out
 
 
-def global_norm(tensors, tp=None, sharded=frozenset()) -> torch.Tensor:
+def global_norm(tensors, tp=None, sharded=frozenset(), pp=None) -> torch.Tensor:
     """The fp32 L2 norm of ``tensors`` (a dict of local leaves or an iterable
     of tensors): the one group of ``grouped_sq_norms``."""
     if not isinstance(tensors, dict):
         tensors = dict(enumerate(tensors))
-    return torch.sqrt(grouped_sq_norms(tensors, lambda n: "all", tp, sharded)["all"])
+    return torch.sqrt(grouped_sq_norms(tensors, lambda n: "all", tp, sharded, pp)["all"])
 
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
                  opt_state: dict, lr, cfg: AdamWConfig, policy, *,
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
-                 extra_finite=None, dp=None, tp=None, tp_sharded=frozenset()) -> dict:
+                 extra_finite=None, dp=None, tp=None, tp_sharded=frozenset(),
+                 pp=None) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
     ``updates_finite`` (a bool tensor) and, with ``grad_group_fn``,
@@ -313,10 +338,11 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     data parallelism) of the rank's local leaves; ``dp`` gathers ZeRO-1's
     param slices; with ``tp`` the norm takes the leaves named in
     ``tp_sharded`` (a set, or a dict of their layouts) as slices of their
-    global leaf."""
+    global leaf; with ``pp`` the norm adds the stages' layers (every stage
+    then takes the same skip decision and clip factor)."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
-    group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded)
+    group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp)
     total = None
     for v in group_sq.values():
         total = v if total is None else total + v

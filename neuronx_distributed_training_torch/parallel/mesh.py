@@ -10,9 +10,10 @@ each, outermost first:
 ``world = dp * cp * tp * pp`` and ``dp = world / (tp * pp * cp)`` as in the
 reference, and ``ep`` must divide it.  ``model`` is innermost, so a tp group
 is consecutive ranks (on one host), and a context group strides over tp.
-The port runs data, context and tensor parallelism (with Megatron sequence
-parallelism); the trainer rejects pp and ep above 1 with the ROADMAP item
-that ports them.
+The port runs data, context, tensor (with Megatron sequence parallelism)
+and pipeline parallelism at ``virtual_pipeline_model_parallel_size`` 1; the
+trainer rejects ep above 1, and what of pp is not ported, with the ROADMAP
+item that ports it.
 
 :class:`DataParallel` is what the train step and the optimizer need of the
 ``data`` axis: the rank, the size, its process group, the 1-D mesh of the
@@ -26,7 +27,11 @@ context-parallel attention runs (``parallel/ring_attention.py``,
 ``parallel/tensor_parallel.py::gather_seq`` over its group), and the
 ``(data, context)`` group over which the train step sums gradients and the
 loss.  Parameters and optimizer state are replicated over ``context``:
-ZeRO-1 shards over ``data`` alone.
+ZeRO-1 shards over ``data`` alone.  :class:`PipelineParallel` is the
+``pipe`` axis: the rank's stage, the world ranks of its previous and next
+stages, the stage hops (batched ``isend`` / ``irecv``, NCCL on cards) and the
+sum over the stages (``parallel/pipeline.py``).  Every other axis's groups
+lie within one stage, so ZeRO-1 shards over the ``data`` ranks of a stage.
 """
 
 from __future__ import annotations
@@ -318,3 +323,48 @@ class ContextParallel:
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.group)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineParallel:
+    """This process's place on the ``pipe`` axis: stage ``rank`` of
+    ``size``, and the world ranks of the previous and next stages (None at
+    the ends), which hold the same ``(data, expert, context, model)``
+    coordinates."""
+
+    rank: int
+    size: int
+    group: Any  # the pipe axis's ProcessGroup
+    prev: Any
+    next: Any
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "PipelineParallel":
+        pm = mesh["pipe"]
+        ranks = [int(r) for r in pm.mesh.reshape(-1).tolist()]
+        r, n = pm.get_local_rank(), pm.size()
+        return cls(rank=r, size=n, group=pm.get_group(),
+                   prev=ranks[r - 1] if r > 0 else None,
+                   next=ranks[r + 1] if r < n - 1 else None)
+
+    def p2p(self, sends: list, recvs: list) -> list:
+        """One batch of stage hops: each ``(offset, tensor)`` of ``sends``
+        goes to the next (+1) or previous (-1) stage, and each ``(offset,
+        buffer)`` of ``recvs`` is filled from that stage, all in one
+        ``batch_isend_irecv`` that this waits for; returns the buffers."""
+        import torch.distributed as dist
+
+        peer = {1: self.next, -1: self.prev}
+        ops = [dist.P2POp(dist.isend, t.contiguous(), peer[off], group=self.group)
+               for off, t in sends]
+        ops += [dist.P2POp(dist.irecv, buf, peer[off], group=self.group) for off, buf in recvs]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [buf for _, buf in recvs]
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the pipe axis, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t

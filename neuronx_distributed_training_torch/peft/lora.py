@@ -70,11 +70,15 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_ran
     draw), B is zeros, so the adapted model starts as the base model.  The
     base tensors are shared, not copied.  Under tensor parallelism ``params``
     holds the rank's slices: A is drawn whole and a row layer's keeps the
-    rank's rows, so every tp draws the same numbers."""
+    rank's rows, so every tp draws the same numbers.  A None layer (another
+    pipeline stage's, ``models/llama.py::init_params``) draws its A's at the
+    shapes of the list's first layer and stays None, so every pp draws the
+    same numbers too."""
 
     def visit(node):
         if isinstance(node, list):
-            return [visit(v) for v in node]
+            shapes = next((v for v in node if v is not None), None)
+            return [visit(v) if v is not None else _absent(shapes) for v in node]
         if not isinstance(node, dict):
             return node
         out = {}
@@ -84,7 +88,7 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_ran
                 in_dim, out_dim = w.shape[-2:]
                 row = k in ROW and tp_size > 1
                 a = torch.empty((in_dim * tp_size if row else in_dim, cfg.rank),
-                                dtype=torch.float32, device=w.device)
+                                dtype=torch.float32, device=generator.device)
                 torch.nn.init.trunc_normal_(a, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                             generator=generator)
                 if row:
@@ -99,7 +103,18 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_ran
                 out[k] = visit(v)
         return out
 
+    def _absent(shapes):
+        visit(_meta(shapes))  # another stage's layer: its A's are drawn, kept by none
+        return None
+
     return visit(params)
+
+
+def _meta(tree):
+    """``tree`` with every tensor replaced by a meta tensor of its shape."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
 def trainable_mask(named: dict[str, torch.Tensor]) -> dict[str, float]:

@@ -15,7 +15,10 @@ v parts are the one head it shares with ``tp/nkv`` ranks; a vocab tp does
 not divide is padded with zero rows to ``ceil(V/tp)`` a rank), and
 ``params_to_jax`` merges the list of every rank's local tree back into JAX's
 global leaves (one replica of each kv head, the real vocab rows).
-Both need the model's ``LlamaConfig`` for the segments.  This module imports
+Both need the model's ``LlamaConfig`` for the segments.  Under pipeline
+parallelism ``params_from_jax`` gives one stage's tree (its layers; None for
+the other stages'), and ``params_to_jax`` merges the stages back
+(:func:`merge_stages`).  This module imports
 neither JAX nor the JAX package: the caller hands over ``np.asarray`` leaves.
 """
 
@@ -28,6 +31,7 @@ import torch
 
 from neuronx_distributed_training_torch.models.llama import named_params
 from neuronx_distributed_training_torch.parallel import sharding
+from neuronx_distributed_training_torch.parallel.pipeline import stage_layers
 from neuronx_distributed_training_torch.utils.device import resolve_device
 
 
@@ -53,10 +57,13 @@ def _map_named(tree, fn, prefix: str = ""):
 
 
 def params_from_jax(tree: dict[str, Any], *, device=None, dtype: Optional[torch.dtype] = None,
-                    cfg=None, tp_rank: int = 0, tp_size: int = 1) -> dict[str, Any]:
+                    cfg=None, tp_rank: int = 0, tp_size: int = 1, pp_rank: int = 0,
+                    pp_size: int = 1) -> dict[str, Any]:
     """JAX parameter tree (numpy leaves) -> the port's parameter tree on
     ``device`` (the card unless the caller asks for the CPU); at ``tp_size >
-    1``, rank ``tp_rank``'s slices (``cfg``: the ``LlamaConfig``)."""
+    1``, rank ``tp_rank``'s slices (``cfg``: the ``LlamaConfig``); at
+    ``pp_size > 1``, pipeline stage ``pp_rank``'s tree: its layers, None for
+    the other stages', and the replicated embedding, final norm and head."""
     dev = resolve_device(device)
     if tp_size > 1 and cfg is None:
         raise ValueError("a tensor-parallel conversion needs the model's LlamaConfig")
@@ -72,17 +79,32 @@ def params_from_jax(tree: dict[str, Any], *, device=None, dtype: Optional[torch.
                            if k != "layers"}
     stacked = tree["layers"]
     n_layers = next(iter(_leaves(stacked))).shape[0]
+    mine = stage_layers(n_layers, pp_rank, pp_size)
     out["layers"] = [_map_named(stacked, lambda n, a, i=i: to_t(n, np.asarray(a)[i]),
-                                f"layers.{i}.") for i in range(n_layers)]
+                                f"layers.{i}.") if i in mine else None
+                     for i in range(n_layers)]
     return out
 
 
-def params_to_jax(params, cfg=None) -> dict[str, Any]:
+def merge_stages(stages: list) -> dict[str, Any]:
+    """One tree from every pipeline stage's (in stage order): each layer
+    from the stage that holds it, the replicated leaves from stage 0."""
+    out = dict(stages[0])
+    out["layers"] = [next(s["layers"][i] for s in stages if s["layers"][i] is not None)
+                     for i in range(len(stages[0]["layers"]))]
+    return out
+
+
+def params_to_jax(params, cfg=None, *, pp_size: int = 1) -> dict[str, Any]:
     """Inverse of ``params_from_jax``: numpy leaves (fp32 for bf16 tensors),
     layers stacked on a leading dim.  ``params`` is one tree, or the list of
     every tp rank's local tree in rank order, which are merged (``cfg``:
-    the ``LlamaConfig``)."""
+    the ``LlamaConfig``); at ``pp_size > 1`` the list of every rank's tree,
+    stage-major (stage ``i // tp``, tp rank ``i % tp``)."""
     ranks = params if isinstance(params, (list, tuple)) else [params]
+    if pp_size > 1:
+        tp = len(ranks) // pp_size
+        ranks = [merge_stages(ranks[t::tp]) for t in range(tp)]
     if len(ranks) > 1 and cfg is None:
         raise ValueError("merging tensor-parallel trees needs the model's LlamaConfig")
 

@@ -15,7 +15,9 @@ groups of N ranks, as phase 8b runs it; the default is the cell's
 distributed_strategy.context_parallel_size=2 --set
 model.fusions.ring_attention=true`` (phase 10b), and ``--config`` swaps the
 cell's model config for another one (phase 10b's 70B CP config), the cell's
-other settings kept.  Every rank prints one line, rank 0's with
+other settings kept.  Pipeline parallelism is ``--set
+distributed_strategy.pipeline_model_parallel_size=2 --set
+distributed_strategy.pipeline.schedule=1f1b`` (phase 12c).  Every rank prints one line, rank 0's with
 ``"rank": 0``.  A line holds the step seconds, losses and grad norms, the
 flash kernels' launch and fallback counts of the run on that rank, and the
 rank's peak device memory (``torch.cuda.max_memory_allocated``).
@@ -113,6 +115,7 @@ def main(argv=None) -> None:
                       "tp": 1 if trainer.tp is None else trainer.tp.size,
                       "sp": bool(trainer.tp and trainer.tp.sequence_parallel),
                       "cp": 1 if trainer.cp is None else trainer.cp.size,
+                      "pp": 1 if trainer.pp is None else trainer.pp.size,
                       "step_seconds": [r["step_seconds"] for r in history],
                       "loss": [r["loss"] for r in history],
                       "grad_norm": [r["grad_norm"] for r in history],

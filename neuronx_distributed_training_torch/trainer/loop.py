@@ -21,7 +21,7 @@ sampler, which the prefetch thread runs ahead.
 
 Under ``torch.distributed`` (``trainer/cli.py`` starts it under torchrun)
 the trainer is data and tensor parallel on the mesh of
-``parallel/mesh.py``: ``dp = world / tp``, every rank builds the same
+``parallel/mesh.py``: ``dp = world / (tp pp cp)``, every rank builds the same
 global batch and computes the rows of its data coordinate, so the tp ranks
 of a dp group compute the same rows.  Gradients of partial leaves are
 all-reduced over the model axis, then gradients and loss over the data
@@ -49,6 +49,21 @@ each step boundary, so every rank stops, and checkpoints, at the same
 step.  MFU divides the tokens by the
 world size: each card computes ``1/world`` of the step's FLOPs.
 
+With ``pipeline_model_parallel_size`` above 1 (vp 1) the world is ``pp x dp
+x cp x tp`` with ``pipe`` outermost: a stage's ranks build only its layers
+(every leaf drawn whole in the same order, so a pp run starts from pp 1's
+tensors bit for bit) and the embedding, final norm and head, replicated.
+``pipeline.schedule`` resolves as in JAX (``auto``: ``1f1b``, or
+``wavefront`` under LoRA; logged as ``pipeline schedule: ...``); the step's
+gradients come from ``parallel/pipeline.py`` (the stage hops over the pipe
+group, the replicated leaves' gradients and the loss summed over it, the
+loss over the whole global batch's valid-token count, JAX's pipelined rule)
+through ``make_train_step``'s ``loss_and_grad_fn``, and everything after
+them is the unpipelined path's, the norm summed over ``pipe`` too.  Eval
+runs the forward schedule, and its batches must match the train
+``global_batch_size`` (JAX's rule and text).  Checkpoints hold each leaf
+under its global name, so they reshard across pp.
+
 Preference alignment (``model_alignment_strategy: dpo | orpo | kto``): the
 loss is the strategy's (``alignment/``) over the preference data module's
 batches, with the rows of each whole microbatch as its denominator, and its
@@ -68,11 +83,17 @@ sidecar, written once, reads back at any cp.
 without a checkpoint (``stop_class = "health_halt"``), and the health
 counters are checkpointed with the optimizer state.
 
-Knobs this slice does not implement (pipeline and expert parallelism, MoE,
-GPT) are rejected with the ROADMAP item that ports them; config blocks it
-does not act on are logged once as ignored (the other telemetry planes and
-the health recorder's knobs, elastic replan, EMA, autotune, overlap and
-pipeline knobs).
+``exp_manager.log_parameter_norm`` / ``log_gradient_norm`` log
+``param_norm`` / ``gradient_norm`` as JAX does, and ``data.io_retries`` /
+``io_retry_backoff_seconds`` are set on the data module.
+
+Knobs this slice does not implement (the virtual pipeline, ``1f1b-zb``,
+the chunked head, cp and preference alignment under pp; expert
+parallelism, MoE, GPT) are rejected with the ROADMAP item that ports them;
+config blocks it does not act on are logged once as ignored (the other
+telemetry planes and the health recorder's knobs, elastic replan, EMA,
+autotune, overlap, and the Pallas tiles ``fusions.flash_block_q`` /
+``flash_block_kv``: the Hopper kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -113,11 +134,12 @@ from neuronx_distributed_training_torch.optim.adamw import (
     opt_state_specs,
 )
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
-from neuronx_distributed_training_torch.parallel import sharding
+from neuronx_distributed_training_torch.parallel import pipeline, sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
     ContextParallel,
     DataParallel,
     MeshConfig,
+    PipelineParallel,
     TensorParallel,
     build_mesh,
     dp_degree,
@@ -128,6 +150,7 @@ from neuronx_distributed_training_torch.trainer.exp_manager import (
     ExpManager,
     version_for_config,
 )
+from neuronx_distributed_training_torch.trainer import step as step_mod
 from neuronx_distributed_training_torch.trainer.step import make_eval_step, make_train_step
 from neuronx_distributed_training_torch.utils import perf
 from neuronx_distributed_training_torch.utils.device import resolve_device
@@ -162,17 +185,19 @@ def _unsupported(reasons: list) -> NotImplementedError:
 def check_supported(cfg: ConfigDict) -> None:
     """Reject what this slice of the port does not implement, naming the
     ROADMAP queue entry (and item) that ports each; a config with several
-    such knobs gets them all in one message.  Pipeline and expert
-    parallelism, MoE and GPT are not ported; tp above the kv heads, a vocab
-    tp does not divide, ``fusions.chunked_ce`` and DPO / ORPO / KTO under
-    context parallelism are, so the dense Llama configs run at their own
-    meshes but for pp."""
+    such knobs gets them all in one message.  Pipeline parallelism runs at
+    vp 1 with the ``1f1b`` and ``wavefront`` schedules; the virtual
+    pipeline, ``1f1b-zb`` and the chunked head under pp (step 9c), cp and
+    preference alignment under pp (9d), expert parallelism, MoE and GPT are
+    not ported.  A schedule forced on a combination it does not support
+    raises the JAX package's ``resolve_schedule`` text."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
     _check_tensor_parallel(cfg, ds, model)
     reasons = []
     pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
+    vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
     cp = int(ds.get("context_parallel_size", 1) or 1)
     strategy, _ = alignment_strategy(cfg)
     if fusions.get("zigzag_ring_attention"):
@@ -185,10 +210,26 @@ def check_supported(cfg: ConfigDict) -> None:
             raise NotImplementedError("zigzag_ring_attention with preference alignment; use "
                                       "fusions.ring_attention")
     if pp > 1:
-        reasons.append(("pipeline parallelism (pp > 1)", "9", "12"))
+        schedule = str(dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")).lower()
+        if vp > 1:
+            reasons.append(("the virtual pipeline (virtual_pipeline_model_parallel_size > 1, "
+                            "1f1b-interleaved; step 9c)", "9", "12"))
+        if schedule == "1f1b-zb":
+            reasons.append(("the zero-bubble schedule (pipeline.schedule: 1f1b-zb; step 9c)",
+                            "9", "12"))
+        if fusions.get("chunked_ce"):
+            reasons.append(("the chunked head under pipeline parallelism (fusions.chunked_ce "
+                            "at the pipeline's loss site; step 9c)", "9", "12"))
         if cp > 1:
             reasons.append(("context parallelism under pipeline parallelism "
-                            "(blockwise_gspmd_attention)", "9", "12"))
+                            "(blockwise_gspmd_attention; step 9d)", "9", "12"))
+        if strategy in PREFERENCE:
+            reasons.append((f"preference alignment ({strategy}) under pipeline parallelism "
+                            f"(the preference pipeline hooks; step 9d)", "9", "12"))
+        if not reasons:
+            # a forced schedule the gate blocks: the JAX package's text
+            pipeline.resolve_schedule(schedule, llama.LlamaConfig.from_config(model, ds),
+                                      _pipeline_facts(cfg, ds, model))
     if int(ds.get("expert_model_parallel_size", 1) or 1) > 1:
         reasons.append(("expert parallelism (ep > 1)", "10", "13"))
     arch = str(model.get("architecture", model.get("model_type", "llama"))).lower()
@@ -221,6 +262,17 @@ def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
                                                      if cp > 1 else ""))
 
 
+def _pipeline_facts(cfg: ConfigDict, ds: dict, model: dict) -> dict:
+    """The ``parallel_cfg`` of ``parallel/pipeline.py::resolve_schedule``."""
+    strategy, _ = alignment_strategy(cfg)
+    return {"pipeline_model_parallel_size": int(ds.get("pipeline_model_parallel_size", 1) or 1),
+            "virtual_pipeline_model_parallel_size":
+                int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1),
+            "context_parallel_size": int(ds.get("context_parallel_size", 1) or 1),
+            "alignment": strategy if strategy in PREFERENCE else None,
+            "lora": bool(dict(model.get("lora", {}) or {}))}
+
+
 def _log_ignored(cfg: ConfigDict) -> None:
     em = dict(cfg.get("exp_manager", {}) or {})
     tel = em.get("telemetry")
@@ -238,13 +290,17 @@ def _log_ignored(cfg: ConfigDict) -> None:
                                              "profile_start_step") if em.get(k)]
     ignored += [k for k in ("autotune",) if k in cfg]
     ds = dict(cfg.get("distributed_strategy", {}) or {})
-    ignored += [f"distributed_strategy.{k}" for k in ("overlap", "pipeline") if k in ds]
+    ignored += [f"distributed_strategy.{k}" for k in ("overlap",) if k in ds]
+    # the Pallas kernels' tiles: the Hopper kernels' tiles are fixed
+    fusions = dict(dict(cfg.get("model", {}) or {}).get("fusions", {}) or {})
+    ignored += [f"model.fusions.{k}" for k in ("flash_block_q", "flash_block_kv") if k in fusions]
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
         logger.info("ignored by this slice of the port (dense Llama under data and tensor "
-                    "parallelism, with replicated kv heads and padded vocab slices, and context "
-                    "parallelism; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
+                    "parallelism, with replicated kv heads and padded vocab slices, context "
+                    "parallelism, and pipeline parallelism at vp 1 with the 1f1b and wavefront "
+                    "schedules; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
                     "planes but the health policy yet): %s", ", ".join(fresh))
 
 
@@ -408,6 +464,10 @@ class Trainer:
     tp: Optional[TensorParallel] = None
     #: the context axis (None unless context_parallel_size > 1)
     cp: Optional[ContextParallel] = None
+    #: the pipe axis (None unless pipeline_model_parallel_size > 1)
+    pp: Optional[PipelineParallel] = None
+    #: the resolved pipeline.schedule (None without pipeline parallelism)
+    pipeline_schedule: Optional[str] = None
     #: the tensor-parallel layout of every leaf (parallel/sharding.py)
     layouts: dict = dataclasses.field(default_factory=dict)
     #: the process group's world size (1 without one)
@@ -441,7 +501,7 @@ class Trainer:
         ds = dict(cfg.get("distributed_strategy", {}) or {})
         mc = llama.LlamaConfig.from_config(model_block, ds)
         mesh_cfg = MeshConfig.from_config(ds)
-        dp, dp_size, tp, cp = None, 1, None, None
+        dp, dp_size, tp, cp, pp = None, 1, None, None, None
         if dist.is_available() and dist.is_initialized():
             mesh = build_mesh(mesh_cfg, device_type=dev.type)
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
@@ -449,13 +509,17 @@ class Trainer:
                                           kv_replicas=max(mesh_cfg.tp // mc.kv_heads, 1))
             if mc.context_parallel:
                 cp = ContextParallel.from_mesh(mesh)
+            if mesh_cfg.pp > 1:
+                pp = PipelineParallel.from_mesh(mesh)
         else:
             for key, n in (("tensor_model_parallel_size", mesh_cfg.tp),
-                           ("context_parallel_size", mesh_cfg.cp)):
+                           ("context_parallel_size", mesh_cfg.cp),
+                           ("pipeline_model_parallel_size", mesh_cfg.pp)):
                 if n > 1:
                     raise ValueError(f"{key} {n} needs {n} processes: launch under torchrun "
                                      f"(--nproc_per_node)")
         tp_rank, tp_size = (0, 1) if tp is None else (tp.rank, tp.size)
+        pp_rank, pp_size = (0, 1) if pp is None else (pp.rank, pp.size)
         sched = batch_schedule(cfg, n_devices=world)
         seed = int(cfg.get("seed", 1234))
         # data first: the module's label convention decides shift_labels
@@ -463,6 +527,12 @@ class Trainer:
             data_module, cfg_val = build_data_module(cfg, sched, seed=seed,
                                                      vocab_size=mc.vocab_size)
             val_data_module = val_data_module or cfg_val
+        # the transient-read retry knobs, set on whatever module the build
+        # made (attributes, as the JAX trainer sets them)
+        data_block = dict(cfg.get("data", {}) or {})
+        for key, cast in (("io_retries", int), ("io_retry_backoff_seconds", float)):
+            if key in data_block and hasattr(data_module, key):
+                setattr(data_module, key, cast(data_block[key]))
         shift_labels = not getattr(data_module, "labels_pre_shifted", False)
         zigzag = mc.attention_impl == "zigzag_ring"
         if zigzag and not shift_labels:
@@ -470,7 +540,7 @@ class Trainer:
                                       "(the zig-zag transform owns the label shift)")
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
-                                   tp_size=tp_size)
+                                   tp_size=tp_size, pp_rank=pp_rank, pp_size=pp_size)
         trainable = None
         lora_block = dict(model_block.get("lora", {}) or {})
         if lora_block:
@@ -522,13 +592,42 @@ class Trainer:
                 return llama.loss_token_count(batch, shift_labels=shift_labels)
 
         nm = sched["num_microbatches"]
+        pp_schedule, loss_and_grad, eval_step = None, None, None
+        if pp is not None:
+            pp_schedule = pipeline.resolve_schedule(
+                dict(ds.get("pipeline", {}) or {}).get("schedule", "auto"), mc,
+                _pipeline_facts(cfg, ds, model_block))
+            if rank == 0:
+                logger.info("pipeline schedule: %s (pp=%d, vp=%d)", pp_schedule, pp.size,
+                            mesh_cfg.virtual_pipeline_model_parallel_size)
+            vgbs = getattr(val_data_module, "global_batch_size", None)
+            if vgbs is not None and int(vgbs) != int(sched["global_batch_size"]):
+                raise ValueError(
+                    f"under pipeline parallelism validation batches must "
+                    f"match the train global_batch_size "
+                    f"{sched['global_batch_size']} (val module has {vgbs}): "
+                    f"the pipelined eval loss microbatches the same way")
+            loss_and_grad, eval_step = pipeline.trainer_fns(
+                llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp), pp,
+                pp_schedule,
+                microbatches_of=lambda b: [mb for mb, _ in step_mod._microbatches(b, nm, dp,
+                                                                                 None)],
+                denominator_of=token_count_fn, act_dtype=policy.compute_dtype,
+                grad_dtype=policy.grad_accum_dtype, summed=dp.all_reduce_)
+        exp_block = dict(cfg.get("exp_manager", {}) or {})
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
-            num_microbatches=nm, trainable=trainable, health=health, dp=dp,
-            token_count_fn=token_count_fn, tp=tp,
+            num_microbatches=1 if pp is not None else nm, trainable=trainable, health=health,
+            dp=dp, token_count_fn=token_count_fn, tp=tp,
             tp_partial=frozenset(n for n in train_flat if layouts[n].partial),
-            tp_sharded={n: layouts[n] for n in train_flat if layouts[n].sharded}, cp=cp)
+            tp_sharded={n: layouts[n] for n in train_flat if layouts[n].sharded}, cp=cp,
+            loss_and_grad_fn=loss_and_grad, pp=pp,
+            log_param_norm=bool(exp_block.get("log_parameter_norm", False)),
+            log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)))
+        if eval_step is None:
+            eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
+                                       token_count_fn=token_count_fn, cp=cp)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
         version = None
         if dp is not None:
@@ -539,26 +638,28 @@ class Trainer:
         if enable_checkpointing:
             ck_cfg = dataclasses.replace(CheckpointConfig.from_config(cfg),
                                          dir=exp.checkpoint_dir)
-            checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp, cp=cp)
+            checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp, cp=cp, pp=pp)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
         if rank == 0:
             logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
                         "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, cp %d (%s), zero1 "
-                        "%s (%d of %d state leaves sharded); health %s; run dir %s", mc, nm,
+                        "%s (%d of %d state leaves sharded); pp %d (%s); health %s; run dir %s",
+                        mc, nm,
                         sched["micro_batch_size"], policy, dev, type(data_module).__name__,
                         shift_labels, "all leaves" if trainable is None else
                         f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, tp_size,
                         bool(tp and tp.sequence_parallel), 1 if cp is None else cp.size,
                         mc.attention_impl, zero1,
                         sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
+                        pp_size, pp_schedule or "none",
                         health.policy if health.enabled else "off", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
                    opt_state=opt_state, train_step=step_fn, trainable=trainable,
-                   eval_step=make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
-                                            token_count_fn=token_count_fn, cp=cp),
+                   eval_step=eval_step,
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
-                   peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, layouts=layouts,
+                   peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp,
+                   pipeline_schedule=pp_schedule, layouts=layouts,
                    rank=rank,
                    world=world, reference=reference)
 

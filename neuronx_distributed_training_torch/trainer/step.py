@@ -109,7 +109,7 @@ def _microbatches(batch, num_microbatches: int, dp, token_count_fn):
     mine = microbatch_split({k: v.index_select(0, rows) for k, v in batch.items()},
                             num_microbatches)
     return [({k: v[i] for k, v in mine.items()},
-             token_count_fn({k: v[i] for k, v in whole.items()}))
+             None if token_count_fn is None else token_count_fn({k: v[i] for k, v in whole.items()}))
             for i in range(num_microbatches)]
 
 
@@ -164,11 +164,25 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     trainable: Optional[set[str]] = None, health: Any = None,
                     dp: Any = None, token_count_fn: Optional[Callable] = None,
                     tp: Any = None, tp_partial: frozenset = frozenset(),
-                    tp_sharded=frozenset(), cp: Any = None) -> Callable:
+                    tp_sharded=frozenset(), cp: Any = None,
+                    loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
+                    log_param_norm: bool = False, log_gradient_norm: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
-    opt_state are updated in place (see ``optim/adamw.py``)."""
+    opt_state are updated in place (see ``optim/adamw.py``).
+
+    ``loss_and_grad_fn(params, batch, leaves) -> (loss, aux, grads)`` (the
+    JAX package's hook; ``leaves`` the trainable leaves by name, ``grads``
+    their gradients by name) replaces the microbatch loop: the pipeline's
+    (``parallel/pipeline.py``), whose loss is already normalized over the
+    global batch, so the trainer passes ``num_microbatches=1`` and nothing
+    is divided again.  Everything after the gradients is the same path:
+    the tp and kv-replica sums, the data axis's sum, and the update, whose
+    norm then adds the stages' layers over ``pp``.  ``log_param_norm`` /
+    ``log_gradient_norm`` (``exp_manager.log_parameter_norm`` /
+    ``log_gradient_norm``) add ``param_norm`` (after the update) and
+    ``gradient_norm`` (the pre-clip norm) to the metrics, as JAX does."""
     health = health if health is not None and getattr(health, "enabled", False) else None
-    if dp is not None and token_count_fn is None:
+    if dp is not None and token_count_fn is None and loss_and_grad_fn is None:
         raise ValueError("data parallelism needs token_count_fn (the loss denominator)")
     summed = _summing(dp, cp)
 
@@ -182,7 +196,12 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
         loss_sum = None
         grad_sum = None
         aux_sum: dict = {}
-        for mb, denom in _microbatches(batch, num_microbatches, dp, token_count_fn):
+        if loss_and_grad_fn is not None:
+            loss_sum, aux, got = loss_and_grad_fn(params, batch, flat)
+            aux_sum = _scalar_aux(aux)
+            grad_sum = [got[n] for n in names]
+        for mb, denom in ([] if loss_and_grad_fn is not None else
+                          _microbatches(batch, num_microbatches, dp, token_count_fn)):
             loss, aux = _call_loss(loss_fn, params, mb, denom)
             for k, v in _scalar_aux(aux).items():
                 aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
@@ -221,21 +240,26 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             grad_group_fn=grad_group_of if health is not None else None,
             skip_nonfinite=health is not None and health.policy == "skip_update",
             extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
-            tp=tp, tp_sharded=tp_sharded)
+            tp=tp, tp_sharded=tp_sharded, pp=pp)
         metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
                    "grad_norm": opt_metrics["grad_norm"]}
         metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
                         if k not in metrics})
         if health is not None:
             metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat,
-                                           tp, tp_sharded))
+                                           tp, tp_sharded, pp))
+        if log_param_norm:
+            with torch.no_grad():
+                metrics["param_norm"] = global_norm(flat, tp, tp_sharded, pp)
+        if log_gradient_norm:
+            metrics["gradient_norm"] = opt_metrics["grad_norm"]
         return metrics
 
     return train_step
 
 
 def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp=None,
-                    tp_sharded=frozenset()) -> dict:
+                    tp_sharded=frozenset(), pp=None) -> dict:
     """Advance the health counters (host ints; ``updates_finite`` is read
     once) and return the ``health/*`` metrics under the JAX names."""
     ok = bool(opt_metrics["updates_finite"])
@@ -260,7 +284,7 @@ def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp
     if health.param_norm:
         # after the update (a skipped step's are the params it kept)
         with torch.no_grad():
-            out["health/param_norm"] = global_norm(params, tp, tp_sharded)
+            out["health/param_norm"] = global_norm(params, tp, tp_sharded, pp)
     return out
 
 

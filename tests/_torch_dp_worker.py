@@ -1,6 +1,6 @@
-"""One rank of the port's data-, tensor- and context-parallel tests
-(``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``,
-``tests/test_torch_cp.py``).
+"""One rank of the port's data-, tensor-, context- and pipeline-parallel
+tests (``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_cp.py``, ``tests/test_torch_pipeline.py``).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/_torch_dp_worker.py <spec.json>
@@ -33,7 +33,12 @@ whole sequence:
   global leaves in the JAX layout (the tp ranks' slices merged);
 - ``dump_init``: write the initial params so, before any step;
 - ``grads``: write the gradients the first step hands AdamW (after the tp
-  and dp all-reduces), merged so, to this path.
+  and dp all-reduces), merged so, to this path;
+- ``poison_grad``: ``{"step": i, "pp_rank": r}``: at step ``i`` the ranks
+  of pipeline stage ``r`` alone see a NaN in one of their layer gradients.
+- ``val``: ``{"gbs": n, "seed": s}``: a synthetic validation module;
+- ``expect_error``: a ``ValueError`` the trainer's build raises is reported
+  as ``{"error": text}``.
 
 Each rank also reports its mesh coordinates (``coords``) and a digest of its
 local params and moments after the fit (``state_digest``), and a digest of
@@ -169,20 +174,38 @@ def _tp_local(t, layout, tp) -> torch.Tensor:
     return full.detach().clone()
 
 
+def _coords(trainer) -> dict:
+    """The rank's mesh coordinates (``pp`` only under pipeline parallelism)."""
+    out = {"dp": trainer.dp.rank, "tp": trainer.tp.rank,
+           "cp": 0 if trainer.cp is None else trainer.cp.rank}
+    if trainer.pp is not None:
+        out["pp"] = trainer.pp.rank
+    return out
+
+
 def merged(trainer, named: dict):
     """The global leaves (JAX layout) of ``named`` (every rank's local
-    leaves), on world rank 0 (None on the others): the slices of the ranks
-    of data coordinate 0, which are world ranks 0 .. tp-1."""
+    leaves), on world rank 0 (None on the others): each leaf from the ranks
+    of data and context coordinate 0 on the first pipeline stage that holds
+    it, their tp slices merged."""
     import torch.distributed as dist
 
     tp = trainer.tp
     mine = {n: _tp_local(t, trainer.layouts[n.split("/")[-1]], tp) for n, t in named.items()}
     everyone = [None] * dist.get_world_size()
-    dist.all_gather_object(everyone, mine)
+    dist.all_gather_object(everyone, (_coords(trainer), mine))
     if dist.get_rank() != 0:
         return None
-    return {n: sharding.merge_leaf([everyone[r][n] for r in range(tp.size)],
-                                   trainer.layouts[n.split("/")[-1]]) for n in mine}
+    out = {}
+    for n in dict.fromkeys(k for _, m in everyone for k in m):
+        holders = [(c, m[n]) for c, m in everyone if n in m and c["dp"] == 0 and c["cp"] == 0]
+        stage = min(c.get("pp", 0) for c, _ in holders)
+        parts = [t for c, t in sorted(((c, t) for c, t in holders if c.get("pp", 0) == stage),
+                                      key=lambda ct: ct[0]["tp"])]
+        leaf = n.split("/")[-1]  # another stage's leaf: the layout from its name
+        out[n] = sharding.merge_leaf(parts, trainer.layouts.get(leaf) or sharding.leaf_layout(
+            leaf, trainer.model_cfg, sequence_parallel=tp.sequence_parallel))
+    return out
 
 
 def _save(obj, path) -> None:
@@ -321,7 +344,17 @@ def run(spec: dict, rank: int) -> dict:
     if spec.get("kind") == "cp_units":
         return run_cp_units()
     cfg = load_config(spec["cfg"])
-    trainer = Trainer.from_config(cfg, device="cpu", data_module=_data(cfg, spec))
+    val = spec.get("val")
+    if val is not None:
+        val = SyntheticDataModule(cfg["model"]["vocab_size"], cfg["data"]["seq_length"],
+                                  val["gbs"], seed=val["seed"])
+    try:
+        trainer = Trainer.from_config(cfg, device="cpu", data_module=_data(cfg, spec),
+                                      val_data_module=val)
+    except ValueError as e:
+        if spec.get("expect_error"):
+            return {"error": str(e)}
+        raise
     out: dict = {"zero1_shards": {}, "rows": []}
     tp = trainer.tp
     if spec.get("weights"):
@@ -357,9 +390,17 @@ def run(spec: dict, rank: int) -> dict:
                                                         for mb, _ in mbs])
         return mbs
 
+    poison_grad = spec.get("poison_grad")
+
     def capture(params, grads, *a, **kw):
         if not captured:
             captured.update({n: g.detach().clone() for n, g in grads.items()})
+        if (poison_grad and trainer.step == poison_grad["step"]
+                and trainer.pp.rank == poison_grad["pp_rank"]):
+            # one stage's own layer gradient only: the others see it only
+            # through the norm's sum over the stages
+            name = next(n for n in grads if n.startswith("layers."))
+            grads[name].view(-1)[0] = float("nan")
         return update(params, grads, *a, **kw)
 
     call_loss = step_mod._call_loss
@@ -397,8 +438,8 @@ def run(spec: dict, rank: int) -> dict:
     out["opt_step"] = trainer.opt_state["step"]
     out["health"] = trainer.opt_state.get("health")
     out["committed"] = trainer.checkpointer.committed_steps if trainer.checkpointer else []
-    out["coords"] = {"dp": trainer.dp.rank, "tp": tp.rank,
-                     "cp": 0 if trainer.cp is None else trainer.cp.rank}
+    out["coords"] = _coords(trainer)
+    out["schedule"] = trainer.pipeline_schedule
     out["state_digest"] = _digest(list(llama.named_params(trainer.params).values())
                                   + [t for g in ("mu", "nu", "master")
                                      for t in trainer.opt_state.get(g, {}).values()])

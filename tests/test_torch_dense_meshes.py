@@ -406,10 +406,12 @@ def test_shipped_mixtral_configs_are_refused_naming_moe(config):
         t_loop.check_supported(cfg)
 
 
-@pytest.mark.parametrize("config", ["hf_llama3_8B_config.yaml", "hf_llama3.1_8B_config.yaml"])
+@pytest.mark.parametrize("config", ["hf_llama3_8B_config.yaml", "hf_llama3.1_8B_config.yaml",
+                                    "hf_llama3_70B_config.yaml", "hf_llama3.1_70B_config.yaml"])
 def test_shipped_dense_configs_pass_check_supported(config):
-    """The flagship and Llama-3.1-8B configs, tp 32 over 8 kv heads, as
-    shipped: each kv head replicated over 4 ranks."""
+    """The flagship, Llama-3.1-8B and the two 70B configs (pp 8, ``schedule:
+    1f1b``), tp 32 over 8 kv heads, as shipped: each kv head replicated over
+    4 ranks."""
     cfg = t_loader.load_config(REPO / "examples" / "conf" / config)
     ds = cfg.distributed_strategy
     assert ds.tensor_model_parallel_size == 32 and cfg.model.num_key_value_heads == 8

@@ -123,11 +123,13 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     # tp above the tiny config's 2 kv heads: KV replication (ported)
     ({"distributed_strategy.tensor_model_parallel_size": 4,
       "distributed_strategy.sequence_parallel": True}, None),
-    ({"distributed_strategy.pipeline_model_parallel_size": 2}, "item 12"),
+    # pipeline parallelism at vp 1 (ported)
+    ({"distributed_strategy.pipeline_model_parallel_size": 2}, None),
     # context parallelism under pipeline parallelism (blockwise_gspmd_attention)
     ({"distributed_strategy.pipeline_model_parallel_size": 2,
       "distributed_strategy.context_parallel_size": 2,
-      "model.fusions.ring_attention": True}, "blockwise_gspmd_attention.*entry 9 \\[item 12"),
+      "model.fusions.ring_attention": True},
+     "blockwise_gspmd_attention; step 9d.*entry 9 \\[item 12"),
     # tp above the kv heads under cp too (ported)
     ({"distributed_strategy.context_parallel_size": 2,
       "distributed_strategy.tensor_model_parallel_size": 4,
