@@ -157,7 +157,7 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       the spread of two one-card attentions.  With one card it prints why
       it did not run.
 
-12. pipeline parallelism at vp 1 (``parallel/pipeline.py``):
+12. pipeline parallelism (``parallel/pipeline.py``) at vp 1:
    a. phase 4's cell (Llama-3-8B width, 4 layers, seq 8192, mbs 1,
       ``mixed_precision``, flash) through the pipeline executor, every
       virtual rank in this one process through the library's loopback (one
@@ -188,9 +188,41 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       four cards pp 4 and pp 2 x tp 2 (SP).  With one card it prints why
       it did not run.
 
+13. the rest of pipeline parallelism (the virtual pipeline, ``1f1b-zb``,
+   the chunked head, preference alignment and cp under pp), every virtual
+   rank in this one process through the loopback unless said otherwise,
+   each run against the unpipelined pass on the same weights and rows at
+   12a's bars with 12a's launch counts, per rank its stage seconds and
+   in-flight counts and per run the process's peak:
+   a. ``hf_llama3_70B_v5p_config.yaml``'s pipeline shape (pp 4 x vp 2, one
+      layer a chunk, 8 layers, 8 microbatches with an uneven mask, seq
+      8192) at the widths its tp 8 gives each card (hidden 8192, 8 q and 1
+      kv heads of 128, ffn 3584, vocab slice 16032), ``1f1b-interleaved``
+      and the vp 2 wavefront, the two against each other; then the kernels
+      at these heads timed beside their bounds;
+   b. the 405B config's knobs, ``1f1b-interleaved`` at pp 2 x vp 3 with
+      ``fusions.chunked_ce=8``, at phase 4's width (6 layers, 4
+      microbatches), against the unpipelined chunked head (each
+      microbatch's loss once through it on both sides);
+   c. ``1f1b-zb`` at 12a's pp 4, nm 8 cell against ``1f1b`` on the same
+      rows, with each rank's pending weight passes and the deferred store's
+      bytes;
+   d. DPO and KTO at pp 2 (the wavefront over DPO's concatenated forward
+      and KTO's loss hook) at phase 9's cell (4 layers, seq 2048, 4
+      microbatches of two pairs or examples) against the same hooks run
+      unpipelined, and against phase 9's loss functions (the gradients at
+      phase 2's tolerance: the concatenated forward rounds each weight
+      gradient once where the loss function's two forwards round it
+      twice);
+   e. with four or more cards, phase 4's cell through the CLI under
+      torchrun at pp 2 x cp 2 with the ring against phase 4, each rank's
+      launches exact.  With fewer cards it prints why it did not run.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
-it exits non-zero and prints no result.
+it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
+``13e``) runs the kernels' build and those phases alone (13e after phase 4)
+and prints no result: a partial check while developing.
 """
 
 from __future__ import annotations
@@ -2260,20 +2292,35 @@ class StageTimer:
         return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
 
 
-def pp_model(torch, config: Path, layers: int, pp: int):
+def pp_model(torch, config: Path, layers: int, pp: int, *, vp: int = 1, card_tp: int = 1,
+             extra: dict | None = None):
     """``(LlamaConfig, DtypePolicy, params)`` of ``config`` cut to
     ``layers`` layers at tp 1, as the trainer builds them on the card
     (flash, ``mixed_precision``, random weights from the config's seed), the
-    whole model in this one process: the loopback's virtual ranks share it."""
+    whole model in this one process: the loopback's virtual ranks share it.
+    ``card_tp``: the widths that tp gives each card (the heads, the ffn and
+    the vocab cut ``card_tp`` ways, the hidden size and head size kept);
+    ``extra``: more config overrides."""
+    import dataclasses
+
     from neuronx_distributed_training_torch.config import loader
     from neuronx_distributed_training_torch.models import llama
     from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
 
     cfg = loader.load_config(config, {"model.num_layers": layers,
                                       "distributed_strategy.pipeline_model_parallel_size": pp,
+                                      "distributed_strategy.virtual_pipeline_model_parallel_size":
+                                          vp,
                                       "distributed_strategy.tensor_model_parallel_size": 1,
-                                      "distributed_strategy.sequence_parallel": False})
+                                      "distributed_strategy.sequence_parallel": False,
+                                      **(extra or {})})
     mc = llama.LlamaConfig.from_config(cfg["model"], cfg["distributed_strategy"])
+    if card_tp > 1:
+        mc = dataclasses.replace(
+            mc, num_attention_heads=mc.num_attention_heads // card_tp,
+            num_kv_heads=max(mc.kv_heads // card_tp, 1), head_dim=mc.head_size,
+            intermediate_size=mc.intermediate_size // card_tp,
+            vocab_size=-(-mc.vocab_size // card_tp))
     policy = DtypePolicy.from_precision_config(cfg.get("precision"))
     gen = torch.Generator(device="cuda").manual_seed(int(cfg.get("seed", 1234)))
     params = llama.init_params(mc, policy, generator=gen, device="cuda")
@@ -2339,7 +2386,7 @@ def pp_grad_gap(torch, grads: dict, ref: dict) -> tuple:
 
 
 def pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule: str, pp: int, policy,
-           card: str, tag: str) -> dict:
+           card: str, tag: str, vp: int = 1) -> dict:
     """One loopback step of every virtual rank, with the launch counters set
     to 0 just before and read just after: the loss, the gradients (on the
     card), the launches, each rank's stage seconds and in-flight counts, the
@@ -2356,29 +2403,37 @@ def pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule: str, pp: in
     loss, grads = pipeline.loopback_step(params, hooks, mbs, denom, schedule, pp, leaves=leaves,
                                          act_dtype=policy.compute_dtype,
                                          grad_dtype=policy.grad_accum_dtype, stats=stats,
-                                         timers=timers)
+                                         timers=timers, vp=vp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {"loss": float(loss), "grads": grads, "launches": dict(fa.LAUNCHES),
            "fallbacks": dict(fa.FALLBACKS), "stage_seconds": [t.total() for t in timers],
            "stats": stats, "peak_bytes": torch.cuda.max_memory_allocated(), "wall": wall,
-           "bubble": pipeline.predicted_bubble_fraction(schedule, pp, len(mbs))}
+           "bubble": pipeline.predicted_bubble_fraction(schedule, pp, len(mbs), vp)}
     for r in range(pp):
+        deferred = "" if "deferred_max" not in stats[r] else (
+            f", weight passes pending at most {stats[r]['deferred_max']} "
+            f"({stats[r]['deferred_bytes_max']} bytes)")
         log(f"pp: {tag} rank {r}: stage {out['stage_seconds'][r]:.4f} s, graphs alive at most "
-            f"{stats[r]['graphs_max']}, stage inputs held at most {stats[r]['inputs_max']} "
-            f"[{card}]")
-    log(f"pp: {tag}: loss {out['loss']:.6f}, wall {wall:.3f} s for all {pp} virtual ranks "
-        f"in turn, peak device memory of the process {out['peak_bytes']} bytes "
+            f"{stats[r]['graphs_max']}, stage inputs held at most {stats[r]['inputs_max']}"
+            f"{deferred} [{card}]")
+    log(f"pp: {tag}: loss {out['loss']:.6f}, stage seconds by rank "
+        f"{[round(t, 4) for t in out['stage_seconds']]}, wall {wall:.3f} s for all {pp} virtual "
+        f"ranks in turn, peak device memory of the process {out['peak_bytes']} bytes "
         f"({out['peak_bytes'] / 2**30:.2f} GiB), predicted bubble {out['bubble']:.4f}, "
         f"launches {out['launches']} [{card}]")
     return out
 
 
 def pp_check(tag: str, run: dict, ref_loss: float, ref: dict, *, layers: int, nm: int,
-             pp: int, schedule: str, torch) -> dict:
+             pp: int, schedule: str, torch, vp: int = 1) -> dict:
     """12a / 12b's bars: loss and every leaf against the unpipelined pass,
     exact launches (the wavefront's recompute counted), and the in-flight
-    counts of the schedule."""
+    counts of the schedule (``1f1b-interleaved``: at most Megatron's warm-up
+    plus one; ``1f1b-zb``: ``1f1b``'s, and at most ``r + 1`` weight passes
+    pending)."""
+    from neuronx_distributed_training_torch.parallel import pipeline
+
     gap, leaf, same = pp_grad_gap(torch, run["grads"], ref)
     loss_rel = abs(run["loss"] - ref_loss) / abs(ref_loss)
     log(f"pp: {tag}: against the unpipelined pass: loss {run['loss']:.6f} vs {ref_loss:.6f} "
@@ -2394,10 +2449,16 @@ def pp_check(tag: str, run: dict, ref_loss: float, ref: dict, *, layers: int, nm
              f"expected {want}")
     graphs = [s["graphs_max"] for s in run["stats"]]
     inputs = [s["inputs_max"] for s in run["stats"]]
-    if schedule == "1f1b":
+    if schedule in ("1f1b", "1f1b-zb"):
         ok = graphs == [min(pp - r, nm) for r in range(pp)] and not any(inputs)
+        if schedule == "1f1b-zb":
+            ok &= [s["deferred_max"] for s in run["stats"]] == [min(r + 1, nm)
+                                                                for r in range(pp)]
+    elif schedule == "1f1b-interleaved":
+        ok = not any(inputs) and all(
+            g <= pipeline.warmup_bound(schedule, pp, nm, vp, r) for r, g in enumerate(graphs))
     else:
-        ok = graphs == [1] * pp and inputs == [0] + [nm] * (pp - 1)
+        ok = graphs == [1] * pp and inputs == [nm * (vp - 1)] + [nm * vp] * (pp - 1)
     if not ok:
         fail(f"pp {tag}: graphs alive {graphs}, stage inputs held {inputs} per rank")
     return {"loss_rel": loss_rel, "grad_gap": gap, "bitwise_vs_unpipelined": same}
@@ -2619,6 +2680,375 @@ def phase_pp_cli(torch, cell, ref: dict, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of pipeline parallelism
+# ---------------------------------------------------------------------------
+
+#: 13a: hf_llama3_70B_v5p_config.yaml's pipeline shape (pp 4 x vp 2, one
+#: layer a chunk) at the widths its tp 8 gives each card
+PP_V5P_CONFIG = REPO / "examples" / "conf" / "hf_llama3_70B_v5p_config.yaml"
+PP_V5P = {"pp": 4, "vp": 2, "layers": 8, "nm": 8, "card_tp": 8}
+#: 13b: hf_llama3.1_405B_config.yaml's knobs (1f1b-interleaved, chunked_ce 8)
+#: at phase 4's width: pp 2 x vp 3, one layer a chunk
+PP_405B_KNOBS = {"pp": 2, "vp": 3, "layers": 6, "nm": 4}
+#: 13c: 12a's pp 4, nm 8 cell
+PP_ZB = {"pp": 4, "nm": 8}
+#: 13d: phase 9's cell (4 layers, seq 2048) at pp 2, 4 microbatches of two
+#: pairs (examples) each; the preference configs' kl_beta
+PP_PREF = {"pp": 2, "nm": 4, "rows": 2, "seq": 2048, "beta": 0.1}
+PP_8B_CONFIG = REPO / "examples" / "conf" / "hf_llama3_8B_config.yaml"
+
+
+def pp_bitwise_pair(torch, tag: str, a: dict, grads_a: dict, b: dict, grads_b: dict) -> dict:
+    """Two schedules' runs on the same rows: the largest gap, bit for bit or
+    not, failing past 12a's bars."""
+    gap, leaf, same = pp_grad_gap(torch, grads_a, grads_b)
+    same = same and a["loss"] == b["loss"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    log(f"pp: {tag}: loss rel {loss_rel:.2e}, largest gradient gap {gap:.3e} ({leaf}); bit "
+        f"for bit {same}")
+    if not loss_rel <= TP_LOSS_RTOL or not gap <= PP_GRAD_REL:
+        fail(f"pp {tag}: the schedules disagree: loss rel {loss_rel:.3e}, gradient gap "
+             f"{gap:.3e} at {leaf}")
+    return {"gap": gap, "bitwise": same}
+
+
+def phase_pp_virtual(torch, fa, kt, card: str, peaks) -> dict:
+    """13a: ``hf_llama3_70B_v5p_config.yaml``'s pipeline shape through the
+    loopback (pp 4 x vp 2, one layer a chunk, 8 layers, 8 microbatches, seq
+    8192) at the widths its tp 8 gives each card (hidden 8192, 8 q and 1 kv
+    heads of 128, ffn 3584, vocab slice 16032), with ``1f1b-interleaved``
+    and the vp 2 wavefront, each against the unpipelined pass (its
+    gradients kept on the host) at 12a's bars and the two against each
+    other; the stage seconds and graphs in flight by rank, the peak beside
+    the reckoning; then the kernels at these heads with their bounds."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    c = PP_V5P
+    mc, policy, params = pp_model(torch, PP_V5P_CONFIG, c["layers"], c["pp"], vp=c["vp"],
+                                  card_tp=c["card_tp"])
+    n_params = sum(t.numel() for t in llama.named_params(params).values())
+    bounds_inflight = sum(pipeline.warmup_bound("1f1b-interleaved", c["pp"], c["nm"], c["vp"], r)
+                          for r in range(c["pp"]))
+    log(f"pp: 13a: {mc}; {n_params} params ({n_params / 1e9:.3f} B): fp32 params and gradients "
+        f"{8 * n_params / 1e9:.1f} GB; at most {bounds_inflight} chunk graphs alive over the "
+        f"{c['pp']} virtual ranks [{card}]")
+    hooks = llama.pipeline_hooks(mc, policy)
+    mbs = pp_rows(torch, mc.vocab_size, c["nm"], True, PP_SEED + 130)
+    denom = sum(llama.loss_token_count(mb) for mb in mbs)
+    t0 = time.perf_counter()
+    ref_loss, ref = pp_reference(torch, mc, policy, params, mbs, denom, host=True)
+    log(f"pp: 13a unpipelined pass: loss {ref_loss:.6f} ({time.perf_counter() - t0:.2f} s) "
+        f"[{card}]")
+    out: dict = {"runs": {}, "n_params": n_params}
+    prev = None
+    for schedule in ("1f1b-interleaved", "wavefront"):
+        tag = f"v5p_pp4_vp2_nm8_{schedule}"
+        run = pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule, c["pp"], policy,
+                     card, tag, vp=c["vp"])
+        rep = pp_check(tag, run, ref_loss, ref, layers=c["layers"], nm=c["nm"], pp=c["pp"],
+                       schedule=schedule, torch=torch, vp=c["vp"])
+        grads = run.pop("grads")
+        if prev is not None:
+            rep["vs_interleaved"] = pp_bitwise_pair(torch, "13a wavefront against "
+                                                    "1f1b-interleaved", run, grads, *prev)
+        prev = (run, grads)
+        out["runs"][tag] = {**rep, **run}
+        del grads
+        free_cuda(torch)
+    del prev, params, ref, mbs
+    free_cuda(torch)
+    m = {"b": 1, "s": SEQ, "nh": mc.num_attention_heads, "nkv": mc.kv_heads, "d": mc.head_size}
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED + 131)
+    q, k, vv, do = (kt.randn_bf16(gen, 1, m["s"], hh, m["d"])
+                    for hh in (m["nh"], m["nkv"], m["nkv"], m["nh"]))
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, vv)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = kt.kernel_ms(q, k, vv, do, lse, delta)
+    bounds = bounds_ms(kt, peaks, m)
+    out["kernels"] = []
+    for kname, t in ms.items():
+        out["kernels"].append({"kernel": kname, "ms": t, "bound_ms": bounds[kname][0],
+                               "bound_by": bounds[kname][1], **m})
+        log(f"pp: 13a time {kname} at b 1, nh {m['nh']}, nkv {m['nkv']}, s {m['s']}, d "
+            f"{m['d']}: {t:.3f} ms, bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}), "
+            f"{bounds[kname][0] / t:.3f} of bound [{card}]")
+    del q, k, vv, do, o, lse, delta
+    free_cuda(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pp: 13a phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_pp_chunked_vp(torch, fa, card: str) -> dict:
+    """13b: the 405B config's knob combination, ``1f1b-interleaved`` at pp 2
+    x vp 3 with ``fusions.chunked_ce=8``, at phase 4's width (6 layers, one
+    a chunk, seq 8192, 4 microbatches, an uneven mask), against the
+    unpipelined pass through the same chunked head, at 12a's bars; each
+    microbatch's loss once through the chunked head."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    c = PP_405B_KNOBS
+    mc, policy, params = pp_model(torch, PP_8B_CONFIG, c["layers"], c["pp"], vp=c["vp"],
+                                  extra={"model.fusions.chunked_ce": CHUNKED_CE})
+    if mc.vocab_chunks != CHUNKED_CE:
+        fail(f"pp 13b: the model's vocab_chunks {mc.vocab_chunks}, expected {CHUNKED_CE}")
+    hooks = llama.pipeline_hooks(mc, policy)
+    mbs = pp_rows(torch, mc.vocab_size, c["nm"], True, PP_SEED + 140)
+    denom = sum(llama.loss_token_count(mb) for mb in mbs)
+    calls = []
+    fused = llama._chunked_head_loss
+
+    def counted(*a, **kw):
+        calls.append(kw.get("reduction", "mean"))
+        return fused(*a, **kw)
+
+    llama._chunked_head_loss = counted
+    try:
+        ref_loss, ref = pp_reference(torch, mc, policy, params, mbs, denom, host=False)
+        ref_calls, calls[:] = list(calls), []
+        tag = "405b_knobs_pp2_vp3_nm4_1f1b-interleaved"
+        run = pp_run(torch, fa, pipeline, hooks, params, mbs, denom, "1f1b-interleaved",
+                     c["pp"], policy, card, tag, vp=c["vp"])
+    finally:
+        llama._chunked_head_loss = fused
+    log(f"pp: 13b unpipelined pass: loss {ref_loss:.6f}; chunked-head calls: unpipelined "
+        f"{ref_calls}, pipelined {calls} [{card}]")
+    if ref_calls != ["mean"] * c["nm"] or calls != ["sum"] * c["nm"]:
+        fail(f"pp 13b: chunked-head calls {ref_calls} / {calls}, expected {c['nm']} each")
+    rep = pp_check(tag, run, ref_loss, ref, layers=c["layers"], nm=c["nm"], pp=c["pp"],
+                   schedule="1f1b-interleaved", torch=torch, vp=c["vp"])
+    run.pop("grads")
+    del params, ref, mbs
+    free_cuda(torch)
+    out = {"run": {**rep, **run}, "phase_seconds": time.perf_counter() - t_phase}
+    log(f"pp: 13b phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_pp_zb(torch, fa, card: str) -> dict:
+    """13c: ``1f1b-zb`` at 12a's pp 4, nm 8 cell (phase 4's width, 4 layers,
+    seq 8192): against the unpipelined pass (its gradients on the host) at
+    12a's bars and against ``1f1b`` on the same rows; each rank's most
+    pending weight passes (``r + 1``) and the deferred store's bytes, and
+    the peak beside ``1f1b``'s."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    c = PP_ZB
+    mc, policy, params = pp_model(torch, PP_8B_CONFIG, 4, c["pp"])
+    hooks = llama.pipeline_hooks(mc, policy)
+    mbs = pp_rows(torch, mc.vocab_size, c["nm"], True, PP_SEED + 150)
+    denom = sum(llama.loss_token_count(mb) for mb in mbs)
+    ref_loss, ref = pp_reference(torch, mc, policy, params, mbs, denom, host=True)
+    out: dict = {"runs": {}}
+    prev = None
+    for schedule in ("1f1b", "1f1b-zb"):
+        tag = f"zb_cell_pp4_nm8_{schedule}"
+        run = pp_run(torch, fa, pipeline, hooks, params, mbs, denom, schedule, c["pp"], policy,
+                     card, tag)
+        rep = pp_check(tag, run, ref_loss, ref, layers=mc.num_layers, nm=c["nm"], pp=c["pp"],
+                       schedule=schedule, torch=torch)
+        grads = run.pop("grads")
+        if prev is not None:
+            rep["vs_1f1b"] = pp_bitwise_pair(torch, "13c 1f1b-zb against 1f1b", run, grads,
+                                             *prev)
+            store = [s["deferred_bytes_max"] for s in run["stats"]]
+            log(f"pp: 13c deferred store at most {store} bytes by rank ({sum(store) / 2**30:.2f}"
+                f" GiB together); peak {run['peak_bytes'] / 2**30:.2f} GiB against 1f1b's "
+                f"{prev[0]['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+        prev = (run, grads)
+        out["runs"][tag] = {**rep, **run}
+        del grads
+        free_cuda(torch)
+    del prev, params, ref, mbs
+    free_cuda(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pp: 13c phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def pref_pp_rows(torch, vocab: int, kind: str, policy_fwd, c: dict) -> list:
+    """13d's microbatches: ``c["rows"]`` seeded pairs (DPO) or examples
+    (KTO, one desirable and one not) each, a loss mask over a seeded suffix
+    of each row, and the reference log-probs of the initial policy
+    (``policy_fwd``) less a seeded offset, so neither loss sits at its
+    policy = reference value."""
+    from neuronx_distributed_training_torch.alignment.losses import sequence_logprobs
+
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED + 160 + (kind == "kto"))
+    s, n = c["seq"], c["rows"]
+    sides = ("",) if kind == "kto" else ("chosen_", "rejected_")
+    out = []
+    for _ in range(c["nm"]):
+        mb = {}
+        for side in sides:
+            ids = torch.randint(0, vocab, (n, s), generator=gen, device="cuda")
+            start = torch.randint(s // 8, s // 2, (n, 1), generator=gen, device="cuda")
+            mask = (torch.arange(s, device="cuda")[None, :] >= start).float()
+            with torch.no_grad():
+                ref = sequence_logprobs(policy_fwd(ids), ids, mask)
+            off = torch.rand(n, generator=gen, device="cuda") * 8.0
+            mb.update({side + "input_ids": ids, side + "loss_mask": mask})
+            mb["reference_" + side + "logps"] = ref - off
+        if kind == "kto":
+            mb["kto_labels"] = (torch.arange(n, device="cuda") % 2 == 0).float()
+        out.append(mb)
+    return out
+
+
+def pref_reference(torch, params, mbs: list, loss_of) -> tuple:
+    """An unpipelined pass over ``mbs``: ``loss_of(mb)`` each, backward,
+    the gradients accumulated in the leaves' ``.grad`` and moved to the
+    host: ``(loss, {name: fp32 gradient})``."""
+    from neuronx_distributed_training_torch.models import llama
+
+    leaves = llama.named_params(params)
+    loss = None
+    for mb in mbs:
+        lm = loss_of(mb).float()
+        lm.backward()
+        loss = lm.detach() if loss is None else loss + lm.detach()
+        del lm
+    out = {n: t.grad.float().cpu() for n, t in leaves.items()}
+    for t in leaves.values():
+        t.grad = None
+    free_cuda(torch)
+    return float(loss), out
+
+
+def phase_pp_pref(torch, fa, card: str) -> dict:
+    """13d: DPO and KTO at pp 2 through the loopback at phase 9's cell
+    (``hf_llama3_8B_DPO_config.yaml`` / ``hf_llama3_8B_KTO_config.yaml``,
+    Llama-3-8B width, 4 layers, seq 2048, 4 microbatches of two pairs or
+    examples), on the wavefront JAX's gate gives them (DPO's concatenated
+    forward, KTO's loss hook).  Each run is held at 12a's bars against the
+    same hooks run unpipelined (embed, every layer, the loss hook, on one
+    stage), and against phase 9's unpipelined loss functions
+    (``alignment/dpo.py``, ``alignment/kto.py``) on the same weights and
+    rows, each microbatch weighted by its rows: the loss at 12a's bar, each
+    gradient leaf at phase 2's ``TOL_GRAD_REL`` of its largest entry.  (The
+    concatenated forward rounds a layer weight's bf16 gradient once over
+    both sides where the two forwards of the loss function round it twice
+    and add, and DPO's gradient is the difference of the two sides: the two
+    read up to several bf16 ulps apart relative to the leaf.)"""
+    from neuronx_distributed_training_torch.alignment import dpo as dpo_mod
+    from neuronx_distributed_training_torch.alignment import kto as kto_mod
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.ops import norm as norm_ops
+    from neuronx_distributed_training_torch.parallel import pipeline
+
+    t_phase = time.perf_counter()
+    c = PP_PREF
+    out: dict = {}
+    for kind, config in (("dpo", "hf_llama3_8B_DPO_config.yaml"),
+                         ("kto", "hf_llama3_8B_KTO_config.yaml")):
+        free_cuda(torch)
+        mc, policy, params = pp_model(torch, REPO / "examples" / "conf" / config, PREF_LAYERS,
+                                      c["pp"])
+
+        def fwd(ids, p=params, mc=mc, policy=policy):
+            return llama.forward(p, {"input_ids": ids}, mc, policy)[0]
+
+        def head(p, y, mc=mc, policy=policy):
+            h = norm_ops.apply_rms_norm(p["final_norm"], y, eps=mc.rms_norm_eps)
+            return llama.logits_fn(p, h, mc, policy)
+
+        mbs = pref_pp_rows(torch, mc.vocab_size, kind, fwd, c)
+        base = llama.pipeline_hooks(mc, policy)
+        if kind == "dpo":
+            loss_fn = dpo_mod.make_dpo_loss_fn(lambda p, ids: fwd(ids, p), beta=c["beta"])
+            hooks = dpo_mod.preference_pipeline_hooks(base, head, mode="dpo", beta=c["beta"])
+        else:
+            loss_fn = kto_mod.make_kto_loss_fn(lambda p, ids: fwd(ids, p), beta=c["beta"])
+            hooks = kto_mod.kto_pipeline_hooks(base, head, beta=c["beta"])
+        rows = torch.tensor(float(c["nm"] * c["rows"]), device="cuda")
+        embed_fn, stage_fn, hook_loss, _ = hooks
+
+        def one_stage(mb, hooks=hooks):
+            y = stage_fn(params["layers"], embed_fn(params, mb), mb)
+            return hook_loss(params, y, mb)[0] / rows
+
+        def loss_function(mb, loss_fn=loss_fn):
+            n = float(next(iter(mb.values())).shape[0])
+            return loss_fn(params, mb, torch.tensor(n, device="cuda"))[0] * n / rows
+
+        same_loss, same = pref_reference(torch, params, mbs, one_stage)
+        fn_loss, fn_grads = pref_reference(torch, params, mbs, loss_function)
+        tag = f"{kind}_pp2_nm4_wavefront"
+        run = pp_run(torch, fa, pipeline, hooks, params, mbs, rows, "wavefront", c["pp"], policy,
+                     card, tag)
+        rep = pp_check(tag, run, same_loss, same, layers=mc.num_layers, nm=c["nm"], pp=c["pp"],
+                       schedule="wavefront", torch=torch)
+        gap, leaf, bitwise = pp_grad_gap(torch, run["grads"], fn_grads)
+        loss_rel = abs(run["loss"] - fn_loss) / abs(fn_loss)
+        log(f"pp: 13d {kind}: against phase 9's loss function: loss {run['loss']:.6f} vs "
+            f"{fn_loss:.6f} (rel {loss_rel:.2e}, bar {TP_LOSS_RTOL:g}); largest gradient gap "
+            f"{gap:.3e} of its leaf's largest entry ({leaf}; bar {TOL_GRAD_REL:g}); bit for bit "
+            f"{bitwise} [{card}]")
+        if not loss_rel <= TP_LOSS_RTOL or not gap <= TOL_GRAD_REL:
+            fail(f"pp 13d {kind}: against the loss function, loss rel {loss_rel:.3e}, gradient "
+                 f"gap {gap:.3e} at {leaf}")
+        run.pop("grads")
+        out[kind] = {**rep, **run, "vs_loss_fn": {"loss_rel": loss_rel, "grad_gap": gap,
+                                                  "bitwise": bitwise}}
+        del params, same, fn_grads, mbs
+        free_cuda(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"pp: 13d phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_pp_cp(torch, cell, ref: dict, card: str) -> dict | None:
+    """13e, with four or more cards: phase 4's cell through the CLI under
+    torchrun at pp 2 x cp 2 with the ring (``auto``: the wavefront, the ring
+    bodies inside each stage's layers) against phase 4 (losses 1e-4, grad
+    norms 2e-3), each rank's launches exact.  With fewer cards it says why
+    it did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        log(f"pp: phase 13e (pp 2 x cp 2 under torchrun) not run: this machine shows "
+            f"{n_cards} card(s), NCCL takes one rank per card, and pp 2 x cp 2 needs four")
+        return None
+    t_phase = time.perf_counter()
+    rep = torchrun_cell(cell, 4, cell.WORK / "exp_pp2_cp2", 900,
+                        "--set", "distributed_strategy.pipeline_model_parallel_size=2",
+                        "--set", "distributed_strategy.context_parallel_size=2",
+                        "--set", "model.fusions.ring_attention=true")
+    log(f"pp: pp 2 x cp 2 (pp {rep['pp']}, cp {rep['cp']}): losses {rep['loss']} grad_norms "
+        f"{rep['grad_norm']}; one card {ref['loss']} / {ref['grad_norm']}; step seconds "
+        f"{rep['step_seconds']}; peak device memory per rank "
+        f"{[r['peak_bytes'] for r in rep['ranks']]} bytes; launches per rank "
+        f"{[r['launches'] for r in rep['ranks']]} [{card}]")
+    for r in rep["ranks"]:
+        # world ranks lay out (pipe, context): the wavefront runs each
+        # forward twice, and the ring's context rank c makes c + 1 calls
+        per = (r["rank"] % 2 + 1) * (cell.LAYERS // 2) * cell.MICROBATCHES * cell.STEPS
+        want = {"flash_fwd": 2 * per, "flash_dq": per, "flash_dkv": per}
+        if r["launches"] != want or r["fallbacks"]["core"]:
+            fail(f"pp 2 x cp 2: rank {r['rank']} launches {r['launches']} (fallbacks "
+                 f"{r['fallbacks']}), expected {want}")
+    if rep["pp"] != 2 or rep["cp"] != 2 or \
+            not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+                    for a, b in zip(rep["loss"], ref["loss"])) or \
+            not all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                    for a, b in zip(rep["grad_norm"], ref["grad_norm"])):
+        fail(f"pp 2 x cp 2: losses {rep['loss']} / grad norms {rep['grad_norm']} against one "
+             f"card's {ref['loss']} / {ref['grad_norm']}")
+    out = {"pp2_cp2": rep, "phase_seconds": time.perf_counter() - t_phase}
+    log(f"pp: 13e phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -2690,6 +3120,27 @@ def main() -> None:
     if spilling:
         fail(f"ptxas reports spills: {spilling}")
 
+    only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
+    if only is not None:
+        # a partial run: the named phases of 13 (13e after phase 4,
+        # its reference), no result lines
+        if "13e" in only:
+            try:
+                _, history4 = phase_trainer(torch, fa, cell, card)
+            finally:
+                shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
+            free_cuda(torch)
+            phase_pp_cp(torch, cell, trainer_ref(history4), card)
+        for name, fn in (("13a", lambda: phase_pp_virtual(torch, fa, kt, card, peaks)),
+                         ("13b", lambda: phase_pp_chunked_vp(torch, fa, card)),
+                         ("13c", lambda: phase_pp_zb(torch, fa, card)),
+                         ("13d", lambda: phase_pp_pref(torch, fa, card))):
+            if name in only or "13" in only:
+                fn()
+                free_cuda(torch)
+        log(f"phases {only} passed (a partial run prints no result)")
+        return
+
     phase_checks(torch, fa, kt, card)
     times = phase_times(torch, fa, kt, card, peaks)
     try:
@@ -2721,6 +3172,12 @@ def main() -> None:
     pp_loop = phase_pp_loopback(torch, fa, card)
     pp_70b = phase_pp_70b(torch, fa, kt, card, peaks)
     pp_cli = phase_pp_cli(torch, cell, trainer_ref(history4), card)
+    free_cuda(torch)
+    pp_virtual = phase_pp_virtual(torch, fa, kt, card, peaks)
+    pp_chunked_vp = phase_pp_chunked_vp(torch, fa, card)
+    pp_zb = phase_pp_zb(torch, fa, card)
+    pp_pref = phase_pp_pref(torch, fa, card)
+    pp_cp = phase_pp_cp(torch, cell, trainer_ref(history4), card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -2762,13 +3219,25 @@ def main() -> None:
                                  "pp_loopback_70b": pp_70b["run"]["launches"][kname],
                                  **({} if pp_cli is None else
                                     {"pretrain_pp2": [r["launches"][kname]
-                                                      for r in pp_cli["pp2"]["ranks"]]})},
+                                                      for r in pp_cli["pp2"]["ranks"]]}),
+                                 "pp_virtual": {tag: r["launches"][kname]
+                                                for tag, r in pp_virtual["runs"].items()},
+                                 "pp_chunked_vp": pp_chunked_vp["run"]["launches"][kname],
+                                 "pp_zb": {tag: r["launches"][kname]
+                                           for tag, r in pp_zb["runs"].items()},
+                                 "pp_pref": {k: pp_pref[k]["launches"][kname]
+                                             for k in ("dpo", "kto")},
+                                 **({} if pp_cp is None else
+                                    {"pretrain_pp2_cp2": [r["launches"][kname] for r in
+                                                          pp_cp["pp2_cp2"]["ranks"]]})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                    for r in cp_bodies_rep["rows"] if r["kernel"] == kname],
             "pp_70b_shape": [{k: v for k, v in r.items() if k != "kernel"}
                              for r in pp_70b["kernels"] if r["kernel"] == kname],
+            "pp_v5p_card_shape": [{k: v for k, v in r.items() if k != "kernel"}
+                                  for r in pp_virtual["kernels"] if r["kernel"] == kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,5 +1,5 @@
 """Preference alignment: DPO, ORPO and KTO (counterpart of the JAX package's
-``alignment/``, its pipeline hooks aside)."""
+``alignment/``), with their pipeline hooks."""
 
 from neuronx_distributed_training_torch.alignment.dpo import (  # noqa: F401
     compute_reference_logprobs,

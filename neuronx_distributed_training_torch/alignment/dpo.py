@@ -1,5 +1,6 @@
-"""DPO: the frozen-policy reference pass and the loss function (counterpart
-of the JAX package's ``alignment/dpo.py``, its pipeline hooks aside).
+"""DPO: the frozen-policy reference pass, the loss function and the
+pipeline hooks of DPO and ORPO (counterpart of the JAX package's
+``alignment/dpo.py``).
 
 Before training, the frozen initial policy runs over the whole train set and
 its chosen / rejected log-probs become two dataset columns
@@ -25,7 +26,13 @@ from typing import Any, Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from neuronx_distributed_training_torch.alignment.losses import count_once, dpo_loss, side_logprobs
+from neuronx_distributed_training_torch.alignment.losses import (
+    count_once,
+    dpo_loss,
+    orpo_loss,
+    sequence_logprobs,
+    side_logprobs,
+)
 from neuronx_distributed_training_torch.data.loader import PREFERENCE_SIDES, context_parallel_batch
 
 ForwardLogits = Callable[[Any, torch.Tensor], torch.Tensor]
@@ -85,3 +92,59 @@ def make_dpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=Non
         return count_once(loss, cp), metrics
 
     return loss_fn
+
+
+def pipeline_side_logprobs(logits, mb: dict, side: str, *, average: bool = False, tp=None,
+                           cp=None) -> torch.Tensor:
+    """:func:`side_logprobs` from logits the pipeline's last stage made:
+    ``side``'s ids (and loss mask) of the microbatch ``mb``; under ``cp``
+    its targets, the context sum taken."""
+    if cp is None:
+        return sequence_logprobs(logits, mb[side + "input_ids"], mb.get(side + "loss_mask"),
+                                 average=average, tp=tp)
+    return sequence_logprobs(logits, mb[side + "labels"], mb.get(side + "loss_mask"),
+                             shift=False, average=average, tp=tp, cp=cp)
+
+
+def preference_pipeline_hooks(hooks, head_fn: Callable, *, mode: str = "dpo",
+                              beta: float = 0.1, tp=None, cp=None) -> tuple:
+    """The model's pipeline hooks (``models/llama.py::pipeline_hooks``) for
+    DPO / ORPO under pipeline parallelism, the JAX package's
+    ``preference_pipeline_hooks``: the "concatenated forward" (chosen and
+    rejected stacked along the batch, so the pipelined model runs once a
+    microbatch); the loss hook splits the final hidden states, takes each
+    side's sequence log-probs through ``head_fn(params, y) -> logits`` (the
+    final norm and the head) and the preference loss.  The ``(loss_sum,
+    count)`` contract is weighted by pairs: the sum over the microbatch's
+    pairs (the rank's rows under data parallelism), and their count.  Under
+    ``cp`` each side is the context rank's slice
+    (``data/loader.py::context_parallel_batch`` with its ``sides``), the
+    log-probs are summed over the context group, and the loss counts once
+    (``alignment/losses.py::count_once``)."""
+    embed_fn, stage_fn, _, act_shape = hooks
+
+    def cat(mb):
+        ids = torch.cat([mb["chosen_input_ids"], mb["rejected_input_ids"]], dim=0)
+        if cp is None:
+            return {"input_ids": ids}
+        return {"input_ids": ids, "positions": torch.cat([mb["chosen_positions"],
+                                                          mb["rejected_positions"]], dim=0)}
+
+    def loss2(params, y, mb):
+        logits = head_fn(params, y)
+        b = mb["chosen_input_ids"].shape[0]
+        avg = mode == "orpo"
+        pc = pipeline_side_logprobs(logits[:b], mb, "chosen_", average=avg, tp=tp, cp=cp)
+        pr = pipeline_side_logprobs(logits[b:], mb, "rejected_", average=avg, tp=tp, cp=cp)
+        one = torch.ones((), dtype=torch.float32, device=pc.device)
+        if mode == "dpo":
+            loss, _ = dpo_loss(pc, pr, mb["reference_chosen_logps"],
+                               mb["reference_rejected_logps"], beta=beta, denominator=one)
+        else:
+            loss, _ = orpo_loss(pc, pr, -pc.sum(), beta=beta, denominator=one)
+        return count_once(loss, cp), torch.tensor(float(b), device=pc.device)
+
+    return (lambda params, mb: embed_fn(params, cat(mb)),
+            lambda layers, x, mb: stage_fn(layers, x, cat(mb)),
+            loss2,
+            lambda mb: act_shape(cat(mb)))

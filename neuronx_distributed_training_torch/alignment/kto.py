@@ -1,5 +1,5 @@
 """KTO: unpaired preference alignment (arXiv:2402.01306; counterpart of the
-JAX package's ``alignment/kto.py``, its pipeline hooks aside).
+JAX package's ``alignment/kto.py``).
 
 The same machinery as DPO: a frozen-policy reference pass before training
 (the ``reference_logps`` column, and ``reference_kl_logps`` when the batches
@@ -11,12 +11,16 @@ sequences.  Batches (``data/modules.py::KTODataModule``): ``input_ids``
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
-from neuronx_distributed_training_torch.alignment.dpo import ForwardLogits, reference_columns
+from neuronx_distributed_training_torch.alignment.dpo import (
+    ForwardLogits,
+    pipeline_side_logprobs,
+    reference_columns,
+)
 from neuronx_distributed_training_torch.alignment.losses import count_once, kto_loss, side_logprobs
 
 KTO_SIDES = {"reference_logps": ("input_ids", "loss_mask")}
@@ -67,3 +71,31 @@ def make_kto_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1,
         return count_once(loss, cp), metrics
 
     return loss_fn
+
+
+def kto_pipeline_hooks(hooks, head_fn: Callable, *, beta: float = 0.1,
+                       desirable_weight: float = 1.0, undesirable_weight: float = 1.0,
+                       tp=None, dp=None, cp=None) -> tuple:
+    """The model's pipeline hooks for KTO under pipeline parallelism, the
+    JAX package's ``kto_pipeline_hooks``: single sequences, so the embed and
+    stage hooks pass through and the loss hook takes the completion
+    log-probs from the final hidden states and the KTO objective against
+    ``reference_logps``, its baseline ``z0`` the microbatch's (JAX's
+    per-microbatch KL estimate; the mismatched pairs are not used here, as
+    in JAX).  ``(loss_sum, count)`` is weighted by examples.  Under data
+    parallelism the microbatch carries ``_rows``, the whole microbatch's
+    row count, and ``z0`` is taken over every data rank's rows (``dp``)."""
+    embed_fn, stage_fn, _, act_shape = hooks
+
+    def loss2(params, y, mb):
+        logits = head_fn(params, y)
+        logps = pipeline_side_logprobs(logits, mb, "", tp=tp, cp=cp)
+        rows = mb.get("_rows")
+        loss, _ = kto_loss(logps, mb["reference_logps"], mb["kto_labels"], beta=beta,
+                           desirable_weight=desirable_weight,
+                           undesirable_weight=undesirable_weight, denominator=rows,
+                           dp=None if rows is None else dp)
+        n = logps.new_tensor(float(logps.shape[0])) if rows is None else rows
+        return count_once(loss * n, cp), n
+
+    return embed_fn, stage_fn, loss2, act_shape

@@ -65,13 +65,15 @@ DCP's planner writes each once; context rank 0's ranks alone hash them.  The
 saved layout is the same as without cp, so a cp 2 save restores at cp 1 and
 the other way round.
 
-Pipeline parallelism (``pp``): a stage's ranks hold its layers alone, saved
-under their global names (``layers.<l>...``), and the embedding, the final
-norm and the head replicated over ``pipe``; DCP writes each replicated shard
-once and pipeline rank 0's ranks alone hash them, so the sidecar covers
-each leaf once and a pp 2 save holds the tensors of a pp 1 save.  A restore
-loads each rank's own leaves, and a saved leaf that no rank asks for fails
-it, so a save restores at any pp (and tp, dp) that cuts the same model.
+Pipeline parallelism (``pp``): a pipeline rank's processes hold the layers
+of its chunks alone (one chunk at vp 1, ``vp`` under the virtual
+pipeline), saved under their global names (``layers.<l>...``), and the
+embedding, the final norm and the head replicated over ``pipe``; DCP writes
+each replicated shard once and pipeline rank 0's ranks alone hash them, so
+the sidecar covers each leaf once and a pp 2 save holds the tensors of a
+pp 1 save.  A restore loads each rank's own leaves, and a saved leaf that
+no rank asks for fails it, so a save restores at any pp and vp (and tp, dp)
+that cuts the same model.
 
 The checkpoint dir is a local path: a ``scheme://`` URI is refused
 (:func:`resolve_checkpoint_dir`).

@@ -54,11 +54,13 @@ splits again over ``model``, as JAX's ``seq_axes`` puts ``context`` before
 ``model``.  Attention is the only layer that crosses the context ranks
 (``ops/attention.py``: the ring, the zig-zag ring or Ulysses).
 
-Pipeline parallelism: at ``pp_size > 1`` a stage's tree holds its layers
-and None for the other stages' (:func:`init_params`), so ``named_params``
-names every leaf by its global layer index; :func:`pipeline_hooks` gives the
-embedding, a stage's slice of layers and the head + CE that
-``parallel/pipeline.py`` runs stage by stage.
+Pipeline parallelism: at ``pp_size > 1`` a rank's tree holds the layers
+of its ``vp`` chunks and None for the other ranks' (:func:`init_params`),
+so ``named_params`` names every leaf by its global layer index;
+:func:`pipeline_hooks` gives the embedding, a chunk's slice of layers and
+the head + CE (the chunked head under ``fusions.chunked_ce``) that
+``parallel/pipeline.py`` runs stage by stage, under cp on the context
+rank's slices.
 """
 
 from __future__ import annotations
@@ -181,24 +183,24 @@ def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut):
 
 def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
                 generator: torch.Generator, device=None, tp_rank: int = 0, tp_size: int = 1,
-                pp_rank: int = 0, pp_size: int = 1):
+                pp_rank: int = 0, pp_size: int = 1, vp: int = 1):
     """The parameter tree in the policy's param dtype, drawn from
     ``generator`` (which must live on ``device``).  At ``tp_size > 1`` every
     leaf is still drawn whole, in the same order, and the rank keeps its
     slice (``parallel/sharding.py::shard_leaf``): a tp run starts from the
     slices of the one-rank run's tensors, bit for bit, holding one whole
     leaf more than its share at a time.  At ``pp_size > 1`` the same holds
-    of the layers: every layer is drawn, pipeline stage ``pp_rank`` keeps
-    its own (``parallel/pipeline.py::stage_layers``) and ``layers`` holds
-    None for the other stages' (the embedding, the final norm and the head
-    are kept on every stage)."""
+    of the layers: every layer is drawn, pipeline rank ``pp_rank`` keeps
+    its own, those of its ``vp`` chunks (``parallel/pipeline.py::
+    stage_layers``), and ``layers`` holds None for the other ranks' (the
+    embedding, the final norm and the head are kept on every rank)."""
     policy = policy or DtypePolicy()
     dtype = policy.param_dtype
     mine = set(range(cfg.num_layers))
     if pp_size > 1:
         from neuronx_distributed_training_torch.parallel.pipeline import stage_layers
 
-        mine = set(stage_layers(cfg.num_layers, pp_rank, pp_size))
+        mine = set(stage_layers(cfg.num_layers, pp_rank, pp_size, vp))
 
     def cut(name: str, t: torch.Tensor) -> torch.Tensor:
         return sharding.shard_leaf(t, sharding.leaf_layout(name, cfg), tp_rank, tp_size)
@@ -380,7 +382,7 @@ def logits_fn(params, hidden: torch.Tensor, cfg: LlamaConfig, policy: DtypePolic
 
 
 def _chunked_head_loss(params, hidden, labels, loss_mask, cfg: LlamaConfig, *,
-                       shift_labels: bool, denominator, tp):
+                       shift_labels: bool, denominator, tp, reduction: str = "mean"):
     """The loss of ``fusions.chunked_ce``: the final hidden states through
     the column region (gathered under SP), then the fused head + CE over
     ``cfg.vocab_chunks`` vocab blocks (``ops/cross_entropy.py``); the
@@ -393,7 +395,7 @@ def _chunked_head_loss(params, hidden, labels, loss_mask, cfg: LlamaConfig, *,
               else params["lm_head"]["w"])
     return ce_ops.chunked_cross_entropy_from_hidden(
         x, head_w, labels, num_chunks=cfg.vocab_chunks, loss_mask=loss_mask,
-        denominator=denominator, tp=tp, vocab_size=cfg.vocab_size)
+        reduction=reduction, denominator=denominator, tp=tp, vocab_size=cfg.vocab_size)
 
 
 def _loss_mask(batch: dict[str, torch.Tensor]):
@@ -440,9 +442,7 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
                            segment_ids=batch.get("segment_ids"), tp=tp, cp=cp)
     labels = batch.get("labels")
     loss_mask = batch.get("loss_mask") if cp is not None else _loss_mask(batch)
-    head_plain = cfg.tie_word_embeddings or (
-        "lm_head" in params and "lora_a" not in params["lm_head"])
-    if cfg.vocab_chunks and labels is not None and not return_logits and head_plain:
+    if cfg.vocab_chunks and labels is not None and not return_logits and _head_plain(params, cfg):
         # an lm_head LoRA adapter needs apply_linear: the plain head below
         return _chunked_head_loss(params, hidden, labels, loss_mask, cfg,
                                   shift_labels=shift_labels, denominator=loss_denominator,
@@ -457,8 +457,14 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
                                      denominator=loss_denominator, tp=tp), aux
 
 
+def _head_plain(params, cfg: LlamaConfig) -> bool:
+    """A head the chunked head can run: tied, or an ``lm_head`` without a
+    LoRA adapter (that needs ``apply_linear``)."""
+    return cfg.tie_word_embeddings or ("lm_head" in params and "lora_a" not in params["lm_head"])
+
+
 def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool = True,
-                   tp=None):
+                   tp=None, cp=None):
     """``(embed_fn, stage_fn, loss_fn, act_shape)`` for
     ``parallel/pipeline.py`` (the JAX package's ``pipeline_hooks``, with the
     head its ``onef1b_head_hooks`` wires: the final norm and the tied or
@@ -472,7 +478,14 @@ def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool 
     - ``loss_fn(params, y, mb) -> (loss_sum, valid_count)``: the final norm,
       the head (``logits_fn``: the embedding's rows when tied, ``lm_head``
       else) and the summed cross-entropy, masked as :func:`forward` masks;
+      with ``cfg.vocab_chunks`` and a plain head the fused chunked head
+      (``ops/cross_entropy.py``), as JAX's ``loss_fn`` there;
     - ``act_shape(mb)``: the shape of the activations that cross the stages.
+
+    Under ``cp`` each microbatch is the context rank's slice
+    (``data/loader.py::context_parallel_batch``: its positions, targets and
+    loss mask taken on the whole row, so nothing is shifted here) and the
+    layers' attention crosses the context group within each stage call.
 
     A tied weight's gradient comes from the first stage's embedding and the
     last stage's head; ``parallel/pipeline.py`` sums the two over ``pipe``
@@ -490,16 +503,27 @@ def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool 
         if positions is None:
             positions = positions_for(ids, am, seg)
         cos, sin = _rope(cfg, positions)
-        return _run_layers(layers, x, cos, sin, cfg, policy, am, seg, tp)
+        return _run_layers(layers, x, cos, sin, cfg, policy, am, seg, tp, cp)
+
+    shift = shift_labels and cp is None
 
     def loss_fn(params, y, mb):
         h = norm_ops.apply_rms_norm(params["final_norm"], y, eps=cfg.rms_norm_eps)
-        logits = logits_fn(params, h, cfg, policy, tp)
-        labels, loss_mask = mb["labels"], _loss_mask(mb)
-        if shift_labels:
-            logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
-        loss_sum = ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
-                                             reduction="sum", tp=tp)
+        labels = mb["labels"]
+        loss_mask = mb.get("loss_mask") if cp is not None else _loss_mask(mb)
+        if cfg.vocab_chunks and _head_plain(params, cfg):
+            loss_sum = _chunked_head_loss(params, h, labels, loss_mask, cfg, shift_labels=shift,
+                                          denominator=None, tp=tp, reduction="sum")
+            if shift:
+                labels = labels[:, 1:]
+                loss_mask = None if loss_mask is None else loss_mask[:, 1:]
+        else:
+            logits = logits_fn(params, h, cfg, policy, tp)
+            if shift:
+                logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels,
+                                                                        loss_mask)
+            loss_sum = ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
+                                                 reduction="sum", tp=tp)
         valid = (labels != -100).float()
         if loss_mask is not None:
             valid = valid * loss_mask.float()

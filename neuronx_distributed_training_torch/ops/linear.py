@@ -24,6 +24,9 @@ row layer's reduce carries it with no extra collective.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -41,12 +44,75 @@ def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, *, dtype=torch.
     return {"w": _normal_init(gen, (in_dim, out_dim), dtype, stddev, device)}
 
 
+class WeightGradSplit:
+    """The zero-bubble schedule's split of a backward (``parallel/
+    pipeline.py``, ``1f1b-zb``).  A forward run under
+    :func:`split_weight_grads` records each ``x @ w`` of
+    :func:`apply_linear`: the leaf ``w`` joins ``leaves``, and a hook on
+    the product hands its cotangent ``dy``, with ``x``, to ``sink`` when a
+    backward reaches it.  A backward that asks autograd for the stage input
+    and the other leaves alone (autograd then skips each ``x^T dy``) thus
+    computes the activation gradients and queues ``(w, x, dy)``;
+    :func:`weight_grad` later gives ``w``'s gradient from them, the same
+    product autograd takes."""
+
+    def __init__(self):
+        self.leaves: set = set()
+        self.sink: Optional[list] = None
+
+    def watch(self, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
+        """Record ``y = x @ w``; ``w`` is a leaf, or its compute-dtype copy
+        (``DtypePolicy.cast_to_compute``), whose leaf is then watched."""
+        if not (y.requires_grad and w.requires_grad):
+            return
+        leaf = w
+        if w.grad_fn is not None:  # the cast: ToCopyBackward -> AccumulateGrad(leaf)
+            leaf = getattr(w.grad_fn.next_functions[0][0], "variable", None)
+            if leaf is None:
+                raise RuntimeError(f"a split weight gradient needs a leaf or its cast, not "
+                                   f"the output of {w.grad_fn.name()}")
+        self.leaves.add(id(leaf))
+
+        def hook(dy):
+            if self.sink is None:
+                raise RuntimeError("a split weight gradient reached no sink: run the "
+                                   "backward with WeightGradSplit.sink set")
+            self.sink.append((leaf, x, dy))
+
+        y.register_hook(hook)
+
+
+_SPLIT: Optional[WeightGradSplit] = None
+
+
+@contextlib.contextmanager
+def split_weight_grads(split: WeightGradSplit):
+    """Record the forwards inside on ``split`` (see :class:`WeightGradSplit`)."""
+    global _SPLIT
+    prev, _SPLIT = _SPLIT, split
+    try:
+        yield split
+    finally:
+        _SPLIT = prev
+
+
+def weight_grad(leaf: torch.Tensor, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``leaf`` in ``y = x @ leaf.to(x.dtype)`` from the
+    cotangent ``dy``: ``matmul``'s own folded product ``x2^T dy2`` (its
+    backward's, for a row-major weight), cast to the leaf's dtype as the
+    cast's backward does."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return x2.t().mm(dy.reshape(-1, dy.shape[-1])).to(leaf.dtype)
+
+
 def apply_linear(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     w = params["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
     y = x @ w
+    if _SPLIT is not None and torch.is_grad_enabled():
+        _SPLIT.watch(w, x, y)
     if "lora_a" in params:
         a = params["lora_a"].to(y.dtype)
         b = params["lora_b"].to(y.dtype)

@@ -285,7 +285,8 @@ def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=No
     that several ranks hold (with the layouts); without it every leaf is
     summed in order, as one rank holds it.  With ``pp``
     (``parallel/mesh.py::PipelineParallel``) of more than one stage, the
-    sums of the leaves a stage holds alone (its layers') are then added over
+    sums of the leaves a pipeline rank holds alone (the layers of its
+    chunks, ``vp`` of them under the virtual pipeline) are then added over
     the pipe group, in one all-reduce of the groups in name order, and the
     leaves replicated over the stages count once."""
     on = tp_active(tp)

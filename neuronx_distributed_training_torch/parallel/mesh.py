@@ -11,9 +11,8 @@ each, outermost first:
 reference, and ``ep`` must divide it.  ``model`` is innermost, so a tp group
 is consecutive ranks (on one host), and a context group strides over tp.
 The port runs data, context, tensor (with Megatron sequence parallelism)
-and pipeline parallelism at ``virtual_pipeline_model_parallel_size`` 1; the
-trainer rejects ep above 1, and what of pp is not ported, with the ROADMAP
-item that ports it.
+and pipeline parallelism (with the virtual pipeline); the trainer rejects
+ep above 1 with the ROADMAP item that ports it.
 
 :class:`DataParallel` is what the train step and the optimizer need of the
 ``data`` axis: the rank, the size, its process group, the 1-D mesh of the
@@ -328,9 +327,10 @@ class ContextParallel:
 @dataclasses.dataclass(frozen=True)
 class PipelineParallel:
     """This process's place on the ``pipe`` axis: stage ``rank`` of
-    ``size``, and the world ranks of the previous and next stages (None at
-    the ends), which hold the same ``(data, expert, context, model)``
-    coordinates."""
+    ``size``, and the world ranks of the previous and next stages, which
+    hold the same ``(data, expert, context, model)`` coordinates (they
+    wrap: the last stage's next is rank 0, whose chunk ``c + 1`` follows
+    its chunk ``c`` under the virtual pipeline)."""
 
     rank: int
     size: int
@@ -344,14 +344,15 @@ class PipelineParallel:
         ranks = [int(r) for r in pm.mesh.reshape(-1).tolist()]
         r, n = pm.get_local_rank(), pm.size()
         return cls(rank=r, size=n, group=pm.get_group(),
-                   prev=ranks[r - 1] if r > 0 else None,
-                   next=ranks[r + 1] if r < n - 1 else None)
+                   prev=ranks[(r - 1) % n], next=ranks[(r + 1) % n])
 
     def p2p(self, sends: list, recvs: list) -> list:
         """One batch of stage hops: each ``(offset, tensor)`` of ``sends``
         goes to the next (+1) or previous (-1) stage, and each ``(offset,
         buffer)`` of ``recvs`` is filled from that stage, all in one
-        ``batch_isend_irecv`` that this waits for; returns the buffers."""
+        ``batch_isend_irecv`` that this waits for; returns the buffers.  At
+        pp 2 both neighbours are one rank: the two sides post their hops
+        to it in the same order (activations first), which pairs them."""
         import torch.distributed as dist
 
         peer = {1: self.next, -1: self.prev}

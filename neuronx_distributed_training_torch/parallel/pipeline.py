@@ -1,6 +1,5 @@
 """Pipeline parallelism over the ``pipe`` mesh axis (counterpart of the JAX
-package's ``parallel/pipeline.py`` at ``virtual_pipeline_model_parallel_size``
-1).
+package's ``parallel/pipeline.py``).
 
 Host side, copied from the JAX package with its texts: the stage split
 (:func:`stage_layer_slice`, :func:`to_interleaved` / :func:`from_interleaved`
@@ -10,52 +9,74 @@ the manual-backward schedules (:func:`work_table`, plain numpy) and the bubble
 model (:func:`ring_slot_counts`, :func:`bubble_multiplier`,
 :func:`predicted_bubble_fraction`), and :func:`ce_denominator`.
 
-Executors.  Pipeline rank ``r`` of ``pp`` holds layers ``[r Lc, (r + 1) Lc)``
-(``Lc = L / pp``); the embedding, the final norm and the head are replicated
-over ``pipe``.  Rank 0 embeds, the last rank applies the final norm, the head
-and the cross-entropy, and the activations cross the stages point to point.
-One rank's step is a generator, :func:`stage_body`, that walks its schedule
-and *yields* its stage hops: ``("p2p", sends, recvs)``, each a list of
-``(offset, tensor)`` with offset +1 (the next stage) or -1 (the previous),
-a receive's tensor being the buffer to fill; it is sent back the received
-tensors.  The hops are Megatron's: a warm-up forward sends its output alone,
-in the steady state a forward's send is batched with the receive of the next
-backward's cotangent and a backward's send with the receive of the next
-forward's input, so that two neighbours never both wait on a send.
-:func:`drive` answers the yields over the pipe group
-(``parallel/mesh.py::PipelineParallel``, batched ``isend`` / ``irecv``);
-:func:`loopback` answers those of every virtual rank in one process (the
-tests, and one card in ``chip_smoke.py``).
+Executors.  Pipeline rank ``r`` of ``pp`` holds ``vp`` chunks
+(``virtual_pipeline_model_parallel_size``): chunk ``c`` is stage ``s = c pp
++ r``, layers ``[s Lc, (s + 1) Lc)`` (``Lc = L / (pp vp)``, JAX's
+``to_interleaved``; :func:`stage_chunks`); the embedding, the final norm and
+the head are replicated over ``pipe``.  Chunk 0 of rank 0 embeds, the last
+chunk of the last rank applies the final norm, the head and the
+cross-entropy, and the activations cross the stages point to point: rank
+``r``'s chunk ``c`` feeds rank ``r + 1``'s, and the last rank's chunk ``c``
+feeds rank 0's chunk ``c + 1``, so the hops wrap modulo ``pp``; cotangents
+go back the same way.  One rank's step is a generator, :func:`stage_body`,
+that walks its part of :func:`exchange_plan` and *yields* its stage hops:
+``("p2p", sends, recvs)``, each a list of ``(offset, tensor)`` with offset
++1 (the next rank) or -1 (the previous), a receive's tensor being the
+buffer to fill; it is sent back the received tensors.  The plan plays every
+rank's order in lockstep ticks, so a send and its receive are in the same
+batch of hops on both sides, each batch waits only for work of earlier
+ticks and two neighbours never both wait on a send (at pp 2 both are one
+rank: the two sides post in one order, activations first).  :func:`drive`
+answers the yields over the pipe group (``parallel/mesh.py::
+PipelineParallel``, batched ``isend`` / ``irecv``); :func:`loopback`
+answers those of every virtual rank in one process (the tests, and one card
+in ``chip_smoke.py``).
 
-Schedules (both give the same loss and gradients: a schedule is an order of
-work and changes no number):
+Schedules (every one gives the same loss and gradients, bit for bit: a
+schedule is an order of work, and each rank runs a chunk's backwards in
+microbatch order):
 
-- ``1f1b``: a warm-up of ``min(pp - 1 - r, nm)`` forwards, then one forward
-  and one backward in turn, then the cool-down's backwards.  Each forward
-  keeps its autograd graph until its backward, so rank ``r`` holds at most
-  ``pp - r`` microbatches' graphs and recomputes nothing.  JAX's 1F1B is
-  O(pp) too, but it runs a ``scan`` over the compacted table, which cannot
-  keep a graph across ticks: it recomputes each stage inside its backward
-  tick and holds up to ``2 pp - 1`` stage inputs on rank 0.  The port spends
-  memory (at most ``pp`` graphs) where JAX spends a forward; the port's
-  :func:`work_table` still serves :func:`predicted_bubble_fraction`.
-- ``wavefront``: every forward, then every backward.  A forward runs without
-  a graph and keeps only its stage input (``nm`` of them); its backward
+- ``1f1b`` (vp 1) and ``1f1b-interleaved`` (vp > 1): forwards in groups of
+  ``pp`` microbatches through every chunk (:func:`_fwd_order`; the last
+  group ragged when ``pp`` does not divide ``nm``, which must be at least
+  ``pp`` at vp > 1, as in JAX), backwards in the same groups with the
+  chunks descending (:func:`_bwd_order`), at most Megatron's warm-up plus
+  one stage forwards alive on a rank (:func:`warmup_bound`: ``pp - r`` at
+  vp 1).  Each forward keeps its autograd graph until its backward and
+  nothing is recomputed.  JAX's 1F1B runs a ``scan`` over the compacted
+  table, which cannot keep a graph across ticks: it recomputes each stage
+  inside its backward tick and holds up to ``2 pp - 1`` stage inputs on
+  rank 0.  The port spends memory (the graphs) where JAX spends a forward;
+  the port's :func:`work_table` still serves
+  :func:`predicted_bubble_fraction`.
+- ``1f1b-zb`` (vp 1, JAX's ``zero_bubble``): ``1f1b``'s order, with each
+  backward split.  The B pass asks autograd for the stage input's and the
+  norms' and embedding's gradients alone, so it skips every layer weight's
+  ``x^T dy``; ``ops/linear.py::WeightGradSplit`` records each layer
+  ``x @ w`` in the forward and queues ``(w, x, dy)`` as the B pass reaches
+  it; microbatch ``m``'s weight pass (W) runs right after the backward of
+  ``m + r``, JAX's deferral of ``r`` ticks, so rank ``r`` holds at most
+  ``r + 1`` microbatches' queues.  The head's weight keeps its gradient in
+  the B pass, as JAX's head tick does.
+- ``wavefront`` (any vp): every forward, then every backward.  A forward
+  runs without a graph and keeps only its stage input; its backward
   recomputes the stage forward first, JAX's ``jax.checkpoint`` wavefront's
-  memory class at one stage forward more per microbatch than ``1f1b``.
+  memory class at one stage forward more per microbatch.
 
 Each stage's backward is ``torch.autograd.grad`` of its output with the
-received cotangent (of ``loss_m / denominator`` on the last rank), over the
-rank's trainable leaves and its input; the leaves' gradients accumulate in
-fp32 in microbatch order.  The loss is ``sum_m loss_sum_m / denominator``,
-``denominator`` the valid-token count of the whole global batch, JAX's
+received cotangent (of ``loss_m / denominator`` on the last stage), over
+the chunk's trainable leaves and its input; the leaves' gradients
+accumulate in fp32 in microbatch order.  The loss is ``sum_m loss_sum_m /
+denominator``, ``denominator`` the valid-token count of the whole global
+batch (the pair or example count under preference alignment), JAX's
 pipelined rule (not the unpipelined mean of the microbatches' means): the
 two agree only when every microbatch has the same count.  The replicated
 leaves' gradients (the embedding's on rank 0, the final norm's and the
 head's on the last rank; with tied embeddings both land on
 ``embed.embedding``, JAX's ``fold_grads``) and the loss are then summed over
 ``pipe`` (:func:`sum_over_pipe`), so every rank holds the whole loss and
-whole gradients of what it holds.
+whole gradients of what it holds.  :func:`forward_rows` runs the forwards
+alone for the reference pass of DPO and KTO.
 """
 
 from __future__ import annotations
@@ -78,12 +99,6 @@ def stage_layer_slice(num_layers: int, pp: int, vp: int = 1) -> int:
             f"num_layers {num_layers} not divisible by pp*vp = {pp}*{vp}"
         )
     return num_layers // (pp * vp)
-
-
-def stage_layers(num_layers: int, rank: int, pp: int) -> range:
-    """The global indices of the layers pipeline rank ``rank`` holds at vp 1."""
-    lc = stage_layer_slice(num_layers, pp)
-    return range(rank * lc, (rank + 1) * lc)
 
 
 def to_interleaved(layers: list, pp: int, vp: int) -> list:
@@ -541,27 +556,160 @@ def ce_denominator(microbatches: dict, *, shift_labels: bool,
 # ---------------------------------------------------------------------------
 
 
-#: the schedules the executors run (vp 1)
-EXECUTED_SCHEDULES = ("1f1b", "wavefront")
+#: the schedules the executors run
+EXECUTED_SCHEDULES = ("1f1b", "1f1b-interleaved", "1f1b-zb", "wavefront")
+
+
+def check_microbatches(pp: int, nm: int, vp: int) -> None:
+    """The circular schedules' bound on the microbatches, with JAX's text."""
+    if vp > 1 and 1 < pp and nm < pp:
+        raise ValueError(
+            f"interleaved pipeline needs num_microbatches >= pp "
+            f"(got nm={nm}, pp={pp}, vp={vp})"
+        )
+
+
+def stage_chunks(num_layers: int, rank: int, pp: int, vp: int = 1) -> list[range]:
+    """The global layer indices of each of pipeline rank ``rank``'s ``vp``
+    chunks: chunk ``c`` is stage ``s = c pp + rank``, layers ``[s Lc, (s +
+    1) Lc)`` (:func:`to_interleaved`)."""
+    lc = stage_layer_slice(num_layers, pp, vp)
+    return [range((c * pp + rank) * lc, (c * pp + rank + 1) * lc) for c in range(vp)]
+
+
+def stage_layers(num_layers: int, rank: int, pp: int, vp: int = 1) -> list[int]:
+    """The global indices of every layer pipeline rank ``rank`` holds."""
+    return [i for chunk in stage_chunks(num_layers, rank, pp, vp) for i in chunk]
+
+
+def warmup_bound(schedule: str, pp: int, nm: int, vp: int, rank: int) -> int:
+    """The most stage forwards rank ``rank`` keeps alive (with their graphs)
+    under a manual schedule: Megatron's warm-up count plus one, ``pp - r``
+    at vp 1 and ``2 (pp - r - 1) + (vp - 1) pp + 1`` at vp > 1, at most
+    ``nm vp``; unbounded (``nm vp``) for the wavefront and the eval pass."""
+    total = nm * vp
+    if schedule not in MANUAL_VJP_SCHEDULES:
+        return total
+    warm = 2 * (pp - rank - 1) + (vp - 1) * pp if vp > 1 else pp - rank - 1
+    return min(warm + 1, total)
+
+
+@functools.lru_cache(maxsize=None)
+def exchange_plan(schedule: str, pp: int, nm: int, vp: int = 1) -> tuple:
+    """Every rank's step as a list of ``(op, sends, recvs)``: ``op`` is
+    ``(kind, chunk, microbatch)`` or None, ``kind`` ``f`` a stage forward,
+    ``b`` its backward, ``w`` (``1f1b-zb``) a microbatch's deferred weight
+    gradients; ``sends`` / ``recvs`` are tuples of ``(offset, key)``,
+    offset +1 the next rank and -1 the previous, modulo ``pp``.
+
+    The ranks are played in lockstep ticks.  Each rank runs its forwards
+    in :func:`_fwd_order` and its backwards in :func:`_bwd_order` (groups of
+    ``pp`` microbatches through every chunk, the last group ragged when
+    ``pp`` does not divide ``nm``; chunks descending in the backward).  At a
+    tick a rank runs, in this order of preference: a weight pass due
+    (``1f1b-zb``: microbatch ``m``'s right after the backward of ``m + r``,
+    JAX's deferral of ``r`` ticks); its next backward, once its cotangent
+    has arrived (the wavefront: once every forward is done); its next
+    forward, once its input has arrived and while fewer than
+    :func:`warmup_bound` forwards are alive.  At vp 1 that is Megatron's
+    1F1B order, at vp > 1 its interleaved one; a tick where no rank can
+    run lifts the bound for that tick (a ragged last group can leave
+    Megatron's warm-up short: at pp 4, vp 3, nm 5 for one).  What a tick's
+    ops produce crosses to the neighbours in one batch of hops at the
+    tick's end, so a send and its receive are in the same tick on both
+    sides and each batch waits only for work of earlier ticks: no two
+    neighbours ever both wait on a send.  A batch holds at most one
+    activation and one cotangent each way, activations first.  Each rank's
+    backwards of a chunk run in microbatch order, so every schedule adds a
+    leaf's gradients in the same order."""
+    fo = _fwd_order(pp, nm, vp)
+    bo = [] if schedule == "forward" else _bwd_order(pp, nm, vp)
+    total, at = len(fo), {k: i for i, k in enumerate(fo)}
+    bound = [warmup_bound(schedule, pp, nm, vp, r) for r in range(pp)]
+    fi, bi, alive = [0] * pp, [0] * pp, [0] * pp
+    dues: list = [collections.deque() for _ in range(pp)]
+    have: list = [set() for _ in range(pp)]
+    steps: list = [[] for _ in range(pp)]
+    first = lambda c, r: c == 0 and r == 0  # noqa: E731
+    last = lambda c, r: c == vp - 1 and r == pp - 1  # noqa: E731
+
+    def ready_b(r):
+        if bi[r] == len(bo) or (schedule == "wavefront" and fi[r] < total):
+            return False
+        c, m = bo[bi[r]]
+        return at[(c, m)] < fi[r] and (last(c, r) or ("b", c, m) in have[r])
+
+    def ready_f(r):
+        if fi[r] == total:
+            return False
+        c, m = fo[fi[r]]
+        return first(c, r) or ("f", c, m) in have[r]
+
+    while any(fi[r] < total or bi[r] < len(bo) or dues[r] for r in range(pp)):
+        ran: list = [None] * pp
+        for lift in (False, True):
+            for r in range(pp):
+                if dues[r]:
+                    ran[r] = ("w", 0, dues[r].popleft())
+                elif ready_b(r):
+                    c, m = bo[bi[r]]
+                    ran[r], bi[r], alive[r] = ("b", c, m), bi[r] + 1, alive[r] - 1
+                    have[r].discard(("b", c, m))
+                    if schedule == "1f1b-zb":
+                        dues[r].extend([m - r] if m >= r else [])
+                        if bi[r] == len(bo):
+                            dues[r].extend(range(max(nm - r, 0), nm))
+                elif ready_f(r) and (lift or alive[r] < bound[r]):
+                    c, m = fo[fi[r]]
+                    ran[r], fi[r], alive[r] = ("f", c, m), fi[r] + 1, alive[r] + 1
+                    have[r].discard(("f", c, m))
+            if any(ran):
+                break
+        else:
+            raise AssertionError(f"pipeline schedule {schedule} (pp={pp}, nm={nm}, vp={vp}) "
+                                 f"cannot finish")
+        sends: list = [[] for _ in range(pp)]
+        recvs: list = [[] for _ in range(pp)]
+        for kind, off in (("f", 1), ("b", -1)):
+            for r, op in enumerate(ran):
+                if op is None or op[0] != kind or (last if kind == "f" else first)(op[1], r):
+                    continue
+                dst = (r + off) % pp
+                wrap = (r == pp - 1) if kind == "f" else (r == 0)
+                key = (kind, op[1] + off * wrap, op[2])
+                sends[r].append((off, key))
+                recvs[dst].append((-off, key))
+                have[dst].add(key)
+        for r in range(pp):
+            if ran[r] or sends[r] or recvs[r]:
+                steps[r].append((ran[r], tuple(sends[r]), tuple(recvs[r])))
+    return tuple(tuple(s) for s in steps)
 
 
 @dataclasses.dataclass
 class Stage:
     """What pipeline rank ``rank`` of ``size`` runs of the model in a step.
-    ``embed(mb)`` (rank 0), ``layers(x, mb)`` (the rank's layers) and
-    ``loss(y, mb) -> (loss_sum, valid_count)`` (the last rank) are
+    ``embed(mb)`` (chunk 0 of rank 0), ``layers[c](x, mb)`` (chunk ``c``'s
+    layers, one callable per virtual rank) and ``loss(y, mb) -> (loss_sum,
+    valid_count)`` (the last chunk of the last rank) are
     ``models/llama.py::pipeline_hooks`` bound to the rank's params;
-    ``leaves`` are the rank's trainable leaves by name; ``act_shape(mb)``
-    and ``act_dtype`` describe the activations that cross the stages."""
+    ``leaves`` are the rank's trainable leaves by name, ``chunks`` the
+    global layer indices of each chunk; ``act_shape(mb)`` and ``act_dtype``
+    describe the activations that cross the stages."""
 
     rank: int
     size: int
     embed: Callable
-    layers: Callable
+    layers: list
     loss: Callable
     leaves: dict
+    chunks: list
     act_shape: Callable
     act_dtype: torch.dtype
+
+    @property
+    def vp(self) -> int:
+        return len(self.layers)
 
     @property
     def first(self) -> bool:
@@ -570,6 +718,13 @@ class Stage:
     @property
     def last(self) -> bool:
         return self.rank == self.size - 1
+
+    def chunk_leaves(self, c: int) -> dict:
+        """The leaves chunk ``c`` may touch: its layers' and the replicated
+        ones."""
+        mine = self.chunks[c]
+        return {n: t for n, t in self.leaves.items()
+                if not is_stage_leaf(n) or int(n.split(".")[1]) in mine}
 
 
 def _p2p(sends: list, recvs: list):
@@ -584,184 +739,192 @@ def _p2p(sends: list, recvs: list):
 def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
                grad_dtype=torch.float32, stats: Optional[dict] = None,
                timer: Optional[Callable] = None):
-    """Generator of one pipeline rank's step (see the module docstring).
-    Returns ``(loss, grads)``: on the last rank the fp32 ``sum_m loss_sum_m /
-    denominator`` (None on the others), and ``{name: fp32 gradient}`` of the
-    leaves that got one.  ``stats`` (a dict) receives ``graphs_max`` (the
-    most microbatches whose graphs were alive at once) and ``inputs_max``
-    (the most stage inputs held for a recompute); ``timer()``, if given, is
-    a context manager around each stage computation."""
-    if schedule not in EXECUTED_SCHEDULES:
+    """Generator of one pipeline rank's step (see the module docstring),
+    walking :func:`exchange_plan`.  Returns ``(loss, grads)``: on the last
+    rank the fp32 ``sum_m loss_sum_m / denominator`` (None on the others),
+    and ``{name: fp32 gradient}`` of the leaves that got one.  ``stats`` (a
+    dict) receives ``graphs_max`` (the most stage forwards whose graphs were
+    alive at once), ``inputs_max`` (the most stage inputs held for a
+    recompute), and under ``1f1b-zb`` ``deferred_max`` / ``deferred_bytes_max``
+    (the most microbatches, and bytes, whose weight pass was pending);
+    ``timer()``, if given, is a context manager around each stage
+    computation.  ``schedule`` ``forward`` runs the forwards alone, with no
+    graph (the eval pass); with ``denominator`` None it returns, on the
+    last rank, the list of each microbatch's ``loss(y, mb)[0]`` in place
+    of the loss (the reference pass's log-probs)."""
+    from neuronx_distributed_training_torch.ops import linear as linear_ops
+
+    if denominator is None and schedule != "forward":
+        raise ValueError("a training schedule needs the loss denominator")
+    if schedule not in EXECUTED_SCHEDULES + ("forward",):
         raise ValueError(f"the executors run {'/'.join(EXECUTED_SCHEDULES)}, not {schedule!r}")
-    nm = len(microbatches)
-    names = list(stage.leaves)
-    leaves = [stage.leaves[n] for n in names]
+    nm, r = len(microbatches), stage.rank
+    if denominator is not None:
+        check_microbatches(stage.size, nm, stage.vp)
+    if schedule == "1f1b-zb" and stage.vp > 1:
+        raise ValueError("zero_bubble (1f1b-zb) is vp == 1 only; the interleaved chunk "
+                         "ring has no per-rank cooldown window to defer wgrads into")
+    plan = exchange_plan(schedule, stage.size, nm, stage.vp)[r]
+    keep_graph = schedule in MANUAL_VJP_SCHEDULES
+    split = linear_ops.WeightGradSplit() if schedule == "1f1b-zb" else None
+    names_of = {id(t): n for n, t in stage.leaves.items()}
+    chunk_leaves = [list(stage.chunk_leaves(c).items()) for c in range(stage.vp)]
     grads: dict = {}
     loss_acc = None
-    alive = held = 0
+    outputs: list = [None] * nm
+    inbox: dict = {}
+    inflight: dict = {}  # (c, m) -> (stage input, output) with their graph
+    saved: dict = {}  # wavefront: (c, m) -> the stage input
+    deferred: dict = {}  # 1f1b-zb: m -> [(leaf, x, dy)]
     stats = {} if stats is None else stats
     stats.update(graphs_max=0, inputs_max=0)
+    if split is not None:
+        stats.update(deferred_max=0, deferred_bytes_max=0)
     clock = timer or contextlib.nullcontext
+
+    def is_first(c):
+        return c == 0 and stage.first
+
+    def is_last(c):
+        return c == stage.vp - 1 and stage.last
 
     def buffer(m):
         dev = next(iter(microbatches[m].values())).device
         return torch.empty(stage.act_shape(microbatches[m]), dtype=stage.act_dtype, device=dev)
 
-    def recv_forward(m):
-        if stage.first:
-            return None
-        (x,) = yield from _p2p([], [(-1, buffer(m))])
-        return x
+    def accumulate(n, g):
+        if n in grads:
+            grads[n].add_(g)
+        else:
+            grads[n] = g.to(grad_dtype)  # a new tensor of autograd's
 
-    def send_forward(y):
-        if not stage.last:
-            yield from _p2p([(1, y.detach())], [])
-
-    def recv_backward(m):
-        if stage.last:
-            return None
-        (dy,) = yield from _p2p([], [(1, buffer(m))])
-        return dy
-
-    def send_backward(dx):
-        if not stage.first:
-            yield from _p2p([(-1, dx)], [])
-
-    def forward(m, x, graph: bool, count_loss: bool = True):
-        nonlocal loss_acc, alive
+    def forward(c, m, graph: bool, count_loss: bool = True):
+        nonlocal loss_acc
         mb = microbatches[m]
+        x = None if is_first(c) else (saved[(c, m)] if (c, m) in saved
+                                      else inbox.pop(("f", c, m)))
+        watch = linear_ops.split_weight_grads(split) if split is not None and graph \
+            else contextlib.nullcontext()
         with clock(), (contextlib.nullcontext() if graph else torch.no_grad()):
-            if stage.first:
+            if x is None:
                 x_in, h = None, stage.embed(mb)
             else:
                 x_in = h = x.detach().requires_grad_(graph)
-            y = stage.layers(h, mb)
-            if stage.last:
+            with watch:  # the layers' weights alone: the head's gradient stays in B
+                y = stage.layers[c](h, mb)
+            if is_last(c) and denominator is None:
+                outputs[m] = y = stage.loss(y, mb)[0]
+            elif is_last(c):
                 y = stage.loss(y, mb)[0].float() / denominator
                 if count_loss:
                     loss_acc = y.detach() if loss_acc is None else loss_acc + y.detach()
-        if graph:
-            alive += 1
-            stats["graphs_max"] = max(stats["graphs_max"], alive)
-        return x_in, y
+        return x, x_in, y
 
-    def backward(x_in, out, dy):
-        nonlocal alive
-        inputs = leaves + ([] if x_in is None else [x_in])
+    def backward(c, m, x_in, out, dy):
+        pairs = chunk_leaves[c]
+        if split is not None:
+            pairs = [(n, t) for n, t in pairs if id(t) not in split.leaves]
+            split.sink = deferred.setdefault(m, [])
+        inputs = [t for _, t in pairs] + ([] if x_in is None else [x_in])
         with clock():
             got = torch.autograd.grad(out, inputs, grad_outputs=dy, allow_unused=True)
-            for n, g in zip(names, got):
-                if g is None:
-                    continue
-                if n in grads:
-                    grads[n].add_(g)
-                else:
-                    grads[n] = g.to(grad_dtype)  # a new tensor of autograd's
-        alive -= 1
+            for (n, _), g in zip(pairs, got):
+                if g is not None:
+                    accumulate(n, g)
+        if split is not None:
+            split.sink = None
+            stats["deferred_max"] = max(stats["deferred_max"], len(deferred))
+            stats["deferred_bytes_max"] = max(stats["deferred_bytes_max"], sum(
+                x.numel() * x.element_size() + dy.numel() * dy.element_size()
+                for entries in deferred.values() for _, x, dy in entries))
         return None if x_in is None else got[-1]
 
-    if schedule == "1f1b":
-        warm = min(stage.size - 1 - stage.rank, nm)
-        rest = nm - warm
-        inflight = collections.deque()
-        for m in range(warm):
-            x = yield from recv_forward(m)
-            x_in, out = forward(m, x, True)
-            inflight.append((x_in, out))
-            yield from send_forward(out)
-        x = (yield from recv_forward(warm)) if rest else None
-        for i in range(rest):
-            m = warm + i
-            x_in, out = forward(m, x, True)
-            inflight.append((x_in, out))
-            # send_forward_recv_backward (the backward's microbatch is i)
-            got = yield from _p2p([] if stage.last else [(1, out.detach())],
-                                  [] if stage.last else [(1, buffer(i))])
-            dy = got[0] if got else None
-            x_in_b, out_b = inflight.popleft()
-            dx = backward(x_in_b, out_b, dy)
-            if i == rest - 1:
-                yield from send_backward(dx)
+    def weight_pass(m):
+        with clock(), torch.no_grad():
+            for leaf, x, dy in deferred.pop(m):
+                accumulate(names_of[id(leaf)], linear_ops.weight_grad(leaf, x, dy))
+
+    for op, sends, recvs in plan:
+        out_of = {}
+        if op is not None:
+            kind, c, m = op
+            if kind == "f":
+                x, x_in, out = forward(c, m, keep_graph)
+                if keep_graph:
+                    inflight[(c, m)] = (x_in, out)
+                    stats["graphs_max"] = max(stats["graphs_max"], len(inflight))
+                elif schedule == "wavefront" and x is not None:
+                    saved[(c, m)] = x
+                    stats["inputs_max"] = max(stats["inputs_max"], len(saved))
+                out_of["f"] = out.detach()
+                del out
+            elif kind == "b":
+                dy = None if is_last(c) else inbox.pop(("b", c, m))
+                if keep_graph:
+                    x_in, out = inflight.pop((c, m))
+                else:  # wavefront: recompute the stage with its graph
+                    _, x_in, out = forward(c, m, True, count_loss=False)
+                    saved.pop((c, m), None)
+                    stats["graphs_max"] = max(stats["graphs_max"], 1)
+                dx = backward(c, m, x_in, out, dy)
+                del x_in, out
+                if dx is not None:
+                    out_of["b"] = dx
             else:
-                # send_backward_recv_forward
-                got = yield from _p2p([] if stage.first else [(-1, dx)],
-                                      [] if stage.first else [(-1, buffer(m + 1))])
-                x = got[0] if got else None
-        for i in range(warm):
-            dy = yield from recv_backward(rest + i)
-            x_in_b, out_b = inflight.popleft()
-            dx = backward(x_in_b, out_b, dy)
-            yield from send_backward(dx)
-    else:  # wavefront: every forward without a graph, then every backward
-        saved = [None] * nm
-        for m in range(nm):
-            x = yield from recv_forward(m)
-            _, out = forward(m, x, False)
-            if x is not None:
-                saved[m] = x
-                held += 1
-                stats["inputs_max"] = max(stats["inputs_max"], held)
-            yield from send_forward(out)
-            del out
-        for m in range(nm):
-            dy = yield from recv_backward(m)
-            x_in, out = forward(m, saved[m], True, count_loss=False)
-            if saved[m] is not None:
-                saved[m] = None
-                held -= 1
-            dx = backward(x_in, out, dy)
-            yield from send_backward(dx)
+                weight_pass(m)
+        got = yield from _p2p([(off, out_of[key[0]]) for off, key in sends],
+                              [(off, buffer(key[2])) for off, key in recvs])
+        for (_, key), t in zip(recvs, got):
+            inbox[key] = t
+    if denominator is None:
+        return (outputs if stage.last else None), grads
     return loss_acc, grads
 
 
-def forward_body(stage: Stage, microbatches: list, denominator):
+def forward_body(stage: Stage, microbatches: list, denominator=None):
     """Generator of one rank's forward-only pass (the pipelined eval loss):
-    the wavefront's forwards; returns the last rank's ``sum_m loss_sum_m /
-    denominator`` (None on the others)."""
-    loss_acc = None
-    for m, mb in enumerate(microbatches):
-        dev = next(iter(mb.values())).device
-        x = None
-        if not stage.first:
-            (x,) = yield from _p2p([], [(-1, torch.empty(stage.act_shape(mb),
-                                                          dtype=stage.act_dtype, device=dev))])
-        with torch.no_grad():
-            y = stage.layers(stage.embed(mb) if stage.first else x, mb)
-            if stage.last:
-                loss = stage.loss(y, mb)[0].float() / denominator
-                loss_acc = loss if loss_acc is None else loss_acc + loss
-        if not stage.last:
-            yield from _p2p([(1, y)], [])
-    return loss_acc
+    the forwards of :func:`stage_body` without a graph; returns the last
+    rank's ``sum_m loss_sum_m / denominator`` (None on the others), or with
+    ``denominator`` None the last rank's list of ``loss(y, mb)[0]`` a
+    microbatch (:func:`forward_outputs`)."""
+    loss, _ = yield from stage_body(stage, microbatches, denominator, "forward")
+    return loss
 
 
-def bind_stage(params, hooks, rank: int, size: int, leaves: dict, act_dtype) -> Stage:
+def bind_stage(params, hooks, rank: int, size: int, leaves: dict, act_dtype,
+               vp: int = 1) -> Stage:
     """Pipeline rank ``rank``'s :class:`Stage` over ``params`` (a stage's
     tree, or in one process the whole model's): ``hooks`` are
     ``models/llama.py::pipeline_hooks``, ``leaves`` the trainable leaves by
-    dotted name, of which the stage takes its layers' and the replicated
-    ones."""
+    dotted name, of which the stage takes its chunks' layers' and the
+    replicated ones.  Chunk ``c``'s microbatches carry ``_chunk: c``, as
+    JAX's do."""
     embed_fn, stage_fn, loss_fn, act_shape = hooks
-    mine = stage_layers(len(params["layers"]), rank, size)
-    prefixes = tuple(f"layers.{i}." for i in mine)
+    chunks = stage_chunks(len(params["layers"]), rank, size, vp)
+    mine = {i for chunk in chunks for i in chunk}
+
+    def layers(c):
+        return lambda x, mb: stage_fn([params["layers"][i] for i in chunks[c]], x,
+                                      {**mb, "_chunk": c})
+
     return Stage(rank=rank, size=size,
                  embed=lambda mb: embed_fn(params, mb),
-                 layers=lambda x, mb: stage_fn([params["layers"][i] for i in mine], x, mb),
+                 layers=[layers(c) for c in range(vp)],
                  loss=lambda y, mb: loss_fn(params, y, mb),
                  leaves={n: t for n, t in leaves.items()
-                         if not is_stage_leaf(n) or n.startswith(prefixes)},
-                 act_shape=act_shape, act_dtype=act_dtype)
+                         if not is_stage_leaf(n) or int(n.split(".")[1]) in mine},
+                 chunks=chunks, act_shape=act_shape, act_dtype=act_dtype)
 
 
 def loopback_step(params, hooks, microbatches: list, denominator, schedule: str, pp: int, *,
-                  leaves: dict, act_dtype, grad_dtype=torch.float32,
+                  leaves: dict, act_dtype, grad_dtype=torch.float32, vp: int = 1,
                   stats: Optional[list] = None, timers: Optional[list] = None) -> tuple:
     """One step of every virtual pipeline rank in this process, on the one
     ``params`` tree they share: ``(loss, {name: gradient})``, each leaf's
     gradient summed over the ranks that computed one (:func:`fold_stage_grads`).
     ``stats`` and ``timers`` (lists of ``pp``) take each rank's
     :func:`stage_body` stats and timer."""
-    bodies = [stage_body(bind_stage(params, hooks, r, pp, leaves, act_dtype), microbatches,
+    bodies = [stage_body(bind_stage(params, hooks, r, pp, leaves, act_dtype, vp), microbatches,
                          denominator, schedule, grad_dtype=grad_dtype,
                          stats=None if stats is None else stats[r],
                          timer=None if timers is None else timers[r]) for r in range(pp)]
@@ -785,8 +948,9 @@ def drive(body, pipe) -> Any:
 def loopback(bodies: list) -> list:
     """Run the bodies of every virtual pipeline rank in this one process:
     each batch of hops delivers its sends to the neighbours' mailboxes (as
-    the tensors themselves) and waits until every receive it asks for has
-    arrived; returns each body's result, in rank order."""
+    the tensors themselves; offsets wrap modulo the ranks) and waits until
+    every receive it asks for has arrived; returns each body's result, in
+    rank order."""
     n = len(bodies)
     boxes = collections.defaultdict(collections.deque)  # (src, dst) -> tensors
     waiting: list = [None] * n
@@ -800,7 +964,7 @@ def loopback(bodies: list) -> list:
             out[r], done[r] = stop.value, True
             return
         for off, t in sends:
-            boxes[(r, r + off)].append(t)
+            boxes[(r, (r + off) % n)].append(t)
         waiting[r] = recvs
 
     for r in range(n):
@@ -810,23 +974,42 @@ def loopback(bodies: list) -> list:
         for r in range(n):
             if done[r]:
                 continue
-            need = collections.Counter(r + off for off, _ in waiting[r])
+            need = collections.Counter((r + off) % n for off, _ in waiting[r])
             if any(len(boxes[(src, r)]) < k for src, k in need.items()):
                 continue
             got = []
             for off, buf in waiting[r]:
-                t = boxes[(r + off, r)].popleft()
+                src = (r + off) % n
+                t = boxes[(src, r)].popleft()
                 if tuple(t.shape) != tuple(buf.shape) or t.dtype != buf.dtype:
                     raise RuntimeError(f"pipeline loopback: rank {r} expected "
-                                       f"{tuple(buf.shape)} {buf.dtype} from rank {r + off}, "
+                                       f"{tuple(buf.shape)} {buf.dtype} from rank {src}, "
                                        f"got {tuple(t.shape)} {t.dtype}")
                 got.append(t)
             advance(r, got)
             moved = True
         if not moved:
             raise RuntimeError(f"pipeline loopback: no rank can proceed (waiting: "
-                               f"{[None if d else [r + o for o, _ in w] for d, w in zip(done, waiting)]})")
+                               f"{[None if d else [(r + o) % n for o, _ in w] for r, (d, w) in enumerate(zip(done, waiting))]})")
     return out
+
+
+def forward_rows(params, hooks, pipe, microbatches: list, *, act_dtype, vp: int = 1
+                 ) -> torch.Tensor:
+    """The pipelined forward of ``microbatches`` over the pipe group
+    ``pipe``, with no graph, whose last stage applies ``hooks``'s loss
+    hook, there a fp32 value per row: the values of every microbatch's rows
+    in order, on every rank (the last rank's, summed over ``pipe`` with
+    zeros elsewhere).  The reference pass of DPO and KTO under pipeline
+    parallelism takes its log-probs this way."""
+    with torch.no_grad():
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp)
+        outs = drive(forward_body(stage, microbatches), pipe)
+        rows = [next(iter(mb.values())).shape[0] for mb in microbatches]
+        dev = next(iter(microbatches[0].values())).device
+        flat = (torch.zeros(sum(rows), dtype=torch.float32, device=dev) if outs is None
+                else torch.cat([o.float().reshape(-1) for o in outs]))
+        return pipe.all_reduce_(flat)
 
 
 def is_stage_leaf(name: str) -> bool:
@@ -867,7 +1050,7 @@ def sum_over_pipe(loss, grads: dict, shared: dict, pipe, dev) -> tuple:
 
 def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
                 denominator_of: Callable, act_dtype, grad_dtype=torch.float32,
-                summed: Optional[Callable] = None) -> tuple:
+                summed: Optional[Callable] = None, vp: int = 1) -> tuple:
     """``(loss_and_grad, eval_step)`` of a trainer at pp > 1 over the pipe
     group ``pipe``: ``loss_and_grad(params, batch, leaves) -> (loss, {},
     grads)`` for ``trainer/step.py::make_train_step`` (every one of
@@ -878,7 +1061,7 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
     ``denominator_of(batch)`` the whole global batch's valid-token count."""
 
     def loss_and_grad(params, batch, leaves: dict):
-        stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype)
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype, vp)
         loss, grads = drive(stage_body(stage, microbatches_of(batch), denominator_of(batch),
                                        schedule, grad_dtype=grad_dtype), pipe)
         shared = {n: t for n, t in leaves.items() if not is_stage_leaf(n)}
@@ -891,7 +1074,7 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
 
     @torch.no_grad()
     def eval_step(params, batch):
-        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype)
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp)
         loss = drive(forward_body(stage, microbatches_of(batch), denominator_of(batch)), pipe)
         dev = next(iter(batch.values())).device
         loss = pipe.all_reduce_(torch.zeros(1, dtype=torch.float32, device=dev)

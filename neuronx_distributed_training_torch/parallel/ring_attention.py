@@ -47,8 +47,14 @@ context_parallel_batch``); each (q half, kv half) pair is a
 plain causal diagonal, fully visible or skipped, so every rank computes
 ``2 cp + 1`` pairs (:func:`zigzag_pairs`).
 
-``blockwise_gspmd_attention`` (JAX's cp body under pipeline parallelism) is
-not ported: the trainer rejects pp with cp.
+Under pipeline parallelism the JAX package attends with
+:func:`blockwise_gspmd_attention`, global online-softmax attention over kv
+blocks whose context collectives GSPMD inserts (a nested manual region
+would deadlock there).  The port keeps these ring bodies under pp: its pipe
+and context axes are separate process groups, and a ring completes inside
+each layer call of a stage.  :func:`blockwise_gspmd_attention` is ported as
+the plain whole-sequence function, the counterpart its tests hold the
+bodies and JAX's function against.
 """
 
 from __future__ import annotations
@@ -215,6 +221,36 @@ def pick_bkv(s: int, block_kv: int) -> tuple[int, bool]:
     while s % bkv:
         bkv -= 1
     return bkv, bkv * 8 < min(block_kv, s)
+
+
+def blockwise_gspmd_attention(q, k, v, *, causal: bool = True,
+                              sliding_window: Optional[int] = None, block_kv: int = 512,
+                              attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's cp attention under pipeline parallelism, as a plain function
+    of the whole sequence: q ``[b, s, h, d]``, k / v ``[b, s, kvh, d]``
+    (GQA by head index), the online softmax over kv blocks of
+    :func:`pick_bkv` rows (the largest divisor of ``s`` up to ``block_kv``),
+    causal with an optional window, ``attention_mask`` ``[b, s]`` (1 = a
+    real key) masking padded keys; rows with no visible key are 0.  fp32
+    inside, q's dtype out, differentiable by autograd."""
+    b, s, nh, d = q.shape
+    bkv, _ = pick_bkv(s, block_kv)
+    kvm = None if attention_mask is None else attention_mask.to(torch.int32)
+    o = torch.zeros((b, nh, s, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, nh, s), NEG_INF, dtype=torch.float32, device=q.device)
+    qf = q.float()
+    for lo in range(0, s, bkv):
+        kb, vb = k[:, lo:lo + bkv], v[:, lo:lo + bkv]
+        sc = fa._masked_scores(qf, kb, _rows(kvm, slice(lo, lo + bkv)), None, causal,
+                               sliding_window, -lo)
+        m = torch.amax(sc, dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l_b = torch.sum(p, dim=-1, keepdim=True)
+        o_b = torch.matmul(p, fa._heads_first(vb, nh // k.shape[2])) / l_b
+        lse_b = torch.where(m > NEG_INF / 2, m + torch.log(l_b), NEG_INF).squeeze(-1)
+        o, lse = _merge_partial(o, lse, o_b, lse_b)
+    o = torch.where(lse[..., None] > NEG_INF / 2, o, 0.0)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

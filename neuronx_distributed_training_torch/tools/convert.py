@@ -16,9 +16,11 @@ not divide is padded with zero rows to ``ceil(V/tp)`` a rank), and
 ``params_to_jax`` merges the list of every rank's local tree back into JAX's
 global leaves (one replica of each kv head, the real vocab rows).
 Both need the model's ``LlamaConfig`` for the segments.  Under pipeline
-parallelism ``params_from_jax`` gives one stage's tree (its layers; None for
-the other stages'), and ``params_to_jax`` merges the stages back
-(:func:`merge_stages`).  This module imports
+parallelism ``params_from_jax`` gives one rank's tree (the layers of its
+chunks; None for the other ranks'), and ``params_to_jax`` merges the ranks
+back (:func:`merge_stages`).  At ``vp > 1`` the JAX tree's layers are the
+JAX trainer's interleaved ``[vp, pp, Lc, ...]`` stack
+(``parallel/pipeline.py::to_interleaved``) on both sides.  This module imports
 neither JAX nor the JAX package: the caller hands over ``np.asarray`` leaves.
 """
 
@@ -58,12 +60,14 @@ def _map_named(tree, fn, prefix: str = ""):
 
 def params_from_jax(tree: dict[str, Any], *, device=None, dtype: Optional[torch.dtype] = None,
                     cfg=None, tp_rank: int = 0, tp_size: int = 1, pp_rank: int = 0,
-                    pp_size: int = 1) -> dict[str, Any]:
+                    pp_size: int = 1, vp: int = 1) -> dict[str, Any]:
     """JAX parameter tree (numpy leaves) -> the port's parameter tree on
     ``device`` (the card unless the caller asks for the CPU); at ``tp_size >
     1``, rank ``tp_rank``'s slices (``cfg``: the ``LlamaConfig``); at
-    ``pp_size > 1``, pipeline stage ``pp_rank``'s tree: its layers, None for
-    the other stages', and the replicated embedding, final norm and head."""
+    ``pp_size > 1``, pipeline rank ``pp_rank``'s tree: the layers of its
+    ``vp`` chunks, None for the other ranks', and the replicated embedding,
+    final norm and head.  At ``vp > 1`` the tree's layers are stacked
+    ``[vp, pp, Lc, ...]``."""
     dev = resolve_device(device)
     if tp_size > 1 and cfg is None:
         raise ValueError("a tensor-parallel conversion needs the model's LlamaConfig")
@@ -78,8 +82,10 @@ def params_from_jax(tree: dict[str, Any], *, device=None, dtype: Optional[torch.
     out: dict[str, Any] = {k: _map_named(v, to_t, f"{k}.") for k, v in tree.items()
                            if k != "layers"}
     stacked = tree["layers"]
+    if vp > 1:
+        stacked = _map(stacked, lambda a: np.asarray(a).reshape((-1,) + np.shape(a)[3:]))
     n_layers = next(iter(_leaves(stacked))).shape[0]
-    mine = stage_layers(n_layers, pp_rank, pp_size)
+    mine = set(stage_layers(n_layers, pp_rank, pp_size, vp))
     out["layers"] = [_map_named(stacked, lambda n, a, i=i: to_t(n, np.asarray(a)[i]),
                                 f"layers.{i}.") if i in mine else None
                      for i in range(n_layers)]
@@ -95,12 +101,14 @@ def merge_stages(stages: list) -> dict[str, Any]:
     return out
 
 
-def params_to_jax(params, cfg=None, *, pp_size: int = 1) -> dict[str, Any]:
+def params_to_jax(params, cfg=None, *, pp_size: int = 1, vp: int = 1) -> dict[str, Any]:
     """Inverse of ``params_from_jax``: numpy leaves (fp32 for bf16 tensors),
     layers stacked on a leading dim.  ``params`` is one tree, or the list of
     every tp rank's local tree in rank order, which are merged (``cfg``:
     the ``LlamaConfig``); at ``pp_size > 1`` the list of every rank's tree,
-    stage-major (stage ``i // tp``, tp rank ``i % tp``)."""
+    stage-major (stage ``i // tp``, tp rank ``i % tp``).  At ``vp > 1`` the
+    layers come back stacked ``[vp, pp, Lc, ...]``, the JAX trainer's
+    interleaved layout."""
     ranks = params if isinstance(params, (list, tuple)) else [params]
     if pp_size > 1:
         tp = len(ranks) // pp_size
@@ -130,4 +138,7 @@ def params_to_jax(params, cfg=None, *, pp_size: int = 1) -> dict[str, Any]:
         return np.stack(xs)
 
     out["layers"] = stack(*layers)
+    if vp > 1:
+        out["layers"] = _map(out["layers"], lambda a: a.reshape(
+            (vp, pp_size, a.shape[0] // (vp * pp_size)) + a.shape[1:]))
     return out

@@ -49,20 +49,26 @@ each step boundary, so every rank stops, and checkpoints, at the same
 step.  MFU divides the tokens by the
 world size: each card computes ``1/world`` of the step's FLOPs.
 
-With ``pipeline_model_parallel_size`` above 1 (vp 1) the world is ``pp x dp
-x cp x tp`` with ``pipe`` outermost: a stage's ranks build only its layers
-(every leaf drawn whole in the same order, so a pp run starts from pp 1's
-tensors bit for bit) and the embedding, final norm and head, replicated.
-``pipeline.schedule`` resolves as in JAX (``auto``: ``1f1b``, or
-``wavefront`` under LoRA; logged as ``pipeline schedule: ...``); the step's
-gradients come from ``parallel/pipeline.py`` (the stage hops over the pipe
-group, the replicated leaves' gradients and the loss summed over it, the
-loss over the whole global batch's valid-token count, JAX's pipelined rule)
-through ``make_train_step``'s ``loss_and_grad_fn``, and everything after
-them is the unpipelined path's, the norm summed over ``pipe`` too.  Eval
-runs the forward schedule, and its batches must match the train
-``global_batch_size`` (JAX's rule and text).  Checkpoints hold each leaf
-under its global name, so they reshard across pp.
+With ``pipeline_model_parallel_size`` above 1 the world is ``pp x dp x cp
+x tp`` with ``pipe`` outermost: a pipeline rank's processes build only the
+layers of its ``virtual_pipeline_model_parallel_size`` chunks (every leaf
+drawn whole in the same order, so a pp run starts from pp 1's tensors bit
+for bit) and the embedding, final norm and head, replicated.
+``pipeline.schedule`` resolves as in JAX (``auto``: ``1f1b``,
+``1f1b-interleaved`` at vp > 1, or ``wavefront`` under LoRA, cp or a
+preference strategy; ``1f1b-zb`` when forced; logged as ``pipeline
+schedule: ...``); the step's gradients come from ``parallel/pipeline.py``
+(the stage hops over the pipe group, the replicated leaves' gradients and
+the loss summed over it, the loss over the whole global batch's valid-token
+count, JAX's pipelined rule) through ``make_train_step``'s
+``loss_and_grad_fn``, and everything after them is the unpipelined path's,
+the norm summed over ``pipe`` too.  Under cp each stage runs the context
+rank's slices and its attention's ring (or all-to-all) within each layer
+call; DPO / ORPO run the concatenated forward and KTO its own loss hook
+(``alignment/``), and their reference pass runs each side through the
+pipelined forward.  Eval runs the forward schedule, and its batches must
+match the train ``global_batch_size`` (JAX's rule and text).  Checkpoints
+hold each leaf under its global name, so they reshard across pp and vp.
 
 Preference alignment (``model_alignment_strategy: dpo | orpo | kto``): the
 loss is the strategy's (``alignment/``) over the preference data module's
@@ -87,9 +93,8 @@ counters are checkpointed with the optimizer state.
 ``param_norm`` / ``gradient_norm`` as JAX does, and ``data.io_retries`` /
 ``io_retry_backoff_seconds`` are set on the data module.
 
-Knobs this slice does not implement (the virtual pipeline, ``1f1b-zb``,
-the chunked head, cp and preference alignment under pp; expert
-parallelism, MoE, GPT) are rejected with the ROADMAP item that ports them;
+Knobs this slice does not implement (expert parallelism, MoE, GPT) are
+rejected with the ROADMAP item that ports them;
 config blocks it does not act on are logged once as ignored (the other
 telemetry planes and the health recorder's knobs, elastic replan, EMA,
 autotune, overlap, and the Pallas tiles ``fusions.flash_block_q`` /
@@ -128,6 +133,7 @@ from neuronx_distributed_training_torch.data.loader import (
     context_parallel_batch,
 )
 from neuronx_distributed_training_torch.models import llama
+from neuronx_distributed_training_torch.ops import norm as norm_ops
 from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
     init_opt_state,
@@ -185,20 +191,20 @@ def _unsupported(reasons: list) -> NotImplementedError:
 def check_supported(cfg: ConfigDict) -> None:
     """Reject what this slice of the port does not implement, naming the
     ROADMAP queue entry (and item) that ports each; a config with several
-    such knobs gets them all in one message.  Pipeline parallelism runs at
-    vp 1 with the ``1f1b`` and ``wavefront`` schedules; the virtual
-    pipeline, ``1f1b-zb`` and the chunked head under pp (step 9c), cp and
-    preference alignment under pp (9d), expert parallelism, MoE and GPT are
-    not ported.  A schedule forced on a combination it does not support
-    raises the JAX package's ``resolve_schedule`` text."""
+    such knobs gets them all in one message.  Pipeline parallelism runs
+    every schedule the JAX package's gate picks (``1f1b``,
+    ``1f1b-interleaved`` at vp > 1, ``1f1b-zb``, the wavefront at any vp),
+    with the chunked head, cp and preference alignment; expert parallelism,
+    MoE and GPT are not ported.  Zig-zag under pp or with preference
+    alignment is refused with the JAX trainer's texts, and a schedule forced
+    on a combination it does not support raises the JAX package's
+    ``resolve_schedule`` text."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
     _check_tensor_parallel(cfg, ds, model)
     reasons = []
     pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
-    vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
-    cp = int(ds.get("context_parallel_size", 1) or 1)
     strategy, _ = alignment_strategy(cfg)
     if fusions.get("zigzag_ring_attention"):
         # the JAX trainer's own rules: the zig-zag batch transform lives in
@@ -209,27 +215,6 @@ def check_supported(cfg: ConfigDict) -> None:
         if strategy in PREFERENCE:
             raise NotImplementedError("zigzag_ring_attention with preference alignment; use "
                                       "fusions.ring_attention")
-    if pp > 1:
-        schedule = str(dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")).lower()
-        if vp > 1:
-            reasons.append(("the virtual pipeline (virtual_pipeline_model_parallel_size > 1, "
-                            "1f1b-interleaved; step 9c)", "9", "12"))
-        if schedule == "1f1b-zb":
-            reasons.append(("the zero-bubble schedule (pipeline.schedule: 1f1b-zb; step 9c)",
-                            "9", "12"))
-        if fusions.get("chunked_ce"):
-            reasons.append(("the chunked head under pipeline parallelism (fusions.chunked_ce "
-                            "at the pipeline's loss site; step 9c)", "9", "12"))
-        if cp > 1:
-            reasons.append(("context parallelism under pipeline parallelism "
-                            "(blockwise_gspmd_attention; step 9d)", "9", "12"))
-        if strategy in PREFERENCE:
-            reasons.append((f"preference alignment ({strategy}) under pipeline parallelism "
-                            f"(the preference pipeline hooks; step 9d)", "9", "12"))
-        if not reasons:
-            # a forced schedule the gate blocks: the JAX package's text
-            pipeline.resolve_schedule(schedule, llama.LlamaConfig.from_config(model, ds),
-                                      _pipeline_facts(cfg, ds, model))
     if int(ds.get("expert_model_parallel_size", 1) or 1) > 1:
         reasons.append(("expert parallelism (ep > 1)", "10", "13"))
     arch = str(model.get("architecture", model.get("model_type", "llama"))).lower()
@@ -241,6 +226,11 @@ def check_supported(cfg: ConfigDict) -> None:
         raise ValueError(f"unknown architecture {arch!r}")
     if reasons:
         raise _unsupported(reasons)
+    if pp > 1:
+        # a forced schedule the gate blocks: the JAX package's text
+        schedule = str(dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")).lower()
+        pipeline.resolve_schedule(schedule, llama.LlamaConfig.from_config(model, ds),
+                                  _pipeline_facts(cfg, ds, model))
 
 
 def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
@@ -299,8 +289,8 @@ def _log_ignored(cfg: ConfigDict) -> None:
         _logged_ignored.update(fresh)
         logger.info("ignored by this slice of the port (dense Llama under data and tensor "
                     "parallelism, with replicated kv heads and padded vocab slices, context "
-                    "parallelism, and pipeline parallelism at vp 1 with the 1f1b and wavefront "
-                    "schedules; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
+                    "parallelism, and pipeline parallelism with every schedule and the virtual "
+                    "pipeline; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
                     "planes but the health policy yet): %s", ", ".join(fresh))
 
 
@@ -348,13 +338,75 @@ class ReferencePass:
     columns: Callable
 
 
+def _beta(strategy: str, params: dict, model_block: dict) -> float:
+    """The strategy block's ``kl_beta``, else ``model.<name>.beta``, else 0.1."""
+    return float(params.get("kl_beta",
+                            dict(model_block.get(strategy, {}) or {}).get("beta", 0.1)))
+
+
+def _head_fn(mc, policy, tp):
+    """``(params, y) -> logits``: the final norm and the head, the
+    preference hooks' ``head_fn``."""
+    def head(params, y):
+        h = norm_ops.apply_rms_norm(params["final_norm"], y, eps=mc.rms_norm_eps)
+        return llama.logits_fn(params, h, mc, policy, tp)
+
+    return head
+
+
+def _pipeline_hooks(strategy, params: dict, model_block: dict, mc, policy, *, shift_labels,
+                    tp, dp, cp):
+    """The hooks the pipeline runs: the model's (``models/llama.py::
+    pipeline_hooks``), wrapped for DPO / ORPO (the concatenated forward) or
+    KTO as the JAX trainer wraps them (``alignment/dpo.py``,
+    ``alignment/kto.py``)."""
+    hooks = llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp)
+    if strategy == "kto":
+        return kto_mod.kto_pipeline_hooks(
+            hooks, _head_fn(mc, policy, tp), beta=_beta(strategy, params, model_block),
+            desirable_weight=float(params.get("desirable_weight", 1.0)),
+            undesirable_weight=float(params.get("undesirable_weight", 1.0)), tp=tp, dp=dp,
+            cp=cp)
+    if strategy in PREFERENCE:
+        return dpo_mod.preference_pipeline_hooks(
+            hooks, _head_fn(mc, policy, tp), mode=strategy,
+            beta=_beta(strategy, params, model_block), tp=tp, cp=cp)
+    return hooks
+
+
+def _pipeline_microbatches(strategy, nm: int, dp, cp, shift_labels: bool) -> Callable:
+    """``batch -> [microbatch]`` of a pipeline rank: the data rank's rows of
+    each (``trainer/step.py``), under cp the context rank's slices (cut
+    after what needs the whole row, as the unpipelined loss does); a KTO
+    microbatch under data parallelism carries ``_rows``, the whole
+    microbatch's row count (its baseline's)."""
+    def split(batch):
+        out = []
+        rows_of = _row_count if strategy == "kto" and dp is not None else None
+        for mb, rows in step_mod._microbatches(batch, nm, dp, rows_of):
+            if cp is not None and strategy in PREFERENCE:
+                mb = context_parallel_batch(mb, cp.rank, cp.size, sides=PREFERENCE_SIDES)
+            elif cp is not None:
+                pos = llama.positions_for(mb["input_ids"], mb.get("attention_mask"),
+                                          mb.get("segment_ids"))
+                mb = context_parallel_batch(mb, cp.rank, cp.size, positions=pos,
+                                            shift_labels=shift_labels)
+            if rows is not None:
+                mb["_rows"] = rows
+            out.append(mb)
+        return out
+
+    return split
+
+
 def _preference_objective(strategy: str, params: dict, model_block: dict, mc, policy, *,
-                          tp, dp, cp, micro_batch_size: int):
+                          tp, dp, cp, micro_batch_size: int, pp=None, vp: int = 1):
     """``(loss_fn, ReferencePass or None)`` of a dpo / orpo / kto config.
-    ``beta`` is the strategy block's ``kl_beta``, else ``model.<name>.beta``,
-    else 0.1; KTO also reads the block's class weights and
+    ``beta`` is :func:`_beta`; KTO also reads the block's class weights and
     ``kl_estimator``.  Under ``cp`` the loss function takes the context
-    rank's slices of each microbatch's sides."""
+    rank's slices of each microbatch's sides.  Under ``pp`` the reference
+    pass runs each side through the pipeline (``parallel/pipeline.py::
+    forward_rows``), the last stage taking the sequence log-probs."""
 
     def forward_logits(p, input_ids, positions=None):
         # input_ids alone, as the JAX package's preference forward: no
@@ -364,8 +416,7 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
             batch["positions"] = positions
         return llama.forward(p, batch, mc, policy, tp=tp, cp=cp)[0]
 
-    beta = float(params.get("kl_beta",
-                            dict(model_block.get(strategy, {}) or {}).get("beta", 0.1)))
+    beta = _beta(strategy, params, model_block)
     if strategy == "orpo":
         return _context_split(make_orpo_loss_fn(forward_logits, beta=beta, tp=tp, dp=dp,
                                                 cp=cp), cp), None
@@ -382,11 +433,46 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
         marker, sidecar = "reference_logps", "kto_reference_logps.npz"
 
     def columns(p, batch):
-        return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp, cp=cp,
-                                         micro_batch_size=micro_batch_size)
+        if pp is None:
+            return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp,
+                                             cp=cp, micro_batch_size=micro_batch_size)
+        return _pipelined_columns(p, batch, sides(batch), mc, policy, tp=tp, cp=cp, pp=pp,
+                                  vp=vp, micro_batch_size=micro_batch_size)
 
     return _context_split(loss_fn, cp), ReferencePass(
         marker=marker, sidecar=sidecar, names=lambda keys: sorted(sides(keys)), columns=columns)
+
+
+def _pipelined_columns(p, batch: dict, sides: dict, mc, policy, *, tp, cp, pp, vp: int,
+                       micro_batch_size: int) -> dict:
+    """``alignment/dpo.py::reference_columns`` under pipeline parallelism:
+    each side's rows in pieces of ``micro_batch_size`` through the pipelined
+    forward (the preference forward's: ids alone), whose last stage takes
+    their sequence log-probs; every pipe rank gets every column."""
+    first = next(iter(sides.values()))[0]
+    n = len(batch[first])
+    if n == 0:
+        return {col: np.zeros((0,), np.float32) for col in sides}
+    base = llama.pipeline_hooks(mc, policy, tp=tp, cp=cp)
+    head = _head_fn(mc, policy, tp)
+
+    def logps(params, y, mb):
+        return dpo_mod.pipeline_side_logprobs(head(params, y), mb, "", tp=tp, cp=cp), None
+
+    hooks = (base[0], base[1], logps, base[3])
+    out = {}
+    for col, (ids_key, mask_key) in sides.items():
+        pieces = []
+        for i in range(0, n, max(1, micro_batch_size)):
+            mb = {"input_ids": torch.as_tensor(batch[ids_key][i:i + micro_batch_size])}
+            if mask_key in batch:
+                mb["loss_mask"] = torch.as_tensor(batch[mask_key][i:i + micro_batch_size])
+            if cp is not None:
+                mb = context_parallel_batch(mb, cp.rank, cp.size, sides=("",))
+            pieces.append(mb)
+        out[col] = pipeline.forward_rows(p, hooks, pp, pieces, act_dtype=policy.compute_dtype,
+                                         vp=vp).cpu().numpy().astype(np.float32)
+    return out
 
 
 def _context_split(loss_fn, cp):
@@ -539,8 +625,9 @@ class Trainer:
             raise NotImplementedError("zigzag_ring_attention with a pre-shifted data module "
                                       "(the zig-zag transform owns the label shift)")
         gen = torch.Generator(device=dev).manual_seed(seed)
+        vp = mesh_cfg.virtual_pipeline_model_parallel_size
         params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
-                                   tp_size=tp_size, pp_rank=pp_rank, pp_size=pp_size)
+                                   tp_size=tp_size, pp_rank=pp_rank, pp_size=pp_size, vp=vp)
         trainable = None
         lora_block = dict(model_block.get("lora", {}) or {})
         if lora_block:
@@ -575,7 +662,7 @@ class Trainer:
         if strategy in PREFERENCE:
             loss_fn, reference = _preference_objective(
                 strategy, strat_params, model_block, mc, policy, tp=tp, dp=dp, cp=cp,
-                micro_batch_size=sched["micro_batch_size"])
+                micro_batch_size=sched["micro_batch_size"], pp=pp, vp=vp)
             token_count_fn = _row_count
         else:
             def loss_fn(p, batch, denominator=None):
@@ -608,12 +695,12 @@ class Trainer:
                     f"{sched['global_batch_size']} (val module has {vgbs}): "
                     f"the pipelined eval loss microbatches the same way")
             loss_and_grad, eval_step = pipeline.trainer_fns(
-                llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp), pp,
+                _pipeline_hooks(strategy, strat_params, model_block, mc, policy,
+                                shift_labels=shift_labels, tp=tp, dp=dp, cp=cp), pp,
                 pp_schedule,
-                microbatches_of=lambda b: [mb for mb, _ in step_mod._microbatches(b, nm, dp,
-                                                                                 None)],
+                microbatches_of=_pipeline_microbatches(strategy, nm, dp, cp, shift_labels),
                 denominator_of=token_count_fn, act_dtype=policy.compute_dtype,
-                grad_dtype=policy.grad_accum_dtype, summed=dp.all_reduce_)
+                grad_dtype=policy.grad_accum_dtype, summed=step_mod._summing(dp, cp), vp=vp)
         exp_block = dict(cfg.get("exp_manager", {}) or {})
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),

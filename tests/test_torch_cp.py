@@ -426,16 +426,21 @@ def test_cp_config_rules_match_jax(bad, match):
 
 
 def test_shipped_cp_config_is_rejected_naming_pipeline_and_kv_replication():
-    """The shipped 70B CP config (pp 8, tp 32 over 8 kv heads, cp 2) is
-    refused for its pipeline alone: KV replication (entry 2a) is ported."""
+    """The shipped 70B CP config (pp 8, tp 32 over 8 kv heads, cp 2) passes
+    ``check_supported`` as shipped: KV replication (entry 2a) and cp under
+    the pipeline (entry 9, step 9d) are ported, and JAX's gate resolves its
+    ``auto`` schedule to the wavefront."""
+    from neuronx_distributed_training_torch.models import llama as t_llama
+    from neuronx_distributed_training_torch.parallel import pipeline as t_pipe
+
     cfg = t_loader.load_config(REPO / "examples" / "conf" / "hf_llama3_70B_CP_config.yaml")
-    assert cfg.distributed_strategy.context_parallel_size == 2
-    assert cfg.distributed_strategy.tensor_model_parallel_size > cfg.model.num_key_value_heads
-    with pytest.raises(NotImplementedError) as e:
-        t_loop.check_supported(cfg)
-    msg = str(e.value)
-    assert "entry 9 [item 12]" in msg and "entry 2a" not in msg, msg
-    assert "item 11" not in msg and "item 7" not in msg
+    ds = cfg.distributed_strategy
+    assert ds.context_parallel_size == 2 and ds.pipeline_model_parallel_size == 8
+    assert ds.tensor_model_parallel_size > cfg.model.num_key_value_heads
+    t_loop.check_supported(cfg)
+    facts = t_loop._pipeline_facts(cfg, dict(ds), dict(cfg.model))
+    assert t_pipe.resolve_schedule("auto", t_llama.LlamaConfig.from_config(
+        dict(cfg.model), dict(ds)), facts) == "wavefront"
 
 
 @pytest.mark.parametrize("fusion", ["ring_attention", "ulysses_attention",

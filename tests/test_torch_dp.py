@@ -87,8 +87,10 @@ def _env(**extra) -> dict:
     return env
 
 
-def launch(tmp_path: Path, scenarios: list, nproc: int = 2) -> list[dict]:
-    """Run the worker on ``nproc`` gloo ranks; returns each rank's results."""
+def launch(tmp_path: Path, scenarios: list, nproc: int = 2,
+           timeout: float = RANK_TIMEOUT) -> list[dict]:
+    """Run the worker on ``nproc`` gloo ranks, each given ``timeout``
+    seconds; returns each rank's results."""
     out = Path(tempfile.mkdtemp(prefix="ranks_", dir=tmp_path))
     spec = out / "spec.json"
     spec.write_text(json.dumps({"out": str(out), "scenarios": scenarios}))
@@ -101,7 +103,7 @@ def launch(tmp_path: Path, scenarios: list, nproc: int = 2) -> list[dict]:
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -106,7 +106,7 @@ def test_flash_tiles_are_logged_as_ignored(caplog):
         t_loop._log_ignored(cfg)
     msg = next(r.getMessage() for r in caplog.records if "ignored" in r.getMessage())
     assert "model.fusions.flash_block_q" in msg and "model.fusions.flash_block_kv" in msg
-    assert "pipeline parallelism at vp 1" in msg and "distributed_strategy.pipeline" not in msg
+    assert "the virtual pipeline" in msg and "distributed_strategy.pipeline" not in msg
 
 
 def test_norm_logging_and_io_retries_are_acted_on(tmp_path):

@@ -125,11 +125,10 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
       "distributed_strategy.sequence_parallel": True}, None),
     # pipeline parallelism at vp 1 (ported)
     ({"distributed_strategy.pipeline_model_parallel_size": 2}, None),
-    # context parallelism under pipeline parallelism (blockwise_gspmd_attention)
+    # context parallelism under pipeline parallelism (ported)
     ({"distributed_strategy.pipeline_model_parallel_size": 2,
       "distributed_strategy.context_parallel_size": 2,
-      "model.fusions.ring_attention": True},
-     "blockwise_gspmd_attention; step 9d.*entry 9 \\[item 12"),
+      "model.fusions.ring_attention": True}, None),
     # tp above the kv heads under cp too (ported)
     ({"distributed_strategy.context_parallel_size": 2,
       "distributed_strategy.tensor_model_parallel_size": 4,
@@ -141,6 +140,17 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     ({"model_source": "megatron"}, "item 14"),
     # the chunked head + CE (ported)
     ({"model.fusions.chunked_ce": 4}, None),
+    # the virtual pipeline, the zero-bubble schedule, the chunked head and
+    # preference alignment under pipeline parallelism (ported)
+    ({"distributed_strategy.pipeline_model_parallel_size": 2,
+      "distributed_strategy.virtual_pipeline_model_parallel_size": 2, "model.num_layers": 4},
+     None),
+    ({"distributed_strategy.pipeline_model_parallel_size": 2,
+      "distributed_strategy.pipeline": {"schedule": "1f1b-zb"}}, None),
+    ({"distributed_strategy.pipeline_model_parallel_size": 2, "model.fusions.chunked_ce": 4},
+     None),
+    ({"distributed_strategy.pipeline_model_parallel_size": 2,
+      "model_alignment_strategy": "dpo"}, None),
 ])
 def test_unported_knobs_are_rejected_with_their_roadmap_item(override, item):
     """Each unported knob is refused naming its ROADMAP entry and item; the
