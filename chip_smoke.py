@@ -218,11 +218,31 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       torchrun at pp 2 x cp 2 with the ring against phase 4, each rank's
       launches exact.  With fewer cards it prints why it did not run.
 
+14. Mixtral (MoE), tp and ep cut to 1:
+   a. ``hf_mixtral_8x7b_config.yaml`` (dropless) through the CLI at full
+      width (hidden 4096, ffn 14336, 8 experts top 2, 32 / 8 heads of 128,
+      vocab 32000, seq 4096, window 4096) cut to 2 layers, 4 microbatches,
+      3 steps: finite values, the step-0 LM and router losses near their
+      expected values, 24 launches of each kernel, the group-size host
+      syncs a step (layers x microbatches), a second run from the seed
+      equal bit for bit; then the kernels at this attention shape against
+      their plain versions and timed beside their bounds;
+   b. ``hf_mixtral_8x7b_dropped_config.yaml`` (capacity 1.25) the same way,
+      with the share of routes dropped;
+   c. one MoE layer at full width alone (4096 tokens, bf16): the dropless
+      grouped product against every expert on every token, the dropped
+      path against JAX's dispatch / combine einsums, each timed (forward,
+      and forward + backward) beside its bound;
+   d. with four cards, 14a's cell under torchrun at dp 2 x ep 2 and tp 2 x
+      ep 2 against ep 1 at the same microbatching, and an ep 2 save
+      restored at ep 1.  With fewer cards it prints why it did not run.
+
 The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``) runs the kernels' build and those phases alone (13e after phase 4)
-and prints no result: a partial check while developing.
+``13e``, ``14``, ``14a,14c``, ``14d``) runs the kernels' build and those
+phases alone (13e after phase 4; 14a and 14b are one function) and prints no
+result: a partial check while developing.
 """
 
 from __future__ import annotations
@@ -3049,6 +3069,390 @@ def phase_pp_cp(torch, cell, ref: dict, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Mixtral (MoE) at full width
+# ---------------------------------------------------------------------------
+
+#: 14a / 14b: the shipped Mixtral configs on one card: 2 layers, 4
+#: microbatches of one seq-4096 row, 3 steps (tp and ep cut to 1)
+MIX_LAYERS, MIX_MICRO, MIX_STEPS, MIX_SEQ = 2, 4, 3, 4096
+MIX_CONFIGS = {"dropless": "hf_mixtral_8x7b_config.yaml",
+               "dropped": "hf_mixtral_8x7b_dropped_config.yaml"}
+#: 14c: one MoE layer against its plain version, the largest gap over the
+#: plain output's largest entry.  Both compute in bf16 with fp32
+#: accumulation; the dropless path rounds each weighted row to bf16 before
+#: the two rows of a token are added (as JAX's does), the plain version adds
+#: in fp32, so they part by about a bf16 ulp of the output (2^-8 = 4e-3 of
+#: an entry); the limit is five such ulps.  A row routed to a wrong expert
+#: or weighted by a wrong gate moves the output by a good part of its size.
+TOL_MOE = 2e-2
+
+
+def mixtral_args(kind: str, *extra: str) -> list:
+    """The CLI arguments of 14a / 14b: the shipped config at one card."""
+    return ["--config", str(REPO / "examples" / "conf" / MIX_CONFIGS[kind]),
+            "--set", f"model.num_layers={MIX_LAYERS}",
+            "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.expert_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", f"data.global_batch_size={MIX_MICRO}",
+            "--set", "data.synthetic=true",
+            "--set", f"trainer.max_steps={MIX_STEPS}",
+            "--set", "trainer.log_every_n_steps=1",
+            "--set", f"exp_manager.exp_dir={REPO / 'build' / 'chip_smoke' / 'exp_mixtral'}",
+            "--set", "exp_manager.resume_if_exists=false",
+            "--set", "exp_manager.create_tensorboard_logger=false",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=0",
+            *extra]
+
+
+def mixtral_run(torch, fa, kind: str, card: str) -> dict:
+    """One 14a / 14b run through the CLI: its history, launches, peak
+    memory, the group-size host syncs a step (one a MoE layer forward) and,
+    on the dropped path, the share of (token, slot) routes dropped a step;
+    a digest of every param after the last step."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.ops import moe as moe_ops
+    from neuronx_distributed_training_torch.trainer import cli
+
+    syncs, dropped = [0], [0, 0]
+    sorted_rows, keep_mask = moe_ops._sorted_rows, moe_ops.keep_mask
+
+    def counted_rows(*a, **kw):
+        syncs[0] += 1
+        return sorted_rows(*a, **kw)
+
+    def counted_keep(idx, cfg):
+        keep = keep_mask(idx, cfg)
+        dropped[0] += int((~keep).sum())
+        dropped[1] += keep.numel()
+        return keep
+
+    moe_ops._sorted_rows, moe_ops.keep_mask = counted_rows, counted_keep
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    t0 = time.perf_counter()
+    try:
+        trainer, history = cli.run(mixtral_args(kind))
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        digest = [device_digest(torch, t) for t in llama.named_params(trainer.params).values()]
+    finally:
+        moe_ops._sorted_rows, moe_ops.keep_mask = sorted_rows, keep_mask
+        shutil.rmtree(REPO / "build" / "chip_smoke" / "exp_mixtral", ignore_errors=True)
+    mc = trainer.model_cfg
+    n_params = sum(t.numel() for t in llama.named_params(trainer.params).values())
+    del trainer
+    peak = torch.cuda.max_memory_allocated()
+    free_cuda(torch)
+    return {"history": history, "launches": launches, "fallbacks": fallbacks, "peak": peak,
+            "syncs_per_step": syncs[0] / MIX_STEPS, "digest": digest, "params": n_params,
+            "dropped_share": dropped[0] / dropped[1] if dropped[1] else None,
+            "moe": mc.moe, "seconds": time.perf_counter() - t0}
+
+
+def phase_mixtral(torch, fa, kt, card: str, peaks) -> dict:
+    """14a (dropless) and 14b (dropped, capacity 1.25): the shipped Mixtral
+    configs through the CLI at full width (hidden 4096, ffn 14336, 8
+    experts top 2, 32 / 8 heads of 128, vocab 32000, seq 4096, window 4096)
+    cut to 2 layers, tp and ep to 1: finite values, step-0 ``lm_loss``
+    near its expected value and ``router_aux_loss`` near its coefficient (0.02: a
+    uniform router gives 1 times it; ``lm_loss`` as ``expected_loss0``
+    reckons it at vocab 32000), each kernel launched layers x
+    microbatches x steps times with no fallback, and a second run from the
+    same seed equal bit for bit (losses, grad norms, every param).  Then
+    the three kernels at Mixtral's attention shape against their plain
+    versions, timed beside their bounds."""
+    t_phase = time.perf_counter()
+    out = {}
+    expect = MIX_LAYERS * MIX_MICRO * MIX_STEPS
+    for kind in MIX_CONFIGS:
+        tag = "14a" if kind == "dropless" else "14b"
+        runs = [mixtral_run(torch, fa, kind, card) for _ in range(2)]
+        run = runs[0]
+        hist = run["history"]
+        for r in hist:
+            log(f"mixtral {tag} ({kind}) step {r['step']}: loss {r['loss']:.6f} lm_loss "
+                f"{r['lm_loss']:.6f} router_aux_loss {r['router_aux_loss']:.6f} grad_norm "
+                f"{r['grad_norm']:.4f} | {r['step_seconds']:.3f} s, {r['tokens_per_sec']:.1f} "
+                f"tokens/s, MFU {r['mfu']:.4f} (active experts) [{card}]")
+        log(f"mixtral {tag}: {run['params']} params, peak device memory {run['peak']} bytes "
+            f"({run['peak'] / 2**30:.2f} GiB), launches {run['launches']} (expected {expect} "
+            f"each), fallbacks {run['fallbacks']}, group-size host syncs a step "
+            f"{run['syncs_per_step']:g}, run wall time {run['seconds']:.1f} s [{card}]")
+        if run["dropped_share"] is not None:
+            log(f"mixtral {tag}: share of (token, slot) routes dropped over the run "
+                f"{run['dropped_share']:.4f} (capacity factor {run['moe'].capacity_factor}) "
+                f"[{card}]")
+        same = all(a[k] == b[k] for a, b in zip(hist, runs[1]["history"])
+                   for k in ("loss", "grad_norm", "router_aux_loss", "lm_loss"))
+        same = same and run["digest"] == runs[1]["digest"]
+        log(f"mixtral {tag}: a second run from the same seed equal bit for bit: {same}")
+        if len(hist) != MIX_STEPS or not all(
+                math.isfinite(r[k]) for r in hist
+                for k in ("loss", "grad_norm", "router_aux_loss", "lm_loss")):
+            fail(f"mixtral {tag}: {len(hist)} steps, or a non-finite value: {hist}")
+        coef = run["moe"].router_aux_loss_coef
+        lm0 = math.log(32000) + HIDDEN * (0.02 * 0.879626) ** 2 / 2  # as expected_loss0()
+        if abs(hist[0]["lm_loss"] - lm0) > 0.5 or \
+                not 0.9 * coef <= hist[0]["router_aux_loss"] <= 1.5 * coef:
+            fail(f"mixtral {tag}: step-0 lm_loss {hist[0]['lm_loss']} (expected {lm0:.4f}: "
+                 f"ln 32000 + sigma^2/2) or router_aux_loss {hist[0]['router_aux_loss']} "
+                 f"(coefficient {coef})")
+        if any(n != expect for n in run["launches"].values()) or run["fallbacks"]["core"]:
+            fail(f"mixtral {tag}: launches {run['launches']} (fallbacks {run['fallbacks']}), "
+                 f"expected {expect} each")
+        if run["syncs_per_step"] != MIX_LAYERS * MIX_MICRO:
+            fail(f"mixtral {tag}: {run['syncs_per_step']} group-size syncs a step, expected "
+                 f"{MIX_LAYERS * MIX_MICRO}")
+        if not same:
+            fail(f"mixtral {tag}: a second run from the same seed differs")
+        if kind == "dropped" and not 0 < run["dropped_share"] < 0.5:
+            fail(f"mixtral {tag}: dropped share {run['dropped_share']}")
+        out[kind] = dict(run, history=hist)
+    # the kernels at Mixtral's attention: b 1, s 4096, 32 / 8 heads of 128,
+    # causal, window 4096 (every key of a row is inside it at s 4096)
+    shape = dict(kt.MAIN, s=MIX_SEQ)
+    if not check_case(torch, fa, f"mixtral attention s={MIX_SEQ} window {MIX_SEQ}", b=1,
+                      sq=MIX_SEQ, skv=MIX_SEQ, nh=shape["nh"], nkv=shape["nkv"], d=shape["d"],
+                      window=MIX_SEQ, seed=140):
+        fail("a kernel disagrees with its plain version at Mixtral's attention")
+    gen = torch.Generator(device="cuda").manual_seed(141)
+    q, k, v, do = (kt.randn_bf16(gen, 1, MIX_SEQ, h, shape["d"])
+                   for h in (shape["nh"], shape["nkv"], shape["nkv"], shape["nh"]))
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, v, window=MIX_SEQ)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = {"flash_fwd": kt.cuda_ms(lambda: fa.flash_fwd(q, k, v, window=MIX_SEQ)),
+          "flash_dq": kt.cuda_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, window=MIX_SEQ)),
+          "flash_dkv": kt.cuda_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                       window=MIX_SEQ))}
+    bounds = bounds_ms(kt, peaks, shape)
+    rows = []
+    for kname, t in ms.items():
+        rows.append({"kernel": kname, "s": MIX_SEQ, "window": MIX_SEQ, "ms": t,
+                     "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]})
+        log(f"mixtral attention time {kname} s={MIX_SEQ} window {MIX_SEQ}: {t:.3f} ms, bound "
+            f"{bounds[kname][0]:.3f} ms ({bounds[kname][1]}), {bounds[kname][0] / t:.3f} of "
+            f"bound [{card}]")
+    del q, k, v, do, o, lse, delta
+    free_cuda(torch)
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mixtral 14a/14b: phase wall time {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def moe_dense_plain(torch, params, x, cfg):
+    """The dropless layer's plain version: every expert's SwiGLU on every
+    token, each token's output the gate-weighted sum over its top-k, in fp32
+    (JAX's ``dense_reference``)."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_training_torch.ops import moe as moe_ops
+
+    probs, idx, _ = moe_ops.route(params["router"], x, cfg)
+    gu, dn = params["experts"]["gate_up"], params["experts"]["down"]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        gate, up = torch.chunk(x @ gu[e], 2, dim=-1)
+        weight = (probs * (idx == e)).sum(-1)
+        y += weight[:, None] * ((F.silu(gate) * up) @ dn[e]).float()
+    return y.to(x.dtype)
+
+
+def moe_dropped_plain(torch, params, x, cfg):
+    """The dropped layer's plain version: JAX's dense dispatch and combine
+    einsums over a ``[T, E, cap]`` one-hot (every capacity slot computed)."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_training_torch.ops import moe as moe_ops
+
+    t, e = x.shape[0], cfg.num_experts
+    cap = moe_ops.capacity(cfg, t)
+    probs, idx, _ = moe_ops.route(params["router"], x, cfg)
+    onehot = F.one_hot(idx, e).float()
+    pos = torch.cumsum(onehot.reshape(-1, e), 0).reshape(onehot.shape) - 1.0
+    keep = (pos < cap) * onehot
+    pos_cap = F.one_hot(pos.clamp(0, cap - 1).long(), cap).float()
+    dispatch = torch.einsum("tke,tkec->tec", keep, pos_cap)
+    combine = torch.einsum("tk,tke,tkec->tec", probs, keep, pos_cap)
+    x_e = torch.einsum("tec,th->ech", dispatch.to(x.dtype), x)
+    gate, up = torch.chunk(torch.einsum("ech,ehf->ecf", x_e, params["experts"]["gate_up"]), 2,
+                           dim=-1)
+    y_e = torch.einsum("ecf,efh->ech", F.silu(gate) * up, params["experts"]["down"])
+    return torch.einsum("tec,ech->th", combine.to(x.dtype), y_e)
+
+
+def phase_moe_layer(torch, card: str, peaks) -> list:
+    """14c: one MoE layer at full width alone (T 4096 tokens, hidden 4096,
+    ffn 14336, 8 experts top 2, bf16): the dropless grouped product (one
+    ``torch.matmul`` per expert over its sorted rows: the route is the
+    loop) against every expert on every token, the dropped path (capacity
+    1.25) against JAX's dispatch / combine einsums, each within
+    ``TOL_MOE``; then each forward and forward + backward timed by CUDA
+    events beside its bound: the active experts' operations (the routes
+    this run's data keeps) over the bf16 rate, or the bytes (x, every
+    expert's weights and y, once) over the memory rate if larger."""
+    from neuronx_distributed_training_torch.ops import moe as moe_ops
+    from neuronx_distributed_training_torch.tools import kernel_times as kt
+
+    t_phase = time.perf_counter()
+    t, h, f, e = MIX_SEQ, HIDDEN, 14336, 8
+    gen = torch.Generator(device="cuda").manual_seed(142)
+    bf = torch.bfloat16
+    params = {"router": {"w": torch.randn(h, e, generator=gen, device="cuda") * 0.02},
+              "experts": {"gate_up": (torch.randn(e, h, 2 * f, generator=gen, device="cuda")
+                                      * 0.02).to(bf),
+                          "down": (torch.randn(e, f, h, generator=gen, device="cuda")
+                                   * 0.02).to(bf)}}
+    x = torch.randn(t, h, generator=gen, device="cuda").to(bf)
+    dy = torch.randn(t, h, generator=gen, device="cuda").to(bf)
+    rows = []
+    grouped_mm = hasattr(torch, "_grouped_mm")
+    for kind, cfg, fn, plain in (
+            ("dropless", moe_ops.MoEConfig(num_experts=e, top_k=2), moe_ops.moe_dropless,
+             moe_dense_plain),
+            ("dropped", moe_ops.MoEConfig(num_experts=e, top_k=2, dropless=False,
+                                          capacity_factor=1.25), moe_ops.moe_dropped,
+             moe_dropped_plain)):
+        with torch.no_grad():
+            y = fn(params, x, cfg, compute_dtype=bf)[0]
+            y_p = plain(torch, params, x, cfg)
+            idx = moe_ops.route(params["router"], x, cfg)[1]
+            kept = int(moe_ops.keep_mask(idx, cfg).sum()) if kind == "dropped" else idx.numel()
+        err = float((y.float() - y_p.float()).abs().max() / y_p.float().abs().max())
+        ops = 2 * kept * 3 * h * f
+        nbytes = 2 * (2 * t * h + e * 3 * h * f)
+        bound = {"fwd": max(ops / peaks[0], nbytes / peaks[1]) * 1e3,
+                 "fwd_bwd": max(3 * ops / peaks[0], 2 * nbytes / peaks[1]) * 1e3}
+        by = "operations" if ops / peaks[0] >= nbytes / peaks[1] else "bytes"
+        leaves = [params["experts"]["gate_up"], params["experts"]["down"]]
+        xg = x.detach().requires_grad_(True)
+
+        def fwd_bwd():
+            for w in leaves:
+                w.requires_grad_(True)
+            out = fn(params, xg, cfg, compute_dtype=bf)[0]
+            torch.autograd.grad(out, [xg] + leaves, grad_outputs=dy)
+            for w in leaves:
+                w.requires_grad_(False)
+
+        with torch.no_grad():
+            ms_fwd = kt.cuda_ms(lambda: fn(params, x, cfg, compute_dtype=bf), 5)
+            plain_ms = kt.cuda_ms(lambda: plain(torch, params, x, cfg), 2)
+        ms_fb = kt.cuda_ms(fwd_bwd, 5)
+        top = moe_profile(torch, fwd_bwd)
+        row = {"kind": kind, "route": "loop", "tokens": t, "kept_routes": kept,
+               "max_rel_err": err, "ms": ms_fwd, "fwd_bwd_ms": ms_fb, "plain_ms": plain_ms,
+               "bound_ms": bound["fwd"], "fwd_bwd_bound_ms": bound["fwd_bwd"], "bound_by": by,
+               "fwd_bwd_device_ms_by_op": top}
+        rows.append(row)
+        log(f"moe layer {kind} (14c): max gap {err:.3e} of the plain output's largest "
+            f"entry (tol {TOL_MOE:g}); {kept} of {idx.numel()} routes computed; forward "
+            f"{ms_fwd:.3f} ms (bound {bound['fwd']:.3f} ms, {by}; {bound['fwd'] / ms_fwd:.3f} "
+            f"of bound), forward + backward {ms_fb:.3f} ms (bound {bound['fwd_bwd']:.3f} ms, "
+            f"{bound['fwd_bwd'] / ms_fb:.3f} of bound), plain forward {plain_ms:.3f} ms; "
+            f"grouped product route: per-expert loop (torch._grouped_mm present: "
+            f"{grouped_mm}, not used) [{card}]")
+        log(f"moe layer {kind} (14c): forward + backward device ms by op (torch.profiler, "
+            f"one call): {top} [{card}]")
+        del y, y_p
+        if not (math.isfinite(err) and err <= TOL_MOE):
+            fail(f"moe layer {kind}: {err:.3e} off its plain version (tol {TOL_MOE:g})")
+    del params, x, dy
+    free_cuda(torch)
+    log(f"moe layer (14c): phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return rows
+
+
+def moe_profile(torch, fn, top: int = 8) -> dict:
+    """Device ms of ``fn``'s ops by name (``torch.profiler``'s self CUDA
+    time over one call after a warm one), the ``top`` largest; empty when
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((ev.key, us / 1e3))
+    rows.sort(key=lambda r: -r[1])
+    return {k: round(ms, 3) for k, ms in rows[:top]}
+
+
+def mixtral_cli_run(cell, nproc: int, name: str, *extra: str) -> dict:
+    """14a's dropless cell under torchrun over ``nproc`` cards (NCCL)."""
+    return torchrun_cell(cell, nproc, cell.WORK / f"exp_{name}", 900, "--config",
+                         str(REPO / "examples" / "conf" / MIX_CONFIGS["dropless"]),
+                         "--set", f"model.num_layers={MIX_LAYERS}",
+                         "--set", "exp_manager.create_tensorboard_logger=false", *extra)
+
+
+def phase_mixtral_cli(torch, cell, card: str) -> dict | None:
+    """14d, with four cards (a builder's call): 14a's cell through the CLI
+    at dp 2 x ep 2 against dp 4 x ep 1, and at tp 2 (SP) x ep 2 against tp
+    2 x dp 2 (the same microbatching on both sides: the router loss is a
+    product of means over a microbatch), within the mixed_precision
+    tolerance (loss 1e-4, grad norm 2e-3), each rank's launches exact; a
+    save at ep 2 (step 2) restored at ep 1 trains step 3 within the same
+    tolerance of the straight ep 2 run.  With fewer cards it says why it
+    did not run and returns None."""
+    if torch.cuda.device_count() < 4:
+        log(f"mixtral cli (14d): needs four cards, this machine has "
+            f"{torch.cuda.device_count()} [{card}]")
+        return None
+    # the shipped config sets ep 4: every run names its own
+    ep1, ep2 = (["--set", f"distributed_strategy.expert_model_parallel_size={n}"]
+                for n in (1, 2))
+    sp = ["--tp", "2", "--sp"]
+    out = {"dp2_ep2": mixtral_cli_run(cell, 4, "mx_dp2_ep2", *ep2),
+           "dp4_ep1": mixtral_cli_run(cell, 4, "mx_dp4_ep1", *ep1),
+           "tp2_ep2": mixtral_cli_run(cell, 4, "mx_tp2_ep2", *sp, *ep2),
+           "tp2_dp2": mixtral_cli_run(cell, 4, "mx_tp2_dp2", *sp, *ep1)}
+    for name, ep, tp in (("dp2_ep2", 2, 1), ("dp4_ep1", 1, 1), ("tp2_ep2", 2, 2),
+                         ("tp2_dp2", 1, 2)):
+        rep = out[name]
+        expect = MIX_LAYERS * (MIX_MICRO * tp // 4) * cell.STEPS  # microbatches a rank
+        if (rep["ep"], rep["tp"]) != (ep, tp) or any(
+                n != expect for r in rep["ranks"] for n in r["launches"].values()):
+            fail(f"mixtral cli (14d) {name}: ep {rep['ep']} tp {rep['tp']}, launches "
+                 f"{[r['launches'] for r in rep['ranks']]} (expected ep {ep}, tp {tp}, "
+                 f"{expect} each)")
+    for a, b in (("dp2_ep2", "dp4_ep1"), ("tp2_ep2", "tp2_dp2")):
+        ra, rb = out[a], out[b]
+        log(f"mixtral cli (14d) {a}: losses {ra['loss']} grad norms {ra['grad_norm']}; {b}: "
+            f"{rb['loss']} / {rb['grad_norm']}; step seconds {ra['step_seconds']} / "
+            f"{rb['step_seconds']}; peak per rank {[r['peak_bytes'] for r in ra['ranks']]} "
+            f"[{card}]")
+        if not all(math.isclose(x, y, rel_tol=TP_LOSS_RTOL) for x, y in zip(ra["loss"],
+                                                                             rb["loss"])) or \
+                not all(math.isclose(x, y, rel_tol=TP_GRAD_NORM_RTOL)
+                        for x, y in zip(ra["grad_norm"], rb["grad_norm"])):
+            fail(f"mixtral cli (14d): {a} against {b}")
+    exp = cell.WORK / "exp_mx_ck"
+    ck = ["--save-every", "2", "--exp-dir", str(exp)]
+    try:
+        mixtral_cli_run(cell, 4, "mx_pre", *ep2, *ck, "--set", "trainer.max_steps=2")
+        restored = mixtral_cli_run(cell, 4, "mx_restore", *ep1, *ck)
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    step3 = (restored["loss"][-1], restored["grad_norm"][-1])
+    want = (out["dp2_ep2"]["loss"][2], out["dp2_ep2"]["grad_norm"][2])
+    log(f"mixtral cli (14d): ep 2 save at step 2 restored at ep 1: step 3 loss / grad norm "
+        f"{step3}, straight ep 2 {want} [{card}]")
+    if not (math.isclose(step3[0], want[0], rel_tol=TP_LOSS_RTOL)
+            and math.isclose(step3[1], want[1], rel_tol=TP_GRAD_NORM_RTOL)):
+        fail("mixtral cli (14d): the ep 2 save restored at ep 1 trains another step 3")
+    out["restored_step3"] = step3
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -3134,8 +3538,11 @@ def main() -> None:
         for name, fn in (("13a", lambda: phase_pp_virtual(torch, fa, kt, card, peaks)),
                          ("13b", lambda: phase_pp_chunked_vp(torch, fa, card)),
                          ("13c", lambda: phase_pp_zb(torch, fa, card)),
-                         ("13d", lambda: phase_pp_pref(torch, fa, card))):
-            if name in only or "13" in only:
+                         ("13d", lambda: phase_pp_pref(torch, fa, card)),
+                         ("14a", lambda: phase_mixtral(torch, fa, kt, card, peaks)),
+                         ("14c", lambda: phase_moe_layer(torch, card, peaks)),
+                         ("14d", lambda: phase_mixtral_cli(torch, cell, card))):
+            if name in only or name[:2] in only or (name == "14a" and "14b" in only):
                 fn()
                 free_cuda(torch)
         log(f"phases {only} passed (a partial run prints no result)")
@@ -3178,6 +3585,9 @@ def main() -> None:
     pp_zb = phase_pp_zb(torch, fa, card)
     pp_pref = phase_pp_pref(torch, fa, card)
     pp_cp = phase_pp_cp(torch, cell, trainer_ref(history4), card)
+    free_cuda(torch)
+    mixtral = phase_mixtral(torch, fa, kt, card, peaks)
+    moe_layer = phase_moe_layer(torch, card, peaks)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -3229,7 +3639,9 @@ def main() -> None:
                                              for k in ("dpo", "kto")},
                                  **({} if pp_cp is None else
                                     {"pretrain_pp2_cp2": [r["launches"][kname] for r in
-                                                          pp_cp["pp2_cp2"]["ranks"]]})},
+                                                          pp_cp["pp2_cp2"]["ranks"]]}),
+                                 "mixtral_dropless": mixtral["dropless"]["launches"][kname],
+                                 "mixtral_dropped": mixtral["dropped"]["launches"][kname]},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
@@ -3238,7 +3650,10 @@ def main() -> None:
                              for r in pp_70b["kernels"] if r["kernel"] == kname],
             "pp_v5p_card_shape": [{k: v for k, v in r.items() if k != "kernel"}
                                   for r in pp_virtual["kernels"] if r["kernel"] == kname],
+            "mixtral_shape": [{k: v for k, v in r.items() if k != "kernel"}
+                              for r in mixtral["kernels"] if r["kernel"] == kname],
         })
+    log(f"moe layer (14c): {json.dumps(moe_layer)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

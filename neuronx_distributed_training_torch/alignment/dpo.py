@@ -10,7 +10,9 @@ sidecar (``trainer/loop.py``).  The loss function makes two policy
 forwards per microbatch, chosen then rejected, as the JAX package does.
 
 ``forward_logits(params, input_ids[, positions]) -> logits`` is the policy
-forward (``trainer/loop.py`` builds it from the Llama model): ``input_ids``
+forward (``trainer/loop.py`` builds it from the model; a Mixtral's returns
+``(logits, reg)``, its router-loss share, which the losses add as
+``0.5 (reg_chosen + reg_rejected)``, JAX's ``reg``): ``input_ids``
 alone, so no key-padding mask, positions ``0..s-1``, and the rows' right
 padding comes after every real token.  Under context parallelism (``cp``)
 the loss function and the pass take each batch's context slices
@@ -84,12 +86,15 @@ def make_dpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=Non
     ``cp``)."""
 
     def loss_fn(params, batch, denominator=None):
-        pc = side_logprobs(forward_logits, params, batch, "chosen_", tp=tp, cp=cp)
-        pr = side_logprobs(forward_logits, params, batch, "rejected_", tp=tp, cp=cp)
+        pc, reg_c = side_logprobs(forward_logits, params, batch, "chosen_", tp=tp, cp=cp,
+                                  with_reg=True)
+        pr, reg_r = side_logprobs(forward_logits, params, batch, "rejected_", tp=tp, cp=cp,
+                                  with_reg=True)
         loss, metrics = dpo_loss(pc, pr, batch["reference_chosen_logps"],
                                  batch["reference_rejected_logps"], beta=beta,
                                  denominator=denominator, dp=dp)
-        return count_once(loss, cp), metrics
+        # a MoE model's router balance rides along (already a rank's share)
+        return count_once(loss, cp) + 0.5 * (reg_c + reg_r), metrics
 
     return loss_fn
 

@@ -55,7 +55,8 @@ def make_kto_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1,
     slices."""
 
     def loss_fn(params, batch, denominator=None):
-        logps = side_logprobs(forward_logits, params, batch, "", tp=tp, cp=cp)
+        logps, reg = side_logprobs(forward_logits, params, batch, "", tp=tp, cp=cp,
+                                   with_reg=True)
         kl_rewards = None
         if kl_estimator == "mismatched":
             if "kl_input_ids" not in batch:
@@ -68,7 +69,7 @@ def make_kto_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1,
                                  desirable_weight=desirable_weight,
                                  undesirable_weight=undesirable_weight, kl_rewards=kl_rewards,
                                  denominator=denominator, dp=dp)
-        return count_once(loss, cp), metrics
+        return count_once(loss, cp) + reg, metrics  # the policy forward's router loss
 
     return loss_fn
 

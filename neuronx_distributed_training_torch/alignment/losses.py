@@ -92,18 +92,27 @@ def sequence_logprobs(
 
 
 def side_logprobs(forward_logits, params, batch: dict, side: str, *, average: bool = False,
-                  tp=None, cp=None) -> torch.Tensor:
+                  tp=None, cp=None, with_reg: bool = False):
     """:func:`sequence_logprobs` of one side of a preference batch, the
     ``<side>input_ids`` row with its ``<side>loss_mask``
     (``data/loader.py::PREFERENCE_SIDES``).  Under ``cp`` the batch is a
     context rank's (``context_parallel_batch``): its ``<side>labels`` and
-    ``<side>positions`` come from the whole row."""
+    ``<side>positions`` come from the whole row.  ``forward_logits`` may
+    return ``(logits, reg)``, a MoE model's router loss (JAX's
+    ``_call_forward``); ``with_reg`` returns ``(logps, reg)``, ``reg`` 0.0
+    for a dense model."""
     ids, mask = batch[side + "input_ids"], batch.get(side + "loss_mask")
     if cp is None:
-        return sequence_logprobs(forward_logits(params, ids), ids, mask, average=average, tp=tp)
-    return sequence_logprobs(forward_logits(params, ids, batch[side + "positions"]),
-                             batch[side + "labels"], mask, shift=False, average=average,
-                             tp=tp, cp=cp)
+        out = forward_logits(params, ids)
+    else:
+        out = forward_logits(params, ids, batch[side + "positions"])
+    logits, reg = out if isinstance(out, tuple) else (out, 0.0)
+    if cp is None:
+        logps = sequence_logprobs(logits, ids, mask, average=average, tp=tp)
+    else:
+        logps = sequence_logprobs(logits, batch[side + "labels"], mask, shift=False,
+                                  average=average, tp=tp, cp=cp)
+    return (logps, reg) if with_reg else logps
 
 
 def count_once(loss: torch.Tensor, cp) -> torch.Tensor:

@@ -25,14 +25,15 @@ def make_orpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=No
     and its token count are both summed over the context group)."""
 
     def loss_fn(params, batch, denominator=None):
-        pc = side_logprobs(forward_logits, params, batch, "chosen_", average=True, tp=tp, cp=cp)
-        pr = side_logprobs(forward_logits, params, batch, "rejected_", average=True, tp=tp,
-                           cp=cp)
+        pc, reg_c = side_logprobs(forward_logits, params, batch, "chosen_", average=True,
+                                  tp=tp, cp=cp, with_reg=True)
+        pr, reg_r = side_logprobs(forward_logits, params, batch, "rejected_", average=True,
+                                  tp=tp, cp=cp, with_reg=True)
         loss, metrics = orpo_loss(pc, pr, -rows_mean(pc, denominator), beta=beta,
                                   denominator=denominator, dp=dp)
         sums = global_sums([pc.sum(), pr.sum()], dp) / row_count(pc, denominator)
         metrics["rewards_chosen"] = beta * sums[0]
         metrics["rewards_rejected"] = beta * sums[1]
-        return count_once(loss, cp), metrics
+        return count_once(loss, cp) + 0.5 * (reg_c + reg_r), metrics
 
     return loss_fn

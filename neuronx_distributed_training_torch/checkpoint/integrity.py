@@ -246,7 +246,8 @@ def leaf_digests(flat: Mapping[str, Any], *, workers: int = 0) -> dict[str, str]
 def _shard_box(t) -> tuple[Any, list[int], list[int]]:
     """``(local tensor, offsets, sizes)`` of what this rank holds of a
     leaf: a DTensor's block (``Shard`` on any dims of a 1-, 2- or 3-D
-    mesh, in ``torch.chunk``'s blocks), else the whole."""
+    mesh, in ``torch.chunk``'s blocks; a dim sharded over several mesh
+    dims is split by each in turn, outer first), else the whole."""
     from neuronx_distributed_training_torch.optim.adamw import is_dtensor
 
     if not is_dtensor(t):
@@ -254,12 +255,15 @@ def _shard_box(t) -> tuple[Any, list[int], list[int]]:
     loc = t.to_local()
     coord = t.device_mesh.get_coordinate()
     offsets = [0] * t.dim()
+    extent = list(t.shape)
     for i, placement in enumerate(t.placements):
         if placement.is_shard():
             # torch.chunk's blocks: an uneven split (a padded vocab's real
             # rows) has a shorter last block
-            block = -(-t.shape[placement.dim] // t.device_mesh.size(i))
-            offsets[placement.dim] += coord[i] * block
+            d = placement.dim
+            block = -(-extent[d] // t.device_mesh.size(i))
+            offsets[d] += coord[i] * block
+            extent[d] = max(0, min(block, extent[d] - coord[i] * block))
     return loc, offsets, list(loc.shape)
 
 

@@ -58,6 +58,13 @@ v]``.  A checkpoint saved at tp 2 therefore restores at tp 1 and the other
 way round; a restore loads a segment into a contiguous buffer and copies it
 into the live leaf.
 
+Expert parallelism: the state mesh is ``(data, expert, model)``
+(``parallel/mesh.py::TensorParallel``); an expert leaf (``parallel/
+sharding.py``) is ``Shard(0)`` over ``expert`` (its ZeRO-1 dim over
+``data`` alone), a dense one replicated over ``expert`` (its ZeRO-1 dim
+split over ``data`` then ``expert``), so a save at ep 2 restores at ep 1
+and the other way round.
+
 Context parallelism (``cp``): parameters and state are replicated over the
 ``context`` axis, so the context ranks hand DCP equal shards (on their own
 ``(data, model)`` meshes, at the same offsets of the same global leaves) and
@@ -117,6 +124,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
     is_dtensor,
     local,
     shard_of,
+    state_dims,
 )
 from neuronx_distributed_training_torch.parallel.pipeline import is_stage_leaf
 from neuronx_distributed_training_torch.parallel.sharding import split_segments
@@ -267,13 +275,15 @@ def _on_state_mesh(saved: torch.Tensor, layout, part, tp, zdim):
     blocks are the real rows)."""
     if part is not None and part.replicas(tp.size) > 1:
         return dtensor_on(saved, tp.kv_mesh, (zdim, layout.dim, None))
+    dims = state_dims(tp.state_mesh, layout, zdim)
     shape = None
     if part is not None and part.padded and part.size % tp.size:
         shape = list(saved.shape)
         shape[layout.dim] = part.size
-        if zdim is not None:
-            shape[zdim] *= tp.state_mesh.size(0)  # ZeRO-1's even split over data
-    return dtensor_on(saved, tp.state_mesh, (zdim, layout.dim), shape)
+        for i, d in enumerate(dims[:-1]):
+            if d is not None and d == zdim:
+                shape[zdim] *= tp.state_mesh.size(i)  # ZeRO-1's even split over data
+    return dtensor_on(saved, tp.state_mesh, dims, shape)
 
 
 def _pieces(flat: dict, layouts, tp, prefix: str = "", cast=None) -> dict[str, tuple]:

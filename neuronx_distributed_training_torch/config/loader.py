@@ -254,6 +254,20 @@ def validate_config(cfg: ConfigDict) -> None:
     moe = model.get("moe", {}) or {}
     if moe.get("dropless") and (moe.get("capacity_factor") or 0) > 0:
         raise ValueError("moe.dropless=True requires capacity_factor unset/0")
+    moe_freq = int(moe.get("moe_frequency", 1) or 1)
+    if moe_freq > 1 and n_layers is not None:
+        if int(n_layers) % moe_freq != 0:
+            raise ValueError(
+                f"num_layers={n_layers} must be a multiple of "
+                f"moe.moe_frequency={moe_freq} (whole MoE+dense groups)"
+            )
+        groups = int(n_layers) // moe_freq
+        if pp * int(vp) > 1 and groups % (pp * int(vp)) != 0:
+            raise ValueError(
+                f"num_layers {n_layers} / moe_frequency {moe_freq} = {groups} "
+                f"MoE+dense groups, not divisible by pp*vp = {pp}*{vp}: the "
+                f"pipeline slices whole groups per stage chunk"
+            )
 
     # ---- context parallelism & attention kernels (the JAX package's rules
     # and texts)

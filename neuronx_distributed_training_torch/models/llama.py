@@ -157,7 +157,7 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut):
+def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut, mlp=None):
     h, d = cfg.hidden_size, cfg.head_size
     nh, nkv = cfg.num_attention_heads, cfg.kv_heads
     std = cfg.initializer_range
@@ -176,14 +176,16 @@ def _init_layer(gen, cfg: LlamaConfig, dtype, device, cut):
         "input_norm": norm_ops.init_rms_norm(h, dtype=dtype, device=device),
         "post_attn_norm": norm_ops.init_rms_norm(h, dtype=dtype, device=device),
         "attn": attn,
-        "mlp": {"gate_up": lin("mlp.gate_up", h, 2 * cfg.intermediate_size),
-                "down": lin("mlp.down", cfg.intermediate_size, h)},
+        "mlp": ({"gate_up": lin("mlp.gate_up", h, 2 * cfg.intermediate_size),
+                 "down": lin("mlp.down", cfg.intermediate_size, h)} if mlp is None
+                else mlp(lambda n, t: cut("mlp." + n, t))),
     }
 
 
 def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
                 generator: torch.Generator, device=None, tp_rank: int = 0, tp_size: int = 1,
-                pp_rank: int = 0, pp_size: int = 1, vp: int = 1):
+                pp_rank: int = 0, pp_size: int = 1, vp: int = 1, ep_rank: int = 0,
+                ep_size: int = 1, mlp_of=None):
     """The parameter tree in the policy's param dtype, drawn from
     ``generator`` (which must live on ``device``).  At ``tp_size > 1`` every
     leaf is still drawn whole, in the same order, and the rank keeps its
@@ -193,7 +195,11 @@ def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
     of the layers: every layer is drawn, pipeline rank ``pp_rank`` keeps
     its own, those of its ``vp`` chunks (``parallel/pipeline.py::
     stage_layers``), and ``layers`` holds None for the other ranks' (the
-    embedding, the final norm and the head are kept on every rank)."""
+    embedding, the final norm and the head are kept on every rank).
+    ``mlp_of(i)``, if given and not None for layer ``i``, draws that
+    layer's ``mlp`` in place of the dense one (``mlp(cut) -> dict``, the
+    MoE block of ``models/mixtral.py``), whose expert leaves a rank of
+    ``ep_size`` keeps ``E / ep_size`` of."""
     policy = policy or DtypePolicy()
     dtype = policy.param_dtype
     mine = set(range(cfg.num_layers))
@@ -203,17 +209,19 @@ def init_params(cfg: LlamaConfig, policy: DtypePolicy | None = None, *,
         mine = set(stage_layers(cfg.num_layers, pp_rank, pp_size, vp))
 
     def cut(name: str, t: torch.Tensor) -> torch.Tensor:
-        return sharding.shard_leaf(t, sharding.leaf_layout(name, cfg), tp_rank, tp_size)
+        return sharding.local_leaf(t, sharding.leaf_layout(name, cfg), tp_rank, tp_size,
+                                   ep_rank, ep_size).contiguous()
 
     embedding = linear_ops.init_embedding(generator, cfg.vocab_size, cfg.hidden_size,
                                           dtype=dtype, stddev=cfg.initializer_range,
                                           device=device)["embedding"]
     def layer(i):
+        mlp = None if mlp_of is None else mlp_of(i)
         if i in mine:
             return _init_layer(generator, cfg, dtype, device,
-                               lambda n, t: cut("layers.0." + n, t))
+                               lambda n, t: cut("layers.0." + n, t), mlp)
         # another stage's: drawn leaf by leaf (the generator advances), dropped
-        _init_layer(generator, cfg, dtype, device, lambda n, t: None)
+        _init_layer(generator, cfg, dtype, device, lambda n, t: None, mlp)
         return None
 
     params: dict[str, Any] = {
@@ -436,10 +444,22 @@ def forward(params, batch: dict[str, torch.Tensor], cfg: LlamaConfig, policy: Dt
     and ``aux`` is empty."""
     attention_mask = batch.get("attention_mask")
     if cp is not None:
-        positions, shift_labels = batch["positions"], False
+        positions = batch["positions"]
     hidden = hidden_states(params, batch["input_ids"], cfg, policy, positions=positions,
                            attention_mask=attention_mask,
                            segment_ids=batch.get("segment_ids"), tp=tp, cp=cp)
+    return head_loss(params, hidden, batch, cfg, policy, shift_labels=shift_labels,
+                     return_logits=return_logits, loss_denominator=loss_denominator, tp=tp,
+                     cp=cp)
+
+
+def head_loss(params, hidden: torch.Tensor, batch: dict, cfg: LlamaConfig,
+              policy: DtypePolicy, *, shift_labels: bool = True, return_logits: bool = False,
+              loss_denominator: Optional[torch.Tensor] = None, tp=None, cp=None):
+    """:func:`forward`'s head and loss on the final hidden states (after the
+    final norm): ``(loss, aux)``, or ``(logits, aux)`` without labels."""
+    if cp is not None:
+        shift_labels = False
     labels = batch.get("labels")
     loss_mask = batch.get("loss_mask") if cp is not None else _loss_mask(batch)
     if cfg.vocab_chunks and labels is not None and not return_logits and _head_plain(params, cfg):
@@ -461,6 +481,16 @@ def _head_plain(params, cfg: LlamaConfig) -> bool:
     """A head the chunked head can run: tied, or an ``lm_head`` without a
     LoRA adapter (that needs ``apply_linear``)."""
     return cfg.tie_word_embeddings or ("lm_head" in params and "lora_a" not in params["lm_head"])
+
+
+def stage_rope(cfg: LlamaConfig, mb: dict):
+    """A pipeline microbatch's RoPE tables: from its ``positions``, else
+    from its attention mask or segment ids, as :func:`forward`."""
+    positions = mb.get("positions")
+    if positions is None:
+        positions = positions_for(mb["input_ids"], mb.get("attention_mask"),
+                                  mb.get("segment_ids"))
+    return _rope(cfg, positions)
 
 
 def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool = True,
@@ -498,12 +528,9 @@ def pipeline_hooks(cfg: LlamaConfig, policy: DtypePolicy, *, shift_labels: bool 
                                           compute_dtype=policy.compute_dtype, tp=tp)
 
     def stage_fn(layers, x, mb):
-        ids, am, seg = mb["input_ids"], mb.get("attention_mask"), mb.get("segment_ids")
-        positions = mb.get("positions")
-        if positions is None:
-            positions = positions_for(ids, am, seg)
-        cos, sin = _rope(cfg, positions)
-        return _run_layers(layers, x, cos, sin, cfg, policy, am, seg, tp, cp)
+        cos, sin = stage_rope(cfg, mb)
+        return _run_layers(layers, x, cos, sin, cfg, policy, mb.get("attention_mask"),
+                           mb.get("segment_ids"), tp, cp)
 
     shift = shift_labels and cp is None
 

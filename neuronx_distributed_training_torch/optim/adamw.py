@@ -50,6 +50,15 @@ sums over ``pipe`` and counts the replicated leaves once; a non-finite value
 on any stage reaches every stage through that sum, so the skip is one
 decision.  ZeRO-1 stays over the ``data`` ranks of a stage.
 
+Expert parallelism (``ep``, a ``parallel/mesh.py::ExpertParallel``): a
+rank holds ``E / ep`` experts of each expert leaf (``parallel/sharding.py``,
+``expert``).  ZeRO-1 shards the dense leaves over the true data-parallel
+axis ``(data, expert)`` and the expert leaves over ``data`` alone, on their
+first dim that is neither the expert dim nor the tp dim (JAX's
+``zero1_leaf_spec`` skips the axes a spec already uses); the state lives on
+the ``(data, expert, model)`` mesh.  The norm adds the expert leaves' sums
+over ``expert`` (and tp), each expert counted once, never over ``data``.
+
 Context parallelism changes nothing here: the train step hands every
 context rank the same gradients (summed over ``(data, context)``), the
 specs and the norm stay over dp x tp, and the context ranks keep the same
@@ -117,42 +126,54 @@ def init_health_state() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def zero1_leaf_spec(shape, dp: int, tp_dim: Optional[int] = None) -> Optional[int]:
+def zero1_leaf_spec(shape, dp: int, tp_dim: Optional[int] = None,
+                    expert: bool = False) -> Optional[int]:
     """The dim a ZeRO-1 leaf of global ``shape`` is sharded on over ``dp``
-    ranks: the first that ``dp`` divides and tensor parallelism does not
-    shard (``tp_dim``), as JAX extends a param spec on its first unsharded
-    divisible dim; or ``None`` (replicated)."""
+    ranks: the first that ``dp`` divides and that neither tensor
+    parallelism (``tp_dim``) nor, for an expert leaf, the expert axis (dim
+    0) shards, as JAX extends a param spec on its first unsharded divisible
+    dim; or ``None`` (replicated)."""
     if dp <= 1:
         return None
     for i, d in enumerate(shape):
-        if i != tp_dim and int(d) % dp == 0:
+        if i != tp_dim and not (expert and i == 0) and int(d) % dp == 0:
             return i
     return None
 
 
-def global_shape(t: torch.Tensor, layout=None) -> tuple:
+def global_shape(t: torch.Tensor, layout=None, ep=None) -> tuple:
     """The global shape of a rank's local leaf ``t``: its tp dim is the
     layout's global size (JAX's, whatever replicated kv heads or padded
-    vocab rows the rank holds)."""
+    vocab rows the rank holds), and an expert leaf's dim 0 every expert."""
     shape = list(t.shape)
     if layout is not None and layout.dim is not None:
         shape[layout.dim] = layout.global_size
+    if layout is not None and layout.expert and ep is not None:
+        shape[0] *= ep.size
     return tuple(shape)
+
+
+def _is_expert(layout) -> bool:
+    return layout is not None and layout.expert
 
 
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
                     policy=None, health: bool = False,
-                    layouts: Optional[dict] = None) -> dict:
+                    layouts: Optional[dict] = None, ep=None) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
     counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
-    the tp dim of each local leaf in ``params``."""
+    the tp dim of each local leaf in ``params``; with ``ep`` an expert leaf
+    is sharded over the ``data`` axis alone (``ep.data.size`` ranks), the
+    others over ``dp`` ranks."""
     layouts = layouts or {}
 
     def spec(n, p):
         lay = layouts.get(n)
-        return zero1_leaf_spec(global_shape(p, lay), dp,
-                               None if lay is None else lay.dim)
+        expert = _is_expert(lay)
+        ranks = ep.data.size if expert and ep is not None else dp
+        return zero1_leaf_spec(global_shape(p, lay, ep), ranks,
+                               None if lay is None else lay.dim, expert)
 
     moments = {n: spec(n, p) if zero1 else None for n, p in params.items()}
     out: dict[str, Any] = {"step": None, "mu": moments, "nu": dict(moments)}
@@ -177,17 +198,35 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 def shard_of(t: torch.Tensor) -> Optional[tuple[int, int, int]]:
     """``(dim, start, length)`` of this rank's slice of a ZeRO-1 leaf on the
-    ``data`` axis; ``None`` for a leaf the data axis does not shard."""
+    data-parallel axis (``data``, with ``expert`` when it shards the same
+    dim too: the compound axis, data-major); ``None`` for a leaf the data
+    axis does not shard."""
     if not is_dtensor(t):
         return None
     mesh = t.device_mesh
-    axis = list(mesh.mesh_dim_names or ("data",)).index("data")
-    placement = t.placements[axis]
+    names = list(mesh.mesh_dim_names or ("data",))
+    placement = t.placements[names.index("data")]
     if not placement.is_shard():
         return None
     dim = placement.dim
+    index = 0
+    for axis, name in enumerate(names):
+        p = t.placements[axis]
+        if name in ("data", "expert") and p.is_shard() and p.dim == dim:
+            index = index * mesh.size(axis) + mesh.get_local_rank(axis)
     length = t.to_local().shape[dim]
-    return dim, mesh.get_local_rank(axis) * length, length
+    return dim, index * length, length
+
+
+def state_dims(mesh, layout, zdim: Optional[int]) -> tuple:
+    """The sharded tensor dim on each dim of a state mesh (None:
+    replicated): ``(data, model)``, or ``(data, expert, model)`` at ep > 1,
+    where a dense leaf's ZeRO-1 dim is split over data then expert and an
+    expert leaf's dim 0 over expert."""
+    tdim = None if layout is None else layout.dim
+    if mesh.ndim == 2:
+        return (zdim, tdim)
+    return (zdim, 0 if _is_expert(layout) else zdim, tdim)
 
 
 def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple, shape=None) -> torch.Tensor:
@@ -214,34 +253,41 @@ def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple, shape=None) -> torch.Te
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
-def _sharded(full: torch.Tensor, dim: Optional[int], dp, tp=None, tp_dim=None) -> torch.Tensor:
+def _sharded(full: torch.Tensor, dim: Optional[int], dp, tp=None, layout=None) -> torch.Tensor:
     """``full`` (the rank's local leaf) as state: whole, or this rank's
-    slice on the data axis held as a DTensor (on the 2-D mesh with ``tp``)."""
+    slice on the data axis ``dp`` held as a DTensor (on the state mesh with
+    ``tp``)."""
     if dim is None or dp is None:
         return full
     length = full.shape[dim] // dp.size
     part = full.narrow(dim, dp.rank * length, length).contiguous()
     if tp is None:
         return dtensor_on(part, dp.mesh, (dim,))
-    return dtensor_on(part, tp.state_mesh, (dim, tp_dim))
+    return dtensor_on(part, tp.state_mesh, state_dims(tp.state_mesh, layout, dim))
+
+
+def data_axis_of(layout, dp, ep):
+    """The data-parallel axis that shards a leaf's ZeRO-1 state: ``ep.data``
+    for an expert leaf, else ``dp``."""
+    return ep.data if _is_expert(layout) and ep is not None else dp
 
 
 def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = False,
                    specs: Optional[dict] = None, dp=None, tp=None,
-                   layouts: Optional[dict] = None) -> dict:
+                   layouts: Optional[dict] = None, ep=None) -> dict:
     """Step counter, moments in the optimizer dtype, fp32 master weights only
     when the params are stored in another dtype, and (``health``) the health
     counters.  With ``specs`` (``opt_state_specs``) and ``dp``
     (``parallel/mesh.py::DataParallel``) the sharded leaves hold this rank's
-    slice as DTensors, on the ``(data, model)`` mesh with ``tp`` and
-    ``layouts``."""
+    slice as DTensors, on the ``(data[, expert], model)`` mesh with ``tp``
+    and ``layouts`` (an expert leaf's over ``ep.data``)."""
     odt = policy.optimizer_dtype
     dims = (specs or {}).get("mu", {})
     layouts = layouts or {}
 
     def held(n, full):
         lay = layouts.get(n)
-        return _sharded(full, dims.get(n), dp, tp, None if lay is None else lay.dim)
+        return _sharded(full, dims.get(n), data_axis_of(lay, dp, ep), tp, lay)
 
     state: dict[str, Any] = {
         "step": 0,
@@ -276,7 +322,7 @@ def _sq_sum(t: torch.Tensor, layout, tp) -> torch.Tensor:
 
 
 def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=None,
-                     sharded=frozenset(), pp=None) -> dict:
+                     sharded=frozenset(), pp=None, ep=None) -> dict:
     """Per-group fp32 sums of squares (``group_fn(name) -> group``) of the
     global leaves whose local slices ``tensors`` holds.  With ``tp`` active
     the tp-sharded leaves' sums (``sharded``: their names, or a dict of
@@ -288,16 +334,34 @@ def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=No
     sums of the leaves a pipeline rank holds alone (the layers of its
     chunks, ``vp`` of them under the virtual pipeline) are then added over
     the pipe group, in one all-reduce of the groups in name order, and the
-    leaves replicated over the stages count once."""
+    leaves replicated over the stages count once.  With ``ep``
+    (``parallel/mesh.py::ExpertParallel``) of more than one rank, the
+    expert leaves' sums (their layouts' ``expert``) are first added over
+    the expert axis, in one all-reduce."""
     on = tp_active(tp)
     pipe = pp is not None and pp.size > 1
     layouts = sharded if isinstance(sharded, dict) else {}
+    experts = ep is not None and ep.size > 1
     parts: dict[tuple, list] = {}
+    owned: dict[tuple, torch.Tensor] = {}
     for n, t in tensors.items():
-        acc = parts.setdefault((group_fn(n), pipe and is_stage_leaf(n)), [None, None])
+        key = (group_fn(n), pipe and is_stage_leaf(n))
+        acc = parts.setdefault(key, [None, None])
         i = 0 if on and n in sharded else 1
         s = _sq_sum(t, layouts.get(n), tp) if i == 0 else torch.sum(torch.square(t.float()))
+        if experts and _is_expert(layouts.get(n)):
+            owned[key] = s if key not in owned else owned[key] + s
+            continue
         acc[i] = s if acc[i] is None else acc[i] + s
+    if owned:
+        import torch.distributed as dist
+
+        summed = torch.stack(list(owned.values()))
+        dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=ep.group)
+        for (key, _), v in zip(owned.items(), summed):
+            acc = parts[key]
+            i = 0 if on else 1
+            acc[i] = v if acc[i] is None else acc[i] + v
     if on:
         zero = torch.zeros((), dtype=torch.float32, device=next(iter(tensors.values())).device)
         summed = tp.all_reduce_(torch.stack([zero if a is None else a
@@ -318,12 +382,12 @@ def grouped_sq_norms(tensors: dict[str, torch.Tensor], group_fn: Callable, tp=No
     return out
 
 
-def global_norm(tensors, tp=None, sharded=frozenset(), pp=None) -> torch.Tensor:
+def global_norm(tensors, tp=None, sharded=frozenset(), pp=None, ep=None) -> torch.Tensor:
     """The fp32 L2 norm of ``tensors`` (a dict of local leaves or an iterable
     of tensors): the one group of ``grouped_sq_norms``."""
     if not isinstance(tensors, dict):
         tensors = dict(enumerate(tensors))
-    return torch.sqrt(grouped_sq_norms(tensors, lambda n: "all", tp, sharded, pp)["all"])
+    return torch.sqrt(grouped_sq_norms(tensors, lambda n: "all", tp, sharded, pp, ep)["all"])
 
 
 @torch.no_grad()
@@ -331,7 +395,7 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
                  opt_state: dict, lr, cfg: AdamWConfig, policy, *,
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
                  extra_finite=None, dp=None, tp=None, tp_sharded=frozenset(),
-                 pp=None) -> dict:
+                 pp=None, ep=None) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
     ``updates_finite`` (a bool tensor) and, with ``grad_group_fn``,
@@ -340,10 +404,13 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     param slices; with ``tp`` the norm takes the leaves named in
     ``tp_sharded`` (a set, or a dict of their layouts) as slices of their
     global leaf; with ``pp`` the norm adds the stages' layers (every stage
-    then takes the same skip decision and clip factor)."""
+    then takes the same skip decision and clip factor); with ``ep`` the
+    expert leaves' experts over the expert axis, and their ZeRO-1 slices
+    are gathered over ``ep.data``."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
-    group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp)
+    group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp,
+                                ep)
     total = None
     for v in group_sq.values():
         total = v if total is None else total + v
@@ -396,6 +463,7 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         if sh is None:
             p.copy_(new_master.to(p.dtype))
         else:
-            dp.all_gather_into(p, new_master.to(p.dtype), sh[0])
+            lay = tp_sharded.get(n) if isinstance(tp_sharded, dict) else None
+            data_axis_of(lay, dp, ep).all_gather_into(p, new_master.to(p.dtype), sh[0])
     opt_state["step"] = step
     return metrics

@@ -10,13 +10,20 @@ each, outermost first:
 ``world = dp * cp * tp * pp`` and ``dp = world / (tp * pp * cp)`` as in the
 reference, and ``ep`` must divide it.  ``model`` is innermost, so a tp group
 is consecutive ranks (on one host), and a context group strides over tp.
-The port runs data, context, tensor (with Megatron sequence parallelism)
-and pipeline parallelism (with the virtual pipeline); the trainer rejects
-ep above 1 with the ROADMAP item that ports it.
+The port runs data, expert, context, tensor (with Megatron sequence
+parallelism) and pipeline parallelism (with the virtual pipeline).
 
 :class:`DataParallel` is what the train step and the optimizer need of the
-``data`` axis: the rank, the size, its process group, the 1-D mesh of the
-axis, and the two collectives they run.  :class:`TensorParallel` is the
+true data-parallel axis, JAX's ``DATA_AXES``: ``data`` alone at ep 1, the
+compound ``(data, expert)`` at ep > 1 (rank ``data * ep + expert``, JAX's
+row order: data-major, then expert): the rank, the size, its process group,
+the 1-D mesh of the axis, and the two collectives they run.
+:class:`ExpertParallel` is the ``expert`` axis: the MoE weight gather
+(``ops/moe.py::gather_experts``), the ``data`` axis alone (the expert
+leaves' ZeRO-1 and, over ``(data[, context])``, their gradient sum: the
+gather's backward has already summed them over ``expert``), and the groups
+over which the tokens of a microbatch are split (the router statistics and
+the dropped path's keep mask).  :class:`TensorParallel` is the
 same of the ``model`` axis, plus the sequence-parallel switch and the 2-D
 ``(data, model)`` mesh that sharded state lives on as DTensors (ZeRO-1
 moments, and every leaf as a checkpoint writes it).  :class:`ContextParallel`
@@ -156,8 +163,14 @@ class DataParallel:
     mesh: Any  # the 1-D DeviceMesh of the data axis (ZeRO-1 DTensors)
 
     @classmethod
-    def from_mesh(cls, mesh) -> "DataParallel":
-        dm = mesh["data"]
+    def from_mesh(cls, mesh, *, data_only: bool = False) -> "DataParallel":
+        """The true data-parallel axis of ``mesh``: ``(data, expert)`` when
+        the expert axis has more than one rank, else ``data`` (``data_only``:
+        ``data`` whatever the expert axis)."""
+        if data_only or mesh_axis_size(mesh, "expert") == 1:
+            dm = mesh["data"]
+        else:
+            dm = _compound(mesh, ("data", "expert"), "dp")
         return cls(rank=dm.get_local_rank(), size=dm.size(), group=dm.get_group(), mesh=dm)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
@@ -175,6 +188,22 @@ class DataParallel:
         parts = [torch.empty_like(local) for _ in range(self.size)]
         dist.all_gather(parts, local.contiguous(), group=self.group)
         out.copy_(torch.cat(parts, dim=dim))
+
+
+def _compound(mesh, axes: tuple, name: str):
+    """The 1-D DeviceMesh of the adjacent ``axes`` of ``mesh`` flattened
+    into one, outer axis major (a DeviceMesh over the same ranks with those
+    dims merged; every rank builds it, as its process groups need)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = list(mesh.mesh_dim_names)
+    i = names.index(axes[0])
+    if names[i:i + len(axes)] != list(axes):
+        raise ValueError(f"mesh axes {axes} are not adjacent in {names}")
+    shape = list(mesh.mesh.shape)
+    merged = shape[:i] + [math.prod(shape[i:i + len(axes)])] + shape[i + len(axes):]
+    dims = tuple(names[:i] + [name] + names[i + len(axes):])
+    return DeviceMesh(mesh.device_type, mesh.mesh.reshape(merged), mesh_dim_names=dims)[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,8 +239,11 @@ class TensorParallel:
                                                  kv_replicas),
                                mesh_dim_names=names[:-1] + ("kv", "replica"))
             kv_group, kv_mesh = split["replica"].get_group(), split["data", "kv", "replica"]
+        # at ep > 1 the state's data-parallel dims are (data, expert)
+        state = (mesh["data", "expert", "model"] if mesh_axis_size(mesh, "expert") > 1
+                 else mesh["data", "model"])
         return cls(rank=mm.get_local_rank(), size=mm.size(), group=mm.get_group(), mesh=mm,
-                   state_mesh=mesh["data", "model"],
+                   state_mesh=state,
                    sequence_parallel=bool(sequence_parallel and mm.size() > 1),
                    kv_replicas=kv_replicas, kv_group=kv_group, kv_mesh=kv_mesh)
 
@@ -260,7 +292,7 @@ class ContextParallel:
     group: Any  # the context axis's ProcessGroup
     prev: int  # the world rank ring chunks arrive from (context rank - 1)
     next: int  # the world rank ring chunks go to (context rank + 1)
-    reduce_group: Any  # the (data, context) group: gradient and loss sums
+    reduce_group: Any  # the (data, expert, context) group: gradient and loss sums
 
     @classmethod
     def from_mesh(cls, mesh) -> "ContextParallel":
@@ -268,10 +300,11 @@ class ContextParallel:
         ranks = [int(r) for r in cm.mesh.reshape(-1).tolist()]
         r, n = cm.get_local_rank(), cm.size()
         return cls(rank=r, size=n, group=cm.get_group(), prev=ranks[(r - 1) % n],
-                   next=ranks[(r + 1) % n], reduce_group=axes_group(mesh, ("data", "context")))
+                   next=ranks[(r + 1) % n],
+                   reduce_group=axes_group(mesh, ("data", "expert", "context")))
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """SUM over the ``(data, context)`` group, in place."""
+        """SUM over the ``(data, expert, context)`` group, in place."""
         import torch.distributed as dist
 
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.reduce_group)
@@ -369,3 +402,72 @@ class PipelineParallel:
 
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """This process's place on the ``expert`` axis, and the groups the MoE
+    layers and the train step need of it:
+
+    - ``rank`` / ``size`` / ``group``: the expert axis (the weight gather);
+    - ``data``: the ``data`` axis alone (a :class:`DataParallel`), the
+      expert leaves' ZeRO-1 axis;
+    - ``grad_group``: ``(data, context)``, over which the expert leaves'
+      gradients are summed (the gather's backward sums them over
+      ``expert``);
+    - ``token_rank`` / ``token_size`` / ``token_group``: the true
+      data-parallel axis ``(data, expert)``, whose ranks hold a
+      microbatch's rows in JAX's order (the dropped path's keep mask);
+    - ``stats_group``: ``(data, expert, context)``, over which a
+      microbatch's tokens are split (the router loss's statistics and the
+      logged losses).
+
+    At ep 1 the expert axis has one rank and the gather is the identity;
+    the other groups are still the data (and context) ones."""
+
+    rank: int
+    size: int
+    group: Any
+    data: DataParallel
+    grad_group: Any
+    token_rank: int
+    token_size: int
+    token_group: Any
+    stats_group: Any
+
+    @classmethod
+    def from_mesh(cls, mesh, *, context: bool = False) -> "ExpertParallel":
+        em = mesh["expert"]
+        tokens = DataParallel.from_mesh(mesh)
+        stats = axes_group(mesh, ("data", "expert", "context")) if context else tokens.group
+        grad = axes_group(mesh, ("data", "context")) if context else mesh["data"].get_group()
+        return cls(rank=em.get_local_rank(), size=em.size(), group=em.get_group(),
+                   data=DataParallel.from_mesh(mesh, data_only=True), grad_group=grad,
+                   token_rank=tokens.rank, token_size=tokens.size, token_group=tokens.group,
+                   stats_group=stats)
+
+    def grad_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM of an expert leaf's gradient over ``(data[, context])``, in
+        place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.grad_group)
+        return t
+
+    def sum_stats_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the ranks that split a microbatch's tokens, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.stats_group)
+        return t
+
+    def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """``[n, ...]`` -> ``[token_size n, ...]``: every data rank's, in
+        JAX's row order."""
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = torch.empty((self.token_size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t, group=self.token_group)
+        return out

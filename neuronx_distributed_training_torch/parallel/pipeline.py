@@ -77,6 +77,15 @@ head's on the last rank; with tied embeddings both land on
 ``pipe`` (:func:`sum_over_pipe`), so every rank holds the whole loss and
 whole gradients of what it holds.  :func:`forward_rows` runs the forwards
 alone for the reference pass of DPO and KTO.
+
+A MoE model's stage returns ``(x, aux)`` (``models/mixtral.py``: the sum of
+its layers' router-loss shares; JAX's ``stage_aux``).  With ``aux_scale``
+set, each stage forward's ``aux`` is kept with its graph, its backward
+asks autograd for ``aux_scale`` times its gradient beside the output's,
+and the rank's loss adds ``aux_scale`` times the sum of its ``aux`` over
+the microbatches (the trainer's scale is ``1 / (nm num_moe_layers)``), so
+the loss summed over ``pipe`` is JAX's ``loss_sum / denominator + aux_scale
+aux_sum`` and the gradients are its gradients.
 """
 
 from __future__ import annotations
@@ -706,6 +715,9 @@ class Stage:
     chunks: list
     act_shape: Callable
     act_dtype: torch.dtype
+    #: the layers return ``(x, aux)``, whose sum enters the loss times this
+    #: (None: they return ``x``)
+    aux_scale: Optional[float] = None
 
     @property
     def vp(self) -> int:
@@ -771,6 +783,7 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
     chunk_leaves = [list(stage.chunk_leaves(c).items()) for c in range(stage.vp)]
     grads: dict = {}
     loss_acc = None
+    aux_acc = None  # the rank's sum of its stages' aux (stage_aux)
     outputs: list = [None] * nm
     inbox: dict = {}
     inflight: dict = {}  # (c, m) -> (stage input, output) with their graph
@@ -799,7 +812,7 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
             grads[n] = g.to(grad_dtype)  # a new tensor of autograd's
 
     def forward(c, m, graph: bool, count_loss: bool = True):
-        nonlocal loss_acc
+        nonlocal loss_acc, aux_acc
         mb = microbatches[m]
         x = None if is_first(c) else (saved[(c, m)] if (c, m) in saved
                                       else inbox.pop(("f", c, m)))
@@ -812,13 +825,21 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
                 x_in = h = x.detach().requires_grad_(graph)
             with watch:  # the layers' weights alone: the head's gradient stays in B
                 y = stage.layers[c](h, mb)
+            aux = None
+            if stage.aux_scale is not None:
+                y, aux = y
+                if count_loss and denominator is not None:
+                    a = aux.detach().float()
+                    aux_acc = a if aux_acc is None else aux_acc + a
+                if not stage.aux_scale or not aux.requires_grad:
+                    aux = None  # nothing of it reaches the loss's gradient
             if is_last(c) and denominator is None:
                 outputs[m] = y = stage.loss(y, mb)[0]
             elif is_last(c):
                 y = stage.loss(y, mb)[0].float() / denominator
                 if count_loss:
                     loss_acc = y.detach() if loss_acc is None else loss_acc + y.detach()
-        return x, x_in, y
+        return x, x_in, (y, aux)
 
     def backward(c, m, x_in, out, dy):
         pairs = chunk_leaves[c]
@@ -826,8 +847,13 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
             pairs = [(n, t) for n, t in pairs if id(t) not in split.leaves]
             split.sink = deferred.setdefault(m, [])
         inputs = [t for _, t in pairs] + ([] if x_in is None else [x_in])
+        y, aux = out
+        outs, dys = [y], [dy]
+        if aux is not None:  # the stage's router loss, times its scale
+            outs.append(aux)
+            dys.append(torch.full_like(aux, stage.aux_scale))
         with clock():
-            got = torch.autograd.grad(out, inputs, grad_outputs=dy, allow_unused=True)
+            got = torch.autograd.grad(outs, inputs, grad_outputs=dys, allow_unused=True)
             for (n, _), g in zip(pairs, got):
                 if g is not None:
                     accumulate(n, g)
@@ -856,7 +882,7 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
                 elif schedule == "wavefront" and x is not None:
                     saved[(c, m)] = x
                     stats["inputs_max"] = max(stats["inputs_max"], len(saved))
-                out_of["f"] = out.detach()
+                out_of["f"] = out[0].detach()
                 del out
             elif kind == "b":
                 dy = None if is_last(c) else inbox.pop(("b", c, m))
@@ -878,6 +904,9 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
             inbox[key] = t
     if denominator is None:
         return (outputs if stage.last else None), grads
+    if aux_acc is not None:  # this rank's layers' router losses join its loss
+        aux_acc = stage.aux_scale * aux_acc
+        loss_acc = aux_acc if loss_acc is None else loss_acc + aux_acc
     return loss_acc, grads
 
 
@@ -892,13 +921,13 @@ def forward_body(stage: Stage, microbatches: list, denominator=None):
 
 
 def bind_stage(params, hooks, rank: int, size: int, leaves: dict, act_dtype,
-               vp: int = 1) -> Stage:
+               vp: int = 1, aux_scale: Optional[float] = None) -> Stage:
     """Pipeline rank ``rank``'s :class:`Stage` over ``params`` (a stage's
     tree, or in one process the whole model's): ``hooks`` are
-    ``models/llama.py::pipeline_hooks``, ``leaves`` the trainable leaves by
-    dotted name, of which the stage takes its chunks' layers' and the
-    replicated ones.  Chunk ``c``'s microbatches carry ``_chunk: c``, as
-    JAX's do."""
+    ``models/llama.py::pipeline_hooks`` (``models/mixtral.py``'s with
+    ``aux_scale``), ``leaves`` the trainable leaves by dotted name, of which
+    the stage takes its chunks' layers' and the replicated ones.  Chunk
+    ``c``'s microbatches carry ``_chunk: c``, as JAX's do."""
     embed_fn, stage_fn, loss_fn, act_shape = hooks
     chunks = stage_chunks(len(params["layers"]), rank, size, vp)
     mine = {i for chunk in chunks for i in chunk}
@@ -913,23 +942,28 @@ def bind_stage(params, hooks, rank: int, size: int, leaves: dict, act_dtype,
                  loss=lambda y, mb: loss_fn(params, y, mb),
                  leaves={n: t for n, t in leaves.items()
                          if not is_stage_leaf(n) or int(n.split(".")[1]) in mine},
-                 chunks=chunks, act_shape=act_shape, act_dtype=act_dtype)
+                 chunks=chunks, act_shape=act_shape, act_dtype=act_dtype, aux_scale=aux_scale)
 
 
 def loopback_step(params, hooks, microbatches: list, denominator, schedule: str, pp: int, *,
                   leaves: dict, act_dtype, grad_dtype=torch.float32, vp: int = 1,
-                  stats: Optional[list] = None, timers: Optional[list] = None) -> tuple:
+                  stats: Optional[list] = None, timers: Optional[list] = None,
+                  aux_scale: Optional[float] = None) -> tuple:
     """One step of every virtual pipeline rank in this process, on the one
     ``params`` tree they share: ``(loss, {name: gradient})``, each leaf's
     gradient summed over the ranks that computed one (:func:`fold_stage_grads`).
     ``stats`` and ``timers`` (lists of ``pp``) take each rank's
-    :func:`stage_body` stats and timer."""
-    bodies = [stage_body(bind_stage(params, hooks, r, pp, leaves, act_dtype, vp), microbatches,
+    :func:`stage_body` stats and timer; with ``aux_scale`` the loss is the
+    ranks' losses summed (each adds its router losses)."""
+    bodies = [stage_body(bind_stage(params, hooks, r, pp, leaves, act_dtype, vp, aux_scale),
+                         microbatches,
                          denominator, schedule, grad_dtype=grad_dtype,
                          stats=None if stats is None else stats[r],
                          timer=None if timers is None else timers[r]) for r in range(pp)]
     outs = loopback(bodies)
-    return outs[-1][0], fold_stage_grads([g for _, g in outs])
+    losses = [loss for loss, _ in outs if loss is not None]
+    loss = losses[-1] if aux_scale is None else functools.reduce(lambda a, b: a + b, losses)
+    return loss, fold_stage_grads([g for _, g in outs])
 
 
 def drive(body, pipe) -> Any:
@@ -994,8 +1028,8 @@ def loopback(bodies: list) -> list:
     return out
 
 
-def forward_rows(params, hooks, pipe, microbatches: list, *, act_dtype, vp: int = 1
-                 ) -> torch.Tensor:
+def forward_rows(params, hooks, pipe, microbatches: list, *, act_dtype, vp: int = 1,
+                 aux_scale: Optional[float] = None) -> torch.Tensor:
     """The pipelined forward of ``microbatches`` over the pipe group
     ``pipe``, with no graph, whose last stage applies ``hooks``'s loss
     hook, there a fp32 value per row: the values of every microbatch's rows
@@ -1003,7 +1037,7 @@ def forward_rows(params, hooks, pipe, microbatches: list, *, act_dtype, vp: int 
     zeros elsewhere).  The reference pass of DPO and KTO under pipeline
     parallelism takes its log-probs this way."""
     with torch.no_grad():
-        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp)
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp, aux_scale)
         outs = drive(forward_body(stage, microbatches), pipe)
         rows = [next(iter(mb.values())).shape[0] for mb in microbatches]
         dev = next(iter(microbatches[0].values())).device
@@ -1050,7 +1084,8 @@ def sum_over_pipe(loss, grads: dict, shared: dict, pipe, dev) -> tuple:
 
 def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
                 denominator_of: Callable, act_dtype, grad_dtype=torch.float32,
-                summed: Optional[Callable] = None, vp: int = 1) -> tuple:
+                summed: Optional[Callable] = None, vp: int = 1,
+                aux_scale: Optional[float] = None) -> tuple:
     """``(loss_and_grad, eval_step)`` of a trainer at pp > 1 over the pipe
     group ``pipe``: ``loss_and_grad(params, batch, leaves) -> (loss, {},
     grads)`` for ``trainer/step.py::make_train_step`` (every one of
@@ -1058,10 +1093,12 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
     ``pipe``), and ``eval_step(params, batch)``, the forward schedule's loss
     summed over ``pipe`` and, with ``summed``, the data axis.
     ``microbatches_of(batch)`` gives the rank's microbatches (its data rows),
-    ``denominator_of(batch)`` the whole global batch's valid-token count."""
+    ``denominator_of(batch)`` the whole global batch's valid-token count.
+    ``aux_scale``: the stages return ``(x, aux)`` (see :class:`Stage`)."""
 
     def loss_and_grad(params, batch, leaves: dict):
-        stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype, vp)
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype, vp,
+                           aux_scale)
         loss, grads = drive(stage_body(stage, microbatches_of(batch), denominator_of(batch),
                                        schedule, grad_dtype=grad_dtype), pipe)
         shared = {n: t for n, t in leaves.items() if not is_stage_leaf(n)}
@@ -1074,7 +1111,7 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
 
     @torch.no_grad()
     def eval_step(params, batch):
-        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp)
+        stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp, aux_scale)
         loss = drive(forward_body(stage, microbatches_of(batch), denominator_of(batch)), pipe)
         dev = next(iter(batch.values())).device
         loss = pipe.all_reduce_(torch.zeros(1, dtype=torch.float32, device=dev)

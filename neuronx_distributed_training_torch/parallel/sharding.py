@@ -46,6 +46,15 @@ JAX package:
   (``models/llama.py::logits_fn``, ``ops/cross_entropy.py``), so their
   gradients are zero and AdamW keeps them zero; conversion and checkpoints
   see the real rows alone, so the saved shape is ``[V, h]`` at any tp.
+
+MoE (``models/mixtral.py``): the expert stacks take JAX's ``P("expert",
+None, "model")`` / ``P("expert", "model", None)`` (``ops/moe.py::
+moe_param_specs``): ``expert`` set, a rank holds ``E / ep`` consecutive
+experts (dim 0, :func:`shard_expert`), and of each its tp slice of the
+ffn, ``gate_up``'s ``[gate_r | up_r]`` as the dense ``gate_up``'s.  The
+router ``[h, E]`` is replicated, and ``partial`` under tp: the ranks of a
+tp group route the same gathered tokens, and each one's gradient of the
+combine weights is its ffn slice's part of the sum.
 """
 
 from __future__ import annotations
@@ -101,6 +110,7 @@ class LeafLayout:
     dim: Optional[int] = None
     parts: tuple = ()  # the Parts along dim, in order
     partial: bool = False
+    expert: bool = False  # dim 0 holds E / ep experts a rank (expert parallelism)
 
     @property
     def sharded(self) -> bool:
@@ -153,6 +163,12 @@ def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayou
     parts = name.split(".")
     leaf, module = parts[-1], parts[-2] if len(parts) > 1 else ""
     vocab = (Part("", cfg.vocab_size, padded=True),)
+    if module == "experts" and leaf == "gate_up":
+        return LeafLayout(dim=2, parts=fused_segments(cfg, "gate_up"), expert=True)
+    if module == "experts" and leaf == "down":
+        return LeafLayout(dim=1, parts=(Part("", cfg.intermediate_size),), expert=True)
+    if module == "router":
+        return LeafLayout(partial=True)
     if name == "embed.embedding":
         return LeafLayout(dim=0, parts=vocab)
     if name == "lm_head.w":
@@ -250,6 +266,22 @@ def shard_leaf(full, layout: LeafLayout, rank: int, size: int):
         out.append(piece)
         offset += p.size
     return _cat(out, dim)
+
+
+def shard_expert(full, layout: LeafLayout, rank: int, size: int):
+    """Rank ``rank``'s ``E / size`` experts of an expert leaf (dim 0; a
+    view), or ``full`` itself for another leaf or at ``size`` 1."""
+    if size == 1 or not layout.expert:
+        return full
+    n = full.shape[0] // size
+    return _narrow(full, 0, rank * n, n)
+
+
+def local_leaf(full, layout: LeafLayout, tp_rank: int = 0, tp_size: int = 1,
+               ep_rank: int = 0, ep_size: int = 1):
+    """A rank's local tensor of the global leaf ``full``: its experts, then
+    its tp slice."""
+    return shard_leaf(shard_expert(full, layout, ep_rank, ep_size), layout, tp_rank, tp_size)
 
 
 def merge_leaf(parts: list, layout: LeafLayout) -> Any:

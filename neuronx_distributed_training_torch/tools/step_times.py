@@ -17,7 +17,10 @@ model.fusions.ring_attention=true`` (phase 10b), and ``--config`` swaps the
 cell's model config for another one (phase 10b's 70B CP config), the cell's
 other settings kept.  Pipeline parallelism is ``--set
 distributed_strategy.pipeline_model_parallel_size=2 --set
-distributed_strategy.pipeline.schedule=1f1b`` (phase 12c).  Every rank prints one line, rank 0's with
+distributed_strategy.pipeline.schedule=1f1b`` (phase 12c), and expert
+parallelism ``--config examples/conf/hf_mixtral_8x7b_config.yaml --set
+model.num_layers=2 --set distributed_strategy.expert_model_parallel_size=2``
+(phase 14d).  Every rank prints one line, rank 0's with
 ``"rank": 0``.  A line holds the step seconds, losses and grad norms, the
 flash kernels' launch and fallback counts of the run on that rank, and the
 rank's peak device memory (``torch.cuda.max_memory_allocated``).
@@ -116,6 +119,7 @@ def main(argv=None) -> None:
                       "sp": bool(trainer.tp and trainer.tp.sequence_parallel),
                       "cp": 1 if trainer.cp is None else trainer.cp.size,
                       "pp": 1 if trainer.pp is None else trainer.pp.size,
+                      "ep": 1 if trainer.ep is None else trainer.ep.size,
                       "step_seconds": [r["step_seconds"] for r in history],
                       "loss": [r["loss"] for r in history],
                       "grad_norm": [r["grad_norm"] for r in history],

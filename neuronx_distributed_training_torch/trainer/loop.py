@@ -93,8 +93,24 @@ counters are checkpointed with the optimizer state.
 ``param_norm`` / ``gradient_norm`` as JAX does, and ``data.io_retries`` /
 ``io_retry_backoff_seconds`` are set on the data module.
 
-Knobs this slice does not implement (expert parallelism, MoE, GPT) are
-rejected with the ROADMAP item that ports them;
+Mixtral (``model.architecture: mixtral``, ``models/mixtral.py``) trains
+under every mesh above and expert parallelism (``parallel/mesh.py::
+ExpertParallel``): at ``expert_model_parallel_size`` above 1 the true
+data-parallel axis is ``(data, expert)``, a rank holds ``E / ep`` experts
+(drawn whole and cut), the dense leaves' gradients and ZeRO-1 span
+``(data, expert)`` and the expert leaves' span ``data`` (``trainer/
+step.py``, ``optim/adamw.py``); ``router_aux_loss`` and ``lm_loss`` are
+logged beside the loss, and MFU counts the activated experts alone
+(``utils/perf.py``).  Under pp the stages return their router losses
+(``parallel/pipeline.py``, JAX's ``stage_aux``), scaled by ``1 /
+(num_microbatches num_moe_layers)``, and not under a preference strategy,
+whose unpipelined losses add ``0.5 (reg_chosen + reg_rejected)`` (KTO: the
+policy forward's) as JAX's do.  A ``model.moe`` block on a Llama or Mistral
+architecture is logged as ignored and the model trains dense, as in JAX.
+
+Knobs this slice does not implement (GPT, LoRA on Mixtral, the dropped MoE
+path under context parallelism) are rejected with the ROADMAP item that
+ports them;
 config blocks it does not act on are logged once as ignored (the other
 telemetry planes and the health recorder's knobs, elastic replan, EMA,
 autotune, overlap, and the Pallas tiles ``fusions.flash_block_q`` /
@@ -132,7 +148,7 @@ from neuronx_distributed_training_torch.data.loader import (
     PrefetchIterator,
     context_parallel_batch,
 )
-from neuronx_distributed_training_torch.models import llama
+from neuronx_distributed_training_torch.models import llama, mixtral
 from neuronx_distributed_training_torch.ops import norm as norm_ops
 from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
@@ -144,6 +160,7 @@ from neuronx_distributed_training_torch.parallel import pipeline, sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
     ContextParallel,
     DataParallel,
+    ExpertParallel,
     MeshConfig,
     PipelineParallel,
     TensorParallel,
@@ -194,11 +211,12 @@ def check_supported(cfg: ConfigDict) -> None:
     such knobs gets them all in one message.  Pipeline parallelism runs
     every schedule the JAX package's gate picks (``1f1b``,
     ``1f1b-interleaved`` at vp > 1, ``1f1b-zb``, the wavefront at any vp),
-    with the chunked head, cp and preference alignment; expert parallelism,
-    MoE and GPT are not ported.  Zig-zag under pp or with preference
-    alignment is refused with the JAX trainer's texts, and a schedule forced
-    on a combination it does not support raises the JAX package's
-    ``resolve_schedule`` text."""
+    with the chunked head, cp and preference alignment; Mixtral and expert
+    parallelism are ported, GPT is not.  Zig-zag under pp, with preference
+    alignment or on Mixtral is refused with the JAX trainer's texts, a pp
+    split of ``moe_frequency > 1`` groups that cuts a group too, and a
+    schedule forced on a combination it does not support raises the JAX
+    package's ``resolve_schedule`` text."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
@@ -215,22 +233,68 @@ def check_supported(cfg: ConfigDict) -> None:
         if strategy in PREFERENCE:
             raise NotImplementedError("zigzag_ring_attention with preference alignment; use "
                                       "fusions.ring_attention")
-    if int(ds.get("expert_model_parallel_size", 1) or 1) > 1:
-        reasons.append(("expert parallelism (ep > 1)", "10", "13"))
-    arch = str(model.get("architecture", model.get("model_type", "llama"))).lower()
-    if model.get("moe") or arch == "mixtral":
-        reasons.append(("MoE (mixtral)", "10", "13"))
+    arch = _architecture(cfg)
     if str(cfg.get("model_source", "hf")).lower() == "megatron" or arch == "gpt":
         reasons.append(("megatron GPT models", "11", "14"))
     elif arch not in ("llama", "mistral", "mixtral"):
         raise ValueError(f"unknown architecture {arch!r}")
+    if arch == "mixtral" and not reasons:
+        _check_moe(cfg, ds, model, reasons)
     if reasons:
         raise _unsupported(reasons)
     if pp > 1:
         # a forced schedule the gate blocks: the JAX package's text
         schedule = str(dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")).lower()
-        pipeline.resolve_schedule(schedule, llama.LlamaConfig.from_config(model, ds),
-                                  _pipeline_facts(cfg, ds, model))
+        pipeline.resolve_schedule(schedule, model_config(cfg), _pipeline_facts(cfg, ds, model))
+
+
+def _architecture(cfg: ConfigDict) -> str:
+    model = dict(cfg.get("model", {}) or {})
+    return str(model.get("architecture", model.get("model_type", "llama"))).lower()
+
+
+def model_config(cfg: ConfigDict):
+    """The model's config: ``models/mixtral.py::MixtralConfig`` for the
+    ``mixtral`` architecture, else ``models/llama.py::LlamaConfig`` (a
+    ``model.moe`` block on Llama or Mistral is ignored, as in JAX)."""
+    model = dict(cfg.get("model", {}) or {})
+    ds = dict(cfg.get("distributed_strategy", {}) or {})
+    if _architecture(cfg) == "mixtral":
+        return mixtral.MixtralConfig.from_config(model, ds)
+    return llama.LlamaConfig.from_config(model, ds)
+
+
+def _check_moe(cfg: ConfigDict, ds: dict, model: dict, reasons: list) -> None:
+    """Mixtral's rules: the JAX trainer's (zig-zag is Llama-only; a pipeline
+    slices whole MoE + dense groups), the expert axis's (it divides the
+    experts), and the port's refusals, added to ``reasons``."""
+    xc = mixtral.MixtralConfig.from_config(model, ds)
+    if xc.llama.attention_impl == "zigzag_ring":
+        raise NotImplementedError("zigzag_ring_attention is llama/mistral-only; use "
+                                  "fusions.ring_attention for mixtral")
+    mixtral.num_moe_layers(xc)
+    ep = int(ds.get("expert_model_parallel_size", 1) or 1)
+    if xc.moe.num_experts % ep:
+        raise ValueError(f"moe.num_experts {xc.moe.num_experts} not divisible by "
+                         f"expert_model_parallel_size {ep}")
+    tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
+    if ep > 1 and tp > xc.llama.kv_heads:
+        raise NotImplementedError(f"expert parallelism with tensor_model_parallel_size {tp} "
+                                  f"above the {xc.llama.kv_heads} kv heads (each kv head "
+                                  f"replicated) is not ported yet (ROADMAP queue 1 entry 10 "
+                                  f"[item 13])")
+    pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
+    vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
+    if pp > 1 and xc.moe_frequency != 1:
+        groups = mixtral.num_moe_layers(xc)
+        if groups % (pp * vp) != 0:
+            raise ValueError(f"num_layers {xc.num_layers} / moe frequency {xc.moe_frequency} "
+                             f"= {groups} groups, not divisible by pp*vp = {pp}*{vp}")
+    if dict(model.get("lora", {}) or {}):
+        reasons.append(("LoRA on a Mixtral model", "10", "13"))
+    if not xc.moe.dropless and int(ds.get("context_parallel_size", 1) or 1) > 1:
+        reasons.append(("the dropped (capacity-factor) MoE path under context parallelism",
+                        "10", "13"))
 
 
 def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
@@ -284,14 +348,17 @@ def _log_ignored(cfg: ConfigDict) -> None:
     # the Pallas kernels' tiles: the Hopper kernels' tiles are fixed
     fusions = dict(dict(cfg.get("model", {}) or {}).get("fusions", {}) or {})
     ignored += [f"model.fusions.{k}" for k in ("flash_block_q", "flash_block_kv") if k in fusions]
+    if dict(cfg.get("model", {}) or {}).get("moe") and _architecture(cfg) != "mixtral":
+        ignored.append("model.moe")  # JAX builds a Llama or Mistral dense
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
         logger.info("ignored by this slice of the port (dense Llama under data and tensor "
                     "parallelism, with replicated kv heads and padded vocab slices, context "
                     "parallelism, and pipeline parallelism with every schedule and the virtual "
-                    "pipeline; the chunked head; SFT, LoRA, DPO / ORPO / KTO; no telemetry "
-                    "planes but the health policy yet): %s", ", ".join(fresh))
+                    "pipeline; the chunked head; SFT, LoRA, DPO / ORPO / KTO; Mixtral under "
+                    "expert parallelism; no telemetry planes but the health policy yet): %s",
+                    ", ".join(fresh))
 
 
 def _health_config(cfg: ConfigDict) -> HealthConfig:
@@ -346,7 +413,9 @@ def _beta(strategy: str, params: dict, model_block: dict) -> float:
 
 def _head_fn(mc, policy, tp):
     """``(params, y) -> logits``: the final norm and the head, the
-    preference hooks' ``head_fn``."""
+    preference hooks' ``head_fn`` (a Mixtral's are its Llama's)."""
+    mc = getattr(mc, "llama", mc)
+
     def head(params, y):
         h = norm_ops.apply_rms_norm(params["final_norm"], y, eps=mc.rms_norm_eps)
         return llama.logits_fn(params, h, mc, policy, tp)
@@ -354,13 +423,20 @@ def _head_fn(mc, policy, tp):
     return head
 
 
+def _base_pipeline_hooks(mc, policy, *, shift_labels=True, tp=None, cp=None, ep=None):
+    """The model's pipeline hooks: ``models/mixtral.py::pipeline_hooks``
+    (its stage returns ``(x, aux)``) or ``models/llama.py``'s."""
+    if isinstance(mc, mixtral.MixtralConfig):
+        return mixtral.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp, ep=ep)
+    return llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp)
+
+
 def _pipeline_hooks(strategy, params: dict, model_block: dict, mc, policy, *, shift_labels,
-                    tp, dp, cp):
-    """The hooks the pipeline runs: the model's (``models/llama.py::
-    pipeline_hooks``), wrapped for DPO / ORPO (the concatenated forward) or
-    KTO as the JAX trainer wraps them (``alignment/dpo.py``,
-    ``alignment/kto.py``)."""
-    hooks = llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp)
+                    tp, dp, cp, ep=None):
+    """The hooks the pipeline runs: the model's (:func:`_base_pipeline_hooks`),
+    wrapped for DPO / ORPO (the concatenated forward) or KTO as the JAX
+    trainer wraps them (``alignment/dpo.py``, ``alignment/kto.py``)."""
+    hooks = _base_pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp, ep=ep)
     if strategy == "kto":
         return kto_mod.kto_pipeline_hooks(
             hooks, _head_fn(mc, policy, tp), beta=_beta(strategy, params, model_block),
@@ -400,7 +476,7 @@ def _pipeline_microbatches(strategy, nm: int, dp, cp, shift_labels: bool) -> Cal
 
 
 def _preference_objective(strategy: str, params: dict, model_block: dict, mc, policy, *,
-                          tp, dp, cp, micro_batch_size: int, pp=None, vp: int = 1):
+                          tp, dp, cp, micro_batch_size: int, pp=None, vp: int = 1, ep=None):
     """``(loss_fn, ReferencePass or None)`` of a dpo / orpo / kto config.
     ``beta`` is :func:`_beta`; KTO also reads the block's class weights and
     ``kl_estimator``.  Under ``cp`` the loss function takes the context
@@ -410,10 +486,14 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
 
     def forward_logits(p, input_ids, positions=None):
         # input_ids alone, as the JAX package's preference forward: no
-        # key-padding mask, so the kernels take the pretraining route
+        # key-padding mask, so the kernels take the pretraining route; a
+        # Mixtral's also gives its router-loss share (JAX's reg)
         batch = {"input_ids": input_ids}
         if positions is not None:
             batch["positions"] = positions
+        if isinstance(mc, mixtral.MixtralConfig):
+            logits, aux = mixtral.forward(p, batch, mc, policy, tp=tp, cp=cp, ep=ep)
+            return logits, aux["router_aux_share"]
         return llama.forward(p, batch, mc, policy, tp=tp, cp=cp)[0]
 
     beta = _beta(strategy, params, model_block)
@@ -437,14 +517,14 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
             return dpo_mod.reference_columns(p, batch, forward_logits, sides(batch), tp=tp,
                                              cp=cp, micro_batch_size=micro_batch_size)
         return _pipelined_columns(p, batch, sides(batch), mc, policy, tp=tp, cp=cp, pp=pp,
-                                  vp=vp, micro_batch_size=micro_batch_size)
+                                  vp=vp, micro_batch_size=micro_batch_size, ep=ep)
 
     return _context_split(loss_fn, cp), ReferencePass(
         marker=marker, sidecar=sidecar, names=lambda keys: sorted(sides(keys)), columns=columns)
 
 
 def _pipelined_columns(p, batch: dict, sides: dict, mc, policy, *, tp, cp, pp, vp: int,
-                       micro_batch_size: int) -> dict:
+                       micro_batch_size: int, ep=None) -> dict:
     """``alignment/dpo.py::reference_columns`` under pipeline parallelism:
     each side's rows in pieces of ``micro_batch_size`` through the pipelined
     forward (the preference forward's: ids alone), whose last stage takes
@@ -453,7 +533,7 @@ def _pipelined_columns(p, batch: dict, sides: dict, mc, policy, *, tp, cp, pp, v
     n = len(batch[first])
     if n == 0:
         return {col: np.zeros((0,), np.float32) for col in sides}
-    base = llama.pipeline_hooks(mc, policy, tp=tp, cp=cp)
+    base = _base_pipeline_hooks(mc, policy, tp=tp, cp=cp, ep=ep)
     head = _head_fn(mc, policy, tp)
 
     def logps(params, y, mb):
@@ -471,8 +551,22 @@ def _pipelined_columns(p, batch: dict, sides: dict, mc, policy, *, tp, cp, pp, v
                 mb = context_parallel_batch(mb, cp.rank, cp.size, sides=("",))
             pieces.append(mb)
         out[col] = pipeline.forward_rows(p, hooks, pp, pieces, act_dtype=policy.compute_dtype,
-                                         vp=vp).cpu().numpy().astype(np.float32)
+                                         vp=vp, aux_scale=_aux_scale(mc, 1, strategy="dpo")
+                                         ).cpu().numpy().astype(np.float32)
     return out
+
+
+def _aux_scale(mc, nm: int, strategy) -> Optional[float]:
+    """The scale of the stages' summed router losses under pp: ``1 / (nm
+    num_moe_layers)``, 0 under a preference strategy (JAX's
+    ``aux_inv_layers = 0``: the preference forward computes no LM loss; the
+    reference pass too); None for a dense model, whose stages return no
+    loss."""
+    if not isinstance(mc, mixtral.MixtralConfig):
+        return None
+    if strategy in PREFERENCE:
+        return 0.0
+    return 1.0 / (nm * mixtral.num_moe_layers(mc))
 
 
 def _context_split(loss_fn, cp):
@@ -527,7 +621,7 @@ _STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
 class Trainer:
     cfg: ConfigDict
     device: torch.device
-    model_cfg: llama.LlamaConfig
+    model_cfg: Any  # models/llama.py::LlamaConfig or models/mixtral.py::MixtralConfig
     policy: DtypePolicy
     params: Any
     opt_state: dict
@@ -552,6 +646,8 @@ class Trainer:
     cp: Optional[ContextParallel] = None
     #: the pipe axis (None unless pipeline_model_parallel_size > 1)
     pp: Optional[PipelineParallel] = None
+    #: the expert axis and the MoE token groups (Mixtral under a process group)
+    ep: Optional[ExpertParallel] = None
     #: the resolved pipeline.schedule (None without pipeline parallelism)
     pipeline_schedule: Optional[str] = None
     #: the tensor-parallel layout of every leaf (parallel/sharding.py)
@@ -585,22 +681,27 @@ class Trainer:
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
         model_block = dict(cfg.get("model", {}) or {})
         ds = dict(cfg.get("distributed_strategy", {}) or {})
-        mc = llama.LlamaConfig.from_config(model_block, ds)
+        mc = model_config(cfg)
+        lc = getattr(mc, "llama", mc)  # the Llama knobs (a Mixtral's decoder)
+        moe = isinstance(mc, mixtral.MixtralConfig)
         mesh_cfg = MeshConfig.from_config(ds)
-        dp, dp_size, tp, cp, pp = None, 1, None, None, None
+        dp, dp_size, tp, cp, pp, ep = None, 1, None, None, None, None
         if dist.is_available() and dist.is_initialized():
             mesh = build_mesh(mesh_cfg, device_type=dev.type)
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
             tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel,
-                                          kv_replicas=max(mesh_cfg.tp // mc.kv_heads, 1))
-            if mc.context_parallel:
+                                          kv_replicas=max(mesh_cfg.tp // lc.kv_heads, 1))
+            if lc.context_parallel:
                 cp = ContextParallel.from_mesh(mesh)
             if mesh_cfg.pp > 1:
                 pp = PipelineParallel.from_mesh(mesh)
+            if moe:
+                ep = ExpertParallel.from_mesh(mesh, context=cp is not None)
         else:
             for key, n in (("tensor_model_parallel_size", mesh_cfg.tp),
                            ("context_parallel_size", mesh_cfg.cp),
-                           ("pipeline_model_parallel_size", mesh_cfg.pp)):
+                           ("pipeline_model_parallel_size", mesh_cfg.pp),
+                           ("expert_model_parallel_size", mesh_cfg.ep)):
                 if n > 1:
                     raise ValueError(f"{key} {n} needs {n} processes: launch under torchrun "
                                      f"(--nproc_per_node)")
@@ -620,14 +721,20 @@ class Trainer:
             if key in data_block and hasattr(data_module, key):
                 setattr(data_module, key, cast(data_block[key]))
         shift_labels = not getattr(data_module, "labels_pre_shifted", False)
-        zigzag = mc.attention_impl == "zigzag_ring"
+        zigzag = lc.attention_impl == "zigzag_ring"
         if zigzag and not shift_labels:
             raise NotImplementedError("zigzag_ring_attention with a pre-shifted data module "
                                       "(the zig-zag transform owns the label shift)")
         gen = torch.Generator(device=dev).manual_seed(seed)
         vp = mesh_cfg.virtual_pipeline_model_parallel_size
-        params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
-                                   tp_size=tp_size, pp_rank=pp_rank, pp_size=pp_size, vp=vp)
+        ep_rank, ep_size = (0, 1) if ep is None else (ep.rank, ep.size)
+        if moe:
+            params = mixtral.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
+                                         tp_size=tp_size, ep_rank=ep_rank, ep_size=ep_size,
+                                         pp_rank=pp_rank, pp_size=pp_size, vp=vp)
+        else:
+            params = llama.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
+                                       tp_size=tp_size, pp_rank=pp_rank, pp_size=pp_size, vp=vp)
         trainable = None
         lora_block = dict(model_block.get("lora", {}) or {})
         if lora_block:
@@ -641,19 +748,20 @@ class Trainer:
                 logger.info("model.lora.lora_dropout %g: parsed, not applied, as in the JAX "
                             "package", lora_cfg.dropout)
         flat = llama.named_params(params)
-        if dp is not None:
-            # every rank starts from its (data, context) group's first rank's weights
-            group = dp.group if cp is None else cp.reduce_group
-            src = dist.get_global_rank(group, 0)
-            for t in flat.values():
-                dist.broadcast(t, src=src, group=group)
         layouts = sharding.leaf_layouts(flat, mc, sequence_parallel=mesh_cfg.sequence_parallel)
+        if dp is not None:
+            # every rank starts from its (data, expert, context) group's first
+            # rank's weights; an expert leaf from its (data, context) group's
+            group = dp.group if cp is None else cp.reduce_group
+            for n, t in flat.items():
+                g = ep.grad_group if ep is not None and layouts[n].expert else group
+                dist.broadcast(t, src=dist.get_global_rank(g, 0), group=g)
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
-                                health=health.enabled, layouts=layouts)
+                                health=health.enabled, layouts=layouts, ep=ep)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
-                                   dp=dp, tp=tp, layouts=layouts)
+                                   dp=dp, tp=tp, layouts=layouts, ep=ep)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
@@ -662,7 +770,7 @@ class Trainer:
         if strategy in PREFERENCE:
             loss_fn, reference = _preference_objective(
                 strategy, strat_params, model_block, mc, policy, tp=tp, dp=dp, cp=cp,
-                micro_batch_size=sched["micro_batch_size"], pp=pp, vp=vp)
+                micro_batch_size=sched["micro_batch_size"], pp=pp, vp=vp, ep=ep)
             token_count_fn = _row_count
         else:
             def loss_fn(p, batch, denominator=None):
@@ -672,6 +780,9 @@ class Trainer:
                                               batch.get("segment_ids"))
                     batch = context_parallel_batch(batch, cp.rank, cp.size, positions=pos,
                                                    shift_labels=shift_labels, zigzag=zigzag)
+                if moe:
+                    return mixtral.forward(p, batch, mc, policy, shift_labels=shift_labels,
+                                           loss_denominator=denominator, tp=tp, cp=cp, ep=ep)
                 return llama.forward(p, batch, mc, policy, shift_labels=shift_labels,
                                      loss_denominator=denominator, tp=tp, cp=cp)
 
@@ -696,11 +807,12 @@ class Trainer:
                     f"the pipelined eval loss microbatches the same way")
             loss_and_grad, eval_step = pipeline.trainer_fns(
                 _pipeline_hooks(strategy, strat_params, model_block, mc, policy,
-                                shift_labels=shift_labels, tp=tp, dp=dp, cp=cp), pp,
+                                shift_labels=shift_labels, tp=tp, dp=dp, cp=cp, ep=ep), pp,
                 pp_schedule,
                 microbatches_of=_pipeline_microbatches(strategy, nm, dp, cp, shift_labels),
                 denominator_of=token_count_fn, act_dtype=policy.compute_dtype,
-                grad_dtype=policy.grad_accum_dtype, summed=step_mod._summing(dp, cp), vp=vp)
+                grad_dtype=policy.grad_accum_dtype, summed=step_mod._summing(dp, cp), vp=vp,
+                aux_scale=_aux_scale(mc, nm, strategy))
         exp_block = dict(cfg.get("exp_manager", {}) or {})
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
@@ -711,7 +823,7 @@ class Trainer:
             tp_sharded={n: layouts[n] for n in train_flat if layouts[n].sharded}, cp=cp,
             loss_and_grad_fn=loss_and_grad, pp=pp,
             log_param_norm=bool(exp_block.get("log_parameter_norm", False)),
-            log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)))
+            log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)), ep=ep)
         if eval_step is None:
             eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
                                        token_count_fn=token_count_fn, cp=cp)
@@ -730,22 +842,23 @@ class Trainer:
         if rank == 0:
             logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
                         "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, cp %d (%s), zero1 "
-                        "%s (%d of %d state leaves sharded); pp %d (%s); health %s; run dir %s",
+                        "%s (%d of %d state leaves sharded); pp %d (%s); ep %d; health %s; run dir "
+                        "%s",
                         mc, nm,
                         sched["micro_batch_size"], policy, dev, type(data_module).__name__,
                         shift_labels, "all leaves" if trainable is None else
                         f"{len(trainable)} of {len(flat)} leaves (LoRA)", dp_size, tp_size,
                         bool(tp and tp.sequence_parallel), 1 if cp is None else cp.size,
-                        mc.attention_impl, zero1,
+                        lc.attention_impl, zero1,
                         sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
-                        pp_size, pp_schedule or "none",
+                        pp_size, pp_schedule or "none", mesh_cfg.ep,
                         health.policy if health.enabled else "off", exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
                    opt_state=opt_state, train_step=step_fn, trainable=trainable,
                    eval_step=eval_step,
                    data_module=data_module, val_data_module=val_data_module, exp=exp,
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
-                   peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp,
+                   peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp, ep=ep,
                    pipeline_schedule=pp_schedule, layouts=layouts,
                    rank=rank,
                    world=world, reference=reference)
@@ -881,12 +994,8 @@ class Trainer:
         one metrics record per step trained here (``step`` is the step's
         0-based index; ``metrics.jsonl`` counts steps trained, as the JAX
         package does)."""
-        mc = self.model_cfg
-        flops_per_token = perf.train_step_flops_per_token(perf.llama_flops_per_token(
-            num_layers=mc.num_layers, hidden_size=mc.hidden_size,
-            intermediate_size=mc.intermediate_size,
-            num_attention_heads=mc.num_attention_heads, num_kv_heads=mc.num_kv_heads,
-            vocab_size=mc.vocab_size, seq_len=self.seq_len, head_dim=mc.head_dim))
+        flops_per_token = perf.train_step_flops_per_token(
+            perf.flops_for_model(self.model_cfg, self.seq_len))
         cfg_t = dict(self.cfg.get("trainer", {}) or {})
         val_interval = int(cfg_t.get("val_check_interval", 0) or 0)
         limit_val = int(cfg_t.get("limit_val_batches", 10) or 10)

@@ -55,6 +55,15 @@ their q heads' share of its gradient, which is SUM all-reduced over those
 ranks (``tp.kv_group``, one flat buffer) before the data axis's sum, and
 the norm counts that head once.
 
+``ep`` (``parallel/mesh.py::ExpertParallel``): expert parallelism.  ``dp``
+is then the compound ``(data, expert)`` axis: its ranks split the
+microbatches, and the dense leaves' gradients and the loss are summed over
+it.  The expert leaves (their ``tp_sharded`` layouts' ``expert``) hold a
+rank's ``E / ep`` experts, whose gradients the weight gather's backward
+has already summed over ``expert`` (``ops/moe.py::gather_experts``); they
+are summed over ``data`` alone (``(data, context)`` under cp).  The norm
+adds them over ``expert``, each expert once.
+
 ``cp`` (``parallel/mesh.py::ContextParallel``): context parallelism.  Every
 context rank of a data rank takes that rank's rows, and the loss function
 computes its slice of the sequence (``data/loader.py::
@@ -166,7 +175,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     tp: Any = None, tp_partial: frozenset = frozenset(),
                     tp_sharded=frozenset(), cp: Any = None,
                     loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
-                    log_param_norm: bool = False, log_gradient_norm: bool = False) -> Callable:
+                    log_param_norm: bool = False, log_gradient_norm: bool = False,
+                    ep: Any = None) -> Callable:
     """``train_step(params, opt_state, batch) -> metrics``; params and
     opt_state are updated in place (see ``optim/adamw.py``).
 
@@ -185,6 +195,9 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
     if dp is not None and token_count_fn is None and loss_and_grad_fn is None:
         raise ValueError("data parallelism needs token_count_fn (the loss denominator)")
     summed = _summing(dp, cp)
+    expert_sum = ep.grad_sum_ if ep is not None and ep.size > 1 else None
+    experts = frozenset(n for n, lay in (tp_sharded.items() if isinstance(tp_sharded, dict)
+                                         else ()) if lay.expert)
 
     def train_step(params, opt_state, batch):
         flat = named_params(params)
@@ -226,8 +239,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             if shared:
                 _flat_sum_(shared, tp.all_reduce_kv_)
         if summed is not None:
-            for g in grad_sum:
-                summed(g)
+            for n, g in zip(names, grad_sum):
+                (expert_sum if expert_sum is not None and n in experts else summed)(g)
             summed(loss_sum)
         if num_microbatches > 1:
             inv = 1.0 / num_microbatches
@@ -240,17 +253,17 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             grad_group_fn=grad_group_of if health is not None else None,
             skip_nonfinite=health is not None and health.policy == "skip_update",
             extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
-            tp=tp, tp_sharded=tp_sharded, pp=pp)
+            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep)
         metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
                    "grad_norm": opt_metrics["grad_norm"]}
         metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
                         if k not in metrics})
         if health is not None:
             metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat,
-                                           tp, tp_sharded, pp))
+                                           tp, tp_sharded, pp, ep))
         if log_param_norm:
             with torch.no_grad():
-                metrics["param_norm"] = global_norm(flat, tp, tp_sharded, pp)
+                metrics["param_norm"] = global_norm(flat, tp, tp_sharded, pp, ep)
         if log_gradient_norm:
             metrics["gradient_norm"] = opt_metrics["grad_norm"]
         return metrics
@@ -259,7 +272,7 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
 
 
 def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp=None,
-                    tp_sharded=frozenset(), pp=None) -> dict:
+                    tp_sharded=frozenset(), pp=None, ep=None) -> dict:
     """Advance the health counters (host ints; ``updates_finite`` is read
     once) and return the ``health/*`` metrics under the JAX names."""
     ok = bool(opt_metrics["updates_finite"])
@@ -284,7 +297,7 @@ def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp
     if health.param_norm:
         # after the update (a skipped step's are the params it kept)
         with torch.no_grad():
-            out["health/param_norm"] = global_norm(params, tp, tp_sharded, pp)
+            out["health/param_norm"] = global_norm(params, tp, tp_sharded, pp, ep)
     return out
 
 

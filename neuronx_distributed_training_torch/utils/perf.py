@@ -1,8 +1,10 @@
 """Analytic FLOPs and MFU (counterpart of the JAX package's ``utils/perf.py``,
-Llama accounting only).
+the Llama and Mixtral accounting).
 
 FWD FLOPs = num_layers * (attention + mlp) + the lm_head matmul; a train step
-is 3 x FWD.  Peaks are the cards' published dense bf16 and HBM rates; the
+is 3 x FWD.  A Mixtral counts only the activated experts (``top_k`` SwiGLUs
+a token on each MoE layer) and the router matmul, as JAX's
+``flops_breakdown_for_model`` does, so its MFU means what JAX's means.  Peaks are the cards' published dense bf16 and HBM rates; the
 trainer's MFU and ``chip_smoke.py``'s kernel bounds both read them from here.
 """
 
@@ -65,6 +67,35 @@ def llama_flops_per_token(
     per_layer = qkv + o + attn_scores + attn_context + mlp
     logits = 2 * h * vocab_size
     return num_layers * per_layer + logits
+
+
+def flops_for_model(model_cfg, seq_len: int) -> float:
+    """Forward FLOPs per token of a Llama (:func:`llama_flops_per_token`)
+    or a Mixtral: its attention on every layer, a dense SwiGLU on each dense
+    layer, ``top_k`` SwiGLUs and the router on each MoE layer, and the
+    head (JAX's ``flops_breakdown_for_model``, summed in its order)."""
+    lc = getattr(model_cfg, "llama", None)
+    if lc is None:
+        return llama_flops_per_token(
+            num_layers=model_cfg.num_layers, hidden_size=model_cfg.hidden_size,
+            intermediate_size=model_cfg.intermediate_size,
+            num_attention_heads=model_cfg.num_attention_heads,
+            num_kv_heads=model_cfg.num_kv_heads, vocab_size=model_cfg.vocab_size,
+            seq_len=seq_len, head_dim=model_cfg.head_dim)
+    h = lc.hidden_size
+    one_layer = llama_flops_per_token(
+        num_layers=1, hidden_size=h, intermediate_size=0,
+        num_attention_heads=lc.num_attention_heads, num_kv_heads=lc.num_kv_heads,
+        vocab_size=0, seq_len=seq_len, head_dim=lc.head_dim)
+    n_moe = lc.num_layers // model_cfg.moe_frequency
+    swiglu = 2 * h * 3 * lc.intermediate_size
+    breakdown = {
+        "attention": lc.num_layers * one_layer,
+        "mlp": (lc.num_layers - n_moe) * swiglu + n_moe * model_cfg.moe.top_k * swiglu,
+        "router": float(n_moe * 2 * h * model_cfg.moe.num_experts),
+        "head": 2.0 * h * lc.vocab_size,
+    }
+    return float(sum(breakdown.values()))
 
 
 def train_step_flops_per_token(fwd_flops_per_token: float) -> float:

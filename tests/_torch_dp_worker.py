@@ -1,6 +1,7 @@
-"""One rank of the port's data-, tensor-, context- and pipeline-parallel
-tests (``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``,
-``tests/test_torch_cp.py``, ``tests/test_torch_pipeline.py``).
+"""One rank of the port's data-, tensor-, context-, pipeline- and
+expert-parallel tests (``tests/test_torch_dp.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_cp.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_mixtral.py``).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/_torch_dp_worker.py <spec.json>
@@ -19,7 +20,7 @@ attention over the world as one context group against core attention on the
 whole sequence:
 - ``weights``: a ``.pt`` dict of dotted param names to start from, global
   leaves in the JAX layout, which each rank cuts to its tensor-parallel
-  slices (the optimizer state is re-initialised from them);
+  slices and its experts (the optimizer state is re-initialised from them);
 - ``data``: ``{"kind": "sft_mask", "seed": s}`` for :class:`MaskedRows`,
   ``{"kind": "nan_rows", "step": i, "rows": [...]}`` for synthetic rows with
   a NaN ``loss_mask`` in those global rows of step ``i``,
@@ -163,23 +164,30 @@ def _data(cfg, spec):
                    seed=int(cfg.get("seed", 1234)), step=d["step"], rows=d["rows"])
 
 
-def _tp_local(t, layout, tp) -> torch.Tensor:
-    """The rank's tensor-parallel slice of a state leaf, gathered over the
-    data axis (a collective for a DTensor: every rank calls it)."""
+def _tp_local(t, layout, tp, ep=None) -> torch.Tensor:
+    """The rank's tensor-parallel slice (and experts) of a state leaf,
+    gathered over the data axis (a collective for a DTensor: every rank
+    calls it)."""
     if not is_dtensor(t):
         return t.detach().clone()
     full = t.full_tensor()
     if layout.sharded and tp.size > 1:
         full = full.chunk(tp.size, layout.dim)[tp.rank]
+    if layout.expert and ep is not None and ep.size > 1:
+        full = full.chunk(ep.size, 0)[ep.rank]
     return full.detach().clone()
 
 
 def _coords(trainer) -> dict:
-    """The rank's mesh coordinates (``pp`` only under pipeline parallelism)."""
+    """The rank's mesh coordinates (``pp`` only under pipeline parallelism;
+    with an expert axis, a MoE model's, ``dp`` is the true data-parallel
+    rank and ``data`` and ``ep`` are its parts)."""
     out = {"dp": trainer.dp.rank, "tp": trainer.tp.rank,
            "cp": 0 if trainer.cp is None else trainer.cp.rank}
     if trainer.pp is not None:
         out["pp"] = trainer.pp.rank
+    if trainer.ep is not None:
+        out.update(data=trainer.ep.data.rank, ep=trainer.ep.rank)
     return out
 
 
@@ -191,20 +199,26 @@ def merged(trainer, named: dict):
     import torch.distributed as dist
 
     tp = trainer.tp
-    mine = {n: _tp_local(t, trainer.layouts[n.split("/")[-1]], tp) for n, t in named.items()}
+    mine = {n: _tp_local(t, trainer.layouts[n.split("/")[-1]], tp, trainer.ep)
+            for n, t in named.items()}
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, (_coords(trainer), mine))
     if dist.get_rank() != 0:
         return None
     out = {}
     for n in dict.fromkeys(k for _, m in everyone for k in m):
-        holders = [(c, m[n]) for c, m in everyone if n in m and c["dp"] == 0 and c["cp"] == 0]
-        stage = min(c.get("pp", 0) for c, _ in holders)
-        parts = [t for c, t in sorted(((c, t) for c, t in holders if c.get("pp", 0) == stage),
-                                      key=lambda ct: ct[0]["tp"])]
         leaf = n.split("/")[-1]  # another stage's leaf: the layout from its name
-        out[n] = sharding.merge_leaf(parts, trainer.layouts.get(leaf) or sharding.leaf_layout(
-            leaf, trainer.model_cfg, sequence_parallel=tp.sequence_parallel))
+        layout = trainer.layouts.get(leaf) or sharding.leaf_layout(
+            leaf, trainer.model_cfg, sequence_parallel=tp.sequence_parallel)
+        holders = [(c, m[n]) for c, m in everyone if n in m and c.get("data", c["dp"]) == 0
+                   and c["cp"] == 0 and (layout.expert or c.get("ep", 0) == 0)]
+        stage = min(c.get("pp", 0) for c, _ in holders)
+        per_ep = {}
+        for c, t in sorted(((c, t) for c, t in holders if c.get("pp", 0) == stage),
+                           key=lambda ct: (ct[0].get("ep", 0), ct[0]["tp"])):
+            per_ep.setdefault(c.get("ep", 0), []).append(t)
+        merged_ep = [sharding.merge_leaf(parts, layout) for _, parts in sorted(per_ep.items())]
+        out[n] = merged_ep[0] if len(merged_ep) == 1 else torch.cat(merged_ep, dim=0)
     return out
 
 
@@ -359,19 +373,21 @@ def run(spec: dict, rank: int) -> dict:
     tp = trainer.tp
     if spec.get("weights"):
         src = torch.load(spec["weights"])
+        ep_rank, ep_size = (0, 1) if trainer.ep is None else (trainer.ep.rank, trainer.ep.size)
         with torch.no_grad():
             for n, p in llama.named_params(trainer.params).items():
-                p.copy_(sharding.shard_leaf(src[n], trainer.layouts[n], tp.rank, tp.size))
+                p.copy_(sharding.local_leaf(src[n], trainer.layouts[n], tp.rank, tp.size,
+                                            ep_rank, ep_size))
         flat = llama.named_params(trainer.params)
         flat = {n: t for n, t in flat.items() if trainer.trainable is None
                 or n in trainer.trainable}
         specs = opt_state_specs(flat, trainer.dp.size,
                                 zero1=bool(cfg.distributed_strategy.get("zero1", True)),
                                 policy=trainer.policy, health=trainer.health.enabled,
-                                layouts=trainer.layouts)
+                                layouts=trainer.layouts, ep=trainer.ep)
         trainer.opt_state = init_opt_state(flat, trainer.policy, health=trainer.health.enabled,
                                            specs=specs, dp=trainer.dp, tp=tp,
-                                           layouts=trainer.layouts)
+                                           layouts=trainer.layouts, ep=trainer.ep)
     for n, t in trainer.opt_state["mu"].items():
         out["zero1_shards"][n] = [list(t.shape), list(local(t).shape)]
     if spec.get("dump_init"):

@@ -399,11 +399,20 @@ def test_tp4_save_restores_at_tp2(mesh2, mesh4):
 @pytest.mark.parametrize("config", ["hf_mixtral_8x7b_config.yaml",
                                     "hf_mixtral_8x7b_dropped_config.yaml"])
 def test_shipped_mixtral_configs_are_refused_naming_moe(config):
-    """An hf Mixtral config is refused as unported MoE (entry 10), not as an
-    unknown architecture."""
+    """An hf Mixtral config passes ``check_supported`` as shipped (entry 10
+    is ported), at its mesh: tp 8 (SP) over its 8 kv heads x ep 4, its 8
+    experts 2 a rank, a Mixtral model whose one-process trainer asks for
+    torchrun."""
     cfg = t_loader.load_config(REPO / "examples" / "conf" / config)
-    with pytest.raises(NotImplementedError, match=r"MoE \(mixtral\).*entry 10 \[item 13\]"):
-        t_loop.check_supported(cfg)
+    ds = cfg.distributed_strategy
+    assert (ds.tensor_model_parallel_size, ds.expert_model_parallel_size) == (8, 4)
+    assert ds.sequence_parallel and cfg.model.num_key_value_heads == 8
+    t_loop.check_supported(cfg)
+    mc = t_loop.model_config(cfg)
+    assert type(mc).__name__ == "MixtralConfig" and mc.moe.num_experts % 4 == 0
+    assert mc.moe.dropless == (config == "hf_mixtral_8x7b_config.yaml")
+    with pytest.raises(ValueError, match="needs 8 processes: launch under torchrun"):
+        t_loop.Trainer.from_config(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("config", ["hf_llama3_8B_config.yaml", "hf_llama3.1_8B_config.yaml",

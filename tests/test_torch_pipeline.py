@@ -139,21 +139,22 @@ def test_schedule_gate_matches_jax(schedule):
     j_cfg = JP.CFG
     zz_t = dataclasses.replace(T_CFG, attention_impl="zigzag_ring")
     zz_j = dataclasses.replace(j_cfg, attention_impl="zigzag_ring")
+    from neuronx_distributed_training_torch.models import mixtral as t_mixtral
+    from neuronx_distributed_training_torch.ops import moe as t_moe
     from neuronx_distributed_training_tpu.models import gpt as j_gpt
     from neuronx_distributed_training_tpu.models import mixtral as j_mixtral
     from neuronx_distributed_training_tpu.ops import moe as j_moe
 
-    class MixtralConfig:  # the port has no Mixtral config yet: the gate keys on the name
-        pass
-
-    class GPTConfig:
+    class GPTConfig:  # the port has no GPT config yet: the gate keys on the name
         pass
 
     j_mx = j_mixtral.MixtralConfig(llama=j_cfg, moe=j_moe.MoEConfig(num_experts=4, top_k=2,
                                                                     dropless=True))
+    t_mx = t_mixtral.MixtralConfig(llama=T_CFG, moe=t_moe.MoEConfig(num_experts=4, top_k=2,
+                                                                    dropless=True))
     j_gc = j_gpt.GPTConfig(vocab_size=128, hidden_size=32, num_layers=4, num_attention_heads=4,
                            max_position_embeddings=32)
-    models = [(T_CFG, j_cfg), (zz_t, zz_j), (MixtralConfig(), j_mx), (GPTConfig(), j_gc)]
+    models = [(T_CFG, j_cfg), (zz_t, zz_j), (t_mx, j_mx), (GPTConfig(), j_gc)]
     seen = set()
     for pcfg in PCFGS:
         if schedule in j_pipe.MANUAL_VJP_SCHEDULES:
@@ -797,20 +798,20 @@ ACCEPTED = {"hf_llama3_8B_config.yaml": None, "hf_llama3.1_8B_config.yaml": None
             "hf_llama3_70B_config.yaml": "1f1b", "hf_llama3.1_70B_config.yaml": "1f1b",
             "hf_llama3_70B_v5p_config.yaml": "1f1b-interleaved",
             "hf_llama3.1_405B_config.yaml": "1f1b-interleaved",
-            "hf_llama3_70B_CP_config.yaml": "wavefront"}
+            "hf_llama3_70B_CP_config.yaml": "wavefront",
+            "hf_mixtral_8x7b_config.yaml": None, "hf_mixtral_8x7b_dropped_config.yaml": None}
 #: the refused ones, with what each refusal names
-REFUSED = {"hf_mixtral_8x7b_config.yaml": ["entry 10 [item 13]"],
-           "hf_mixtral_8x7b_dropped_config.yaml": ["entry 10 [item 13]"]}
+REFUSED: dict = {}
 
 
 @pytest.mark.parametrize("config", sorted(p.name for p in CONF.glob("*.yaml")))
 def test_shipped_configs_check_supported(config):
-    """15 of the 24 shipped configs pass as shipped: the two 70B configs at
+    """17 of the 24 shipped configs pass as shipped: the two 70B configs at
     pp 8 x tp 32 (``1f1b``), the 70B v5p config (pp 4 x vp 2) and the 405B
-    (pp 14 x vp 3, ``chunked_ce: 8``) on ``1f1b-interleaved``, and the 70B
-    CP config (pp 8 x cp 2) on the wavefront, as JAX's gate resolves them;
-    the rest are refused naming their entry: Mixtral MoE (entry 10), every
-    ``megatron_*`` config GPT (entry 11)."""
+    (pp 14 x vp 3, ``chunked_ce: 8``) on ``1f1b-interleaved``, the 70B CP
+    config (pp 8 x cp 2) on the wavefront, as JAX's gate resolves them, and
+    both hf Mixtral configs (tp 8 x ep 4); the rest, every ``megatron_*``
+    config, are refused naming GPT (entry 11)."""
     cfg = t_loader.load_config(CONF / config)
     if config in ACCEPTED:
         t_loop.check_supported(cfg)
@@ -818,7 +819,7 @@ def test_shipped_configs_check_supported(config):
         if ACCEPTED[config] is not None:
             facts = t_loop._pipeline_facts(cfg, ds, model)
             schedule = dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")
-            assert t_pipe.resolve_schedule(schedule, t_llama.LlamaConfig.from_config(model, ds),
+            assert t_pipe.resolve_schedule(schedule, t_loop.model_config(cfg),
                                            facts) == ACCEPTED[config]
         return
     with pytest.raises(NotImplementedError) as e:
