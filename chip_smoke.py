@@ -236,11 +236,40 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
    d. with four cards, 14a's cell under torchrun at dp 2 x ep 2 and tp 2 x
       ep 2 against ep 1 at the same microbatching, and an ep 2 save
       restored at ep 1.  With fewer cards it prints why it did not run.
+15. The Megatron GPT family (``models/gpt.py``), on one card:
+   a. ``megatron_gpt_config.yaml`` through the CLI at its full width
+      (hidden 4096, ffn 16384, 32 / 8 heads of 128, vocab 50257, seq 2048,
+      layernorm + bias, gelu, tied, rope) cut to 4 layers at tp 1, 4
+      microbatches of 2 rows, 3 steps: step 0's loss near ln 50257 +
+      sigma^2/2, finite losses and grad norms, 48 launches of each kernel;
+      step seconds, tokens/s, MFU (GPT's count) and peak memory printed;
+   b. ``megatron_mistral_config.yaml`` (rmsnorm, swiglu, no bias, untied) at
+      full width, 4 layers, one seq-4096 row: the GPT forward + backward
+      against the port's Llama model on the same weights through
+      ``tools/convert.py``, loss and every gradient at 12a's bars, and
+      whether bit for bit;
+   c. 15a's cell at 2 layers with hidden and embedding dropout 0.1: two runs
+      from one seed bit for bit, a SIGTERM at step 2's boundary resumed to
+      the straight run's step 3 bit for bit (loss, grad norm, every param's
+      digest), the dropout-0 run's losses different;
+   d. the shipped ``megatron_mixtral_8x7b`` and ``_dropless`` cut as 14a /
+      14b: launches exact, the dropped share printed;
+   e. ``megatron_llama_70b_config.yaml``'s pp 4 (the wavefront, as JAX's
+      gate keeps GPT) through the loopback at its tp-32 per-card widths
+      (hidden 8192, 2 q and 1 kv heads of 128, ffn 896, vocab 1000), 4
+      layers, 4 microbatches, against the unpipelined pass at 12a's bars;
+   then the three kernels at ``megatron_gpt``'s attention (b 2, s 2048)
+   against their plain versions and timed beside their bounds;
+   f. with two or more cards, 15a's cell under torchrun at tp 2 (and tp 4
+      with four cards; the padded vocab slices) against tp 1, and at
+      dropout 0.1 tp 2 against tp 1.  With one card it prints why it did not
+      run.
 
-The line before the last holds the card's name and power limit; the last line
+The script prints each phase's wall time and, before its result lines, its
+own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``) runs the kernels' build and those
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``) runs the kernels' build and those
 phases alone (13e after phase 4; 14a and 14b are one function) and prints no
 result: a partial check while developing.
 """
@@ -263,6 +292,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 VOCAB, HIDDEN = 128256, 4096
 SEQ = 8192
+#: the script's start, for its total wall time
+T_START = time.perf_counter()
 PHASE5_SEED = 20261016
 SFT_SEED = 20261023  # its first packed row holds 3 records (phase 2 tests it)
 SFT_SEQ, SFT_MICRO, SFT_STEPS = 4096, 4, 3
@@ -3090,7 +3121,8 @@ TOL_MOE = 2e-2
 
 def mixtral_args(kind: str, *extra: str) -> list:
     """The CLI arguments of 14a / 14b: the shipped config at one card."""
-    return ["--config", str(REPO / "examples" / "conf" / MIX_CONFIGS[kind]),
+    config = {**MIX_CONFIGS, **GPT_MIX_CONFIGS}[kind]
+    return ["--config", str(REPO / "examples" / "conf" / config),
             "--set", f"model.num_layers={MIX_LAYERS}",
             "--set", "distributed_strategy.tensor_model_parallel_size=1",
             "--set", "distributed_strategy.expert_model_parallel_size=1",
@@ -3453,6 +3485,470 @@ def phase_mixtral_cli(torch, cell, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the Megatron GPT family
+# ---------------------------------------------------------------------------
+
+GPT_CONF = REPO / "examples" / "conf"
+#: 15a: megatron_gpt_config.yaml at full width (hidden 4096, ffn 16384, 32 /
+#: 8 heads of 128, vocab 50257, seq 2048, layernorm + bias, gelu, tied,
+#: rope) cut to 4 layers at tp 1: 4 microbatches of 2 rows, 3 steps
+GPT_LAYERS, GPT_MICRO, GPT_MBS, GPT_STEPS, GPT_SEQ, GPT_VOCAB = 4, 4, 2, 3, 2048, 50257
+GPT_EXP = REPO / "build" / "chip_smoke" / "exp_gpt"
+#: 15b: megatron_mistral_config.yaml at full width, 4 layers, one seq-4096 row
+GPT_MISTRAL = {"layers": 4, "seq": 4096}
+#: 15c: 15a's cell at 2 layers with hidden and embedding dropout 0.1
+GPT_DROP = {"layers": 2, "rate": 0.1}
+#: 15d: the shipped Megatron Mixtral configs (14a / 14b's cut)
+GPT_MIX_CONFIGS = {"megatron_dropless": "megatron_mixtral_8x7b_dropless_config.yaml",
+                   "megatron_dropped": "megatron_mixtral_8x7b_config.yaml"}
+#: 15e: megatron_llama_70b_config.yaml's pp 4 at the widths its tp 32 gives
+#: each card (hidden 8192, 2 q and 1 kv heads of 128, ffn 896, vocab 1000)
+GPT_70B = {"pp": 4, "layers": 4, "nm": 4, "card_tp": 32, "seq": 4096}
+
+
+def gpt_args(config: str, layers: int, exp: Path, *extra: str) -> list:
+    """A Megatron config's CLI arguments on one card: ``layers`` layers,
+    tp 1, synthetic data, ``GPT_STEPS`` steps, no cadence save."""
+    return ["--config", str(GPT_CONF / config),
+            "--set", f"model.num_layers={layers}",
+            "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", "distributed_strategy.pipeline_model_parallel_size=1",
+            "--set", "data.synthetic=true",
+            "--set", f"trainer.max_steps={GPT_STEPS}",
+            "--set", "trainer.log_every_n_steps=1",
+            "--set", f"exp_manager.exp_dir={exp}",
+            "--set", "exp_manager.create_tensorboard_logger=false",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=0",
+            *extra]
+
+
+def gpt_run(torch, fa, args: list, *handlers) -> dict:
+    """One CLI run with the launch counters set to 0 just before and read
+    just after: its history, launches, peak memory, a digest of every param
+    after the last step, and the model's FLOPs a token."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.trainer import cli
+    from neuronx_distributed_training_torch.utils import perf
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    t0 = time.perf_counter()
+    trainer, history = run_cli(cli, args, *handlers)
+    torch.cuda.synchronize()
+    flat = llama.named_params(trainer.params)
+    out = {"history": history, "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS),
+           "peak": torch.cuda.max_memory_allocated(), "params": sum(t.numel() for t in flat.values()),
+           "digest": [device_digest(torch, t) for t in flat.values()],
+           "flops_per_token": perf.train_step_flops_per_token(
+               perf.flops_for_model(trainer.model_cfg, trainer.seq_len)),
+           "seconds": time.perf_counter() - t0}
+    del trainer, flat
+    free_cuda(torch)
+    return out
+
+
+def gpt_expected_loss0(vocab: int) -> float:
+    """Step 0's loss at random weights: ln V plus half the logits' variance
+    (a unit-variance final hidden state times head rows of std 0.02 x
+    0.8796, the truncated normal's), as ``expected_loss0``."""
+    return math.log(vocab) + HIDDEN * (0.02 * 0.879626) ** 2 / 2
+
+
+def phase_gpt_pretrain(torch, fa, card: str) -> dict:
+    """15a: ``megatron_gpt_config.yaml`` through the CLI at its full width,
+    cut to 4 layers at tp 1, 4 microbatches of 2 rows, 3 steps: step 0's
+    loss near ln 50257 + sigma^2 / 2, finite losses and grad norms, each
+    kernel launched layers x microbatches x steps times with no fallback;
+    the step seconds, tokens/s, MFU (GPT's count: 2 MLP matmuls under gelu)
+    and peak memory printed."""
+    t_phase = time.perf_counter()
+    exp = GPT_EXP / "pretrain"
+    args = gpt_args("megatron_gpt_config.yaml", GPT_LAYERS, exp,
+                    "--set", f"data.micro_batch_size={GPT_MBS}",
+                    "--set", f"data.global_batch_size={GPT_MBS * GPT_MICRO}",
+                    "--set", "exp_manager.resume_if_exists=false")
+    try:
+        run = gpt_run(torch, fa, args)
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    hist, expect = run["history"], GPT_LAYERS * GPT_MICRO * GPT_STEPS
+    for r in hist:
+        log(f"gpt 15a step {r['step']}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} | "
+            f"{r['step_seconds']:.3f} s, {r['tokens_per_sec']:.1f} tokens/s, MFU {r['mfu']:.4f} "
+            f"(GPT's count, {run['flops_per_token'] / 1e9:.3f} GFLOP a token) [{card}]")
+    log(f"gpt 15a: {run['params']} params ({run['params'] / 1e9:.3f} B), peak device memory "
+        f"{run['peak']} bytes ({run['peak'] / 2**30:.2f} GiB), launches {run['launches']} "
+        f"(expected {expect} each), fallbacks {run['fallbacks']}, run wall time "
+        f"{run['seconds']:.1f} s [{card}]")
+    loss0 = gpt_expected_loss0(GPT_VOCAB)
+    if len(hist) != GPT_STEPS or not all(math.isfinite(r[k]) for r in hist
+                                          for k in ("loss", "grad_norm")):
+        fail(f"gpt 15a: {len(hist)} steps, or a non-finite value: {hist}")
+    if abs(hist[0]["loss"] - loss0) > 1.0:
+        fail(f"gpt 15a: step-0 loss {hist[0]['loss']} (expected {loss0:.4f}: ln {GPT_VOCAB} + "
+             f"sigma^2/2)")
+    if any(n != expect for n in run["launches"].values()) or run["fallbacks"]["core"]:
+        fail(f"gpt 15a: launches {run['launches']} (fallbacks {run['fallbacks']}), expected "
+             f"{expect} each")
+    run.pop("digest")
+    run["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"gpt 15a: phase wall time {run['phase_seconds']:.1f} s [{card}]")
+    return run
+
+
+def gpt_mistral_pair(torch, fa, card: str) -> dict:
+    """15b: ``megatron_mistral_config.yaml`` (rmsnorm, swiglu, no bias,
+    untied, 32 / 8 heads, window 4096) at full width, 4 layers, one seq-4096
+    row: the GPT forward + backward against the port's Llama model on the
+    same weights, carried through ``tools/convert.py`` (GPT's ``mlp.up``
+    is Llama's ``mlp.gate_up``): loss and every gradient within 12a's bars,
+    and bit for bit where the op sequence is the same (it is: the two
+    models call the same functions in the same order at these knobs)."""
+    from neuronx_distributed_training_torch.config import loader
+    from neuronx_distributed_training_torch.models import gpt, llama
+    from neuronx_distributed_training_torch.tools.convert import params_from_jax, params_to_jax
+    from neuronx_distributed_training_torch.trainer import loop
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    t_phase = time.perf_counter()
+    c = GPT_MISTRAL
+    cfg = loader.load_config(GPT_CONF / "megatron_mistral_config.yaml",
+                             {"model.num_layers": c["layers"],
+                              "distributed_strategy.tensor_model_parallel_size": 1,
+                              "distributed_strategy.sequence_parallel": False})
+    gc = loop.model_config(cfg)
+    policy = DtypePolicy.from_precision_config(cfg.get("precision"))
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.get("seed", 1234)))
+    gparams = gpt.init_params(gc, policy, generator=gen, device="cuda")
+    tree = params_to_jax(gparams)
+    tree["layers"]["mlp"]["gate_up"] = tree["layers"]["mlp"].pop("up")
+    lparams = params_from_jax(tree, device="cuda")
+    del tree
+    lc = llama.LlamaConfig(
+        vocab_size=gc.vocab_size, hidden_size=gc.hidden_size, intermediate_size=gc.ffn_size,
+        num_layers=gc.num_layers, num_attention_heads=gc.num_attention_heads,
+        num_kv_heads=gc.kv_heads, rope_theta=gc.rope_theta, rms_norm_eps=gc.layernorm_epsilon,
+        tie_word_embeddings=False, sliding_window=gc.sliding_window,
+        attention_impl=gc.attention_impl,
+        activations_checkpoint_granularity=gc.activations_checkpoint_granularity)
+    ids = torch.randint(0, gc.vocab_size, (1, c["seq"]),
+                        generator=torch.Generator(device="cuda").manual_seed(150), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    out = {"gpt": gc, "llama": lc}
+    grads = {}
+    for name, params, fwd in (("gpt", gparams, lambda p: gpt.forward(p, batch, gc, policy)[0]),
+                              ("llama", lparams, lambda p: llama.forward(p, batch, lc, policy)[0])):
+        flat = llama.named_params(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        fa.reset_counters()
+        loss = fwd(params).float()
+        got = torch.autograd.grad(loss, list(flat.values()))
+        torch.cuda.synchronize()
+        out[name + "_launches"] = dict(fa.LAUNCHES)
+        out[name + "_loss"] = float(loss)
+        grads[name] = {n.replace("mlp.up.", "mlp.gate_up."): g for n, g in zip(flat, got)}
+        del loss, got
+    gap, leaf, same = pp_grad_gap(torch, grads["gpt"], grads["llama"])
+    same = same and out["gpt_loss"] == out["llama_loss"]
+    loss_rel = abs(out["gpt_loss"] - out["llama_loss"]) / abs(out["llama_loss"])
+    log(f"gpt 15b (megatron_mistral, {c['layers']} layers, s {c['seq']}): GPT loss "
+        f"{out['gpt_loss']:.6f}, Llama loss {out['llama_loss']:.6f} (rel {loss_rel:.2e}, bar "
+        f"{TP_LOSS_RTOL:g}); largest gradient gap {gap:.3e} of its leaf's largest entry ({leaf}; "
+        f"bar {PP_GRAD_REL:g}); bit for bit {same}; launches GPT {out['gpt_launches']}, Llama "
+        f"{out['llama_launches']} [{card}]")
+    want = {k: c["layers"] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if not loss_rel <= TP_LOSS_RTOL or not gap <= PP_GRAD_REL:
+        fail(f"gpt 15b: the GPT and Llama models disagree: loss rel {loss_rel:.3e}, gradient "
+             f"gap {gap:.3e} at {leaf}")
+    if out["gpt_launches"] != want or out["llama_launches"] != want:
+        fail(f"gpt 15b: launches {out['gpt_launches']} / {out['llama_launches']}, expected {want}")
+    out.update(loss_rel=loss_rel, grad_gap=gap, bitwise=same)
+    del gparams, lparams, grads
+    free_cuda(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"gpt 15b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_gpt_dropout(torch, fa, card: str) -> dict:
+    """15c: 15a's cell at 2 layers with ``hidden_dropout`` and
+    ``embedding_dropout`` 0.1: two straight runs from one seed equal bit for
+    bit; a run stopped by SIGTERM at step 2's boundary (one save) and
+    resumed equals the straight run's step 3 bit for bit (loss, grad norm,
+    every param's digest); the dropout-0 run's losses differ; the launches
+    exact."""
+    t_phase = time.perf_counter()
+    c = GPT_DROP
+    common = ("--set", f"data.micro_batch_size={GPT_MBS}",
+              "--set", f"data.global_batch_size={GPT_MBS * GPT_MICRO}")
+
+    def args(exp, rate, resume):
+        return gpt_args("megatron_gpt_config.yaml", c["layers"], GPT_EXP / exp, *common,
+                        "--set", f"model.hidden_dropout={rate}",
+                        "--set", f"model.embedding_dropout={rate}",
+                        "--set", f"exp_manager.resume_if_exists={str(resume).lower()}")
+
+    runs = {}
+    try:
+        runs["A"] = gpt_run(torch, fa, args("drop_a", c["rate"], False))
+        runs["A2"] = gpt_run(torch, fa, args("drop_a2", c["rate"], False))
+        runs["P"] = gpt_run(torch, fa, args("drop_resume", c["rate"], True),
+                            AtStepEnd(1, lambda: signal.raise_signal(signal.SIGTERM)))
+        runs["R"] = gpt_run(torch, fa, args("drop_resume", c["rate"], True))
+        runs["Z"] = gpt_run(torch, fa, args("drop_zero", 0.0, False))
+    finally:
+        shutil.rmtree(GPT_EXP, ignore_errors=True)
+    a, a2, p, r, z = (runs[k]["history"] for k in ("A", "A2", "P", "R", "Z"))
+    for k, h in runs.items():
+        log(f"gpt 15c {k}: steps {[x['step'] for x in h['history']]}, losses "
+            f"{[round(x['loss'], 6) for x in h['history']]}, grad norms "
+            f"{[round(x['grad_norm'], 6) for x in h['history']]}, launches {h['launches']}, "
+            f"run wall time {h['seconds']:.1f} s [{card}]")
+    repeat = all(x[k] == y[k] for x, y in zip(a, a2) for k in ("loss", "grad_norm")) and \
+        runs["A"]["digest"] == runs["A2"]["digest"]
+    resumed = ([x["step"] for x in p] == [0, 1] and [x["step"] for x in r] == [2]
+               and r[0]["loss"] == a[2]["loss"] and r[0]["grad_norm"] == a[2]["grad_norm"]
+               and runs["R"]["digest"] == runs["A"]["digest"])
+    differs = all(x["loss"] != y["loss"] for x, y in zip(a, z))
+    log(f"gpt 15c: a second run bit for bit {repeat}; the resume's step 3 and params equal the "
+        f"straight run's bit for bit {resumed}; the dropout-0 losses differ at every step "
+        f"{differs} (step 0: {a[0]['loss']:.6f} against {z[0]['loss']:.6f}) [{card}]")
+    expect = c["layers"] * GPT_MICRO * GPT_STEPS
+    if not (repeat and resumed and differs):
+        fail(f"gpt 15c: repeat {repeat}, resume {resumed}, differs from dropout 0 {differs}")
+    if any(n != expect for n in runs["A"]["launches"].values()) or \
+            runs["A"]["fallbacks"]["core"]:
+        fail(f"gpt 15c: launches {runs['A']['launches']}, expected {expect} each")
+    out = {"launches": runs["A"]["launches"], "repeat": repeat, "resume": resumed,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"gpt 15c: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_gpt_mixtral(torch, fa, card: str) -> dict:
+    """15d: the shipped ``megatron_mixtral_8x7b`` (dropped, capacity 1.25)
+    and ``_dropless`` configs, GPT-MoE, cut as 14a / 14b (2 layers, tp and
+    ep 1, 4 microbatches of one seq-4096 row, 3 steps): finite values, step
+    0's ``lm_loss`` and ``router_aux_loss`` as 14a's bars, launches exact,
+    the dropped share printed."""
+    t_phase = time.perf_counter()
+    out, expect = {}, MIX_LAYERS * MIX_MICRO * MIX_STEPS
+    for kind in GPT_MIX_CONFIGS:
+        run = mixtral_run(torch, fa, kind, card)
+        hist = run["history"]
+        for r in hist:
+            log(f"gpt 15d ({kind}) step {r['step']}: loss {r['loss']:.6f} lm_loss "
+                f"{r['lm_loss']:.6f} router_aux_loss {r['router_aux_loss']:.6f} grad_norm "
+                f"{r['grad_norm']:.4f} | {r['step_seconds']:.3f} s, {r['tokens_per_sec']:.1f} "
+                f"tokens/s, MFU {r['mfu']:.4f} (active experts) [{card}]")
+        share = run["dropped_share"]
+        log(f"gpt 15d ({kind}): {run['params']} params, peak {run['peak'] / 2**30:.2f} GiB, "
+            f"launches {run['launches']} (expected {expect} each), fallbacks {run['fallbacks']}"
+            f", share of (token, slot) routes dropped "
+            f"{'none (dropless)' if share is None else f'{share:.4f}'} [{card}]")
+        coef = run["moe"].router_aux_loss_coef
+        lm0 = math.log(32000) + HIDDEN * (0.02 * 0.879626) ** 2 / 2
+        if len(hist) != MIX_STEPS or not all(
+                math.isfinite(r[k]) for r in hist
+                for k in ("loss", "grad_norm", "router_aux_loss", "lm_loss")):
+            fail(f"gpt 15d {kind}: {len(hist)} steps, or a non-finite value: {hist}")
+        if abs(hist[0]["lm_loss"] - lm0) > 0.5 or \
+                not 0.9 * coef <= hist[0]["router_aux_loss"] <= 1.5 * coef:
+            fail(f"gpt 15d {kind}: step-0 lm_loss {hist[0]['lm_loss']} (expected {lm0:.4f}) or "
+                 f"router_aux_loss {hist[0]['router_aux_loss']} (coefficient {coef})")
+        if any(n != expect for n in run["launches"].values()) or run["fallbacks"]["core"]:
+            fail(f"gpt 15d {kind}: launches {run['launches']}, expected {expect} each")
+        if kind == "megatron_dropped" and not 0 < share < 0.5:
+            fail(f"gpt 15d {kind}: dropped share {share}")
+        run.pop("digest")
+        out[kind] = run
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"gpt 15d: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_gpt_pp_70b(torch, fa, card: str) -> dict:
+    """15e: ``megatron_llama_70b_config.yaml``'s pp 4 (the wavefront, as
+    JAX's gate keeps GPT) through the loopback, as 13a, at the widths its
+    tp 32 gives each card (hidden 8192, 2 q and 1 kv heads of 128, ffn 896,
+    vocab 1000), 4 layers, 4 microbatches of one seq-4096 row with uneven
+    loss masks: against the unpipelined GPT pass at 12a's bars, the
+    launches exact (the wavefront's recompute counted)."""
+    import dataclasses
+
+    from neuronx_distributed_training_torch.config import loader
+    from neuronx_distributed_training_torch.models import gpt, llama
+    from neuronx_distributed_training_torch.parallel import pipeline
+    from neuronx_distributed_training_torch.trainer import loop
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    @dataclasses.dataclass(frozen=True)
+    class CardGPT(gpt.GPTConfig):
+        """A card's share of the heads: GPT derives the head size from the
+        hidden size, so the per-card config keeps it here."""
+        card_head_size: int = 128
+
+        @property
+        def head_size(self) -> int:
+            return self.card_head_size
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    c = GPT_70B
+    cfg = loader.load_config(GPT_CONF / "megatron_llama_70b_config.yaml",
+                             {"model.num_layers": c["layers"],
+                              "distributed_strategy.tensor_model_parallel_size": 1,
+                              "distributed_strategy.sequence_parallel": False})
+    full = loop.model_config(cfg)
+    fields = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)}
+    fields.update(num_attention_heads=full.num_attention_heads // c["card_tp"],
+                  num_query_groups=max(full.kv_heads // c["card_tp"], 1),
+                  ffn_hidden_size=full.ffn_size // c["card_tp"],
+                  vocab_size=-(-full.vocab_size // c["card_tp"]))
+    gc = CardGPT(**fields, card_head_size=full.head_size)
+    policy = DtypePolicy.from_precision_config(cfg.get("precision"))
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.get("seed", 1234)))
+    params = gpt.init_params(gc, policy, generator=gen, device="cuda")
+    leaves = llama.named_params(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    n_params = sum(t.numel() for t in leaves.values())
+    log(f"gpt 15e: per-card widths {gc}; {n_params} params [{card}]")
+    schedule = pipeline.resolve_schedule("auto", gc, {"pipeline_model_parallel_size": c["pp"]})
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED + 150)
+    ids = torch.randint(0, gc.vocab_size, (c["nm"], 1, c["seq"]), generator=gen, device="cuda")
+    mbs = []
+    for m in range(c["nm"]):
+        mask = torch.ones(1, c["seq"], device="cuda")
+        mask[:, :(m * c["seq"]) // (2 * c["nm"])] = 0.0
+        mbs.append({"input_ids": ids[m], "labels": ids[m], "loss_mask": mask})
+    denom = sum(llama.loss_token_count(mb) for mb in mbs)
+    ref_loss, ref = None, {}
+    for mb in mbs:
+        lm = gpt.forward(params, mb, gc, policy, loss_denominator=denom)[0].float()
+        lm.backward()
+        ref_loss = lm.detach() if ref_loss is None else ref_loss + lm.detach()
+    for n, t in leaves.items():
+        ref[n], t.grad = t.grad, None
+    ref_loss = float(ref_loss)
+    log(f"gpt 15e: schedule {schedule}; unpipelined pass loss {ref_loss:.6f} [{card}]")
+    run = pp_run(torch, fa, pipeline, gpt.pipeline_hooks(gc, policy), params, mbs, denom,
+                 schedule, c["pp"], policy, card, f"gpt_70b_pp4_nm4_{schedule}")
+    rep = pp_check("15e", run, ref_loss, ref, layers=c["layers"], nm=c["nm"], pp=c["pp"],
+                   schedule=schedule, torch=torch)
+    if schedule != "wavefront":
+        fail(f"gpt 15e: auto resolved to {schedule}, JAX's gate keeps GPT on the wavefront")
+    run.pop("grads")
+    del params, leaves, ref, mbs
+    free_cuda(torch)
+    out = {"run": {**rep, **run}, "n_params": n_params,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"gpt 15e: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_gpt_kernels(torch, fa, kt, card: str, peaks) -> list:
+    """The three kernels at ``megatron_gpt``'s attention (b 2, s 2048, 32 /
+    8 heads of 128, causal) against their plain versions, then timed beside
+    their bounds."""
+    shape = dict(b=GPT_MBS, s=GPT_SEQ, nh=32, nkv=8, d=128)
+    if not check_case(torch, fa, f"megatron_gpt attention b={GPT_MBS} s={GPT_SEQ}",
+                      b=GPT_MBS, sq=GPT_SEQ, skv=GPT_SEQ, nh=shape["nh"], nkv=shape["nkv"],
+                      d=shape["d"], seed=151):
+        fail("a kernel disagrees with its plain version at megatron_gpt's attention")
+    gen = torch.Generator(device="cuda").manual_seed(152)
+    q, k, v, do = (kt.randn_bf16(gen, GPT_MBS, GPT_SEQ, h, shape["d"])
+                   for h in (shape["nh"], shape["nkv"], shape["nkv"], shape["nh"]))
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = kt.kernel_ms(q, k, v, do, lse, delta)
+    bounds = bounds_ms(kt, peaks, shape)
+    rows = []
+    for kname, t in ms.items():
+        rows.append({"kernel": kname, "ms": t, "bound_ms": bounds[kname][0],
+                     "bound_by": bounds[kname][1], **shape})
+        log(f"gpt attention time {kname} b={GPT_MBS} s={GPT_SEQ} nh 32 nkv 8 d 128: {t:.3f} ms, "
+            f"bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}), "
+            f"{bounds[kname][0] / t:.3f} of bound [{card}]")
+    del q, k, v, do, o, lse, delta
+    free_cuda(torch)
+    return rows
+
+
+def phase_gpt_tp(torch, cell, card: str) -> dict | None:
+    """15f, with two or more cards: 15a's cell (``megatron_gpt`` at full
+    width, 4 layers, 4 microbatches of 2 rows) under torchrun over NCCL at
+    tp 2 with SP (vocab 50257 in padded 25129-row slices) and, with four
+    cards, tp 4 (12565 rows), each against tp 1 under torchrun at the tp
+    bars (loss rtol 1e-4, grad norm 2e-3), with exact launches on every
+    rank; and at dropout 0.1, tp 2 against tp 1 (each rank draws its slice
+    of one card's masks) at the same bars.  With one card it says why it
+    did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"gpt: phase 15f (megatron_gpt at tp 2 / 4 against tp 1) not run: this machine "
+            f"shows {n_cards} card, and NCCL takes one rank per card")
+        return None
+    t_phase = time.perf_counter()
+    base = ("--config", str(GPT_CONF / "megatron_gpt_config.yaml"),
+            "--set", f"data.global_batch_size={GPT_MBS * GPT_MICRO}")
+    expect = GPT_LAYERS * GPT_MICRO * cell.STEPS
+
+    def run(tp: int, name: str, *extra: str) -> dict:
+        rep = torchrun_cell(cell, tp, cell.WORK / f"exp_gpt_{name}", 900, *base, "--tp", str(tp),
+                            *(("--sp",) if tp > 1 else ()), *extra)
+        for r in rep["ranks"]:
+            if any(k != expect for k in r["launches"].values()) or r["fallbacks"]["core"]:
+                fail(f"gpt 15f {name}: rank {r['rank']} launches {r['launches']}, expected "
+                     f"{expect} each")
+        log(f"gpt 15f {name} (tp {rep['tp']}, sp {rep['sp']}): losses {rep['loss']}, grad norms "
+            f"{rep['grad_norm']}, step seconds {rep['step_seconds']}, peak per rank "
+            f"{[r['peak_bytes'] for r in rep['ranks']]} bytes [{card}]")
+        return rep
+
+    def against(rep: dict, ref: dict, name: str) -> None:
+        ok = all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL) for a, b in zip(rep["loss"], ref["loss"]))
+        ok &= all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                  for a, b in zip(rep["grad_norm"], ref["grad_norm"]))
+        log(f"gpt 15f {name}: within the tp bars of tp 1: {ok}")
+        if not ok:
+            fail(f"gpt 15f {name}: losses {rep['loss']} / grad norms {rep['grad_norm']} against "
+                 f"tp 1's {ref['loss']} / {ref['grad_norm']}")
+
+    out = {"tp1": run(1, "tp1")}
+    tps = (2, 4) if n_cards >= 4 else (2,)
+    for tp in tps:
+        out[f"tp{tp}"] = run(tp, f"tp{tp}")
+        against(out[f"tp{tp}"], out["tp1"], f"tp{tp}")
+    drop = ("--set", "model.hidden_dropout=0.1")
+    out["drop_tp1"] = run(1, "drop_tp1", *drop)
+    out["drop_tp2"] = run(2, "drop_tp2", *drop)
+    against(out["drop_tp2"], out["drop_tp1"], "dropout 0.1, tp2")
+    if out["drop_tp1"]["loss"] == out["tp1"]["loss"]:
+        fail("gpt 15f: the dropout run's losses equal the dropout-0 run's")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"gpt 15f: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_gpt(torch, fa, kt, card: str, peaks) -> dict:
+    """Phase 15, 15a-15e and the kernels at GPT's attention."""
+    t_phase = time.perf_counter()
+    out = {"pretrain": phase_gpt_pretrain(torch, fa, card)}
+    out["mistral"] = gpt_mistral_pair(torch, fa, card)
+    out["dropout"] = phase_gpt_dropout(torch, fa, card)
+    out["mixtral"] = phase_gpt_mixtral(torch, fa, card)
+    out["pp_70b"] = phase_gpt_pp_70b(torch, fa, card)
+    out["kernels"] = phase_gpt_kernels(torch, fa, kt, card, peaks)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"gpt 15a-15e: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -3541,11 +4037,15 @@ def main() -> None:
                          ("13d", lambda: phase_pp_pref(torch, fa, card)),
                          ("14a", lambda: phase_mixtral(torch, fa, kt, card, peaks)),
                          ("14c", lambda: phase_moe_layer(torch, card, peaks)),
-                         ("14d", lambda: phase_mixtral_cli(torch, cell, card))):
-            if name in only or name[:2] in only or (name == "14a" and "14b" in only):
+                         ("14d", lambda: phase_mixtral_cli(torch, cell, card)),
+                         ("15", lambda: phase_gpt(torch, fa, kt, card, peaks)),
+                         ("15f", lambda: phase_gpt_tp(torch, cell, card))):
+            if name in only or (name[:2] in only and name != "15f") or \
+                    (name == "14a" and "14b" in only):
                 fn()
                 free_cuda(torch)
-        log(f"phases {only} passed (a partial run prints no result)")
+        log(f"phases {only} passed (a partial run prints no result); script wall time "
+            f"{time.perf_counter() - T_START:.1f} s")
         return
 
     phase_checks(torch, fa, kt, card)
@@ -3588,6 +4088,10 @@ def main() -> None:
     free_cuda(torch)
     mixtral = phase_mixtral(torch, fa, kt, card, peaks)
     moe_layer = phase_moe_layer(torch, card, peaks)
+    free_cuda(torch)
+    gpt_rep = phase_gpt(torch, fa, kt, card, peaks)
+    free_cuda(torch)
+    gpt_tp = phase_gpt_tp(torch, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -3641,7 +4145,17 @@ def main() -> None:
                                     {"pretrain_pp2_cp2": [r["launches"][kname] for r in
                                                           pp_cp["pp2_cp2"]["ranks"]]}),
                                  "mixtral_dropless": mixtral["dropless"]["launches"][kname],
-                                 "mixtral_dropped": mixtral["dropped"]["launches"][kname]},
+                                 "mixtral_dropped": mixtral["dropped"]["launches"][kname],
+                                 "gpt_pretrain": gpt_rep["pretrain"]["launches"][kname],
+                                 "gpt_vs_llama": gpt_rep["mistral"]["gpt_launches"][kname],
+                                 "gpt_dropout": gpt_rep["dropout"]["launches"][kname],
+                                 **{f"gpt_mixtral_{k.split('_')[1]}":
+                                    gpt_rep["mixtral"][k]["launches"][kname]
+                                    for k in GPT_MIX_CONFIGS},
+                                 "gpt_pp_70b": gpt_rep["pp_70b"]["run"]["launches"][kname],
+                                 **({} if gpt_tp is None else
+                                    {"gpt_tp2": [r["launches"][kname]
+                                                 for r in gpt_tp["tp2"]["ranks"]]})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
@@ -3652,8 +4166,12 @@ def main() -> None:
                                   for r in pp_virtual["kernels"] if r["kernel"] == kname],
             "mixtral_shape": [{k: v for k, v in r.items() if k != "kernel"}
                               for r in mixtral["kernels"] if r["kernel"] == kname],
+            "gpt_shape": [{k: v for k, v in r.items() if k != "kernel"}
+                          for r in gpt_rep["kernels"] if r["kernel"] == kname],
         })
     log(f"moe layer (14c): {json.dumps(moe_layer)}")
+    log(f"chip_smoke: every phase passed; script wall time {time.perf_counter() - T_START:.1f} "
+        f"s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -39,6 +39,10 @@ from neuronx_distributed_training_torch.data.loader import PREFERENCE_SIDES, con
 
 ForwardLogits = Callable[[Any, torch.Tensor], torch.Tensor]
 
+#: the offset of a rejected row's index in the concatenated forward's
+#: dropout rows (past any microbatch's chosen rows)
+REJECTED_ROWS = 1 << 32
+
 #: the DPO pass's columns: {column: (ids key, loss-mask key)}
 DPO_SIDES = {"reference_chosen_logps": ("chosen_input_ids", "chosen_loss_mask"),
              "reference_rejected_logps": ("rejected_input_ids", "rejected_loss_mask")}
@@ -80,16 +84,18 @@ def compute_reference_logprobs(params: Any, batches: Iterable[dict],
 
 def make_dpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=None, dp=None,
                      cp=None):
-    """``loss_fn(params, batch, denominator=None) -> (loss, metrics)`` over
-    DPO batches: ``chosen_input_ids`` / ``rejected_input_ids``, their loss
-    masks, and the two reference columns (a context rank's slices under
-    ``cp``)."""
+    """``loss_fn(params, batch, denominator=None, key=None) -> (loss,
+    metrics)`` over DPO batches: ``chosen_input_ids`` /
+    ``rejected_input_ids``, their loss masks, and the two reference columns
+    (a context rank's slices under ``cp``).  A dropout ``key`` gives each
+    side its own fold (JAX splits it in two)."""
 
-    def loss_fn(params, batch, denominator=None):
+    def loss_fn(params, batch, denominator=None, key=None):
+        kc, kr = (None, None) if key is None else (key.fold(0), key.fold(1))
         pc, reg_c = side_logprobs(forward_logits, params, batch, "chosen_", tp=tp, cp=cp,
-                                  with_reg=True)
+                                  with_reg=True, key=kc)
         pr, reg_r = side_logprobs(forward_logits, params, batch, "rejected_", tp=tp, cp=cp,
-                                  with_reg=True)
+                                  with_reg=True, key=kr)
         loss, metrics = dpo_loss(pc, pr, batch["reference_chosen_logps"],
                                  batch["reference_rejected_logps"], beta=beta,
                                  denominator=denominator, dp=dp)
@@ -130,10 +136,20 @@ def preference_pipeline_hooks(hooks, head_fn: Callable, *, mode: str = "dpo",
 
     def cat(mb):
         ids = torch.cat([mb["chosen_input_ids"], mb["rejected_input_ids"]], dim=0)
-        if cp is None:
-            return {"input_ids": ids}
-        return {"input_ids": ids, "positions": torch.cat([mb["chosen_positions"],
-                                                          mb["rejected_positions"]], dim=0)}
+        out = {"input_ids": ids}
+        if cp is not None:
+            out["positions"] = torch.cat([mb["chosen_positions"], mb["rejected_positions"]],
+                                         dim=0)
+        for k in ("_chunk", "_pipe"):
+            if k in mb:
+                out[k] = mb[k]
+        if "_rng" in mb:
+            # the rejected rows draw their own masks: their indices moved
+            # past every chosen row's
+            key = mb["_rng"]
+            rows = key.rows or tuple(range(mb["chosen_input_ids"].shape[0]))
+            out["_rng"] = key.with_rows(rows + tuple(r + REJECTED_ROWS for r in rows))
+        return out
 
     def loss2(params, y, mb):
         logits = head_fn(params, y)

@@ -52,18 +52,19 @@ def make_kto_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1,
     off-policy ``z0``.  The baseline carries no gradient, so that forward
     runs under ``torch.no_grad()``: autograd keeps none of its activations
     and it has no backward.  Under ``cp`` the batch is a context rank's
-    slices."""
+    slices.  A dropout ``key`` reaches both forwards, as JAX's."""
 
-    def loss_fn(params, batch, denominator=None):
+    def loss_fn(params, batch, denominator=None, key=None):
         logps, reg = side_logprobs(forward_logits, params, batch, "", tp=tp, cp=cp,
-                                   with_reg=True)
+                                   with_reg=True, key=key)
         kl_rewards = None
         if kl_estimator == "mismatched":
             if "kl_input_ids" not in batch:
                 raise KeyError("kl_estimator=mismatched needs kl_input_ids batches — build the "
                                "data module with kl_estimator='mismatched'")
             with torch.no_grad():
-                kl_logps = side_logprobs(forward_logits, params, batch, "kl_", tp=tp, cp=cp)
+                kl_logps = side_logprobs(forward_logits, params, batch, "kl_", tp=tp, cp=cp,
+                                         key=key)
                 kl_rewards = beta * (kl_logps - batch["reference_kl_logps"])
         loss, metrics = kto_loss(logps, batch["reference_logps"], batch["kto_labels"], beta=beta,
                                  desirable_weight=desirable_weight,

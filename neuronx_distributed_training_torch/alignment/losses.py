@@ -92,7 +92,7 @@ def sequence_logprobs(
 
 
 def side_logprobs(forward_logits, params, batch: dict, side: str, *, average: bool = False,
-                  tp=None, cp=None, with_reg: bool = False):
+                  tp=None, cp=None, with_reg: bool = False, key=None):
     """:func:`sequence_logprobs` of one side of a preference batch, the
     ``<side>input_ids`` row with its ``<side>loss_mask``
     (``data/loader.py::PREFERENCE_SIDES``).  Under ``cp`` the batch is a
@@ -100,12 +100,14 @@ def side_logprobs(forward_logits, params, batch: dict, side: str, *, average: bo
     ``<side>positions`` come from the whole row.  ``forward_logits`` may
     return ``(logits, reg)``, a MoE model's router loss (JAX's
     ``_call_forward``); ``with_reg`` returns ``(logps, reg)``, ``reg`` 0.0
-    for a dense model."""
+    for a dense model.  A dropout ``key`` (a GPT's policy forward,
+    ``utils/prng.py``) is handed to ``forward_logits`` as ``key=``."""
     ids, mask = batch[side + "input_ids"], batch.get(side + "loss_mask")
+    kw = {} if key is None else {"key": key}
     if cp is None:
-        out = forward_logits(params, ids)
+        out = forward_logits(params, ids, **kw)
     else:
-        out = forward_logits(params, ids, batch[side + "positions"])
+        out = forward_logits(params, ids, batch[side + "positions"], **kw)
     logits, reg = out if isinstance(out, tuple) else (out, 0.0)
     if cp is None:
         logps = sequence_logprobs(logits, ids, mask, average=average, tp=tp)

@@ -18,17 +18,19 @@ from neuronx_distributed_training_torch.alignment.losses import (
 
 def make_orpo_loss_fn(forward_logits: ForwardLogits, *, beta: float = 0.1, tp=None, dp=None,
                       cp=None):
-    """``loss_fn(params, batch, denominator=None) -> (loss, metrics)``: two
+    """``loss_fn(params, batch, denominator=None, key=None) -> (loss,
+    metrics)`` (``key``: the dropout key, folded per side): two
     policy forwards, ``nll = -mean(chosen)``, the odds-ratio term, and
     ``rewards_chosen`` / ``rewards_rejected`` as ``beta`` times the mean
     averaged log-probs (a context rank's slices under ``cp``: a row's sum
     and its token count are both summed over the context group)."""
 
-    def loss_fn(params, batch, denominator=None):
+    def loss_fn(params, batch, denominator=None, key=None):
+        kc, kr = (None, None) if key is None else (key.fold(0), key.fold(1))
         pc, reg_c = side_logprobs(forward_logits, params, batch, "chosen_", average=True,
-                                  tp=tp, cp=cp, with_reg=True)
+                                  tp=tp, cp=cp, with_reg=True, key=kc)
         pr, reg_r = side_logprobs(forward_logits, params, batch, "rejected_", average=True,
-                                  tp=tp, cp=cp, with_reg=True)
+                                  tp=tp, cp=cp, with_reg=True, key=kr)
         loss, metrics = orpo_loss(pc, pr, -rows_mean(pc, denominator), beta=beta,
                                   denominator=denominator, dp=dp)
         sums = global_sums([pc.sum(), pr.sum()], dp) / row_count(pc, denominator)

@@ -3,8 +3,9 @@
 A copy of its loader: plain YAML + ``${a.b.c}`` interpolation + the
 ``${multiply:x,y}`` / ``${add:x,y}`` resolvers + dotted overrides, resolving
 to the same dict.  ``validate_config`` keeps the checks that need nothing
-but the config, and validates the ``exp_manager.checkpoint`` block, the
-``exp_manager.telemetry.health`` block and the
+but the config (the Megatron block-layout rules among them), and validates
+the ``exp_manager.checkpoint`` block, the ``exp_manager.telemetry.health``
+block and the
 ``distributed_strategy.pipeline`` block (a mapping with ``schedule`` alone,
 one of the five schedules, and a manual-backward schedule's config-shape
 gate, ``parallel/pipeline.py::blocked_1f1b_reason``); the knob blocks whose
@@ -329,6 +330,19 @@ def validate_config(cfg: ConfigDict) -> None:
                 f"scan with pathological compile/step time); pad seq_length "
                 f"to a smoother length (e.g. a multiple of {want})"
             )
+
+    # ---- megatron block layout (the JAX package's rules and texts)
+    bt = model.get("transformer_block_type") if isinstance(model, Mapping) else None
+    if bt is not None and bt not in ("pre_ln", "post_ln", "normformer", "gpt_j"):
+        raise ValueError(
+            f"unknown transformer_block_type {bt!r}; supported: pre_ln, "
+            f"post_ln, normformer, gpt_j (reference transformer.py:1567)"
+        )
+    if bt == "normformer" and model.get("moe"):
+        raise ValueError(
+            "normformer blocks are dense-only (the mid-MLP norm has no "
+            "expert equivalent); use pre_ln or post_ln with MoE"
+        )
 
     prec = cfg.get("precision", {}) or {}
     ptype = prec.get("type") if isinstance(prec, Mapping) else prec

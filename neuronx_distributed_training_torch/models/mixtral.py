@@ -134,16 +134,15 @@ def init_params(cfg: MixtralConfig, policy: Optional[DtypePolicy] = None, *,
                              ep_rank=ep_rank, ep_size=ep_size, mlp_of=mlp_of)
 
 
-def _moe_mlp(mlp: dict, h: torch.Tensor, cfg: MixtralConfig, policy: DtypePolicy, tp, ep):
+def moe_mlp(mlp: dict, h: torch.Tensor, moe: moe_ops.MoEConfig, policy: DtypePolicy, tp, ep):
     """The MoE block of a layer (its params cast already) ->
-    ``(y, loss share, loss value)``."""
+    ``(y, loss share, loss value)`` (GPT's MoE layers run it too)."""
     h = tp_ops.enter_column(h, tp)
     params = {"router": mlp["router"], "experts": moe_ops.gather_experts(mlp["experts"], ep)}
-    y, aux = moe_ops.moe_block(params, h, cfg.moe, compute_dtype=policy.compute_dtype,
-                               tokens=ep)
+    y, aux = moe_ops.moe_block(params, h, moe, compute_dtype=policy.compute_dtype, tokens=ep)
     size = tp.size if tp_ops.active(tp) else 1
     share, value = moe_ops.router_loss_share(
-        aux["router_logits"], aux["expert_idx"], cfg.moe,
+        aux["router_logits"], aux["expert_idx"], moe,
         reduce=None if ep is None else ep.sum_stats_, grad_scale=1.0 / size)
     return tp_ops.leave_row(y, tp), share, value
 
@@ -158,7 +157,7 @@ def _moe_layer(lp, x, cos, sin, cfg: MixtralConfig, policy: DtypePolicy, attenti
                                    attention_mask=attention_mask, segment_ids=segment_ids,
                                    tp=tp, cp=cp)
     h = norm_ops.apply_rms_norm(lp["post_attn_norm"], x, eps=lc.rms_norm_eps)
-    y, share, value = _moe_mlp(lp["mlp"], h, cfg, policy, tp, ep)
+    y, share, value = moe_mlp(lp["mlp"], h, cfg.moe, policy, tp, ep)
     return x + y, share, value
 
 

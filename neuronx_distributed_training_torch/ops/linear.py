@@ -20,6 +20,14 @@ for both: under LoRA a column layer's ``lora_b`` holds its output columns
 replicated), so the rank's adapter term is its part of the same sum, and the
 row layer's reduce carries it with no extra collective.
 :func:`apply_embedding` with ``tp`` is the vocab-parallel embedding.
+
+A linear dict may also carry a ``bias [out]`` (Megatron's biased linears,
+``init_linear(use_bias=True)``, zeros).  :func:`apply_linear` adds it after
+the LoRA term, as JAX's does: a column layer's bias holds the rank's output
+columns, as its ``w``.  A row layer's bias is replicated and added once,
+after the reduce over tp (:func:`apply_row_linear`), on the rank's sequence
+slice under sequence parallelism, where its gradient is then a partial sum
+over tp, as the norms' are.
 """
 
 from __future__ import annotations
@@ -40,8 +48,11 @@ def _normal_init(gen: torch.Generator, shape, dtype, stddev: float, device) -> t
 
 
 def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, *, dtype=torch.float32,
-                stddev: float = 0.02, device=None):
-    return {"w": _normal_init(gen, (in_dim, out_dim), dtype, stddev, device)}
+                stddev: float = 0.02, device=None, use_bias: bool = False):
+    out = {"w": _normal_init(gen, (in_dim, out_dim), dtype, stddev, device)}
+    if use_bias:
+        out["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return out
 
 
 class WeightGradSplit:
@@ -117,7 +128,18 @@ def apply_linear(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor
         a = params["lora_a"].to(y.dtype)
         b = params["lora_b"].to(y.dtype)
         y = y + ((x @ a) @ b) * params["lora_scale"].to(y.dtype)
+    if "bias" in params:
+        b = params["bias"]
+        y = y + (b.to(y.dtype) if compute_dtype is not None else b)
     return y
+
+
+def apply_row_linear(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A row-parallel layer: the rank's partial product, its reduce over tp
+    (``tensor_parallel.leave_row``: the rank's sequence slice under SP), then
+    the replicated bias, once."""
+    y = tp_ops.leave_row(apply_linear({k: v for k, v in params.items() if k != "bias"}, x), tp)
+    return y + params["bias"] if "bias" in params else y
 
 
 def init_embedding(gen: torch.Generator, vocab_size: int, hidden: int, *,

@@ -927,14 +927,16 @@ def bind_stage(params, hooks, rank: int, size: int, leaves: dict, act_dtype,
     ``models/llama.py::pipeline_hooks`` (``models/mixtral.py``'s with
     ``aux_scale``), ``leaves`` the trainable leaves by dotted name, of which
     the stage takes its chunks' layers' and the replicated ones.  Chunk
-    ``c``'s microbatches carry ``_chunk: c``, as JAX's do."""
+    ``c``'s microbatches carry ``_chunk: c``, as JAX's do, and ``_pipe:
+    rank`` (JAX's ``axis_index("pipe")``), the folds of a stage's dropout
+    key (``models/gpt.py``)."""
     embed_fn, stage_fn, loss_fn, act_shape = hooks
     chunks = stage_chunks(len(params["layers"]), rank, size, vp)
     mine = {i for chunk in chunks for i in chunk}
 
     def layers(c):
         return lambda x, mb: stage_fn([params["layers"][i] for i in chunks[c]], x,
-                                      {**mb, "_chunk": c})
+                                      {**mb, "_chunk": c, "_pipe": rank})
 
     return Stage(rank=rank, size=size,
                  embed=lambda mb: embed_fn(params, mb),
@@ -1093,14 +1095,17 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
     ``pipe``), and ``eval_step(params, batch)``, the forward schedule's loss
     summed over ``pipe`` and, with ``summed``, the data axis.
     ``microbatches_of(batch)`` gives the rank's microbatches (its data rows),
-    ``denominator_of(batch)`` the whole global batch's valid-token count.
-    ``aux_scale``: the stages return ``(x, aux)`` (see :class:`Stage`)."""
+    ``denominator_of(batch)`` the whole global batch's valid-token count;
+    with a dropout ``key`` (``utils/prng.py``) ``microbatches_of(batch,
+    key)`` gives each microbatch its ``_rng``.  ``aux_scale``: the stages
+    return ``(x, aux)`` (see :class:`Stage`)."""
 
-    def loss_and_grad(params, batch, leaves: dict):
+    def loss_and_grad(params, batch, leaves: dict, key=None):
         stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype, vp,
                            aux_scale)
-        loss, grads = drive(stage_body(stage, microbatches_of(batch), denominator_of(batch),
-                                       schedule, grad_dtype=grad_dtype), pipe)
+        mbs = microbatches_of(batch) if key is None else microbatches_of(batch, key)
+        loss, grads = drive(stage_body(stage, mbs, denominator_of(batch), schedule,
+                                       grad_dtype=grad_dtype), pipe)
         shared = {n: t for n, t in leaves.items() if not is_stage_leaf(n)}
         dev = next(iter(batch.values())).device
         loss, grads = sum_over_pipe(loss, grads, shared, pipe, dev)

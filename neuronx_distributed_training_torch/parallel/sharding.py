@@ -55,6 +55,19 @@ ffn, ``gate_up``'s ``[gate_r | up_r]`` as the dense ``gate_up``'s.  The
 router ``[h, E]`` is replicated, and ``partial`` under tp: the ranks of a
 tp group route the same gathered tokens, and each one's gradient of the
 combine weights is its ffn slice's part of the sum.
+
+GPT (``models/gpt.py``, JAX's ``gpt.param_specs``): ``attn.qkv`` is the
+fused q / k / v column layer above, its ``bias`` cut into the same parts
+(dim 0); ``mlp.up`` is a column layer, cut into ``[gate_r | up_r]`` when the
+activation is a glu and plainly otherwise, its ``bias`` likewise; ``attn.o``
+and ``mlp.down`` are row layers whose ``bias`` is replicated (JAX's
+``P(None)``) and added after the reduce, so ``partial`` under SP.  The
+LayerNorm ``bias`` is partial under SP as the ``scale``, and so are the
+learned position and tokentype tables (added on the rank's sequence
+slice).  The normformer's ``nf_mlp_norm`` spans the whole ffn width and is
+replicated, as in JAX; each rank applies its ffn slice of it inside the
+full-width norm (``parallel/tensor_parallel.py::full_width_norm``), so its
+gradient is a partial sum over tp, with or without SP.
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ from typing import Any, Optional
 import torch
 
 #: layers whose output dim is sharded (and their LoRA ``lora_b``)
-COLUMN = ("qkv", "q", "k", "v", "gate_up")
+COLUMN = ("qkv", "q", "k", "v", "gate_up", "up")
 #: layers whose input dim is sharded (and their LoRA ``lora_a``)
 ROW = ("o", "down")
 
@@ -141,7 +154,7 @@ def fused_segments(cfg, module: str) -> tuple:
     if module == "qkv":
         return (Part("q", nh * d), Part("k", nkv * d, kv_heads=nkv),
                 Part("v", nkv * d, kv_heads=nkv))
-    if module == "gate_up":
+    if module == "gate_up" or (module == "up" and getattr(cfg, "is_glu", False)):
         return (Part("gate", cfg.intermediate_size), Part("up", cfg.intermediate_size))
     return ()
 
@@ -154,6 +167,8 @@ def _plain_part(cfg, module: str, row: bool) -> tuple:
         return (Part("", nh * d if module == "o" else cfg.intermediate_size),)
     if module in ("k", "v"):
         return (Part("", nkv * d, kv_heads=nkv),)
+    if module == "up":
+        return (Part("", cfg.intermediate_size),)
     return (Part("", nh * d),)
 
 
@@ -173,9 +188,13 @@ def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayou
         return LeafLayout(dim=0, parts=vocab)
     if name == "lm_head.w":
         return LeafLayout(dim=1, parts=vocab)
+    if name in ("pos_embed.embedding", "tokentype_embed.embedding"):
+        # added on the rank's sequence slice under SP
+        return LeafLayout(partial=bool(sequence_parallel))
     if module in COLUMN:
-        if leaf in ("w", "lora_b"):
-            return LeafLayout(dim=1, parts=fused_segments(cfg, module)
+        if leaf in ("w", "lora_b", "bias"):
+            return LeafLayout(dim=0 if leaf == "bias" else 1,
+                              parts=fused_segments(cfg, module)
                               or _plain_part(cfg, module, row=False))
         if leaf == "lora_a":
             return LeafLayout(partial=True)
@@ -184,7 +203,12 @@ def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayou
             return LeafLayout(dim=0, parts=_plain_part(cfg, module, row=True))
         if leaf == "lora_b":
             return LeafLayout(partial=True)
-    if leaf == "scale" and module.endswith("norm"):
+        if leaf == "bias":  # added after the reduce: on the seq shard under SP
+            return LeafLayout(partial=bool(sequence_parallel))
+    if module == "nf_mlp_norm":
+        # each rank applies its ffn slice of the whole-width leaf
+        return LeafLayout(partial=True)
+    if leaf in ("scale", "bias") and module.endswith("norm"):
         # under SP the norms see a seq shard (JAX's ``seq_axes``), so their
         # gradient is a partial sum over tp (a partial sum over context, as
         # every leaf's is under cp, is the train step's (data, context) sum)

@@ -18,6 +18,12 @@ region                             forward                     backward
 Activations are ``[batch, seq, ...]``; the sequence dim is 1.  Both pickers
 are the identity, with no collective call, when ``tp`` is None or its size is 1,
 so a one-rank run takes exactly the path it took before tensor parallelism.
+
+:func:`full_width_norm` is GPT's normformer mid-MLP norm over an activation
+whose last dim the ranks split (the ffn columns): JAX computes a true
+LayerNorm (or RMSNorm) over the whole width, GSPMD inserting the reduction,
+so the statistics here are all-reduced over the tp group, in the forward
+and in an exact backward, and tp 2 computes what tp 1 does.
 """
 
 from __future__ import annotations
@@ -122,3 +128,56 @@ def leave_row(y: torch.Tensor, tp) -> torch.Tensor:
     if not active(tp):
         return y
     return (_ReduceScatterToSP if tp.sequence_parallel else _ReduceFromTP).apply(y, tp)
+
+
+class _FullWidthNormalize(torch.autograd.Function):
+    """``x [..., n_local]`` (fp32) -> its normalization over the whole width
+    ``n_local * tp`` (``center``: LayerNorm's ``(x - mean) rstd``, else
+    RMSNorm's ``x rstd``), the per-row sums all-reduced over tp; the
+    backward is the exact gradient, its two per-row sums all-reduced too."""
+
+    @staticmethod
+    def forward(ctx, x, tp, eps, center):
+        n = x.shape[-1] * tp.size
+        if center:
+            mean = all_reduce(torch.sum(x, dim=-1, keepdim=True), tp) / n
+            x = x - mean
+        var = all_reduce(torch.sum(x * x, dim=-1, keepdim=True), tp) / n
+        rstd = torch.rsqrt(var + eps)
+        xhat = x * rstd
+        ctx.save_for_backward(xhat, rstd)
+        ctx.tp, ctx.n, ctx.center = tp, n, center
+        return xhat
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, rstd = ctx.saved_tensors
+        sums = [torch.sum(g * xhat, dim=-1, keepdim=True)]
+        if ctx.center:
+            sums.append(torch.sum(g, dim=-1, keepdim=True))
+        sums = all_reduce(torch.cat(sums, dim=-1), ctx.tp) / ctx.n
+        dx = g - xhat * sums[..., :1]
+        if ctx.center:
+            dx = dx - sums[..., 1:]
+        return dx * rstd, None, None, None
+
+
+def full_width_norm(params: dict, x: torch.Tensor, tp, *, eps: float,
+                    center: bool = True) -> torch.Tensor:
+    """A LayerNorm (``center``; ``params`` has ``scale`` and ``bias``) or an
+    RMSNorm (``scale``) over the whole last dim of an activation whose
+    columns the tp ranks split evenly, rank ``r`` holding the ``r``-th
+    slice: each rank applies its slice of the whole-width ``params``.  fp32
+    inside, cast back, as ``ops/norm.py``.  Without an active ``tp`` it is
+    the plain norm."""
+    from neuronx_distributed_training_torch.ops import norm as norm_ops
+
+    if not active(tp):
+        return (norm_ops.apply_layer_norm(params, x, eps=eps) if center
+                else norm_ops.apply_rms_norm(params, x, eps=eps))
+    n = x.shape[-1]
+    xhat = _FullWidthNormalize.apply(x.float(), tp, eps, center)
+    out = xhat * params["scale"].float().narrow(0, tp.rank * n, n)
+    if center:
+        out = out + params["bias"].float().narrow(0, tp.rank * n, n)
+    return out.to(x.dtype)

@@ -15,7 +15,8 @@ v parts are the one head it shares with ``tp/nkv`` ranks; a vocab tp does
 not divide is padded with zero rows to ``ceil(V/tp)`` a rank), and
 ``params_to_jax`` merges the list of every rank's local tree back into JAX's
 global leaves (one replica of each kv head, the real vocab rows).
-Both need the model's ``LlamaConfig`` for the segments.  Under pipeline
+Both need the model's config (``LlamaConfig``, ``MixtralConfig`` or
+``GPTConfig``) for the segments.  Under pipeline
 parallelism ``params_from_jax`` gives one rank's tree (the layers of its
 chunks; None for the other ranks'), and ``params_to_jax`` merges the ranks
 back (:func:`merge_stages`).  At ``vp > 1`` the JAX tree's layers are the
@@ -32,6 +33,13 @@ layout, ``mlp = {"moe": [G, ...], "dense": [G, f-1, ...]}`` beside the flat
 layer (layer ``i`` is MoE iff ``i % f == 0``) and back; under the virtual
 pipeline its ``[vp, pp, Gc, ...]`` interleave is undone leaf by leaf first,
 as JAX's ``deinterleave_layers`` does.
+
+GPT (``models/gpt.py``): the same rules, with GPT's names (``mlp.up``,
+biases, LayerNorm ``bias``, ``pos_embed``, ``tokentype_embed``, the
+normformer norms) and its config (``GPTConfig``, for the segments: q / k / v
+of ``qkv``, gate / up of a glu ``up``); JAX's GPT-MoE groups cross as
+Mixtral's.  ``tools/convert_megatron.py`` maps Megatron state dicts to the
+same tree.
 """
 
 from __future__ import annotations

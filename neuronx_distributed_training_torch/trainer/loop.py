@@ -108,9 +108,17 @@ whose unpipelined losses add ``0.5 (reg_chosen + reg_rejected)`` (KTO: the
 policy forward's) as JAX's do.  A ``model.moe`` block on a Llama or Mistral
 architecture is logged as ignored and the model trains dense, as in JAX.
 
-Knobs this slice does not implement (GPT, LoRA on Mixtral, the dropped MoE
-path under context parallelism) are rejected with the ROADMAP item that
-ports them;
+Megatron GPT (``model.architecture: gpt``, or ``model_source: megatron``
+on an architecture that is not Llama, Mistral or Mixtral, JAX's
+``build_model`` dispatch; ``models/gpt.py``) trains under dp, tp (SP, kv
+replication, padded vocab slices), pp (the wavefront, as JAX's gate keeps
+it) and, with MoE layers, ep; its dropout draws from the step's key
+``utils/prng.py::step_key(step)``, so a resume redraws the straight run's
+masks.  Its preference forwards take the key, the reference pass none.
+
+Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
+MoE path under context parallelism, GPT under context parallelism) are
+rejected with the ROADMAP item that ports them;
 config blocks it does not act on are logged once as ignored (the other
 telemetry planes and the health recorder's knobs, elastic replan, EMA,
 autotune, overlap, and the Pallas tiles ``fusions.flash_block_q`` /
@@ -148,7 +156,7 @@ from neuronx_distributed_training_torch.data.loader import (
     PrefetchIterator,
     context_parallel_batch,
 )
-from neuronx_distributed_training_torch.models import llama, mixtral
+from neuronx_distributed_training_torch.models import gpt, llama, mixtral
 from neuronx_distributed_training_torch.ops import norm as norm_ops
 from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
@@ -175,7 +183,7 @@ from neuronx_distributed_training_torch.trainer.exp_manager import (
 )
 from neuronx_distributed_training_torch.trainer import step as step_mod
 from neuronx_distributed_training_torch.trainer.step import make_eval_step, make_train_step
-from neuronx_distributed_training_torch.utils import perf
+from neuronx_distributed_training_torch.utils import perf, prng
 from neuronx_distributed_training_torch.utils.device import resolve_device
 from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
 
@@ -211,12 +219,13 @@ def check_supported(cfg: ConfigDict) -> None:
     such knobs gets them all in one message.  Pipeline parallelism runs
     every schedule the JAX package's gate picks (``1f1b``,
     ``1f1b-interleaved`` at vp > 1, ``1f1b-zb``, the wavefront at any vp),
-    with the chunked head, cp and preference alignment; Mixtral and expert
-    parallelism are ported, GPT is not.  Zig-zag under pp, with preference
-    alignment or on Mixtral is refused with the JAX trainer's texts, a pp
-    split of ``moe_frequency > 1`` groups that cuts a group too, and a
-    schedule forced on a combination it does not support raises the JAX
-    package's ``resolve_schedule`` text."""
+    with the chunked head, cp and preference alignment; Mixtral, expert
+    parallelism and Megatron GPT are ported (all 24 shipped configs pass).
+    Zig-zag under pp, with preference alignment or on Mixtral is refused
+    with the JAX trainer's texts, a pp split of ``moe_frequency > 1`` groups
+    that cuts a group too, GPT's block-layout rules with JAX's texts, and a
+    schedule forced on a combination it does not support (an explicit
+    ``1f1b`` on GPT) raises the JAX package's ``resolve_schedule`` text."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
@@ -234,11 +243,11 @@ def check_supported(cfg: ConfigDict) -> None:
             raise NotImplementedError("zigzag_ring_attention with preference alignment; use "
                                       "fusions.ring_attention")
     arch = _architecture(cfg)
-    if str(cfg.get("model_source", "hf")).lower() == "megatron" or arch == "gpt":
-        reasons.append(("megatron GPT models", "11", "14"))
+    if _is_gpt(cfg):
+        _check_gpt(cfg, ds, model, reasons)
     elif arch not in ("llama", "mistral", "mixtral"):
         raise ValueError(f"unknown architecture {arch!r}")
-    if arch == "mixtral" and not reasons:
+    if arch == "mixtral":
         _check_moe(cfg, ds, model, reasons)
     if reasons:
         raise _unsupported(reasons)
@@ -253,12 +262,26 @@ def _architecture(cfg: ConfigDict) -> str:
     return str(model.get("architecture", model.get("model_type", "llama"))).lower()
 
 
+def _is_gpt(cfg: ConfigDict) -> bool:
+    """A Megatron GPT model, by JAX's ``build_model`` dispatch: the
+    ``llama`` / ``mistral`` / ``mixtral`` architectures first (so
+    ``model_source: megatron`` alone builds a Llama, the architecture's
+    default), then ``architecture: gpt`` or ``model_source: megatron``."""
+    arch = _architecture(cfg)
+    if arch in ("llama", "mistral", "mixtral"):
+        return False
+    return arch == "gpt" or str(cfg.get("model_source", "hf")).lower() == "megatron"
+
+
 def model_config(cfg: ConfigDict):
-    """The model's config: ``models/mixtral.py::MixtralConfig`` for the
+    """The model's config: ``models/gpt.py::GPTConfig`` for a Megatron GPT
+    (:func:`_is_gpt`), ``models/mixtral.py::MixtralConfig`` for the
     ``mixtral`` architecture, else ``models/llama.py::LlamaConfig`` (a
     ``model.moe`` block on Llama or Mistral is ignored, as in JAX)."""
     model = dict(cfg.get("model", {}) or {})
     ds = dict(cfg.get("distributed_strategy", {}) or {})
+    if _is_gpt(cfg):
+        return gpt.GPTConfig.from_config(model, ds)
     if _architecture(cfg) == "mixtral":
         return mixtral.MixtralConfig.from_config(model, ds)
     return llama.LlamaConfig.from_config(model, ds)
@@ -272,29 +295,49 @@ def _check_moe(cfg: ConfigDict, ds: dict, model: dict, reasons: list) -> None:
     if xc.llama.attention_impl == "zigzag_ring":
         raise NotImplementedError("zigzag_ring_attention is llama/mistral-only; use "
                                   "fusions.ring_attention for mixtral")
-    mixtral.num_moe_layers(xc)
-    ep = int(ds.get("expert_model_parallel_size", 1) or 1)
-    if xc.moe.num_experts % ep:
-        raise ValueError(f"moe.num_experts {xc.moe.num_experts} not divisible by "
-                         f"expert_model_parallel_size {ep}")
-    tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
-    if ep > 1 and tp > xc.llama.kv_heads:
-        raise NotImplementedError(f"expert parallelism with tensor_model_parallel_size {tp} "
-                                  f"above the {xc.llama.kv_heads} kv heads (each kv head "
-                                  f"replicated) is not ported yet (ROADMAP queue 1 entry 10 "
-                                  f"[item 13])")
-    pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
-    vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
-    if pp > 1 and xc.moe_frequency != 1:
-        groups = mixtral.num_moe_layers(xc)
-        if groups % (pp * vp) != 0:
-            raise ValueError(f"num_layers {xc.num_layers} / moe frequency {xc.moe_frequency} "
-                             f"= {groups} groups, not divisible by pp*vp = {pp}*{vp}")
+    _check_experts(ds, xc, mixtral.num_moe_layers(xc), xc.llama.kv_heads)
     if dict(model.get("lora", {}) or {}):
         reasons.append(("LoRA on a Mixtral model", "10", "13"))
     if not xc.moe.dropless and int(ds.get("context_parallel_size", 1) or 1) > 1:
         reasons.append(("the dropped (capacity-factor) MoE path under context parallelism",
                         "10", "13"))
+
+
+def _check_experts(ds: dict, mc, groups: int, kv_heads: int) -> None:
+    """The rules of a model with MoE layers (``mc``: its ``moe`` and
+    ``moe_frequency``; ``groups``: its MoE layer count): the expert axis
+    divides the experts, ep is not ported above the kv heads, and a
+    pipeline slices whole MoE + dense groups (JAX's text)."""
+    ep = int(ds.get("expert_model_parallel_size", 1) or 1)
+    if mc.moe.num_experts % ep:
+        raise ValueError(f"moe.num_experts {mc.moe.num_experts} not divisible by "
+                         f"expert_model_parallel_size {ep}")
+    tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
+    if ep > 1 and tp > kv_heads:
+        raise NotImplementedError(f"expert parallelism with tensor_model_parallel_size {tp} "
+                                  f"above the {kv_heads} kv heads (each kv head "
+                                  f"replicated) is not ported yet (ROADMAP queue 1 entry 10 "
+                                  f"[item 13])")
+    pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
+    vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
+    if pp > 1 and mc.moe_frequency != 1 and groups % (pp * vp) != 0:
+        raise ValueError(f"num_layers {mc.num_layers} / moe frequency {mc.moe_frequency} "
+                         f"= {groups} groups, not divisible by pp*vp = {pp}*{vp}")
+
+
+def _check_gpt(cfg: ConfigDict, ds: dict, model: dict, reasons: list) -> None:
+    """A Megatron GPT's rules: JAX's block-layout refusals (its texts), the
+    MoE rules of :func:`_check_experts` for GPT-MoE, and the port's
+    refusals, added to ``reasons``: GPT under context parallelism and LoRA
+    on GPT (no shipped config asks for either)."""
+    gc = gpt.GPTConfig.from_config(model, ds)
+    gpt.check_config(gc)
+    if gc.moe is not None:
+        _check_experts(ds, gc, gpt.num_moe_layers(gc), gc.kv_heads)
+    if int(ds.get("context_parallel_size", 1) or 1) > 1:
+        reasons.append(("a GPT model under context parallelism", "11", "14"))
+    if dict(model.get("lora", {}) or {}):
+        reasons.append(("LoRA on a GPT model", "11", "14"))
 
 
 def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
@@ -305,9 +348,8 @@ def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
     tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
     if tp == 1:
         return
-    nh = int(model.get("num_attention_heads", 32))
-    nkv = int(model.get("num_key_value_heads") or nh)
-    llama.check_heads(nh, nkv, tp)
+    mc = model_config(cfg)
+    llama.check_heads(mc.num_attention_heads, mc.kv_heads, tp)
     seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
     cp = int(ds.get("context_parallel_size", 1) or 1)
     if ds.get("sequence_parallel") and (seq // cp) % tp:
@@ -348,8 +390,14 @@ def _log_ignored(cfg: ConfigDict) -> None:
     # the Pallas kernels' tiles: the Hopper kernels' tiles are fixed
     fusions = dict(dict(cfg.get("model", {}) or {}).get("fusions", {}) or {})
     ignored += [f"model.fusions.{k}" for k in ("flash_block_q", "flash_block_kv") if k in fusions]
-    if dict(cfg.get("model", {}) or {}).get("moe") and _architecture(cfg) != "mixtral":
+    if (dict(cfg.get("model", {}) or {}).get("moe") and _architecture(cfg) != "mixtral"
+            and not _is_gpt(cfg)):
         ignored.append("model.moe")  # JAX builds a Llama or Mistral dense
+    if _is_gpt(cfg):
+        # JAX's GPT runs core or flash attention and its own head
+        ignored += [f"model.fusions.{k}" for k in ("chunked_ce", "ring_attention",
+                                                   "ulysses_attention",
+                                                   "zigzag_ring_attention") if fusions.get(k)]
     fresh = [k for k in ignored if k not in _logged_ignored]
     if fresh:
         _logged_ignored.update(fresh)
@@ -357,7 +405,8 @@ def _log_ignored(cfg: ConfigDict) -> None:
                     "parallelism, with replicated kv heads and padded vocab slices, context "
                     "parallelism, and pipeline parallelism with every schedule and the virtual "
                     "pipeline; the chunked head; SFT, LoRA, DPO / ORPO / KTO; Mixtral under "
-                    "expert parallelism; no telemetry planes but the health policy yet): %s",
+                    "expert parallelism; Megatron GPT; no telemetry planes but the health "
+                    "policy yet): %s",
                     ", ".join(fresh))
 
 
@@ -413,7 +462,10 @@ def _beta(strategy: str, params: dict, model_block: dict) -> float:
 
 def _head_fn(mc, policy, tp):
     """``(params, y) -> logits``: the final norm and the head, the
-    preference hooks' ``head_fn`` (a Mixtral's are its Llama's)."""
+    preference hooks' ``head_fn`` (a Mixtral's are its Llama's; a GPT's
+    its own, with no final norm under ``post_ln``)."""
+    if isinstance(mc, gpt.GPTConfig):
+        return lambda params, y: gpt.logits_of(params, y, mc, policy, tp)
     mc = getattr(mc, "llama", mc)
 
     def head(params, y):
@@ -426,6 +478,8 @@ def _head_fn(mc, policy, tp):
 def _base_pipeline_hooks(mc, policy, *, shift_labels=True, tp=None, cp=None, ep=None):
     """The model's pipeline hooks: ``models/mixtral.py::pipeline_hooks``
     (its stage returns ``(x, aux)``) or ``models/llama.py``'s."""
+    if isinstance(mc, gpt.GPTConfig):
+        return gpt.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, ep=ep)
     if isinstance(mc, mixtral.MixtralConfig):
         return mixtral.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp, ep=ep)
     return llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp)
@@ -451,15 +505,20 @@ def _pipeline_hooks(strategy, params: dict, model_block: dict, mc, policy, *, sh
 
 
 def _pipeline_microbatches(strategy, nm: int, dp, cp, shift_labels: bool) -> Callable:
-    """``batch -> [microbatch]`` of a pipeline rank: the data rank's rows of
-    each (``trainer/step.py``), under cp the context rank's slices (cut
-    after what needs the whole row, as the unpipelined loss does); a KTO
-    microbatch under data parallelism carries ``_rows``, the whole
-    microbatch's row count (its baseline's)."""
-    def split(batch):
+    """``(batch, key=None) -> [microbatch]`` of a pipeline rank: the data
+    rank's rows of each (``trainer/step.py``), under cp the context rank's
+    slices (cut after what needs the whole row, as the unpipelined loss
+    does); a KTO microbatch under data parallelism carries ``_rows``, the
+    whole microbatch's row count (its baseline's).  With the step's dropout
+    ``key`` (``utils/prng.py``) microbatch ``m`` carries ``_rng``: the key
+    folded with ``m``, for its rows' indices in the whole microbatch (JAX
+    splits the step key per microbatch)."""
+    def split(batch, key=None):
         out = []
         rows_of = _row_count if strategy == "kto" and dp is not None else None
-        for mb, rows in step_mod._microbatches(batch, nm, dp, rows_of):
+        for m, (mb, rows) in enumerate(step_mod._microbatches(batch, nm, dp, rows_of)):
+            if key is not None:
+                mb["_rng"] = key.fold(m).with_rows(step_mod.microbatch_rows(mb, dp))
             if cp is not None and strategy in PREFERENCE:
                 mb = context_parallel_batch(mb, cp.rank, cp.size, sides=PREFERENCE_SIDES)
             elif cp is not None:
@@ -484,13 +543,18 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
     pass runs each side through the pipeline (``parallel/pipeline.py::
     forward_rows``), the last stage taking the sequence log-probs."""
 
-    def forward_logits(p, input_ids, positions=None):
+    def forward_logits(p, input_ids, positions=None, key=None):
         # input_ids alone, as the JAX package's preference forward: no
         # key-padding mask, so the kernels take the pretraining route; a
-        # Mixtral's also gives its router-loss share (JAX's reg)
+        # Mixtral's (or a GPT-MoE's) also gives its router-loss share
+        # (JAX's reg); a GPT's policy forwards take the dropout key, the
+        # reference pass none
         batch = {"input_ids": input_ids}
         if positions is not None:
             batch["positions"] = positions
+        if isinstance(mc, gpt.GPTConfig):
+            logits, aux = gpt.forward(p, batch, mc, policy, rng=key, tp=tp, ep=ep)
+            return (logits, aux["router_aux_share"]) if mc.moe is not None else logits
         if isinstance(mc, mixtral.MixtralConfig):
             logits, aux = mixtral.forward(p, batch, mc, policy, tp=tp, cp=cp, ep=ep)
             return logits, aux["router_aux_share"]
@@ -562,11 +626,21 @@ def _aux_scale(mc, nm: int, strategy) -> Optional[float]:
     ``aux_inv_layers = 0``: the preference forward computes no LM loss; the
     reference pass too); None for a dense model, whose stages return no
     loss."""
-    if not isinstance(mc, mixtral.MixtralConfig):
+    n = _moe_layers(mc)
+    if n is None:
         return None
     if strategy in PREFERENCE:
         return 0.0
-    return 1.0 / (nm * mixtral.num_moe_layers(mc))
+    return 1.0 / (nm * n)
+
+
+def _moe_layers(mc) -> Optional[int]:
+    """The MoE layer count of a Mixtral or a GPT-MoE; None for a dense model."""
+    if isinstance(mc, mixtral.MixtralConfig):
+        return mixtral.num_moe_layers(mc)
+    if isinstance(mc, gpt.GPTConfig) and mc.moe is not None:
+        return gpt.num_moe_layers(mc)
+    return None
 
 
 def _context_split(loss_fn, cp):
@@ -621,7 +695,7 @@ _STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
 class Trainer:
     cfg: ConfigDict
     device: torch.device
-    model_cfg: Any  # models/llama.py::LlamaConfig or models/mixtral.py::MixtralConfig
+    model_cfg: Any  # models/{llama,mixtral,gpt}.py's LlamaConfig, MixtralConfig or GPTConfig
     policy: DtypePolicy
     params: Any
     opt_state: dict
@@ -658,6 +732,9 @@ class Trainer:
     rank: int = 0
     #: the frozen-policy reference pass (DPO, KTO); None for other runs
     reference: Optional[ReferencePass] = None
+    #: the train step draws dropout masks from the step's key (a GPT with
+    #: dropout; ``utils/prng.py``)
+    needs_rng: bool = False
     step: int = 0
     #: why the finished run stopped early ("max_time", "preemption",
     #: "health_halt"; None for a run that reached max_steps)
@@ -683,7 +760,8 @@ class Trainer:
         ds = dict(cfg.get("distributed_strategy", {}) or {})
         mc = model_config(cfg)
         lc = getattr(mc, "llama", mc)  # the Llama knobs (a Mixtral's decoder)
-        moe = isinstance(mc, mixtral.MixtralConfig)
+        is_gpt = isinstance(mc, gpt.GPTConfig)
+        moe = _moe_layers(mc) is not None
         mesh_cfg = MeshConfig.from_config(ds)
         dp, dp_size, tp, cp, pp, ep = None, 1, None, None, None, None
         if dist.is_available() and dist.is_initialized():
@@ -728,7 +806,11 @@ class Trainer:
         gen = torch.Generator(device=dev).manual_seed(seed)
         vp = mesh_cfg.virtual_pipeline_model_parallel_size
         ep_rank, ep_size = (0, 1) if ep is None else (ep.rank, ep.size)
-        if moe:
+        if is_gpt:
+            params = gpt.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
+                                     tp_size=tp_size, ep_rank=ep_rank, ep_size=ep_size,
+                                     pp_rank=pp_rank, pp_size=pp_size, vp=vp)
+        elif moe:
             params = mixtral.init_params(mc, policy, generator=gen, device=dev, tp_rank=tp_rank,
                                          tp_size=tp_size, ep_rank=ep_rank, ep_size=ep_size,
                                          pp_rank=pp_rank, pp_size=pp_size, vp=vp)
@@ -773,7 +855,10 @@ class Trainer:
                 micro_batch_size=sched["micro_batch_size"], pp=pp, vp=vp, ep=ep)
             token_count_fn = _row_count
         else:
-            def loss_fn(p, batch, denominator=None):
+            def loss_fn(p, batch, denominator=None, key=None):
+                if is_gpt:
+                    return gpt.forward(p, batch, mc, policy, rng=key, shift_labels=shift_labels,
+                                       loss_denominator=denominator, tp=tp, ep=ep)
                 if cp is not None:
                     # the rank's slice, cut after what needs the whole row
                     pos = llama.positions_for(batch["input_ids"], batch.get("attention_mask"),
@@ -828,6 +913,7 @@ class Trainer:
             eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
                                        token_count_fn=token_count_fn, cp=cp)
         seq = int((cfg.get("data", {}) or {}).get("seq_length", 2048))
+        needs_rng = is_gpt and mc.needs_rng
         version = None
         if dp is not None:
             # rank 0 picks the version dir (a new one, or the newest to resume)
@@ -860,8 +946,7 @@ class Trainer:
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
                    peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp, ep=ep,
                    pipeline_schedule=pp_schedule, layouts=layouts,
-                   rank=rank,
-                   world=world, reference=reference)
+                   rank=rank, world=world, reference=reference, needs_rng=needs_rng)
 
     # -- resume ---------------------------------------------------------------
 
@@ -1028,7 +1113,11 @@ class Trainer:
             while self.step < self.max_steps:
                 t0 = time.perf_counter()
                 batch = {k: torch.as_tensor(v).to(self.device) for k, v in next(batches).items()}
-                metrics = self.train_step(self.params, self.opt_state, batch)
+                # the step's dropout key: fold_in(PRNGKey(0), step), so a
+                # resumed run draws the masks of the straight one
+                args = (self.params, self.opt_state, batch)
+                metrics = (self.train_step(*args, key=prng.step_key(self.step))
+                           if self.needs_rng else self.train_step(*args))
                 rec = {k: float(v) for k, v in metrics.items()}  # waits for the device
                 seconds = time.perf_counter() - t0
                 index, self.step = self.step, self.step + 1

@@ -64,6 +64,14 @@ has already summed over ``expert`` (``ops/moe.py::gather_experts``); they
 are summed over ``data`` alone (``(data, context)`` under cp).  The norm
 adds them over ``expert``, each expert once.
 
+``key`` (a ``utils/prng.py::Key``, the step's dropout key; GPT with
+dropout): every microbatch's loss function gets it, for the rows the rank
+computes (their indices in the whole microbatch, :func:`microbatch_rows`),
+as ``loss_fn(params, mb, denominator, key=...)``; the pipeline's
+``loss_and_grad_fn`` gets it as ``key=`` and splits it per microbatch.
+Without pp every microbatch of a step so draws the same masks, as JAX's
+``train_step`` hands each microbatch the same ``step_key``.
+
 ``cp`` (``parallel/mesh.py::ContextParallel``): context parallelism.  Every
 context rank of a data rank takes that rank's rows, and the loss function
 computes its slice of the sequence (``data/loader.py::
@@ -122,8 +130,20 @@ def _microbatches(batch, num_microbatches: int, dp, token_count_fn):
             for i in range(num_microbatches)]
 
 
-def _call_loss(loss_fn, params, mb, denominator):
-    return loss_fn(params, mb) if denominator is None else loss_fn(params, mb, denominator)
+def microbatch_rows(mb: dict, dp) -> range:
+    """The indices, in the whole microbatch, of the rows of ``mb`` this
+    rank computes (``data/loader.py::dp_rank_rows``: data rank ``r`` takes
+    slice ``[r mbs, (r + 1) mbs)`` of each microbatch)."""
+    n = next(iter(mb.values())).shape[0]
+    start = 0 if dp is None else dp.rank * n
+    return range(start, start + n)
+
+
+def _call_loss(loss_fn, params, mb, denominator, key=None, dp=None):
+    kw = {} if key is None else {"key": key.with_rows(microbatch_rows(mb, dp))}
+    if denominator is None and not kw:
+        return loss_fn(params, mb)
+    return loss_fn(params, mb, denominator, **kw)
 
 
 def _scalar_aux(aux: dict) -> dict:
@@ -177,8 +197,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
                     log_param_norm: bool = False, log_gradient_norm: bool = False,
                     ep: Any = None) -> Callable:
-    """``train_step(params, opt_state, batch) -> metrics``; params and
-    opt_state are updated in place (see ``optim/adamw.py``).
+    """``train_step(params, opt_state, batch, key=None) -> metrics``; params
+    and opt_state are updated in place (see ``optim/adamw.py``).
 
     ``loss_and_grad_fn(params, batch, leaves) -> (loss, aux, grads)`` (the
     JAX package's hook; ``leaves`` the trainable leaves by name, ``grads``
@@ -199,7 +219,7 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
     experts = frozenset(n for n, lay in (tp_sharded.items() if isinstance(tp_sharded, dict)
                                          else ()) if lay.expert)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, key=None):
         flat = named_params(params)
         names = [n for n in flat if trainable is None or n in trainable]
         for n, p in flat.items():
@@ -210,12 +230,13 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
         grad_sum = None
         aux_sum: dict = {}
         if loss_and_grad_fn is not None:
-            loss_sum, aux, got = loss_and_grad_fn(params, batch, flat)
+            loss_sum, aux, got = (loss_and_grad_fn(params, batch, flat) if key is None
+                                  else loss_and_grad_fn(params, batch, flat, key=key))
             aux_sum = _scalar_aux(aux)
             grad_sum = [got[n] for n in names]
         for mb, denom in ([] if loss_and_grad_fn is not None else
                           _microbatches(batch, num_microbatches, dp, token_count_fn)):
-            loss, aux = _call_loss(loss_fn, params, mb, denom)
+            loss, aux = _call_loss(loss_fn, params, mb, denom, key, dp)
             for k, v in _scalar_aux(aux).items():
                 aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
             del aux

@@ -1,10 +1,12 @@
 """Analytic FLOPs and MFU (counterpart of the JAX package's ``utils/perf.py``,
-the Llama and Mixtral accounting).
+the Llama, Mixtral and GPT accounting).
 
 FWD FLOPs = num_layers * (attention + mlp) + the lm_head matmul; a train step
 is 3 x FWD.  A Mixtral counts only the activated experts (``top_k`` SwiGLUs
 a token on each MoE layer) and the router matmul, as JAX's
-``flops_breakdown_for_model`` does, so its MFU means what JAX's means.  Peaks are the cards' published dense bf16 and HBM rates; the
+``flops_breakdown_for_model`` does, so its MFU means what JAX's means.  A
+GPT counts its own MLP: 3 matmuls under a glu activation, 2 under plain
+gelu, and with MoE layers the activated experts and the router as Mixtral.  Peaks are the cards' published dense bf16 and HBM rates; the
 trainer's MFU and ``chip_smoke.py``'s kernel bounds both read them from here.
 """
 
@@ -74,6 +76,8 @@ def flops_for_model(model_cfg, seq_len: int) -> float:
     or a Mixtral: its attention on every layer, a dense SwiGLU on each dense
     layer, ``top_k`` SwiGLUs and the router on each MoE layer, and the
     head (JAX's ``flops_breakdown_for_model``, summed in its order)."""
+    if hasattr(model_cfg, "transformer_block_type"):
+        return _gpt_flops_per_token(model_cfg, seq_len)
     lc = getattr(model_cfg, "llama", None)
     if lc is None:
         return llama_flops_per_token(
@@ -95,6 +99,27 @@ def flops_for_model(model_cfg, seq_len: int) -> float:
         "router": float(n_moe * 2 * h * model_cfg.moe.num_experts),
         "head": 2.0 * h * lc.vocab_size,
     }
+    return float(sum(breakdown.values()))
+
+
+def _gpt_flops_per_token(gc, seq_len: int) -> float:
+    """A ``models/gpt.py::GPTConfig``'s forward FLOPs per token: JAX's
+    ``flops_breakdown_for_model`` GPT branch, summed in its order."""
+    h = gc.hidden_size
+    one_layer = llama_flops_per_token(
+        num_layers=1, hidden_size=h, intermediate_size=0,
+        num_attention_heads=gc.num_attention_heads, num_kv_heads=gc.kv_heads,
+        vocab_size=0, seq_len=seq_len, head_dim=gc.head_size)
+    mlp = 2 * h * (3 if gc.is_glu else 2) * gc.ffn_size
+    head = 2.0 * h * gc.vocab_size
+    if gc.moe is not None:
+        n_moe = gc.num_layers // gc.moe_frequency
+        breakdown = {"attention": gc.num_layers * one_layer,
+                     "mlp": (gc.num_layers - n_moe) * mlp + n_moe * gc.moe.top_k * mlp,
+                     "router": float(n_moe * 2 * h * gc.moe.num_experts), "head": head}
+    else:
+        breakdown = {"attention": gc.num_layers * one_layer,
+                     "mlp": float(gc.num_layers * mlp), "router": 0.0, "head": head}
     return float(sum(breakdown.values()))
 
 

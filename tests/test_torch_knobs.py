@@ -98,6 +98,39 @@ def test_shipped_config_knobs_are_acted_on_or_logged(config, caplog):
             assert key in ACTED or key in logged, (config, key, sorted(logged))
 
 
+#: the reads of JAX's GPTConfig.from_config, and the port's GPTConfig
+GPT_READS = [(r'm\.get\(\s*"(\w+)"', "model"), (r'fusions\.get\("(\w+)"', "model.fusions"),
+             (r'ds\.get\("(\w+)"', "distributed_strategy"),
+             (r'\(moe_block or \{\}\)\.get\("(\w+)"', "model.moe")]
+
+
+def gpt_read_keys(src: Path) -> set:
+    text = src.read_text()
+    return {f"{block}.{k}" for pattern, block in GPT_READS for k in re.findall(pattern, text)}
+
+
+@pytest.mark.parametrize("config", sorted(p.name for p in CONF.glob("megatron_*.yaml")))
+def test_megatron_config_knobs_are_read_by_the_port_gpt(config, caplog):
+    """The seven Megatron GPT configs: each key JAX's ``GPTConfig.from_config``
+    reads is read by the port's too (``models/gpt.py``; the Pallas tiles
+    ``flash_block_q`` / ``flash_block_kv`` are named in the ignored log
+    instead), and the trainer's sweep above holds for them as well."""
+    jax_keys = gpt_read_keys(JAX / "models" / "gpt.py")
+    port_keys = gpt_read_keys(REPO / "neuronx_distributed_training_torch" / "models" / "gpt.py")
+    assert {"model.has_bias", "model.rotary_base", "model.num_moe_experts",
+            "model.sliding_window_size", "model.moe.frequency"} <= jax_keys
+    cfg = t_loader.load_config(CONF / config)
+    t_loop._logged_ignored.clear()
+    with caplog.at_level(logging.INFO, logger="nxdt.torch.train"):
+        t_loop._log_ignored(cfg)
+    lines = [r.getMessage() for r in caplog.records if "ignored by this slice" in r.getMessage()]
+    logged = set(lines[0].split(": ", 1)[1].split(", ")) if lines else set()
+    for key in sorted(jax_keys):
+        if _present(cfg, key):
+            assert key in port_keys or key in logged, (config, key)
+    assert jax_keys - port_keys <= {"model.fusions.flash_block_q", "model.fusions.flash_block_kv"}
+
+
 def test_flash_tiles_are_logged_as_ignored(caplog):
     cfg = t_loader.load_config(TINY, {"model.fusions.flash_block_q": 256,
                                       "model.fusions.flash_block_kv": 512})

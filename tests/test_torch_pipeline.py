@@ -799,19 +799,26 @@ ACCEPTED = {"hf_llama3_8B_config.yaml": None, "hf_llama3.1_8B_config.yaml": None
             "hf_llama3_70B_v5p_config.yaml": "1f1b-interleaved",
             "hf_llama3.1_405B_config.yaml": "1f1b-interleaved",
             "hf_llama3_70B_CP_config.yaml": "wavefront",
-            "hf_mixtral_8x7b_config.yaml": None, "hf_mixtral_8x7b_dropped_config.yaml": None}
+            "hf_mixtral_8x7b_config.yaml": None, "hf_mixtral_8x7b_dropped_config.yaml": None,
+            # the Megatron GPT configs (the 70B at pp 4 x tp 32: JAX's gate
+            # keeps GPT on the wavefront)
+            "megatron_gpt_config.yaml": None, "megatron_llama2_7B_SFT_config.yaml": None,
+            "megatron_llama_70b_config.yaml": "wavefront", "megatron_llama_7B_config.yaml": None,
+            "megatron_mistral_config.yaml": None, "megatron_mixtral_8x7b_config.yaml": None,
+            "megatron_mixtral_8x7b_dropless_config.yaml": None}
 #: the refused ones, with what each refusal names
 REFUSED: dict = {}
 
 
 @pytest.mark.parametrize("config", sorted(p.name for p in CONF.glob("*.yaml")))
 def test_shipped_configs_check_supported(config):
-    """17 of the 24 shipped configs pass as shipped: the two 70B configs at
-    pp 8 x tp 32 (``1f1b``), the 70B v5p config (pp 4 x vp 2) and the 405B
-    (pp 14 x vp 3, ``chunked_ce: 8``) on ``1f1b-interleaved``, the 70B CP
-    config (pp 8 x cp 2) on the wavefront, as JAX's gate resolves them, and
-    both hf Mixtral configs (tp 8 x ep 4); the rest, every ``megatron_*``
-    config, are refused naming GPT (entry 11)."""
+    """All 24 shipped configs pass as shipped: the two 70B configs at pp 8 x
+    tp 32 (``1f1b``), the 70B v5p config (pp 4 x vp 2) and the 405B (pp 14
+    x vp 3, ``chunked_ce: 8``) on ``1f1b-interleaved``, the 70B CP config
+    (pp 8 x cp 2) on the wavefront, as JAX's gate resolves them, both hf
+    Mixtral configs (tp 8 x ep 4), and the seven ``megatron_*`` GPT configs,
+    ``megatron_llama_70b`` (pp 4 x tp 32) on the wavefront, where JAX's gate
+    keeps GPT; a refusal would name what it lacks (``REFUSED``)."""
     cfg = t_loader.load_config(CONF / config)
     if config in ACCEPTED:
         t_loop.check_supported(cfg)
