@@ -265,12 +265,37 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       dropout 0.1 tp 2 against tp 1.  With one card it prints why it did not
       run.
 
+16. the fit loop as shipped, phase 4's cell unless a line says otherwise:
+   a. the flagship's own ``exp_manager.telemetry`` block and
+      ``log_every_n_steps: 10`` for 20 steps through the CLI:
+      ``metrics.jsonl`` holds steps 10 and 20 alone, each with ``time/*``,
+      ``goodput_fraction``, ``throughput_seqs_per_sec``,
+      ``throughput_peak``, ``step_time``, ``mfu`` and the ``device_*``
+      keys; ``run_summary.json`` the census and ``goodput``; steps 0-2 equal
+      phase 4's bit for bit; 320 launches of each kernel; no synchronizing
+      CUDA call inside steps 2-19's dispatch (``torch.cuda``'s sync debug
+      mode around ``Trainer._dispatch``); it prints the windows' step_time
+      against phase 4's median step (a sync a step), the spans, goodput,
+      the census, and AdamW over phase 4's state with and without the
+      skip's select;
+   b. phase 7b's NaN ``loss_mask`` at 2 layers under ``skip_update`` at
+      ``log_every_n_steps: 2``: ``anomaly_00000001/`` with ``anomaly.json``
+      and ``ring.json``, step 1 keeps params, moments and step bit for bit;
+      then ``halt`` stops at that boundary without a checkpoint;
+   c. EMA (decay 0.99, ``evaluate_ema_weights_instead``) at 2 layers for 3
+      steps: the EMA against an fp32 recomputation on the host from each
+      step's weights, the validation loss on EMA weights, the params bit for
+      bit after the swap back, peak memory with EMA and without (the run
+      without saves at step 3);
+   d. a warm start from 16c's save: params bit for bit, step, moments and
+      data position fresh.
+
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``) runs the kernels' build and those
-phases alone (13e after phase 4; 14a and 14b are one function) and prints no
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``) runs the kernels' build and those
+phases alone (13e and 16 after phase 4; 14a and 14b are one function) and prints no
 result: a partial check while developing.
 """
 
@@ -2268,7 +2293,7 @@ def phase_skip(torch, fa, cell, card: str) -> None:
             "params": [device_digest(torch, t) for t in named_params(trainer.params).values()],
             "mu": [device_digest(torch, t) for t in o["mu"].values()],
             "nu": [device_digest(torch, t) for t in o["nu"].values()],
-            "step": o["step"], "health": dict(o["health"])})
+            "step": int(o["step"]), "health": {k: int(v) for k, v in o["health"].items()}})
 
     try:
         history = run_cli_handlers(trainer.fit, *[AtStepEnd(i, snapshot) for i in range(3)])
@@ -3949,6 +3974,423 @@ def phase_gpt(torch, fa, kt, card: str, peaks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fit loop as shipped (cadence, telemetry, recorder, EMA, warm start)
+# ---------------------------------------------------------------------------
+
+#: 16a: the flagship's own cadence over 20 steps
+CADENCE_STEPS, CADENCE_LOG_EVERY = 20, 10
+#: 16c's EMA decay
+EMA_DECAY = 0.99
+#: the keys every 16a record carries (and one time/* key at least)
+CADENCE_KEYS = ("goodput_fraction", "throughput_seqs_per_sec", "throughput_peak", "step_time",
+                "mfu", "tokens_per_sec", "device_bytes_in_use", "device_peak_bytes_in_use",
+                "device_bytes_limit")
+#: the census keys 16a's run_summary.json carries
+CENSUS_KEYS = ("compile_seconds", "collectives", "memory", "fwd_flops_per_token",
+               "train_step_flops_per_token", "peak_tflops_per_chip", "model_family", "n_chips",
+               "seq_len", "global_batch_size", "pipeline_schedule",
+               "bubble_fraction_predicted")
+
+
+def cell_cfg(cell, *sets: str):
+    """The phase-4 cell's config (``tools/step_times.py``) with more
+    ``key=value`` overrides."""
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.trainer import cli
+
+    args = cell.CLI_ARGS + [x for kv in sets for x in ("--set", kv)]
+    return load_config(args[1], cli.parse_overrides([a for a in args[2:] if a != "--set"]))
+
+
+class SyncWatch:
+    """Records every synchronizing CUDA call inside each step's dispatch
+    (``Trainer._dispatch``: the batch's copy and the train step) from step
+    ``first`` on, through ``torch.cuda``'s sync debug mode: each such call
+    warns, and the warning's source line is kept."""
+
+    def __init__(self, torch, first: int):
+        self.torch, self.first, self.syncs = torch, first, []
+
+    def __enter__(self):
+        import warnings
+
+        from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+        self.real = real = Trainer._dispatch
+        torch, watch = self.torch, self
+
+        def dispatch(trainer, host_batch, index):
+            if index < watch.first:
+                return real(trainer, host_batch, index)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = real(trainer, host_batch, index)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            watch.syncs += [(index, f"{w.filename}:{w.lineno}", str(w.message)[:160])
+                            for w in seen if "called a synchronizing" in str(w.message)]
+            return out
+
+        Trainer._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+        Trainer._dispatch = self.real
+
+
+def skip_cost(torch, trainer, card: str) -> dict:
+    """The skip's select in phase 4's step: AdamW over the trained 4-layer
+    state with finite zero gradients, with the health probes as under
+    ``dump_and_continue`` (no select) and under ``skip_update`` (each leaf
+    written through ``torch.where``), CUDA-event ms, alternated 3 times
+    each (the state is garbage afterwards)."""
+    import statistics
+
+    from neuronx_distributed_training_torch.models.llama import named_params
+    from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, adamw_update
+    from neuronx_distributed_training_torch.telemetry.health import grad_group_of
+
+    flat = named_params(trainer.params)
+    grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in flat.items()}
+    out = {False: [], True: []}
+    for _ in range(3):
+        for skip in (False, True):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            adamw_update(flat, grads, trainer.opt_state, 1e-6, AdamWConfig(), trainer.policy,
+                         grad_group_fn=grad_group_of, skip_nonfinite=skip)
+            end.record()
+            torch.cuda.synchronize()
+            out[skip].append(start.elapsed_time(end))
+    rep = {"plain_ms": statistics.median(out[False]), "skip_ms": statistics.median(out[True]),
+           "params": sum(p.numel() for p in flat.values())}
+    log(f"cadence 16a: AdamW over phase 4's state ({rep['params']} params): no select "
+        f"{out[False]} ms, skip_update's select {out[True]} ms (medians {rep['plain_ms']:.2f} / "
+        f"{rep['skip_ms']:.2f}) [{card}]")
+    del grads
+    return rep
+
+
+def phase_cadence(torch, fa, cell, history4: list, card: str) -> dict:
+    """16a: the flagship's telemetry block and ``log_every_n_steps: 10``
+    for 20 steps through the CLI, phase 4's cell otherwise."""
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_cadence"
+    shutil.rmtree(exp, ignore_errors=True)
+    args = cell.CLI_ARGS + ["--set", f"trainer.max_steps={CADENCE_STEPS}",
+                            "--set", f"trainer.log_every_n_steps={CADENCE_LOG_EVERY}",
+                            "--set", f"exp_manager.exp_dir={exp}"]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    try:
+        with SyncWatch(torch, first=2) as watch:
+            trainer, history = cli.run(args)
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        peak = torch.cuda.max_memory_allocated()
+        records = [json.loads(x) for x in
+                   (trainer.exp.log_dir / "metrics.jsonl").read_text().splitlines()]
+        summary = json.loads((trainer.exp.log_dir / "run_summary.json").read_text())
+        cost = skip_cost(torch, trainer, card)
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    expect = cell.LAYERS * cell.MICROBATCHES * CADENCE_STEPS
+    med4 = _median([r["step_seconds"] for r in history4[1:]])
+    for r in records:
+        log(f"cadence 16a: boundary {r['step']}: step_time {r['step_time']:.4f} s, "
+            f"time/dispatch {r.get('time/dispatch', 0.0):.3f} s, time/host_sync "
+            f"{r.get('time/host_sync', 0.0):.3f} s, time/data_wait "
+            f"{r.get('time/data_wait', 0.0):.3f} s, time/compile "
+            f"{r.get('time/compile', 0.0):.3f} s, goodput {r.get('goodput_fraction')}, "
+            f"{r.get('tokens_per_sec', 0.0):.1f} tokens/s, throughput "
+            f"{r.get('throughput_seqs_per_sec')} seqs/s (peak {r.get('throughput_peak')}), "
+            f"mfu {r.get('mfu')}, device bytes in use {r.get('device_bytes_in_use')} "
+            f"(peak {r.get('device_peak_bytes_in_use')}) [{card}]")
+    log(f"cadence 16a: window step_time {[r['step_time'] for r in records]} s against phase "
+        f"4's median step with a sync a step {med4:.4f} s ({[r['step_seconds'] for r in history4]})"
+        f" [{card}]")
+    census = {k: summary.get(k) for k in CENSUS_KEYS}
+    log(f"cadence 16a: census {json.dumps(census)}; goodput {json.dumps(summary.get('goodput'))}; "
+        f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+    log(f"cadence 16a: launches {launches} fallbacks {fallbacks} (expected {expect} each); "
+        f"host syncs inside steps 2-{CADENCE_STEPS - 1}'s dispatch: {len(watch.syncs)}")
+    if len(history) != CADENCE_STEPS:
+        fail(f"cadence: {len(history)} steps, expected {CADENCE_STEPS}")
+    if [r["step"] for r in records] != list(range(CADENCE_LOG_EVERY, CADENCE_STEPS + 1,
+                                                  CADENCE_LOG_EVERY)):
+        fail(f"cadence: metrics.jsonl has steps {[r['step'] for r in records]}")
+    for r in records:
+        missing = [k for k in CADENCE_KEYS if k not in r]
+        if missing or not any(k.startswith("time/") for k in r):
+            fail(f"cadence: the step-{r['step']} record lacks {missing} or time/*: {sorted(r)}")
+    missing = [k for k in CENSUS_KEYS if k not in summary] + \
+        (["goodput"] if "goodput" not in summary else [])
+    if missing or summary.get("compile_seconds") is None or not summary.get("memory"):
+        fail(f"cadence: run_summary.json lacks {missing} (or an empty census): {sorted(summary)}")
+    got = [(r["loss"], r["grad_norm"]) for r in history[:len(history4)]]
+    want = [(r["loss"], r["grad_norm"]) for r in history4]
+    if got != want:
+        fail(f"cadence: steps 0-{len(history4) - 1} are not phase 4's bit for bit: {got} vs "
+             f"{want}")
+    if not all(math.isfinite(r["loss"]) for r in history):
+        fail("cadence: a non-finite loss")
+    if any(n != expect for n in launches.values()) or fallbacks["core"]:
+        fail(f"cadence: launches {launches} (fallbacks {fallbacks}), expected {expect} each")
+    if watch.syncs:
+        fail(f"cadence: host syncs between boundaries: {watch.syncs[:12]}")
+    out = {"launches": launches, "records": records, "census": census,
+           "goodput": summary.get("goodput"), "peak_bytes": peak, "skip_cost": cost,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"cadence 16a: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def state_digests(torch, trainer) -> dict:
+    """Digests of the params, mu and nu and the AdamW step, after a sync."""
+    from neuronx_distributed_training_torch.models.llama import named_params
+
+    torch.cuda.synchronize()
+    o = trainer.opt_state
+    return {"params": [device_digest(torch, t) for t in named_params(trainer.params).values()],
+            "mu": [device_digest(torch, t) for t in o["mu"].values()],
+            "nu": [device_digest(torch, t) for t in o["nu"].values()],
+            "step": int(o["step"])}
+
+
+def phase_cadence_skip(torch, fa, cell, card: str) -> dict:
+    """16b: phase 7b's NaN ``loss_mask`` at step 1 under ``skip_update`` at
+    ``log_every_n_steps: 2``: the boundary after step 1 writes
+    ``anomaly_00000001/``, step 1 keeps the state bit for bit; then
+    ``halt`` stops at that boundary without a checkpoint."""
+    import numpy as np
+
+    from neuronx_distributed_training_torch.data.loader import SyntheticDataModule
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    class PoisonedRows(SyntheticDataModule):
+        def global_batches(self):
+            for i, batch in enumerate(super().global_batches()):
+                if i == 1:
+                    batch["loss_mask"] = np.full_like(batch["loss_mask"], np.nan)
+                yield batch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for policy in ("skip_update", "halt"):
+        exp = cell.WORK / f"exp_cadence_{policy}"
+        shutil.rmtree(exp, ignore_errors=True)
+        # halt saves every 2 steps: the halt at step 2's boundary must not
+        every = 2 if policy == "halt" else 0
+        cfg = cell_cfg(cell, f"model.num_layers={SKIP_LAYERS}", "trainer.max_steps=4",
+                       "trainer.log_every_n_steps=2", f"exp_manager.exp_dir={exp}",
+                       f"exp_manager.telemetry.health.policy={policy}",
+                       f"exp_manager.checkpoint_callback_params.every_n_train_steps={every}")
+        data = PoisonedRows(cfg.model.vocab_size, cfg.data.seq_length,
+                            cfg.data.global_batch_size, seed=int(cfg.get("seed", 1234)))
+        fa.reset_counters()
+        try:
+            trainer = Trainer.from_config(cfg, data_module=data)
+            seen = {}
+            real = trainer._dispatch
+
+            def dispatch(host_batch, index, _t=trainer, _real=real, _seen=seen):
+                if index in (1, 2):
+                    _seen[index] = state_digests(torch, _t)  # the state before the step
+                return _real(host_batch, index)
+
+            trainer._dispatch = dispatch
+            history = trainer.fit()
+            log_dir = trainer.exp.log_dir
+            bundles = sorted(p.name for p in log_dir.glob("anomaly_*"))
+            files = sorted(p.name for p in (log_dir / "anomaly_00000001").glob("*")) \
+                if bundles else []
+            rec = {"steps": [h["step"] for h in history], "stop_class": trainer.stop_class,
+                   "committed": list(trainer.checkpointer.committed_steps),
+                   "bundles": bundles, "files": files,
+                   "finite": [h["health/updates_finite"] for h in history],
+                   "skipped": [h["health/skipped_count"] for h in history],
+                   "kept": seen.get(1) == seen.get(2), "launches": dict(fa.LAUNCHES)}
+            # the wrapper and the trainer hold each other: drop every name
+            # of them, so free_cuda's collection frees the card
+            del trainer, real, dispatch
+        finally:
+            shutil.rmtree(exp, ignore_errors=True)
+        free_cuda(torch)
+        log(f"cadence 16b ({policy}): steps {rec['steps']}, updates_finite {rec['finite']}, "
+            f"skipped_count {rec['skipped']}, stop {rec['stop_class']}, saves "
+            f"{rec['committed']}, bundles {rec['bundles']} {rec['files']}, step 1 kept the "
+            f"state bit for bit: {rec['kept']}; launches {rec['launches']}")
+        if rec["bundles"] != ["anomaly_00000001"] or rec["files"] != ["anomaly.json", "ring.json"]:
+            fail(f"cadence 16b ({policy}): bundles {rec['bundles']} {rec['files']}")
+        if policy == "skip_update":
+            if rec["steps"] != [0, 1, 2, 3] or rec["finite"] != [1.0, 0.0, 1.0, 1.0] or \
+                    not rec["kept"] or rec["skipped"][1] != 1.0 or rec["committed"]:
+                fail(f"cadence 16b: the NaN step was not skipped on the card: {rec}")
+        elif rec["steps"] != [0, 1] or rec["stop_class"] != "health_halt" or rec["committed"]:
+            fail(f"cadence 16b: halt did not stop at the boundary without a save: {rec}")
+        out[policy] = rec
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"cadence 16b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_ema(torch, fa, cell, card: str) -> dict:
+    """16c: EMA (decay 0.99, ``evaluate_ema_weights_instead``) at 2 layers
+    for 3 steps, validation at step 3: the EMA against a plain fp32
+    recomputation (on the host) from each step's weights, the params bit
+    for bit after the swap back; peak memory beside the same run without
+    EMA, which saves at step 3 for 16d."""
+    from neuronx_distributed_training_torch.data.loader import SyntheticDataModule
+    from neuronx_distributed_training_torch.models.llama import named_params
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    base = (f"model.num_layers={SKIP_LAYERS}", "trainer.max_steps=3",
+            "trainer.val_check_interval=3", "trainer.limit_val_batches=1")
+    for ema in (True, False):
+        exp = cell.WORK / f"exp_ema_{ema}"
+        shutil.rmtree(exp, ignore_errors=True)
+        sets = base + (f"exp_manager.exp_dir={exp}",)
+        if ema:
+            sets += ("exp_manager.ema.enable=true", f"exp_manager.ema.decay={EMA_DECAY}",
+                     "exp_manager.ema.evaluate_ema_weights_instead=true")
+        else:
+            sets += ("exp_manager.checkpoint_callback_params.every_n_train_steps=3",
+                     "exp_manager.checkpoint_callback_params.async_checkpointing=false")
+        cfg = cell_cfg(cell, *sets)
+        val = SyntheticDataModule(cfg.model.vocab_size, cfg.data.seq_length,
+                                  cfg.data.global_batch_size, seed=99)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer.from_config(cfg, val_data_module=val, enable_checkpointing=not ema)
+        rec: dict = {}
+        if ema:
+            d = torch.tensor(EMA_DECAY, dtype=torch.float32)
+            c = 1.0 - d
+            ref = {n: p.detach().float().cpu() for n, p in named_params(trainer.params).items()}
+            real, real_val = trainer._dispatch, trainer.validate
+            swaps = []
+
+            def dispatch(host_batch, index, _t=trainer, _real=real):
+                metrics = _real(host_batch, index)
+                for n, p in named_params(_t.params).items():  # after the step
+                    ref[n] = d * ref[n] + c * p.detach().float().cpu()
+                return metrics
+
+            def validate(limit, _t=trainer, _real=real_val):
+                before = state_digests(torch, _t)["params"]
+                loss = _real(limit)
+                swaps.append(before == state_digests(torch, _t)["params"])
+                return loss
+
+            trainer._dispatch, trainer.validate = dispatch, validate
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["val_loss"] = history[-1].get("val_loss")
+        if ema:
+            gaps, bitwise = [], True
+            for n, e in trainer.opt_state["ema"].items():
+                e = e.float().cpu()
+                gaps.append(float((e - ref[n]).abs().max()))
+                bitwise = bitwise and torch.equal(e, ref[n])
+            rec.update(max_gap=max(gaps), bitwise=bitwise, swapped_back=swaps,
+                       largest=max(float(r.abs().max()) for r in ref.values()))
+            del ref
+        else:
+            rec["checkpoint"] = str(trainer.checkpointer.directory)
+            rec["committed"] = list(trainer.checkpointer.committed_steps)
+            rec["params"] = state_digests(torch, trainer)["params"]
+            out["exp"] = exp
+        if ema:
+            # the wrappers and the trainer hold each other: drop every name
+            # of them, so free_cuda's collection frees the card
+            del real, real_val, dispatch, validate
+        log(f"ema 16c ({'ema' if ema else 'no ema'}): losses "
+            f"{[h['loss'] for h in history]}, val loss {rec['val_loss']}, peak device memory "
+            f"{rec['peak_bytes']} bytes ({rec['peak_bytes'] / 2**30:.2f} GiB)"
+            + (f"; EMA against the host recomputation: largest gap {rec['max_gap']} (weights "
+               f"up to {rec['largest']:.3f}), bit for bit {rec['bitwise']}; params after the "
+               f"swap back bit for bit {rec['swapped_back']}" if ema else
+               f"; saves {rec['committed']}") + f" [{card}]")
+        del trainer
+        free_cuda(torch)
+        if ema and (rec["max_gap"] > 1e-6 * max(rec["largest"], 1.0)
+                    or rec["swapped_back"] != [True] or not math.isfinite(rec["val_loss"])):
+            fail(f"ema 16c: {rec}")
+        if not ema and rec["committed"] != [3]:
+            fail(f"ema 16c: the run without EMA saved {rec['committed']}, expected [3]")
+        out["ema" if ema else "plain"] = rec
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"ema 16c: peak with EMA {out['ema']['peak_bytes']} bytes against "
+        f"{out['plain']['peak_bytes']} without (+{(out['ema']['peak_bytes'] - out['plain']['peak_bytes']) / 2**30:.2f} GiB); "
+        f"phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_warm(torch, fa, cell, ema_rep: dict, card: str) -> dict:
+    """16d: a warm start (``model.weight_init_only`` with
+    ``exp_manager.resume_from_checkpoint``) from 16c's step-3 save: the
+    params are the saved ones bit for bit, the step, the moments and the
+    data position fresh."""
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_warm"
+    shutil.rmtree(exp, ignore_errors=True)
+    try:
+        cfg = cell_cfg(cell, f"model.num_layers={SKIP_LAYERS}", "model.weight_init_only=true",
+                       f"exp_manager.resume_from_checkpoint={ema_rep['plain']['checkpoint']}",
+                       f"exp_manager.exp_dir={exp}")
+        t0 = time.perf_counter()
+        trainer = Trainer.from_config(cfg, enable_checkpointing=False)
+        build_s = time.perf_counter() - t0
+        digests = state_digests(torch, trainer)
+        moments_zero = all(not bool(m.any()) for g in ("mu", "nu")
+                           for m in trainer.opt_state[g].values())
+        rec = {"params_equal": digests["params"] == ema_rep["plain"]["params"],
+               "step": digests["step"], "loop_step": trainer.step,
+               "consumed": trainer.data_module.sampler.consumed_samples,
+               "moments_zero": moments_zero, "build_seconds": build_s}
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+        shutil.rmtree(ema_rep["exp"], ignore_errors=True)
+    free_cuda(torch)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"warm 16d: params bit for bit {rec['params_equal']}, AdamW step {rec['step']}, loop "
+        f"step {rec['loop_step']}, consumed samples {rec['consumed']}, moments zero "
+        f"{rec['moments_zero']}; build with the restore {rec['build_seconds']:.1f} s; phase "
+        f"wall time {rec['phase_seconds']:.1f} s [{card}]")
+    if not (rec["params_equal"] and rec["step"] == 0 and rec["loop_step"] == 0
+            and rec["consumed"] == 0 and rec["moments_zero"]):
+        fail(f"warm 16d: {rec}")
+    return rec
+
+
+def phase_fit(torch, fa, cell, history4: list, card: str) -> dict:
+    """Phase 16, 16a-16d."""
+    t_phase = time.perf_counter()
+    out = {"cadence": phase_cadence(torch, fa, cell, history4, card)}
+    free_cuda(torch)
+    out["skip"] = phase_cadence_skip(torch, fa, cell, card)
+    out["ema"] = phase_ema(torch, fa, cell, card)
+    out["warm"] = phase_warm(torch, fa, cell, out["ema"], card)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"fit 16a-16d: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -4022,15 +4464,18 @@ def main() -> None:
 
     only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
     if only is not None:
-        # a partial run: the named phases of 13 (13e after phase 4,
-        # its reference), no result lines
-        if "13e" in only:
+        # a partial run: the named phases (13e and 16 after phase 4,
+        # their reference), no result lines
+        if "13e" in only or "16" in only:
             try:
                 _, history4 = phase_trainer(torch, fa, cell, card)
             finally:
                 shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
             free_cuda(torch)
-            phase_pp_cp(torch, cell, trainer_ref(history4), card)
+            if "13e" in only:
+                phase_pp_cp(torch, cell, trainer_ref(history4), card)
+            if "16" in only:
+                phase_fit(torch, fa, cell, history4, card)
         for name, fn in (("13a", lambda: phase_pp_virtual(torch, fa, kt, card, peaks)),
                          ("13b", lambda: phase_pp_chunked_vp(torch, fa, card)),
                          ("13c", lambda: phase_pp_zb(torch, fa, card)),
@@ -4092,6 +4537,8 @@ def main() -> None:
     gpt_rep = phase_gpt(torch, fa, kt, card, peaks)
     free_cuda(torch)
     gpt_tp = phase_gpt_tp(torch, cell, card)
+    free_cuda(torch)
+    fit = phase_fit(torch, fa, cell, history4, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -4155,7 +4602,8 @@ def main() -> None:
                                  "gpt_pp_70b": gpt_rep["pp_70b"]["run"]["launches"][kname],
                                  **({} if gpt_tp is None else
                                     {"gpt_tp2": [r["launches"][kname]
-                                                 for r in gpt_tp["tp2"]["ranks"]]})},
+                                                 for r in gpt_tp["tp2"]["ranks"]]}),
+                                 "fit_cadence": fit["cadence"]["launches"][kname]},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

@@ -87,7 +87,10 @@ The checkpoint dir is a local path: a ``scheme://`` URI is refused
 
 The health counters (``opt_state["health"]``) are saved beside ``step`` as
 int64 scalars ``health/<name>``; a checkpoint without them restores with
-``steps_seen`` set to its step, as in the JAX package.
+``steps_seen`` set to its step, as in the JAX package.  ``step`` and the
+counters live on the card as 0-d int64 tensors and come back there.  The
+weight EMA (``ema/<name>``) is saved, sharded and resharded as the moments
+are.
 """
 
 from __future__ import annotations
@@ -146,7 +149,7 @@ SAVE_RETRY_BACKOFF_SECONDS = 0.5
 #: threads still feel when every core hashes
 WRITER_THREADS = 1
 SAVE_DIGEST_WORKERS = max(1, (os.cpu_count() or 1) // 2)
-_OPT_GROUPS = ("mu", "nu", "master")
+_OPT_GROUPS = ("mu", "nu", "master", "ema")
 
 
 def is_transient_save_error(exc: BaseException) -> bool:
@@ -874,13 +877,15 @@ class Checkpointer:
                 if sh is not None:
                     src = src.narrow(*sh)
                 local(t).copy_(src)
-        opt_template["step"] = scalars["step"]
+        dev = next(iter(flat_params.values())).device
+        opt_template["step"] = torch.tensor(scalars["step"], dtype=torch.int64, device=dev)
         if "health" in opt_template:
-            health = init_health_state()
+            health = init_health_state(dev)
             saved = {k[len("health/"):]: v for k, v in scalars.items() if k != "step"}
             # saved without the health counters: steps_seen restarts at the
             # restored step, as in the JAX package
-            health.update(saved or {"steps_seen": scalars["step"]})
+            health.update({k: torch.tensor(v, dtype=torch.int64, device=dev) for k, v in
+                           (saved or {"steps_seen": scalars["step"]}).items()})
             opt_template["health"] = health
         if any(t.device.type == "cuda" for t in flat_params.values()):
             torch.cuda.synchronize()

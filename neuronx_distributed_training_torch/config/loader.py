@@ -4,14 +4,15 @@ A copy of its loader: plain YAML + ``${a.b.c}`` interpolation + the
 ``${multiply:x,y}`` / ``${add:x,y}`` resolvers + dotted overrides, resolving
 to the same dict.  ``validate_config`` keeps the checks that need nothing
 but the config (the Megatron block-layout rules among them), and validates
-the ``exp_manager.checkpoint`` block, the ``exp_manager.telemetry.health``
-block and the
-``distributed_strategy.pipeline`` block (a mapping with ``schedule`` alone,
-one of the five schedules, and a manual-backward schedule's config-shape
-gate, ``parallel/pipeline.py::blocked_1f1b_reason``); the knob blocks whose
-parsers live with subsystems this port does not have yet (overlap, the
-other telemetry planes, elastic, the autotune topology table) are not
-validated here — the trainer logs them as ignored.
+the ``exp_manager.checkpoint`` block, the whole ``exp_manager.telemetry``
+block (``telemetry/config.py::TelemetryConfig``, its nested blocks
+included), the ``exp_manager.elastic`` and ``distributed_strategy.overlap``
+blocks (``config/knobs.py``) and the ``distributed_strategy.pipeline``
+block (a mapping with ``schedule`` alone, one of the five schedules, and a
+manual-backward schedule's config-shape gate,
+``parallel/pipeline.py::blocked_1f1b_reason``), each with the JAX
+package's texts and did-you-mean hints.  The autotune topology table is not
+ported, so ``autotune.topology`` is not checked against it.
 
 The reference is driven by Hydra/OmegaConf YAML whose root keys are
 ``name, model_source, seed, trainer, exp_manager, distributed_strategy, data,
@@ -354,6 +355,27 @@ def validate_config(cfg: ConfigDict) -> None:
             f"mixed_precision, bf16SR, autocast, fp32, manual"
         )
 
+    # distributed_strategy.overlap: the engineered-overlap knobs (JAX's schema
+    # and cross-knob rules; bucketed ZeRO-1 is not ported)
+    overlap_raw = ds.get("overlap")
+    if overlap_raw is not None:
+        from neuronx_distributed_training_torch.config.knobs import OverlapConfig
+
+        ov = OverlapConfig.from_config(
+            dict(overlap_raw) if isinstance(overlap_raw, Mapping) else overlap_raw)
+        if ov.zero1_bucket_mb > 0 and ds.get("zero1", True) is False:
+            raise ValueError(
+                "distributed_strategy.overlap.zero1_bucket_mb > 0 requires "
+                "zero1: true — bucketing decomposes the ZeRO-1 collectives; "
+                "there is nothing to bucket without sharded optimizer state"
+            )
+        if ov.pp_double_buffer and pp <= 1:
+            raise ValueError(
+                "distributed_strategy.overlap.pp_double_buffer requires "
+                "pipeline_model_parallel_size > 1 (there are no stage hops "
+                "to double-buffer)"
+            )
+
     at = cfg.get("autotune", None)
     if at is not None:
         if not isinstance(at, Mapping):
@@ -422,13 +444,18 @@ def validate_config(cfg: ConfigDict) -> None:
         )
 
         parse_checkpoint_block(em.get("checkpoint"))
-    # exp_manager.telemetry.health: the numerics health policy (the other
-    # telemetry planes are not ported; their blocks are not validated)
-    tel = em.get("telemetry") if isinstance(em, Mapping) else None
-    if isinstance(tel, Mapping) and "health" in tel:
-        from neuronx_distributed_training_torch.telemetry.health import HealthConfig
+    # exp_manager.telemetry: the boolean planes and every nested block, each
+    # through its own parser (a typo'd knob dies here, not at run time)
+    if isinstance(em, Mapping) and "telemetry" in em:
+        from neuronx_distributed_training_torch.telemetry.config import TelemetryConfig
 
-        HealthConfig.from_config(tel.get("health"))
+        TelemetryConfig.from_config(em.get("telemetry"))
+    # exp_manager.elastic: the elastic-resume knobs (JAX's schema; the
+    # replanner is not ported)
+    if isinstance(em, Mapping) and "elastic" in em:
+        from neuronx_distributed_training_torch.config.knobs import ElasticConfig
+
+        ElasticConfig.from_config(em.get("elastic"))
 
 def batch_schedule(cfg: ConfigDict, n_devices: int) -> dict[str, int]:
     """Derived batch math, identical to the reference (``base.py:54-57``):

@@ -1,7 +1,9 @@
 """Rotary position embeddings (counterpart of the JAX package's ``ops/rope.py``).
 
 Inverse frequencies are computed in fp64 on the host, then applied in fp32 with
-the HF half-rotation layout.
+the HF half-rotation layout.  Their fp32 copy on the card is made once per
+table and device (:func:`_device_freq`): a copy from pageable host memory
+waits for the card's queue, and the train step must not.
 """
 
 from __future__ import annotations
@@ -28,10 +30,23 @@ def rope_frequencies(
     return inv_freq
 
 
+_FREQ: dict = {}
+
+
+def _device_freq(key: bytes, device: torch.device) -> torch.Tensor:
+    """The fp32 inverse frequencies (``key``: their bytes) on ``device``,
+    copied there once."""
+    out = _FREQ.get((key, device))
+    if out is None:
+        out = _FREQ[(key, device)] = torch.frombuffer(bytearray(key), dtype=torch.float32).to(
+            device)
+    return out
+
+
 def rope_cos_sin(positions: torch.Tensor, inv_freq: np.ndarray, *, dtype=torch.float32):
     """cos/sin tables for ``positions`` ([batch, seq] or [seq]):
     ``[..., seq, head_dim/2]``."""
-    freq = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
+    freq = _device_freq(inv_freq.astype(np.float32).tobytes(), positions.device)
     angles = positions.float()[..., None] * freq
     return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 

@@ -18,15 +18,25 @@ outside the clipping norm; the port passes the adapters alone
 
 Health (``telemetry/health.py``): with ``grad_group_fn`` the clipping norm
 is derived from per-group squared sums (``metrics["group_norms"]``), and
-``updates_finite = isfinite(grad_norm) & extra_finite``.  Under
-``skip_nonfinite`` a non-finite step writes nothing: params, ``mu``, ``nu``,
-``master`` and ``step`` keep their bits.  The port reads the flag on the
-host once per step, before any write, where JAX selects per leaf in the
-graph: a ``torch.where`` per leaf would read and write every param and
-moment once more (at Llama-3-8B width and 4 layers about 69 GB a step, some
-20 ms of an H100's memory time), while the one read costs the step the
-host's lead over the card at that point (the optimizer's kernels are queued
-after the backward ends instead of during it).
+``updates_finite = isfinite(grad_norm) & extra_finite``, a 0-d bool on the
+card.  Under ``skip_nonfinite`` a non-finite step keeps params, ``mu``,
+``nu``, ``master``, ``ema`` and ``step`` bit for bit with no host read, as
+JAX selects in the graph: each leaf's new value is written through
+``torch.where(updates_finite, new, old, out=old)``, so the state's old bits
+are read once more than by a plain copy (one more read of the fp32 state
+and the params each step).  A cheaper form that zeroed the gradients would
+not keep the moments (``b1 mu`` is not ``mu``).
+
+The step counter ``opt_state["step"]`` and the health counters are 0-d
+int64 tensors on the card; the bias corrections read the step there, and
+the LR comes from the schedule's table at that step (``optim/lr.py::
+lr_at``), so the update reads nothing back to the host.
+
+EMA (``ema``, an ``EMAConfig``; JAX's ``exp_manager.ema``): ``opt_state
+["ema"]`` holds an fp32 copy of the weights, placed as the moments are
+(ZeRO-1 shards it); after the update ``ema = d ema + (1 - d) master`` with
+``d = decay`` at the steps ``>= start_step`` that ``apply_every_n_steps``
+divides and 1 elsewhere (JAX's order and arithmetic), kept on a skip.
 
 ZeRO-1: ``opt_state_specs`` places each ``mu``/``nu``/``master`` leaf on the
 ``data`` axis, sharded on the first dim that ``zero1_leaf_spec`` finds
@@ -110,15 +120,42 @@ def decay_mask(names, cfg: AdamWConfig) -> dict[str, float]:
             for n in names}
 
 
-#: host counters of ``opt_state["health"]`` (``last_nonfinite_step`` -1: never)
+@dataclasses.dataclass(frozen=True)
+class EMAConfig:
+    """Weight EMA (the reference's NeMo ``EMA`` callback wired from
+    ``exp_manager.ema``; the JAX package's ``EMAConfig``, its keys and
+    defaults)."""
+
+    decay: float = 0.9999
+    apply_every_n_steps: int = 1
+    start_step: int = 0
+    evaluate_ema_weights_instead: bool = False
+
+    @classmethod
+    def from_config(cls, ema_cfg: dict[str, Any]) -> "EMAConfig":
+        e = dict(ema_cfg or {})
+        return cls(
+            decay=float(e.get("decay", 0.9999)),
+            apply_every_n_steps=int(e.get("apply_ema_every_n_steps", 1)),
+            start_step=int(e.get("start_step", 0)),
+            evaluate_ema_weights_instead=bool(e.get("evaluate_ema_weights_instead", False)),
+        )
+
+
+#: the counters of ``opt_state["health"]``, 0-d int64 tensors on the card
+#: (``last_nonfinite_step`` -1: never)
 HEALTH_STATE_KEYS = (
     "steps_seen", "nonfinite_count", "skipped_count", "last_nonfinite_step",
 )
 
 
-def init_health_state() -> dict[str, int]:
-    return {"steps_seen": 0, "nonfinite_count": 0, "skipped_count": 0,
-            "last_nonfinite_step": -1}
+def _counter(value: int, device=None) -> torch.Tensor:
+    return torch.tensor(int(value), dtype=torch.int64, device=device)
+
+
+def init_health_state(device=None) -> dict[str, torch.Tensor]:
+    return {"steps_seen": _counter(0, device), "nonfinite_count": _counter(0, device),
+            "skipped_count": _counter(0, device), "last_nonfinite_step": _counter(-1, device)}
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +196,7 @@ def _is_expert(layout) -> bool:
 
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
                     policy=None, health: bool = False,
-                    layouts: Optional[dict] = None, ep=None) -> dict:
+                    layouts: Optional[dict] = None, ep=None, ema: bool = False) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
     counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
@@ -179,6 +216,8 @@ def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = T
     out: dict[str, Any] = {"step": None, "mu": moments, "nu": dict(moments)}
     if policy is not None and policy.param_dtype != policy.optimizer_dtype:
         out["master"] = dict(moments)
+    if ema:
+        out["ema"] = dict(moments)
     if health:
         out["health"] = {k: None for k in HEALTH_STATE_KEYS}
     return out
@@ -274,10 +313,12 @@ def data_axis_of(layout, dp, ep):
 
 def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = False,
                    specs: Optional[dict] = None, dp=None, tp=None,
-                   layouts: Optional[dict] = None, ep=None) -> dict:
-    """Step counter, moments in the optimizer dtype, fp32 master weights only
-    when the params are stored in another dtype, and (``health``) the health
-    counters.  With ``specs`` (``opt_state_specs``) and ``dp``
+                   layouts: Optional[dict] = None, ep=None, ema: bool = False) -> dict:
+    """Step counter (a 0-d int64 tensor on the params' device), moments in
+    the optimizer dtype, fp32 master weights only when the params are stored
+    in another dtype, (``ema``) the weight EMA in the optimizer dtype, seeded
+    from the params, and (``health``) the health counters.  With ``specs``
+    (``opt_state_specs``) and ``dp``
     (``parallel/mesh.py::DataParallel``) the sharded leaves hold this rank's
     slice as DTensors, on the ``(data[, expert], model)`` mesh with ``tp``
     and ``layouts`` (an expert leaf's over ``ep.data``)."""
@@ -289,8 +330,9 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
         lay = layouts.get(n)
         return _sharded(full, dims.get(n), data_axis_of(lay, dp, ep), tp, lay)
 
+    device = next(iter(params.values())).device if params else None
     state: dict[str, Any] = {
-        "step": 0,
+        "step": _counter(0, device),
         "mu": {n: held(n, torch.zeros(p.shape, dtype=odt, device=p.device))
                for n, p in params.items()},
         "nu": {n: held(n, torch.zeros(p.shape, dtype=odt, device=p.device))
@@ -298,8 +340,10 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
     }
     if policy.param_dtype != odt:
         state["master"] = {n: held(n, p.detach().to(odt).clone()) for n, p in params.items()}
+    if ema:
+        state["ema"] = {n: held(n, p.detach().to(odt).clone()) for n, p in params.items()}
     if health:
-        state["health"] = init_health_state()
+        state["health"] = init_health_state(device)
     return state
 
 
@@ -395,18 +439,20 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
                  opt_state: dict, lr, cfg: AdamWConfig, policy, *,
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
                  extra_finite=None, dp=None, tp=None, tp_sharded=frozenset(),
-                 pp=None, ep=None) -> dict:
+                 pp=None, ep=None, ema: Optional[EMAConfig] = None) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
-    ``updates_finite`` (a bool tensor) and, with ``grad_group_fn``,
+    ``updates_finite`` (a 0-d bool tensor) and, with ``grad_group_fn``,
     ``group_norms``.  ``grads`` are the full gradients (all-reduced under
-    data parallelism) of the rank's local leaves; ``dp`` gathers ZeRO-1's
-    param slices; with ``tp`` the norm takes the leaves named in
-    ``tp_sharded`` (a set, or a dict of their layouts) as slices of their
-    global leaf; with ``pp`` the norm adds the stages' layers (every stage
-    then takes the same skip decision and clip factor); with ``ep`` the
-    expert leaves' experts over the expert axis, and their ZeRO-1 slices
-    are gathered over ``ep.data``."""
+    data parallelism) of the rank's local leaves; ``lr`` a float or a 0-d
+    fp32 tensor; ``dp`` gathers ZeRO-1's param slices; with ``tp`` the norm
+    takes the leaves named in ``tp_sharded`` (a set, or a dict of their
+    layouts) as slices of their global leaf; with ``pp`` the norm adds the
+    stages' layers (every stage then takes the same skip decision and clip
+    factor); with ``ep`` the expert leaves' experts over the expert axis,
+    and their ZeRO-1 slices are gathered over ``ep.data``; ``ema`` (with an
+    ``opt_state["ema"]``) the EMA's knobs.  Nothing is read back to the
+    host."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
     group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp,
@@ -418,6 +464,7 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     if grad_group_fn is not None:
         metrics["group_norms"] = {k: torch.sqrt(v) for k, v in group_sq.items()}
     metrics["grad_norm"] = gnorm
+    keep = None
     if skip_nonfinite or grad_group_fn is not None or extra_finite is not None:
         # a non-finite grad entry poisons the squared sums, so one isfinite
         # on the norm covers every leaf
@@ -425,17 +472,34 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         if extra_finite is not None:
             finite = finite & torch.as_tensor(extra_finite, device=finite.device)
         metrics["updates_finite"] = finite
-        if skip_nonfinite and not bool(finite):  # the step's one host read
-            return metrics  # nothing written: every leaf and the step keep their bits
+        if skip_nonfinite:
+            keep = finite
+
+    def put(dst: torch.Tensor, new: torch.Tensor) -> None:
+        # under the skip a non-finite step writes each leaf's old bits back
+        if keep is None:
+            dst.copy_(new)
+        else:
+            torch.where(keep, new, dst, out=dst)
+
     if cfg.grad_clip_norm is not None and cfg.grad_clip_norm > 0:
         clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-6), max=1.0)
         for g in grads.values():
             g.mul_(clip)  # fp32 grads are clipped in place (the caller's buffers)
-    step = opt_state["step"] + 1
+    dev0 = gnorm.device
+    step = torch.as_tensor(opt_state["step"], dtype=torch.int64, device=dev0) + 1
     b1, b2 = cfg.beta1, cfg.beta2
-    fstep = torch.tensor(float(step), dtype=torch.float32)
-    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** fstep
-    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** fstep
+    fstep = step.to(torch.float32)
+    # constants made on the card (torch.full): torch.tensor(x, device=...)
+    # copies from pageable host memory, which waits for the card's queue
+    c1 = 1.0 - torch.full((), b1, dtype=torch.float32, device=dev0) ** fstep
+    c2 = 1.0 - torch.full((), b2, dtype=torch.float32, device=dev0) ** fstep
+    ema_d = None
+    if "ema" in opt_state:
+        e = ema or EMAConfig()
+        apply = (step >= e.start_step) & (torch.remainder(step, e.apply_every_n_steps) == 0)
+        ema_d = torch.where(apply, torch.full((), e.decay, dtype=torch.float32, device=dev0),
+                            torch.full((), 1.0, dtype=torch.float32, device=dev0))
     masks = decay_mask(params, cfg)
     has_master = "master" in opt_state
     lr = torch.as_tensor(lr, dtype=torch.float32)
@@ -456,14 +520,21 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         update = (mu / c1.to(dev)) / (torch.sqrt(nu / c2.to(dev)) + cfg.eps)
         update = update + cfg.weight_decay * masks[n] * mf
         new_master = mf - lr.to(dev) * update
-        local(opt_state["mu"][n]).copy_(mu.to(odt))
-        local(opt_state["nu"][n]).copy_(nu.to(odt))
+        put(local(opt_state["mu"][n]), mu.to(odt))
+        put(local(opt_state["nu"][n]), nu.to(odt))
         if has_master:
-            local(opt_state["master"][n]).copy_(new_master.to(odt))
+            put(local(opt_state["master"][n]), new_master.to(odt))
+        if ema_d is not None:
+            old = local(opt_state["ema"][n])
+            d = ema_d.to(dev)
+            put(old, (d * old.float() + (1.0 - d) * new_master).to(odt))
         if sh is None:
-            p.copy_(new_master.to(p.dtype))
+            put(p, new_master.to(p.dtype))
         else:
+            new_p = new_master.to(p.dtype)
+            if keep is not None:
+                new_p = torch.where(keep, new_p, p.narrow(sh[0], sh[1], sh[2]))
             lay = tp_sharded.get(n) if isinstance(tp_sharded, dict) else None
-            data_axis_of(lay, dp, ep).all_gather_into(p, new_master.to(p.dtype), sh[0])
-    opt_state["step"] = step
+            data_axis_of(lay, dp, ep).all_gather_into(p, new_p, sh[0])
+    opt_state["step"] = step if keep is None else torch.where(keep, step, step - 1)
     return metrics

@@ -9,7 +9,8 @@ and the ``health/*`` metrics); the loop applies the policy:
 - ``dump_and_continue``: count the non-finite step and apply its update;
 - ``skip_update``: the step's update is not applied (params, moments,
   master and the AdamW step counter keep their bits);
-- ``halt``: apply, then stop at that step without a checkpoint.
+- ``halt``: apply, then stop at the boundary after that step without a
+  checkpoint.
 
 Knob block (validated at config load):
 
@@ -27,9 +28,9 @@ Knob block (validated at config load):
           watchdog_abort: true        # SIGABRT after a hang dump
           data_wait_timeout_seconds: 0
 
-The flight recorder (ring buffer, forensic bundles) and the two watchdogs
-are not ported yet: their knobs are parsed and validated, and the trainer
-logs the ones set away from their defaults as ignored.
+The flight recorder (the ring, ``anomaly_<step>/`` bundles) and the hang
+watchdog are ``telemetry/flight_recorder.py``; ``data_wait_timeout_seconds``
+arms the prefetch iterator's stall verdict (``data/loader.py``).
 """
 
 from __future__ import annotations
@@ -39,11 +40,6 @@ from typing import Any, Mapping
 
 #: supported anomaly policies, in escalation order
 HEALTH_POLICIES = ("dump_and_continue", "skip_update", "halt")
-
-#: knobs of the flight recorder and the watchdogs, parsed but not acted on
-RECORDER_KNOBS = ("ring_buffer_steps", "max_bundles", "watchdog_timeout_seconds",
-                  "watchdog_abort", "data_wait_timeout_seconds")
-
 
 def _health_knobs() -> set[str]:
     return {f.name for f in dataclasses.fields(HealthConfig)}
@@ -122,12 +118,6 @@ class HealthConfig:
                 f"exp_manager.telemetry.health.data_wait_timeout_seconds must be >= 0 "
                 f"(0 disables the data-stall watchdog), got {out.data_wait_timeout_seconds}")
         return out
-
-    def ignored_knobs(self) -> list[str]:
-        """The recorder and watchdog knobs set away from their defaults
-        (this slice parses them and does not act on them)."""
-        default = HealthConfig()
-        return [k for k in RECORDER_KNOBS if getattr(self, k) != getattr(default, k)]
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -1,5 +1,6 @@
-"""Experiment management: log dirs, metric sinks, run summary (counterpart of
-the JAX package's ``trainer/exp_manager.py``, without its telemetry planes).
+"""Experiment management: log dirs, metric sinks, run summary, the
+throughput window and MFU (counterpart of the JAX package's
+``trainer/exp_manager.py``).
 
 ``<exp_dir>/<name>/version_N/`` holds ``metrics.jsonl`` (one line per logged
 step), ``run_summary.json`` (written atomically), ``checkpoints/``, the
@@ -9,8 +10,14 @@ checkpoints are found; otherwise a new version starts.  Under data
 parallelism rank 0 chooses the version (:func:`version_for_config`) and
 passes it to the others, and only the ``writer`` (rank 0) writes metrics,
 TensorBoard and the run summary; every rank keeps its own log file.
-Profiling, tracing, W&B and MLflow are not ported (the trainer logs their
-knobs as ignored).
+
+``step_timed(n, exclude_seconds)`` closes a boundary window of ``n`` steps
+(less the non-productive seconds of ``telemetry/spans.py``) into the
+``utils/perf.py::Throughput`` window, and ``log_metrics`` adds JAX's
+``throughput_seqs_per_sec``, ``throughput_peak`` and, once
+``set_mfu_reference`` armed it (``telemetry.mfu``), the windowed
+``tokens_per_sec_per_chip`` and ``mfu``.  Profiling, tracing, W&B and
+MLflow are not ported (the trainer logs their knobs as ignored).
 """
 
 from __future__ import annotations
@@ -19,11 +26,15 @@ import json
 import logging
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Any, Optional
 
+from neuronx_distributed_training_torch.telemetry.config import TelemetryConfig
 from neuronx_distributed_training_torch.utils.io import atomic_write_json
 from neuronx_distributed_training_torch.utils.launch import restart_log_dir
+from neuronx_distributed_training_torch.utils.perf import Throughput
+from neuronx_distributed_training_torch.utils.perf import mfu as _mfu
 
 logger = logging.getLogger(__name__)
 
@@ -101,6 +112,9 @@ class ExpManager:
         log_local_rank_0_only: bool = False,
         log_global_rank_0_only: bool = False,
         writer: bool = True,
+        global_batch_size: int = 1,
+        seq_len: int = 0,
+        telemetry: Optional[TelemetryConfig] = None,
     ):
         base = Path(str(exp_dir)) / str(name)
         if version is None:
@@ -115,6 +129,12 @@ class ExpManager:
         self._run_summary_file = self.log_dir / "run_summary.json"
         self._summary_lock = threading.Lock()
         self._warned_nonscalar: set[str] = set()
+        self.throughput = Throughput(global_batch_size, seq_len=seq_len)
+        self.telemetry = telemetry if telemetry is not None else TelemetryConfig()
+        self._last_tput: Optional[float] = None
+        self._last_step_time: Optional[float] = None
+        # set by set_mfu_reference: (train-step FLOPs/token, cards, peak TF/s)
+        self._mfu_ref: Optional[tuple[float, int, float]] = None
         self._tb = None
         if create_tensorboard_logger and self.writer:
             try:
@@ -161,7 +181,34 @@ class ExpManager:
             log_files=bool(em.get("log_files", True)),
             log_local_rank_0_only=bool(em.get("log_local_rank_0_only", False)),
             log_global_rank_0_only=bool(em.get("log_global_rank_0_only", False)),
+            global_batch_size=int((cfg.get("data", {}) or {}).get("global_batch_size", 1)),
+            seq_len=int((cfg.get("data", {}) or {}).get("seq_length", 0) or 0),
+            telemetry=TelemetryConfig.from_config(em.get("telemetry")),
         )
+
+    def step_timed(self, num_steps: int = 1, exclude_seconds: float = 0.0) -> float:
+        """Close a boundary window of ``num_steps`` steps since the last call
+        and return its per-step wall seconds (0.0 on the first call, which
+        arms the timer).  ``exclude_seconds`` (the non-productive spans'
+        seconds, ``SpanTimer.take_excluded()``) is taken off first, so the
+        throughput window and ``throughput_peak`` see training alone."""
+        now = time.perf_counter()
+        if self._last_step_time is None:
+            dt = 0.0
+        else:
+            window = now - self._last_step_time - max(exclude_seconds, 0.0)
+            dt = max(window, 0.0) / max(num_steps, 1)
+        self._last_step_time = now
+        if dt > 0:
+            self._last_tput = self.throughput.update(dt, num_steps=num_steps)
+        return dt
+
+    def set_mfu_reference(self, *, train_step_flops_per_token: float, n_chips: int,
+                          peak_tflops_per_chip: float) -> None:
+        """Arm the windowed MFU: from then on ``log_metrics`` derives
+        ``mfu`` from the throughput window's ``tokens_per_sec``."""
+        self._mfu_ref = (float(train_step_flops_per_token), max(int(n_chips), 1),
+                         float(peak_tflops_per_chip))
 
     def write_run_summary(self, section: dict[str, Any]) -> None:
         """Merge ``section`` into ``run_summary.json`` (atomic write: a kill
@@ -180,8 +227,9 @@ class ExpManager:
 
     def log_metrics(self, step: int, metrics: dict[str, Any], *, force: bool = False) -> None:
         """Write the scalars (TensorBoard and ``metrics.jsonl``) every
-        ``log_every_n_steps`` steps; a non-scalar value is dropped with a
-        warning once per key."""
+        ``log_every_n_steps`` steps, with the throughput window's keys (see
+        the module docstring); a non-scalar value is dropped with a warning
+        once per key."""
         if not self.writer or (not force and step % self.log_every_n_steps != 0):
             return
         flat: dict[str, float] = {}
@@ -194,6 +242,16 @@ class ExpManager:
                                    "sinks take scalars (warned once)", k, type(v).__name__)
                 continue
             flat[k] = f
+        if self._last_tput is not None:
+            flat["throughput_seqs_per_sec"] = self._last_tput
+            flat["throughput_peak"] = self.throughput.peak
+            tokens = self.throughput.tokens_per_sec
+            if self.telemetry.mfu and self._mfu_ref is not None and tokens > 0:
+                step_flops, n_chips, peak_tf = self._mfu_ref
+                per_chip = tokens / n_chips
+                flat["tokens_per_sec_per_chip"] = per_chip
+                if peak_tf > 0:
+                    flat["mfu"] = _mfu(per_chip, step_flops, peak_tf)
         if self._tb is not None:
             for k, v in flat.items():
                 self._tb.add_scalar(k, v, step)

@@ -4,11 +4,54 @@
     cfg -> dtype policy, model, data module, optimizer, exp manager, checkpointer
     resume from the newest checkpoint that verifies (if any)
     for step in range(step, max_steps):
-        prefetched host batch -> device -> train step -> metrics
-        validation every val_check_interval, checkpoint every
+        prefetched host batch -> device -> train step (dispatched, not read)
+        at a boundary: one fetch of the window's metrics, the health policy,
+        logging, validation every val_check_interval, checkpoint every
         every_n_train_steps (async), stop at trainer.max_time or SIGTERM
         with a checkpoint
     final checkpoint
+
+The cadence is JAX's (its ``trainer/loop.py`` boundary rule): the loop
+reads the card only at a boundary, which is a log step, the last step, a
+validation step, a checkpoint step and, without data parallelism, a stop
+request.  Between boundaries each step's metrics stay 0-d tensors on the
+card (with the flight recorder's ring references, never activations) and
+the host runs ahead, queueing the next steps' kernels; at the boundary the
+window's scalars come back in one transfer (``torch.stack(...).tolist()``),
+so ``fit()`` still returns one record per step.  A record's
+``step_seconds`` is its window's ``step_time`` (the window's wall less its
+non-productive spans, over its steps).  The one exception is the dropless
+MoE path (``ops/moe.py``), which reads its group sizes on the host once a
+MoE layer (the per-expert products need them).  The first-step census
+(``telemetry/census.py``) ends each of the first two steps with a device
+sync to time them.  Under data parallelism the stop decisions are agreed
+by an all-reduce at the log, checkpoint and last-step boundaries only,
+which fall on the same step on every rank while a SIGTERM does not: a
+preemption waits for the next such boundary (JAX's rule).
+
+Telemetry (``exp_manager.telemetry``, ``telemetry/config.py``, JAX's
+defaults: spans, mfu, compile_census and goodput on): the boundary record
+carries ``time/<span>`` (``telemetry/spans.py``), ``goodput_fraction``,
+``step_time``, ``throughput_seqs_per_sec``, ``throughput_peak``,
+``tokens_per_sec_per_chip`` and the windowed ``mfu`` (``trainer/
+exp_manager.py``), the port's ``tokens_per_sec``, with ``device_memory``
+the ``device_*`` allocator keys (``telemetry/memory.py``) and with
+``batch_stats`` the ``data/*`` stats of the prefetch thread;
+``run_summary.json`` gets the census, ``goodput`` and ``retrace_events``
+(``telemetry/recompile.py``).  ``health`` runs the flight recorder
+(``telemetry/flight_recorder.py``: the ring, ``anomaly_<step>/`` bundles,
+``halt`` at the boundary without a checkpoint) and the hang watchdog
+around the boundary fetch and the first step; ``health.
+data_wait_timeout_seconds`` arms the prefetch iterator's stall verdict.
+
+``exp_manager.ema`` keeps an fp32 weight EMA in the optimizer state
+(``optim/adamw.py``), checkpointed and resharded as the moments; with
+``evaluate_ema_weights_instead`` validation swaps it into the params and
+back, bit for bit.  ``model.weight_init_only`` with
+``exp_manager.resume_from_checkpoint`` warm-starts: the params come from
+that checkpoint dir (``Checkpointer.restore_params_only``, each rank its
+own slices) before the optimizer state is built, so the master weights and
+the EMA start from them; step, data position and moments start fresh.
 
 ``Trainer.from_config`` builds the llama model, the AdamW state, the LR
 schedule and the data module from ``data/build.py``; Megatron rows come
@@ -45,8 +88,8 @@ from the first rank of each ``(data, context)`` group.  Rank 0 of the
 world alone logs the steps and writes the exp dir's ``metrics.jsonl``,
 TensorBoard and ``run_summary.json`` (each rank keeps its own log file);
 the stop decisions (``max_time``, SIGTERM) are agreed by an all-reduce at
-each step boundary, so every rank stops, and checkpoints, at the same
-step.  MFU divides the tokens by the
+the boundaries named above, so every rank stops, and checkpoints, at the
+same step.  MFU divides the tokens by the
 world size: each card computes ``1/world`` of the step's FLOPs.
 
 With ``pipeline_model_parallel_size`` above 1 the world is ``pp x dp x cp
@@ -85,9 +128,10 @@ sequence log-probs are summed over the context group
 sidecar, written once, reads back at any cp.
 
 ``exp_manager.telemetry.health`` is acted on (``telemetry/health.py``):
-``skip_update`` keeps a non-finite step's state, ``halt`` stops at that step
-without a checkpoint (``stop_class = "health_halt"``), and the health
-counters are checkpointed with the optimizer state.
+``skip_update`` keeps a non-finite step's state on the card, ``halt`` stops
+at the boundary after that step without a checkpoint (``stop_class =
+"health_halt"``), and the health counters are checkpointed with the
+optimizer state.
 
 ``exp_manager.log_parameter_norm`` / ``log_gradient_norm`` log
 ``param_norm`` / ``gradient_norm`` as JAX does, and ``data.io_retries`` /
@@ -118,15 +162,17 @@ masks.  Its preference forwards take the key, the reference pass none.
 
 Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
 MoE path under context parallelism, GPT under context parallelism) are
-rejected with the ROADMAP item that ports them;
-config blocks it does not act on are logged once as ignored (the other
-telemetry planes and the health recorder's knobs, elastic replan, EMA,
-autotune, overlap, and the Pallas tiles ``fusions.flash_block_q`` /
-``flash_block_kv``: the Hopper kernels' tiles are fixed).
+rejected with the ROADMAP item that ports them; config blocks it does not
+act on are logged once as ignored: the telemetry planes trace, fleet,
+alerts, control, memory and tensorstats (and ``graph_audit``), elastic
+replan, overlap, autotune, the W&B and MLflow sinks, profiling windows and
+the Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv`` (the Hopper
+kernels' tiles are fixed).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -152,7 +198,9 @@ from neuronx_distributed_training_torch.config.loader import ConfigDict, batch_s
 from neuronx_distributed_training_torch.data.build import alignment_strategy, build_data_module
 from neuronx_distributed_training_torch.data.loader import (
     PREFERENCE_SIDES,
+    BatchStats,
     DataModule,
+    DataStallError,
     PrefetchIterator,
     context_parallel_batch,
 )
@@ -160,8 +208,12 @@ from neuronx_distributed_training_torch.models import gpt, llama, mixtral
 from neuronx_distributed_training_torch.ops import norm as norm_ops
 from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
+    EMAConfig,
+    data_axis_of,
     init_opt_state,
+    local,
     opt_state_specs,
+    shard_of,
 )
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
 from neuronx_distributed_training_torch.parallel import pipeline, sharding
@@ -176,7 +228,17 @@ from neuronx_distributed_training_torch.parallel.mesh import (
     dp_degree,
 )
 from neuronx_distributed_training_torch.peft import LoraConfig, add_lora, trainable_mask
+from neuronx_distributed_training_torch.telemetry import census as census_mod
+from neuronx_distributed_training_torch.telemetry.config import TelemetryConfig
+from neuronx_distributed_training_torch.telemetry.flight_recorder import (
+    HangWatchdog,
+    HealthMonitor,
+    _all_thread_stacks,
+)
 from neuronx_distributed_training_torch.telemetry.health import HealthConfig
+from neuronx_distributed_training_torch.telemetry.memory import device_memory_metrics
+from neuronx_distributed_training_torch.telemetry.recompile import RecompileDetector
+from neuronx_distributed_training_torch.telemetry.spans import SpanTimer
 from neuronx_distributed_training_torch.trainer.exp_manager import (
     ExpManager,
     version_for_config,
@@ -371,17 +433,9 @@ def _pipeline_facts(cfg: ConfigDict, ds: dict, model: dict) -> dict:
 
 def _log_ignored(cfg: ConfigDict) -> None:
     em = dict(cfg.get("exp_manager", {}) or {})
-    tel = em.get("telemetry")
-    ignored = []
-    if isinstance(tel, dict):
-        # the health policy is acted on; the other planes, and the health
-        # recorder's and watchdogs' knobs, are not
-        ignored += [f"exp_manager.telemetry.{k}" for k in tel if k != "health"]
-        ignored += [f"exp_manager.telemetry.health.{k}" for k in
-                    HealthConfig.from_config(tel.get("health")).ignored_knobs()]
-    elif tel is not None:
-        ignored.append("exp_manager.telemetry")
-    ignored += [f"exp_manager.{k}" for k in ("elastic", "ema") if k in em]
+    ignored = [f"exp_manager.telemetry.{k}" for k in
+               TelemetryConfig.from_config(em.get("telemetry")).unported()]
+    ignored += [f"exp_manager.{k}" for k in ("elastic",) if k in em]
     ignored += [f"exp_manager.{k}" for k in ("create_wandb_logger", "create_mlflow_logger",
                                              "profile_start_step") if em.get(k)]
     ignored += [k for k in ("autotune",) if k in cfg]
@@ -402,17 +456,21 @@ def _log_ignored(cfg: ConfigDict) -> None:
     if fresh:
         _logged_ignored.update(fresh)
         logger.info("ignored by this slice of the port (dense Llama under data and tensor "
-                    "parallelism, with replicated kv heads and padded vocab slices, context "
-                    "parallelism, and pipeline parallelism with every schedule and the virtual "
-                    "pipeline; the chunked head; SFT, LoRA, DPO / ORPO / KTO; Mixtral under "
-                    "expert parallelism; Megatron GPT; no telemetry planes but the health "
-                    "policy yet): %s",
+                    "parallelism, context parallelism, and pipeline parallelism with every "
+                    "schedule and the virtual pipeline; Mixtral, Megatron GPT, the alignment "
+                    "strategies and LoRA; of the telemetry planes spans, mfu, the census, "
+                    "goodput, device memory, batch stats and health run): %s",
                     ", ".join(fresh))
 
 
-def _health_config(cfg: ConfigDict) -> HealthConfig:
-    tel = dict((cfg.get("exp_manager", {}) or {}).get("telemetry", {}) or {})
-    return HealthConfig.from_config(tel.get("health"))
+def _telemetry_config(cfg: ConfigDict) -> TelemetryConfig:
+    return TelemetryConfig.from_config((cfg.get("exp_manager", {}) or {}).get("telemetry"))
+
+
+def _ema_config(cfg: ConfigDict) -> Optional[EMAConfig]:
+    """``exp_manager.ema`` (JAX's: on with ``enable``), else None."""
+    block = dict((cfg.get("exp_manager", {}) or {}).get("ema", {}) or {})
+    return EMAConfig.from_config(block) if block.get("enable") else None
 
 
 def _process_group() -> tuple[int, int]:
@@ -687,8 +745,102 @@ def _sidecar_store(path: str, done: int, cols: dict) -> None:
     os.replace(tmp, path)
 
 
-#: stop reasons folded across ranks at each step boundary (the largest wins)
+#: stop reasons folded across ranks at the log, checkpoint and last-step
+#: boundaries (the largest wins)
 _STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _counted_batches(it, stats: Optional[BatchStats]):
+    """The module's host batches, each added to ``stats`` first
+    (``telemetry.batch_stats``; this runs on the prefetch thread)."""
+    for batch in it:
+        if stats is not None:
+            stats.update(batch)
+        yield batch
+
+
+def _fetch_window(window: list) -> list:
+    """``[(index, metrics)]`` -> ``[(index, {key: float})]`` in one
+    transfer per device: the 0-d tensors of every step stacked as float64
+    (exact for fp32 values and int64 counters) and read with one
+    ``tolist``; a value that is not a tensor is converted on its own."""
+    by_device: dict = {}
+    for _, m in window:
+        for v in m.values():
+            if isinstance(v, torch.Tensor):
+                by_device.setdefault(v.device, []).append(v)
+    values = {d: iter(torch.stack([t.detach().reshape(()).to(torch.float64)
+                                   for t in ts]).tolist())
+              for d, ts in by_device.items()}
+    return [(index, {k: next(values[v.device]) if isinstance(v, torch.Tensor) else float(v)
+                     for k, v in m.items()}) for index, m in window]
+
+
+class _Census:
+    """The first-step census of a fit (``telemetry/census.py``): the fit's
+    first step runs under the collective counter and each of its first two
+    steps is timed from a device sync to a device sync; ``write`` puts the
+    census into ``run_summary.json`` and the compile seconds into the
+    ``compile`` span.  A failure of the harvest or the write is logged and
+    the run goes on, as in JAX."""
+
+    def __init__(self, trainer: "Trainer"):
+        self.trainer = trainer
+        self.first_index = trainer.step
+        #: 0 / 1: the next step is the census's first / second; 2: both
+        #: timed, to write; 3: written
+        self.stage = 0
+        self.walls: list[float] = []
+        self.collectives: dict = {}
+        self.memory: dict = {}
+
+    @contextlib.contextmanager
+    def step(self):
+        dev = self.trainer.device
+        _sync(dev)
+        t0 = time.perf_counter()
+        if self.stage == 0:
+            with census_mod.count_collectives() as counts:
+                yield
+            self.collectives = counts
+        else:
+            yield
+        _sync(dev)
+        self.walls.append(time.perf_counter() - t0)
+        if self.stage == 0:
+            try:
+                self.memory = census_mod.memory_section(dev)
+            except Exception as e:  # noqa: BLE001 — the census is best-effort
+                logger.warning("census memory stats unavailable: %s", e)
+        self.stage += 1
+
+    def write(self, spans: SpanTimer) -> Optional[float]:
+        """Write the census; returns the compile seconds added to the
+        ``compile`` span (None for a one-step fit)."""
+        self.stage = 3
+        seconds = None
+        if len(self.walls) > 1:
+            seconds = max(self.walls[0] - self.walls[1], 0.0)
+            spans.add("compile", seconds)
+        t = self.trainer
+        try:
+            facts = dict(t.run_facts)
+            section = census_mod.first_step_census(
+                compile_seconds=seconds, memory=self.memory, collectives=self.collectives,
+                flops_per_token=facts.pop("fwd_flops_per_token", None), extra=facts)
+            t.exp.write_run_summary(section)
+            if t.is_rank0:
+                logger.info("first-step census: %s s compile, collectives %s, memory %s",
+                            None if seconds is None else f"{seconds:.3f}", self.collectives,
+                            self.memory)
+        except Exception as e:  # noqa: BLE001 — the census is best-effort
+            logger.warning("first-step census harvest/write failed: %s", e)
+        return seconds
 
 
 @dataclasses.dataclass
@@ -737,8 +889,12 @@ class Trainer:
     needs_rng: bool = False
     step: int = 0
     #: why the finished run stopped early ("max_time", "preemption",
-    #: "health_halt"; None for a run that reached max_steps)
+    #: "health_halt", "data_stall"; None for a run that reached max_steps)
     stop_class: Optional[str] = None
+    #: the weight EMA's knobs (None: no EMA)
+    ema_cfg: Optional[EMAConfig] = None
+    #: the static run facts the census writes (``telemetry/census.py``)
+    run_facts: dict = dataclasses.field(default_factory=dict)
 
     @property
     def is_rank0(self) -> bool:
@@ -753,7 +909,8 @@ class Trainer:
         rank, world = _process_group()
         if rank == 0:
             _log_ignored(cfg)
-        health = _health_config(cfg)
+        health = _telemetry_config(cfg).health
+        ema_cfg = _ema_config(cfg)
         dev = resolve_device(device)
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
         model_block = dict(cfg.get("model", {}) or {})
@@ -838,12 +995,27 @@ class Trainer:
             for n, t in flat.items():
                 g = ep.grad_group if ep is not None and layouts[n].expert else group
                 dist.broadcast(t, src=dist.get_global_rank(g, 0), group=g)
+        exp_block = dict(cfg.get("exp_manager", {}) or {})
+        warm_path = exp_block.get("resume_from_checkpoint")
+        if warm_path and bool(model_block.get("weight_init_only")):
+            # the warm start BEFORE the optimizer state: the master weights
+            # and the EMA must start from the restored params (JAX's order)
+            warm = Checkpointer(CheckpointConfig(dir=str(warm_path)), layouts=layouts, tp=tp,
+                                cp=cp, pp=pp)
+            try:
+                warm.restore_params_only(params)
+            finally:
+                warm.close()
+            if rank == 0:
+                logger.info("warm start: params restored from %s", warm_path)
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
-                                health=health.enabled, layouts=layouts, ep=ep)
+                                health=health.enabled, layouts=layouts, ep=ep,
+                                ema=ema_cfg is not None)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
-                                   dp=dp, tp=tp, layouts=layouts, ep=ep)
+                                   dp=dp, tp=tp, layouts=layouts, ep=ep,
+                                   ema=ema_cfg is not None)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
@@ -898,7 +1070,6 @@ class Trainer:
                 denominator_of=token_count_fn, act_dtype=policy.compute_dtype,
                 grad_dtype=policy.grad_accum_dtype, summed=step_mod._summing(dp, cp), vp=vp,
                 aux_scale=_aux_scale(mc, nm, strategy))
-        exp_block = dict(cfg.get("exp_manager", {}) or {})
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
@@ -908,7 +1079,8 @@ class Trainer:
             tp_sharded={n: layouts[n] for n in train_flat if layouts[n].sharded}, cp=cp,
             loss_and_grad_fn=loss_and_grad, pp=pp,
             log_param_norm=bool(exp_block.get("log_parameter_norm", False)),
-            log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)), ep=ep)
+            log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)), ep=ep,
+            ema=ema_cfg)
         if eval_step is None:
             eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
                                        token_count_fn=token_count_fn, cp=cp)
@@ -925,11 +1097,22 @@ class Trainer:
                                          dir=exp.checkpoint_dir)
             checkpointer = Checkpointer(ck_cfg, layouts=layouts, tp=tp, cp=cp, pp=pp)
         peak = perf.peak_tflops(torch.cuda.get_device_name(dev)) if dev.type == "cuda" else None
+        facts = census_mod.run_facts(mc, n_chips=world, seq_len=seq,
+                                     global_batch_size=sched["global_batch_size"],
+                                     pipeline_schedule=pp_schedule, pp=pp_size,
+                                     num_microbatches=nm, vp=vp)
+        fwd_flops = perf.flops_for_model(mc, seq)
+        facts["fwd_flops_per_token"] = fwd_flops
+        facts["peak_tflops_per_chip"] = perf.detect_peak_tflops(dev)
+        if exp.telemetry.mfu:
+            exp.set_mfu_reference(
+                train_step_flops_per_token=perf.train_step_flops_per_token(fwd_flops),
+                n_chips=world, peak_tflops_per_chip=facts["peak_tflops_per_chip"])
         if rank == 0:
             logger.info("model: %s; %d microbatches of %d; policy %s; device %s; data %s "
                         "(shift_labels=%s); trainable %s; dp %d, tp %d, sp %s, cp %d (%s), zero1 "
-                        "%s (%d of %d state leaves sharded); pp %d (%s); ep %d; health %s; run dir "
-                        "%s",
+                        "%s (%d of %d state leaves sharded); pp %d (%s); ep %d; health %s; ema %s; "
+                        "run dir %s",
                         mc, nm,
                         sched["micro_batch_size"], policy, dev, type(data_module).__name__,
                         shift_labels, "all leaves" if trainable is None else
@@ -938,7 +1121,8 @@ class Trainer:
                         lc.attention_impl, zero1,
                         sum(d is not None for d in specs["mu"].values()), len(specs["mu"]),
                         pp_size, pp_schedule or "none", mesh_cfg.ep,
-                        health.policy if health.enabled else "off", exp.log_dir)
+                        health.policy if health.enabled else "off",
+                        "off" if ema_cfg is None else ema_cfg.decay, exp.log_dir)
         return cls(cfg=cfg, device=dev, model_cfg=mc, policy=policy, params=params,
                    opt_state=opt_state, train_step=step_fn, trainable=trainable,
                    eval_step=eval_step,
@@ -946,7 +1130,8 @@ class Trainer:
                    checkpointer=checkpointer, sched=sched, max_steps=max_steps, seq_len=seq,
                    peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp, ep=ep,
                    pipeline_schedule=pp_schedule, layouts=layouts,
-                   rank=rank, world=world, reference=reference, needs_rng=needs_rng)
+                   rank=rank, world=world, reference=reference, needs_rng=needs_rng,
+                   ema_cfg=ema_cfg, run_facts=facts)
 
     # -- resume ---------------------------------------------------------------
 
@@ -1078,19 +1263,37 @@ class Trainer:
         """Train from the current (or resumed) step to ``max_steps``; returns
         one metrics record per step trained here (``step`` is the step's
         0-based index; ``metrics.jsonl`` counts steps trained, as the JAX
-        package does)."""
+        package does).  The card is read at boundaries only (the module
+        docstring)."""
         flops_per_token = perf.train_step_flops_per_token(
             perf.flops_for_model(self.model_cfg, self.seq_len))
+        tel = self.exp.telemetry
+        hc = self.health
         cfg_t = dict(self.cfg.get("trainer", {}) or {})
         val_interval = int(cfg_t.get("val_check_interval", 0) or 0)
         limit_val = int(cfg_t.get("limit_val_batches", 10) or 10)
         ck_every = self.checkpointer.config.every_n_train_steps if self.checkpointer else 0
+        log_every = max(1, int(self.exp.log_every_n_steps))
         max_time = parse_max_time(cfg_t.get("max_time"))
-        n_cards = self.world
+        gbs = int(self.sched["global_batch_size"])
+        tokens = gbs * self.seq_len
         stop: dict[str, Optional[str]] = {"reason": None}
+        # spans power both the per-boundary decomposition and goodput
+        spans = SpanTimer(enabled=tel.spans or tel.goodput)
+        detector = RecompileDetector()
+        monitor = (HealthMonitor(hc, dump_dir=self.exp.log_dir, run_facts=self.run_facts,
+                                 write_run_summary=self.exp.write_run_summary,
+                                 rng_seed=prng.STEP_KEY_SEED, writer=self.is_rank0)
+                   if hc.enabled else None)
+        watchdog = (HangWatchdog(hc.watchdog_timeout_seconds, monitor, abort=hc.watchdog_abort)
+                    if monitor is not None and hc.watchdog_timeout_seconds > 0 else None)
+
+        def guard(what: str):
+            return (watchdog.guard(what, self.step) if watchdog is not None
+                    else contextlib.nullcontext())
 
         def _on_sigterm(signum, frame):
-            # preemption: checkpoint at the next step boundary, then exit clean
+            # preemption: checkpoint at the next boundary, then exit clean
             stop["reason"] = "SIGTERM (preemption)"
 
         old_handler = None
@@ -1103,52 +1306,117 @@ class Trainer:
         resumed = False
         try:
             # the reference pass before the resume: its columns come from the
-            # initial weights, never from trained ones
-            self.pre_fit()
-            resumed = self.maybe_resume()
+            # initial weights, never from trained ones; both are restart time
+            with spans.span("restart"):
+                self.pre_fit()
+                resumed = self.maybe_resume()
+                if resumed and monitor is not None and "health" in self.opt_state:
+                    # the restored counter: a handled anomaly must not
+                    # re-trigger the policy at the first boundary
+                    monitor.seed_counters(int(self.opt_state["health"]["nonfinite_count"]))
+            batch_stats = (BatchStats(pad_id=getattr(self.data_module, "pad_id", None))
+                           if tel.batch_stats else None)
             # after the resume: the sampler's position is restored before
             # the prefetch thread's first fetch
-            batches = PrefetchIterator(self.data_module.global_batches())
+            batches = PrefetchIterator(
+                _counted_batches(self.data_module.global_batches(), batch_stats),
+                timeout_seconds=hc.data_wait_timeout_seconds,
+                activity_fn=getattr(self.data_module, "last_io_activity", None))
+            census = _Census(self) if tel.compile_census else None
+            first_dispatch = True
+            # compile seconds found after their window closed (log_every 1):
+            # goodput counts them, the next window must not subtract them
+            unexcluded = 0.0
+            window: list = []
             t_start = time.monotonic()
+            self.exp.step_timed()  # arm the step timer
+            spans.take_excluded()  # restart time predates the window
             while self.step < self.max_steps:
-                t0 = time.perf_counter()
-                batch = {k: torch.as_tensor(v).to(self.device) for k, v in next(batches).items()}
-                # the step's dropout key: fold_in(PRNGKey(0), step), so a
-                # resumed run draws the masks of the straight one
-                args = (self.params, self.opt_state, batch)
-                metrics = (self.train_step(*args, key=prng.step_key(self.step))
-                           if self.needs_rng else self.train_step(*args))
-                rec = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                seconds = time.perf_counter() - t0
-                index, self.step = self.step, self.step + 1
-                tokens = self.sched["global_batch_size"] * self.seq_len
-                rec.update(step_seconds=seconds, tokens_per_sec=tokens / seconds,
-                           consumed_samples=self.consumed_samples)
-                # per card: each of the world's ranks computes 1/world of the FLOPs
-                rec["mfu"] = (perf.mfu(rec["tokens_per_sec"] / n_cards, flops_per_token,
-                                       self.peak_tflops) if self.peak_tflops else math.nan)
-                if self.is_rank0:
-                    logger.info("step %d: loss %.4f grad_norm %.4f lr %.3e | %.3f s, %.1f "
-                                "tokens/s, mfu %.4f", index, rec["loss"], rec["grad_norm"],
-                                rec["lr"], seconds, rec["tokens_per_sec"], rec["mfu"])
-                self.exp.log_metrics(self.step, {k: v for k, v in rec.items()
-                                                 if not (k == "mfu" and math.isnan(v))})
-                history.append({"step": index, **rec})
-                if (self.health.enabled and self.health.policy == "halt"
-                        and rec["health/updates_finite"] == 0.0):
-                    # no checkpoint: the poisoned update was applied, and a
-                    # resume must find the last good save (the flag is the
-                    # same on every rank: it comes from all-reduced values)
-                    logger.error("health policy=halt: non-finite step %d; stopping without "
-                                 "a checkpoint (a resume restores the last good save)", index)
-                    self.stop_class = "health_halt"
-                    break
+                with spans.span("data_wait"):
+                    try:
+                        host_batch = next(batches)
+                    except DataStallError as stall:
+                        self.stop_class = "data_stall"
+                        if monitor is not None:
+                            monitor.dump_hang(self.step, "data_wait", _all_thread_stacks())
+                        logger.error("data stall at step %d: %s", self.step, stall)
+                        raise
+                # host metadata only (shapes and dtypes, never values)
+                detector.check("train_step", host_batch)
+                index = self.step
+                span = "dispatch"
+                with contextlib.ExitStack() as stack:
+                    if first_dispatch:
+                        first_dispatch = False
+                        stack.enter_context(guard("first_step"))
+                        if census is None:
+                            span = "compile"  # the kernels build inside the first step
+                    if census is not None and census.stage < 2:
+                        stack.enter_context(census.step())
+                    with spans.span(span):
+                        metrics = self._dispatch(host_batch, index)
+                if monitor is not None:
+                    # host references only: the tensors stay unfetched
+                    monitor.record(index, metrics,
+                                   fingerprint=detector.signature("train_step"),
+                                   spans=spans.snapshot() if spans.enabled else None)
+                window.append((index, metrics))
+                self.step += 1
+                if census is not None and census.stage == 2:
+                    seconds = census.write(spans)
+                    if seconds and not any(i == census.first_index for i, _ in window):
+                        unexcluded += seconds  # its window closed already
                 if (max_time is not None and stop["reason"] is None
                         and time.monotonic() - t_start > max_time):
                     stop["reason"] = f"max_time {cfg_t.get('max_time')}"
+                log_step = self.step % log_every == 0
+                ck_step = bool(ck_every) and self.step % ck_every == 0
+                agreeing = log_step or ck_step or self.step == self.max_steps
+                boundary = (agreeing or bool(val_interval and self.step % val_interval == 0)
+                            or (self.dp is None and stop["reason"] is not None))
+                if not boundary:
+                    continue
+                n_since = len(window)
+                # the boundary's fetch: the loop's one read of the card
+                with spans.span("host_sync"), guard("host_sync"):
+                    fetched = _fetch_window(window)
+                window = []
+                last = dict(fetched[-1][1])
+                action = (monitor.check_boundary(self.step, last)
+                          if monitor is not None else None)
+                dt = self.exp.step_timed(
+                    n_since, exclude_seconds=max(spans.take_excluded() - unexcluded, 0.0))
+                unexcluded = 0.0
+                for i, rec in fetched:
+                    rec.update(step_seconds=dt, tokens_per_sec=tokens / dt if dt > 0 else math.nan,
+                               consumed_samples=(i + 1) * gbs)
+                    # per card: each of the world's ranks computes 1/world of the FLOPs
+                    rec["mfu"] = (perf.mfu(rec["tokens_per_sec"] / self.world, flops_per_token,
+                                           self.peak_tflops)
+                                  if self.peak_tflops and dt > 0 else math.nan)
+                    if self.is_rank0:
+                        logger.info("step %d: loss %.4f grad_norm %.4f lr %.3e | %.3f s, %.1f "
+                                    "tokens/s, mfu %.4f", i, rec.get("loss", math.nan),
+                                    rec.get("grad_norm", math.nan), rec.get("lr", math.nan),
+                                    dt, rec["tokens_per_sec"], rec["mfu"])
+                    history.append({"step": i, **rec})
+                record = self._boundary_record(last, dt, spans, tel, batch_stats, log_step)
+                self.exp.log_metrics(self.step, record)
+                if action == "halt":
+                    # no checkpoint: the poisoned update was applied, and a
+                    # resume must find the last good save (the counters are
+                    # the same on every rank: they come from all-reduced values)
+                    logger.error("health policy=halt: non-finite step %d; stopping without "
+                                 "a checkpoint (a resume restores the last good save; bundle "
+                                 "in %s)", int(last.get("health/last_nonfinite_step", -1)),
+                                 self.exp.log_dir)
+                    self.stop_class = "health_halt"
+                    break
                 if val_interval and self.step % val_interval == 0 and self.val_data_module:
-                    rec["val_loss"] = history[-1]["val_loss"] = self.validate(limit_val)
-                    self.exp.log_metrics(self.step, {"val_loss": rec["val_loss"]}, force=True)
+                    with spans.span("validate"):
+                        val = self.validate(limit_val)
+                    record["val_loss"] = history[-1]["val_loss"] = val
+                    self.exp.log_metrics(self.step, {"val_loss": val}, force=True)
                 # one snapshot of the stop decision for this boundary: a
                 # SIGTERM landing inside the cadence save below stops at the
                 # next boundary instead of saving this step twice
@@ -1156,22 +1424,31 @@ class Trainer:
                 stop_class = (None if reason is None else
                               "max_time" if reason.startswith("max_time") else "preemption")
                 if self.dp is not None:
-                    # every rank stops (and saves) at the step any rank stops at
-                    stop_class = self._agree_stop(stop_class)
-                    if stop_class is not None and reason is None:
-                        reason = stop["reason"] = f"{stop_class} on another rank"
+                    if agreeing:
+                        # every rank stops (and saves) at the step any rank stops at
+                        stop_class = self._agree_stop(stop_class)
+                        if stop_class is not None and reason is None:
+                            reason = stop["reason"] = f"{stop_class} on another rank"
+                    else:
+                        # the request waits for a boundary every rank shares
+                        reason = stop_class = None
                 if stop_class is not None and self.stop_class is None:
                     self.stop_class = stop_class
-                if ck_every and self.step % ck_every == 0 and reason is None:
-                    self.save_checkpoint(rec)
+                if ck_step and reason is None:
+                    with spans.span("checkpoint"):
+                        self.save_checkpoint(record)
                 if reason is not None:
                     if self.is_rank0:
                         logger.warning("stopping at step %d: %s; checkpointing for resume",
                                        self.step, reason)
-                    self.save_checkpoint(rec, emergency=True)
+                    with spans.span("checkpoint"):
+                        self.save_checkpoint(record, emergency=True)
                     break
+            if census is not None and census.stage == 1:
+                census.write(spans)  # a one-step run: no second step to time
             if ck_every and stop["reason"] is None and self.stop_class != "health_halt":
-                self.save_checkpoint(history[-1] if history else {})  # final save
+                with spans.span("checkpoint"):
+                    self.save_checkpoint(history[-1] if history else {})  # final save
         finally:
             if batches is not None:
                 batches.close()
@@ -1182,16 +1459,63 @@ class Trainer:
                     self.checkpointer.close()  # drains the async save; a failure raises
             finally:
                 ck = self.checkpointer
-                self.exp.write_run_summary({
+                summary = {
                     "steps": self.step, "resumed": resumed, "stop_class": self.stop_class,
                     "stop_reason": stop["reason"],
                     "checkpoint": None if ck is None else {
                         "last_save": ck.last_save, "last_restore": ck.last_restore,
                         "integrity": ck.integrity_trail,
                         "process_group_mode": ck.process_group_mode},
-                })
+                }
+                if tel.goodput:
+                    summary["goodput"] = spans.goodput_summary()
+                if detector.events:
+                    summary["retrace_events"] = detector.events[-20:]
+                self.exp.write_run_summary(summary)
                 self.exp.close()
         return history
+
+    def _dispatch(self, host_batch: dict, index: int) -> dict:
+        """Copy step ``index``'s host batch to the card and queue its train
+        step; returns its metrics, unread.  On the card the batch goes
+        through pinned memory with ``non_blocking``: a copy from pageable
+        memory would wait for the card's queue."""
+        if self.device.type == "cuda":
+            batch = {k: torch.as_tensor(v).pin_memory().to(self.device, non_blocking=True)
+                     for k, v in host_batch.items()}
+        else:
+            batch = {k: torch.as_tensor(v) for k, v in host_batch.items()}
+        args = (self.params, self.opt_state, batch)
+        # the step's dropout key: fold_in(PRNGKey(0), step), so a resumed
+        # run draws the masks of the straight one
+        return (self.train_step(*args, key=prng.step_key(index)) if self.needs_rng
+                else self.train_step(*args))
+
+    def _boundary_record(self, last: dict, dt: float, spans: SpanTimer, tel,
+                         batch_stats: Optional[BatchStats], log_step: bool) -> dict:
+        """The logged record of a boundary: its last step's metrics, the
+        window's ``step_time`` and the port's ``tokens_per_sec``, the
+        consumed samples, the transient-read retries, and the planes'
+        keys (JAX's boundary record)."""
+        record = dict(last)
+        record["step_time"] = dt
+        record["tokens_per_sec"] = (int(self.sched["global_batch_size"]) * self.seq_len / dt
+                                    if dt > 0 else math.nan)
+        record["consumed_samples"] = self.consumed_samples
+        retries = int(getattr(self.data_module, "io_retry_count", 0) or 0)
+        if retries:
+            record["data/io_retries"] = float(retries)
+        if tel.spans:
+            record.update({f"time/{k}": v for k, v in spans.drain().items()})
+        if tel.goodput:
+            record["goodput_fraction"] = spans.goodput_fraction()
+        if tel.device_memory:
+            record.update(device_memory_metrics([self.device]))
+        if batch_stats is not None and log_step:
+            # drained only where the record is written (a checkpoint or
+            # validation boundary off the log cadence would lose the stats)
+            record.update(batch_stats.drain())
+        return {k: v for k, v in record.items() if not (isinstance(v, float) and math.isnan(v))}
 
     def _agree_stop(self, stop_class: Optional[str]) -> Optional[str]:
         """The stop decision every rank takes at this boundary: the largest
@@ -1201,13 +1525,45 @@ class Trainer:
         return {v: k for k, v in _STOP_CODES.items()}[int(code.item())]
 
     def validate(self, limit_batches: int) -> float:
-        """Mean loss over up to ``limit_batches`` validation global batches."""
+        """Mean loss over up to ``limit_batches`` validation global batches;
+        with ``evaluate_ema_weights_instead`` on the EMA weights, swapped
+        into the params and back bit for bit (:meth:`_ema_weights`)."""
         losses = []
-        # islice fetches no batch past the limit (the sampler would count it)
-        for batch in itertools.islice(self.val_data_module.global_batches(), limit_batches):
-            batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-            losses.append(float(self.eval_step(self.params, batch)))
+        swap = (self._ema_weights() if self.ema_cfg is not None
+                and self.ema_cfg.evaluate_ema_weights_instead and "ema" in self.opt_state
+                else contextlib.nullcontext())
+        with swap:
+            # islice fetches no batch past the limit (the sampler would count it)
+            for batch in itertools.islice(self.val_data_module.global_batches(),
+                                          limit_batches):
+                batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+                losses.append(float(self.eval_step(self.params, batch)))
         return sum(losses) / len(losses) if losses else math.nan
+
+    @contextlib.contextmanager
+    def _ema_weights(self):
+        """The params hold the EMA (cast to their dtype, JAX's
+        ``e.astype(p.dtype)``) inside the block: each trainable leaf is
+        saved, overwritten (a ZeRO-1 leaf's slices gathered over its data
+        axis) and copied back on exit."""
+        flat = llama.named_params(self.params)
+        saved = {}
+        try:
+            with torch.no_grad():
+                for n, e in self.opt_state["ema"].items():
+                    p = flat[n]
+                    saved[n] = p.detach().clone()
+                    sh = shard_of(e)
+                    if sh is None:
+                        p.copy_(local(e).to(p.dtype))
+                    else:
+                        data_axis_of(self.layouts.get(n), self.dp, self.ep).all_gather_into(
+                            p, local(e).to(p.dtype), sh[0])
+            yield
+        finally:
+            with torch.no_grad():
+                for n, t in saved.items():
+                    flat[n].copy_(t)
 
     def save_checkpoint(self, metrics: Optional[dict[str, float]] = None, *,
                         emergency: bool = False) -> None:

@@ -20,12 +20,19 @@ they get no ``requires_grad``, no gradient and no optimizer state, and the
 optimizer's dicts (``opt_state``, built by ``init_opt_state`` over the
 trainable leaves) hold the trainable leaves only.
 
+Every metric is a 0-d tensor on the card: the step reads nothing back to
+the host (the loop fetches a window's metrics at its boundary).  The LR
+comes from the schedule's table at the card's step counter
+(``optim/lr.py::lr_at``).
+
 ``health`` (``telemetry/health.py::HealthConfig``, enabled): the grouped
 grad norms and the finite flag of ``optim/adamw.py``, the loss's
 finiteness as ``extra_finite``, the counters ``steps_seen``,
 ``nonfinite_count``, ``skipped_count`` and ``last_nonfinite_step`` in
-``opt_state["health"]``, and the ``health/*`` metrics under the JAX names;
-``skip_update`` suppresses a non-finite step's update.
+``opt_state["health"]`` (0-d int64 tensors advanced on the card, as JAX's
+in the graph), and the ``health/*`` metrics under the JAX names;
+``skip_update`` suppresses a non-finite step's update on the card.
+``ema`` (``optim/adamw.py::EMAConfig``) is handed to the update.
 
 ``dp`` (``parallel/mesh.py::DataParallel``): data parallelism.  The step
 takes the global batch, which every rank holds, splits it microbatch-major
@@ -98,6 +105,7 @@ from neuronx_distributed_training_torch.optim.adamw import (
     global_norm,
     init_health_state,
 )
+from neuronx_distributed_training_torch.optim.lr import lr_at
 from neuronx_distributed_training_torch.parallel.sharding import split_segments
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 from neuronx_distributed_training_torch.telemetry.health import grad_group_of
@@ -121,13 +129,28 @@ def _microbatches(batch, num_microbatches: int, dp, token_count_fn):
         return [({k: v[i] for k, v in mbs.items()}, None) for i in range(num_microbatches)]
     whole = microbatch_split(batch, num_microbatches)
     gbs = next(iter(batch.values())).shape[0]
-    rows = torch.as_tensor(dp_rank_rows(gbs, num_microbatches, dp.rank, dp.size),
-                           device=next(iter(batch.values())).device)
+    rows = _rank_rows(gbs, num_microbatches, dp.rank, dp.size,
+                      next(iter(batch.values())).device)
     mine = microbatch_split({k: v.index_select(0, rows) for k, v in batch.items()},
                             num_microbatches)
     return [({k: v[i] for k, v in mine.items()},
              None if token_count_fn is None else token_count_fn({k: v[i] for k, v in whole.items()}))
             for i in range(num_microbatches)]
+
+
+_ROWS: dict = {}
+
+
+def _rank_rows(gbs: int, num_microbatches: int, rank: int, size: int, device) -> torch.Tensor:
+    """``data/loader.py::dp_rank_rows`` as an index tensor on ``device``,
+    copied there once (a copy from pageable host memory waits for the
+    card's queue)."""
+    key = (gbs, num_microbatches, rank, size, device)
+    out = _ROWS.get(key)
+    if out is None:
+        out = _ROWS[key] = torch.as_tensor(dp_rank_rows(gbs, num_microbatches, rank, size),
+                                           device=device)
+    return out
 
 
 def microbatch_rows(mb: dict, dp) -> range:
@@ -196,7 +219,7 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     tp_sharded=frozenset(), cp: Any = None,
                     loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
                     log_param_norm: bool = False, log_gradient_norm: bool = False,
-                    ep: Any = None) -> Callable:
+                    ep: Any = None, ema: Any = None) -> Callable:
     """``train_step(params, opt_state, batch, key=None) -> metrics``; params
     and opt_state are updated in place (see ``optim/adamw.py``).
 
@@ -268,15 +291,14 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
             loss_sum = loss_sum * inv
             for g in grad_sum:
                 g.mul_(inv)
-        lr = lr_schedule(opt_state["step"])
+        lr = torch.as_tensor(lr_at(lr_schedule, opt_state["step"]), dtype=torch.float32)
         opt_metrics = adamw_update(
             flat, dict(zip(names, grad_sum)), opt_state, lr, opt_cfg, policy,
             grad_group_fn=grad_group_of if health is not None else None,
             skip_nonfinite=health is not None and health.policy == "skip_update",
             extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
-            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep)
-        metrics = {"loss": loss_sum, "lr": torch.tensor(lr, dtype=torch.float32),
-                   "grad_norm": opt_metrics["grad_norm"]}
+            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep, ema=ema)
+        metrics = {"loss": loss_sum, "lr": lr, "grad_norm": opt_metrics["grad_norm"]}
         metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
                         if k not in metrics})
         if health is not None:
@@ -294,24 +316,25 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
 
 def _health_metrics(health, opt_state: dict, opt_metrics: dict, loss, params, tp=None,
                     tp_sharded=frozenset(), pp=None, ep=None) -> dict:
-    """Advance the health counters (host ints; ``updates_finite`` is read
-    once) and return the ``health/*`` metrics under the JAX names."""
-    ok = bool(opt_metrics["updates_finite"])
-    prev = opt_state.setdefault("health", init_health_state())
+    """Advance the health counters on the card (JAX's in-graph rule; no host
+    read) and return the ``health/*`` metrics under the JAX names."""
+    ok = opt_metrics["updates_finite"]
+    prev = opt_state.get("health") or init_health_state(ok.device)
     # steps_seen counts step calls (the AdamW step freezes on a skip):
     # steps_seen - 1 is the 0-based step just computed
     seen = prev["steps_seen"] + 1
-    bad = 0 if ok else 1
+    bad = (~ok).to(torch.int64)
     hstate = {
         "steps_seen": seen,
         "nonfinite_count": prev["nonfinite_count"] + bad,
-        "skipped_count": prev["skipped_count"] + (bad if health.policy == "skip_update" else 0),
-        "last_nonfinite_step": seen - 1 if bad else prev["last_nonfinite_step"],
+        "skipped_count": (prev["skipped_count"] + bad if health.policy == "skip_update"
+                          else prev["skipped_count"]),
+        "last_nonfinite_step": torch.where(ok, prev["last_nonfinite_step"], seen - 1),
     }
     opt_state["health"] = hstate
-    out = {"health/updates_finite": float(ok),
+    out = {"health/updates_finite": ok.float(),
            "health/loss_finite": torch.isfinite(loss).float(),
-           **{f"health/{k}": float(hstate[k]) for k in
+           **{f"health/{k}": hstate[k] for k in
               ("nonfinite_count", "skipped_count", "last_nonfinite_step")}}
     for g, n in opt_metrics.get("group_norms", {}).items():
         out[f"health/grad_norm/{g}"] = n

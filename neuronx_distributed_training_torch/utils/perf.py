@@ -8,6 +8,9 @@ a token on each MoE layer) and the router matmul, as JAX's
 GPT counts its own MLP: 3 matmuls under a glu activation, 2 under plain
 gelu, and with MoE layers the activated experts and the router as Mixtral.  Peaks are the cards' published dense bf16 and HBM rates; the
 trainer's MFU and ``chip_smoke.py``'s kernel bounds both read them from here.
+
+:class:`Throughput` is the JAX package's windowed sequences/s (the logged
+``throughput_seqs_per_sec``, ``throughput_peak`` and the windowed ``mfu``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,66 @@ def peak_tflops(device_name: str) -> Optional[float]:
     """Published dense bf16 TFLOP/s of a card by its name; None when unknown."""
     peaks = card_peaks(device_name)
     return None if peaks is None else peaks[0] / 1e12
+
+
+#: the JAX package's nominal CPU peak: keeps the windowed MFU finite in CPU
+#: smoke runs (it measures nothing)
+CPU_PEAK_TFLOPS = 0.5
+
+
+def detect_peak_tflops(device) -> float:
+    """The peak TFLOP/s the logged windowed ``mfu`` divides by (JAX's
+    ``detect_peak_tflops``): a CUDA device's published dense bf16 rate by
+    its name (:func:`peak_tflops`; an unknown card raises), and JAX's
+    nominal :data:`CPU_PEAK_TFLOPS` for the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_PEAK_TFLOPS
+    name = torch.cuda.get_device_name(device)
+    peak = peak_tflops(name)
+    if peak is None:
+        raise ValueError(f"no published bf16 peak for card {name!r} (utils/perf.py "
+                         f"CARD_PEAKS)")
+    return peak
+
+
+class Throughput:
+    """Moving-average sequences/sec with peak tracking (the JAX package's
+    ``Throughput``, the reference's ``utils/utils.py:52-77``, window=10).
+
+    ``peak`` is only recorded once the window holds at least
+    ``min(window, 3)`` samples: the first one or two windows average over a
+    partial history and a single fast boundary there would pin a phantom
+    peak no steady-state window can ever reach again.  ``seq_len`` (when
+    given) makes ``tokens_per_sec`` the source the windowed MFU derives
+    from."""
+
+    def __init__(self, batch_size: int, window: int = 10, seq_len: int = 0):
+        self.batch_size = batch_size
+        self.window = window
+        self.seq_len = int(seq_len or 0)
+        self._times: list[float] = []
+        self.peak = 0.0
+        self.last = 0.0
+        self.total_seqs = 0
+
+    def update(self, step_seconds: float, num_steps: int = 1) -> float:
+        self._times.append(step_seconds)
+        if len(self._times) > self.window:
+            self._times.pop(0)
+        self.total_seqs += self.batch_size * num_steps
+        tput = self.batch_size * len(self._times) / sum(self._times)
+        self.last = tput
+        if len(self._times) >= min(self.window, 3):
+            self.peak = max(self.peak, tput)
+        return tput
+
+    @property
+    def tokens_per_sec(self) -> float:
+        """Windowed tokens/sec (seqs/s x seq_len); 0.0 when seq_len unset."""
+        return self.last * self.seq_len
 
 
 def llama_flops_per_token(

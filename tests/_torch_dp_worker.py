@@ -39,7 +39,9 @@ whole sequence:
   of pipeline stage ``r`` alone see a NaN in one of their layer gradients.
 - ``val``: ``{"gbs": n, "seed": s}``: a synthetic validation module;
 - ``expect_error``: a ``ValueError`` the trainer's build raises is reported
-  as ``{"error": text}``.
+  as ``{"error": text}``;
+- ``sigterm``: ``{"step": i, "rank": r}``: world rank ``r`` alone raises
+  SIGTERM inside step ``i`` (a preemption notice on one rank).
 
 Each rank also reports its mesh coordinates (``coords``) and a digest of its
 local params and moments after the fit (``state_digest``), and a digest of
@@ -56,6 +58,7 @@ reported.
 from __future__ import annotations
 
 import json
+import signal
 import sys
 import traceback
 from pathlib import Path
@@ -397,7 +400,11 @@ def run(spec: dict, rank: int) -> dict:
     microbatches, update = step_mod._microbatches, step_mod.adamw_update
     captured: dict = {}
 
+    sigterm = spec.get("sigterm")
+
     def record_rows(batch, *a, **kw):
+        if sigterm and trainer.step == sigterm["step"] and rank == sigterm["rank"]:
+            signal.raise_signal(signal.SIGTERM)
         mbs = microbatches(batch, *a, **kw)
         out["rows"].append([float(mb.get("input_ids", mb.get("chosen_input_ids")).double().sum())
                             for mb, _ in mbs])

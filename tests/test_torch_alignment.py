@@ -314,10 +314,17 @@ def test_kto_data_module_errors_match_jax(bad, err, match):
 # ---------------------------------------------------------------------------
 
 
+#: JAX's init of the tiny model by precision, built once for the module
+#: (JAX arrays are immutable; the port's params are made fresh each call)
+_JAX_INIT: dict = {}
+
+
 def _models(precision):
     jcfg = j_llama.LlamaConfig.from_config(MODEL)
     jpol = JPolicy.from_precision_config({"type": precision})
-    jparams = j_llama.init_params(jax.random.PRNGKey(0), jcfg, jpol)
+    if precision not in _JAX_INIT:
+        _JAX_INIT[precision] = j_llama.init_params(jax.random.PRNGKey(0), jcfg, jpol)
+    jparams = _JAX_INIT[precision]
     tcfg = t_llama.LlamaConfig.from_config(MODEL)
     tpol = TPolicy.from_precision_config({"type": precision})
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")

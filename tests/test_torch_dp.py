@@ -19,7 +19,12 @@
 - checkpoints: a dp=2 run saved at step 2 and resumed to step 3 equals a
   straight run bit for bit, the step-2 checkpoint restores at dp=1 exactly
   and trains step 3 within the dp tolerance, a dp=1 checkpoint resumes at
-  dp=2, and a flipped byte in either rank's file fails verification;
+  dp=2, and a flipped byte in either rank's file fails verification; in
+  the same launch a warm start at dp=2 (``weight_init_only`` with
+  ``resume_from_checkpoint``, ZeRO-1, an EMA) starts from the saved params
+  bit for bit with a fresh step, and a SIGTERM on rank 1 alone at a step
+  that is no log boundary stops both ranks at the next log boundary (the
+  stop agreed there), with one emergency save;
 - the CLI under ``python -m torch.distributed.run --nproc_per_node 2 ...
   --device cpu``: rank 0 alone writes ``metrics.jsonl``.
 
@@ -409,6 +414,13 @@ def test_dp2_checkpoints_resume_bitwise_and_reshard(tmp_path):
         {"name": "resume", "cfg": dp_cfg(tmp_path, "b", every=2), "steps": 3,
          "dump": str(tmp_path / "resume.pt")},
         {"name": "from_dp1", "cfg": dp_cfg(tmp_path, "solo", every=2), "steps": 3},
+        {"name": "warm", "steps": 1, "max_steps": 1, "dump_init": str(tmp_path / "warm0.pt"),
+         "cfg": dp_cfg(tmp_path, "warm", exp_manager={
+             "resume_from_checkpoint": str(tmp_path / "a" / "dp" / "version_0" / "checkpoints"),
+             "ema": {"enable": True, "decay": 0.9}}, model={"weight_init_only": True})},
+        {"name": "agree", "cfg": dp_cfg(tmp_path, "agree", max_steps=6,
+                                        trainer={"log_every_n_steps": 2}),
+         "steps": 6, "sigterm": {"step": 2, "rank": 1}},
     ])
     r0 = ranks[0]
     assert r0["straight"]["committed"] == [2, 3] and r0["pre"]["committed"] == [2]
@@ -418,6 +430,21 @@ def test_dp2_checkpoints_resume_bitwise_and_reshard(tmp_path):
     a, b = torch.load(tmp_path / "straight.pt"), torch.load(tmp_path / "resume.pt")
     assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
     assert r0["resume"]["health"]["steps_seen"] == 3
+    # the warm start: step 3's params (the straight run's newest save), each
+    # rank its ZeRO-1 slices; the step, moments and data position fresh
+    warm0, straight = torch.load(tmp_path / "warm0.pt"), torch.load(tmp_path / "straight.pt")
+    assert warm0.keys() == {k[len("params/"):] for k in straight if k.startswith("params/")}
+    assert all(torch.equal(warm0[n], straight[f"params/{n}"]) for n in warm0)
+    for r in ranks:
+        w = r["warm"]
+        assert [h["step"] for h in w["history"]] == [0] and w["opt_step"] == 1
+        assert w["history"][0]["consumed_samples"] == 8 and w["committed"] == []
+    # a SIGTERM on rank 1 inside step 2 (no log boundary at log_every 2):
+    # both ranks go on to step 3, agree at the step-4 boundary and save there
+    for r in ranks:
+        a = r["agree"]
+        assert [h["step"] for h in a["history"]] == [0, 1, 2, 3]
+        assert a["stop_class"] == "preemption" and a["committed"] == [4]
     # the dp=1 checkpoint resumed at dp=2; the same continuation at dp=1
     assert [h["step"] for h in r0["from_dp1"]["history"]] == [2]
     cont = t_loop.Trainer.from_config(

@@ -124,8 +124,21 @@ def _close(got, want, rtol=RTOL, atol=0.0, msg=""):
                                rtol=rtol, atol=atol, err_msg=msg)
 
 
+#: JAX's perturbed init by (config, seed), built once for the module: most
+#: cases ask for the same weights on the JAX side and on the port's side
+_JAX_PARAMS: dict = {}
+
+
 def _jax_params(jc, seed=0):
-    """JAX's init with every norm scale and every bias perturbed."""
+    """JAX's init with every norm scale and every bias perturbed (a copy of
+    the module's cached tree: callers may write into what they get)."""
+    key = (repr(jc), seed)
+    if key not in _JAX_PARAMS:
+        _JAX_PARAMS[key] = _perturbed_init(jc, seed)
+    return jax.tree_util.tree_map(np.copy, _JAX_PARAMS[key])
+
+
+def _perturbed_init(jc, seed):
     jp = j_gpt.init_params(jax.random.PRNGKey(seed), jc, _policies()[0])
     rng = np.random.default_rng(seed + 100)
 

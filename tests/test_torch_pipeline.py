@@ -269,6 +269,18 @@ def _onef1b_grads(cfg, g):
     return fold(grads, g["head_params"], g["head_weight"])
 
 
+#: JAX's init by config, built once for the module: the JAX cases of one
+#: width share their weights (JAX arrays are immutable)
+_JAX_INIT: dict = {}
+
+
+def _jax_init(cfg):
+    key = repr(cfg)
+    if key not in _JAX_INIT:
+        _JAX_INIT[key] = j_llama.init_params(jax.random.PRNGKey(0), cfg, JP.FP32)
+    return _JAX_INIT[key]
+
+
 def _jax_pipeline(pp, tied, devices, *, vp=1, nm=None, chunks=None,
                   schedules=("1f1b", "wavefront")):
     """JAX's ``schedules`` on ``pp`` pipe ranks at ``vp`` (``pp vp`` layers
@@ -279,7 +291,7 @@ def _jax_pipeline(pp, tied, devices, *, vp=1, nm=None, chunks=None,
     mask), {schedule: (loss, grads by port name)})``, the layers flat."""
     cfg = dataclasses.replace(JP.CFG, tie_word_embeddings=tied, vocab_chunks=chunks,
                               num_layers=JP.CFG.num_layers if vp == 1 else pp * vp)
-    params = j_llama.init_params(jax.random.PRNGKey(0), cfg, JP.FP32)
+    params = _jax_init(cfg)
     ids, mask = _batch(nm or (6 if pp == 4 else 4))
     mbs = {"input_ids": jnp.asarray(ids), "labels": jnp.asarray(ids),
            "loss_mask": jnp.asarray(mask)}
@@ -549,7 +561,7 @@ def _jax_preference(devices8) -> tuple:
     from neuronx_distributed_training_tpu.ops import norm as j_norm
 
     cfg = JP.CFG
-    params = j_llama.init_params(jax.random.PRNGKey(0), cfg, JP.FP32)
+    params = _jax_init(cfg)
     embed, stage, _ = j_llama.pipeline_hooks(cfg, JP.FP32)
 
     def head_fn(p, y):

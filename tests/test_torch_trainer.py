@@ -218,13 +218,15 @@ def test_ignored_blocks_are_logged_once(caplog):
     msgs = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
     assert len(msgs) == 1 and "exp_manager.telemetry" in msgs[0]
     assert "data and tensor parallelism" in msgs[0] and "data parallelism only" not in msgs[0]
-    # the health policy and ZeRO-1 are acted on; the other telemetry planes,
-    # the health recorder's knobs and the overlap block are not
+    # the health policy and its flight recorder, the default planes and
+    # ZeRO-1 are acted on; the other telemetry planes and the overlap block
+    # are not
     ignored = msgs[0].split(": ", 1)[1].split(", ")
     assert {"exp_manager.telemetry.tensorstats", "exp_manager.telemetry.fleet",
-            "exp_manager.telemetry.health.ring_buffer_steps",
             "distributed_strategy.overlap"} <= set(ignored)
     assert not {"exp_manager.telemetry", "exp_manager.telemetry.health",
+                "exp_manager.telemetry.health.ring_buffer_steps",
+                "exp_manager.telemetry.spans", "exp_manager.telemetry.batch_stats",
                 "distributed_strategy.zero1"} & set(ignored)
 
 
