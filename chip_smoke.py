@@ -289,14 +289,30 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       without saves at step 3);
    d. a warm start from 16c's save: params bit for bit, step, moments and
       data position fresh.
+17. the converters and the planes ``tiny_smoke_config.yaml`` turns on:
+   a. an HF-named Llama-3-8B-width state dict at SKIP_LAYERS layers, drawn
+      from a seed on the card, written as ``pytorch_model.bin`` (bf16);
+      ``tools/checkpoint_converter.py hf2native``; the LoRA SFT config
+      warm-started from it for 3 steps against the same weights handed over
+      in memory (bit for bit, exact launches); ``native2hf`` back bit for
+      bit;
+   b. 16a's cadence for 40 steps with tiny_smoke's tensorstats, fleet,
+      control, memory and alerts blocks: 0 syncs inside a dispatch, the
+      windows' step_time against 16a's (window 3 the planes alone),
+      tensorstats' share of AdamW, ``memory_summary.json``'s attribution
+      against ``tree_bytes_by_subsystem``, a ``tools/run_ctl.py
+      checkpoint_now`` enqueued at step 25 saving at the step-30 boundary,
+      exact launches;
+   c. phase 4's cell at micro batch 64 in a subprocess: an OOM that writes
+      ``oom_<step>/`` and exits 1 (the JAX CLI's code for it).
 
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``) runs the kernels' build and those
-phases alone (13e and 16 after phase 4; 14a and 14b are one function) and prints no
-result: a partial check while developing.
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``) runs the kernels' build and
+those phases alone (13e, 16 and 17 after phase 4, 17 after 16a; 14a and 14b are one
+function) and prints no result: a partial check while developing.
 """
 
 from __future__ import annotations
@@ -4007,12 +4023,16 @@ class SyncWatch:
     """Records every synchronizing CUDA call inside each step's dispatch
     (``Trainer._dispatch``: the batch's copy and the train step) from step
     ``first`` on, through ``torch.cuda``'s sync debug mode: each such call
-    warns, and the warning's source line is kept."""
+    warns, and the warning's source line is kept.  The mode is the
+    process's, so a background thread's syncs in that time (an async
+    checkpoint's commit) warn too: they are counted apart (``others``), by
+    the warning thread."""
 
     def __init__(self, torch, first: int):
-        self.torch, self.first, self.syncs = torch, first, []
+        self.torch, self.first, self.syncs, self.others = torch, first, [], 0
 
     def __enter__(self):
+        import threading
         import warnings
 
         from neuronx_distributed_training_torch.trainer.loop import Trainer
@@ -4023,15 +4043,24 @@ class SyncWatch:
         def dispatch(trainer, host_batch, index):
             if index < watch.first:
                 return real(trainer, host_batch, index)
-            with warnings.catch_warnings(record=True) as seen:
+            seen: list = []
+
+            def show(message, category, filename, lineno, file=None, line=None):
+                seen.append((threading.get_ident(), str(message), filename, lineno))
+
+            with warnings.catch_warnings():
                 warnings.simplefilter("always")
+                warnings.showwarning = show
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
                     out = real(trainer, host_batch, index)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-            watch.syncs += [(index, f"{w.filename}:{w.lineno}", str(w.message)[:160])
-                            for w in seen if "called a synchronizing" in str(w.message)]
+            me = threading.get_ident()
+            syncs = [w for w in seen if "called a synchronizing" in w[1]]
+            watch.syncs += [(index, f"{fn}:{ln}", msg[:160]) for tid, msg, fn, ln in syncs
+                            if tid == me]
+            watch.others += sum(1 for w in syncs if w[0] != me)
             return out
 
         Trainer._dispatch = dispatch
@@ -4391,6 +4420,310 @@ def phase_fit(torch, fa, cell, history4: list, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the converters and the planes tiny_smoke turns on
+# ---------------------------------------------------------------------------
+
+CONVERT_SEED = 20261118
+#: the LoRA SFT config 17a warm-starts from the converted checkpoint
+LORA_SFT = "hf_llama3_8B_SFT_lora_config.yaml"
+#: the tiny_smoke telemetry blocks 17b turns on over phase 16a's cadence
+PLANE_BLOCKS = ("tensorstats", "fleet", "control", "memory", "alerts")
+#: 17b's steps: four windows of 16a's cadence.  The first runs the memory
+#: window's allocation-stack recording; the second holds the profile's
+#: capture at the step-10 boundary (the boundary's work after its window
+#: is timed lands in the next, as in JAX); the third is the planes alone;
+#: the fourth runs beside the checkpoint that tools/run_ctl.py's
+#: checkpoint_now, enqueued before step CHECKPOINT_NOW_AT's dispatch, asks
+#: for at the step-30 boundary
+PLANES_STEPS = 40
+CHECKPOINT_NOW_AT = 25
+
+
+def phase_convert(torch, fa, card: str) -> dict:
+    """17a: an HF-named Llama-3-8B-width state dict at SKIP_LAYERS layers,
+    drawn from a seed on the card and written as ``pytorch_model.bin``
+    (bf16, as HF ships); ``checkpoint_converter hf2native``; the LoRA SFT
+    config warm-started from it for SFT_STEPS steps against a run handed the
+    same weights in memory (losses and grad norms bit for bit, exact
+    launches); ``native2hf`` back equals the written dict bit for bit."""
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.tools import checkpoint_converter as cc
+    from neuronx_distributed_training_torch.tools import convert
+    from neuronx_distributed_training_torch.tools import step_times as cell
+    from neuronx_distributed_training_torch.trainer import cli
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    t_phase = time.perf_counter()
+    work = cell.WORK / "convert"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "hf").mkdir(parents=True)
+    args = sft_args(LORA_SFT, SKIP_LAYERS)
+    cfg = load_config(args[1], cli.parse_overrides([a for a in args[2:] if a != "--set"]))
+    mc = llama.LlamaConfig.from_config(cfg["model"], cfg["distributed_strategy"])
+    rep: dict = {}
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(CONVERT_SEED)
+        base = llama.init_params(mc, DtypePolicy.from_precision_config({"type": "fp32"}),
+                                 generator=gen, device="cuda")
+        host = {k: v.to(torch.bfloat16).cpu()
+                for k, v in convert.native_to_hf_llama(base, mc).items()}
+        del base
+        torch.save(host, work / "hf" / "pytorch_model.bin")
+        rep["hf_bytes"] = sum(v.numel() * v.element_size() for v in host.values())
+        rep["write_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cc.main(["--direction", "hf2native", "--input", str(work / "hf"),
+                 "--output", str(work / "native"), *args])
+        rep["hf2native_seconds"] = time.perf_counter() - t0
+        warm_args = args + ["--set", "model.weight_init_only=true",
+                            "--set", f"exp_manager.resume_from_checkpoint={work / 'native'}"]
+        runs = {}
+        for name in ("warm", "memory"):
+            fa.reset_counters()
+            t0 = time.perf_counter()
+            t = cli.build(warm_args if name == "warm" else args)
+            if name == "memory":
+                src = llama.named_params(convert.hf_llama_to_native(host, mc, device="cuda"))
+                with torch.no_grad():
+                    for n, p in llama.named_params(t.params).items():
+                        if n in src:
+                            p.copy_(src[n])
+                del src
+            history = t.fit()
+            torch.cuda.synchronize()
+            runs[name] = {"history": [(h["loss"], h["grad_norm"]) for h in history],
+                          "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS),
+                          "seconds": time.perf_counter() - t0}
+            del t
+            free_cuda(torch)
+        t0 = time.perf_counter()
+        cc.main(["--direction", "native2hf", "--input", str(work / "native"),
+                 "--output", str(work / "back"), *args])
+        back = torch.load(work / "back" / "pytorch_model.bin")
+        rep["native2hf_seconds"] = time.perf_counter() - t0
+        rep["round_trip_equal"] = (set(back) == set(host)
+                                   and all(torch.equal(back[k], host[k]) for k in host))
+        del back, host
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(cell.WORK / "exp_sft", ignore_errors=True)
+    expect = SKIP_LAYERS * SFT_MICRO * SFT_STEPS
+    rep.update(runs=runs, expect=expect, phase_seconds=time.perf_counter() - t_phase)
+    for name, r in runs.items():
+        log(f"convert 17a: {name} run losses/grad norms {r['history']}, launches "
+            f"{r['launches']} fallbacks {r['fallbacks']} (expected {expect} each), "
+            f"{r['seconds']:.1f} s [{card}]")
+    log(f"convert 17a: HF dict {rep['hf_bytes']} bytes written in {rep['write_seconds']:.1f} s, "
+        f"hf2native {rep['hf2native_seconds']:.1f} s, native2hf {rep['native2hf_seconds']:.1f} s, "
+        f"round trip bit for bit {rep['round_trip_equal']}; phase wall time "
+        f"{rep['phase_seconds']:.1f} s [{card}]")
+    if runs["warm"]["history"] != runs["memory"]["history"]:
+        fail(f"convert 17a: the warm start is not the in-memory run bit for bit: {runs}")
+    if not all(math.isfinite(loss) for loss, _ in runs["warm"]["history"]):
+        fail("convert 17a: a non-finite loss")
+    for name, r in runs.items():
+        if any(n != expect for n in r["launches"].values()) or r["fallbacks"]["core"]:
+            fail(f"convert 17a: {name} launches {r['launches']} (fallbacks {r['fallbacks']}), "
+                 f"expected {expect} each")
+    if not rep["round_trip_equal"]:
+        fail("convert 17a: native2hf does not give the written dict back bit for bit")
+    return rep
+
+
+def smoke_plane_sets() -> list:
+    """``--set`` pairs putting tiny_smoke's tensorstats, fleet, control,
+    memory and alerts blocks into a config (JSON is YAML)."""
+    import yaml
+
+    tel = yaml.safe_load((REPO / "examples" / "conf" / "tiny_smoke_config.yaml").read_text()
+                         )["exp_manager"]["telemetry"]
+    return [x for b in PLANE_BLOCKS
+            for x in ("--set", f"exp_manager.telemetry.{b}={json.dumps(tel[b])}")]
+
+
+def tensorstats_cost(torch, trainer, card: str) -> dict:
+    """Tensorstats' share of the step: AdamW over the trained state with
+    gradients drawn from a seed (the histograms' exponents spread as a real
+    step's do), with and without the pre- and post-clip statistics,
+    CUDA-event ms, alternated 3 times each (the state is garbage
+    afterwards)."""
+    import statistics
+
+    from neuronx_distributed_training_torch.models.llama import named_params
+    from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, adamw_update
+    from neuronx_distributed_training_torch.telemetry.health import grad_group_of
+
+    flat = named_params(trainer.params)
+    gen = torch.Generator(device="cuda").manual_seed(CONVERT_SEED)
+    grads = {n: 1e-4 * torch.randn(p.shape, generator=gen, device=p.device)
+             for n, p in flat.items()}
+    ts = trainer.exp.telemetry.tensorstats
+    out = {False: [], True: []}
+    for _ in range(3):
+        for on in (False, True):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            adamw_update(flat, grads, trainer.opt_state, 1e-6, AdamWConfig(), trainer.policy,
+                         grad_group_fn=grad_group_of, tensorstats=ts if on else None)
+            end.record()
+            torch.cuda.synchronize()
+            out[on].append(start.elapsed_time(end))
+    rep = {"plain_ms": statistics.median(out[False]), "stats_ms": statistics.median(out[True]),
+           "params": sum(p.numel() for p in flat.values())}
+    log(f"planes 17b: AdamW over phase 4's state ({rep['params']} params): without tensorstats "
+        f"{out[False]} ms, with the pre- and post-clip statistics {out[True]} ms (medians "
+        f"{rep['plain_ms']:.2f} / {rep['stats_ms']:.2f}) [{card}]")
+    del grads
+    return rep
+
+
+def phase_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
+    """17b: phase 16a's cadence with tiny_smoke's planes on: 0 syncs inside
+    a dispatch, the windows' step_time against 16a's, memory_summary.json's
+    subsystem bytes against ``tree_bytes_by_subsystem``, the tensorstats
+    records, and a ``tools/run_ctl.py checkpoint_now`` enqueued before step
+    CHECKPOINT_NOW_AT's dispatch saving at the next boundary."""
+    from neuronx_distributed_training_torch.telemetry.memory import tree_bytes_by_subsystem
+    from neuronx_distributed_training_torch.trainer import cli
+    from neuronx_distributed_training_torch.trainer.loop import Trainer
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_planes"
+    shutil.rmtree(exp, ignore_errors=True)
+    args = cell.CLI_ARGS + ["--set", f"trainer.max_steps={PLANES_STEPS}",
+                            "--set", f"trainer.log_every_n_steps={CADENCE_LOG_EVERY}",
+                            "--set", f"exp_manager.exp_dir={exp}", *smoke_plane_sets()]
+    enqueued: list = []
+    real = Trainer._dispatch
+
+    def dispatch(trainer, host_batch, index):
+        if index == CHECKPOINT_NOW_AT:
+            out = subprocess.run([sys.executable, str(REPO / "tools" / "run_ctl.py"),
+                                  str(trainer.exp.log_dir), "checkpoint_now"],
+                                 capture_output=True, text=True, timeout=60)
+            enqueued.append(out.returncode)
+        return real(trainer, host_batch, index)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    Trainer._dispatch = dispatch
+    try:
+        with SyncWatch(torch, first=2) as watch:
+            trainer, history = cli.run(args)
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        run = Path(trainer.exp.log_dir)
+        records = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        ts_lines = [json.loads(x) for x in (run / "tensorstats.jsonl").read_text().splitlines()]
+        mem = json.loads((run / "memory_summary.json").read_text())
+        tree = tree_bytes_by_subsystem(trainer.params, trainer.opt_state)
+        summary = json.loads((run / "run_summary.json").read_text())
+        fleet = sorted(p.name for p in (run / "fleet").iterdir())
+        committed = list(trainer.checkpointer.committed_steps)
+        cost = tensorstats_cost(torch, trainer, card)
+        del trainer
+    finally:
+        Trainer._dispatch = real
+        shutil.rmtree(exp, ignore_errors=True)
+    free_cuda(torch)
+    expect = cell.LAYERS * cell.MICROBATCHES * PLANES_STEPS
+    ref = [r["step_time"] for r in cadence["records"]]
+    attribution = {c: r["bytes"] for c, r in mem["attribution"].items()}
+    log(f"planes 17b: window step_time {[r['step_time'] for r in records]} s against 16a's "
+        f"{ref} s (tensorstats, fleet, control, memory, alerts on; window 1 runs the memory "
+        f"window's allocation-stack recording, window 2 holds the profile's capture, window 4 "
+        f"runs beside the checkpoint_now save; window 3, the planes alone, "
+        f"{records[2]['step_time'] / _median(ref):.4f} x 16a's median) [{card}]")
+    for r in records:
+        log(f"planes 17b: boundary {r['step']}: time/dispatch {r.get('time/dispatch', 0.0):.3f} s, "
+            f"time/host_sync {r.get('time/host_sync', 0.0):.3f} s, time/checkpoint "
+            f"{r.get('time/checkpoint', 0.0):.3f} s, memory/hbm_headroom_fraction "
+            f"{r.get('memory/hbm_headroom_fraction')}, memory/peak_hbm_bytes "
+            f"{r.get('memory/peak_hbm_bytes')}, tensorstats/pre/embed/rms "
+            f"{r.get('tensorstats/pre/embed/rms')} [{card}]")
+    log(f"planes 17b: memory_summary.json (profiled step {mem['profiled_step']}, "
+        f"{mem['profile']['total_count']} live blocks, {mem['profile']['total_bytes']} bytes): "
+        f"attribution {attribution} against tree_bytes_by_subsystem {tree} [{card}]")
+    log(f"planes 17b: tensorstats.jsonl {len(ts_lines)} records of "
+        f"{len(ts_lines[-1]['groups']) if ts_lines else 0} groups; fleet/{fleet}; control "
+        f"{json.dumps(summary.get('control'))}; committed {committed}; launches {launches} "
+        f"fallbacks {fallbacks} (expected {expect} each); host syncs inside steps "
+        f"2-{PLANES_STEPS - 1}'s dispatch: {len(watch.syncs)} (other threads' inside it: "
+        f"{watch.others})")
+    if enqueued != [0]:
+        fail(f"planes 17b: tools/run_ctl.py checkpoint_now exited {enqueued}")
+    nxt = -(-(CHECKPOINT_NOW_AT + 1) // CADENCE_LOG_EVERY) * CADENCE_LOG_EVERY
+    if nxt not in committed:
+        fail(f"planes 17b: checkpoint_now did not save at step {nxt}: committed {committed}")
+    if len(history) != PLANES_STEPS or not all(math.isfinite(h["loss"]) for h in history):
+        fail(f"planes 17b: {len(history)} steps or a non-finite loss")
+    if watch.syncs:
+        fail(f"planes 17b: host syncs between boundaries: {watch.syncs[:12]}")
+    if any(n != expect for n in launches.values()) or fallbacks["core"]:
+        fail(f"planes 17b: launches {launches} (fallbacks {fallbacks}), expected {expect} each")
+    if [r["step"] for r in ts_lines] != [r["step"] for r in records] or \
+            not any(k.startswith("tensorstats/") for k in records[-1]) or \
+            "memory/hbm_headroom_fraction" not in records[-1]:
+        fail(f"planes 17b: the plane keys are missing: {sorted(records[-1])[:40]}")
+    if fleet != ["host_0.jsonl"] or attribution.get("params") != tree["params"]:
+        fail(f"planes 17b: fleet {fleet}; params attributed {attribution.get('params')} "
+             f"against {tree['params']}")
+    out = {"launches": launches, "records": records, "attribution": attribution,
+           "tree_bytes": tree, "committed": committed, "tensorstats_cost": cost,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"planes 17b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_oom(cell, card: str) -> dict:
+    """17c: phase 4's cell with a micro batch that cannot fit, in a
+    subprocess with the memory plane on: it must write ``oom_<step>/`` and
+    exit with the JAX CLI's code for an unclassified failure (1)."""
+    from neuronx_distributed_training_torch.trainer.control import EXIT_ERROR
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_oom"
+    shutil.rmtree(exp, ignore_errors=True)
+    cmd = [sys.executable, "-m", "neuronx_distributed_training_torch.trainer.cli",
+           *cell.CLI_ARGS, "--set", "data.micro_batch_size=64",
+           "--set", "data.global_batch_size=64", "--set", "trainer.max_steps=2",
+           "--set", f"exp_manager.exp_dir={exp}",
+           "--set", "exp_manager.telemetry.memory={enabled: true}"]
+    try:
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        bundles = sorted(exp.rglob("oom_*"))
+        oom = json.loads((bundles[0] / "oom.json").read_text()) if bundles else {}
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    rep = {"returncode": out.returncode, "bundles": [b.name for b in bundles],
+           "error": oom.get("error", "")[:200], "step": oom.get("step"),
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"oom 17c: exit code {rep['returncode']} (expected {EXIT_ERROR}), bundles "
+        f"{rep['bundles']}, error {rep['error']!r}, attribution at death "
+        f"{oom.get('attribution_at_death')}; phase wall time {rep['phase_seconds']:.1f} s "
+        f"[{card}]")
+    if out.returncode != EXIT_ERROR or not bundles or "out of memory" not in rep["error"].lower():
+        fail(f"oom 17c: {rep}; stderr tail {out.stderr[-1500:]}")
+    return rep
+
+
+def phase_convert_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
+    """Phase 17, 17a-17c."""
+    t_phase = time.perf_counter()
+    out = {"convert": phase_convert(torch, fa, card)}
+    free_cuda(torch)
+    out["planes"] = phase_planes(torch, fa, cell, cadence, card)
+    out["oom"] = phase_oom(cell, card)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"convert and planes 17a-17c: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -4466,7 +4799,7 @@ def main() -> None:
     if only is not None:
         # a partial run: the named phases (13e and 16 after phase 4,
         # their reference), no result lines
-        if "13e" in only or "16" in only:
+        if "13e" in only or "16" in only or "17" in only:
             try:
                 _, history4 = phase_trainer(torch, fa, cell, card)
             finally:
@@ -4476,6 +4809,10 @@ def main() -> None:
                 phase_pp_cp(torch, cell, trainer_ref(history4), card)
             if "16" in only:
                 phase_fit(torch, fa, cell, history4, card)
+            if "17" in only:
+                cadence = phase_cadence(torch, fa, cell, history4, card)
+                free_cuda(torch)
+                phase_convert_planes(torch, fa, cell, cadence, card)
         for name, fn in (("13a", lambda: phase_pp_virtual(torch, fa, kt, card, peaks)),
                          ("13b", lambda: phase_pp_chunked_vp(torch, fa, card)),
                          ("13c", lambda: phase_pp_zb(torch, fa, card)),
@@ -4539,6 +4876,8 @@ def main() -> None:
     gpt_tp = phase_gpt_tp(torch, cell, card)
     free_cuda(torch)
     fit = phase_fit(torch, fa, cell, history4, card)
+    free_cuda(torch)
+    conv = phase_convert_planes(torch, fa, cell, fit["cadence"], card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -4603,7 +4942,12 @@ def main() -> None:
                                  **({} if gpt_tp is None else
                                     {"gpt_tp2": [r["launches"][kname]
                                                  for r in gpt_tp["tp2"]["ranks"]]}),
-                                 "fit_cadence": fit["cadence"]["launches"][kname]},
+                                 "fit_cadence": fit["cadence"]["launches"][kname],
+                                 "convert_warm_start": conv["convert"]["runs"]["warm"][
+                                     "launches"][kname],
+                                 "convert_in_memory": conv["convert"]["runs"]["memory"][
+                                     "launches"][kname],
+                                 "fit_planes": conv["planes"]["launches"][kname]},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

@@ -87,7 +87,12 @@ The checkpoint dir is a local path: a ``scheme://`` URI is refused
 
 The health counters (``opt_state["health"]``) are saved beside ``step`` as
 int64 scalars ``health/<name>``; a checkpoint without them restores with
-``steps_seen`` set to its step, as in the JAX package.  ``step`` and the
+``steps_seen`` set to its step, as in the JAX package.  The tensorstats
+observatory's cumulative record (``opt_state["tensorstats"]``) is saved as
+replicated leaves ``tensorstats/<key>``; a run with tensorstats off reads
+past them, and a checkpoint that predates them fails the restore (the
+trainer then retries without them, JAX's rule: ``trainer/loop.py::
+Trainer.maybe_resume``).  ``step`` and the
 counters live on the card as 0-d int64 tensors and come back there.  The
 weight EMA (``ema/<name>``) is saved, sharded and resharded as the moments
 are.
@@ -311,7 +316,15 @@ def state_trees(params: Any, opt_state: dict, *, save_bf16: bool = False,
     opt_flat["step"] = torch.tensor(int(opt_state["step"]), dtype=torch.int64)
     for k, v in (opt_state.get("health") or {}).items():
         opt_flat[f"health/{k}"] = torch.tensor(int(v), dtype=torch.int64)
+    opt_flat.update(_tensorstats_pieces(opt_state))
     return {"params": flat, "opt_state": opt_flat}
+
+
+def _tensorstats_pieces(opt_state: dict) -> dict[str, torch.Tensor]:
+    """The observatory's cumulative state (``telemetry/tensorstats.py``) as
+    checkpoint leaves ``tensorstats/<key>``: replicated tensors, the live
+    ones (a restore copies into them)."""
+    return {f"tensorstats/{k}": v for k, v in (opt_state.get("tensorstats") or {}).items()}
 
 
 def _to_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -330,6 +343,11 @@ def dtensor_like(t, local_t: torch.Tensor):
 
     return DTensor.from_local(local_t, t.device_mesh, t.placements, run_check=False,
                               shape=t.shape, stride=t.stride())
+
+
+def _is_adapter(key: str) -> bool:
+    """Is a saved piece's key a LoRA adapter leaf (``peft/lora.py``)?"""
+    return key.split(":")[0].rsplit(".", 1)[-1] in ("lora_a", "lora_b", "lora_scale")
 
 
 def _is_scalar_key(key: str) -> bool:
@@ -856,16 +874,22 @@ class Checkpointer:
             groups.remove("master")
         live = {k: v for g in groups
                 for k, v in _pieces(opt_template[g], self.layouts, self.tp, f"{g}/").items()}
+        live.update({k: (t, t) for k, t in _tensorstats_pieces(opt_template).items()})
+        # a run that turned tensorstats off reads past a save's cumulative
+        # record: it is a streaming aggregate, not training state
+        skip = () if "tensorstats" in opt_template else ("tensorstats/",)
         if self._pg is None:
             params = self._read(step, "params", keep)
             opt = self._read(step, "opt_state", keep)
             self._copy_into(_views(live_params), params, "params")
-            self._copy_into(_views(live), {k: v for k, v in opt.items() if not _is_scalar_key(k)},
+            self._copy_into(_views(live), {k: v for k, v in opt.items()
+                                           if not _is_scalar_key(k) and not k.startswith(skip)},
                             "opt_state")
             scalars = {k: int(v) for k, v in opt.items() if _is_scalar_key(k)}
             nbytes = sum(t.numel() * t.element_size() for d in (params, opt) for t in d.values())
         else:
-            scalars = self._load_group(step, {"params": live_params, "opt_state": live})
+            scalars = self._load_group(step, {"params": live_params, "opt_state": live},
+                                       skip=skip)
             nbytes = sum(v.numel() * v.element_size()
                          for d in (live_params, live) for _, v in d.values())
         if reseed_master:
@@ -897,7 +921,8 @@ class Checkpointer:
         return TrainState(params=params_template, opt_state=opt_template, step=saved_step,
                           consumed_samples=consumed, extra=meta)
 
-    def _load_group(self, step: int, targets: dict[str, dict]) -> dict[str, int]:
+    def _load_group(self, step: int, targets: dict[str, dict],
+                    skip: tuple = ()) -> dict[str, int]:
         """Under a process group: ``dcp.load`` the items of ``step`` into the
         live tensors (``targets``: item -> :func:`_pieces`), which reshards:
         DCP reads each rank's slices whatever the dp and tp at save.  A piece
@@ -909,6 +934,7 @@ class Checkpointer:
             path = str(self.directory / str(step) / item)
             saved = set(dcp.FileSystemReader(path).read_metadata().state_dict_metadata)
             held = {k for k in saved if item == "opt_state" and _is_scalar_key(k)}
+            saved = {k for k in saved if not (item == "opt_state" and k.startswith(skip))}
             # what every rank asks for: the stages' layers are the other ranks'
             wanted = [None] * dist.get_world_size(self._pg)
             dist.all_gather_object(wanted, sorted(target), group=self._pg)
@@ -937,10 +963,24 @@ class Checkpointer:
                             verify: Optional[bool] = None) -> Any:
         """Weights without optimizer or loop state (the reference's
         ``weight_init_only`` warm start), verified but never quarantined:
-        the source is usually someone else's run dir."""
+        the source is usually someone else's run dir, or a converted HF
+        model (``tools/checkpoint_converter.py``), whose lack of LoRA
+        adapters leaves a PEFT run's adapters at their init (the
+        reference's PEFT warm start; the JAX package restores the whole
+        tree and needs them saved)."""
         keep: dict = {}
         step = self._resolve_step(step, verify, keep, quarantine=False, what="warm-start")
         live = _pieces(flatten_tree(params_template), self.layouts, self.tp)
+        # LoRA adapters a base checkpoint (a converted HF model) does not
+        # hold keep their fresh init: a PEFT run starts from the base weights
+        saved = set(_dcp().FileSystemReader(str(self.directory / str(step) / "params"))
+                    .read_metadata().state_dict_metadata)
+        fresh = sorted(k for k in live if k not in saved and _is_adapter(k))
+        if fresh:
+            live = {k: v for k, v in live.items() if k not in fresh}
+            if self._rank == 0:
+                logger.info("warm start: %d LoRA adapter leaves are not in step %d under %s "
+                            "and keep their init", len(fresh), step, self.directory)
         if self._pg is None:
             self._copy_into(_views(live), self._read(step, "params", keep), "params")
         else:

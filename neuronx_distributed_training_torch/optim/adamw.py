@@ -86,6 +86,11 @@ import torch
 from neuronx_distributed_training_torch.parallel.pipeline import is_stage_leaf
 from neuronx_distributed_training_torch.parallel.sharding import owned_views
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
+from neuronx_distributed_training_torch.telemetry.tensorstats import (
+    group_step_vectors,
+    init_tensorstats_state,
+    tensorstats_update,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +201,8 @@ def _is_expert(layout) -> bool:
 
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
                     policy=None, health: bool = False,
-                    layouts: Optional[dict] = None, ep=None, ema: bool = False) -> dict:
+                    layouts: Optional[dict] = None, ep=None, ema: bool = False,
+                    tensorstats=None) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
     counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
@@ -220,6 +226,9 @@ def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = T
         out["ema"] = dict(moments)
     if health:
         out["health"] = {k: None for k in HEALTH_STATE_KEYS}
+    if tensorstats is not None:
+        # replicated, as JAX's tensorstats_state_specs: the vectors are tiny
+        out["tensorstats"] = {k: None for k in init_tensorstats_state(tensorstats, params)}
     return out
 
 
@@ -313,7 +322,8 @@ def data_axis_of(layout, dp, ep):
 
 def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = False,
                    specs: Optional[dict] = None, dp=None, tp=None,
-                   layouts: Optional[dict] = None, ep=None, ema: bool = False) -> dict:
+                   layouts: Optional[dict] = None, ep=None, ema: bool = False,
+                   tensorstats=None) -> dict:
     """Step counter (a 0-d int64 tensor on the params' device), moments in
     the optimizer dtype, fp32 master weights only when the params are stored
     in another dtype, (``ema``) the weight EMA in the optimizer dtype, seeded
@@ -321,7 +331,10 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
     (``opt_state_specs``) and ``dp``
     (``parallel/mesh.py::DataParallel``) the sharded leaves hold this rank's
     slice as DTensors, on the ``(data[, expert], model)`` mesh with ``tp``
-    and ``layouts`` (an expert leaf's over ``ep.data``)."""
+    and ``layouts`` (an expert leaf's over ``ep.data``).  ``tensorstats``
+    (an enabled ``TensorStatsConfig``) adds the observatory's zero vectors,
+    one per phase and layer group of ``params`` (``telemetry/
+    tensorstats.py``)."""
     odt = policy.optimizer_dtype
     dims = (specs or {}).get("mu", {})
     layouts = layouts or {}
@@ -344,6 +357,8 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
         state["ema"] = {n: held(n, p.detach().to(odt).clone()) for n, p in params.items()}
     if health:
         state["health"] = init_health_state(device)
+    if tensorstats is not None:
+        state["tensorstats"] = init_tensorstats_state(tensorstats, params, device=device)
     return state
 
 
@@ -439,7 +454,8 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
                  opt_state: dict, lr, cfg: AdamWConfig, policy, *,
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
                  extra_finite=None, dp=None, tp=None, tp_sharded=frozenset(),
-                 pp=None, ep=None, ema: Optional[EMAConfig] = None) -> dict:
+                 pp=None, ep=None, ema: Optional[EMAConfig] = None,
+                 tensorstats=None) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
     ``updates_finite`` (a 0-d bool tensor) and, with ``grad_group_fn``,
@@ -451,8 +467,12 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     stages' layers (every stage then takes the same skip decision and clip
     factor); with ``ep`` the expert leaves' experts over the expert axis,
     and their ZeRO-1 slices are gathered over ``ep.data``; ``ema`` (with an
-    ``opt_state["ema"]``) the EMA's knobs.  Nothing is read back to the
-    host."""
+    ``opt_state["ema"]``) the EMA's knobs; ``tensorstats`` (an enabled
+    ``telemetry/tensorstats.py::TensorStatsConfig``, with an
+    ``opt_state["tensorstats"]``) the per-group pre- and post-clip
+    gradient statistics, folded into that state (kept on a skip) and
+    returned under ``metrics["tensorstats"]``, the pre-clip rms from the
+    clipping norm's squared sums.  Nothing is read back to the host."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
     group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp,
@@ -482,10 +502,22 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         else:
             torch.where(keep, new, dst, out=dst)
 
+    ts_pre = None
+    if tensorstats is not None and tensorstats.pre_clip:
+        ts_pre = group_step_vectors(grads, grad_group_fn, tensorstats, group_sq=group_sq, tp=tp,
+                                    sharded=tp_sharded, pp=pp, ep=ep)
     if cfg.grad_clip_norm is not None and cfg.grad_clip_norm > 0:
         clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-6), max=1.0)
         for g in grads.values():
             g.mul_(clip)  # fp32 grads are clipped in place (the caller's buffers)
+    if tensorstats is not None:
+        ts_post = (group_step_vectors(grads, grad_group_fn, tensorstats, tp=tp,
+                                      sharded=tp_sharded, pp=pp, ep=ep)
+                   if tensorstats.post_clip else None)
+        new_ts, metrics["tensorstats"] = tensorstats_update(
+            opt_state["tensorstats"], tensorstats, pre=ts_pre, post=ts_post)
+        for k, v in new_ts.items():
+            put(opt_state["tensorstats"][k], v)
     dev0 = gnorm.device
     step = torch.as_tensor(opt_state["step"], dtype=torch.int64, device=dev0) + 1
     b1, b2 = cfg.beta1, cfg.beta2

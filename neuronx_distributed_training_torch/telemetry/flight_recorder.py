@@ -361,6 +361,31 @@ class HangWatchdog:
         self.fired = False
         #: the abort (a seam: tests record the call instead of dying)
         self._abort_fn = _sigabrt
+        #: the hang escape's exit code (``arm_escape``; None: not armed)
+        self.escape_code: Optional[int] = None
+        #: the escape's exit (a seam: tests record the code instead of dying)
+        self._exit_fn = os._exit
+        self._last_fire: tuple = ("?", -1)
+
+    def arm_escape(self, exit_code: int, *hooks) -> None:
+        """Arm the collective-hang escape (``trainer/control.py``): a fire
+        then runs ``hooks(what, step)`` (best-effort: the dying fleet beacon
+        and the control-trail note; a hook never touches the hung card) and
+        ``os._exit(exit_code)`` through ``_abort_fn``, whatever ``abort``
+        says.  ``os._exit`` on purpose: ``finally`` blocks and atexit
+        handlers would block on the very collective that hung."""
+        self.escape_code = int(exit_code)
+
+        def escape() -> None:
+            what, step = self._last_fire
+            for hook in hooks:
+                try:
+                    hook(what, step)
+                except Exception as e:  # noqa: BLE001 — the escape must win
+                    logger.warning("hang-escape hook failed: %s", e)
+            self._exit_fn(self.escape_code)
+
+        self._abort_fn = escape
 
     def guard(self, what: str, step: int):
         return _WatchdogGuard(self, what, int(step))
@@ -376,11 +401,13 @@ class HangWatchdog:
             "health watchdog: %r did not complete within %.0fs at step %d — "
             "%s%s", what, self.timeout_seconds, step,
             "dumping stacks" if first else "already dumped once; not re-dumping",
-            " and aborting" if self.abort else "",
+            " and exiting with the hang-escape code" if self.escape_code is not None
+            else " and aborting" if self.abort else "",
         )
         if self.monitor is not None and first:
             self.monitor.dump_hang(step, what, _all_thread_stacks())
-        if self.abort:
+        self._last_fire = (what, step)
+        if self.abort or self.escape_code is not None:
             self._abort_fn()
 
 

@@ -202,3 +202,241 @@ def params_to_jax(params, cfg=None, *, pp_size: int = 1, vp: int = 1,
         out["layers"] = _map(out["layers"], lambda a: a.reshape(
             (vp, pp_size, a.shape[0] // (vp * pp_size)) + a.shape[1:]))
     return out
+
+
+# -- HF checkpoints (the JAX package's tools/convert.py, to the port's tree) --
+#
+# HF Llama -> the port's tree (one dict per layer, weights [in, out]):
+#   model.embed_tokens.weight [V,H]            -> embed.embedding [V,H]
+#   layers.i.self_attn.{q,k,v}_proj.weight     -> layers[i].attn.qkv.w [H,(nh+2kv)d]
+#   layers.i.self_attn.o_proj.weight [H,H]     -> layers[i].attn.o.w [H,H] (T)
+#   layers.i.mlp.{gate,up}_proj.weight         -> layers[i].mlp.gate_up.w [H,2F] (T, fused)
+#   layers.i.mlp.down_proj.weight [H,F]        -> layers[i].mlp.down.w [F,H] (T)
+#   layers.i.{input,post_attention}_layernorm  -> layers[i].{input,post_attn}_norm.scale
+#   model.norm.weight                          -> final_norm.scale
+#   lm_head.weight [V,H]                       -> lm_head.w [H,V] (T)
+# Mixtral adds block_sparse_moe.gate.weight -> mlp.router.w and the experts'
+# w1 / w3 stacked and fused -> mlp.experts.gate_up [E,H,2F], w2 ->
+# mlp.experts.down [E,F,H]; at moe_frequency f > 1 layer i is MoE iff
+# i % f == 0 and the others carry the Llama mlp names.  The tensors keep
+# their dtype (a bf16 HF checkpoint stays bf16; a restore casts to the
+# run's dtype), and the values cross bit for bit.
+
+
+def _tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, copy=True))
+
+
+def _tt(x) -> torch.Tensor:
+    return _tensor(x).t().contiguous()
+
+
+def deinterleave_layers(params: dict[str, Any], num_layers: int, moe_frequency: int = 1,
+                        layout: Optional[str] = None) -> dict[str, Any]:
+    """The JAX package's ``deinterleave_layers``: a tree whose ``layers``
+    are JAX's stacked leaves (numpy or torch) with a pipeline-interleaved
+    ``[vp, pp, Lc, ...]`` stack flattened back to ``[L, ...]`` (grouped
+    MoE leaves to their group count ``L / f``).  ``layout`` ("flat" |
+    "interleaved") is authoritative when known; otherwise a leaf whose
+    first three dims multiply to the expected count is interleaved.  The
+    port's own tree (a list of layers) needs none of this."""
+    if layout == "flat":
+        return dict(params)
+    if layout not in (None, "interleaved"):
+        raise ValueError(f"unknown layer layout {layout!r} (flat|interleaved)")
+
+    def flat(x, expect: int):
+        if (x.ndim >= 3 and x.shape[0] != expect
+                and x.shape[0] * x.shape[1] * x.shape[2] == expect):
+            return x.reshape((expect,) + tuple(x.shape[3:]))
+        if layout == "interleaved" and x.shape[0] != expect:
+            raise ValueError(
+                f"checkpoint meta says layer_layout=interleaved but a leaf "
+                f"of shape {tuple(x.shape)} cannot flatten to {expect} layers"
+            )
+        return x
+
+    def visit(tree, expect: int):
+        result = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                if k == "mlp" and ("moe" in v or "dense" in v):
+                    g = num_layers // moe_frequency
+                    result[k] = {kk: visit(vv, g) for kk, vv in v.items()}
+                else:
+                    result[k] = visit(v, expect)
+            else:
+                result[k] = flat(v, expect)
+        return result
+
+    out = dict(params)
+    out["layers"] = visit(dict(params["layers"]), num_layers)
+    return out
+
+
+def _port_layers(params: dict[str, Any], n_layers: int, moe_frequency: int,
+                 layer_layout: Optional[str]) -> list:
+    """The per-layer dicts of ``params``: the port's list as it is, or
+    JAX's stacked ``layers`` (flat, interleaved or MoE-grouped) unstacked."""
+    if isinstance(params["layers"], (list, tuple)):
+        return list(params["layers"])
+    stacked = deinterleave_layers(params, n_layers, moe_frequency, layout=layer_layout)["layers"]
+    return [_map(_layer_of(stacked, i, n_layers), _tensor) for i in range(n_layers)]
+
+
+def _attn_from_hf(g, pre: str) -> dict:
+    qkv = torch.cat([_tt(g(pre + "self_attn.q_proj.weight")),
+                     _tt(g(pre + "self_attn.k_proj.weight")),
+                     _tt(g(pre + "self_attn.v_proj.weight"))], dim=1)
+    return {"input_norm": {"scale": g(pre + "input_layernorm.weight")},
+            "post_attn_norm": {"scale": g(pre + "post_attention_layernorm.weight")},
+            "attn": {"qkv": {"w": qkv}, "o": {"w": _tt(g(pre + "self_attn.o_proj.weight"))}}}
+
+
+def _dense_mlp_from_hf(g, pre: str) -> dict:
+    return {"gate_up": {"w": torch.cat([_tt(g(pre + "mlp.gate_proj.weight")),
+                                        _tt(g(pre + "mlp.up_proj.weight"))], dim=1)},
+            "down": {"w": _tt(g(pre + "mlp.down_proj.weight"))}}
+
+
+def _moe_mlp_from_hf(g, pre: str, e: int) -> dict:
+    gate_up = torch.stack([torch.cat([_tt(g(pre + f"block_sparse_moe.experts.{j}.w1.weight")),
+                                      _tt(g(pre + f"block_sparse_moe.experts.{j}.w3.weight"))],
+                                     dim=1) for j in range(e)])
+    down = torch.stack([_tt(g(pre + f"block_sparse_moe.experts.{j}.w2.weight"))
+                        for j in range(e)])
+    return {"router": {"w": _tt(g(pre + "block_sparse_moe.gate.weight"))},
+            "experts": {"gate_up": gate_up, "down": down}}
+
+
+def _outer_from_hf(state, g, tie: bool, layers: list, device) -> dict[str, Any]:
+    params: dict[str, Any] = {"embed": {"embedding": g("model.embed_tokens.weight")},
+                              "layers": layers, "final_norm": {"scale": g("model.norm.weight")}}
+    if not tie:
+        head = state.get("lm_head.weight", state["model.embed_tokens.weight"])
+        params["lm_head"] = {"w": _tt(head)}
+    dev = resolve_device(device)
+    return {k: [_map(lp, lambda t: t.to(dev)) for lp in v] if k == "layers"
+            else _map(v, lambda t: t.to(dev)) for k, v in params.items()}
+
+
+def hf_llama_to_native(state, cfg, *, device=None) -> dict[str, Any]:
+    """HF Llama state dict (name -> tensor or array) -> the port's tree on
+    ``device`` (the card unless the caller asks for the CPU); ``cfg`` a
+    ``models/llama.py::LlamaConfig``.  Equals ``params_from_jax`` of the
+    JAX package's ``hf_llama_to_native`` bit for bit."""
+    g = lambda name: _tensor(state[name])
+    layers = [{**_attn_from_hf(g, f"model.layers.{i}."),
+               "mlp": _dense_mlp_from_hf(g, f"model.layers.{i}.")}
+              for i in range(cfg.num_layers)]
+    return _outer_from_hf(state, g, cfg.tie_word_embeddings, layers, device)
+
+
+def hf_mixtral_to_native(state, cfg, *, device=None) -> dict[str, Any]:
+    """HF Mixtral state dict -> the port's tree (``cfg``: ``models/
+    mixtral.py::MixtralConfig``; at ``moe_frequency`` f > 1 only every f-th
+    layer is MoE, the others dense with the Llama names).  Equals
+    ``params_from_jax`` of the JAX package's ``hf_mixtral_to_native``."""
+    lc, e, f = cfg.llama, cfg.moe.num_experts, getattr(cfg, "moe_frequency", 1)
+    g = lambda name: _tensor(state[name])
+    layers = []
+    for i in range(lc.num_layers):
+        pre = f"model.layers.{i}."
+        mlp = _moe_mlp_from_hf(g, pre, e) if i % f == 0 else _dense_mlp_from_hf(g, pre)
+        layers.append({**_attn_from_hf(g, pre), "mlp": mlp})
+    return _outer_from_hf(state, g, lc.tie_word_embeddings, layers, device)
+
+
+def _hf_outer(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    out = {"model.embed_tokens.weight": _tensor(params["embed"]["embedding"]).contiguous(),
+           "model.norm.weight": _tensor(params["final_norm"]["scale"]).contiguous()}
+    if "lm_head" in params:  # tied checkpoints simply have no head tensor
+        out["lm_head.weight"] = _tt(params["lm_head"]["w"])
+    return out
+
+
+def _hf_attn(out: dict, pre: str, lp: dict, lc) -> None:
+    nh, nkv, d = lc.num_attention_heads, lc.kv_heads, lc.head_size
+    q, k, v = torch.split(_tensor(lp["attn"]["qkv"]["w"]), [nh * d, nkv * d, nkv * d], dim=1)
+    out[pre + "self_attn.q_proj.weight"] = _tt(q)
+    out[pre + "self_attn.k_proj.weight"] = _tt(k)
+    out[pre + "self_attn.v_proj.weight"] = _tt(v)
+    out[pre + "self_attn.o_proj.weight"] = _tt(lp["attn"]["o"]["w"])
+    out[pre + "input_layernorm.weight"] = _tensor(lp["input_norm"]["scale"]).contiguous()
+    out[pre + "post_attention_layernorm.weight"] = _tensor(
+        lp["post_attn_norm"]["scale"]).contiguous()
+
+
+def _hf_dense(out: dict, pre: str, mlp: dict) -> None:
+    gate, up = torch.chunk(_tensor(mlp["gate_up"]["w"]), 2, dim=1)
+    out[pre + "mlp.gate_proj.weight"] = _tt(gate)
+    out[pre + "mlp.up_proj.weight"] = _tt(up)
+    out[pre + "mlp.down_proj.weight"] = _tt(mlp["down"]["w"])
+
+
+def _hf_moe(out: dict, pre: str, mlp: dict, e: int, ffn: int) -> None:
+    out[pre + "block_sparse_moe.gate.weight"] = _tt(mlp["router"]["w"])
+    gate_up, down = _tensor(mlp["experts"]["gate_up"]), _tensor(mlp["experts"]["down"])
+    for j in range(e):
+        w1, w3 = torch.split(gate_up[j], [ffn, gate_up.shape[-1] - ffn], dim=1)
+        out[pre + f"block_sparse_moe.experts.{j}.w1.weight"] = _tt(w1)
+        out[pre + f"block_sparse_moe.experts.{j}.w3.weight"] = _tt(w3)
+        out[pre + f"block_sparse_moe.experts.{j}.w2.weight"] = _tt(down[j])
+
+
+def native_to_hf_llama(params: dict[str, Any], cfg,
+                       layer_layout: Optional[str] = None) -> dict[str, torch.Tensor]:
+    """The port's tree (or JAX's stacked tree, flat or vp-interleaved: pass
+    the checkpoint's ``layer_layout`` when known) -> HF Llama state dict of
+    contiguous tensors, on the tree's device and in its dtype."""
+    out = _hf_outer(params)
+    for i, lp in enumerate(_port_layers(params, cfg.num_layers, 1, layer_layout)):
+        pre = f"model.layers.{i}."
+        _hf_attn(out, pre, lp, cfg)
+        _hf_dense(out, pre, lp["mlp"])
+    return out
+
+
+def native_to_hf_mixtral(params: dict[str, Any], cfg,
+                         layer_layout: Optional[str] = None) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`hf_mixtral_to_native` (JAX's stacked tree too,
+    MoE-grouped at ``moe_frequency`` > 1 and vp-interleaved)."""
+    lc, e = cfg.llama, cfg.moe.num_experts
+    out = _hf_outer(params)
+    layers = _port_layers(params, lc.num_layers, getattr(cfg, "moe_frequency", 1), layer_layout)
+    for i, lp in enumerate(layers):
+        pre = f"model.layers.{i}."
+        _hf_attn(out, pre, lp, lc)
+        if is_moe_mlp(lp["mlp"]):
+            _hf_moe(out, pre, lp["mlp"], e, lc.intermediate_size)
+        else:
+            _hf_dense(out, pre, lp["mlp"])
+    return out
+
+
+def load_torch_state_dict(path) -> dict[str, torch.Tensor]:
+    """An HF checkpoint dir or file as CPU tensors: ``pytorch_model*.bin``
+    through ``torch.load(weights_only=True)``, ``*.safetensors`` through the
+    ``safetensors`` package, which a machine without it cannot read (the
+    error names the file and the package; nothing is skipped)."""
+    from pathlib import Path
+
+    p = Path(path)
+    if p.is_dir():
+        files = sorted(p.glob("*.safetensors")) or sorted(p.glob("pytorch_model*.bin"))
+        if not files:
+            raise FileNotFoundError(f"no safetensors/bin files under {p}")
+    else:
+        files = [p]
+    state: dict[str, torch.Tensor] = {}
+    for f in files:
+        if f.suffix == ".safetensors":
+            try:
+                from safetensors.torch import load_file
+            except ImportError as e:
+                raise ImportError(f"{f}: reading a .safetensors file needs the safetensors "
+                                  f"package, which is not installed") from e
+            state.update(load_file(str(f)))
+        else:
+            state.update(torch.load(str(f), map_location="cpu", weights_only=True))
+    return state

@@ -26,10 +26,12 @@ Checkpoints go to ``<exp_dir>/<name>/version_N/checkpoints/<step>/``; with
 ``exp_manager.resume_if_exists`` a restart reuses the newest version and
 resumes from its newest checkpoint that verifies.
 
-Exit codes (the JAX CLI's, where this slice reaches them): 0 for a run that
-reached ``max_steps`` and for a graceful stop that checkpointed
-(``trainer.max_time``, SIGTERM), so an orchestrator just restarts; any
-failure (a failed save, no checkpoint that verifies) raises.
+Exit codes (the JAX CLI's, ``trainer/control.py``'s table): 0 for a run
+that reached ``max_steps`` and for a graceful stop that checkpointed
+(``trainer.max_time``, SIGTERM, an operator's ``stop``), so an orchestrator
+just restarts; 86 after a health halt, 87 after an alert halt, 88 after a
+data stall, 83 when the watchdog's hang escape fires; any other failure (an
+OOM, a failed save, no checkpoint that verifies) raises (1).
 """
 
 from __future__ import annotations
@@ -87,10 +89,18 @@ def run(argv: Optional[list[str]] = None):
     ``(trainer, history)``.  A process group the run started ends with it."""
     import torch.distributed as dist
 
+    from neuronx_distributed_training_torch.data.loader import DataStallError
+    from neuronx_distributed_training_torch.trainer.control import EXIT_DATA_STALL
+
     started = not dist.is_initialized()
     try:
         trainer = build(argv)
         history = trainer.fit()
+    except DataStallError as e:
+        # the watchdog dumped its bundle: the tagged code pages instead of
+        # restarting into the same dead mount
+        logger.error("data stall: %s", e)
+        raise SystemExit(EXIT_DATA_STALL) from e
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
@@ -103,7 +113,14 @@ def run(argv: Optional[list[str]] = None):
 
 
 def main(argv: Optional[list[str]] = None) -> list[dict]:
-    return run(argv)[1]
+    from neuronx_distributed_training_torch.trainer.control import exit_code_for_stop
+
+    trainer, history = run(argv)
+    code = exit_code_for_stop(trainer.stop_class)
+    if code:
+        logger.warning("exiting with tagged code %d (%s)", code, trainer.stop_class)
+        raise SystemExit(code)
+    return history
 
 
 if __name__ == "__main__":

@@ -127,6 +127,12 @@ class ExpManager:
         self.log_every_n_steps = max(1, int(log_every_n_steps))
         self._metrics_file = self.log_dir / "metrics.jsonl"
         self._run_summary_file = self.log_dir / "run_summary.json"
+        # structured tensorstats records (histogram vectors, not scalars)
+        # stream here, next to metrics.jsonl; see log_tensorstats
+        self._tensorstats_file = self.log_dir / "tensorstats.jsonl"
+        #: newest decoded tensorstats record: the loop's teardown persists it
+        #: as the run_summary.json "tensorstats" section
+        self.last_tensorstats: Optional[dict] = None
         self._summary_lock = threading.Lock()
         self._warned_nonscalar: set[str] = set()
         self.throughput = Throughput(global_batch_size, seq_len=seq_len)
@@ -257,6 +263,50 @@ class ExpManager:
                 self._tb.add_scalar(k, v, step)
         with open(self._metrics_file, "a") as f:
             f.write(json.dumps({"step": step, **flat}) + "\n")
+
+    def log_tensorstats(self, step: int, payload: dict[str, Any]) -> None:
+        """Append one structured tensor-numerics-observatory record to
+        ``tensorstats.jsonl`` (JAX's ``ExpManager.log_tensorstats``).
+
+        ``payload`` maps ``tensorstats_hist/<phase>/<group>`` metric keys to
+        the packed cumulative vectors fetched at the boundary (float
+        sequences — see ``telemetry/tensorstats.py::CUM_HEADER``).  These
+        are ARRAYS: they never reach the scalar sinks, so they get their own
+        strict-JSON stream (one decoded record per boundary) plus
+        ``self.last_tensorstats`` for the run_summary teardown section.
+        Keys without the hist prefix are ignored."""
+        from neuronx_distributed_training_torch.telemetry.tensorstats import (
+            HIST_PREFIX,
+            decode_cum,
+        )
+
+        if not self.writer:
+            return
+        cfg = self.telemetry.tensorstats
+        groups: dict[str, Any] = {}
+        for k, v in payload.items():
+            if not k.startswith(HIST_PREFIX):
+                continue
+            try:
+                groups[k[len(HIST_PREFIX):]] = decode_cum(v, cfg)
+            except (TypeError, ValueError) as e:
+                logger.warning(
+                    "log_tensorstats: undecodable payload for %r: %s", k, e)
+        if not groups:
+            return
+        rec = {
+            "step": int(step),
+            "hist_lo_exp": cfg.hist_lo_exp,
+            "hist_hi_exp": cfg.hist_hi_exp,
+            "groups": groups,
+        }
+        self.last_tensorstats = rec
+        try:
+            with open(self._tensorstats_file, "a") as f:
+                f.write(json.dumps(rec, allow_nan=False) + "\n")
+        except (OSError, ValueError, TypeError) as e:
+            # observability must not kill training
+            logger.warning("tensorstats.jsonl write failed: %s", e)
 
     def close(self) -> None:
         if self._tb is not None:

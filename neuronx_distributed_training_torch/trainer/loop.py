@@ -160,14 +160,30 @@ it) and, with MoE layers, ep; its dropout draws from the step's key
 ``utils/prng.py::step_key(step)``, so a resume redraws the straight run's
 masks.  Its preference forwards take the key, the reference pass none.
 
+The planes ``tiny_smoke_config.yaml`` turns on run as JAX's, built in its
+order (fleet, alerts, memory, control, then the watchdog) and fed at each
+boundary from the one fetch: ``tensorstats`` (per-group pre- and
+post-clip gradient statistics computed on the card inside AdamW,
+``telemetry/tensorstats.py``; scalars in the record, the cumulative
+vectors in ``tensorstats.jsonl``), ``fleet`` (``fleet/host_<node>.jsonl``
+beacons, rank 0's ``fleet_summary.json``; a host is a node of
+``LOCAL_WORLD_SIZE`` ranks), ``alerts`` (``log``, ``dump`` to
+``alert_<step>/``, ``halt`` at the boundary with its reason in
+``run_summary.json``), ``memory`` (``memory/*`` keys, one windowed capture
+into ``memory_summary.json``, ``oom_<step>/`` on an OOM) and ``control``
+(``trainer/control.py``: ``tools/run_ctl.py``'s ``stop`` /
+``checkpoint_now`` / ``dump`` act at the next boundary, the control word
+is folded over the ranks by the boundary's one all-reduce where the stop
+is agreed, and the watchdog's hang escape exits with
+``EXIT_HANG_ESCAPE``).
+
 Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
 MoE path under context parallelism, GPT under context parallelism) are
 rejected with the ROADMAP item that ports them; config blocks it does not
-act on are logged once as ignored: the telemetry planes trace, fleet,
-alerts, control, memory and tensorstats (and ``graph_audit``), elastic
-replan, overlap, autotune, the W&B and MLflow sinks, profiling windows and
-the Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv`` (the Hopper
-kernels' tiles are fixed).
+act on are logged once as ignored: the trace plane (and ``graph_audit``),
+elastic replan, overlap, autotune, the W&B and MLflow sinks, profiling
+windows and the Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv``
+(the Hopper kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -229,16 +245,26 @@ from neuronx_distributed_training_torch.parallel.mesh import (
 )
 from neuronx_distributed_training_torch.peft import LoraConfig, add_lora, trainable_mask
 from neuronx_distributed_training_torch.telemetry import census as census_mod
+from neuronx_distributed_training_torch.telemetry.alerts import AlertEngine
 from neuronx_distributed_training_torch.telemetry.config import TelemetryConfig
+from neuronx_distributed_training_torch.telemetry.fleet import FleetPlane
 from neuronx_distributed_training_torch.telemetry.flight_recorder import (
     HangWatchdog,
     HealthMonitor,
     _all_thread_stacks,
 )
 from neuronx_distributed_training_torch.telemetry.health import HealthConfig
-from neuronx_distributed_training_torch.telemetry.memory import device_memory_metrics
+from neuronx_distributed_training_torch.telemetry.memory import (
+    MemoryPlane,
+    device_memory_metrics,
+    is_oom_error,
+    legacy_device_memory_keys,
+    tree_bytes_by_subsystem,
+)
 from neuronx_distributed_training_torch.telemetry.recompile import RecompileDetector
 from neuronx_distributed_training_torch.telemetry.spans import SpanTimer
+from neuronx_distributed_training_torch.telemetry.tensorstats import HIST_PREFIX
+from neuronx_distributed_training_torch.trainer.control import EXIT_HANG_ESCAPE, ControlPlane
 from neuronx_distributed_training_torch.trainer.exp_manager import (
     ExpManager,
     version_for_config,
@@ -459,7 +485,8 @@ def _log_ignored(cfg: ConfigDict) -> None:
                     "parallelism, context parallelism, and pipeline parallelism with every "
                     "schedule and the virtual pipeline; Mixtral, Megatron GPT, the alignment "
                     "strategies and LoRA; of the telemetry planes spans, mfu, the census, "
-                    "goodput, device memory, batch stats and health run): %s",
+                    "goodput, device memory, batch stats, health, tensorstats, fleet, "
+                    "alerts, control and memory run): %s",
                     ", ".join(fresh))
 
 
@@ -747,7 +774,15 @@ def _sidecar_store(path: str, done: int, cols: dict) -> None:
 
 #: stop reasons folded across ranks at the log, checkpoint and last-step
 #: boundaries (the largest wins)
-_STOP_CODES = {None: 0, "max_time": 1, "preemption": 2}
+_STOP_CODES = {None: 0, "max_time": 1, "preemption": 2, "alert_halt": 3}
+
+
+def _stop_class_of(reason: Optional[str]) -> Optional[str]:
+    """The stop class of a local stop request's reason (JAX's rule)."""
+    if reason is None:
+        return None
+    return ("alert_halt" if reason.startswith("alert ") else
+            "max_time" if reason.startswith("max_time") else "preemption")
 
 
 def _sync(device: torch.device) -> None:
@@ -766,19 +801,27 @@ def _counted_batches(it, stats: Optional[BatchStats]):
 
 def _fetch_window(window: list) -> list:
     """``[(index, metrics)]`` -> ``[(index, {key: float})]`` in one
-    transfer per device: the 0-d tensors of every step stacked as float64
-    (exact for fp32 values and int64 counters) and read with one
-    ``tolist``; a value that is not a tensor is converted on its own."""
+    transfer per device: the tensors of every step flattened and
+    concatenated as float64 (exact for fp32 values and int64 counters) and
+    read with one ``tolist``; a 0-d tensor becomes a float, a vector (the
+    tensorstats records) a list of floats; a value that is not a tensor is
+    converted on its own."""
     by_device: dict = {}
     for _, m in window:
         for v in m.values():
             if isinstance(v, torch.Tensor):
                 by_device.setdefault(v.device, []).append(v)
-    values = {d: iter(torch.stack([t.detach().reshape(()).to(torch.float64)
-                                   for t in ts]).tolist())
+    values = {d: iter(torch.cat([t.detach().reshape(-1).to(torch.float64)
+                                 for t in ts]).tolist())
               for d, ts in by_device.items()}
-    return [(index, {k: next(values[v.device]) if isinstance(v, torch.Tensor) else float(v)
-                     for k, v in m.items()}) for index, m in window]
+
+    def read(v):
+        if not isinstance(v, torch.Tensor):
+            return float(v)
+        it = values[v.device]
+        return next(it) if v.dim() == 0 else [next(it) for _ in range(v.numel())]
+
+    return [(index, {k: read(v) for k, v in m.items()}) for index, m in window]
 
 
 class _Census:
@@ -814,7 +857,7 @@ class _Census:
         self.walls.append(time.perf_counter() - t0)
         if self.stage == 0:
             try:
-                self.memory = census_mod.memory_section(dev)
+                self.memory = self.trainer.census_memory = census_mod.memory_section(dev)
             except Exception as e:  # noqa: BLE001 — the census is best-effort
                 logger.warning("census memory stats unavailable: %s", e)
         self.stage += 1
@@ -895,6 +938,8 @@ class Trainer:
     ema_cfg: Optional[EMAConfig] = None
     #: the static run facts the census writes (``telemetry/census.py``)
     run_facts: dict = dataclasses.field(default_factory=dict)
+    #: the census's allocator facts after the first step (the OOM bundle's)
+    census_memory: Optional[dict] = None
 
     @property
     def is_rank0(self) -> bool:
@@ -909,7 +954,14 @@ class Trainer:
         rank, world = _process_group()
         if rank == 0:
             _log_ignored(cfg)
-        health = _telemetry_config(cfg).health
+        tel = _telemetry_config(cfg)
+        health = tel.health
+        tstats = tel.tensorstats if tel.tensorstats.enabled else None
+        if tstats is not None and tstats.buckets and rank == 0:
+            # JAX records the bucket phase only under a bucket plan
+            # (distributed_strategy.overlap, not ported: entry 8c)
+            logger.info("tensorstats.buckets: no ZeRO-1 bucket plan (distributed_strategy."
+                        "overlap is not ported), so the bucket phase is not recorded")
         ema_cfg = _ema_config(cfg)
         dev = resolve_device(device)
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
@@ -1012,10 +1064,10 @@ class Trainer:
         zero1 = bool(ds.get("zero1", True))
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
                                 health=health.enabled, layouts=layouts, ep=ep,
-                                ema=ema_cfg is not None)
+                                ema=ema_cfg is not None, tensorstats=tstats)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
                                    dp=dp, tp=tp, layouts=layouts, ep=ep,
-                                   ema=ema_cfg is not None)
+                                   ema=ema_cfg is not None, tensorstats=tstats)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
@@ -1080,7 +1132,7 @@ class Trainer:
             loss_and_grad_fn=loss_and_grad, pp=pp,
             log_param_norm=bool(exp_block.get("log_parameter_norm", False)),
             log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)), ep=ep,
-            ema=ema_cfg)
+            ema=ema_cfg, tensorstats=tstats)
         if eval_step is None:
             eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
                                        token_count_fn=token_count_fn, cp=cp)
@@ -1143,10 +1195,31 @@ class Trainer:
         return self.step * int(self.data_module.global_batch_size)
 
     def maybe_resume(self) -> bool:
-        """Restore the newest checkpoint that verifies, if one exists."""
+        """Restore the newest checkpoint that verifies, if one exists.  A
+        checkpoint written before ``telemetry.tensorstats`` was turned on
+        lacks its record: the restore is retried without it and the record
+        starts fresh (JAX's retry and texts; the health counters of such a
+        checkpoint are re-seeded by the restore itself)."""
         if self.checkpointer is None or self.checkpointer.latest_step() is None:
             return False
-        state = self.checkpointer.restore(self.params, self.opt_state)
+        try:
+            state = self.checkpointer.restore(self.params, self.opt_state)
+        except Exception as orig:
+            if "tensorstats" not in self.opt_state:
+                raise
+            logger.warning("resume: full restore failed (%s: %s); retrying without the "
+                           "telemetry %s subtree(s) in case the checkpoint predates them",
+                           type(orig).__name__, orig, "tensorstats")
+            fresh = self.opt_state["tensorstats"]
+            try:
+                state = self.checkpointer.restore(
+                    self.params, {k: v for k, v in self.opt_state.items() if k != "tensorstats"})
+            except Exception:
+                raise orig
+            state.opt_state["tensorstats"] = fresh
+            logger.info("resume: checkpoint predates telemetry %s — restored without the "
+                        "subtree(s), counters start fresh at step %d", "tensorstats",
+                        int(state.step))
         self.params, self.opt_state, self.step = state.params, state.opt_state, state.step
         self.data_module.sampler.consumed_samples = state.consumed_samples
         if self.is_rank0:
@@ -1285,16 +1358,46 @@ class Trainer:
                                  write_run_summary=self.exp.write_run_summary,
                                  rng_seed=prng.STEP_KEY_SEED, writer=self.is_rank0)
                    if hc.enabled else None)
+        fleet, alerts, memplane, control = self._planes(tel)
+        if monitor is None and (fleet is not None or control is not None
+                                or any(r.action == "dump" for r in tel.alerts)):
+            # alert dumps and the fleet's quiet-host findings reuse the
+            # flight recorder's bundles: a bundle-only monitor (JAX's rule)
+            monitor = HealthMonitor(hc, dump_dir=self.exp.log_dir, run_facts=self.run_facts,
+                                    write_run_summary=self.exp.write_run_summary,
+                                    rng_seed=prng.STEP_KEY_SEED, writer=self.is_rank0)
         watchdog = (HangWatchdog(hc.watchdog_timeout_seconds, monitor, abort=hc.watchdog_abort)
                     if monitor is not None and hc.watchdog_timeout_seconds > 0 else None)
+        if watchdog is not None and control is not None and tel.control.hang_escape:
+            # a boundary sync past the timeout means a peer died inside a
+            # collective: after the hang bundle, the dying beacon and the
+            # control-trail note, exit with the tagged code (JAX's escape)
+            def _escape_note(what, step):
+                control.note_exit("hang_escape", f"boundary sync {what!r} exceeded "
+                                  f"{hc.watchdog_timeout_seconds:.0f}s at step {step}; "
+                                  f"exiting EXIT_HANG_ESCAPE")
+
+            def _escape_beacon(what, step):
+                if fleet is not None:
+                    fleet.close(RuntimeError(f"hang escape: {what} exceeded "
+                                             f"{hc.watchdog_timeout_seconds:.0f}s"), step=step)
+
+            watchdog.arm_escape(EXIT_HANG_ESCAPE, _escape_note, _escape_beacon)
 
         def guard(what: str):
             return (watchdog.guard(what, self.step) if watchdog is not None
                     else contextlib.nullcontext())
 
+        def request_stop(reason: str, condition: Optional[str] = None) -> None:
+            # under the control plane the condition's bit folds at the next
+            # boundary, so every rank stops at the same step
+            stop["reason"] = reason
+            if control is not None and condition is not None:
+                control.request(condition, reason)
+
         def _on_sigterm(signum, frame):
             # preemption: checkpoint at the next boundary, then exit clean
-            stop["reason"] = "SIGTERM (preemption)"
+            request_stop("SIGTERM (preemption)", "preemption")
 
         old_handler = None
         try:
@@ -1304,6 +1407,8 @@ class Trainer:
         history: list[dict] = []
         batches = None
         resumed = False
+        record: dict = {}
+        fit_exc: Optional[BaseException] = None
         try:
             # the reference pass before the resume: its columns come from the
             # initial weights, never from trained ones; both are restart time
@@ -1337,6 +1442,8 @@ class Trainer:
                         host_batch = next(batches)
                     except DataStallError as stall:
                         self.stop_class = "data_stall"
+                        if control is not None:
+                            control.note_exit("data_stall", str(stall))
                         if monitor is not None:
                             monitor.dump_hang(self.step, "data_wait", _all_thread_stacks())
                         logger.error("data stall at step %d: %s", self.step, stall)
@@ -1368,12 +1475,18 @@ class Trainer:
                         unexcluded += seconds  # its window closed already
                 if (max_time is not None and stop["reason"] is None
                         and time.monotonic() - t_start > max_time):
-                    stop["reason"] = f"max_time {cfg_t.get('max_time')}"
+                    if control is not None:
+                        control.request("max_time", f"max_time {cfg_t.get('max_time')}")
+                    else:
+                        stop["reason"] = f"max_time {cfg_t.get('max_time')}"
                 log_step = self.step % log_every == 0
                 ck_step = bool(ck_every) and self.step % ck_every == 0
                 agreeing = log_step or ck_step or self.step == self.max_steps
+                # under the control plane a stop notice never makes its own
+                # boundary: it folds at the next one every rank computes
                 boundary = (agreeing or bool(val_interval and self.step % val_interval == 0)
-                            or (self.dp is None and stop["reason"] is not None))
+                            or (self.dp is None and control is None
+                                and stop["reason"] is not None))
                 if not boundary:
                     continue
                 n_since = len(window)
@@ -1381,6 +1494,11 @@ class Trainer:
                 with spans.span("host_sync"), guard("host_sync"):
                     fetched = _fetch_window(window)
                 window = []
+                # the tensorstats vectors go to tensorstats.jsonl, not the
+                # scalar sinks
+                ts_payload = {k: v for k, v in fetched[-1][1].items() if k.startswith(HIST_PREFIX)}
+                fetched = [(i, {k: v for k, v in rec.items() if not k.startswith(HIST_PREFIX)})
+                           for i, rec in fetched]
                 last = dict(fetched[-1][1])
                 action = (monitor.check_boundary(self.step, last)
                           if monitor is not None else None)
@@ -1400,17 +1518,71 @@ class Trainer:
                                     rec.get("grad_norm", math.nan), rec.get("lr", math.nan),
                                     dt, rec["tokens_per_sec"], rec["mfu"])
                     history.append({"step": i, **rec})
-                record = self._boundary_record(last, dt, spans, tel, batch_stats, log_step)
+                record = self._boundary_record(last, dt, spans, tel, batch_stats, log_step,
+                                               memplane)
                 self.exp.log_metrics(self.step, record)
+                if ts_payload:
+                    self.exp.log_tensorstats(self.step, ts_payload)
+                halted = False
                 if action == "halt":
                     # no checkpoint: the poisoned update was applied, and a
                     # resume must find the last good save (the counters are
                     # the same on every rank: they come from all-reduced values)
-                    logger.error("health policy=halt: non-finite step %d; stopping without "
-                                 "a checkpoint (a resume restores the last good save; bundle "
-                                 "in %s)", int(last.get("health/last_nonfinite_step", -1)),
-                                 self.exp.log_dir)
-                    self.stop_class = "health_halt"
+                    halt_reason = (f"health policy=halt: non-finite step "
+                                   f"{int(last.get('health/last_nonfinite_step', -1))}")
+                    if control is not None:
+                        control.request("health_halt", halt_reason)
+                    else:
+                        logger.error("%s; stopping without a checkpoint (a resume restores the "
+                                     "last good save; bundle in %s)", halt_reason,
+                                     self.exp.log_dir)
+                        self.stop_class = "health_halt"
+                        halted = True
+                fleet_metrics = (fleet.boundary(self.step, record,
+                                                spans=spans.snapshot() if spans.enabled else None,
+                                                monitor=monitor)
+                                 if fleet is not None else {})
+                if alerts is not None:
+                    for fire in alerts.observe(self.step, {**record, **fleet_metrics}):
+                        if fire.action == "dump" and monitor is not None:
+                            # the anomaly bundles' machinery: alert_<step>/
+                            monitor.dump(self.step, kind="alert", boundary_metrics=record,
+                                         extra={"alert": fire.to_dict()})
+                        elif fire.action == "halt":
+                            # an operational halt (the state is good): the
+                            # graceful stop checkpoints, its reason in
+                            # run_summary.json
+                            reason = f"alert {fire.rule}: {fire.message}"
+                            if control is not None:
+                                control.request("alert_halt", reason)
+                            else:
+                                stop["reason"] = reason
+                                self.stop_class = "alert_halt"
+                ck_now = False
+                stopping = None
+                if control is not None and (self.dp is None or agreeing):
+                    # the consensus fold: rank 0 polls control/commands.jsonl
+                    # and every rank's word rides one MAX all-reduce (none
+                    # without dp), so every rank takes the same decision
+                    with guard("control_fold"):
+                        decision = control.boundary(self.step)
+                    if decision.dump and monitor is not None:
+                        monitor.dump(self.step, kind="control", boundary_metrics=record,
+                                     extra={"control": decision.to_dict()})
+                    ck_now = decision.checkpoint_now
+                    stopping = False
+                    if decision.halt:
+                        halted = True
+                        self.stop_class = "health_halt"
+                        logger.error("control: fleet-consistent halt at step %d (%s) — stopping "
+                                     "WITHOUT a checkpoint; resume restores the last good save",
+                                     self.step, decision.reason)
+                    elif decision.stop:
+                        stopping = True
+                        self.stop_class = decision.conditions[0]
+                        if stop["reason"] is None:
+                            stop["reason"] = decision.reason
+                if halted:
                     break
                 if val_interval and self.step % val_interval == 0 and self.val_data_module:
                     with spans.span("validate"):
@@ -1421,20 +1593,28 @@ class Trainer:
                 # SIGTERM landing inside the cadence save below stops at the
                 # next boundary instead of saving this step twice
                 reason = stop["reason"]
-                stop_class = (None if reason is None else
-                              "max_time" if reason.startswith("max_time") else "preemption")
-                if self.dp is not None:
-                    if agreeing:
-                        # every rank stops (and saves) at the step any rank stops at
-                        stop_class = self._agree_stop(stop_class)
-                        if stop_class is not None and reason is None:
-                            reason = stop["reason"] = f"{stop_class} on another rank"
-                    else:
-                        # the request waits for a boundary every rank shares
-                        reason = stop_class = None
-                if stop_class is not None and self.stop_class is None:
-                    self.stop_class = stop_class
+                if control is not None:
+                    # the folded decision, never the raw local request
+                    if not stopping:
+                        reason = None
+                else:
+                    stop_class = _stop_class_of(reason)
+                    if self.dp is not None:
+                        if agreeing:
+                            # every rank stops (and saves) at the step any rank stops at
+                            stop_class = self._agree_stop(stop_class)
+                            if stop_class is not None and reason is None:
+                                reason = stop["reason"] = f"{stop_class} on another rank"
+                        else:
+                            # the request waits for a boundary every rank shares
+                            reason = stop_class = None
+                    if stop_class is not None and self.stop_class is None:
+                        self.stop_class = stop_class
                 if ck_step and reason is None:
+                    with spans.span("checkpoint"):
+                        self.save_checkpoint(record)
+                elif ck_now and reason is None:
+                    # an operator's checkpoint_now: an off-cadence save
                     with spans.span("checkpoint"):
                         self.save_checkpoint(record)
                 if reason is not None:
@@ -1449,7 +1629,19 @@ class Trainer:
             if ck_every and stop["reason"] is None and self.stop_class != "health_halt":
                 with spans.span("checkpoint"):
                     self.save_checkpoint(history[-1] if history else {})  # final save
+        except BaseException as e:
+            fit_exc = e
+            if memplane is not None and is_oom_error(e):
+                # OOM forensics: the oom_<step>/ bundle before the error goes on
+                memplane.dump_oom(self.step, e, boundary_metrics=record,
+                                  memory_analysis=self._census_memory())
+            raise
         finally:
+            if memplane is not None:
+                memplane.close()
+            if fleet is not None:
+                # the final beacon first: clean exit or the last exception
+                fleet.close(fit_exc, step=self.step)
             if batches is not None:
                 batches.close()
             if old_handler is not None:
@@ -1471,9 +1663,62 @@ class Trainer:
                     summary["goodput"] = spans.goodput_summary()
                 if detector.events:
                     summary["retrace_events"] = detector.events[-20:]
+                if self.exp.last_tensorstats:
+                    # the last cumulative record: what tools/quant_readiness.py
+                    # prices compressed collectives from
+                    summary["tensorstats"] = self.exp.last_tensorstats
                 self.exp.write_run_summary(summary)
                 self.exp.close()
         return history
+
+    def _planes(self, tel) -> tuple:
+        """The fleet, alert, memory and control planes of a fit (None where
+        off), in JAX's order.  A plane that cannot start logs JAX's warning;
+        a host here is a node (``LOCAL_WORLD_SIZE`` ranks, JAX's process):
+        its first rank writes the node's beacon and rank 0 aggregates."""
+        fleet = alerts = memplane = control = None
+        if tel.fleet.enabled:
+            try:
+                per_node = max(int(os.environ.get("LOCAL_WORLD_SIZE", "1") or 1), 1)
+                if self.rank % per_node == 0:
+                    fleet = FleetPlane(tel.fleet, self.exp.log_dir, host=self.rank // per_node,
+                                       aggregate=self.is_rank0,
+                                       write_run_summary=self.exp.write_run_summary)
+            except Exception as e:  # noqa: BLE001 — observability must not kill the run
+                logger.warning("fleet plane unavailable: %s", e)
+        if tel.alerts:
+            alerts = AlertEngine(tel.alerts, write_run_summary=self.exp.write_run_summary)
+        if tel.memory.enabled:
+            try:
+                mcfg = tel.memory if self.is_rank0 else dataclasses.replace(tel.memory,
+                                                                            profile=False)
+                memplane = MemoryPlane(
+                    mcfg, self.exp.log_dir, devices=[self.device],
+                    tree_bytes_fn=lambda: tree_bytes_by_subsystem(self.params, self.opt_state),
+                    state_fn=lambda: (self.params, self.opt_state), run_facts=self.run_facts,
+                    write_run_summary=self.exp.write_run_summary)
+            except Exception as e:  # noqa: BLE001 — observability must not kill the run
+                logger.warning("memory plane unavailable: %s", e)
+        if tel.control.enabled:
+            try:
+                control = ControlPlane(tel.control, self.exp.log_dir, host=self.rank,
+                                       poll_commands=tel.control.poll_commands and self.is_rank0,
+                                       write_run_summary=self.exp.write_run_summary)
+            except Exception as e:  # noqa: BLE001 — never kill the launch
+                logger.warning("fleet control plane unavailable: %s", e)
+        elif self.world > 1 and any(r.action == "halt" for r in tel.alerts):
+            # without the control plane a halt decision is rank-local
+            logger.warning(
+                "multi-host run with action=halt alert rules and "
+                "exp_manager.telemetry.control disabled: halt decisions "
+                "are host-local; enable the control plane so stops are "
+                "fleet-consistent (docs/observability.md 'Fleet control')")
+        return fleet, alerts, memplane, control
+
+    def _census_memory(self) -> Optional[dict]:
+        """The first-step census's allocator facts (the OOM bundle's
+        ``memory_analysis``); None before the census or without one."""
+        return dict(self.census_memory) if self.census_memory else None
 
     def _dispatch(self, host_batch: dict, index: int) -> dict:
         """Copy step ``index``'s host batch to the card and queue its train
@@ -1492,11 +1737,13 @@ class Trainer:
                 else self.train_step(*args))
 
     def _boundary_record(self, last: dict, dt: float, spans: SpanTimer, tel,
-                         batch_stats: Optional[BatchStats], log_step: bool) -> dict:
+                         batch_stats: Optional[BatchStats], log_step: bool,
+                         memplane: Optional[MemoryPlane] = None) -> dict:
         """The logged record of a boundary: its last step's metrics, the
         window's ``step_time`` and the port's ``tokens_per_sec``, the
         consumed samples, the transient-read retries, and the planes'
-        keys (JAX's boundary record)."""
+        keys (JAX's boundary record; with the memory plane on, the
+        ``device_*`` keys come from its one allocator sweep)."""
         record = dict(last)
         record["step_time"] = dt
         record["tokens_per_sec"] = (int(self.sched["global_batch_size"]) * self.seq_len / dt
@@ -1509,7 +1756,12 @@ class Trainer:
             record.update({f"time/{k}": v for k, v in spans.drain().items()})
         if tel.goodput:
             record["goodput_fraction"] = spans.goodput_fraction()
-        if tel.device_memory:
+        if memplane is not None:
+            mem = memplane.boundary(self.step)
+            record.update(mem)
+            if tel.device_memory:
+                record.update(legacy_device_memory_keys(mem))
+        elif tel.device_memory:
             record.update(device_memory_metrics([self.device]))
         if batch_stats is not None and log_step:
             # drained only where the record is written (a checkpoint or

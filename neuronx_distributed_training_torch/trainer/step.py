@@ -219,7 +219,7 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     tp_sharded=frozenset(), cp: Any = None,
                     loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
                     log_param_norm: bool = False, log_gradient_norm: bool = False,
-                    ep: Any = None, ema: Any = None) -> Callable:
+                    ep: Any = None, ema: Any = None, tensorstats: Any = None) -> Callable:
     """``train_step(params, opt_state, batch, key=None) -> metrics``; params
     and opt_state are updated in place (see ``optim/adamw.py``).
 
@@ -233,8 +233,14 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
     norm then adds the stages' layers over ``pp``.  ``log_param_norm`` /
     ``log_gradient_norm`` (``exp_manager.log_parameter_norm`` /
     ``log_gradient_norm``) add ``param_norm`` (after the update) and
-    ``gradient_norm`` (the pre-clip norm) to the metrics, as JAX does."""
+    ``gradient_norm`` (the pre-clip norm) to the metrics, as JAX does.
+    ``tensorstats`` (``telemetry/tensorstats.py::TensorStatsConfig``,
+    enabled): the observatory's ``tensorstats/...`` scalars and
+    ``tensorstats_hist/...`` vectors join the metrics (JAX's
+    ``trainer/step.py``), grouped as the health probes group."""
     health = health if health is not None and getattr(health, "enabled", False) else None
+    tstats = (tensorstats if tensorstats is not None and getattr(tensorstats, "enabled", False)
+              else None)
     if dp is not None and token_count_fn is None and loss_and_grad_fn is None:
         raise ValueError("data parallelism needs token_count_fn (the loss denominator)")
     summed = _summing(dp, cp)
@@ -294,13 +300,15 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
         lr = torch.as_tensor(lr_at(lr_schedule, opt_state["step"]), dtype=torch.float32)
         opt_metrics = adamw_update(
             flat, dict(zip(names, grad_sum)), opt_state, lr, opt_cfg, policy,
-            grad_group_fn=grad_group_of if health is not None else None,
+            grad_group_fn=(grad_group_of if health is not None or tstats is not None
+                           else None),
             skip_nonfinite=health is not None and health.policy == "skip_update",
             extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
-            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep, ema=ema)
+            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep, ema=ema, tensorstats=tstats)
         metrics = {"loss": loss_sum, "lr": lr, "grad_norm": opt_metrics["grad_norm"]}
         metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
                         if k not in metrics})
+        metrics.update(opt_metrics.get("tensorstats", {}))
         if health is not None:
             metrics.update(_health_metrics(health, opt_state, opt_metrics, loss_sum, flat,
                                            tp, tp_sharded, pp, ep))

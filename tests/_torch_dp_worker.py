@@ -384,15 +384,22 @@ def run(spec: dict, rank: int) -> dict:
         flat = llama.named_params(trainer.params)
         flat = {n: t for n, t in flat.items() if trainer.trainable is None
                 or n in trainer.trainable}
+        ts = trainer.exp.telemetry.tensorstats
+        ts = ts if ts.enabled else None
         specs = opt_state_specs(flat, trainer.dp.size,
                                 zero1=bool(cfg.distributed_strategy.get("zero1", True)),
                                 policy=trainer.policy, health=trainer.health.enabled,
-                                layouts=trainer.layouts, ep=trainer.ep)
+                                layouts=trainer.layouts, ep=trainer.ep, tensorstats=ts)
         trainer.opt_state = init_opt_state(flat, trainer.policy, health=trainer.health.enabled,
                                            specs=specs, dp=trainer.dp, tp=tp,
-                                           layouts=trainer.layouts, ep=trainer.ep)
+                                           layouts=trainer.layouts, ep=trainer.ep,
+                                           tensorstats=ts)
     for n, t in trainer.opt_state["mu"].items():
         out["zero1_shards"][n] = [list(t.shape), list(local(t).shape)]
+    if spec.get("command") and rank == 0:
+        from neuronx_distributed_training_torch.trainer.control import append_command
+
+        append_command(trainer.exp.log_dir, spec["command"])  # polled at the first boundary
     if spec.get("dump_init"):
         _save(merged(trainer, llama.named_params(trainer.params)), spec["dump_init"])
     if spec.get("max_steps"):
@@ -457,6 +464,7 @@ def run(spec: dict, rank: int) -> dict:
     if spec.get("grads"):
         _save(merged(trainer, captured), spec["grads"])
     out["history"] = history
+    out["log_dir"] = str(trainer.exp.log_dir)
     out["stop_class"] = trainer.stop_class
     out["opt_step"] = trainer.opt_state["step"]
     out["health"] = trainer.opt_state.get("health")

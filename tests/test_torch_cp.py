@@ -504,27 +504,19 @@ def _weights(tmp, name, j0) -> str:
     return str(TPT._global_weights(j0, tmp / f"{name}_w.pt"))
 
 
-@pytest.fixture(scope="module")
-def cp2_runs(tmp_path_factory):
-    """One launch of 2 ranks at cp 2: the parity runs (the ring's saving at
-    steps 2 and 3, the straight run of the resume), the bodies over the
-    group, the NaN on context rank 1, and a run stopped at step 2 and
-    resumed."""
-    tmp = tmp_path_factory.mktemp("cp2")
-    jax_runs, jax_side, scenarios = {}, {}, []
+def _cp2_build(tmp: Path) -> dict:
+    jts, j0s, scenarios = {}, {}, []
     for name, (fusion, precision, padded) in PARITY2.items():
         key = (JAX_FUSION.get(fusion, fusion), precision, padded)
-        if key not in jax_runs:
+        if key not in jts:
             cfg = cp_cfg(tmp, f"jax_{name}", fusion=key[0], precision=precision)
             data = _JaxPaddedRows(128, SEQ, 8, seed=6) if padded else None
-            jax_runs[key] = TPT._jax_run(cfg, 2, data)
-        j0, j1, lines = jax_runs[key]
-        jax_side[name] = (j1, lines)
+            jts[key], j0s[key] = TPT._jax_start(cfg, 2, data)
         scenarios.append({
             "name": name, "steps": 3, "dump": str(tmp / f"{name}.pt"),
             "cfg": cp_cfg(tmp, f"port_{name}", fusion=fusion, precision=precision,
                           every=2 if name == "ring" else 0),
-            "weights": _weights(tmp, name, j0),
+            "weights": _weights(tmp, name, j0s[key]),
             **({"data": {"kind": "padded", "seed": 6}} if padded else {})})
     ring_w = scenarios[0]["weights"]
     scenarios += [
@@ -536,24 +528,39 @@ def cp2_runs(tmp_path_factory):
         {"name": "resume", "cfg": cp_cfg(tmp, "b", every=2), "steps": 3,
          "dump": str(tmp / "resume.pt"), "weights": ring_w},
     ]
-    ranks = DPT.launch(tmp, scenarios, nproc=2)
-    return {"tmp": tmp, "jax": jax_side, "ranks": ranks}
+    run = DPT.Launch(tmp, scenarios, nproc=2)
+    fitted = {key: TPT._jax_finish(jt) for key, jt in jts.items()}
+    jax_side = {name: fitted[(JAX_FUSION.get(f, f), p, pad)]
+                for name, (f, p, pad) in PARITY2.items()}
+    return {"tmp": tmp, "jax": jax_side, "ranks": run.results()}
 
 
 @pytest.fixture(scope="module")
-def cp4_runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("cp4")
-    jax_side, scenarios = {}, []
+def cp2_runs(tmp_path_factory):
+    """One launch of 2 ranks at cp 2, once a run (the JAX trainers fitted
+    while the ranks run): the parity runs (the ring's saving at steps 2 and
+    3, the straight run of the resume), the bodies over the group, the NaN
+    on context rank 1, and a run stopped at step 2 and resumed."""
+    return DPT.shared(tmp_path_factory, "cp2", _cp2_build)
+
+
+def _cp4_build(tmp: Path) -> dict:
+    jts, scenarios = {}, []
     for name, (fusion, dp, tp) in PARITY4.items():
         cfg = cp_cfg(tmp, f"jax_{name}", fusion=fusion, tp=tp, sp=tp > 1)
-        j0, j1, lines = TPT._jax_run(cfg, 4)
-        jax_side[name] = (j1, lines)
+        jts[name], j0 = TPT._jax_start(cfg, 4)
         scenarios.append({"name": name, "steps": 3, "dump": str(tmp / f"{name}.pt"),
                           "cfg": cp_cfg(tmp, f"port_{name}", fusion=fusion, tp=tp, sp=tp > 1),
                           "weights": _weights(tmp, name, j0)})
     scenarios.append({"name": "units", "kind": "cp_units"})
-    ranks = DPT.launch(tmp, scenarios, nproc=4)
-    return {"tmp": tmp, "jax": jax_side, "ranks": ranks}
+    run = DPT.Launch(tmp, scenarios, nproc=4)
+    jax_side = {name: TPT._jax_finish(jt) for name, jt in jts.items()}
+    return {"tmp": tmp, "jax": jax_side, "ranks": run.results()}
+
+
+@pytest.fixture(scope="module")
+def cp4_runs(tmp_path_factory):
+    return DPT.shared(tmp_path_factory, "cp4", _cp4_build)
 
 
 def _replicas_equal(ranks, name):

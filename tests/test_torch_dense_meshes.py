@@ -80,21 +80,17 @@ TP4 = {"kv_rep": (512, "fp32", 4), "pad": (PAD_VOCAB, "fp32", 1),
 PREF4 = {"dpo_dp2_cp2": ("dpo", None), "kto_mm_dp2_cp2": ("kto", "mismatched")}
 
 
-@pytest.fixture(scope="module")
-def mesh4(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("mesh4")
-    jax_side, scenarios = {}, []
+def _mesh4_build(tmp: Path) -> dict:
+    jts, scenarios = {}, []
     for name, (vocab, precision, devices) in TP4.items():
-        j0, j1, lines = TPT._jax_run(tp4_cfg(tmp, f"jax_{name}", tp=devices, vocab=vocab,
-                                             precision=precision), devices)
-        jax_side[name] = (j1, lines)
+        jts[name], j0 = TPT._jax_start(tp4_cfg(tmp, f"jax_{name}", tp=devices, vocab=vocab,
+                                               precision=precision), devices)
         scenarios.append({"name": name, "steps": 3, "dump": str(tmp / f"{name}.pt"),
                           "cfg": tp4_cfg(tmp, f"port_{name}", vocab=vocab, precision=precision),
                           "weights": str(TPT._global_weights(j0, tmp / f"{name}_w.pt"))})
     for name, (strategy, est) in PREF4.items():
         cfg = pref_cp_cfg(tmp, strategy, f"jax_{name}", kl_estimator=est)
-        j0, lines = TA.jax_run(cfg, devices=4)
-        jax_side[name] = (None, lines)
+        jts[name], j0 = TPT._jax_start(cfg, 4)
         scenarios.append({"name": name, "steps": 3,
                           "cfg": pref_cp_cfg(tmp, strategy, f"port_{name}", kl_estimator=est),
                           "weights": str(TPT._global_weights(j0, tmp / f"{name}_w.pt"))})
@@ -104,8 +100,19 @@ def mesh4(tmp_path_factory):
         {"name": "save", "cfg": tp4_cfg(tmp, "ck", every=2), "steps": 3, "max_steps": 2,
          "dump": str(tmp / "ck2.pt")},
     ]
-    ranks = DPT.launch(tmp, scenarios, nproc=4)
-    return {"tmp": tmp, "jax": jax_side, "ranks": ranks}
+    run = DPT.Launch(tmp, scenarios, nproc=4)
+    jax_side = {}
+    for name, jt in jts.items():
+        j1, lines = TPT._jax_finish(jt)
+        jax_side[name] = (None if name in PREF4 else j1, lines)
+    return {"tmp": tmp, "jax": jax_side, "ranks": run.results()}
+
+
+@pytest.fixture(scope="module")
+def mesh4(tmp_path_factory):
+    """The 4-rank launch, once a run (the JAX trainers fitted while the
+    ranks run)."""
+    return DPT.shared(tmp_path_factory, "mesh4", _mesh4_build)
 
 
 def _assert_pref_matches(hist, lines, strategy):
@@ -242,19 +249,22 @@ def _ce_cfg(tmp, exp, tp=2):
 
 @pytest.fixture(scope="module")
 def mesh2(tmp_path_factory, mesh4):
-    tmp = tmp_path_factory.mktemp("mesh2")
-    jax_side, scenarios = {}, []
-    j0, j1, lines = TPT._jax_run(_ce_cfg(tmp, "jax_ce"), 2)
-    jax_side["ce_tp2"] = (j1, lines)
+    """The 2-rank launch, once a run (the JAX trainers fitted while the
+    ranks run)."""
+    return DPT.shared(tmp_path_factory, "mesh2", lambda tmp: _mesh2_build(tmp, mesh4))
+
+
+def _mesh2_build(tmp: Path, mesh4: dict) -> dict:
+    jts, scenarios = {}, []
+    jts["ce_tp2"], j0 = TPT._jax_start(_ce_cfg(tmp, "jax_ce"), 2)
     scenarios.append({"name": "ce_tp2", "steps": 3, "dump": str(tmp / "ce_tp2.pt"),
                       "cfg": _ce_cfg(tmp, "port_ce"),
                       "weights": str(TPT._global_weights(j0, tmp / "ce_w.pt"))})
     weights = {}
     for name, (strategy, fusion, ref) in PREF2.items():
         if ref == name:
-            j0, lines = TA.jax_run(pref_cp_cfg(tmp, strategy, f"jax_{name}", fusion=fusion),
-                                   devices=2)
-            jax_side[name] = (None, lines)
+            jts[name], j0 = TPT._jax_start(
+                pref_cp_cfg(tmp, strategy, f"jax_{name}", fusion=fusion), 2)
             weights[strategy] = str(TPT._global_weights(j0, tmp / f"{strategy}_w.pt"))
         scenarios.append({"name": name, "steps": 3, "weights": weights[strategy],
                           "cfg": pref_cp_cfg(tmp, strategy, f"port_{name}", fusion=fusion,
@@ -279,8 +289,14 @@ def mesh2(tmp_path_factory, mesh4):
          "cfg": pref_cp_cfg(tmp, "dpo", "solo_cp2", every=3)},
         {"name": "from_tp4", "steps": 3, "cfg": tp4_cfg(tmp, "from4", tp=2, every=2)},
     ]
-    ranks = DPT.launch(tmp, scenarios, nproc=2)
-    return {"tmp": tmp, "jax": jax_side, "ranks": ranks, "solo": solo, "weights": weights}
+    run = DPT.Launch(tmp, scenarios, nproc=2)
+    jax_side = {}
+    for name, jt in jts.items():
+        j1, lines = TPT._jax_finish(jt)
+        jax_side[name] = (None if name in PREF2 else j1, lines)
+    solo_arrays = {k: np.asarray(v) for k, v in solo.data_module.arrays.items()}
+    return {"tmp": tmp, "jax": jax_side, "ranks": run.results(), "solo_arrays": solo_arrays,
+            "weights": weights}
 
 
 def test_chunked_ce_at_tp2_sp_matches_jax(mesh2):
@@ -360,7 +376,7 @@ def test_sidecar_written_at_cp2_is_read_at_cp1_and_back(mesh2):
     tmp = mesh2["tmp"]
     r0 = mesh2["ranks"][0]
     # cp 1 -> cp 2: the cp 2 run computed no row and holds cp 1's columns
-    solo_cols = {k: mesh2["solo"].data_module.arrays[k].tolist()
+    solo_cols = {k: mesh2["solo_arrays"][k].tolist()
                  for k in ("reference_chosen_logps", "reference_rejected_logps")}
     for r in mesh2["ranks"]:
         assert r["sidecar_from_cp1"]["reference_rows"] == 0

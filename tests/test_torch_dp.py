@@ -32,14 +32,17 @@ Each launch picks a free ``MASTER_PORT`` from a bound socket (the suite runs
 under xdist) and waits for each rank with its own timeout.
 """
 
+import fcntl
 import importlib.util
 import json
 import os
+import pickle
 import shutil
 import socket
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import jax
@@ -64,6 +67,14 @@ from neuronx_distributed_training_tpu.parallel import mesh as j_mesh
 from neuronx_distributed_training_tpu.trainer.step import microbatch_split as j_split
 from neuronx_distributed_training_tpu.utils import launch as j_launch
 
+#: torch's CPU threads in a test process, the gloo ranks' count (``_env``):
+#: the suite runs six xdist workers on the host's cores beside the ranks,
+#: and at torch's default (every core) each worker's small ops wait on
+#: threads the others hold.  pytest imports every test module in every
+#: worker, so this sets each worker's torch (JAX's threads are its own)
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).resolve().parent / "_torch_dp_worker.py"
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
@@ -87,36 +98,72 @@ def _free_port() -> int:
 
 def _env(**extra) -> dict:
     env = dict(os.environ)
-    env.update(JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+    env.update(JAX_PLATFORMS="cpu", OMP_NUM_THREADS=str(TORCH_THREADS),
                PYTHONPATH=os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]), **extra)
     return env
+
+
+def shared(tmp_path_factory, name: str, build):
+    """``build(dir)`` once for every xdist worker of this run (a module's
+    tests spread over the workers, each of which would build its own
+    module fixture): the first worker to take the lock builds in a
+    directory the workers share and pickles the result, the others load it.
+    A worker that dies while building releases the lock, and the next one
+    builds."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    where = root / f"shared_{name}"
+    where.mkdir(exist_ok=True)
+    done = where / "result.pkl"
+    with open(root / f"shared_{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            result = build(where)
+            (where / "result.tmp").write_bytes(pickle.dumps(result))
+            os.replace(where / "result.tmp", done)
+    return pickle.loads(done.read_bytes())
+
+
+class Launch:
+    """The worker on ``nproc`` gloo ranks, started and not waited for: the
+    caller computes its JAX references while the ranks run, then calls
+    :meth:`results` (each rank given ``timeout`` seconds from the start)."""
+
+    def __init__(self, tmp_path: Path, scenarios: list, nproc: int = 2,
+                 timeout: float = RANK_TIMEOUT):
+        self.out = Path(tempfile.mkdtemp(prefix="ranks_", dir=tmp_path))
+        spec = self.out / "spec.json"
+        spec.write_text(json.dumps({"out": str(self.out), "scenarios": scenarios}))
+        port = _free_port()
+        self.nproc, self.deadline = nproc, time.monotonic() + timeout
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(WORKER), str(spec)],
+            env=_env(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(nproc),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(nproc)]
+
+    def results(self) -> list[dict]:
+        """Each rank's results, once every rank has exited 0."""
+        logs = []
+        try:
+            for p in self.procs:
+                logs.append(p.communicate(timeout=max(self.deadline - time.monotonic(), 1))[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+        return [json.loads((self.out / f"rank{r}.json").read_text()) for r in range(self.nproc)]
 
 
 def launch(tmp_path: Path, scenarios: list, nproc: int = 2,
            timeout: float = RANK_TIMEOUT) -> list[dict]:
     """Run the worker on ``nproc`` gloo ranks, each given ``timeout``
     seconds; returns each rank's results."""
-    out = Path(tempfile.mkdtemp(prefix="ranks_", dir=tmp_path))
-    spec = out / "spec.json"
-    spec.write_text(json.dumps({"out": str(out), "scenarios": scenarios}))
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(spec)],
-        env=_env(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(nproc),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(nproc)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc)]
+    return Launch(tmp_path, scenarios, nproc, timeout).results()
 
 
 def dp_cfg(tmp_path, exp, *, precision="fp32", zero1=True, max_steps=3, every=0, **over):
@@ -266,16 +313,26 @@ class _JaxMaskedRows(j_data.DataModule):
         return self._rows(idx, seq=self.seq_len, vocab=self.vocab_size, seed=self.seed)
 
 
-def _jax_run(cfg, data=None):
+def _jax_start(cfg, data=None):
+    """The JAX trainer of ``cfg`` on 2 virtual devices, built but not
+    fitted, and its initial params."""
     from neuronx_distributed_training_tpu.trainer.loop import Trainer as JTrainer
 
     jt = JTrainer.from_config(j_loader.load_config(cfg), devices=jax.devices()[:2],
                               enable_checkpointing=False, data_module=data)
-    jparams = jax.tree_util.tree_map(np.asarray, jt.params)
+    return jt, jax.tree_util.tree_map(np.asarray, jt.params)
+
+
+def _jax_finish(jt) -> tuple:
+    """Fit a :func:`_jax_start` trainer: ``(final params, metric lines)``."""
     jt.fit()
     lines = [json.loads(x) for x in (jt.exp.log_dir / "metrics.jsonl").read_text().splitlines()]
-    lines = [x for x in lines if "loss" in x]
-    return jparams, jax.tree_util.tree_map(np.asarray, jt.params), lines
+    return jax.tree_util.tree_map(np.asarray, jt.params), [x for x in lines if "loss" in x]
+
+
+def _jax_run(cfg, data=None):
+    jt, jparams = _jax_start(cfg, data)
+    return (jparams, *_jax_finish(jt))
 
 
 def _port_weights(jparams, path: Path) -> Path:
@@ -294,35 +351,51 @@ def _assert_params_bar(port: dict, jax_params, *, fp32: bool, steps: int = 3):
         assert float((d > apart).float().mean()) <= max_frac, n
 
 
-PARITY_CASES = ("fp32", "mixed_precision", "unequal_tokens")
+PARITY_CASES = ("fp32", "mixed_precision", "unequal_tokens", "tensorstats")
+#: the tensorstats case: the observatory under ZeRO-1 at dp 2 (fp32)
+TENSORSTATS = {"exp_manager": {"telemetry": {
+    "compile_census": False, "health": {"enabled": True, "policy": "skip_update"},
+    "tensorstats": {"enabled": True}}}}
+#: tensorstats.jsonl against JAX's (tests/test_torch_planes.py's rule)
+TS_RTOL, HIST_MOVES = 1e-5, 2
 
 
-@pytest.fixture(scope="module")
-def parity_runs(tmp_path_factory):
-    """The JAX trainer's runs of the three cases, and the port's, all in one
-    launch of 2 ranks: ``{case: (cfg, jax initial params, jax final params,
-    jax metrics lines, rank results, port dump)}``."""
-    tmp = tmp_path_factory.mktemp("parity")
-    jax_side, scenarios = {}, []
+def _parity_build(tmp: Path) -> dict:
+    """The JAX trainers are built first (the port's scenarios start from
+    their initial weights) and fit while the launch runs."""
+    jts, j0s, scenarios = {}, {}, []
     for case in PARITY_CASES:
-        precision = "fp32" if case == "unequal_tokens" else case
+        precision = "fp32" if case in ("unequal_tokens", "tensorstats") else case
         data, jdata = None, None
         if case == "unequal_tokens":
             data = {"kind": "sft_mask", "seed": 5}
             jdata = _JaxMaskedRows(128, 32, 8, seed=5)
-        cfg = dp_cfg(tmp, f"jax_{case}", precision=precision)
-        jax_side[case] = (cfg, *_jax_run(cfg, jdata))
-        scenarios.append({"name": case, "cfg": dp_cfg(tmp, f"port_{case}", precision=precision),
+        over = TENSORSTATS if case == "tensorstats" else {}
+        cfg = dp_cfg(tmp, f"jax_{case}", precision=precision, **over)
+        jts[case], j0s[case] = _jax_start(cfg, jdata)
+        jts[case] = (cfg, jts[case])
+        scenarios.append({"name": case, "cfg": dp_cfg(tmp, f"port_{case}", precision=precision,
+                                                      **over),
                           "steps": 3, "data": data, "dump": str(tmp / f"{case}.pt"),
-                          "weights": str(_port_weights(jax_side[case][1], tmp / f"{case}_w.pt"))})
-    ranks = launch(tmp, scenarios)
-    return {case: (*jax_side[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
+                          "weights": str(_port_weights(j0s[case], tmp / f"{case}_w.pt"))})
+    run = Launch(tmp, scenarios)
+    fitted = {case: (cfg, j0s[case], *_jax_finish(jt)) for case, (cfg, jt) in jts.items()}
+    ranks = run.results()
+    return {case: (*fitted[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
             for case in PARITY_CASES}
+
+
+@pytest.fixture(scope="module")
+def parity_runs(tmp_path_factory):
+    """The JAX trainer's runs of the parity cases, and the port's, all in one
+    launch of 2 ranks, once a run: ``{case: (cfg, jax initial params, jax
+    final params, jax metrics lines, rank results, port dump)}``."""
+    return shared(tmp_path_factory, "dp_parity", _parity_build)
 
 
 @pytest.mark.parametrize("case", PARITY_CASES)
 def test_dp2_zero1_matches_jax(parity_runs, case):
-    precision = "fp32" if case == "unequal_tokens" else case
+    precision = "fp32" if case in ("unequal_tokens", "tensorstats") else case
     cfg, jparams0, jparams, lines, ranks, dump = parity_runs[case]
     h0, h1 = (r["history"] for r in ranks)
     assert [(a["loss"], a["grad_norm"]) for a in h0] == [(b["loss"], b["grad_norm"]) for b in h1]
@@ -332,6 +405,26 @@ def test_dp2_zero1_matches_jax(parity_runs, case):
     np.testing.assert_allclose([h["grad_norm"] for h in h0], [x["grad_norm"] for x in lines],
                                rtol=1e-5 if fp32 else 2e-3, atol=0)
     _assert_params_bar(dump, jparams, fp32=fp32)
+    if case == "tensorstats":
+        # the observatory under ZeRO-1 at dp 2: rank 0's tensorstats.jsonl
+        # against the JAX trainer's on 2 devices (no overlap: no bucket phase)
+        ts = [json.loads(x) for x in
+              (Path(ranks[0]["log_dir"]) / "tensorstats.jsonl").read_text().splitlines()]
+        jts = [json.loads(x) for x in
+               (Path(cfg["exp_manager"]["exp_dir"]) / "dp" / "version_0" /
+                "tensorstats.jsonl").read_text().splitlines()]
+        assert [r["step"] for r in ts] == [r["step"] for r in jts] == [1, 2, 3]
+        for a, b in zip(ts, jts):
+            assert set(a["groups"]) == set(b["groups"])
+            for g, x in a["groups"].items():
+                y = b["groups"][g]
+                moved = np.abs(np.cumsum(x["hist"]) - np.cumsum(y["hist"])).max()
+                assert moved <= max(HIST_MOVES, TS_RTOL * x["count"]), (g, moved)
+                np.testing.assert_allclose([x[k] for k in x if k != "hist"],
+                                           [y[k] for k in x if k != "hist"],
+                                           rtol=TS_RTOL, atol=0, err_msg=g)
+        assert not (Path(ranks[1]["log_dir"]) / "tensorstats.jsonl").exists() or \
+            ranks[1]["log_dir"] == ranks[0]["log_dir"]
     if case == "unequal_tokens":
         # the two ranks hold different numbers of loss tokens, and a mean of
         # per-rank means misses JAX's step-0 loss where the port meets it
@@ -421,6 +514,17 @@ def test_dp2_checkpoints_resume_bitwise_and_reshard(tmp_path):
         {"name": "agree", "cfg": dp_cfg(tmp_path, "agree", max_steps=6,
                                         trainer={"log_every_n_steps": 2}),
          "steps": 6, "sigterm": {"step": 2, "rank": 1}},
+        # the control word at dp 2: an operator checkpoint_now polled by
+        # rank 0 and a SIGTERM on rank 1 alone, each folded by the
+        # boundary's one all-reduce, so both ranks save and stop alike
+        {"name": "control", "cfg": dp_cfg(tmp_path, "control", max_steps=6,
+                                          trainer={"log_every_n_steps": 2},
+                                          exp_manager={"telemetry": {
+                                              "compile_census": False,
+                                              "health": {"enabled": True,
+                                                         "policy": "skip_update"},
+                                              "control": {"enabled": True}}}),
+         "steps": 6, "sigterm": {"step": 3, "rank": 1}, "command": "checkpoint_now"},
     ])
     r0 = ranks[0]
     assert r0["straight"]["committed"] == [2, 3] and r0["pre"]["committed"] == [2]
@@ -445,6 +549,18 @@ def test_dp2_checkpoints_resume_bitwise_and_reshard(tmp_path):
         a = r["agree"]
         assert [h["step"] for h in a["history"]] == [0, 1, 2, 3]
         assert a["stop_class"] == "preemption" and a["committed"] == [4]
+        # the control word: checkpoint_now at the step-2 boundary, rank 1's
+        # SIGTERM (inside step 3) folded at step 4's, on both ranks
+        c = r["control"]
+        assert [h["step"] for h in c["history"]] == [0, 1, 2, 3]
+        assert c["stop_class"] == "preemption" and c["committed"] == [2, 4]
+    trail = json.loads((Path(r0["control"]["log_dir"]) / "run_summary.json").read_text())[
+        "control"]
+    assert [(x["command"], x["status"], x["step"]) for x in trail["commands"]] == [
+        ("checkpoint_now", "accepted", 2)]
+    assert trail["decisions"][-1]["source"] == "fleet"  # rank 0 got no SIGTERM
+    assert trail["decisions"][-1]["reason"] == "fleet consensus: preemption requested on " \
+        "another host"
     # the dp=1 checkpoint resumed at dp=2; the same continuation at dp=1
     assert [h["step"] for h in r0["from_dp1"]["history"]] == [2]
     cont = t_loop.Trainer.from_config(

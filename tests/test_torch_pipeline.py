@@ -29,10 +29,8 @@ against the JAX package's ``parallel/pipeline.py``.
 import collections
 import concurrent.futures
 import dataclasses
-import fcntl
 import json
 import os
-import pickle
 import shutil
 from pathlib import Path
 
@@ -238,26 +236,8 @@ def _jax_grads_named(tree) -> dict:
         jax.tree_util.tree_map(np.asarray, tree), device="cpu")).items()}
 
 
-def _shared(tmp_path_factory, name: str, build):
-    """``build(dir)`` once for every xdist worker of this run (a module's
-    tests spread over the workers, each of which would build its own
-    module fixture): the first worker to take the lock builds in a
-    directory the workers share and pickles the result, the others load it.
-    A worker that dies while building releases the lock, and the next one
-    builds."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    where = root / f"shared_{name}"
-    where.mkdir(exist_ok=True)
-    done = where / "result.pkl"
-    with open(root / f"shared_{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not done.exists():
-            result = build(where)
-            (where / "result.tmp").write_bytes(pickle.dumps(result))
-            os.replace(where / "result.tmp", done)
-    return pickle.loads(done.read_bytes())
+#: ``build(dir)`` once for every xdist worker of this run
+_shared = DPT.shared
 
 
 def _onef1b_grads(cfg, g):
@@ -941,22 +921,8 @@ def pp_runs(tmp_path_factory):
     return _shared(tmp_path_factory, "pp_runs", _pp_launch)
 
 
-def _jax_start(cfg, n: int) -> tuple:
-    """The JAX trainer of ``cfg`` on ``n`` virtual devices, built but not
-    fitted, and its initial params (``test_torch_tp.py::_jax_run``'s first
-    half)."""
-    from neuronx_distributed_training_tpu.trainer.loop import Trainer as JTrainer
-
-    jt = JTrainer.from_config(j_loader.load_config(cfg), devices=jax.devices()[:n],
-                              enable_checkpointing=False)
-    return jt, jax.tree_util.tree_map(np.asarray, jt.params)
-
-
-def _jax_finish(jt) -> tuple:
-    """``_jax_run``'s second half: fit, then ``(final params, metric lines)``."""
-    jt.fit()
-    lines = [json.loads(x) for x in (jt.exp.log_dir / "metrics.jsonl").read_text().splitlines()]
-    return jax.tree_util.tree_map(np.asarray, jt.params), [x for x in lines if "loss" in x]
+#: the JAX trainer built but not fitted, then fitted (``test_torch_tp.py``)
+_jax_start, _jax_finish = TPT._jax_start, TPT._jax_finish
 
 
 def _pp_launch(tmp: Path) -> dict:

@@ -333,16 +333,27 @@ def test_tp_above_kv_heads_and_uneven_vocab_are_rejected():
 # ---------------------------------------------------------------------------
 
 
-def _jax_run(cfg, n, data=None):
+def _jax_start(cfg, n, data=None) -> tuple:
+    """The JAX trainer of ``cfg`` on ``n`` virtual devices, built but not
+    fitted, and its initial params (a fixture starts its launch from them,
+    then fits the JAX trainers while the ranks run)."""
     from neuronx_distributed_training_tpu.trainer.loop import Trainer as JTrainer
 
     jt = JTrainer.from_config(j_loader.load_config(cfg), devices=jax.devices()[:n],
                               enable_checkpointing=False, data_module=data)
-    jparams = jax.tree_util.tree_map(np.asarray, jt.params)
+    return jt, jax.tree_util.tree_map(np.asarray, jt.params)
+
+
+def _jax_finish(jt) -> tuple:
+    """Fit a :func:`_jax_start` trainer: ``(final params, metric lines)``."""
     jt.fit()
     lines = [json.loads(x) for x in (jt.exp.log_dir / "metrics.jsonl").read_text().splitlines()]
-    return jparams, jax.tree_util.tree_map(np.asarray, jt.params), [x for x in lines
-                                                                     if "loss" in x]
+    return jax.tree_util.tree_map(np.asarray, jt.params), [x for x in lines if "loss" in x]
+
+
+def _jax_run(cfg, n, data=None):
+    jt, j0 = _jax_start(cfg, n, data)
+    return (j0, *_jax_finish(jt))
 
 
 def _global_weights(jparams, path: Path) -> Path:
@@ -355,23 +366,18 @@ PARITY2 = ("fp32", "mixed_precision", "lora", "no_sp")
 PARITY4 = ("fp32", "mixed_precision")
 
 
-@pytest.fixture(scope="module")
-def tp4_runs(tmp_path_factory):
-    """dp x tp = 2 x 2 with SP on 4 ranks: the JAX parity cases, and a save
-    at step 2 for the tp=2 launch to restore.  ``{case: (jax final params,
-    jax lines, rank results, port dump)}`` and ``"ck"``: the exp dir."""
-    tmp = tmp_path_factory.mktemp("tp4")
-    jax_side, scenarios = {}, []
+def _tp4_build(tmp: Path) -> dict:
+    jts, scenarios = {}, []
     for case in PARITY4:
-        cfg = tp_cfg(tmp, f"jax_{case}", precision=case)
-        j0, j1, lines = _jax_run(cfg, 4)
-        jax_side[case] = (j1, lines)
+        jts[case], j0 = _jax_start(tp_cfg(tmp, f"jax_{case}", precision=case), 4)
         scenarios.append({"name": case, "cfg": tp_cfg(tmp, f"port_{case}", precision=case),
                           "steps": 3, "dump": str(tmp / f"{case}.pt"),
                           "weights": str(_global_weights(j0, tmp / f"{case}_w.pt"))})
     scenarios.append({"name": "save", "cfg": tp_cfg(tmp, "ck", every=2), "steps": 3,
                       "max_steps": 2, "dump": str(tmp / "ck2.pt")})
-    ranks = DPT.launch(tmp, scenarios, nproc=4)
+    run = DPT.Launch(tmp, scenarios, nproc=4)
+    jax_side = {case: _jax_finish(jt) for case, jt in jts.items()}
+    ranks = run.results()
     out = {case: (*jax_side[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
            for case in PARITY4}
     out["ck"] = (tmp / "ck", torch.load(tmp / "ck2.pt"), [r["save"] for r in ranks])
@@ -379,13 +385,25 @@ def tp4_runs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def tp4_runs(tmp_path_factory):
+    """dp x tp = 2 x 2 with SP on 4 ranks, once a run: the JAX parity cases
+    (fitted while the ranks run), and a save at step 2 for the tp=2 launch
+    to restore.  ``{case: (jax final params, jax lines, rank results, port
+    dump)}`` and ``"ck"``: the exp dir."""
+    return DPT.shared(tmp_path_factory, "tp4", _tp4_build)
+
+
+@pytest.fixture(scope="module")
 def tp2_runs(tmp_path_factory, tp4_runs):
     """tp=2 on 2 ranks, with SP but for ``no_sp`` (fp32 without SP, the
-    copy/reduce regions): the JAX parity cases, the internal runs
-    (gradients and initial params, fp32), the units, and the checkpoint
-    scenarios.  Returns a dict of everything the tests read."""
-    tmp = tmp_path_factory.mktemp("tp2")
-    jax_side, scenarios = {}, []
+    copy/reduce regions), once a run: the JAX parity cases, the internal
+    runs (gradients and initial params, fp32), the units, and the
+    checkpoint scenarios.  Returns a dict of everything the tests read."""
+    return DPT.shared(tmp_path_factory, "tp2", lambda tmp: _tp2_build(tmp, tp4_runs))
+
+
+def _tp2_build(tmp: Path, tp4_runs: dict) -> dict:
+    jts, scenarios = {}, []
     data = _sft_jsonl(tmp / "train.jsonl")
     for case in PARITY2:
         if case == "lora":
@@ -395,8 +413,8 @@ def tp2_runs(tmp_path_factory, tp4_runs):
         else:
             cfg = tp_cfg(tmp, f"jax_{case}", precision=case)
             port = tp_cfg(tmp, f"port_{case}", precision=case)
-        j0, j1, lines = _jax_run(cfg, 2)
-        jax_side[case] = (j0, j1, lines)
+        jts[case], j0 = _jax_start(cfg, 2)
+        jts[case] = (j0, jts[case])
         scenarios.append({"name": case, "cfg": port, "steps": 3, "dump": str(tmp / f"{case}.pt"),
                           "weights": str(_global_weights(j0, tmp / f"{case}_w.pt"))})
     # LoRA weights with non-zero B, so that the column layers' replicated A
@@ -435,7 +453,9 @@ def tp2_runs(tmp_path_factory, tp4_runs):
         {"name": "from_2x2", "cfg": tp_cfg(tmp, "from4", every=2), "steps": 3,
          "dump": str(tmp / "from4_3.pt")},
     ]
-    ranks = DPT.launch(tmp, scenarios, nproc=2)
+    run = DPT.Launch(tmp, scenarios, nproc=2)
+    jax_side = {case: (j0, *_jax_finish(jt)) for case, (j0, jt) in jts.items()}
+    ranks = run.results()
     return {"tmp": tmp, "jax": jax_side, "ranks": ranks, "data": data,
             "dump": {case: torch.load(tmp / f"{case}.pt") for case in PARITY2}}
 

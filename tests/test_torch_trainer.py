@@ -53,7 +53,10 @@ NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "peft.lora", "telemetry", "telemetry.health", "parallel.mesh", "utils.launch",
     "tools.zero1_bytes", "parallel.sharding", "parallel.tensor_parallel", "alignment",
     "alignment.losses", "alignment.dpo", "alignment.orpo", "alignment.kto", "ops.moe",
-    "models.mixtral", "models.gpt", "utils.prng", "tools.convert_megatron"))
+    "models.mixtral", "models.gpt", "utils.prng", "tools.convert_megatron",
+    "telemetry.alerts", "telemetry.fleet", "telemetry.memory", "telemetry.tensorstats",
+    "telemetry.quant_readiness", "trainer.control", "tools.checkpoint_converter",
+    "tools.ckpt_verify", "tools.prepare_dataset"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -216,18 +219,34 @@ def test_ignored_blocks_are_logged_once(caplog):
         t_loop._log_ignored(cfg)
         t_loop._log_ignored(cfg)
     msgs = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
-    assert len(msgs) == 1 and "exp_manager.telemetry" in msgs[0]
+    assert len(msgs) == 1
     assert "data and tensor parallelism" in msgs[0] and "data parallelism only" not in msgs[0]
-    # the health policy and its flight recorder, the default planes and
-    # ZeRO-1 are acted on; the other telemetry planes and the overlap block
-    # are not
+    # the health policy and its flight recorder, the default planes, ZeRO-1
+    # and the planes tiny_smoke turns on (tensorstats, fleet, alerts,
+    # control, memory) are acted on; the overlap block is not
     ignored = msgs[0].split(": ", 1)[1].split(", ")
-    assert {"exp_manager.telemetry.tensorstats", "exp_manager.telemetry.fleet",
-            "distributed_strategy.overlap"} <= set(ignored)
+    assert ignored == ["distributed_strategy.overlap"]
     assert not {"exp_manager.telemetry", "exp_manager.telemetry.health",
                 "exp_manager.telemetry.health.ring_buffer_steps",
                 "exp_manager.telemetry.spans", "exp_manager.telemetry.batch_stats",
-                "distributed_strategy.zero1"} & set(ignored)
+                "exp_manager.telemetry.tensorstats", "exp_manager.telemetry.fleet",
+                "exp_manager.telemetry.alerts", "exp_manager.telemetry.control",
+                "exp_manager.telemetry.memory", "distributed_strategy.zero1"} & set(ignored)
+    # every block that is still not ported is named: the trace plane,
+    # elastic, overlap, autotune, the W&B / MLflow sinks, profiling windows
+    rest = t_loader.load_config(TINY, {
+        "exp_manager.telemetry.trace": {"enabled": True}, "exp_manager.elastic": {},
+        "exp_manager.create_wandb_logger": True, "exp_manager.create_mlflow_logger": True,
+        "exp_manager.profile_start_step": 2, "autotune": {}})
+    t_loop._logged_ignored.clear()
+    caplog.clear()
+    with caplog.at_level("INFO", logger="nxdt.torch.train"):
+        t_loop._log_ignored(rest)
+    (msg,) = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
+    assert set(msg.split(": ", 1)[1].split(", ")) == {
+        "exp_manager.telemetry.trace", "exp_manager.elastic", "exp_manager.create_wandb_logger",
+        "exp_manager.create_mlflow_logger", "exp_manager.profile_start_step", "autotune",
+        "distributed_strategy.overlap"}
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
