@@ -306,13 +306,34 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
    c. phase 4's cell at micro batch 64 in a subprocess: an OOM that writes
       ``oom_<step>/`` and exits 1 (the JAX CLI's code for it).
 
+18. the trace plane, profiling windows and engineered overlap:
+   a. 16a's cell for 10 steps at ``log_every_n_steps: 1`` with
+      ``telemetry.trace: {enabled: true, start_step: 2, num_steps: 3}`` and
+      ``profile_start_step: 6, profile_num_steps: 2``: 160 launches of each
+      kernel, 48 of each in the window's op table, each one's device time a
+      launch within 10% of CUDA events around its launches in the untraced
+      steps (phase 3's time printed beside), three per-step attributions within
+      their steps' wall time, no overlap (no collectives on one card), the
+      raw ``trace/`` removed, ``profile/`` written, ``run_summary.json``'s
+      trace section, ``tools/trace_report.py`` rendering the summary, no
+      synchronizing call inside a dispatch outside the two windows; it
+      prints the traced and untraced step times, the top 10 ops and the
+      busy share;
+   b. with two or more cards, phase 7's torchrun cell at dp 2 (and dp 4)
+      per leaf and with ``overlap: {zero1_bucket_mb: 256, prefetch_ag:
+      true}``, and at pp 2 without and with ``pp_double_buffer``, each with a
+      trace window: bit for bit (losses, grad norms, every rank's state
+      digest), printing each collective class's overlap and exposed seconds,
+      the all-gathers a step and the measured bubble.  With one card it
+      prints why it did not run.
+
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``) runs the kernels' build and
-those phases alone (13e, 16 and 17 after phase 4, 17 after 16a; 14a and 14b are one
-function) and prints no result: a partial check while developing.
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``) runs the kernels'
+build and those phases alone (13e, 16 and 17 after phase 4, 17 after 16a, 18 after phase 3;
+14a and 14b are one function) and prints no result: a partial check while developing.
 """
 
 from __future__ import annotations
@@ -4724,6 +4745,424 @@ def phase_convert_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the trace plane, profiling windows and engineered overlap
+# ---------------------------------------------------------------------------
+
+#: 18a: steps, the telemetry.trace window, the profile window
+TRACE_STEPS = 10
+TRACE_WINDOW = {"start_step": 2, "num_steps": 3}
+PROFILE_WINDOW = {"start": 6, "steps": 2}
+#: each flash kernel's device time a launch in the trace against CUDA events
+#: around its launches in the trainer's untraced steps (phase 3's time
+#: printed beside)
+TRACE_TIME_RTOL = 0.10
+#: the flash kernels' rows of the trace summary's op table (the end of their
+#: base names: ``nxdt::fwd::flash_fwd_kernel``)
+TRACE_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+                 "flash_dkv": "flash_dkv_kernel"}
+#: 18b: the trace window of the torchrun runs (raw traces kept: the window's
+#: first step, which holds the profiler's start, is analyzed apart), and the
+#: bucket size (MiB of fp32 master weights): at the cell's widths every layer
+#: group but the norms holds more (attn 671 MB, mlp 2.8 GB, embed and head
+#: 2.1 GB each), so the buckets are about the groups: 27 ZeRO-1 leaves
+#: gather in 4 buckets
+MULTI_TRACE = "{enabled: true, start_step: 2, num_steps: 3, keep_raw: true}"
+MULTI_STEPS = 6
+BUCKET_MB = 256
+#: the trace summary's pipeline keys 18b prints
+PIPE_KEYS = ("bubble_fraction_measured", "bubble_fraction_predicted", "lane_resolution",
+             "num_lanes", "straggler_stage", "ticks_detected")
+
+
+class ClockSampler:
+    """The card's SM clock and power draw, sampled by ``nvidia-smi`` every
+    ``period`` seconds on a thread while the block runs."""
+
+    def __init__(self, period: float = 0.25):
+        self.period, self.rows = period, []
+
+    def __enter__(self):
+        import threading
+
+        self.stop = threading.Event()
+
+        def run():
+            while not self.stop.is_set():
+                try:
+                    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                          "--format=csv,noheader,nounits", "-i", "0"],
+                                         capture_output=True, text=True, timeout=10)
+                except (OSError, subprocess.TimeoutExpired):
+                    return
+                try:
+                    mhz, watts = (float(x) for x in out.stdout.strip().split(","))
+                    self.rows.append((mhz, watts))
+                except ValueError:
+                    pass
+                self.stop.wait(self.period)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+    def mean(self) -> tuple:
+        if not self.rows:
+            return (math.nan, math.nan)
+        return tuple(sum(r[i] for r in self.rows) / len(self.rows) for i in (0, 1))
+
+
+class KernelProbe:
+    """While the block runs, records the strides of the operands of each
+    flash kernel's first call (the trainer's own layouts) and a pair of
+    CUDA events around every call (recorded on the stream, read after the
+    block: no sync is added)."""
+
+    NAMES = {"flash_fwd": ("q", "k", "v"), "flash_dq": ("q", "k", "v", "do"),
+             "flash_dkv": ("q", "k", "v", "do")}
+
+    def __init__(self, torch, fa):
+        self.torch, self.fa, self.strides = torch, fa, {}
+        self.events = {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.fa, n) for n in self.NAMES}
+        torch = self.torch
+        for n, fn in self.real.items():
+            def probe(*args, _n=n, _fn=fn, **kw):
+                if _n not in self.strides:
+                    self.strides[_n] = [list(t.stride()) for t in args[:len(self.NAMES[_n])]]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kw)
+                end.record()
+                self.events[_n].append((start, end))
+                return out
+            setattr(self.fa, n, probe)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.fa, n, fn)
+
+    def call_ms(self, name: str) -> list:
+        """ms of each call of ``name``, in order (after a sync)."""
+        return [a.elapsed_time(b) for a, b in self.events[name]]
+
+
+def strided_like(torch, t, stride):
+    """A copy of ``t`` laid out with ``stride`` (in a storage just large
+    enough), the values the same."""
+    size = 1 + sum((n - 1) * st for n, st in zip(t.shape, stride))
+    out = torch.empty(size, dtype=t.dtype, device=t.device).as_strided(t.shape, stride)
+    out.copy_(t)
+    return out
+
+
+def cold_ms(torch, fn, iters: int) -> float:
+    """Median CUDA-event ms of ``fn`` with the 50 MB L2 flushed before each
+    launch (256 MB written between launches), as the trainer's kernels find
+    it: each reads operands the step's other kernels evicted."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return _median([a.elapsed_time(b) for a, b in pairs])
+
+
+def trace_fidelity(torch, fa, kt, work: Path, strides: dict, card: str) -> dict:
+    """What the 18a comparison rests on, at phase 3's shape: each kernel's
+    CUDA-event ms on phase 3's contiguous operands and on operands laid out
+    as the trainer's (``strides``), warm (phase 3's repeated launches) and
+    with the L2 flushed before each launch (``cold_ms``), and the
+    profiler's per-launch time of the same launches against CUDA events
+    taken around them inside the window, with the SM clock sampled in
+    each."""
+    from neuronx_distributed_training_torch.telemetry.trace import trace_steps
+
+    q, k, v, do, _, lse, delta = kt.main_path_tensors()
+    calls = {"flash_fwd": lambda a: fa.flash_fwd(*a[:3]),
+             "flash_dq": lambda a: fa.flash_dq(*a, lse, delta),
+             "flash_dkv": lambda a: fa.flash_dkv(*a, lse, delta)}
+    base = (q, k, v, do)
+    out = {}
+    for name, fn in calls.items():
+        laid = tuple(strided_like(torch, t, st) for t, st in zip(base, strides.get(name, [])))
+        laid = laid + base[len(laid):]
+        with torch.no_grad(), ClockSampler() as clk:
+            ms_c = kt.cuda_ms(lambda: fn(base))
+            ms_l = kt.cuda_ms(lambda: fn(laid))
+            ms_cold = cold_ms(torch, lambda: fn(laid), kt.ITERS)
+        events = []
+
+        def step(i):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(kt.ITERS):
+                fn(laid)
+            end.record()
+            torch.cuda.synchronize()
+            events.append(start.elapsed_time(end) / kt.ITERS)
+
+        with torch.no_grad():
+            fn(laid)
+            summary = trace_steps(step, 3, work / f"fidelity_{name}", top_k=50, cuda=True)
+        row = next((r for r in (summary or {}).get("top_ops", [])
+                    if r["op"].endswith(TRACE_KERNELS[name])), None)
+        out[name] = {"contiguous_ms": ms_c, "trainer_layout_ms": ms_l, "cold_l2_ms": ms_cold,
+                     "events_in_window_ms": sorted(events)[1],
+                     "profiler_ms": None if row is None else row["mean_us"] / 1e3,
+                     "sm_mhz": clk.mean()[0], "watts": clk.mean()[1]}
+        log(f"trace 18a fidelity {name}: contiguous {ms_c:.4f} ms, the trainer's layout "
+            f"{strides.get(name)} {ms_l:.4f} ms, with the L2 flushed before each launch "
+            f"{ms_cold:.4f} ms (SM {out[name]['sm_mhz']:.0f} MHz, "
+            f"{out[name]['watts']:.0f} W); inside a profiler window CUDA events "
+            f"{out[name]['events_in_window_ms']:.4f} ms, the profiler "
+            f"{out[name]['profiler_ms']} ms [{card}]")
+    del q, k, v, do, lse, delta, base
+    return out
+
+
+def window_steps() -> set:
+    t, p = TRACE_WINDOW, PROFILE_WINDOW
+    return (set(range(t["start_step"], t["start_step"] + t["num_steps"]))
+            | set(range(p["start"], p["start"] + p["steps"])))
+
+
+def phase_trace(torch, fa, kt, cell, times: dict, card: str) -> dict:
+    """18a: phase 16a's cell for TRACE_STEPS steps with a
+    ``telemetry.trace`` window and a ``profile_start_step`` window, through
+    the CLI at ``log_every_n_steps: 1``: exact launches, the trace summary's
+    window, steps, op table (each flash kernel counted once a launch of the
+    window, its device time per launch against phase 3's), no overlap
+    without collectives, the raw trace removed, the profile's trace kept,
+    the repository's ``tools/trace_report.py`` rendering the summary, and no
+    synchronizing call inside a dispatch outside the two windows."""
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_trace"
+    shutil.rmtree(exp, ignore_errors=True)
+    t, p = TRACE_WINDOW, PROFILE_WINDOW
+    args = cell.CLI_ARGS + [
+        "--set", f"trainer.max_steps={TRACE_STEPS}", "--set", "trainer.log_every_n_steps=1",
+        "--set", f"exp_manager.exp_dir={exp}",
+        "--set", "exp_manager.telemetry.trace={enabled: true, start_step: %d, num_steps: %d}"
+        % (t["start_step"], t["num_steps"]),
+        "--set", f"exp_manager.profile_start_step={p['start']}",
+        "--set", f"exp_manager.profile_num_steps={p['steps']}"]
+    fa.reset_counters()
+    try:
+        with SyncWatch(torch, first=2) as watch, KernelProbe(torch, fa) as probe, \
+                ClockSampler() as clk:
+            trainer, history = cli.run(args)
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        call_ms = {k: probe.call_ms(k) for k in TRACE_KERNELS}
+        log_dir = trainer.exp.log_dir
+        summary_path = log_dir / "trace_summary.json"
+        summary = json.loads(summary_path.read_text()) if summary_path.exists() else None
+        records = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
+        run = json.loads((log_dir / "run_summary.json").read_text())
+        raw_left = (log_dir / "trace").exists()
+        profiles = sorted(x.name for x in (log_dir / "profile").glob("*.pt.trace.json")) \
+            if (log_dir / "profile").exists() else []
+        report = subprocess.run([sys.executable, str(REPO / "tools" / "trace_report.py"),
+                                 str(log_dir)], capture_output=True, text=True, timeout=120)
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    if summary is None:
+        fail("trace 18a: no trace_summary.json after the window")
+    if "GPU 0" not in summary.get("devices", []):
+        fail(f"trace 18a: the window asked for CUDA activity and the trace holds none: "
+             f"devices {summary.get('devices')}")
+    expect = cell.LAYERS * cell.MICROBATCHES * TRACE_STEPS
+    in_window = cell.LAYERS * cell.MICROBATCHES * t["num_steps"]
+    rows = {k: next((r for r in summary["top_ops"] if r["op"].endswith(op)), None)
+            for k, op in TRACE_KERNELS.items()}
+    step_time = {r["step"] - 1: r["step_time"] for r in records}  # record step n: n steps done
+    traced = sorted(int(s) for s in summary["steps"])
+    window_wall = sum(step_time[s] for s in traced)
+    # the window's first step also pays the profiler's start: the busy share
+    # is a step's device seconds over the later traced steps' median wall
+    busy = (summary["total_device_seconds"] / len(traced)) / _median(
+        [step_time[s] for s in traced[1:]])
+    profiled = [s for s in sorted(step_time) if s in window_steps() and s not in traced]
+    log(f"trace 18a: step_time of the traced steps {[step_time[s] for s in traced]} s against "
+        f"the untraced {[step_time[s] for s in sorted(step_time) if s not in window_steps()]} "
+        f"s (the profiled {[step_time[s] for s in profiled]} s) [{card}]")
+    log(f"trace 18a: window {summary['window']}: {summary['num_op_events']} device ops on "
+        f"{summary['devices']}, device {summary['total_device_seconds']:.4f} s in "
+        f"{window_wall:.4f} s of wall (the first step with the profiler's start): busy share "
+        f"{busy:.4f} a step; achieved_overlap {summary['achieved_overlap']}; per step "
+        f"{json.dumps(summary['steps'])}; SM clock {clk.mean()[0]:.0f} MHz, "
+        f"{clk.mean()[1]:.0f} W over the run [{card}]")
+    for r in summary["top_ops"][:10]:
+        log(f"trace 18a: top op {r['op'][:90]}: {r['count']} launches, "
+            f"{r['total_seconds'] * 1e3:.3f} ms, mean {r['mean_us']:.1f} us, share "
+            f"{r['share']:.4f} [{card}]")
+    per_launch, events_ms = {}, {}
+    per_step = cell.LAYERS * cell.MICROBATCHES
+    for k, op in TRACE_KERNELS.items():
+        row = rows[k]
+        if row is None:
+            fail(f"trace 18a: {op} is not in the op table: "
+                 f"{[r['op'] for r in summary['top_ops']]}")
+        per_launch[k] = row["mean_us"] / 1e3
+        # CUDA events around the trainer's own launches: the window's, and
+        # the last two (untraced) steps', the gate's reference (an event
+        # pair also times any wait of the card for the host between its
+        # record and the launch, and the profiler slows the host in the
+        # window)
+        lo = t["start_step"] * per_step
+        in_win = call_ms[k][lo:lo + in_window]
+        late = call_ms[k][-2 * per_step:]
+        win_ms = sum(in_win) / max(len(in_win), 1)
+        events_ms[k] = sum(late) / max(len(late), 1)
+        log(f"trace 18a: {row['op']}: {row['count']} launches in the window (expected "
+            f"{in_window}), {per_launch[k]:.4f} ms a launch by the profiler, {win_ms:.4f} "
+            f"ms by CUDA events around the same launches, {events_ms[k]:.4f} ms in "
+            f"the last two untraced steps; phase 3's (warm, repeated launches) "
+            f"{times[k]['ms']:.4f} ms ({per_launch[k] / times[k]['ms'] - 1:+.3%}); operand "
+            f"strides in the trainer {probe.strides.get(k)} [{card}]")
+    fidelity = trace_fidelity(torch, fa, kt, cell.WORK, probe.strides, card)
+    outside = [s for s in watch.syncs if s[0] not in window_steps()]
+    log(f"trace 18a: launches {launches} fallbacks {fallbacks} (expected {expect} each); "
+        f"host syncs inside a dispatch outside the windows: {len(outside)} (inside: "
+        f"{len(watch.syncs) - len(outside)}); profile window files {profiles}")
+    if len(history) != TRACE_STEPS or not all(math.isfinite(r["loss"]) for r in history):
+        fail(f"trace 18a: {len(history)} steps or a non-finite loss")
+    if any(n != expect for n in launches.values()) or fallbacks["core"]:
+        fail(f"trace 18a: launches {launches} (fallbacks {fallbacks}), expected {expect} each")
+    if summary["window"] != TRACE_WINDOW or traced != list(range(
+            t["start_step"], t["start_step"] + t["num_steps"])):
+        fail(f"trace 18a: window {summary['window']}, steps {traced}")
+    for s, d in summary["steps"].items():
+        if not 0 < d["device_seconds"] <= step_time[int(s)]:
+            fail(f"trace 18a: step {s}'s device time {d['device_seconds']} s is not within "
+                 f"its wall time {step_time[int(s)]} s")
+    if summary["achieved_overlap"] is not None or summary["collective_seconds"]:
+        fail(f"trace 18a: collectives on one card: {summary['overlap_by_class']}")
+    for k, op in TRACE_KERNELS.items():
+        if rows[k]["count"] != in_window:
+            fail(f"trace 18a: {op} counted {rows[k]['count']} in the window, expected "
+                 f"{in_window}")
+        # the profiler's device time a launch against CUDA events around the
+        # trainer's untraced launches (phase 3's isolated, warm time reads
+        # 12-19% below the backward kernels' in the loop: printed beside)
+        if abs(per_launch[k] / events_ms[k] - 1) > TRACE_TIME_RTOL:
+            fail(f"trace 18a: {op} takes {per_launch[k]:.4f} ms a launch in the trace, "
+                 f"{events_ms[k]:.4f} ms by CUDA events around the untraced steps' launches "
+                 f"(phase 3: {times[k]['ms']:.4f} ms; tolerance {TRACE_TIME_RTOL:.0%})")
+    if raw_left:
+        fail("trace 18a: the raw trace/ directory was left behind (keep_raw is off)")
+    if not profiles:
+        fail("trace 18a: the profile window wrote no trace under profile/")
+    if (run.get("trace") or {}).get("window") != TRACE_WINDOW:
+        fail(f"trace 18a: run_summary.json's trace section: {run.get('trace')}")
+    if report.returncode != 0 or "device-time trace (steps 2..4)" not in report.stdout:
+        fail(f"trace 18a: tools/trace_report.py exited {report.returncode}:\n"
+             f"{(report.stdout + report.stderr)[-2000:]}")
+    if outside:
+        fail(f"trace 18a: host syncs inside a dispatch outside the windows: {outside[:12]}")
+    out = {"launches": launches, "per_launch_ms": per_launch, "events_ms": events_ms,
+           "busy_share": busy, "fidelity": fidelity,
+           "steps": summary["steps"], "step_time": step_time,
+           "top_ops": summary["top_ops"][:10], "phase_seconds": time.perf_counter() - t_phase}
+    log(f"trace 18a: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def compute_bubble(pipe) -> str:
+    """The pipeline section's idle share with the stage hops counted idle:
+    ``1 - compute / (lanes x window)``.  JAX's measured bubble counts a
+    collective's time busy; an NCCL ``SendRecv`` kernel runs while it waits
+    for its peer, so on the card the wait hides in it."""
+    if not pipe:
+        return ""
+    compute = sum(st["compute_seconds"] for st in pipe["stages"].values())
+    share = 1 - compute / (pipe["num_lanes"] * pipe["window_seconds"])
+    return f"; idle share with the hops counted idle {share:.6f}"
+
+
+def multi_trace(cell, nproc: int, name: str, *extra: str) -> dict:
+    """Phase 4's cell under torchrun on ``nproc`` cards for MULTI_STEPS
+    steps with MULTI_TRACE's window and the state digest."""
+    rep = torchrun_cell(cell, nproc, cell.WORK / f"exp_{name}", 900, "--steps",
+                        str(MULTI_STEPS), "--digest", "--set",
+                        f"exp_manager.telemetry.trace={MULTI_TRACE}", *extra)
+    for what, tr in (("window", rep["trace"]), ("steady", rep["trace_steady"])):
+        tr = tr or {}
+        by = tr.get("overlap_by_class") or {}
+        steps = len(tr.get("steps") or {}) * nproc  # the traced steps, on every rank
+        log(f"trace 18b {name} ({what}): achieved_overlap {tr.get('achieved_overlap')} "
+            f"exposed {tr.get('exposed_collective_seconds')} s of "
+            f"{tr.get('collective_seconds')} s; all-reduce {by.get('all-reduce')}; "
+            f"all-gather {by.get('all-gather')} "
+            f"({(by.get('all-gather') or {}).get('count', 0) / max(steps, 1)} a step a rank); "
+            f"collective-permute {by.get('collective-permute')}; device "
+            f"{tr.get('total_device_seconds')} s over {steps} rank-steps; pipeline "
+            f"{json.dumps({k: (tr.get('pipeline') or {}).get(k) for k in PIPE_KEYS})}"
+            f"{compute_bubble(tr.get('pipeline'))}")
+    log(f"trace 18b {name}: losses {rep['loss']} grad norms {rep['grad_norm']} steps "
+        f"{rep['step_seconds']}")
+    tr = rep["trace"] or {}
+    if not tr or not any(d.startswith("GPU") for d in tr.get("devices", [])):
+        fail(f"trace 18b {name}: no trace summary with device lanes: {tr.get('devices')}")
+    if not rep["trace_steady"]:
+        fail(f"trace 18b {name}: no steady-state summary (raw traces kept?)")
+    return rep
+
+
+def phase_trace_multi(torch, cell, card: str) -> dict | None:
+    """18b (two or more cards): phase 7's torchrun cell at dp 2 (and dp 4)
+    per leaf and bucketed with a trace window in both, bit for bit
+    (losses, grad norms, every rank's state digest), recording each
+    collective class's overlap and exposed seconds, the step time and the
+    all-gathers a step; and pp 2 with and without the double buffer, bit
+    for bit, with the measured bubble beside the predicted one."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"trace 18b: this machine shows {n_cards} card; the multi-card trace runs need two "
+            f"or more and did not run")
+        return None
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    pairs = [(f"dp{n}", n, (), ("--set", f"distributed_strategy.overlap={{zero1_bucket_mb: "
+                                 f"{BUCKET_MB}, prefetch_ag: true}}"))
+             for n in (2, 4) if n <= n_cards]
+    pairs.append(("pp2", 2, ("--set", "distributed_strategy.pipeline_model_parallel_size=2",
+                             "--set", "distributed_strategy.pipeline.schedule=1f1b"),
+                  ("--set", "distributed_strategy.overlap={pp_double_buffer: true}")))
+    for tag, n, base, change in pairs:
+        a = multi_trace(cell, n, f"{tag}_base", *base)
+        b = multi_trace(cell, n, f"{tag}_overlap", *base, *change)
+        out["runs"][tag] = {"base": a, "overlap": b}
+        if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]) or \
+                [r["state_digest"] for r in a["ranks"]] != [r["state_digest"] for r in b["ranks"]]:
+            fail(f"trace 18b {tag}: the overlap run is not the base run bit for bit: "
+                 f"{(b['loss'], b['grad_norm'])} vs {(a['loss'], a['grad_norm'])}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"trace 18b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -4813,6 +5252,14 @@ def main() -> None:
                 cadence = phase_cadence(torch, fa, cell, history4, card)
                 free_cuda(torch)
                 phase_convert_planes(torch, fa, cell, cadence, card)
+        if "18b" in only:
+            phase_trace_multi(torch, cell, card)
+        if "18" in only:
+            times = phase_times(torch, fa, kt, card, peaks)
+            free_cuda(torch)
+            phase_trace(torch, fa, kt, cell, times, card)
+            free_cuda(torch)
+            phase_trace_multi(torch, cell, card)
         for name, fn in (("13a", lambda: phase_pp_virtual(torch, fa, kt, card, peaks)),
                          ("13b", lambda: phase_pp_chunked_vp(torch, fa, card)),
                          ("13c", lambda: phase_pp_zb(torch, fa, card)),
@@ -4878,6 +5325,10 @@ def main() -> None:
     fit = phase_fit(torch, fa, cell, history4, card)
     free_cuda(torch)
     conv = phase_convert_planes(torch, fa, cell, fit["cadence"], card)
+    free_cuda(torch)
+    trace = phase_trace(torch, fa, kt, cell, times, card)
+    free_cuda(torch)
+    trace_multi = phase_trace_multi(torch, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -4947,7 +5398,13 @@ def main() -> None:
                                      "launches"][kname],
                                  "convert_in_memory": conv["convert"]["runs"]["memory"][
                                      "launches"][kname],
-                                 "fit_planes": conv["planes"]["launches"][kname]},
+                                 "fit_planes": conv["planes"]["launches"][kname],
+                                 "fit_trace": trace["launches"][kname],
+                                 **({} if trace_multi is None else
+                                    {f"trace_{tag}_{how}": [r["launches"][kname]
+                                                            for r in run[how]["ranks"]]
+                                     for tag, run in trace_multi["runs"].items()
+                                     for how in ("base", "overlap")})},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

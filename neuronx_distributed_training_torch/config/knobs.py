@@ -1,19 +1,15 @@
-"""Knob schemas of blocks whose subsystems are not ported yet (copies of
-the JAX package's parsers, with its texts): ``exp_manager.elastic``
+"""Knob schema of a block whose subsystem is not ported yet (a copy of the
+JAX package's parser, with its texts): ``exp_manager.elastic``
 (``trainer/elastic.py::ElasticConfig``: replan-on-resume, the SIGTERM grace
-window, save retries) and ``distributed_strategy.overlap``
-(``optim/overlap.py::OverlapConfig``: bucketed ZeRO-1, prefetched
-all-gathers, the pipeline's double buffer, XLA's scheduler flags).
-``config/loader.py::validate_config`` runs them, so a typo'd knob dies at
-load as in JAX; the trainer logs both blocks as ignored (ROADMAP queue 1
-entry 8).
+window, save retries).  ``config/loader.py::validate_config`` runs it, so a
+typo'd knob dies at load as in JAX; the trainer logs the block as ignored
+(ROADMAP queue 1, beside entry 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import difflib
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping
 
 #: ``exp_manager.elastic`` knob -> default (JAX's)
 ELASTIC_KNOBS: dict[str, Any] = {
@@ -102,67 +98,3 @@ class ElasticConfig:
                 f"{ec.replan_top_k}"
             )
         return ec
-
-
-# ---------------------------------------------------------------------------
-# manifest
-# ---------------------------------------------------------------------------
-
-
-_OVERLAP_KEYS = ("zero1_bucket_mb", "prefetch_ag", "pp_double_buffer",
-                 "xla_lhs")
-
-
-@dataclasses.dataclass(frozen=True)
-class OverlapConfig:
-    """Validated ``distributed_strategy.overlap`` block (all levers off by
-    default — the engineered paths are opt-in and graph-changing)."""
-
-    zero1_bucket_mb: float = 0.0  # 0 = monolithic; >0 = coalesce grad groups
-                                  # until a bucket holds >= this many MiB of
-                                  # fp32 master weights
-    prefetch_ag: bool = True      # barrier-chain buckets (no-op when
-                                  # zero1_bucket_mb == 0)
-    pp_double_buffer: bool = False  # hoist pipeline stage-hop permutes out of
-                                    # their compute conds
-    xla_lhs: bool = False         # export the TPU latency-hiding flag set
-
-    @classmethod
-    def from_config(cls, block: Optional[dict]) -> "OverlapConfig":
-        if block is None:
-            return cls()
-        if not isinstance(block, dict):
-            raise ValueError(
-                "distributed_strategy.overlap must be a mapping, got "
-                f"{type(block).__name__}"
-            )
-        for k in block:
-            if k not in _OVERLAP_KEYS:
-                near = difflib.get_close_matches(str(k), _OVERLAP_KEYS, n=1)
-                hint = f" — did you mean '{near[0]}'?" if near else ""
-                raise ValueError(
-                    f"unknown distributed_strategy.overlap key '{k}'{hint} "
-                    f"(valid: {', '.join(_OVERLAP_KEYS)})"
-                )
-        mb = block.get("zero1_bucket_mb", 0.0)
-        if isinstance(mb, bool) or not isinstance(mb, (int, float)):
-            raise ValueError(
-                "distributed_strategy.overlap.zero1_bucket_mb must be a "
-                f"number (MiB), got {type(mb).__name__}"
-            )
-        if mb < 0:
-            raise ValueError(
-                "distributed_strategy.overlap.zero1_bucket_mb must be >= 0, "
-                f"got {mb}"
-            )
-        out = {"zero1_bucket_mb": float(mb)}
-        for k in ("prefetch_ag", "pp_double_buffer", "xla_lhs"):
-            if k in block:
-                v = block[k]
-                if not isinstance(v, bool):
-                    raise ValueError(
-                        f"distributed_strategy.overlap.{k} must be a bool, "
-                        f"got {type(v).__name__}"
-                    )
-                out[k] = v
-        return cls(**out)

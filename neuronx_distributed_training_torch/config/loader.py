@@ -6,8 +6,9 @@ to the same dict.  ``validate_config`` keeps the checks that need nothing
 but the config (the Megatron block-layout rules among them), and validates
 the ``exp_manager.checkpoint`` block, the whole ``exp_manager.telemetry``
 block (``telemetry/config.py::TelemetryConfig``, its nested blocks
-included), the ``exp_manager.elastic`` and ``distributed_strategy.overlap``
-blocks (``config/knobs.py``) and the ``distributed_strategy.pipeline``
+included), the ``exp_manager.elastic`` block (``config/knobs.py``), the
+``distributed_strategy.overlap`` block (``optim/overlap.py``) and the
+``distributed_strategy.pipeline``
 block (a mapping with ``schedule`` alone, one of the five schedules, and a
 manual-backward schedule's config-shape gate,
 ``parallel/pipeline.py::blocked_1f1b_reason``), each with the JAX
@@ -356,10 +357,10 @@ def validate_config(cfg: ConfigDict) -> None:
         )
 
     # distributed_strategy.overlap: the engineered-overlap knobs (JAX's schema
-    # and cross-knob rules; bucketed ZeRO-1 is not ported)
+    # and cross-knob rules; optim/overlap.py acts on them)
     overlap_raw = ds.get("overlap")
     if overlap_raw is not None:
-        from neuronx_distributed_training_torch.config.knobs import OverlapConfig
+        from neuronx_distributed_training_torch.optim.overlap import OverlapConfig
 
         ov = OverlapConfig.from_config(
             dict(overlap_raw) if isinstance(overlap_raw, Mapping) else overlap_raw)

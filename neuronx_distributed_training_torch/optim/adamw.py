@@ -46,7 +46,10 @@ on restore).  ``adamw_update`` then takes the full, already all-reduced
 gradients (identical on every rank, so are the norm and the finite flag),
 updates this rank's slice and all-gathers the new param slices in the param
 dtype.  Elementwise arithmetic on a slice gives the same bits as on the
-whole leaf, so ZeRO-1 on and off train bit for bit alike.
+whole leaf, so ZeRO-1 on and off train bit for bit alike.  With a bucket
+plan (``optim/overlap.py``, ``distributed_strategy.overlap.zero1_bucket_mb``)
+the same per-leaf body runs bucket by bucket and each bucket's slices go
+out in one packed gather, bit for bit the per-leaf gathers.
 
 Tensor parallelism: the norm sums each sharded leaf's slices over tp and
 each replicated leaf once; a kv head that several ranks hold (tp above the
@@ -83,12 +86,15 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from neuronx_distributed_training_torch.optim.overlap import finish_gather, issue_gather
 from neuronx_distributed_training_torch.parallel.pipeline import is_stage_leaf
 from neuronx_distributed_training_torch.parallel.sharding import owned_views
 from neuronx_distributed_training_torch.parallel.tensor_parallel import active as tp_active
 from neuronx_distributed_training_torch.telemetry.tensorstats import (
     group_step_vectors,
     init_tensorstats_state,
+    leaf_stats_vec,
+    merge_step_vecs,
     tensorstats_update,
 )
 
@@ -202,7 +208,7 @@ def _is_expert(layout) -> bool:
 def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = True,
                     policy=None, health: bool = False,
                     layouts: Optional[dict] = None, ep=None, ema: bool = False,
-                    tensorstats=None) -> dict:
+                    tensorstats=None, bucket_groups: tuple = ()) -> dict:
     """The placement of every ``init_opt_state`` leaf on the data axis: a
     dim (``Shard(dim)``) or ``None`` (replicated).  ``step`` and the health
     counters are replicated.  ``layouts`` (``parallel/sharding.py``) gives
@@ -228,7 +234,8 @@ def opt_state_specs(params: dict[str, torch.Tensor], dp: int, *, zero1: bool = T
         out["health"] = {k: None for k in HEALTH_STATE_KEYS}
     if tensorstats is not None:
         # replicated, as JAX's tensorstats_state_specs: the vectors are tiny
-        out["tensorstats"] = {k: None for k in init_tensorstats_state(tensorstats, params)}
+        out["tensorstats"] = {k: None for k in init_tensorstats_state(
+            tensorstats, params, bucket_groups=bucket_groups)}
     return out
 
 
@@ -323,7 +330,7 @@ def data_axis_of(layout, dp, ep):
 def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = False,
                    specs: Optional[dict] = None, dp=None, tp=None,
                    layouts: Optional[dict] = None, ep=None, ema: bool = False,
-                   tensorstats=None) -> dict:
+                   tensorstats=None, bucket_groups: tuple = ()) -> dict:
     """Step counter (a 0-d int64 tensor on the params' device), moments in
     the optimizer dtype, fp32 master weights only when the params are stored
     in another dtype, (``ema``) the weight EMA in the optimizer dtype, seeded
@@ -334,7 +341,8 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
     and ``layouts`` (an expert leaf's over ``ep.data``).  ``tensorstats``
     (an enabled ``TensorStatsConfig``) adds the observatory's zero vectors,
     one per phase and layer group of ``params`` (``telemetry/
-    tensorstats.py``)."""
+    tensorstats.py``), and with its ``buckets`` one per name of
+    ``bucket_groups`` (the bucket plan's buckets that gather)."""
     odt = policy.optimizer_dtype
     dims = (specs or {}).get("mu", {})
     layouts = layouts or {}
@@ -358,7 +366,8 @@ def init_opt_state(params: dict[str, torch.Tensor], policy, *, health: bool = Fa
     if health:
         state["health"] = init_health_state(device)
     if tensorstats is not None:
-        state["tensorstats"] = init_tensorstats_state(tensorstats, params, device=device)
+        state["tensorstats"] = init_tensorstats_state(tensorstats, params, device=device,
+                                                      bucket_groups=bucket_groups)
     return state
 
 
@@ -455,7 +464,7 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
                  grad_group_fn: Optional[Callable] = None, skip_nonfinite: bool = False,
                  extra_finite=None, dp=None, tp=None, tp_sharded=frozenset(),
                  pp=None, ep=None, ema: Optional[EMAConfig] = None,
-                 tensorstats=None) -> dict:
+                 tensorstats=None, bucket_plan=None, prefetch_ag: bool = True) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
     metrics: ``grad_norm`` (pre-clip), and with a health hook
     ``updates_finite`` (a 0-d bool tensor) and, with ``grad_group_fn``,
@@ -472,7 +481,12 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     ``opt_state["tensorstats"]``) the per-group pre- and post-clip
     gradient statistics, folded into that state (kept on a skip) and
     returned under ``metrics["tensorstats"]``, the pre-clip rms from the
-    clipping norm's squared sums.  Nothing is read back to the host."""
+    clipping norm's squared sums, and with ``buckets`` the payload of each
+    bucket's combined gather; ``bucket_plan`` (``optim/overlap.py::
+    BucketPlan``) runs the update bucket by bucket with one combined gather
+    a bucket (issued asynchronously and waited for after the next bucket's
+    update under ``prefetch_ag``), bit for bit the per-leaf path's.
+    Nothing is read back to the host."""
     grads = {n: g.float() for n, g in grads.items()}
     metrics: dict[str, Any] = {}
     group_sq = grouped_sq_norms(grads, grad_group_fn or (lambda n: "all"), tp, tp_sharded, pp,
@@ -502,7 +516,7 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         else:
             torch.where(keep, new, dst, out=dst)
 
-    ts_pre = None
+    ts_pre = ts_post = None
     if tensorstats is not None and tensorstats.pre_clip:
         ts_pre = group_step_vectors(grads, grad_group_fn, tensorstats, group_sq=group_sq, tp=tp,
                                     sharded=tp_sharded, pp=pp, ep=ep)
@@ -510,14 +524,9 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
         clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-6), max=1.0)
         for g in grads.values():
             g.mul_(clip)  # fp32 grads are clipped in place (the caller's buffers)
-    if tensorstats is not None:
-        ts_post = (group_step_vectors(grads, grad_group_fn, tensorstats, tp=tp,
-                                      sharded=tp_sharded, pp=pp, ep=ep)
-                   if tensorstats.post_clip else None)
-        new_ts, metrics["tensorstats"] = tensorstats_update(
-            opt_state["tensorstats"], tensorstats, pre=ts_pre, post=ts_post)
-        for k, v in new_ts.items():
-            put(opt_state["tensorstats"][k], v)
+    if tensorstats is not None and tensorstats.post_clip:
+        ts_post = group_step_vectors(grads, grad_group_fn, tensorstats, tp=tp,
+                                     sharded=tp_sharded, pp=pp, ep=ep)
     dev0 = gnorm.device
     step = torch.as_tensor(opt_state["step"], dtype=torch.int64, device=dev0) + 1
     b1, b2 = cfg.beta1, cfg.beta2
@@ -536,8 +545,12 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     has_master = "master" in opt_state
     lr = torch.as_tensor(lr, dtype=torch.float32)
     odt = policy.optimizer_dtype
-    for n, p in params.items():
-        g = grads[n]
+
+    def leaf_step(n: str) -> Optional[torch.Tensor]:
+        """The AdamW body of one leaf (both paths run it): its moments,
+        master and EMA in place; a whole leaf's params too, else returns
+        this rank's updated ZeRO-1 param slice for a gather."""
+        p, g = params[n], grads[n]
         m_state = opt_state["master"][n] if has_master else p
         sh = shard_of(opt_state["mu"][n])
         if sh is not None:
@@ -562,11 +575,62 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
             put(old, (d * old.float() + (1.0 - d) * new_master).to(odt))
         if sh is None:
             put(p, new_master.to(p.dtype))
-        else:
-            new_p = new_master.to(p.dtype)
-            if keep is not None:
-                new_p = torch.where(keep, new_p, p.narrow(sh[0], sh[1], sh[2]))
-            lay = tp_sharded.get(n) if isinstance(tp_sharded, dict) else None
-            data_axis_of(lay, dp, ep).all_gather_into(p, new_p, sh[0])
+            return None
+        new_p = new_master.to(p.dtype)
+        return new_p if keep is None else torch.where(keep, new_p, p.narrow(*sh))
+
+    def gather_leaf(n: str, new_p: torch.Tensor) -> None:
+        lay = tp_sharded.get(n) if isinstance(tp_sharded, dict) else None
+        data_axis_of(lay, dp, ep).all_gather_into(params[n], new_p,
+                                                  shard_of(opt_state["mu"][n])[0])
+
+    ts_bucket = None
+    if bucket_plan is None:
+        for n in params:
+            new_p = leaf_step(n)
+            if new_p is not None:
+                gather_leaf(n, new_p)
+    else:
+        # engineered overlap (optim/overlap.py): one combined gather a
+        # bucket; under prefetch_ag bucket k's gather is waited for after
+        # bucket k + 1's update is queued
+        if tensorstats is not None and tensorstats.buckets:
+            ts_bucket = {}
+        in_flight = None
+
+        def unpack(g):
+            payloads = finish_gather(g, params, bucket_plan.dp_total)
+            if ts_bucket is not None and payloads:
+                vec = None
+                for packed in payloads:
+                    v = leaf_stats_vec(packed, tensorstats)
+                    vec = v if vec is None else merge_step_vecs(vec, v)
+                ts_bucket[g.bucket.name] = vec
+
+        packed_names = {a.name for b in bucket_plan.buckets for a in b.ag}
+        for bucket in bucket_plan.buckets:
+            slices = {}
+            for n in bucket.members:
+                new_p = leaf_step(n)
+                if new_p is None:
+                    continue
+                if n in packed_names:
+                    slices[n] = new_p
+                else:
+                    gather_leaf(n, new_p)  # tp / ep / stage leaves: per leaf
+            g = issue_gather(bucket, slices, dp, prefetch=prefetch_ag)
+            if not prefetch_ag:
+                unpack(g)
+                continue
+            if in_flight is not None:
+                unpack(in_flight)
+            in_flight = g
+        if in_flight is not None:
+            unpack(in_flight)
+    if tensorstats is not None:
+        new_ts, metrics["tensorstats"] = tensorstats_update(
+            opt_state["tensorstats"], tensorstats, pre=ts_pre, post=ts_post, bucket=ts_bucket)
+        for k, v in new_ts.items():
+            put(opt_state["tensorstats"][k], v)
     opt_state["step"] = step if keep is None else torch.where(keep, step, step - 1)
     return metrics

@@ -379,22 +379,29 @@ class PipelineParallel:
         return cls(rank=r, size=n, group=pm.get_group(),
                    prev=ranks[(r - 1) % n], next=ranks[(r + 1) % n])
 
-    def p2p(self, sends: list, recvs: list) -> list:
+    def p2p(self, sends: list, recvs: list, *, wait: bool = True):
         """One batch of stage hops: each ``(offset, tensor)`` of ``sends``
         goes to the next (+1) or previous (-1) stage, and each ``(offset,
         buffer)`` of ``recvs`` is filled from that stage, all in one
-        ``batch_isend_irecv`` that this waits for; returns the buffers.  At
-        pp 2 both neighbours are one rank: the two sides post their hops
+        ``batch_isend_irecv`` that this waits for; returns the buffers
+        (``wait=False``: posted and not waited for, returns ``(buffers,
+        works, sent tensors)``; each work must then be waited for once).
+        At pp 2 both neighbours are one rank: the two sides post their hops
         to it in the same order (activations first), which pairs them."""
         import torch.distributed as dist
 
         peer = {1: self.next, -1: self.prev}
-        ops = [dist.P2POp(dist.isend, t.contiguous(), peer[off], group=self.group)
-               for off, t in sends]
+        sent = [t.contiguous() for _, t in sends]
+        ops = [dist.P2POp(dist.isend, t, peer[off], group=self.group)
+               for (off, _), t in zip(sends, sent)]
         ops += [dist.P2POp(dist.irecv, buf, peer[off], group=self.group) for off, buf in recvs]
-        for req in dist.batch_isend_irecv(ops):
+        works = dist.batch_isend_irecv(ops)
+        bufs = [buf for _, buf in recvs]
+        if not wait:
+            return bufs, works, sent
+        for req in works:
             req.wait()
-        return [buf for _, buf in recvs]
+        return bufs
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """SUM over the pipe axis, in place."""

@@ -28,9 +28,11 @@ batch of hops on both sides, each batch waits only for work of earlier
 ticks and two neighbours never both wait on a send (at pp 2 both are one
 rank: the two sides post in one order, activations first).  :func:`drive`
 answers the yields over the pipe group (``parallel/mesh.py::
-PipelineParallel``, batched ``isend`` / ``irecv``); :func:`loopback`
-answers those of every virtual rank in one process (the tests, and one card
-in ``chip_smoke.py``).
+PipelineParallel``, batched ``isend`` / ``irecv``; with
+``distributed_strategy.overlap.pp_double_buffer`` each batch is waited for
+at its first read, not at its tick's end); :func:`loopback` answers those of
+every virtual rank in one process (the tests, and one card in
+``chip_smoke.py``).
 
 Schedules (every one gives the same loss and gradients, bit for bit: a
 schedule is an order of work, and each rank runs a chunk's backwards in
@@ -739,6 +741,40 @@ class Stage:
                 if not is_stage_leaf(n) or int(n.split(".")[1]) in mine}
 
 
+class _Batch:
+    """One tick's batch of hops posted and not waited for
+    (``pp_double_buffer``): its works, waited for once (a gloo receive's
+    second wait would wait for another message), and the tensors it sends,
+    kept alive until then."""
+
+    def __init__(self, works: list, sent: list):
+        self.works, self.sent = works, sent
+
+    def wait(self) -> None:
+        works, self.works, self.sent = self.works, [], []
+        for w in works:
+            w.wait()
+
+
+class Hop:
+    """A received stage hop still in flight: its buffer and its batch,
+    waited for at the first read."""
+
+    __slots__ = ("tensor", "batch")
+
+    def __init__(self, tensor: torch.Tensor, batch: _Batch):
+        self.tensor, self.batch = tensor, batch
+
+    def wait(self) -> torch.Tensor:
+        self.batch.wait()
+        return self.tensor
+
+
+def _take(received):
+    """A received activation or cotangent, waited for if still in flight."""
+    return received.wait() if isinstance(received, Hop) else received
+
+
 def _p2p(sends: list, recvs: list):
     """Yield one batch of stage hops (none when both lists are empty) and
     return the received tensors."""
@@ -815,7 +851,7 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
         nonlocal loss_acc, aux_acc
         mb = microbatches[m]
         x = None if is_first(c) else (saved[(c, m)] if (c, m) in saved
-                                      else inbox.pop(("f", c, m)))
+                                      else _take(inbox.pop(("f", c, m))))
         watch = linear_ops.split_weight_grads(split) if split is not None and graph \
             else contextlib.nullcontext()
         with clock(), (contextlib.nullcontext() if graph else torch.no_grad()):
@@ -885,7 +921,7 @@ def stage_body(stage: Stage, microbatches: list, denominator, schedule: str, *,
                 out_of["f"] = out[0].detach()
                 del out
             elif kind == "b":
-                dy = None if is_last(c) else inbox.pop(("b", c, m))
+                dy = None if is_last(c) else _take(inbox.pop(("b", c, m)))
                 if keep_graph:
                     x_in, out = inflight.pop((c, m))
                 else:  # wavefront: recompute the stage with its graph
@@ -968,16 +1004,34 @@ def loopback_step(params, hooks, microbatches: list, denominator, schedule: str,
     return loss, fold_stage_grads([g for _, g in outs])
 
 
-def drive(body, pipe) -> Any:
+def drive(body, pipe, *, double_buffer: bool = False) -> Any:
     """Run one rank's body to its end, answering its stage hops over the
     pipe group (``parallel/mesh.py::PipelineParallel``); returns what the
-    body returns."""
+    body returns.  With ``double_buffer``
+    (``distributed_strategy.overlap.pp_double_buffer``) each tick's batch of
+    hops is posted and not waited for: the body gets :class:`Hop` s that it
+    waits for at their first read, so a hop overlaps the compute between
+    (on the card the compute stream waits on the communicator's there,
+    not at the tick's end; on the CPU the host runs on).  The batches are
+    the same, posted in the same order at the same ticks (the earliest the
+    exchange plan's pairing allows: a receive posted before its tick would
+    queue behind it on the communicator's stream), so the values are bit
+    for bit the same; every batch is waited for before this returns."""
+    pending: list = []
     try:
         request = next(body)
         while True:
             _, sends, recvs = request
-            request = body.send(pipe.p2p(sends, recvs))
+            if double_buffer:
+                bufs, works, sent = pipe.p2p(sends, recvs, wait=False)
+                pending.append(_Batch(works, sent))
+                got = [Hop(b, pending[-1]) for b in bufs]
+            else:
+                got = pipe.p2p(sends, recvs)
+            request = body.send(got)
     except StopIteration as stop:
+        for batch in pending:
+            batch.wait()
         return stop.value
 
 
@@ -1087,7 +1141,7 @@ def sum_over_pipe(loss, grads: dict, shared: dict, pipe, dev) -> tuple:
 def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
                 denominator_of: Callable, act_dtype, grad_dtype=torch.float32,
                 summed: Optional[Callable] = None, vp: int = 1,
-                aux_scale: Optional[float] = None) -> tuple:
+                aux_scale: Optional[float] = None, double_buffer: bool = False) -> tuple:
     """``(loss_and_grad, eval_step)`` of a trainer at pp > 1 over the pipe
     group ``pipe``: ``loss_and_grad(params, batch, leaves) -> (loss, {},
     grads)`` for ``trainer/step.py::make_train_step`` (every one of
@@ -1098,14 +1152,15 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
     ``denominator_of(batch)`` the whole global batch's valid-token count;
     with a dropout ``key`` (``utils/prng.py``) ``microbatches_of(batch,
     key)`` gives each microbatch its ``_rng``.  ``aux_scale``: the stages
-    return ``(x, aux)`` (see :class:`Stage`)."""
+    return ``(x, aux)`` (see :class:`Stage`); ``double_buffer``: the hops
+    are waited for at their first read (:func:`drive`)."""
 
     def loss_and_grad(params, batch, leaves: dict, key=None):
         stage = bind_stage(params, hooks, pipe.rank, pipe.size, leaves, act_dtype, vp,
                            aux_scale)
         mbs = microbatches_of(batch) if key is None else microbatches_of(batch, key)
         loss, grads = drive(stage_body(stage, mbs, denominator_of(batch), schedule,
-                                       grad_dtype=grad_dtype), pipe)
+                                       grad_dtype=grad_dtype), pipe, double_buffer=double_buffer)
         shared = {n: t for n, t in leaves.items() if not is_stage_leaf(n)}
         dev = next(iter(batch.values())).device
         loss, grads = sum_over_pipe(loss, grads, shared, pipe, dev)
@@ -1117,7 +1172,8 @@ def trainer_fns(hooks, pipe, schedule: str, *, microbatches_of: Callable,
     @torch.no_grad()
     def eval_step(params, batch):
         stage = bind_stage(params, hooks, pipe.rank, pipe.size, {}, act_dtype, vp, aux_scale)
-        loss = drive(forward_body(stage, microbatches_of(batch), denominator_of(batch)), pipe)
+        loss = drive(forward_body(stage, microbatches_of(batch), denominator_of(batch)), pipe,
+                     double_buffer=double_buffer)
         dev = next(iter(batch.values())).device
         loss = pipe.all_reduce_(torch.zeros(1, dtype=torch.float32, device=dev)
                                 if loss is None else loss.reshape(1))

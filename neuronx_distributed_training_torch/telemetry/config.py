@@ -20,10 +20,9 @@ their planes' own config dataclasses and parsers, JAX's with its texts:
 ``FleetConfig`` (``telemetry/fleet.py``), ``AlertRule`` / ``parse_alerts``
 (``telemetry/alerts.py``), ``ControlConfig`` (``trainer/control.py``),
 ``MemoryConfig`` (``telemetry/memory.py``), ``TensorStatsConfig``
-(``telemetry/tensorstats.py``), ``health`` (``telemetry/health.py``), and a
-copy of ``TraceConfig`` here: the trace plane is not ported (ROADMAP queue
-1 entry 8b), and the trainer logs its block as ignored.  None of the knobs
-adds a host sync between logging boundaries.
+(``telemetry/tensorstats.py``), ``health`` (``telemetry/health.py``) and
+``TraceConfig`` (``telemetry/trace.py``).  None of the knobs adds a host
+sync between logging boundaries.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from neuronx_distributed_training_torch.telemetry.fleet import FleetConfig
 from neuronx_distributed_training_torch.telemetry.health import HealthConfig
 from neuronx_distributed_training_torch.telemetry.memory import MemoryConfig
 from neuronx_distributed_training_torch.telemetry.tensorstats import TensorStatsConfig
+from neuronx_distributed_training_torch.telemetry.trace import TraceConfig
 from neuronx_distributed_training_torch.trainer.control import ControlConfig
 
 
@@ -58,78 +58,6 @@ TELEMETRY_KNOBS: dict[str, bool] = {
 #: nested (non-boolean) telemetry blocks, each validated by its own parser
 _NESTED_BLOCKS = ("health", "trace", "fleet", "alerts", "control", "memory",
                   "tensorstats")
-
-#: the nested blocks whose planes are not ported (their config is parsed)
-UNPORTED_BLOCKS = ("trace",)
-
-
-# -- a copy of the trace block's config dataclass (JAX's texts) -------------
-
-def _trace_knobs() -> set[str]:
-    return {f.name for f in dataclasses.fields(TraceConfig)}
-
-
-@dataclasses.dataclass(frozen=True)
-class TraceConfig:
-    enabled: bool = False
-    start_step: int = 1
-    num_steps: int = 3
-    keep_raw: bool = False
-
-    @classmethod
-    def from_config(cls, block: Any) -> "TraceConfig":
-        """Parse (and validate) an ``exp_manager.telemetry.trace`` block.
-
-        Accepts ``None`` (defaults: disabled), a bare bool (``trace: true``
-        enables the default window), or a mapping of knobs.  Unknown keys
-        raise with a did-you-mean hint — a typo'd window must not silently
-        trace nothing.
-        """
-        if block is None:
-            return cls()
-        if isinstance(block, bool):
-            return cls(enabled=block)
-        knobs = _trace_knobs()
-        if not isinstance(block, Mapping):
-            raise ValueError(
-                f"exp_manager.telemetry.trace must be a mapping of "
-                f"{sorted(knobs)} (or a single bool), got "
-                f"{type(block).__name__}"
-            )
-        unknown = set(block) - knobs
-        if unknown:
-            from neuronx_distributed_training_torch.config.loader import (
-                did_you_mean,
-            )
-
-            raise ValueError(
-                f"unknown exp_manager.telemetry.trace keys {sorted(unknown)}; "
-                f"supported: {sorted(knobs)}" + did_you_mean(unknown, knobs)
-            )
-        values = dict(block)
-        for key in ("enabled", "keep_raw"):
-            if key in values and not isinstance(values[key], bool):
-                raise ValueError(
-                    f"exp_manager.telemetry.trace.{key} must be a boolean, "
-                    f"got {values[key]!r}"
-                )
-        out = cls(
-            enabled=bool(values.get("enabled", cls.enabled)),
-            start_step=int(values.get("start_step", cls.start_step)),
-            num_steps=int(values.get("num_steps", cls.num_steps)),
-            keep_raw=bool(values.get("keep_raw", cls.keep_raw)),
-        )
-        if out.start_step < 0:
-            raise ValueError(
-                f"exp_manager.telemetry.trace.start_step must be >= 0, "
-                f"got {out.start_step}"
-            )
-        if out.num_steps < 1:
-            raise ValueError(
-                f"exp_manager.telemetry.trace.num_steps must be >= 1, "
-                f"got {out.num_steps}"
-            )
-        return out
 
 
 # -- the block --------------------------------------------------------------
@@ -210,11 +138,10 @@ class TelemetryConfig:
         return out
 
     def unported(self) -> list[str]:
-        """The knobs and blocks set away from their defaults whose planes
-        this port does not run (logged as ignored by the trainer)."""
+        """The knobs set away from their defaults whose planes this port
+        does not run (logged as ignored by the trainer): JAX's HLO audit."""
         default = TelemetryConfig()
-        out = [k for k in ("graph_audit",) if getattr(self, k) != getattr(default, k)]
-        return out + [k for k in UNPORTED_BLOCKS if getattr(self, k) != getattr(default, k)]
+        return [k for k in ("graph_audit",) if getattr(self, k) != getattr(default, k)]
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -30,10 +30,12 @@ counts them) and the vectors are added over the model axis, their absmax
 taken as a MAX; under pipeline and expert parallelism the stage and expert
 leaves' vectors are added over ``pipe`` and ``expert`` the same way.
 
-The ``bucket`` phase (the packed ZeRO-1 bucket payloads) needs
-``distributed_strategy.overlap``'s bucket plan, which the port does not
-build (ROADMAP queue 1 entry 8c); without a plan JAX skips the phase, and
-so does the port.
+The ``bucket`` phase (``buckets: true``) reads the payload of each ZeRO-1
+bucket's combined gather under ``distributed_strategy.overlap``'s bucket
+plan (``optim/overlap.py``): the gathered ``[dp, cols]`` buffer, which is
+JAX's packed buffer, whole on every rank, so it needs no collective of its
+own; its groups are the plan's buckets that gather.  Without a plan JAX
+skips the phase, and so does the port.
 """
 
 from __future__ import annotations
@@ -399,9 +401,12 @@ def step_scalar_metrics(phase: str, group: str, vec: torch.Tensor) -> dict:
 
 def tensorstats_update(prev_state: Mapping[str, torch.Tensor], cfg: TensorStatsConfig, *,
                        pre: Optional[Mapping[str, torch.Tensor]] = None,
-                       post: Optional[Mapping[str, torch.Tensor]] = None) -> tuple[dict, dict]:
+                       post: Optional[Mapping[str, torch.Tensor]] = None,
+                       bucket: Optional[Mapping[str, torch.Tensor]] = None) -> tuple[dict, dict]:
     """One step of the observatory from this step's per-group vectors
-    (:func:`group_step_vectors` of the pre- and post-clip gradients).
+    (:func:`group_step_vectors` of the pre- and post-clip gradients; and
+    ``bucket``, by bucket name, :func:`leaf_stats_vec` of each bucket's
+    gathered payload).
 
     Returns ``(new_state, metrics)``: the updated cumulative state (same
     keys as ``prev_state``, new tensors) and the boundary metrics — per-step
@@ -428,6 +433,8 @@ def tensorstats_update(prev_state: Mapping[str, torch.Tensor], cfg: TensorStatsC
         fold("pre", pre)
     if cfg.post_clip and post is not None:
         fold("post", post)
+    if cfg.buckets and bucket:
+        fold("bucket", bucket)
     return new_state, metrics
 
 

@@ -23,7 +23,16 @@ model.num_layers=2 --set distributed_strategy.expert_model_parallel_size=2``
 (phase 14d).  Every rank prints one line, rank 0's with
 ``"rank": 0``.  A line holds the step seconds, losses and grad norms, the
 flash kernels' launch and fallback counts of the run on that rank, and the
-rank's peak device memory (``torch.cuda.max_memory_allocated``).
+rank's peak device memory (``torch.cuda.max_memory_allocated``), and, when
+the run opened a trace window (``--set exp_manager.telemetry.trace.enabled=
+true``), the analyzed ``trace_summary.json`` (rank 0; ``chip_smoke.py``
+phase 18b) and, when the window kept its raw traces (``keep_raw: true``),
+``trace_steady``: the same analysis without the window's first step, which
+also holds the profiler's start (seconds of set-up on each rank, which a
+collective's kernel spends waiting for its peers); the raw traces are then
+deleted.  The cell runs at ``log_every_n_steps: 1``.  ``--digest`` adds an on-card digest of the rank's params and
+optimizer state after the run (two int64 sums of each tensor's bits:
+equal digests, equal bits).
 
 With ``--save-every K`` the run checkpoints asynchronously every K steps
 (top-1 + last, into a scratch exp dir under ``build/`` that is deleted at the
@@ -82,6 +91,8 @@ def main(argv=None) -> None:
     ap.add_argument("--config", default=None, help="another model config for the cell")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="KEY=VAL", help="more config overrides, after the cell's")
+    ap.add_argument("--digest", action="store_true",
+                    help="print a digest of the params and optimizer state after the run")
     args = ap.parse_args(argv)
     import neuronx_distributed_training_torch as pkg
     from neuronx_distributed_training_torch.ops import flash_attention as fa
@@ -112,6 +123,13 @@ def main(argv=None) -> None:
     finally:
         if scratch and args.save_every:
             shutil.rmtree(exp, ignore_errors=True)
+    summary = trainer.exp.log_dir / "trace_summary.json"
+    trace = json.loads(summary.read_text()) if summary.exists() else None
+    steady = None
+    raw = trainer.exp.log_dir / "trace"
+    if trace is not None and raw.is_dir():
+        steady = steady_summary(raw, trainer.exp.trace_pipeline if "pipeline" in trace else None)
+        shutil.rmtree(raw, ignore_errors=True)
     print(json.dumps({"package": str(Path(pkg.__file__).resolve().parent),
                       "rank": trainer.rank,
                       "dp": 1 if trainer.dp is None else trainer.dp.size,
@@ -125,8 +143,53 @@ def main(argv=None) -> None:
                       "grad_norm": [r["grad_norm"] for r in history],
                       "peak_bytes": (torch.cuda.max_memory_allocated()
                                      if torch.cuda.is_available() else None),
-                      "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS)}),
+                      "launches": dict(fa.LAUNCHES), "fallbacks": dict(fa.FALLBACKS),
+                      "trace": trace, "trace_steady": steady,
+                      "state_digest": state_digest(trainer) if args.digest else None}),
           flush=True)
+
+
+def steady_summary(raw: Path, pipeline) -> dict:
+    """The trace summary of the raw traces in ``raw`` from the start of the
+    window's second step on (its first annotation on any rank: at
+    ``log_every_n_steps: 1`` each step ends in a sync, so the first step's
+    kernels are done by then), with the schedule facts ``pipeline`` (None:
+    no pipeline section)."""
+    from neuronx_distributed_training_torch.telemetry.trace_analysis import (
+        analyze_events,
+        load_trace_events,
+        step_windows,
+    )
+
+    events = load_trace_events(raw)
+    windows = step_windows(events)
+    cut = min(start for start, _ in windows[sorted(windows)[1]])
+    kept = [e for e in events if e.get("ph") == "M" or float(e.get("ts", 0.0)) >= cut]
+    return analyze_events(kept, pipeline=pipeline)
+
+
+def state_digest(trainer) -> list:
+    """Two int64 sums (plain and position weighted) over the bits of every
+    param and optimizer-state tensor the rank holds, in name order, taken
+    on the card."""
+    import torch
+
+    from neuronx_distributed_training_torch.models.llama import named_params
+    from neuronx_distributed_training_torch.optim.adamw import local
+
+    tensors = list(named_params(trainer.params).values())
+    for group in ("mu", "nu", "master"):
+        tensors += [local(t) for _, t in sorted(trainer.opt_state.get(group, {}).items())]
+    s1 = s2 = None
+    for t in tensors:
+        bits = t.detach().reshape(-1).view({1: torch.int8, 2: torch.int16,
+                                            4: torch.int32}[t.element_size()])
+        for i in range(0, bits.numel(), 1 << 26):
+            c = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device, dtype=torch.int64) % 65521 + 1
+            a, b = c.sum(), (c * w).sum()
+            s1, s2 = (a, b) if s1 is None else (s1 + a, s2 + b)
+    return [int(s1), int(s2)]
 
 
 if __name__ == "__main__":

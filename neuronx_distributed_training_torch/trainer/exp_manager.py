@@ -16,8 +16,20 @@ TensorBoard and the run summary; every rank keeps its own log file.
 ``utils/perf.py::Throughput`` window, and ``log_metrics`` adds JAX's
 ``throughput_seqs_per_sec``, ``throughput_peak`` and, once
 ``set_mfu_reference`` armed it (``telemetry.mfu``), the windowed
-``tokens_per_sec_per_chip`` and ``mfu``.  Profiling, tracing, W&B and
-MLflow are not ported (the trainer logs their knobs as ignored).
+``tokens_per_sec_per_chip`` and ``mfu``.
+
+Windows (JAX's, through ``telemetry/trace.py``'s session guard, so the two
+never double-start or double-stop the one profiler): ``profile_start_step``
+/ ``profile_num_steps`` (``maybe_profile``) write a ``torch.profiler``
+trace under ``profile/`` that TensorBoard's profile plugin reads, and
+``exp_manager.telemetry.trace`` (``maybe_trace``) analyzes its window into
+``trace_summary.json`` and the ``trace`` section of ``run_summary.json``
+(``bubble_fraction_measured`` beside it at pp > 1, once
+``set_pipeline_facts`` armed it).  The W&B and MLflow sinks
+(``create_wandb_logger`` / ``create_mlflow_logger`` with their ``*_kwargs``)
+get the flat dict ``metrics.jsonl`` gets, at the same steps, on the writer;
+their packages are imported only when asked for, and a missing or failing
+one logs JAX's warning and training goes on.
 """
 
 from __future__ import annotations
@@ -115,6 +127,15 @@ class ExpManager:
         global_batch_size: int = 1,
         seq_len: int = 0,
         telemetry: Optional[TelemetryConfig] = None,
+        profile_start_step: int = 0,  # 0 = profiling off
+        profile_num_steps: int = 3,
+        create_wandb_logger: bool = False,
+        wandb_kwargs: Optional[dict] = None,
+        create_mlflow_logger: bool = False,
+        mlflow_kwargs: Optional[dict] = None,
+        trace_cuda: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
         base = Path(str(exp_dir)) / str(name)
         if version is None:
@@ -141,6 +162,20 @@ class ExpManager:
         self._last_step_time: Optional[float] = None
         # set by set_mfu_reference: (train-step FLOPs/token, cards, peak TF/s)
         self._mfu_ref: Optional[tuple[float, int, float]] = None
+        self.profile_start_step = profile_start_step
+        self.profile_num_steps = profile_num_steps
+        self._profiling = False
+        #: the profiler windows trace the card too (the trainer's device)
+        self.trace_cuda = bool(trace_cuda)
+        self.rank, self.world = int(rank), int(world)
+        # windowed device-time capture (telemetry/trace.py): the summary lands
+        # in trace_summary.json next to run_summary.json
+        self._trace: Optional[Any] = None
+        if self.telemetry.trace.enabled:
+            from neuronx_distributed_training_torch.telemetry.trace import TraceCapture
+
+            self._trace = TraceCapture(self.telemetry.trace, self.log_dir, cuda=self.trace_cuda,
+                                       rank=self.rank, world=self.world, writer=self.writer)
         self._tb = None
         if create_tensorboard_logger and self.writer:
             try:
@@ -149,6 +184,27 @@ class ExpManager:
                 self._tb = SummaryWriter(log_dir=str(self.log_dir / "tb"))
             except Exception as e:  # noqa: BLE001 — TB is optional observability
                 logger.warning("TensorBoard logger unavailable: %s", e)
+        self._wandb = None
+        if create_wandb_logger and self.writer:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(dir=str(self.log_dir), name=name,
+                                         **(wandb_kwargs or {}))
+            except Exception as e:  # noqa: BLE001 — W&B is optional
+                logger.warning("W&B logger unavailable: %s", e)
+        self._mlflow = None
+        if create_mlflow_logger and self.writer:
+            try:
+                import mlflow
+
+                kw = dict(mlflow_kwargs or {})
+                mlflow.set_tracking_uri(kw.pop("tracking_uri", f"file:{self.log_dir / 'mlruns'}"))
+                mlflow.set_experiment(kw.pop("experiment_name", name))
+                self._mlflow = mlflow
+                self._mlflow_run = mlflow.start_run(run_name=version)
+            except Exception as e:  # noqa: BLE001 — MLflow is optional
+                logger.warning("MLflow logger unavailable: %s", e)
         self._file_handler = None
         if log_files:
             self._file_handler = self._setup_rank_log_file(log_local_rank_0_only,
@@ -172,7 +228,8 @@ class ExpManager:
 
     @classmethod
     def from_config(cls, cfg: dict[str, Any], *, version: Optional[str] = None,
-                    writer: bool = True) -> "ExpManager":
+                    writer: bool = True, trace_cuda: bool = False, rank: int = 0,
+                    world: int = 1) -> "ExpManager":
         """Build from the reference's ``exp_manager:`` block."""
         em = dict(cfg.get("exp_manager", {}) or {})
         exp_dir, name = exp_root_and_name(cfg)
@@ -190,7 +247,99 @@ class ExpManager:
             global_batch_size=int((cfg.get("data", {}) or {}).get("global_batch_size", 1)),
             seq_len=int((cfg.get("data", {}) or {}).get("seq_length", 0) or 0),
             telemetry=TelemetryConfig.from_config(em.get("telemetry")),
+            profile_start_step=int(em.get("profile_start_step", 0) or 0),
+            profile_num_steps=int(em.get("profile_num_steps", 3)),
+            create_wandb_logger=bool(em.get("create_wandb_logger", False)),
+            wandb_kwargs=dict(em.get("wandb_logger_kwargs", {}) or {}),
+            create_mlflow_logger=bool(em.get("create_mlflow_logger", False)),
+            mlflow_kwargs=dict(em.get("mlflow_logger_kwargs", {}) or {}),
+            trace_cuda=trace_cuda, rank=rank, world=world,
         )
+
+    # -- profiling windows (torch.profiler, through telemetry/trace.py's guard)
+
+    _PROFILE_OWNER = "exp_manager.profile"
+
+    def maybe_profile(self, step: int) -> None:
+        """Start or stop a ``torch.profiler`` trace around the configured
+        window ``[profile_start_step, profile_start_step +
+        profile_num_steps)``, written under ``profile/`` (one
+        ``rank<r>.<ns>.pt.trace.json`` a process, TensorBoard's profile
+        plugin's layout).  Start and stop go through the session guard: the
+        window-end stop here and the teardown stop in :meth:`close` never
+        stop twice, and a live ``telemetry.trace`` window is never stomped."""
+        if not self.profile_start_step:
+            return
+        from neuronx_distributed_training_torch.telemetry.trace import (
+            start_session,
+            stop_session,
+        )
+
+        if step == self.profile_start_step and not self._profiling:
+            self._profiling = start_session(str(self.log_dir / "profile"), self._PROFILE_OWNER,
+                                            cuda=self.trace_cuda, worker=f"rank{self.rank}")
+        elif self._profiling and step >= self.profile_start_step + self.profile_num_steps:
+            self._profiling = False
+            stop_session(self._PROFILE_OWNER)
+
+    def set_pipeline_facts(self, facts: Optional[dict[str, Any]]) -> None:
+        """Arm the trace capture's pipeline-timeline reconstruction with the
+        resolved schedule facts (``telemetry/step_timeline.py::
+        pipeline_facts``): with pp > 1 the next closed trace window carries
+        the ``"pipeline"`` section and ``bubble_fraction_measured`` lands in
+        ``run_summary.json`` beside the predicted fraction."""
+        if self._trace is not None:
+            self._trace.pipeline = dict(facts) if facts else None
+
+    def maybe_trace(self, step: int) -> None:
+        """Advance the ``telemetry.trace`` capture window (a no-op when the
+        knob is off).  When the window closes, the analyzed summary is in
+        ``trace_summary.json`` and its headline numbers are merged into
+        ``run_summary.json``."""
+        if self._trace is None:
+            return
+        summary = self._trace.maybe_update(step)
+        if summary is not None:
+            self._record_trace_summary(summary)
+
+    @property
+    def trace_active(self) -> bool:
+        """Is a ``telemetry.trace`` capture window open?  The trainer
+        annotates its steps (``ProfilerStep#<n>``) while it is, so per-step
+        attribution has windows."""
+        return self._trace is not None and self._trace.active
+
+    @property
+    def trace_pipeline(self) -> Optional[dict[str, Any]]:
+        """The schedule facts the trace capture was armed with (None
+        without a capture or a pipeline)."""
+        return None if self._trace is None else self._trace.pipeline
+
+    @property
+    def profile_active(self) -> bool:
+        """Is the ``profile_start_step`` window open?"""
+        return self._profiling
+
+    def _record_trace_summary(self, summary: dict[str, Any]) -> None:
+        section: dict[str, Any] = {"trace": {
+            "achieved_overlap": summary.get("achieved_overlap"),
+            "exposed_collective_seconds": summary.get("exposed_collective_seconds"),
+            "collective_seconds": summary.get("collective_seconds"),
+            "window": summary.get("window"),
+            "summary_path": str(self._trace.summary_path),
+        }}
+        pipe = summary.get("pipeline")
+        if isinstance(pipe, dict):
+            # the MEASURED bubble fraction is a run fact: the top level of
+            # run_summary.json, beside bubble_fraction_predicted
+            section["bubble_fraction_measured"] = pipe.get("bubble_fraction_measured")
+            section["trace"]["pipeline"] = {
+                k: pipe.get(k)
+                for k in ("schedule", "bubble_fraction_measured", "bubble_fraction_predicted",
+                          "bubble_residual", "straggler_stage", "lane_resolution", "num_lanes")
+                if pipe.get(k) is not None
+            }
+        self.write_run_summary(section)
 
     def step_timed(self, num_steps: int = 1, exclude_seconds: float = 0.0) -> float:
         """Close a boundary window of ``num_steps`` steps since the last call
@@ -261,6 +410,10 @@ class ExpManager:
         if self._tb is not None:
             for k, v in flat.items():
                 self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(flat, step=step)
+        if self._mlflow is not None:
+            self._mlflow.log_metrics(flat, step=step)
         with open(self._metrics_file, "a") as f:
             f.write(json.dumps({"step": step, **flat}) + "\n")
 
@@ -309,10 +462,27 @@ class ExpManager:
             logger.warning("tensorstats.jsonl write failed: %s", e)
 
     def close(self) -> None:
+        if self._profiling:
+            # guarded: a window that already closed (or was stopped
+            # out-of-band) makes this a logged no-op, not a teardown raise
+            from neuronx_distributed_training_torch.telemetry.trace import stop_session
+
+            self._profiling = False
+            stop_session(self._PROFILE_OWNER)
+        if self._trace is not None:
+            summary = self._trace.close()
+            if summary is not None:
+                self._record_trace_summary(summary)
         if self._tb is not None:
             self._tb.flush()
             self._tb.close()
             self._tb = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
+        if self._mlflow is not None:
+            self._mlflow.end_run()
+            self._mlflow = None
         if self._file_handler is not None:
             logging.getLogger().removeHandler(self._file_handler)
             self._file_handler.close()

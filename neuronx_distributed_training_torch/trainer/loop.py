@@ -177,13 +177,29 @@ is folded over the ranks by the boundary's one all-reduce where the stop
 is agreed, and the watchdog's hang escape exits with
 ``EXIT_HANG_ESCAPE``).
 
+The windows (``trainer/exp_manager.py``, JAX's order before each step's
+dispatch): ``profile_start_step`` / ``profile_num_steps`` write a
+``torch.profiler`` trace under ``profile/``, and ``exp_manager.telemetry.
+trace`` analyzes its window into ``trace_summary.json``
+(``telemetry/trace.py``, ``trace_analysis.py``; at pp > 1 the measured
+bubble, ``step_timeline.py``, armed with the schedule's facts).  While
+either is open each step's dispatch runs under ``ProfilerStep#<n>``;
+outside them nothing is added.  The W&B and MLflow sinks get the records
+``metrics.jsonl`` gets.  ``distributed_strategy.overlap``
+(``optim/overlap.py``): with ``zero1_bucket_mb`` the ZeRO-1 update gathers
+its param slices bucket by bucket (one ``all_gather_into_tensor`` a bucket,
+prefetched under ``prefetch_ag``; the plan is logged as JAX logs it, and
+tensorstats' ``bucket`` phase reads its payloads), ``pp_double_buffer``
+waits for each stage hop at its first read (``parallel/pipeline.py::
+drive``), and ``xla_lhs`` logs JAX's no-op text; every lever is bit for
+bit the run without it.
+
 Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
 MoE path under context parallelism, GPT under context parallelism) are
 rejected with the ROADMAP item that ports them; config blocks it does not
-act on are logged once as ignored: the trace plane (and ``graph_audit``),
-elastic replan, overlap, autotune, the W&B and MLflow sinks, profiling
-windows and the Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv``
-(the Hopper kernels' tiles are fixed).
+act on are logged once as ignored: ``graph_audit``, elastic replan,
+autotune and the Pallas tiles ``fusions.flash_block_q`` /
+``flash_block_kv`` (the Hopper kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -226,12 +242,14 @@ from neuronx_distributed_training_torch.optim.adamw import (
     AdamWConfig,
     EMAConfig,
     data_axis_of,
+    global_shape,
     init_opt_state,
     local,
     opt_state_specs,
     shard_of,
 )
 from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
+from neuronx_distributed_training_torch.optim.overlap import OverlapConfig, build_bucket_plan
 from neuronx_distributed_training_torch.parallel import pipeline, sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
     ContextParallel,
@@ -253,7 +271,7 @@ from neuronx_distributed_training_torch.telemetry.flight_recorder import (
     HealthMonitor,
     _all_thread_stacks,
 )
-from neuronx_distributed_training_torch.telemetry.health import HealthConfig
+from neuronx_distributed_training_torch.telemetry.health import HealthConfig, grad_group_of
 from neuronx_distributed_training_torch.telemetry.memory import (
     MemoryPlane,
     device_memory_metrics,
@@ -263,6 +281,8 @@ from neuronx_distributed_training_torch.telemetry.memory import (
 )
 from neuronx_distributed_training_torch.telemetry.recompile import RecompileDetector
 from neuronx_distributed_training_torch.telemetry.spans import SpanTimer
+from neuronx_distributed_training_torch.telemetry.step_timeline import pipeline_facts
+from neuronx_distributed_training_torch.telemetry.trace import step_annotation
 from neuronx_distributed_training_torch.telemetry.tensorstats import HIST_PREFIX
 from neuronx_distributed_training_torch.trainer.control import EXIT_HANG_ESCAPE, ControlPlane
 from neuronx_distributed_training_torch.trainer.exp_manager import (
@@ -462,11 +482,7 @@ def _log_ignored(cfg: ConfigDict) -> None:
     ignored = [f"exp_manager.telemetry.{k}" for k in
                TelemetryConfig.from_config(em.get("telemetry")).unported()]
     ignored += [f"exp_manager.{k}" for k in ("elastic",) if k in em]
-    ignored += [f"exp_manager.{k}" for k in ("create_wandb_logger", "create_mlflow_logger",
-                                             "profile_start_step") if em.get(k)]
     ignored += [k for k in ("autotune",) if k in cfg]
-    ds = dict(cfg.get("distributed_strategy", {}) or {})
-    ignored += [f"distributed_strategy.{k}" for k in ("overlap",) if k in ds]
     # the Pallas kernels' tiles: the Hopper kernels' tiles are fixed
     fusions = dict(dict(cfg.get("model", {}) or {}).get("fusions", {}) or {})
     ignored += [f"model.fusions.{k}" for k in ("flash_block_q", "flash_block_kv") if k in fusions]
@@ -484,10 +500,49 @@ def _log_ignored(cfg: ConfigDict) -> None:
         logger.info("ignored by this slice of the port (dense Llama under data and tensor "
                     "parallelism, context parallelism, and pipeline parallelism with every "
                     "schedule and the virtual pipeline; Mixtral, Megatron GPT, the alignment "
-                    "strategies and LoRA; of the telemetry planes spans, mfu, the census, "
-                    "goodput, device memory, batch stats, health, tensorstats, fleet, "
+                    "strategies and LoRA; engineered overlap (bucketed ZeRO-1 gathers, "
+                    "prefetch, the pipeline's double buffer); the profile window and the W&B "
+                    "and MLflow sinks; of the telemetry planes spans, mfu, the census, "
+                    "goodput, device memory, batch stats, health, tensorstats, trace, fleet, "
                     "alerts, control and memory run): %s",
                     ", ".join(fresh))
+
+
+def _bucket_plan(train_flat: dict, layouts: dict, dp_size: int, overlap: OverlapConfig, *,
+                 tp=None, ep=None, pp=None):
+    """``optim/overlap.py``'s bucket plan of the trainable leaves (their
+    global shapes and ZeRO-1 dims).  A leaf's param is model-sharded when
+    tp or ep of more than one rank shards it, or under pp when it is a
+    stage's (JAX's stacked layers are pipe-sharded); a stage holds its
+    layers alone, so those groups' bytes are summed over the stages and
+    every stage cuts the same buckets."""
+    dims = opt_state_specs(train_flat, dp_size, layouts=layouts, ep=ep)["mu"]
+    shapes = {n: global_shape(t, layouts.get(n), ep) for n, t in train_flat.items()}
+    tp_on = tp is not None and tp.size > 1
+    ep_on = ep is not None and ep.size > 1
+    staged = pp is not None and pp.size > 1
+
+    def model_sharded(n):
+        lay = layouts.get(n)
+        return ((lay is not None and ((tp_on and lay.sharded) or (ep_on and lay.expert)))
+                or (staged and pipeline.is_stage_leaf(n)))
+
+    group_bytes = None
+    if staged:
+        mine: dict = {}
+        for n in train_flat:
+            if pipeline.is_stage_leaf(n):
+                g = grad_group_of(n)
+                mine[g] = mine.get(g, 0) + 4 * math.prod(shapes[n])
+        every: list = [None] * pp.size
+        dist.all_gather_object(every, mine, group=pp.group)
+        group_bytes = {}
+        for part in every:
+            for g, b in part.items():
+                group_bytes[g] = group_bytes.get(g, 0) + b
+    return build_bucket_plan(shapes, dims, dp_size, bucket_mb=overlap.zero1_bucket_mb,
+                             group_fn=grad_group_of, model_sharded=model_sharded,
+                             group_bytes=group_bytes)
 
 
 def _telemetry_config(cfg: ConfigDict) -> TelemetryConfig:
@@ -940,6 +995,9 @@ class Trainer:
     run_facts: dict = dataclasses.field(default_factory=dict)
     #: the census's allocator facts after the first step (the OOM bundle's)
     census_memory: Optional[dict] = None
+    #: the ZeRO-1 bucket plan of ``distributed_strategy.overlap``
+    #: (``optim/overlap.py``; None: per-leaf gathers)
+    bucket_plan: Optional[Any] = None
 
     @property
     def is_rank0(self) -> bool:
@@ -957,11 +1015,6 @@ class Trainer:
         tel = _telemetry_config(cfg)
         health = tel.health
         tstats = tel.tensorstats if tel.tensorstats.enabled else None
-        if tstats is not None and tstats.buckets and rank == 0:
-            # JAX records the bucket phase only under a bucket plan
-            # (distributed_strategy.overlap, not ported: entry 8c)
-            logger.info("tensorstats.buckets: no ZeRO-1 bucket plan (distributed_strategy."
-                        "overlap is not ported), so the bucket phase is not recorded")
         ema_cfg = _ema_config(cfg)
         dev = resolve_device(device)
         policy = DtypePolicy.from_precision_config(cfg.get("precision"))
@@ -972,6 +1025,10 @@ class Trainer:
         is_gpt = isinstance(mc, gpt.GPTConfig)
         moe = _moe_layers(mc) is not None
         mesh_cfg = MeshConfig.from_config(ds)
+        overlap = OverlapConfig.from_config(ds.get("overlap"))
+        if overlap.xla_lhs and rank == 0:
+            logger.warning("overlap.xla_lhs: no latency-hiding flag set for platform %r — knob "
+                           "is a no-op (TPU only)", dev.type)
         dp, dp_size, tp, cp, pp, ep = None, 1, None, None, None, None
         if dist.is_available() and dist.is_initialized():
             mesh = build_mesh(mesh_cfg, device_type=dev.type)
@@ -1062,12 +1119,24 @@ class Trainer:
                 logger.info("warm start: params restored from %s", warm_path)
         train_flat = {n: t for n, t in flat.items() if trainable is None or n in trainable}
         zero1 = bool(ds.get("zero1", True))
+        bucket_plan = None
+        if zero1 and overlap.zero1_bucket_mb > 0 and dp is not None:
+            bucket_plan = _bucket_plan(train_flat, layouts, dp_size, overlap, tp=tp, ep=ep,
+                                       pp=pp)
+            if bucket_plan is not None and rank == 0:
+                logger.info("engineered overlap: %s", bucket_plan.describe())
+        # the bucket phase's slots are named by the plan's gathering buckets
+        bucket_groups = (tuple(b.name for b in bucket_plan.buckets if b.ag)
+                         if bucket_plan is not None and tstats is not None and tstats.buckets
+                         else ())
         specs = opt_state_specs(train_flat, dp_size, zero1=zero1, policy=policy,
                                 health=health.enabled, layouts=layouts, ep=ep,
-                                ema=ema_cfg is not None, tensorstats=tstats)
+                                ema=ema_cfg is not None, tensorstats=tstats,
+                                bucket_groups=bucket_groups)
         opt_state = init_opt_state(train_flat, policy, health=health.enabled, specs=specs,
                                    dp=dp, tp=tp, layouts=layouts, ep=ep,
-                                   ema=ema_cfg is not None, tensorstats=tstats)
+                                   ema=ema_cfg is not None, tensorstats=tstats,
+                                   bucket_groups=bucket_groups)
         opt_block = dict(model_block.get("optim", {}) or {})
         max_steps = int((cfg.get("trainer", {}) or {}).get("max_steps", 100))
 
@@ -1121,7 +1190,7 @@ class Trainer:
                 microbatches_of=_pipeline_microbatches(strategy, nm, dp, cp, shift_labels),
                 denominator_of=token_count_fn, act_dtype=policy.compute_dtype,
                 grad_dtype=policy.grad_accum_dtype, summed=step_mod._summing(dp, cp), vp=vp,
-                aux_scale=_aux_scale(mc, nm, strategy))
+                aux_scale=_aux_scale(mc, nm, strategy), double_buffer=overlap.pp_double_buffer)
         step_fn = make_train_step(
             loss_fn, AdamWConfig.from_config(opt_block, cfg.get("trainer", {})),
             build_lr_schedule(opt_block, max_steps_default=max_steps), policy,
@@ -1132,7 +1201,8 @@ class Trainer:
             loss_and_grad_fn=loss_and_grad, pp=pp,
             log_param_norm=bool(exp_block.get("log_parameter_norm", False)),
             log_gradient_norm=bool(exp_block.get("log_gradient_norm", False)), ep=ep,
-            ema=ema_cfg, tensorstats=tstats)
+            ema=ema_cfg, tensorstats=tstats, bucket_plan=bucket_plan,
+            prefetch_ag=overlap.prefetch_ag)
         if eval_step is None:
             eval_step = make_eval_step(loss_fn, num_microbatches=nm, dp=dp,
                                        token_count_fn=token_count_fn, cp=cp)
@@ -1142,7 +1212,8 @@ class Trainer:
         if dp is not None:
             # rank 0 picks the version dir (a new one, or the newest to resume)
             version = _broadcast_object(version_for_config(cfg) if rank == 0 else None, dev)
-        exp = ExpManager.from_config(cfg, version=version, writer=rank == 0)
+        exp = ExpManager.from_config(cfg, version=version, writer=rank == 0,
+                                     trace_cuda=dev.type == "cuda", rank=rank, world=world)
         checkpointer = None
         if enable_checkpointing:
             ck_cfg = dataclasses.replace(CheckpointConfig.from_config(cfg),
@@ -1153,6 +1224,11 @@ class Trainer:
                                      global_batch_size=sched["global_batch_size"],
                                      pipeline_schedule=pp_schedule, pp=pp_size,
                                      num_microbatches=nm, vp=vp)
+        # arm the trace capture's pipeline timeline: with pp > 1 a closed
+        # window measures the bubble beside the predicted one
+        exp.set_pipeline_facts(pipeline_facts(
+            pp_schedule, pp_size, nm, vp, facts.get("bubble_fraction_predicted"),
+            ticks_per_step=facts.get("pipeline_ticks_per_step")))
         fwd_flops = perf.flops_for_model(mc, seq)
         facts["fwd_flops_per_token"] = fwd_flops
         facts["peak_tflops_per_chip"] = perf.detect_peak_tflops(dev)
@@ -1183,7 +1259,7 @@ class Trainer:
                    peak_tflops=peak, health=health, dp=dp, tp=tp, cp=cp, pp=pp, ep=ep,
                    pipeline_schedule=pp_schedule, layouts=layouts,
                    rank=rank, world=world, reference=reference, needs_rng=needs_rng,
-                   ema_cfg=ema_cfg, run_facts=facts)
+                   ema_cfg=ema_cfg, run_facts=facts, bucket_plan=bucket_plan)
 
     # -- resume ---------------------------------------------------------------
 
@@ -1437,6 +1513,10 @@ class Trainer:
             self.exp.step_timed()  # arm the step timer
             spans.take_excluded()  # restart time predates the window
             while self.step < self.max_steps:
+                # the profile and trace windows open and close before a
+                # step's dispatch; steps outside them are untouched
+                self.exp.maybe_profile(self.step)
+                self.exp.maybe_trace(self.step)
                 with spans.span("data_wait"):
                     try:
                         host_batch = next(batches)
@@ -1460,6 +1540,9 @@ class Trainer:
                             span = "compile"  # the kernels build inside the first step
                     if census is not None and census.stage < 2:
                         stack.enter_context(census.step())
+                    if self.exp.trace_active or self.exp.profile_active:
+                        # the window's step attribution (ProfilerStep#<n>)
+                        stack.enter_context(step_annotation(index))
                     with spans.span(span):
                         metrics = self._dispatch(host_batch, index)
                 if monitor is not None:

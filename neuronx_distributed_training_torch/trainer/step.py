@@ -219,7 +219,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                     tp_sharded=frozenset(), cp: Any = None,
                     loss_and_grad_fn: Optional[Callable] = None, pp: Any = None,
                     log_param_norm: bool = False, log_gradient_norm: bool = False,
-                    ep: Any = None, ema: Any = None, tensorstats: Any = None) -> Callable:
+                    ep: Any = None, ema: Any = None, tensorstats: Any = None,
+                    bucket_plan: Any = None, prefetch_ag: bool = True) -> Callable:
     """``train_step(params, opt_state, batch, key=None) -> metrics``; params
     and opt_state are updated in place (see ``optim/adamw.py``).
 
@@ -237,7 +238,9 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
     ``tensorstats`` (``telemetry/tensorstats.py::TensorStatsConfig``,
     enabled): the observatory's ``tensorstats/...`` scalars and
     ``tensorstats_hist/...`` vectors join the metrics (JAX's
-    ``trainer/step.py``), grouped as the health probes group."""
+    ``trainer/step.py``), grouped as the health probes group.
+    ``bucket_plan`` / ``prefetch_ag`` (``optim/overlap.py``): the ZeRO-1
+    gathers go bucket by bucket, as ``distributed_strategy.overlap`` asks."""
     health = health if health is not None and getattr(health, "enabled", False) else None
     tstats = (tensorstats if tensorstats is not None and getattr(tensorstats, "enabled", False)
               else None)
@@ -304,7 +307,8 @@ def make_train_step(loss_fn: LossFn, opt_cfg: AdamWConfig, lr_schedule: Callable
                            else None),
             skip_nonfinite=health is not None and health.policy == "skip_update",
             extra_finite=torch.isfinite(loss_sum) if health is not None else None, dp=dp,
-            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep, ema=ema, tensorstats=tstats)
+            tp=tp, tp_sharded=tp_sharded, pp=pp, ep=ep, ema=ema, tensorstats=tstats,
+            bucket_plan=bucket_plan, prefetch_ag=prefetch_ag)
         metrics = {"loss": loss_sum, "lr": lr, "grad_norm": opt_metrics["grad_norm"]}
         metrics.update({k: v / num_microbatches for k, v in aux_sum.items()
                         if k not in metrics})

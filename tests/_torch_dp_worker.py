@@ -14,10 +14,12 @@ never jax.
 
 A scenario is ``{"name", "cfg", "steps", "weights"?, "data"?, "max_steps"?,
 "dump"?, "dump_init"?, "grads"?, "poison"?}``, or ``{"name", "kind": "units"}`` for
-the vocab-parallel cross-entropy and embedding against the plain ones, or
+the vocab-parallel cross-entropy and embedding against the plain ones,
 ``{"name", "kind": "cp_units"}`` for the ring, zig-zag ring and Ulysses
 attention over the world as one context group against core attention on the
-whole sequence:
+whole sequence, or ``{"name", "kind": "overlap_units", "tps": [...]}`` for
+the bucketed ZeRO-1 update (``optim/overlap.py``) against the per-leaf one
+at each tp of ``tps`` (dp = world / tp):
 - ``weights``: a ``.pt`` dict of dotted param names to start from, global
   leaves in the JAX layout, which each rank cuts to its tensor-parallel
   slices and its experts (the optimizer state is re-initialised from them);
@@ -355,9 +357,111 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
+def run_overlap_units(tps: list) -> dict:
+    """At each tp of ``tps`` (the rest of the world is dp) and each
+    precision, three copies of the tiny model's state take the same two
+    AdamW updates with the health skip (step 1's gradients non-finite):
+    per leaf, bucketed with prefetch, bucketed without.  Reports whether
+    the bucketed copies' params, moments, master weights and step equal the
+    per-leaf copy's bit for bit, the plan's buckets, and the gathers each
+    path issued (one a packed bucket against one a leaf)."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_training_torch.optim import overlap as ov
+    from neuronx_distributed_training_torch.optim.adamw import AdamWConfig, adamw_update
+    from neuronx_distributed_training_torch.parallel.mesh import (
+        DataParallel,
+        MeshConfig,
+        TensorParallel,
+        build_mesh,
+    )
+    from neuronx_distributed_training_torch.telemetry.health import grad_group_of
+    from neuronx_distributed_training_torch.trainer import loop
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    world = dist.get_world_size()
+    mc = llama.LlamaConfig.from_config({"vocab_size": 128, "hidden_size": 64,
+                                        "intermediate_size": 128, "num_layers": 2,
+                                        "num_attention_heads": 4, "num_key_value_heads": 2})
+    out: dict = {}
+    for tp_size in tps:
+        mesh = build_mesh(MeshConfig(tensor_model_parallel_size=tp_size,
+                                     sequence_parallel=tp_size > 1), device_type="cpu")
+        dp = DataParallel.from_mesh(mesh)
+        tp = TensorParallel.from_mesh(mesh, sequence_parallel=tp_size > 1)
+        for precision in ("fp32", "mixed_precision"):
+            policy = DtypePolicy.from_precision_config({"type": precision})
+
+            def state():
+                params = llama.init_params(mc, policy, generator=torch.Generator().manual_seed(2),
+                                           device="cpu", tp_rank=tp.rank, tp_size=tp.size)
+                flat = llama.named_params(params)
+                layouts = sharding.leaf_layouts(flat, mc, sequence_parallel=tp_size > 1)
+                specs = opt_state_specs(flat, dp.size, policy=policy, health=True,
+                                        layouts=layouts)
+                return flat, layouts, init_opt_state(flat, policy, health=True, specs=specs,
+                                                     dp=dp, tp=tp, layouts=layouts)
+
+            plan = None
+            runs, gathers = {}, {}
+            for how in ("per_leaf", "prefetch", "no_prefetch"):
+                flat, layouts, opt_state = state()
+                if plan is None:
+                    plan = loop._bucket_plan(flat, layouts, dp.size,
+                                             ov.OverlapConfig(zero1_bucket_mb=0.0625), tp=tp)
+                sharded = {n: layouts[n] for n in flat if layouts[n].sharded}
+                count = {"n": 0}
+                real = dist.all_gather_into_tensor, dist.all_gather, \
+                    getattr(dist, "all_gather_single", None)
+
+                def counted(fn):
+                    def call(*a, **kw):
+                        count["n"] += 1
+                        return fn(*a, **kw)
+                    return call
+
+                dist.all_gather = counted(real[1])
+                if real[2] is not None:
+                    dist.all_gather_single = counted(real[2])
+                else:
+                    dist.all_gather_into_tensor = counted(real[0])
+                try:
+                    for step in range(2):
+                        gen = torch.Generator().manual_seed(100 + 10 * step + tp.rank)
+                        grads = {n: torch.randn(p.shape, generator=gen) for n, p in flat.items()}
+                        if step == 1:
+                            next(iter(grads.values())).view(-1)[0] = float("nan")
+                        adamw_update(flat, grads, opt_state, 1e-2, AdamWConfig(), policy,
+                                     grad_group_fn=grad_group_of, skip_nonfinite=True, dp=dp,
+                                     tp=tp, tp_sharded=sharded,
+                                     bucket_plan=None if how == "per_leaf" else plan,
+                                     prefetch_ag=how == "prefetch")
+                finally:
+                    dist.all_gather = real[1]
+                    if real[2] is not None:
+                        dist.all_gather_single = real[2]
+                    else:
+                        dist.all_gather_into_tensor = real[0]
+                gathers[how] = count["n"]
+                runs[how] = _digest(list(flat.values())
+                                    + [t for g in ("mu", "nu", "master")
+                                       for t in opt_state.get(g, {}).values()]
+                                    + [opt_state["step"]])
+            out[f"tp{tp_size}_dp{dp.size}_{precision}"] = {
+                "equal": {k: runs[k] == runs["per_leaf"] for k in ("prefetch", "no_prefetch")},
+                "buckets": [[b.name, len(b.members), len(b.ag)] for b in plan.buckets],
+                "gathers": gathers,
+                "packed_buckets": sum(1 for b in plan.buckets if b.ag),
+                "zero1_leaves": sum(1 for n, t in opt_state["mu"].items() if is_dtensor(t)),
+                "packed_leaves": sum(len(b.ag) for b in plan.buckets)}
+    return out
+
+
 def run(spec: dict, rank: int) -> dict:
     if spec.get("kind") == "units":
         return run_units(rank)
+    if spec.get("kind") == "overlap_units":
+        return run_overlap_units(spec["tps"])
     if spec.get("kind") == "cp_units":
         return run_cp_units()
     cfg = load_config(spec["cfg"])
@@ -386,14 +490,18 @@ def run(spec: dict, rank: int) -> dict:
                 or n in trainer.trainable}
         ts = trainer.exp.telemetry.tensorstats
         ts = ts if ts.enabled else None
+        plan = trainer.bucket_plan
+        buckets = (tuple(b.name for b in plan.buckets if b.ag)
+                   if plan is not None and ts is not None and ts.buckets else ())
         specs = opt_state_specs(flat, trainer.dp.size,
                                 zero1=bool(cfg.distributed_strategy.get("zero1", True)),
                                 policy=trainer.policy, health=trainer.health.enabled,
-                                layouts=trainer.layouts, ep=trainer.ep, tensorstats=ts)
+                                layouts=trainer.layouts, ep=trainer.ep, tensorstats=ts,
+                                bucket_groups=buckets)
         trainer.opt_state = init_opt_state(flat, trainer.policy, health=trainer.health.enabled,
                                            specs=specs, dp=trainer.dp, tp=tp,
                                            layouts=trainer.layouts, ep=trainer.ep,
-                                           tensorstats=ts)
+                                           tensorstats=ts, bucket_groups=buckets)
     for n, t in trainer.opt_state["mu"].items():
         out["zero1_shards"][n] = [list(t.shape), list(local(t).shape)]
     if spec.get("command") and rank == 0:

@@ -356,6 +356,12 @@ PARITY_CASES = ("fp32", "mixed_precision", "unequal_tokens", "tensorstats")
 TENSORSTATS = {"exp_manager": {"telemetry": {
     "compile_census": False, "health": {"enabled": True, "policy": "skip_update"},
     "tensorstats": {"enabled": True}}}}
+#: the bucketed case: the tensorstats case with the bucket phase, under
+#: ``distributed_strategy.overlap`` (tiny_smoke_config.yaml's block)
+BUCKETS = {"exp_manager": {"telemetry": {
+    **TENSORSTATS["exp_manager"]["telemetry"],
+    "tensorstats": {"enabled": True, "buckets": True}}},
+    "distributed_strategy": {"overlap": {"zero1_bucket_mb": 0.0625, "prefetch_ag": True}}}
 #: tensorstats.jsonl against JAX's (tests/test_torch_planes.py's rule)
 TS_RTOL, HIST_MOVES = 1e-5, 2
 
@@ -378,18 +384,34 @@ def _parity_build(tmp: Path) -> dict:
                                                       **over),
                           "steps": 3, "data": data, "dump": str(tmp / f"{case}.pt"),
                           "weights": str(_port_weights(j0s[case], tmp / f"{case}_w.pt"))})
+    # engineered overlap (tests/test_torch_overlap.py): the bucketed update
+    # against the per-leaf one at dp 2, and a bucketed trainer with the
+    # bucket phase against the JAX trainer and against the per-leaf trainer
+    jts["buckets"], j0s["buckets"] = _jax_start(dp_cfg(tmp, "jax_buckets", **BUCKETS))
+    jts["buckets"] = (dp_cfg(tmp, "jax_buckets", **BUCKETS), jts["buckets"])
+    weights = str(_port_weights(j0s["buckets"], tmp / "buckets_w.pt"))
+    scenarios += [
+        {"name": "overlap_units", "kind": "overlap_units", "tps": [1]},
+        {"name": "buckets", "cfg": dp_cfg(tmp, "port_buckets", **BUCKETS), "steps": 3,
+         "weights": weights, "dump": str(tmp / "buckets.pt")},
+        {"name": "buckets_per_leaf", "cfg": dp_cfg(tmp, "port_per_leaf", **TENSORSTATS),
+         "steps": 3, "weights": weights}]
     run = Launch(tmp, scenarios)
     fitted = {case: (cfg, j0s[case], *_jax_finish(jt)) for case, (cfg, jt) in jts.items()}
     ranks = run.results()
-    return {case: (*fitted[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
-            for case in PARITY_CASES}
+    out = {case: (*fitted[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
+           for case in PARITY_CASES + ("buckets",)}
+    out["overlap"] = {k: [r[k] for r in ranks] for k in ("overlap_units", "buckets_per_leaf")}
+    return out
 
 
 @pytest.fixture(scope="module")
 def parity_runs(tmp_path_factory):
     """The JAX trainer's runs of the parity cases, and the port's, all in one
     launch of 2 ranks, once a run: ``{case: (cfg, jax initial params, jax
-    final params, jax metrics lines, rank results, port dump)}``."""
+    final params, jax metrics lines, rank results, port dump)}``, the same
+    for ``"buckets"``, and ``"overlap"``: the ranks' results of the
+    ``overlap_units`` and ``buckets_per_leaf`` scenarios."""
     return shared(tmp_path_factory, "dp_parity", _parity_build)
 
 

@@ -896,6 +896,11 @@ MESHES = {"pp4": (4, 1), "pp2_dp2": (2, 1), "pp2_tp2": (2, 2)}
 MESHES_9CD = {"vp2_dp2": ({"vp": 2}, "1f1b-interleaved"), "pp2_cp2": ({"cp": 2}, "wavefront")}
 
 
+#: distributed_strategy.overlap's pipeline lever, and with the bucketed update
+DOUBLE_BUFFER = {"distributed_strategy": {"overlap": {"pp_double_buffer": True}}}
+DOUBLE_BUFFER_BUCKETS = {"distributed_strategy": {"overlap": {
+    "pp_double_buffer": True, "zero1_bucket_mb": 0.0625, "prefetch_ag": True}}}
+
 #: validation after every step, one batch
 VAL = {"val_check_interval": 1, "limit_val_batches": 1}
 #: the 4-rank launch's time limit a rank (``test_torch_dp.py``'s 180 s is
@@ -982,6 +987,19 @@ def _pp_launch(tmp: Path) -> dict:
          "dump": str(tmp / "resume.pt")},
         {"name": "straight", "cfg": pp_cfg(tmp, "a", every=2), "steps": 3,
          "dump": str(tmp / "straight.pt")},
+        # distributed_strategy.overlap at pp 2 (tests/test_torch_overlap.py):
+        # the double buffer under 1f1b (against "straight"), 1f1b-interleaved
+        # (against vp2_dp2) and the wavefront (against pp2_cp2), and the
+        # bucketed update with it at pp 2 x dp 2
+        {"name": "db_1f1b", "cfg": pp_cfg(tmp, "db", every=2, **DOUBLE_BUFFER), "steps": 3,
+         "dump": str(tmp / "db_1f1b.pt")},
+        {"name": "db_vp2", "cfg": pp_cfg(tmp, "db_vp2", vp=2, **DOUBLE_BUFFER), "steps": 3,
+         "dump": str(tmp / "db_vp2.pt"), "weights": str(tmp / "vp2_dp2_w.pt")},
+        {"name": "db_wavefront", "cfg": pp_cfg(tmp, "db_wf", cp=2, **DOUBLE_BUFFER),
+         "steps": 3, "dump": str(tmp / "db_wavefront.pt"),
+         "weights": str(tmp / "pp2_cp2_w.pt")},
+        {"name": "db_buckets", "cfg": pp_cfg(tmp, "dbb", every=2, **DOUBLE_BUFFER_BUCKETS),
+         "steps": 3, "dump": str(tmp / "db_buckets.pt")},
         # the forward schedule's eval loss, and JAX's rule on the val batches
         {"name": "val", "cfg": pp_cfg(tmp, "val", trainer=VAL), "steps": 3,
          "val": {"gbs": 8, "seed": 4}, "weights": str(tmp / "w.pt")},

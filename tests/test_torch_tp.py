@@ -375,12 +375,15 @@ def _tp4_build(tmp: Path) -> dict:
                           "weights": str(_global_weights(j0, tmp / f"{case}_w.pt"))})
     scenarios.append({"name": "save", "cfg": tp_cfg(tmp, "ck", every=2), "steps": 3,
                       "max_steps": 2, "dump": str(tmp / "ck2.pt")})
+    # the bucketed ZeRO-1 update at dp 4 and tp 2 x dp 2 (test_torch_overlap.py)
+    scenarios.append({"name": "overlap_units", "kind": "overlap_units", "tps": [1, 2]})
     run = DPT.Launch(tmp, scenarios, nproc=4)
     jax_side = {case: _jax_finish(jt) for case, jt in jts.items()}
     ranks = run.results()
     out = {case: (*jax_side[case], [r[case] for r in ranks], torch.load(tmp / f"{case}.pt"))
            for case in PARITY4}
     out["ck"] = (tmp / "ck", torch.load(tmp / "ck2.pt"), [r["save"] for r in ranks])
+    out["overlap_units"] = [r["overlap_units"] for r in ranks]
     return out
 
 
