@@ -327,22 +327,53 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       the all-gathers a step and the measured bubble.  With one card it
       prints why it did not run.
 
+19. KV-cached decode and the SFT evaluation, after a host probe (the
+   pace of tiny launches, a Python loop and a full collection, and the
+   threads, profiler, allocator history and objects left behind) here and
+   in a fresh process:
+   a. ``tools/bench_decode.py`` at Llama-3-8B width and 32 layers, b 8,
+      prompt 512, 128 new tokens, bf16, the flash route: its JSON line, the
+      decode step's bound (each weight and each visible cache row read once)
+      and its share of it, the step's busy share (``torch.profiler``'s
+      device seconds over the untraced step), the peak memory; the forward
+      kernel launched 32 x 4 prefills times, dq and dk/dv never, no
+      fallback; then ``generate_cached`` under the sync debug mode: no sync
+      in the decode loop or before it; the collector's runs, a ``gc.freeze``
+      A/B of 16 steps, and the same bench through its command line in a
+      fresh process;
+   b. at Llama-3-8B width cut to 2 layers and the bench's batch (8): the
+      prefill's attention through the kernel against its plain version on
+      the same q, k, v a layer (phase 2's tolerances) and its last-position logits against the plain route;
+      ``decode_step``'s logits at 16 steps against the full-prefix forward;
+      greedy ``generate_cached`` against the uncached ``generate`` in fp32
+      for Llama and for the Mixtral 8x7B and Megatron GPT configs at 2
+      layers, the decode loop's syncs counted (dropless MoE's group sizes
+      alone, ``ops/moe.py``);
+   c. a port checkpoint of seeded weights at that width (2 layers) through
+      the checkpoint manager, seeded records, ``tools/run_sft_evaluation.py``
+      with a byte-level stub tokenizer: its generations equal
+      ``generate_cached`` on the weights in memory, its scores printed, one
+      forward launch a layer and batch, each held against the plain version
+      on its inputs (b 4 and b 2 at s 64).
+
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``) runs the kernels'
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``, ``19``) runs the kernels'
 build and those phases alone (13e, 16 and 17 after phase 4, 17 after 16a, 18 after phase 3;
 14a and 14b are one function) and prints no result: a partial check while developing.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import logging
 import math
 import os
+import random
 import re
 import shutil
 import signal
@@ -5163,6 +5194,646 @@ def phase_trace_multi(torch, cell, card: str) -> dict | None:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: KV-cached decode and the SFT evaluation
+# ---------------------------------------------------------------------------
+
+#: 19a: the decode bench's setup (tools/bench_decode.py's defaults)
+DECODE_ARGS = ["--batch", "8", "--prompt-len", "512", "--new-tokens", "128"]
+DECODE_LAYERS = 32
+#: 19a: decode steps in the profiler's window, and in the sync-checked run
+DECODE_TRACE_STEPS, DECODE_SYNC_STEPS = 16, 16
+DECODE_SEED = 20261201
+#: 19b: decode_step's bf16 logits against the full-prefix forward at the
+#: same position, and the prefill's last-position logits through the kernel
+#: against the plain version: the largest gap over the reference logits'
+#: standard deviation.  Sound readings on an H100 are 0.035-0.049 at b 2
+#: (PERF.md), so the limit is just above twice that.  It bounds bf16
+#: rounding only: at random weights the attention over ~512 keys is near
+#: uniform, and a wrong cache slot or an off-by-one mask moves the logits
+#: by less.  The guards against such faults are 19b's fp32 greedy runs
+#: (cached against uncached, token for token) and the CPU tests against JAX.
+TOL_DECODE_LOGITS = 0.1
+DECODE_PARITY_STEPS = 16
+#: the host probe: tiny kernels enqueued, and a pure-Python loop's length
+HOST_PROBE_LAUNCHES, HOST_PROBE_LOOP = 1000, 300_000
+#: 19c: the evaluation records (byte lengths of their inputs: each batch of
+#: SFT_EVAL_BATCH pads to 64, so its prefill tiles) and new tokens
+SFT_EVAL_LENGTHS = (64, 40, 23, 64, 64, 50)
+SFT_EVAL_BATCH, SFT_EVAL_NEW = 4, 16
+SFT_EVAL_CONFIG = "hf_llama3_8B_SFT_config.yaml"
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for the HF tokenizer (no tokenizer files are in
+    the repo): ids are bytes + 3, 2 is the EOS."""
+
+    eos_token_id = 2
+
+    def encode(self, text: str) -> list:
+        return [b + 3 for b in text.encode()]
+
+    def decode(self, ids) -> str:
+        return bytes(int(i) - 3 for i in ids if 3 <= int(i) < 259).decode("utf-8", "replace")
+
+
+class DecodeSyncs:
+    """Runs ``fn`` under ``torch.cuda``'s sync debug mode and sorts each
+    synchronizing call by whether it came before the first decode step or
+    from it on (the decode loop), keeping its source file and line."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __call__(self, fn):
+        import threading
+        import warnings
+
+        from neuronx_distributed_training_torch.models import decode
+
+        seen: list = []
+        loop_at: list = []
+        real = decode.decode_step
+
+        def step(*a, **kw):
+            if not loop_at:
+                loop_at.append(len(seen))
+            return real(*a, **kw)
+
+        me = threading.get_ident()
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if threading.get_ident() == me and "called a synchronizing" in str(message):
+                seen.append(f"{Path(filename).name}:{lineno}")
+
+        decode.decode_step = step
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            self.torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+                self.torch.cuda.synchronize()
+            finally:
+                self.torch.cuda.set_sync_debug_mode("default")
+                decode.decode_step = real
+        at = loop_at[0] if loop_at else len(seen)
+        return out, seen[:at], seen[at:]
+
+
+def host_probe(torch) -> dict:
+    """The host's pace in this process, the card idle: microseconds to
+    enqueue one tiny kernel (over HOST_PROBE_LAUNCHES), a pure-Python loop's
+    and a full garbage collection's milliseconds; and the state an earlier
+    phase could leave behind to slow it: the live threads by name, the
+    Python objects the collector tracks, the profiler, the allocator's
+    history recording, the sync debug mode, torch's CPU threads."""
+    import collections
+    import threading
+
+    def traces() -> int:
+        return sum(len(t) for t in torch.cuda.memory._snapshot()["device_traces"])
+
+    x = torch.zeros(16, device="cuda")
+    n0 = traces()
+    y = torch.empty(4099, device="cuda")  # recorded iff the history is on
+    history = traces() > n0
+    del y
+    for _ in range(HOST_PROBE_LAUNCHES // 10):  # the kernel's first load out of the timing
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_PROBE_LAUNCHES):
+        x.add_(1.0)
+    launch_us = (time.perf_counter() - t0) / HOST_PROBE_LAUNCHES * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(HOST_PROBE_LOOP):
+        total += i
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+
+    def runs(t) -> str:  # what a thread runs: its target, or a Timer's function
+        f = getattr(t, "_target", None) or getattr(t, "function", None)
+        return f"{getattr(f, '__module__', '?')}.{getattr(f, '__qualname__', repr(f))}"
+
+    others = collections.Counter(f"{type(t).__name__} {runs(t)}" for t in threading.enumerate()
+                                 if t is not threading.main_thread())
+    return {"launch_us": round(launch_us, 3), "python_loop_ms": round(loop_ms, 3),
+            "gc_collect_ms": round(gc_ms, 3), "gc_objects": len(gc.get_objects()),
+            "threads": threading.active_count(), "other_threads": dict(others),
+            "profiler_on": bool(torch._C._autograd._profiler_enabled()),
+            "memory_history_on": history, "sync_debug_mode": torch.cuda.get_sync_debug_mode(),
+            "torch_threads": torch.get_num_threads(),
+            "cuda_reserved_gib": round(torch.cuda.memory_reserved() / 2**30, 3)}
+
+
+def fresh_host_probe() -> dict:
+    """:func:`host_probe` in a new process on the same card (``--host-probe``)."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--host-probe"],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"the fresh process's host probe failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+class GcWatch:
+    """The garbage collector's runs and seconds by generation while the
+    block runs (``gc.callbacks``)."""
+
+    def __enter__(self):
+        self.runs, self.seconds, start = [0, 0, 0], [0.0, 0.0, 0.0], []
+
+        def watch(phase, info):
+            if phase == "start":
+                start[:] = [time.perf_counter()]
+            elif start:
+                self.runs[info["generation"]] += 1
+                self.seconds[info["generation"]] += time.perf_counter() - start[0]
+
+        self.watch = watch
+        gc.callbacks.append(watch)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self.watch)
+
+    def summary(self) -> dict:
+        return {"runs": self.runs, "seconds": [round(x, 4) for x in self.seconds]}
+
+
+def decode_steps_ms(torch, cfg, policy, params, cache, tok, pos) -> float:
+    """ms a decode step over ``DECODE_TRACE_STEPS`` untraced steps."""
+    from neuronx_distributed_training_torch.models import decode
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_TRACE_STEPS):
+        decode.decode_step(params, cache, tok, pos + i, cfg, policy)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / DECODE_TRACE_STEPS * 1e3
+
+
+def bench_in_fresh_process() -> dict:
+    """``python -m ...tools.bench_decode`` with 19a's arguments in a new
+    process, as a user runs it: its JSON line (the same work as 19a's
+    in-process run, on a process that ran nothing before)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-m", "neuronx_distributed_training_torch.tools."
+                          "bench_decode", *DECODE_ARGS], capture_output=True, text=True,
+                         cwd=str(REPO), env=env, timeout=600)
+    if out.returncode != 0:
+        fail(f"decode 19a: bench_decode in a fresh process exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def decode_bound_ms(cfg, params, peaks, *, b: int, plen: int, n: int) -> tuple:
+    """``(bound ms, bound_by, GB)`` of one decode step of the bench, averaged
+    over its ``n`` steps: each bf16 weight read once (the tied embedding once,
+    as the head), the cache rows each step's attention needs (positions <=
+    pos, k and v) and its new k and v written; the operations, 2 a weight
+    and a token plus the attention's 4 d a visible key and head."""
+    from neuronx_distributed_training_torch.models import llama
+
+    weights = sum(t.numel() for t in llama.named_params(params).values())
+    L, nkv, nh, d = cfg.num_layers, cfg.kv_heads, cfg.num_attention_heads, cfg.head_size
+    keys = sum(plen + i + 1 for i in range(n)) / n  # visible keys a row, mean over the steps
+    bytes_ = 2 * weights + 2 * 2 * L * b * keys * nkv * d
+    flops = 2 * weights * b + 4 * L * b * nh * d * keys
+    t_bytes, t_ops = bytes_ / peaks[1], flops / peaks[0]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        bytes_ / 1e9
+
+
+def decode_device_seconds(torch, cfg, policy, params, cache, tok, pos, work: Path) -> dict:
+    """The device seconds of ``DECODE_TRACE_STEPS`` decode steps under
+    ``torch.profiler`` (CUDA activity), read by ``telemetry/
+    trace_analysis.py`` from the exported trace, and the window's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_training_torch.models import decode
+    from neuronx_distributed_training_torch.telemetry import trace_analysis as ta
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(DECODE_TRACE_STEPS):
+            decode.decode_step(params, cache, tok, pos + i, cfg, policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "decode_trace.json"
+    prof.export_chrome_trace(str(path))
+    try:
+        summary = ta.analyze_events(ta.load_trace_events(path))
+    finally:
+        path.unlink(missing_ok=True)
+    if "GPU 0" not in summary.get("devices", []):
+        fail(f"decode 19a: the profiler asked for CUDA activity and the trace holds none: "
+             f"devices {summary.get('devices')}")
+    return {"device_s": summary["total_device_seconds"] / DECODE_TRACE_STEPS,
+            "traced_wall_s": wall / DECODE_TRACE_STEPS,
+            "top": [(r["op"][:60], r.get("total_seconds")) for r in summary["top_ops"][:6]]}
+
+
+def phase_decode_bench(torch, fa, cell, card: str, peaks) -> dict:
+    """19a: ``tools/bench_decode.py`` at Llama-3-8B width and all 32 layers,
+    b 8, prompt 512, 128 new tokens, bf16, the flash route: its JSON line,
+    the step's bound and share of it, the step's busy share (profiled device
+    seconds over the untraced step's wall), the peak memory; the forward
+    kernel launched 32 x prefills times exactly, dq and dk/dv never, no
+    fallback; the collector's runs during the bench, and 16 steps as they
+    run against 16 with every live object frozen out of its reach
+    (``gc.freeze``); then ``generate_cached`` (16 new tokens) under the sync
+    debug mode: 0 syncs in the decode loop; last, the same bench through
+    its command line in a fresh process, its step beside this process's."""
+    from neuronx_distributed_training_torch.models import decode
+    from neuronx_distributed_training_torch.tools import bench_decode as bd
+
+    t_phase = time.perf_counter()
+    args = bd.parse_args(DECODE_ARGS)
+    dev = torch.device("cuda")
+    cfg, policy, params = bd.model(args, dev)
+    if cfg.num_layers != DECODE_LAYERS:
+        fail(f"decode 19a: the bench's layer rule gave {cfg.num_layers} layers on this card, "
+             f"not {DECODE_LAYERS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    with GcWatch() as gcw:
+        rec = bd.run(args, cfg, policy, params, dev)
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"decode 19a: {json.dumps(rec)} [{card}]")
+    prefills = 1 + bd.PREFILL_REPS
+    want = {"flash_fwd": cfg.num_layers * prefills, "flash_dq": 0, "flash_dkv": 0}
+    if launches != want or any(fallbacks.values()):
+        fail(f"decode 19a: launches {launches} (want {want}), fallbacks {fallbacks}")
+    b, plen, n = args.batch, args.prompt_len, args.new_tokens
+    bound, bound_by, gb = decode_bound_ms(cfg, params, peaks, b=b, plen=plen, n=n)
+    step_ms = rec["ms_per_decode_step"]
+    total = plen + n
+    _, cache = decode.prefill(params, bd.prompts(cfg, b, plen, 1, dev), cfg, policy,
+                              max_len=total)
+    tok = torch.full((b,), 5, dtype=torch.int32, device=dev)
+    pos = torch.full((b,), plen, dtype=torch.long, device=dev)
+    busy = decode_device_seconds(torch, cfg, policy, params, cache, tok, pos,
+                                 cell.WORK / "decode")
+    # the host's part: steps as they run, then with every object alive now
+    # out of the collector's reach (gc.freeze), then as they run again
+    ab = []
+    for frozen in (False, True, False):
+        if frozen:
+            gc.collect()
+            gc.freeze()
+        try:
+            with GcWatch() as w:
+                ab.append((decode_steps_ms(torch, cfg, policy, params, cache, tok, pos),
+                           w.summary()))
+        finally:
+            gc.unfreeze()
+    del cache
+    busy_share = busy["device_s"] * 1e3 / step_ms
+    log(f"decode 19a: prefill {rec['prefill_tokens_per_sec']} tok/s, decode {rec['value']} "
+        f"tok/s, {step_ms} ms a step against its bound {bound:.3f} ms ({bound_by}: "
+        f"{gb:.2f} GB a step) = {bound / step_ms:.4f} of it; device busy {busy['device_s'] * 1e3:.3f} "
+        f"ms a step = busy share {busy_share:.4f} of the untraced step "
+        f"({busy['traced_wall_s'] * 1e3:.3f} ms traced); peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches} [{card}]")
+    log(f"decode 19a: top device ops {busy['top']}")
+    log(f"decode 19a: the collector during the bench (3 prefills and {n} steps timed, their "
+        f"warm-up): {json.dumps(gcw.summary())}; {DECODE_TRACE_STEPS} steps as they run "
+        f"{ab[0][0]:.3f} ms a step {json.dumps(ab[0][1])}, with gc.freeze {ab[1][0]:.3f} ms "
+        f"{json.dumps(ab[1][1])}, as they run again {ab[2][0]:.3f} ms {json.dumps(ab[2][1])} "
+        f"[{card}]")
+    ids = bd.prompts(cfg, b, plen, DECODE_SEED, dev)
+    lens = torch.full((b,), plen, dtype=torch.int32, device=dev)
+    out, before, inside = DecodeSyncs(torch)(lambda: decode.generate_cached(
+        params, cfg, policy, ids, lens, max_new_tokens=DECODE_SYNC_STEPS + 1,
+        eos_id=cfg.vocab_size))
+    if inside or before:
+        fail(f"decode 19a: synchronizing calls in generate_cached: {len(before)} before the "
+             f"decode loop {before[:6]}, {len(inside)} in it {inside[:6]}")
+    if tuple(out.shape) != (b, total - n + DECODE_SYNC_STEPS + 1) or \
+            int(out[:, plen:].min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail(f"decode 19a: generate_cached gave {tuple(out.shape)}, ids out of the vocab")
+    log(f"decode 19a: generate_cached with {DECODE_SYNC_STEPS} decode steps: 0 syncs in the "
+        f"loop or before it")
+    del params
+    free_cuda(torch)
+    fresh = bench_in_fresh_process()
+    if fresh["num_layers"] != DECODE_LAYERS:
+        fail(f"decode 19a: the fresh process's bench ran {fresh['num_layers']} layers")
+    log(f"decode 19a: the same bench in a fresh process (python -m ...tools.bench_decode "
+        f"{' '.join(DECODE_ARGS)}): {fresh['ms_per_decode_step']} ms a step against "
+        f"{step_ms} in this one, prefill {fresh['prefill_tokens_per_sec']} tok/s [{card}]")
+    return {"bench": rec, "launches": launches, "bound_ms": bound, "bound_by": bound_by,
+            "busy_share": busy_share, "peak": peak, "gc": gcw.summary(), "freeze_ab": ab,
+            "fresh_bench": fresh,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def logit_gap(a, b) -> float:
+    """The largest |a - b| over the standard deviation of ``b``."""
+    return float((a.float() - b.float()).abs().max() / b.float().std())
+
+
+def llama_8b(torch, layers: int, precision: str, impl: str, seed: int):
+    """A Llama-3-8B-width model cut to ``layers``: (cfg, policy, params)."""
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.tools import bench_decode as bd
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    cfg = llama.LlamaConfig(vocab_size=bd.VOCAB, hidden_size=bd.H, intermediate_size=bd.FFN,
+                            num_layers=layers, num_attention_heads=bd.NH, num_kv_heads=bd.NKV,
+                            rope_theta=500000.0, tie_word_embeddings=True, attention_impl=impl)
+    policy = DtypePolicy.from_precision_config({"type": precision})
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, policy, llama.init_params(cfg, policy, generator=gen, device="cuda")
+
+
+def ragged_prompts(vocab: int) -> list:
+    """Two prompts of 37 and 20 tokens, spread over the vocab."""
+    return [[(7919 * j + 11) % vocab for j in range(37)], [(104729 * j + 5) % vocab
+                                                          for j in range(20)]]
+
+
+def greedy_pair(torch, tag: str, mc, policy, params, forward, card: str, prompts: list) -> dict:
+    """Greedy ``generate_cached`` against the uncached ``generate`` (the
+    full-prefix ``forward`` each token), token for token, and the cached
+    run's synchronizing calls before its decode loop (core attention's scale
+    is a host tensor copied to the card, ``ops/attention.py``) and in it."""
+    from neuronx_distributed_training_torch.models import decode
+    from neuronx_distributed_training_torch.models import generate as gen
+
+    ids, lens = gen.pad_prompts(prompts)
+    ids, lens = ids.cuda(), lens.cuda()
+    eos = mc.vocab_size  # never drawn: every row runs to the end
+    cached, before, inside = DecodeSyncs(torch)(lambda: decode.generate_cached(
+        params, mc, policy, ids, lens, max_new_tokens=DECODE_PARITY_STEPS, eos_id=eos))
+    uncached = gen.generate(params, ids, lens,
+                            lambda p, x: forward(p, {"input_ids": x}, mc, policy)[0],
+                            max_new_tokens=DECODE_PARITY_STEPS, eos_id=eos)
+    if not torch.equal(cached, uncached):
+        fail(f"decode 19b: {tag}: generate_cached differs from the uncached generate: "
+             f"{cached.tolist()} against {uncached.tolist()}")
+    log(f"decode 19b: {tag}: greedy generate_cached equals the uncached generate over "
+        f"{DECODE_PARITY_STEPS} tokens a row; syncs before the loop {len(before)}, in it "
+        f"{len(inside)} {sorted(set(inside))} [{card}]")
+    return {"before": before, "inside": inside}
+
+
+class KernelChecked:
+    """Within the block, every call of the forward kernel's wrapper (the
+    model's attention looks it up as ``fa.flash_fwd`` at each call) also
+    runs its plain version on the same q, k, v and keeps the shape, the o
+    error and the lse error (phase 2's units).  Only the kernel's launch is
+    counted."""
+
+    def __init__(self, fa):
+        self.fa, self.errs = fa, []
+
+    def __enter__(self):
+        real, fa = self.fa.flash_fwd, self.fa
+        self.real = real
+
+        def checked(q, k, v, kvm=None, seg=None, **kw):
+            o, lse = real(q, k, v, kvm, seg, **kw)
+            op, lp = fa.flash_fwd_plain(q, k, v, kvm, seg, **kw)
+            self.errs.append((tuple(q.shape), o_err(o, op), abs_err(lse, lp)))
+            return o, lse
+
+        fa.flash_fwd = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_fwd = self.real
+
+    def hold(self, what: str) -> tuple:
+        """Fail unless every call was within TOL_O / TOL_LSE_ABS: ``(worst
+        o_err, worst lse, the shapes seen)``."""
+        if not self.errs:
+            fail(f"{what}: the forward kernel was never called")
+        worst_o, worst_lse = max(e[1] for e in self.errs), max(e[2] for e in self.errs)
+        shapes = sorted({e[0] for e in self.errs})
+        if worst_o > TOL_O or worst_lse > TOL_LSE_ABS:
+            fail(f"{what}: the forward kernel against its plain version on the path's "
+                 f"inputs {shapes}: o_err {worst_o:.3f} (limit {TOL_O}), lse {worst_lse:.2e} "
+                 f"(limit {TOL_LSE_ABS})")
+        return worst_o, worst_lse, shapes
+
+
+def phase_decode_parity(torch, fa, card: str) -> dict:
+    """19b: at Llama-3-8B width cut to 2 layers and the bench's batch (8),
+    the prefill's attention through the forward kernel against its plain
+    version on the same q, k, v (phase 2's TOL_O / TOL_LSE_ABS, every layer)
+    and its last-position logits
+    against the plain route's (``TOL_DECODE_LOGITS``); ``decode_step``'s
+    logits at each of 16 steps against the full-prefix forward at that
+    position (bf16, ``TOL_DECODE_LOGITS``); greedy ``generate_cached``
+    against the uncached ``generate`` under the fp32 policy (core attention
+    both), 0 syncs in its loop; the Mixtral 8x7B and Megatron GPT configs at
+    their widths, cut to 2 layers, fp32: one greedy run each against the
+    uncached path, Mixtral's in-loop syncs all dropless MoE's (ops/moe.py)."""
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.models import decode, gpt, llama, mixtral
+    from neuronx_distributed_training_torch.tools import bench_decode as bd
+    from neuronx_distributed_training_torch.trainer.loop import model_config
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cfg, policy, params = llama_8b(torch, 2, "bf16SR", "flash", DECODE_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(DECODE_SEED + 1)
+    args = bd.parse_args(DECODE_ARGS)
+    b = args.batch
+    ids = torch.randint(3, cfg.vocab_size, (b, args.prompt_len), generator=gen, device="cuda")
+
+    def last_logits():
+        h, _ = decode.prefill(params, ids, cfg, policy)
+        return llama.logits_fn(params, h[:, -1:], cfg, policy)[:, 0]
+
+    fa.reset_counters()
+    with KernelChecked(fa) as chk:
+        kernel = last_logits()
+    if fa.LAUNCHES["flash_fwd"] != cfg.num_layers or any(fa.FALLBACKS.values()):
+        fail(f"decode 19b: prefill launches {fa.LAUNCHES}, fallbacks {fa.FALLBACKS}")
+    worst_o, worst_lse, _ = chk.hold("decode 19b: prefill")
+    real = fa.flash_fwd
+    fa.flash_fwd = fa.flash_fwd_plain
+    try:
+        plain = last_logits()
+    finally:
+        fa.flash_fwd = real
+    gap = logit_gap(kernel, plain)
+    if gap > TOL_DECODE_LOGITS:
+        fail(f"decode 19b: prefill through the kernel: last-position logit gap {gap:.4f} "
+             f"(limit {TOL_DECODE_LOGITS}) against the plain version")
+    log(f"decode 19b: prefill (2 layers, b {b}, s {args.prompt_len}) through the kernel "
+        f"against its plain version: o_err {worst_o:.3f}, lse {worst_lse:.2e} a layer; "
+        f"last-position logits gap / std {gap:.4f} [{card}]")
+    out["prefill"] = {"o_err": worst_o, "lse": worst_lse, "gap": gap}
+
+    # decode_step at each step against the full-prefix forward there
+    s = ids.shape[1]
+    h, cache = decode.prefill(params, ids, cfg, policy, max_len=s + DECODE_PARITY_STEPS)
+    tok = llama.logits_fn(params, h[:, -1:], cfg, policy)[:, 0].argmax(-1)
+    seq, gaps = ids, []
+    rows = torch.arange(ids.shape[0], device="cuda")
+    for i in range(DECODE_PARITY_STEPS):
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        pos = torch.full_like(rows, s + i)
+        logits, cache = decode.decode_step(params, cache, tok, pos, cfg, policy)
+        with torch.inference_mode():
+            ref = llama.forward(params, {"input_ids": seq}, cfg, policy)[0][:, -1]
+        gaps.append(logit_gap(logits, ref))
+        tok = logits.argmax(-1)
+    if max(gaps) > TOL_DECODE_LOGITS:
+        fail(f"decode 19b: decode_step's logits against the full-prefix forward: gap / std "
+             f"{[round(g, 4) for g in gaps]} (limit {TOL_DECODE_LOGITS})")
+    log(f"decode 19b: decode_step's logits at {DECODE_PARITY_STEPS} steps against the "
+        f"full-prefix forward (bf16): gap / std at most {max(gaps):.4f} "
+        f"({[round(g, 4) for g in gaps]}) [{card}]")
+    out["decode_gaps"] = gaps
+    del params, cache, h
+    free_cuda(torch)
+
+    cfg, policy, params = llama_8b(torch, 2, "fp32", "core", DECODE_SEED + 2)
+    out["llama"] = greedy_pair(torch, "llama-3-8B width, 2 layers, fp32", cfg, policy, params,
+                               llama.forward, card, ragged_prompts(cfg.vocab_size))
+    if out["llama"]["inside"]:
+        fail(f"decode 19b: synchronizing calls in the dense decode loop: {out['llama']}")
+    del params
+    free_cuda(torch)
+    fp32 = DtypePolicy.from_precision_config({"type": "fp32"})
+    for tag, config, family, forward in (
+            ("mixtral", "hf_mixtral_8x7b_config.yaml", mixtral, mixtral.forward),
+            ("gpt", "megatron_gpt_config.yaml", gpt, gpt.forward)):
+        mc = model_config(load_config(REPO / "examples" / "conf" / config,
+                                      {"model.num_layers": 2}))
+        if tag == "mixtral":
+            mc = dataclasses.replace(mc, llama=dataclasses.replace(mc.llama,
+                                                                   attention_impl="core"))
+        else:
+            mc = dataclasses.replace(mc, attention_impl="core")
+        gen = torch.Generator(device="cuda").manual_seed(DECODE_SEED + 3)
+        params = family.init_params(mc, fp32, generator=gen, device="cuda")
+        rep = greedy_pair(torch, f"{config} at 2 layers, fp32", mc, fp32, params, forward,
+                          card, ragged_prompts(mc.vocab_size))
+        if any(not w.startswith("moe.py:") for w in rep["inside"]):
+            fail(f"decode 19b: {tag}: synchronizing calls in the decode loop outside dropless "
+                 f"MoE's group sizes: {rep['inside']}")
+        if tag == "mixtral":
+            steps, moe_layers = DECODE_PARITY_STEPS - 1, mixtral.num_moe_layers(mc)
+            rep["syncs_per_moe_layer_step"] = len(rep["inside"]) / (steps * moe_layers)
+            log(f"decode 19b: mixtral's decode loop: {len(rep['inside'])} syncs over {steps} "
+                f"steps x {moe_layers} MoE layers = {rep['syncs_per_moe_layer_step']:.2f} a MoE "
+                f"layer a step, all in ops/moe.py")
+        out[tag] = rep
+        del params
+        free_cuda(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_sft_eval(torch, fa, cell, card: str) -> dict:
+    """19c: a port checkpoint of seeded Llama-3-8B-width weights at 2 layers
+    (the SFT config's mixed precision) written through the checkpoint
+    manager, a seeded jsonl of records, ``tools/run_sft_evaluation.py`` on
+    them with a byte-level stub tokenizer: its generations equal
+    ``generate_cached`` on the same weights in memory, token for token; its
+    scores printed; the forward kernel launched once a layer and batch, each
+    launch (b 4 and b 2 at s 64: one half-filled tile) held against its
+    plain version on the same inputs."""
+    import yaml
+
+    from neuronx_distributed_training_torch.config.loader import load_config
+    from neuronx_distributed_training_torch.models import decode
+    from neuronx_distributed_training_torch.models import generate as gen
+    from neuronx_distributed_training_torch.models import llama
+    from neuronx_distributed_training_torch.tools import run_sft_evaluation as ev
+    from neuronx_distributed_training_torch.tools.checkpoint_converter import save_native
+    from neuronx_distributed_training_torch.trainer.loop import model_config
+    from neuronx_distributed_training_torch.utils.dtypes import DtypePolicy
+
+    t_phase = time.perf_counter()
+    work = cell.WORK / "sft_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    raw = yaml.safe_load((REPO / "examples" / "conf" / SFT_EVAL_CONFIG).read_text())
+    raw["model"]["num_layers"] = 2
+    config = work / "config.yaml"
+    config.write_text(yaml.safe_dump(raw))
+    cfg = load_config(config)
+    mc, policy = model_config(cfg), DtypePolicy.from_precision_config(cfg.get("precision", {}))
+    g = torch.Generator(device="cuda").manual_seed(DECODE_SEED + 4)
+    params = llama.init_params(mc, policy, generator=g, device="cuda")
+    save_native(params, mc, work / "ckpt", step=1)
+    rng = random.Random(DECODE_SEED)
+    letters = "abcdefghij klmnop"
+    records = [{"input": "".join(rng.choice(letters) for _ in range(n)),
+                "output": " ".join(rng.choice(["yes", "no", "four", "cat"]) for _ in range(3))}
+               for n in SFT_EVAL_LENGTHS]
+    data = work / "eval.jsonl"
+    data.write_text("\n".join(json.dumps(r) for r in records))
+    tok = ByteTokenizer()
+    fa.reset_counters()
+    with KernelChecked(fa) as chk:  # each launch of the CLI against the plain version
+        scores, generations = ev.main(
+            ["--config", str(config), "--checkpoint", str(work / "ckpt"), "--data", str(data),
+             "--tokenizer", "byte-level stub", "--max-new-tokens", str(SFT_EVAL_NEW),
+             "--batch-size", str(SFT_EVAL_BATCH)], tokenizer=tok)
+    torch.cuda.synchronize()
+    launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    worst_o, worst_lse, shapes = chk.hold("sft eval 19c")
+    batches = -(-len(records) // SFT_EVAL_BATCH)
+    want = {"flash_fwd": mc.num_layers * batches, "flash_dq": 0, "flash_dkv": 0}
+    if launches != want or any(fallbacks.values()):
+        fail(f"sft eval 19c: launches {launches} (want {want}), fallbacks {fallbacks}")
+    for i in range(0, len(records), SFT_EVAL_BATCH):
+        prompts = [tok.encode(r["input"]) for r in records[i:i + SFT_EVAL_BATCH]]
+        ids, lens = gen.pad_prompts(prompts, pad_id=tok.eos_token_id)
+        ref = decode.generate_cached(params, mc, policy, ids, lens,
+                                     max_new_tokens=SFT_EVAL_NEW, eos_id=tok.eos_token_id,
+                                     pad_id=tok.eos_token_id).tolist()
+        if generations[i:i + SFT_EVAL_BATCH] != ref:
+            fail(f"sft eval 19c: the CLI's generations of batch {i // SFT_EVAL_BATCH} differ "
+                 f"from generate_cached on the weights in memory")
+    if set(scores) != {"rouge_l", "f1", "exact_match"} or \
+            not all(0.0 <= v <= 1.0 for v in scores.values()):
+        fail(f"sft eval 19c: scores {scores}")
+    log(f"sft eval 19c: run_sft_evaluation on a 2-layer Llama-3-8B-width checkpoint, "
+        f"{len(records)} records: generations equal generate_cached token for token; scores "
+        f"{json.dumps(scores)}; launches {launches}, each against the plain version on its "
+        f"inputs {shapes}: o_err {worst_o:.3f}, lse {worst_lse:.2e} [{card}]")
+    del params
+    shutil.rmtree(work, ignore_errors=True)
+    free_cuda(torch)
+    return {"scores": scores, "launches": launches, "seconds": time.perf_counter() - t_phase}
+
+
+def phase_decode(torch, fa, cell, card: str, peaks) -> dict:
+    """Phase 19, 19a-19c, after the host probe here and in a fresh process
+    (what the earlier phases left behind, beside the decode step's pace)."""
+    t_phase = time.perf_counter()
+    out = {"host_probe": host_probe(torch), "fresh_host_probe": fresh_host_probe()}
+    log(f"decode 19: host probe in this process {json.dumps(out['host_probe'])}; in a fresh "
+        f"process {json.dumps(out['fresh_host_probe'])} [{card}]")
+    out["bench"] = phase_decode_bench(torch, fa, cell, card, peaks)
+    out["parity"] = phase_decode_parity(torch, fa, card)
+    out["sft_eval"] = phase_sft_eval(torch, fa, cell, card)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"decode 19a-19c: phase wall time {out['phase_seconds']:.1f} s (19a "
+        f"{out['bench']['seconds']:.1f}, 19b {out['parity']['seconds']:.1f}, 19c "
+        f"{out['sft_eval']['seconds']:.1f}) [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -5193,6 +5864,9 @@ def main() -> None:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    if "--host-probe" in sys.argv:  # phase 19's fresh process: the probe alone
+        print(json.dumps(host_probe(torch)), flush=True)
+        return
     sys.path.insert(0, str(REPO))
     try:
         from neuronx_distributed_training_torch.ops import flash_attention as fa
@@ -5234,6 +5908,7 @@ def main() -> None:
     if spilling:
         fail(f"ptxas reports spills: {spilling}")
 
+    log(f"host probe at the start: {json.dumps(host_probe(torch))}")
     only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
     if only is not None:
         # a partial run: the named phases (13e and 16 after phase 4,
@@ -5268,7 +5943,8 @@ def main() -> None:
                          ("14c", lambda: phase_moe_layer(torch, card, peaks)),
                          ("14d", lambda: phase_mixtral_cli(torch, cell, card)),
                          ("15", lambda: phase_gpt(torch, fa, kt, card, peaks)),
-                         ("15f", lambda: phase_gpt_tp(torch, cell, card))):
+                         ("15f", lambda: phase_gpt_tp(torch, cell, card)),
+                         ("19", lambda: phase_decode(torch, fa, cell, card, peaks))):
             if name in only or (name[:2] in only and name != "15f") or \
                     (name == "14a" and "14b" in only):
                 fn()
@@ -5329,6 +6005,8 @@ def main() -> None:
     trace = phase_trace(torch, fa, kt, cell, times, card)
     free_cuda(torch)
     trace_multi = phase_trace_multi(torch, cell, card)
+    free_cuda(torch)
+    dec = phase_decode(torch, fa, cell, card, peaks)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -5404,7 +6082,9 @@ def main() -> None:
                                     {f"trace_{tag}_{how}": [r["launches"][kname]
                                                             for r in run[how]["ranks"]]
                                      for tag, run in trace_multi["runs"].items()
-                                     for how in ("base", "overlap")})},
+                                     for how in ("base", "overlap")}),
+                                 "decode_prefill": dec["bench"]["launches"][kname],
+                                 "sft_eval": dec["sft_eval"]["launches"][kname]},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

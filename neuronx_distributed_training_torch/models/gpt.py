@@ -348,7 +348,10 @@ def _rotate(cfg: GPTConfig, x: torch.Tensor, cos, sin) -> torch.Tensor:
 
 
 def _attention_block(cfg: GPTConfig, lp, x, cos, sin, policy: DtypePolicy,
-                     attention_mask=None, segment_ids=None, tp=None):
+                     attention_mask=None, segment_ids=None, tp=None, attend=None):
+    """The attention sublayer; ``attend`` as in ``models/llama.py::
+    _attention_block`` (k rotated on its first ``int(d p) // 2 * 2`` dims
+    under partial rotary)."""
     x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
     size = tp.size if tp_ops.active(tp) else 1
@@ -360,16 +363,18 @@ def _attention_block(cfg: GPTConfig, lp, x, cos, sin, policy: DtypePolicy,
     if cos is not None:
         q, k = _rotate(cfg, q, cos, sin), _rotate(cfg, k, cos, sin)
 
-    def attend(q, k, v):
+    def attention(q, k, v):
         return attn_ops.attention(
             q, k, v, impl=cfg.attention_impl, causal=True, sliding_window=cfg.sliding_window,
             softmax_dtype=policy.softmax_dtype, attention_mask=attention_mask,
             segment_ids=segment_ids, tp_size=size)
 
-    if cfg.attention_impl == "core" and cfg.activations_checkpoint_granularity == "selective":
-        out = checkpoint(attend, q, k, v, use_reentrant=False)
+    if attend is not None:
+        out = attend(q, k, v, attention)
+    elif cfg.attention_impl == "core" and cfg.activations_checkpoint_granularity == "selective":
+        out = checkpoint(attention, q, k, v, use_reentrant=False)
     else:
-        out = attend(q, k, v)
+        out = attention(q, k, v)
     return linear_ops.apply_row_linear(lp["o"], out.reshape(b, s, nh * d), tp)
 
 
@@ -386,8 +391,9 @@ def _mlp_block(cfg: GPTConfig, lp, x, policy: DtypePolicy, tp=None, ep=None, mid
 
 
 def _decoder_layer(lp, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, key=None,
-                   attention_mask=None, segment_ids=None, tp=None, ep=None):
-    """One block in the configured layout -> ``(x, share, value)``:
+                   attention_mask=None, segment_ids=None, tp=None, ep=None, attend=None):
+    """One block in the configured layout -> ``(x, share, value)``
+    (``attend`` as in :func:`_attention_block`):
 
     - ``pre_ln``      x += drop(attn(LN1 x));       x += drop(mlp(LN2 x))
     - ``post_ln``     x = LN1(x + drop(attn(x)));   x = LN2(x + drop(mlp(x)))
@@ -403,7 +409,7 @@ def _decoder_layer(lp, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, key=Non
 
     def attn(h):
         return _attention_block(cfg, lp["attn"], h, cos, sin, policy, attention_mask,
-                                segment_ids, tp)
+                                segment_ids, tp, attend)
 
     if bt == "gpt_j":
         a = attn(apply_norm(cfg, lp["input_norm"], x))

@@ -270,7 +270,12 @@ def check_heads(nh: int, nkv: int, tp: int) -> None:
 
 
 def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                     attention_mask=None, segment_ids=None, tp=None, cp=None):
+                     attention_mask=None, segment_ids=None, tp=None, cp=None, attend=None):
+    """The attention sublayer.  ``attend(q, k, v, attention)``, if given,
+    takes the place of the configured attention, which it gets as its last
+    argument, with the rotated k and the v ``[b, s, nkv, d]`` (the KV-cache
+    contract of ``models/decode.py``: its prefill stores them and calls
+    ``attention``, its decode step attends over the cache)."""
     x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
     size = tp.size if tp_ops.active(tp) else 1
@@ -288,19 +293,21 @@ def _attention_block(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
     k = rope_ops.apply_rope(k.reshape(b, s, nkv, d), cos, sin)
     v = v.reshape(b, s, nkv, d)
 
-    def attend(q, k, v):
+    def attention(q, k, v):
         return attn_ops.attention(
             q, k, v, impl=cfg.attention_impl, causal=True,
             sliding_window=cfg.sliding_window, softmax_dtype=policy.softmax_dtype,
             attention_mask=attention_mask, segment_ids=segment_ids, cp=cp, tp_size=size,
         )
 
-    if (cfg.attention_impl == "core"
+    if attend is not None:
+        out = attend(q, k, v, attention)
+    elif (cfg.attention_impl == "core"
             and cfg.activations_checkpoint_granularity == "selective"):
         # recompute core attention's O(s^2) scores and probs in backward
-        out = checkpoint(attend, q, k, v, use_reentrant=False)
+        out = checkpoint(attention, q, k, v, use_reentrant=False)
     else:
-        out = attend(q, k, v)
+        out = attention(q, k, v)
     return tp_ops.leave_row(linear_ops.apply_linear(lp["o"], out.reshape(b, s, nh * d)), tp)
 
 
@@ -311,13 +318,14 @@ def _mlp_block(lp, x, tp=None):
 
 
 def _decoder_layer(lp, x, cos, sin, cfg: LlamaConfig, policy: DtypePolicy,
-                   attention_mask=None, segment_ids=None, tp=None, cp=None):
+                   attention_mask=None, segment_ids=None, tp=None, cp=None, attend=None):
+    """One layer (``attend`` as in :func:`_attention_block`)."""
     # cast inside the layer: one layer's compute-dtype copy at a time
     lp = policy.cast_to_compute(lp)
     h = norm_ops.apply_rms_norm(lp["input_norm"], x, eps=cfg.rms_norm_eps)
     x = x + _attention_block(lp["attn"], h, cos, sin, cfg, policy,
                              attention_mask=attention_mask, segment_ids=segment_ids, tp=tp,
-                             cp=cp)
+                             cp=cp, attend=attend)
     h = norm_ops.apply_rms_norm(lp["post_attn_norm"], x, eps=cfg.rms_norm_eps)
     return x + _mlp_block(lp["mlp"], h, tp)
 

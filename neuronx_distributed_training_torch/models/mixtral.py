@@ -148,14 +148,15 @@ def moe_mlp(mlp: dict, h: torch.Tensor, moe: moe_ops.MoEConfig, policy: DtypePol
 
 
 def _moe_layer(lp, x, cos, sin, cfg: MixtralConfig, policy: DtypePolicy, attention_mask=None,
-               segment_ids=None, tp=None, cp=None, ep=None):
-    """Pre-norm attention + MoE block -> ``(x, loss share, loss value)``."""
+               segment_ids=None, tp=None, cp=None, ep=None, attend=None):
+    """Pre-norm attention + MoE block -> ``(x, loss share, loss value)``
+    (``attend`` as in ``models/llama.py::_attention_block``)."""
     lc = cfg.llama
     lp = policy.cast_to_compute(lp)  # one layer's compute-dtype copy at a time
     h = norm_ops.apply_rms_norm(lp["input_norm"], x, eps=lc.rms_norm_eps)
     x = x + llama._attention_block(lp["attn"], h, cos, sin, lc, policy,
                                    attention_mask=attention_mask, segment_ids=segment_ids,
-                                   tp=tp, cp=cp)
+                                   tp=tp, cp=cp, attend=attend)
     h = norm_ops.apply_rms_norm(lp["post_attn_norm"], x, eps=lc.rms_norm_eps)
     y, share, value = moe_mlp(lp["mlp"], h, cfg.moe, policy, tp, ep)
     return x + y, share, value

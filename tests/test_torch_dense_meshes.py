@@ -37,6 +37,7 @@ norm 2e-3.
 """
 
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -170,13 +171,14 @@ def test_tp4_gradients_equal_tp1(mesh4):
 
 def _tp1_from_save(mesh4) -> tuple:
     """The tp 4 save at step 2 restored at tp 1 in this process: ``(live
-    state, step 3's record)``, computed once."""
+    state, step 3's record)``, computed once a process, in an exp dir of
+    its own (the save's dir is shared by every xdist worker)."""
     if "tp1" not in mesh4:
-        tmp = mesh4["tmp"]
+        tmp, exp = mesh4["tmp"], f"one{os.getpid()}"
         ck = tmp / "ck" / "dp" / "version_0" / "checkpoints"
-        shutil.copytree(ck / "2", tmp / "one" / "dp" / "version_0" / "checkpoints" / "2")
+        shutil.copytree(ck / "2", tmp / exp / "dp" / "version_0" / "checkpoints" / "2")
         one = t_loop.Trainer.from_config(
-            t_loader.load_config(tp4_cfg(tmp, "one", tp=1, every=2)), device="cpu")
+            t_loader.load_config(tp4_cfg(tmp, exp, tp=1, every=2)), device="cpu")
         assert one.maybe_resume() and one.step == 2
         live = {f"params/{n}": t.clone() for n, t in t_llama.named_params(one.params).items()}
         live.update({f"{g}/{n}": t.clone() for g in ("mu", "nu")

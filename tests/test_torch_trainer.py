@@ -56,7 +56,8 @@ NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "models.mixtral", "models.gpt", "utils.prng", "tools.convert_megatron",
     "telemetry.alerts", "telemetry.fleet", "telemetry.memory", "telemetry.tensorstats",
     "telemetry.quant_readiness", "trainer.control", "tools.checkpoint_converter",
-    "tools.ckpt_verify", "tools.prepare_dataset"))
+    "tools.ckpt_verify", "tools.prepare_dataset", "models.generate", "models.decode",
+    "tools.evaluate", "tools.run_sft_evaluation", "tools.bench_decode"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
