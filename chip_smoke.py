@@ -26,34 +26,40 @@ of JAX.  Phases, each of which fails the run if it fails:
    set to 0 just before and read just after: each kernel must have launched
    layers x microbatches x steps = 48 times, loss and grad_norm must be finite
    and the step-0 loss near its expected value;
-5. data, checkpoint and resume, at the same width and depth through the same
-   CLI: write a Megatron ``.bin/.idx`` corpus from a seed under ``build/``
-   (after checking there is disk for two checkpoints), then
+5. data, checkpoint and resume (with 20c), at the same width cut to 2
+   layers (a 17.8 GB checkpoint) through the same CLI: write a Megatron
+   ``.bin/.idx`` corpus from a seed under ``build/`` (after checking there
+   is disk for two checkpoints), then
    A. train with ``max_steps=3``, checkpoint every 2 steps (async, top-1 +
-      last), SIGTERM raised at step 2's boundary: one save, at step 2, with
-      its integrity sidecar;
-   B. the same exp dir with ``resume_if_exists``: verify step 2's sidecar
-      and resume from it (consumed_samples 8), train step 3, one save at
-      step 3 (its cadence save and the final save fall on the same step),
-      retention as the save_top_k=1 + keep-last rule gives;
+      last), ``exp_manager.elastic`` on, a ``FaultInjector`` raising a real
+      SIGTERM before step index 1: one drained save, at step 2, inside the
+      grace window, with its integrity sidecar and its ``manifest.json``
+      (world 1, dp 1), whose digest the sidecar holds;
+   B. the same exp dir with ``resume_if_exists`` through the CLI's elastic
+      replan: ``maybe_replan`` verifies step 2, reads its manifest without
+      templates, sees the same world and does not replan; the trainer
+      verifies step 2's sidecar and resumes from it (consumed_samples 8),
+      trains step 3, one save at step 3 (its cadence save and the final
+      save fall on the same step), retention as the save_top_k=1 +
+      keep-last rule gives;
    C. a fresh exp dir (A and B's deleted first), 3 steps straight, a
       cadence save at step 2 whose write and digests must still be in flight
       when step 3 ends, and the final save at step 3;
    B's step 3 must equal C's bit for bit (loss, grad_norm, the blake2b
    digest of every parameter and optimizer leaf, from the two step-3
-   sidecars), each run must launch each kernel 16 times per step with no
-   fallback, and C's step-0 loss must be near its expected value.  It prints
-   the checkpoint's bytes, the saves' staging and write seconds, the verify
-   and restore seconds and the step times (C's step 3 beside the steps with
-   no save in flight), and deletes the exp dirs.  (Run A keeps
-   ``max_steps=3``: the Megatron sample order depends on
-   ``max_steps x global_batch_size``.)  The cell's settings are those of
-   ``neuronx_distributed_training_torch/tools/step_times.py``;
+   sidecars), each run must launch each kernel 8 times per step with no
+   fallback (B's are 20c's ``elastic_resume``), and C's step-0 loss must be
+   near its expected value.  It prints the checkpoint's bytes, the saves'
+   staging and write seconds, the verify and restore seconds and the step
+   times (C's step 3 beside the steps with no save in flight), and deletes
+   the exp dirs.  (Run A keeps ``max_steps=3``: the Megatron sample order
+   depends on ``max_steps x global_batch_size``.)  The cell's settings are
+   those of ``neuronx_distributed_training_torch/tools/step_times.py``;
 6. SFT with LoRA through the same CLI, on a jsonl of seeded printable-ASCII
    ``input``/``output`` records that this script writes under
    ``build/chip_smoke/sft/`` (char tokenizer, packed into seq-4096 rows,
    3 steps of 4 microbatches, checkpointing off):
-   L. ``hf_llama3_8B_SFT_lora_config.yaml`` at Llama-3-8B's full 32 layers,
+   L. ``hf_llama3_8B_SFT_lora_config.yaml`` at 8 of Llama-3-8B's 32 layers,
       rank-16 adapters on qkv, o, gate_up and down: step-0 loss near its
       expected value, finite loss and grad norm, every ``lora_b`` still zero
       after step 0 (the warmup's lr is 0 there) and changed after step 1,
@@ -208,7 +214,7 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       rows, with each rank's pending weight passes and the deferred store's
       bytes;
    d. DPO and KTO at pp 2 (the wavefront over DPO's concatenated forward
-      and KTO's loss hook) at phase 9's cell (4 layers, seq 2048, 4
+      and KTO's loss hook) at phase 9's widths (2 layers, seq 2048, 4
       microbatches of two pairs or examples) against the same hooks run
       unpipelined, and against phase 9's loss functions (the gradients at
       phase 2's tolerance: the concatenated forward rounds each weight
@@ -296,12 +302,13 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       warm-started from it for 3 steps against the same weights handed over
       in memory (bit for bit, exact launches); ``native2hf`` back bit for
       bit;
-   b. 16a's cadence for 40 steps with tiny_smoke's tensorstats, fleet,
+   b. phase 4's cell for 20 steps, logging every 5, with tiny_smoke's
+      tensorstats, fleet,
       control, memory and alerts blocks: 0 syncs inside a dispatch, the
       windows' step_time against 16a's (window 3 the planes alone),
       tensorstats' share of AdamW, ``memory_summary.json``'s attribution
       against ``tree_bytes_by_subsystem``, a ``tools/run_ctl.py
-      checkpoint_now`` enqueued at step 25 saving at the step-30 boundary,
+      checkpoint_now`` enqueued at step 12 saving at the step-15 boundary,
       exact launches;
    c. phase 4's cell at micro batch 64 in a subprocess: an OOM that writes
       ``oom_<step>/`` and exits 1 (the JAX CLI's code for it).
@@ -355,14 +362,31 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       ``generate_cached`` on the weights in memory, its scores printed, one
       forward launch a layer and batch, each held against the plain version
       on its inputs (b 4 and b 2 at s 64).
+20. the launch planner and elastic replan:
+   a. the trainer CLI with ``--autotune 3`` at phase 4's cell (memory plane
+      on): the ranked report priced for the card, each audited structure
+      run for one step in a process of its own on the card (clean), the
+      winner imposed (at 4 layers only remat ``full`` fits), the kernels
+      launched as its plan reckons (the forward twice a layer and
+      microbatch under full remat), each held against its plain version
+      at the winner's shape; its predicted step seconds and bytes against
+      the window's ``step_time`` and ``max_memory_allocated``, and
+      ``memory_summary.json``'s predicted bytes; the flagship at its 32
+      layers must end in "no surviving plan for 1 chips";
+   b. ``tools/plan.py --topology h100 --no-audit`` for the flagship at 8 and
+      32 cards: the top 3 of each (analytic);
+   c. rides phase 5 (A and B above); with two or more cards a dp 2 save
+      under torchrun resumed on one card through the replan (its record
+      printed), on one card a line says why not.
 
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
-``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``, ``19``) runs the kernels'
-build and those phases alone (13e, 16 and 17 after phase 4, 17 after 16a, 18 after phase 3;
-14a and 14b are one function) and prints no result: a partial check while developing.
+``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``, ``19``, ``20``,
+``20a``, ``20c``) runs the kernels' build and those phases alone (13e, 16 and 17 after phase
+4, 17 after 16a, 18 after phase 3; 14a and 14b are one function; 20c is phase 5) and prints
+no result: a partial check while developing.
 """
 
 from __future__ import annotations
@@ -388,9 +412,13 @@ SEQ = 8192
 #: the script's start, for its total wall time
 T_START = time.perf_counter()
 PHASE5_SEED = 20261016
+#: phase 5's depth (phase 4's 4 layers cut to 2: a checkpoint of 17.9 GB,
+#: not 23.1) and its 20c run's grace window, seconds
+RESUME_LAYERS = 2
+ELASTIC_GRACE_SECONDS = 120.0
 SFT_SEED = 20261023  # its first packed row holds 3 records (phase 2 tests it)
 SFT_SEQ, SFT_MICRO, SFT_STEPS = 4096, 4, 3
-SFT_LORA_LAYERS, SFT_FULL_LAYERS = 32, 4
+SFT_LORA_LAYERS, SFT_FULL_LAYERS = 8, 4
 PREF_SEED = 20261030
 PREF_SEQ, PREF_LAYERS, PREF_RECORDS = 2048, 4, 24
 # tolerances, kernel vs plain version on the same bf16 inputs.  The kernel
@@ -853,18 +881,40 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
+class SignalInjector:
+    """A ``trainer/elastic.py::FaultInjector`` (``mode="sigterm"``) whose
+    notice is a real SIGTERM: when it fires (before the step at its
+    ``at_step``) it notes the time, the grace window's start, and raises
+    the signal, which the trainer's own handler turns into the stop."""
+
+    def __init__(self, **kw):
+        from neuronx_distributed_training_torch.trainer.elastic import FaultInjector
+
+        self.inner, self.fired_at = FaultInjector(mode="sigterm", **kw), None
+
+    def maybe_fire(self, phase: str, step: int) -> bool:
+        if self.inner.maybe_fire(phase, step):
+            self.fired_at = time.monotonic()
+            signal.raise_signal(signal.SIGTERM)
+        return False
+
+
 def phase_resume(torch, fa, cell, card: str) -> dict:
-    """Runs A (preempted after step 2: one save), B (resumed, trains step 3,
+    """Runs A (elastic on, a real SIGTERM raised by a ``FaultInjector`` at
+    step index 1: one emergency save after step 2 carrying the manifest,
+    20c), B (resumed through the CLI's elastic replan, which reads the
+    manifest and does not replan: the same world, 20c; trains step 3,
     saves once) and C (3 steps straight, saving at steps 2 and 3, so step 3
-    runs over step 2's write) through the CLI on a Megatron corpus; B's step 3
-    must equal C's bit for bit.  ``cell`` is ``tools/step_times.py``."""
+    runs over step 2's write) through the CLI on a Megatron corpus, at
+    RESUME_LAYERS layers; B's step 3 must equal C's bit for bit.  ``cell``
+    is ``tools/step_times.py``."""
     from neuronx_distributed_training_torch.checkpoint import integrity as ck_integrity
     from neuronx_distributed_training_torch.checkpoint.manager import retained_steps
     from neuronx_distributed_training_torch.trainer import cli
 
     t_phase = time.perf_counter()
     work, nmb = cell.WORK, cell.MICROBATCHES
-    ck_bytes = checkpoint_bytes(cell.LAYERS)
+    ck_bytes = checkpoint_bytes(RESUME_LAYERS)
     # two steps on disk at once: B's and C's second save beside the first
     need = 2 * ck_bytes + (8 << 30)
     work.mkdir(parents=True, exist_ok=True)
@@ -877,10 +927,11 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
     prefix = work / "corpus" / "llama3_random"
     n_tokens = write_corpus(prefix, min_tokens=2 * nmb * cell.STEPS * (SEQ + 1))
     log(f"resume: corpus {prefix} ({n_tokens} tokens, seed {PHASE5_SEED})")
-    exp_resume, exp_straight = work / "exp_resume", work / "exp_straight"
-    for d in (exp_resume, exp_straight):
+    exp_elastic, exp_straight = work / "exp_elastic", work / "exp_straight"
+    for d in (exp_elastic, exp_straight):
         shutil.rmtree(d, ignore_errors=True)
     data_args = cell.MODEL_ARGS + [
+        "--set", f"model.num_layers={RESUME_LAYERS}",
         "--set", f"data.data_prefix={prefix}",
         "--set", "data.synthetic=false",
         "--set", "exp_manager.name=phase5",
@@ -888,9 +939,12 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
         "--set", "exp_manager.checkpoint_callback_params.monitor=loss",
         "--set", "exp_manager.checkpoint_callback_params.async_checkpointing=true",
     ]
-    resume_args = data_args + ["--set", f"exp_manager.exp_dir={exp_resume}",
-                               "--set", "exp_manager.resume_if_exists=true"]
-    expect = cell.LAYERS * nmb
+    elastic_args = data_args + ["--set", f"exp_manager.exp_dir={exp_elastic}",
+                                "--set", "exp_manager.resume_if_exists=true",
+                                "--set", "exp_manager.elastic.enabled=true",
+                                "--set", "exp_manager.elastic.grace_period_seconds="
+                                         f"{ELASTIC_GRACE_SECONDS}"]
+    expect = RESUME_LAYERS * nmb
     report: dict = {}
 
     def launched(steps: int, what: str) -> dict:
@@ -913,38 +967,92 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
                  f"rule gives {sorted(want)}")
 
     try:
-        # A: max_steps 3 (the data order and LR schedule are those of a
-        # 3-step run) preempted by SIGTERM at step 2's boundary; the stop
-        # replaces the cadence save at step 2 with one drained save
+        # A (with 20c): max_steps 3 (the data order and LR schedule are those
+        # of a 3-step run) with exp_manager.elastic on; a FaultInjector at
+        # step index 1 raises a real SIGTERM there, the handler asks for the
+        # stop, and the boundary after step 2 replaces the cadence save at
+        # step 2 with one drained save, inside the grace window, carrying
+        # the manifest
+        report["elastic"] = elastic = {}
         fa.reset_counters()
         t0 = time.perf_counter()
-        ta, ha = run_cli(cli, resume_args + [
-            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=2"],
-            AtStepEnd(1, lambda: signal.raise_signal(signal.SIGTERM)))
+        ta = cli.build(elastic_args + [
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=2"])
+        inj = ta.fault_injector = SignalInjector(at_step=1, phase="step")
+        ha = ta.fit()
+        t_saved = time.monotonic()
         report["run_a_seconds"] = time.perf_counter() - t0
         launched(2, "A")
         ck_a, save_a = ta.checkpointer, dict(ta.checkpointer.last_save)
-        if ta.stop_class != "preemption" or len(ha) != 2 or ck_a.committed_steps != [2]:
-            fail(f"run A: stop {ta.stop_class}, {len(ha)} steps, saves {ck_a.committed_steps}; "
-                 f"expected a preemption after 2 steps and one save at step 2")
-        if not ck_integrity.read_sidecar(ck_a.directory, 2):
+        run_summary = json.loads((Path(ta.exp.log_dir) / "run_summary.json").read_text())
+        if ta.stop_class != "preemption" or len(ha) != 2 or ck_a.committed_steps != [2] or \
+                run_summary.get("elastic", {}).get("stop_reason") != "SIGTERM (preemption)":
+            fail(f"run A: stop {ta.stop_class} ({run_summary.get('elastic')}), {len(ha)} steps, "
+                 f"saves {ck_a.committed_steps}; expected a SIGTERM preemption after 2 steps and "
+                 f"one save at step 2")
+        sidecar = ck_integrity.read_sidecar(ck_a.directory, 2) or {}
+        if not sidecar:
             fail("run A: the step-2 checkpoint carries no integrity sidecar")
         report.update(ck_bytes=save_a["bytes"], save_a=save_a,
                       process_group_mode=ck_a.process_group_mode,
                       step_a1_seconds=ha[1]["step_seconds"], loss_a0=ha[0]["loss"])
+        notice_to_saved = t_saved - inj.fired_at if inj.fired_at else None
+        manifest = ck_a.read_manifest(2)
+        elastic.update(stop_reason=run_summary["elastic"]["stop_reason"],
+                       committed=list(ck_a.committed_steps),
+                       notice_to_saved_seconds=notice_to_saved, manifest=manifest,
+                       save=save_a)
+        log(f"elastic 20c: A (FaultInjector at step index 1, a real SIGTERM; grace "
+            f"{ELASTIC_GRACE_SECONDS:g} s): stop {ta.stop_class} "
+            f"({elastic['stop_reason']}), {len(ha)} steps, saves {ck_a.committed_steps}, "
+            f"notice to committed save {notice_to_saved:.1f} s; manifest.json (read with no "
+            f"template) {json.dumps(manifest)}; its digest in the sidecar "
+            f"{sidecar.get('manifest_digest')} [{card}]")
+        if notice_to_saved is None or notice_to_saved > ELASTIC_GRACE_SECONDS:
+            fail(f"elastic 20c: the save {notice_to_saved} s after the notice (grace "
+                 f"{ELASTIC_GRACE_SECONDS} s)")
+        if not manifest or manifest.get("world_size") != 1 or manifest.get("step") != 2 or \
+                manifest.get("plan", {}).get("dp") != 1 or \
+                sidecar.get("manifest_digest") != ck_integrity.json_digest(manifest):
+            fail(f"elastic 20c: A's manifest {manifest}, digest {sidecar.get('manifest_digest')}")
         ck_dir, run_dir = ck_a.directory, ta.exp.log_dir
-        del ta, ck_a
+        del ta, ck_a, inj
         free_cuda(torch)
 
-        # B: same exp dir, resumes from step 2 and trains step 3; its cadence
-        # save (every 3) and the final save fall on step 3: one write
+        # B: A's exp dir with the elastic replan on (the CLI's
+        # maybe_replan reads the manifest, sees the same world and does not
+        # replan), resumes from step 2 and trains step 3; its cadence save
+        # (every 3) and the final save fall on step 3: one write
+        replans: list = []
+        real_replan = cli.elastic_replan
+
+        def elastic_replan(cfg, device):
+            out = real_replan(cfg, device)
+            replans.append(out[1])
+            return out
+
+        cli.elastic_replan = elastic_replan
         fa.reset_counters()
         t0 = time.perf_counter()
-        tb, hb = cli.run(resume_args + [
-            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=3"])
+        try:
+            tb, hb = cli.run(elastic_args + [
+                "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=3"])
+        finally:
+            cli.elastic_replan = real_replan
         report["run_b_seconds"] = time.perf_counter() - t0
-        launched(1, "B")
+        elastic["launches"] = launched(1, "B")
         ck_b = tb.checkpointer
+        rp = replans[0] if replans else None
+        elastic["replan"] = None if rp is None else {
+            "record": rp.record, "manifest_read": rp.manifest == manifest,
+            "discovery": rp.integrity_trail}
+        log(f"elastic 20c: B's maybe_replan: record {None if rp is None else rp.record} (the "
+            f"same world), manifest read {None if rp is None else rp.manifest == manifest}, "
+            f"discovery verified {None if rp is None else rp.integrity_trail} [{card}]")
+        if rp is None or rp.record is not None or rp.manifest != manifest or \
+                (rp.integrity_trail or {}).get("verified_step") != 2 or \
+                tb.replan_record is not None:
+            fail(f"elastic 20c: B's replan {None if rp is None else vars(rp)}")
         if tb.exp.log_dir != run_dir:
             fail(f"run B opened {tb.exp.log_dir}, not run A's {run_dir}")
         if ck_b.last_restore.get("step") != 2 or len(hb) != 1 or hb[0]["step"] != 2:
@@ -967,7 +1075,7 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
                       step_b_seconds=hb[0]["step_seconds"])
         del tb, ck_b
         free_cuda(torch)
-        shutil.rmtree(exp_resume)  # room for C's two checkpoints
+        shutil.rmtree(exp_elastic)  # room for C's two checkpoints
 
         # C: 3 steps straight in a fresh exp dir, a cadence save at step 2
         # (step 3 trains while it is written and hashed) and the final save
@@ -992,7 +1100,7 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
         del tc, ck_c
         free_cuda(torch)
     finally:
-        for d in (exp_resume, exp_straight):
+        for d in (exp_elastic, exp_straight):
             shutil.rmtree(d, ignore_errors=True)
 
     if [r["loss"] for r in ha] != [r["loss"] for r in hc[:2]]:
@@ -1008,6 +1116,7 @@ def phase_resume(torch, fa, cell, card: str) -> dict:
     if any(b != c for b, c in same.values()) or diff_leaves or not n_leaves:
         fail(f"resumed step 3 is not bit for bit the straight run's: {same}, leaves that "
              f"differ: {diff_leaves[:8]}")
+    report["elastic"].update(step3_bitwise=True, leaves=n_leaves)
     loss0 = hc[0]["loss"]
     if not all(math.isfinite(r["loss"]) for r in hc) or abs(loss0 - expected_loss0()) > 0.5:
         fail(f"run C step-0 loss {loss0}, expected finite and within 0.5 of "
@@ -1236,7 +1345,7 @@ def run_sft(torch, fa, name: str, args: list, card: str, *, layers: int, check_b
 
 
 def phase_sft(torch, fa, card: str) -> dict:
-    """Runs L (LoRA, 32 layers), S (L with segment_mask) and F (full
+    """Runs L (LoRA, 8 layers), S (L with segment_mask) and F (full
     fine-tune, 4 layers) of the SFT configs through the CLI."""
 
     import numpy as np
@@ -2837,9 +2946,10 @@ PP_V5P = {"pp": 4, "vp": 2, "layers": 8, "nm": 8, "card_tp": 8}
 PP_405B_KNOBS = {"pp": 2, "vp": 3, "layers": 6, "nm": 4}
 #: 13c: 12a's pp 4, nm 8 cell
 PP_ZB = {"pp": 4, "nm": 8}
-#: 13d: phase 9's cell (4 layers, seq 2048) at pp 2, 4 microbatches of two
-#: pairs (examples) each; the preference configs' kl_beta
-PP_PREF = {"pp": 2, "nm": 4, "rows": 2, "seq": 2048, "beta": 0.1}
+#: 13d: phase 9's widths and seq 2048 at 2 layers (one a stage; phase 9
+#: runs 4, and the comparisons hold at any depth) at pp 2, 4 microbatches
+#: of two pairs (examples) each; the preference configs' kl_beta
+PP_PREF = {"pp": 2, "nm": 4, "rows": 2, "seq": 2048, "beta": 0.1, "layers": 2}
 PP_8B_CONFIG = REPO / "examples" / "conf" / "hf_llama3_8B_config.yaml"
 
 
@@ -3073,7 +3183,7 @@ def pref_reference(torch, params, mbs: list, loss_of) -> tuple:
 def phase_pp_pref(torch, fa, card: str) -> dict:
     """13d: DPO and KTO at pp 2 through the loopback at phase 9's cell
     (``hf_llama3_8B_DPO_config.yaml`` / ``hf_llama3_8B_KTO_config.yaml``,
-    Llama-3-8B width, 4 layers, seq 2048, 4 microbatches of two pairs or
+    Llama-3-8B width, 2 layers, seq 2048, 4 microbatches of two pairs or
     examples), on the wavefront JAX's gate gives them (DPO's concatenated
     forward, KTO's loss hook).  Each run is held at 12a's bars against the
     same hooks run unpipelined (embed, every layer, the loss hook, on one
@@ -3097,7 +3207,7 @@ def phase_pp_pref(torch, fa, card: str) -> dict:
     for kind, config in (("dpo", "hf_llama3_8B_DPO_config.yaml"),
                          ("kto", "hf_llama3_8B_KTO_config.yaml")):
         free_cuda(torch)
-        mc, policy, params = pp_model(torch, REPO / "examples" / "conf" / config, PREF_LAYERS,
+        mc, policy, params = pp_model(torch, REPO / "examples" / "conf" / config, c["layers"],
                                       c["pp"])
 
         def fwd(ids, p=params, mc=mc, policy=policy):
@@ -4347,8 +4457,10 @@ def phase_ema(torch, fa, cell, card: str) -> dict:
             sets += ("exp_manager.ema.enable=true", f"exp_manager.ema.decay={EMA_DECAY}",
                      "exp_manager.ema.evaluate_ema_weights_instead=true")
         else:
+            # an async save (drained as the fit ends) hashes while it writes;
+            # 17a's and 19c's converter saves keep the synchronous path
             sets += ("exp_manager.checkpoint_callback_params.every_n_train_steps=3",
-                     "exp_manager.checkpoint_callback_params.async_checkpointing=false")
+                     "exp_manager.checkpoint_callback_params.async_checkpointing=true")
         cfg = cell_cfg(cell, *sets)
         val = SyntheticDataModule(cfg.model.vocab_size, cfg.data.seq_length,
                                   cfg.data.global_batch_size, seed=99)
@@ -4365,7 +4477,9 @@ def phase_ema(torch, fa, cell, card: str) -> dict:
             def dispatch(host_batch, index, _t=trainer, _real=real):
                 metrics = _real(host_batch, index)
                 for n, p in named_params(_t.params).items():  # after the step
-                    ref[n] = d * ref[n] + c * p.detach().float().cpu()
+                    # d * ref + c * p with the same roundings, in place
+                    # (no fresh host buffers a step)
+                    ref[n].mul_(d).add_(p.detach().float().cpu().mul_(c))
                 return metrics
 
             def validate(limit, _t=trainer, _real=real_val):
@@ -4479,17 +4593,17 @@ def phase_fit(torch, fa, cell, history4: list, card: str) -> dict:
 CONVERT_SEED = 20261118
 #: the LoRA SFT config 17a warm-starts from the converted checkpoint
 LORA_SFT = "hf_llama3_8B_SFT_lora_config.yaml"
-#: the tiny_smoke telemetry blocks 17b turns on over phase 16a's cadence
+#: the tiny_smoke telemetry blocks 17b turns on over phase 4's cell
 PLANE_BLOCKS = ("tensorstats", "fleet", "control", "memory", "alerts")
-#: 17b's steps: four windows of 16a's cadence.  The first runs the memory
+#: 17b's steps: four windows of PLANES_LOG_EVERY.  The first runs the memory
 #: window's allocation-stack recording; the second holds the profile's
-#: capture at the step-10 boundary (the boundary's work after its window
+#: capture at the step-5 boundary (the boundary's work after its window
 #: is timed lands in the next, as in JAX); the third is the planes alone;
 #: the fourth runs beside the checkpoint that tools/run_ctl.py's
 #: checkpoint_now, enqueued before step CHECKPOINT_NOW_AT's dispatch, asks
-#: for at the step-30 boundary
-PLANES_STEPS = 40
-CHECKPOINT_NOW_AT = 25
+#: for at the step-15 boundary
+PLANES_STEPS, PLANES_LOG_EVERY = 20, 5
+CHECKPOINT_NOW_AT = 12
 
 
 def phase_convert(torch, fa, card: str) -> dict:
@@ -4635,7 +4749,8 @@ def tensorstats_cost(torch, trainer, card: str) -> dict:
 
 
 def phase_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
-    """17b: phase 16a's cadence with tiny_smoke's planes on: 0 syncs inside
+    """17b: phase 4's cell with tiny_smoke's planes on, a window of
+    PLANES_LOG_EVERY steps: 0 syncs inside
     a dispatch, the windows' step_time against 16a's, memory_summary.json's
     subsystem bytes against ``tree_bytes_by_subsystem``, the tensorstats
     records, and a ``tools/run_ctl.py checkpoint_now`` enqueued before step
@@ -4648,7 +4763,7 @@ def phase_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
     exp = cell.WORK / "exp_planes"
     shutil.rmtree(exp, ignore_errors=True)
     args = cell.CLI_ARGS + ["--set", f"trainer.max_steps={PLANES_STEPS}",
-                            "--set", f"trainer.log_every_n_steps={CADENCE_LOG_EVERY}",
+                            "--set", f"trainer.log_every_n_steps={PLANES_LOG_EVERY}",
                             "--set", f"exp_manager.exp_dir={exp}", *smoke_plane_sets()]
     enqueued: list = []
     real = Trainer._dispatch
@@ -4709,7 +4824,7 @@ def phase_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
         f"{watch.others})")
     if enqueued != [0]:
         fail(f"planes 17b: tools/run_ctl.py checkpoint_now exited {enqueued}")
-    nxt = -(-(CHECKPOINT_NOW_AT + 1) // CADENCE_LOG_EVERY) * CADENCE_LOG_EVERY
+    nxt = -(-(CHECKPOINT_NOW_AT + 1) // PLANES_LOG_EVERY) * PLANES_LOG_EVERY
     if nxt not in committed:
         fail(f"planes 17b: checkpoint_now did not save at step {nxt}: committed {committed}")
     if len(history) != PLANES_STEPS or not all(math.isfinite(h["loss"]) for h in history):
@@ -5834,6 +5949,185 @@ def phase_decode(torch, fa, cell, card: str, peaks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the launch planner and elastic replan
+# ---------------------------------------------------------------------------
+
+#: the flagship's --autotune top-k (20a) and the card counts 20b prices
+AUTOTUNE_TOP_K = 3
+PLAN_CHIPS = (8, 32)
+
+
+def phase_autotune(torch, fa, cell, card: str) -> dict:
+    """20a: ``trainer.cli --autotune 3`` at phase 4's cell with the memory
+    plane on: the ranked report, the audits' device and verdict, the
+    winner's predicted step seconds and peak bytes against the run's, the
+    kernels' launches as the winner's plan reckons them (the forward twice
+    when its remat recomputes the layer), each kernel against its plain
+    version at the winner's shape; then the flagship at its full 32 layers
+    on one card must end with "no surviving plan for 1 chips"."""
+    from neuronx_distributed_training_torch.trainer import cli
+
+    t_phase = time.perf_counter()
+    exp = cell.WORK / "exp_autotune"
+    shutil.rmtree(exp, ignore_errors=True)
+    args = cell.CLI_ARGS + ["--autotune", str(AUTOTUNE_TOP_K),
+                            "--set", f"exp_manager.exp_dir={exp}",
+                            "--set", 'exp_manager.telemetry.memory={"enabled": true, '
+                                     '"start_step": 1, "num_steps": 1}']
+    out: dict = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counters()
+        trainer, history = cli.run(args)
+        torch.cuda.synchronize()
+        launches, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+        peak = torch.cuda.max_memory_allocated()
+        run = Path(trainer.exp.log_dir)
+        summary = json.loads((run / "run_summary.json").read_text())
+        mem_doc = json.loads((run / "memory_summary.json").read_text())
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    free_cuda(torch)
+    # the CLI's report, as it wrote it into run_summary.json
+    rep = summary.get("autotune") or {}
+    w = next((c for c in rep.get("candidates", []) if not c.get("discarded")), None)
+    if w is None or rep.get("winner") != w["plan"]:
+        fail(f"autotune 20a: run_summary.json's autotune section has no winner: {rep}")
+    plan, est = w["plan"], w["estimate"]
+    fwd_mult = 2 if plan["remat"] == "full" else 1  # full remat reruns each layer's forward
+    per = cell.LAYERS * plan["num_microbatches"] * cell.STEPS
+    want = {"flash_fwd": per * fwd_mult, "flash_dq": per, "flash_dkv": per}
+    step_s = _median([h["step_seconds"] for h in history[1:]])
+    audits = [(c["rank"], c.get("audit", {}).get("verdict"), c.get("audit", {}).get("device"),
+               c.get("discarded")) for c in rep["candidates"]]
+    mem = summary.get("memory") or {}
+    out.update(launches=launches, winner=summary.get("autotune_plan"), audits=audits,
+               predicted_step_seconds=est["step_seconds"], step_seconds=step_s,
+               predicted_hbm_bytes=est["hbm_bytes"], peak_bytes=peak,
+               summary_predicted=mem.get("predicted_hbm_bytes"),
+               summary_peak=mem.get("peak_hbm_bytes"),
+               memory_summary_predicted=(mem_doc.get("predicted") or {}).get("total"),
+               n_plans=rep["n_plans"], n_fit=rep["n_fit"], topology=rep["topology"])
+    log(f"autotune 20a: {rep['n_plans']} plans, {rep['n_fit']} inside the budget, topology "
+        f"{rep['topology']}; audits (rank, verdict, device, discarded) {audits}; winner "
+        f"{out['winner']} [{card}]")
+    log(f"autotune 20a: predicted step {est['step_seconds']:.4f} s against the window's "
+        f"step_time {step_s:.4f} s (ratio {est['step_seconds'] / step_s:.3f}); predicted "
+        f"HBM {est['hbm_bytes']} bytes ({est['hbm_bytes'] / 2**30:.2f} GiB) against "
+        f"max_memory_allocated {peak} ({peak / 2**30:.2f} GiB; ratio "
+        f"{est['hbm_bytes'] / peak:.3f}); memory_summary.json predicted "
+        f"{out['memory_summary_predicted']}, run_summary predicted_hbm_bytes "
+        f"{out['summary_predicted']} against its peak {out['summary_peak']} [{card}]")
+    log(f"autotune 20a: launches {launches} fallbacks {fallbacks} (expected {want}: "
+        f"{cell.STEPS} steps x {cell.LAYERS} layers x {plan['num_microbatches']} microbatches"
+        f"{', the forward twice under full remat' if fwd_mult == 2 else ''}); losses "
+        f"{[h['loss'] for h in history]} [{card}]")
+    if launches != want or fallbacks["core"]:
+        fail(f"autotune 20a: launches {launches} (fallbacks {fallbacks}), expected {want}")
+    if (len(history) != cell.STEPS or not all(math.isfinite(h["loss"]) for h in history)
+            or not est["fits"]):
+        fail(f"autotune 20a: {len(history)} steps, losses {[h['loss'] for h in history]}, "
+             f"winner fits {est['fits']}")
+    if any(v is not None and dev != "cuda" for _, v, dev, _ in audits):
+        fail(f"autotune 20a: an audit ran off the card: {audits}")
+    if not out["summary_predicted"] or not out["memory_summary_predicted"]:
+        fail(f"autotune 20a: no predicted HBM bytes in the summaries: {mem}")
+    # the kernels at the winner's shape against their plain versions
+    b = plan["micro_batch_size"]
+    if not check_case(torch, fa, f"autotune winner b={b}", b=b, sq=SEQ, skv=SEQ, nh=32, nkv=8,
+                      d=128):
+        fail("autotune 20a: a kernel disagrees with its plain version at the winner's shape")
+    # the flagship at its 32 layers cannot fit one card: JAX's refusal text
+    try:
+        cli.build(cell.CLI_ARGS + ["--autotune", str(AUTOTUNE_TOP_K),
+                                   "--set", "model.num_layers=32",
+                                   "--set", f"exp_manager.exp_dir={exp}"])
+        refusal = None
+    except SystemExit as e:
+        refusal = str(e)
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    out["refusal_32"] = refusal
+    log(f"autotune 20a: the flagship at 32 layers on one card: {refusal} [{card}]")
+    if not refusal or "no surviving plan for 1 chips" not in refusal:
+        fail(f"autotune 20a: 32 layers on one card did not end in JAX's text: {refusal}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"autotune 20a: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_plan_cards(card: str) -> dict:
+    """20b: ``tools/plan.py --topology h100 --no-audit`` for the flagship at
+    8 and 32 cards (analytic): the top 3 of each."""
+    import contextlib
+    import io
+
+    from neuronx_distributed_training_torch.tools import plan as plan_tool
+
+    t_phase = time.perf_counter()
+    out = {}
+    for chips in PLAN_CHIPS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = plan_tool.main(["--config", str(REPO / "examples/conf/hf_llama3_8B_config.yaml"),
+                                   "--chips", str(chips), "--topology", "h100", "--no-audit",
+                                   "--top-k", "3", "--json", "-"])
+        text = buf.getvalue()
+        rep = json.loads(text.strip().splitlines()[-1])["reports"][0]
+        for line in text.splitlines()[:-1]:
+            if line.strip():
+                log(f"plan 20b ({chips} cards): {line}")
+        out[chips] = rep
+        if code != 0 or not rep.get("winner") or len(rep["candidates"]) != 3:
+            fail(f"plan 20b: {chips} cards: exit {code}, report {rep.get('error')}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"plan 20b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_elastic_multi(torch, cell, card: str) -> dict | None:
+    """20c with two or more cards: save at dp 2 under torchrun, resume on one
+    card through the CLI's replan, and print its record; one card prints
+    why not."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"elastic 20c: the dp 2 -> 1 resume needs two cards; this machine has {n} "
+            f"[{card}]")
+        return None
+    from neuronx_distributed_training_torch.trainer import cli
+
+    exp = cell.WORK / "exp_elastic_dp2"
+    shutil.rmtree(exp, ignore_errors=True)
+    try:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "neuronx_distributed_training_torch.tools.step_times",
+               "--steps", "2", "--save-every", "2", "--exp-dir", str(exp),
+               "--set", f"model.num_layers={RESUME_LAYERS}"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO),
+                                                           os.environ.get("PYTHONPATH", "")]))
+        done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=900)
+        if done.returncode != 0:
+            fail(f"elastic 20c: the dp 2 save exited {done.returncode}:\n"
+                 f"{(done.stdout + done.stderr)[-3000:]}")
+        trainer, history = cli.run(cell.MODEL_ARGS + [
+            "--set", f"model.num_layers={RESUME_LAYERS}", "--set", "data.synthetic=true",
+            "--set", f"exp_manager.exp_dir={exp}", "--set", "exp_manager.resume_if_exists=true",
+            "--set", "exp_manager.elastic.enabled=true"])
+        record = trainer.replan_record
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    free_cuda(torch)
+    log(f"elastic 20c: dp 2 save resumed on one card: replan record {json.dumps(record)}, "
+        f"losses {[h['loss'] for h in history]} [{card}]")
+    if not record or record.get("old_world") != 2 or record.get("new_world") != 1:
+        fail(f"elastic 20c: the dp 2 -> 1 resume did not replan: {record}")
+    return {"record": record}
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -5927,6 +6221,13 @@ def main() -> None:
                 cadence = phase_cadence(torch, fa, cell, history4, card)
                 free_cuda(torch)
                 phase_convert_planes(torch, fa, cell, cadence, card)
+        if "20" in only or "20c" in only:
+            phase_resume(torch, fa, cell, card)
+            free_cuda(torch)
+            phase_elastic_multi(torch, cell, card)
+        if "20" in only or "20a" in only:
+            phase_autotune(torch, fa, cell, card)
+            phase_plan_cards(card)
         if "18b" in only:
             phase_trace_multi(torch, cell, card)
         if "18" in only:
@@ -5960,7 +6261,7 @@ def main() -> None:
     finally:
         shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
     free_cuda(torch)
-    phase_resume(torch, fa, cell, card)
+    resume = phase_resume(torch, fa, cell, card)
     free_cuda(torch)
     sft = phase_sft(torch, fa, card)
     free_cuda(torch)
@@ -6007,6 +6308,10 @@ def main() -> None:
     trace_multi = phase_trace_multi(torch, cell, card)
     free_cuda(torch)
     dec = phase_decode(torch, fa, cell, card, peaks)
+    free_cuda(torch)
+    auto = phase_autotune(torch, fa, cell, card)
+    phase_plan_cards(card)
+    phase_elastic_multi(torch, cell, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",
@@ -6084,7 +6389,9 @@ def main() -> None:
                                      for tag, run in trace_multi["runs"].items()
                                      for how in ("base", "overlap")}),
                                  "decode_prefill": dec["bench"]["launches"][kname],
-                                 "sft_eval": dec["sft_eval"]["launches"][kname]},
+                                 "sft_eval": dec["sft_eval"]["launches"][kname],
+                                 "autotune_fit": auto["launches"][kname],
+                                 "elastic_resume": resume["elastic"]["launches"][kname]},
             "per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}
                                 for r in tp_rows + replicated_rows if r["kernel"] == kname],
             "cp_per_rank_shapes": [{k: v for k, v in r.items() if k != "kernel"}

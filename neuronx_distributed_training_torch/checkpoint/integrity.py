@@ -8,13 +8,14 @@ A committed step directory holds::
     <step>/opt_state/       DCP checkpoint of {"mu/<name>", "nu/<name>",
                              "master/<name>": tensor, "step": int64 scalar}
     <step>/meta.json        step, consumed_samples, save knobs, metrics
+    <step>/manifest.json    the topology/plan manifest (``trainer/elastic.py``)
     <step>/integrity.json   the sidecar (below)
 
 - every save carries the sidecar (:func:`build_sidecar`): blake2b-128
   digests per leaf group (``params``, ``opt_state/mu``, ``opt_state/nu``,
   ``opt_state/master``, ``opt_state/step``) over the exact bytes handed to
-  DCP, each leaf's own digest, the meta digest, and a name/shape/dtype
-  summary;
+  DCP, each leaf's own digest, the meta and manifest digests, and a
+  name/shape/dtype summary;
 - restore verifies first (:func:`verify_step` is template-free: each item
   is read back from its DCP metadata alone and re-hashed); a step that fails
   is quarantined (renamed ``quarantined.<step>.<reason>``, invisible to step
@@ -80,6 +81,9 @@ warnings.filterwarnings("ignore", message="torch.distributed is disabled, unavai
 INTEGRITY_FORMAT = 1
 SIDECAR_NAME = "integrity.json"
 META_NAME = "meta.json"
+#: the step's topology/plan manifest (``trainer/elastic.py``), digested
+#: beside the meta
+MANIFEST_NAME = "manifest.json"
 ITEMS = ("params", "opt_state")
 DIGEST_ALGO = "blake2b-128"
 CHUNK_BYTES = 64 << 20
@@ -375,7 +379,8 @@ def tree_digest_groups(item: str, flat: Mapping[str, Any], *, workers: int = 0,
 
 def sidecar_from_records(*, step: int, trees: Mapping[str, Mapping[str, Any]],
                          records: list[Mapping[str, Mapping[str, dict]]],
-                         meta: Mapping[str, Any]) -> dict[str, Any]:
+                         meta: Mapping[str, Any],
+                         manifest: Optional[Mapping[str, Any]] = None) -> dict[str, Any]:
     """The sidecar from every rank's :func:`local_shard_records` (``trees``
     gives the names, dtypes and global shapes).  A leaf one record covers
     whole keeps that digest; a sharded one lists its shards."""
@@ -409,18 +414,21 @@ def sidecar_from_records(*, step: int, trees: Mapping[str, Mapping[str, Any]],
         "leaves": leaves,
         "meta_digest": json_digest(dict(meta)),
     }
+    if manifest is not None:
+        out["manifest_digest"] = json_digest(dict(manifest))
     if shards:
         out["shards"] = shards
     return out
 
 
 def build_sidecar(*, step: int, trees: Mapping[str, Mapping[str, Any]],
-                  meta: Mapping[str, Any], workers: int = 0) -> dict[str, Any]:
+                  meta: Mapping[str, Any], workers: int = 0,
+                  manifest: Optional[Mapping[str, Any]] = None) -> dict[str, Any]:
     """The sidecar of a one-process save, over the exact host tensors handed
     to DCP (``trees``: item -> flat dict), hashed on ``workers`` threads
     (default: the CPU count)."""
     return sidecar_from_records(
-        step=step, trees=trees, meta=meta,
+        step=step, trees=trees, meta=meta, manifest=manifest,
         records=[local_shard_records({i: trees[i] for i in ITEMS}, workers=workers)])
 
 
@@ -546,6 +554,16 @@ def verify_step(directory, step: int, *, keep: Optional[dict] = None) -> StepVer
                 failures.append(f"meta: digest mismatch (saved {want_meta}, read back {have})")
         except Exception as e:  # noqa: BLE001 — read failure = corrupt
             failures.append(f"meta: unreadable ({type(e).__name__}: {e})")
+    want_manifest = sidecar.get("manifest_digest")
+    if want_manifest is not None:
+        groups_checked += 1
+        try:
+            have = json_digest(json.loads((sdir / MANIFEST_NAME).read_text()))
+            if have != want_manifest:
+                failures.append(f"manifest: digest mismatch (saved {want_manifest}, read "
+                                f"back {have})")
+        except Exception as e:  # noqa: BLE001 — read failure = corrupt
+            failures.append(f"manifest: unreadable ({type(e).__name__}: {e})")
     expected = dict(sidecar.get("groups") or {})
     read_back = {}
     for item in ITEMS:

@@ -125,6 +125,7 @@ from neuronx_distributed_training_torch.checkpoint.integrity import (
     IntegrityConfig,
     SaveAuditor,
 )
+from neuronx_distributed_training_torch.config.knobs import ELASTIC_KNOBS, ElasticConfig
 from neuronx_distributed_training_torch.models.llama import named_params as flatten_tree
 from neuronx_distributed_training_torch.optim.adamw import (
     dtensor_on,
@@ -145,9 +146,15 @@ TRANSIENT_SAVE_ERRNOS = frozenset({
     errno.ENOSPC, errno.EIO, errno.EAGAIN, errno.EBUSY, errno.ETIMEDOUT,
     errno.EINTR, errno.EDQUOT,
 })
-#: retries of a transiently failed save, and the first backoff (doubling)
-SAVE_RETRIES = 3
-SAVE_RETRY_BACKOFF_SECONDS = 0.5
+#: retries of a transiently failed save, and the first backoff (doubling):
+#: ``exp_manager.elastic``'s defaults (``config/knobs.py``), used when a
+#: config does not come through :meth:`CheckpointConfig.from_config`
+SAVE_RETRIES = ELASTIC_KNOBS["save_retries"]
+SAVE_RETRY_BACKOFF_SECONDS = ELASTIC_KNOBS["save_retry_backoff_seconds"]
+#: the topology/plan manifest of a step (``trainer/elastic.py``), and the
+#: key that carries it through a save's meta to the commit
+MANIFEST_NAME = ck_integrity.MANIFEST_NAME
+MANIFEST_KEY = "_manifest"
 #: threads an async save runs beside the training step: DCP writers per
 #: item, and blake2b workers at the lowest CPU priority (see
 #: :func:`_background_priority`) on half the cores, which the step's host
@@ -191,11 +198,19 @@ class CheckpointConfig:
     save_bf16: bool = False
     use_master_weights_in_ckpt: bool = True
     integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+    #: ``exp_manager.elastic``'s ``save_retries`` and
+    #: ``save_retry_backoff_seconds`` (None: :data:`SAVE_RETRIES`,
+    #: :data:`SAVE_RETRY_BACKOFF_SECONDS`)
+    save_retries: Optional[int] = None
+    save_retry_backoff_seconds: Optional[float] = None
 
     @classmethod
     def from_config(cls, cfg: dict[str, Any]) -> "CheckpointConfig":
         em = dict(cfg.get("exp_manager", {}) or {})
         cb = dict(em.get("checkpoint_callback_params", {}) or {})
+        # the retry knobs flow through the validated exp_manager.elastic
+        # block, whose defaults ElasticConfig owns (JAX's rule)
+        el = ElasticConfig.from_config(em.get("elastic"))
         return cls(
             dir=em.get("explicit_log_dir") or em.get("exp_dir") or "checkpoints",
             save_top_k=int(cb.get("save_top_k", 3)),
@@ -205,6 +220,8 @@ class CheckpointConfig:
             save_bf16=bool(em.get("save_bf16", cb.get("save_bf16", False))),
             use_master_weights_in_ckpt=bool(cb.get("use_master_weights_in_ckpt", True)),
             integrity=ck_integrity.parse_checkpoint_block(em.get("checkpoint")),
+            save_retries=el.save_retries,
+            save_retry_backoff_seconds=el.save_retry_backoff_seconds,
         )
 
 
@@ -448,6 +465,25 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def read_manifest(self, step: Optional[int] = None) -> Optional[dict]:
+        """The topology/plan manifest saved with ``step`` (newest when None),
+        read without templates: None when the checkpoint predates manifests
+        or no step exists.  A corrupt manifest reads as none, with a warning
+        (JAX's rule: a pre-elastic checkpoint is expected here)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        path = self.directory / str(step) / MANIFEST_NAME
+        if not path.exists():
+            return None
+        try:
+            doc = json.loads(path.read_text())
+        except (OSError, ValueError) as e:
+            logger.warning("manifest read at step %s failed (%s: %s) — treating as "
+                           "no-manifest", step, type(e).__name__, e)
+            return None
+        return doc if isinstance(doc, dict) else None
+
     # -- save -----------------------------------------------------------------
 
     def _stage(self, key: tuple, t: torch.Tensor) -> torch.Tensor:
@@ -475,10 +511,13 @@ class Checkpointer:
         return box[0]
 
     def save(self, state: TrainState, *, metrics: Optional[dict[str, float]] = None,
-             force: bool = False) -> bool:
+             force: bool = False, manifest: Optional[dict[str, Any]] = None) -> bool:
         """Stage and write one step (asynchronously with ``async_save``).
         Returns False without writing when the step is already saved (or,
-        unless ``force``, older than the newest saved step)."""
+        unless ``force``, older than the newest saved step).  ``manifest``
+        (``trainer/elastic.py::build_manifest``) is written beside the meta
+        as its own JSON item, ``manifest.json``, readable without templates
+        (:meth:`read_manifest`) and covered by the sidecar's digests."""
         self.wait()  # one save at a time; a failed previous save raises here
         step = int(state.step)
         steps = self.all_steps()
@@ -506,6 +545,8 @@ class Checkpointer:
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
             **state.extra,
         }
+        if manifest is not None:
+            meta = {**meta, MANIFEST_KEY: dict(manifest)}
         tmp_name = f"{step}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
         if self._pg is not None:
             tmp_name = self._broadcast(tmp_name)  # rank 0's, on every rank
@@ -543,23 +584,32 @@ class Checkpointer:
             self._audit_pending.append(step)
         return True
 
+    @staticmethod
+    def _write_meta(tmp: Path, meta: dict, manifest: Optional[dict]) -> None:
+        atomic_write_json(tmp / META_NAME, meta)
+        if manifest is not None:
+            atomic_write_json(tmp / MANIFEST_NAME, manifest)
+
     def _commit(self, step, tmp: Path, staged, meta, futures, stage_seconds, t_write) -> None:
         """Hash the staged bytes (while DCP writes them), wait for the
         writes, add meta and sidecar, rename into place, apply retention.
         ``futures`` is None under a process group: see :meth:`_commit_group`."""
         if futures is None:
             return self._commit_group(step, tmp, staged, meta, stage_seconds, t_write)
+        meta = dict(meta)
+        manifest = meta.pop(MANIFEST_KEY, None)
         try:
             digest_seconds = 0.0
             sidecar = None
             if self.config.integrity.enabled:
                 t = time.perf_counter()
                 sidecar = ck_integrity.build_sidecar(step=step, trees=staged, meta=meta,
-                                                     workers=SAVE_DIGEST_WORKERS)
+                                                     workers=SAVE_DIGEST_WORKERS,
+                                                     manifest=manifest)
                 digest_seconds = time.perf_counter() - t
             for f in futures:
                 f.result()
-            atomic_write_json(tmp / META_NAME, meta)
+            self._write_meta(tmp, meta, manifest)
             if sidecar is not None:
                 atomic_write_json(tmp / SIDECAR_NAME, sidecar)
             os.rename(tmp, self.directory / str(step))
@@ -574,6 +624,8 @@ class Checkpointer:
         (``dcp.save`` on the checkpointer's group), hash this rank's shards,
         merge on rank 0 (sidecar, meta, rename, retention), then a barrier,
         so that a rank's next save sees the step committed."""
+        meta = dict(meta)
+        manifest = meta.pop(MANIFEST_KEY, None)
         dcp = _dcp()
         for item in ITEMS:
             dcp.save(staged[item], storage_writer=_staged_writer(tmp / item),
@@ -603,7 +655,7 @@ class Checkpointer:
         error: Optional[BaseException] = None
         if self._rank == 0:
             try:
-                atomic_write_json(tmp / META_NAME, meta)
+                self._write_meta(tmp, meta, manifest)
                 if records is not None:
                     trees = {item: dict(tree) for item, tree in staged.items()}
                     for _, theirs in gathered if self.pp is not None else ():
@@ -612,7 +664,8 @@ class Checkpointer:
                                 trees[item].setdefault(k, torch.empty(shape, dtype=dtype,
                                                                       device="meta"))
                     atomic_write_json(tmp / SIDECAR_NAME, ck_integrity.sidecar_from_records(
-                        step=step, trees=trees, records=[r for r, _ in gathered], meta=meta))
+                        step=step, trees=trees, records=[r for r, _ in gathered], meta=meta,
+                        manifest=manifest))
                 os.rename(tmp, self.directory / str(step))
                 self._apply_retention()
             except BaseException as e:  # noqa: BLE001 — raised after the barrier
@@ -680,18 +733,30 @@ class Checkpointer:
         trail["audit"] = self._auditor.stats.to_dict()
 
     def save_with_retry(self, state: TrainState, *, metrics: Optional[dict[str, float]] = None,
-                        force: bool = False, drain: bool = False) -> bool:
-        """:meth:`save` with up to :data:`SAVE_RETRIES` retries, backing off
-        exponentially, on transient I/O errors, cleaning up the partial save
-        between attempts.  ``drain=True`` waits for the async write inside
-        the loop (the stop path), so a background write error counts as a
-        failed attempt."""
-        attempts = 1 + SAVE_RETRIES if self._pg is None else 1
-        delay = SAVE_RETRY_BACKOFF_SECONDS
+                        force: bool = False, drain: bool = False,
+                        manifest: Optional[dict[str, Any]] = None,
+                        deadline: Optional[float] = None) -> bool:
+        """:meth:`save` with up to ``save_retries`` retries (the config's
+        ``exp_manager.elastic`` knob, :data:`SAVE_RETRIES` by default),
+        backing off exponentially from ``save_retry_backoff_seconds``, on
+        transient I/O errors, cleaning up the partial save between attempts.
+        ``drain=True`` waits for the async write inside the loop (the stop
+        path), so a background write error counts as a failed attempt;
+        ``deadline`` (a ``time.monotonic()`` instant, the SIGTERM grace
+        window's end) bounds the attempts after the first.
+
+        Under a process group a save makes one attempt: its writes, the
+        digest gather and the barrier are collectives, and a retry on the
+        one rank that saw the error would wait for the others forever
+        (ROADMAP queue 3, "Kept")."""
+        retries = SAVE_RETRIES if self.config.save_retries is None else self.config.save_retries
+        attempts = 1 + max(int(retries), 0) if self._pg is None else 1
+        delay = float(SAVE_RETRY_BACKOFF_SECONDS if self.config.save_retry_backoff_seconds
+                      is None else self.config.save_retry_backoff_seconds)
         last: Optional[BaseException] = None
         for attempt in range(attempts):
             try:
-                saved = self.save(state, metrics=metrics, force=force)
+                saved = self.save(state, metrics=metrics, force=force, manifest=manifest)
                 if drain:
                     self.wait()
                 return saved
@@ -702,6 +767,10 @@ class Checkpointer:
                 last = e
                 remaining = attempts - 1 - attempt
                 if remaining == 0:
+                    break
+                if deadline is not None and time.monotonic() + delay >= deadline:
+                    logger.warning("checkpoint save at step %d: grace deadline reached after "
+                                   "attempt %d/%d", state.step, attempt + 1, attempts)
                     break
                 logger.warning("checkpoint save at step %d failed transiently (%s: %s); "
                                "retrying in %.2fs (%d attempt%s left)", state.step,

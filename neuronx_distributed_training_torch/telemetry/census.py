@@ -39,8 +39,12 @@ _COLLECTIVE_KINDS = {
     "all_reduce": "all-reduce",
     "all_gather": "all-gather",
     "all_gather_into_tensor": "all-gather",
+    # the newer names of the two above (ZeRO-1's bucketed gathers call
+    # ``all_gather_single`` where torch has it, ``optim/overlap.py``)
+    "all_gather_single": "all-gather",
     "reduce_scatter": "reduce-scatter",
     "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_single": "reduce-scatter",
     "all_to_all": "all-to-all",
     "all_to_all_single": "all-to-all",
     "broadcast": "broadcast",

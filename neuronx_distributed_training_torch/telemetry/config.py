@@ -137,11 +137,5 @@ class TelemetryConfig:
             )
         return out
 
-    def unported(self) -> list[str]:
-        """The knobs set away from their defaults whose planes this port
-        does not run (logged as ignored by the trainer): JAX's HLO audit."""
-        default = TelemetryConfig()
-        return [k for k in ("graph_audit",) if getattr(self, k) != getattr(default, k)]
-
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -197,9 +197,10 @@ bit the run without it.
 Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
 MoE path under context parallelism, GPT under context parallelism) are
 rejected with the ROADMAP item that ports them; config blocks it does not
-act on are logged once as ignored: ``graph_audit``, elastic replan,
-autotune and the Pallas tiles ``fusions.flash_block_q`` /
-``flash_block_kv`` (the Hopper kernels' tiles are fixed).
+act on are logged once as ignored: a TPU generation named as
+``autotune.topology`` (the planner prices the detected card) and the
+Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv`` (the Hopper
+kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -221,11 +222,16 @@ import torch.distributed as dist
 from neuronx_distributed_training_torch.alignment import dpo as dpo_mod
 from neuronx_distributed_training_torch.alignment import kto as kto_mod
 from neuronx_distributed_training_torch.alignment.orpo import make_orpo_loss_fn
+from neuronx_distributed_training_torch.autotune.cost_model import (
+    predicted_breakdown_for_config,
+)
+from neuronx_distributed_training_torch.autotune.topology import TPU_TOPOLOGIES
 from neuronx_distributed_training_torch.checkpoint import (
     CheckpointConfig,
     Checkpointer,
     TrainState,
 )
+from neuronx_distributed_training_torch.config.knobs import ElasticConfig
 from neuronx_distributed_training_torch.config.loader import ConfigDict, batch_schedule
 from neuronx_distributed_training_torch.data.build import alignment_strategy, build_data_module
 from neuronx_distributed_training_torch.data.loader import (
@@ -252,6 +258,7 @@ from neuronx_distributed_training_torch.optim.lr import build_lr_schedule
 from neuronx_distributed_training_torch.optim.overlap import OverlapConfig, build_bucket_plan
 from neuronx_distributed_training_torch.parallel import pipeline, sharding
 from neuronx_distributed_training_torch.parallel.mesh import (
+    AXES,
     ContextParallel,
     DataParallel,
     ExpertParallel,
@@ -478,11 +485,11 @@ def _pipeline_facts(cfg: ConfigDict, ds: dict, model: dict) -> dict:
 
 
 def _log_ignored(cfg: ConfigDict) -> None:
-    em = dict(cfg.get("exp_manager", {}) or {})
-    ignored = [f"exp_manager.telemetry.{k}" for k in
-               TelemetryConfig.from_config(em.get("telemetry")).unported()]
-    ignored += [f"exp_manager.{k}" for k in ("elastic",) if k in em]
-    ignored += [k for k in ("autotune",) if k in cfg]
+    ignored = []
+    topo = str(dict(cfg.get("autotune", {}) or {}).get("topology") or "").lower()
+    if topo in TPU_TOPOLOGIES:
+        # a TPU fleet's fact: the planner prices the detected card
+        ignored.append(f"autotune.topology ({topo})")
     # the Pallas kernels' tiles: the Hopper kernels' tiles are fixed
     fusions = dict(dict(cfg.get("model", {}) or {}).get("fusions", {}) or {})
     ignored += [f"model.fusions.{k}" for k in ("flash_block_q", "flash_block_kv") if k in fusions]
@@ -502,7 +509,8 @@ def _log_ignored(cfg: ConfigDict) -> None:
                     "schedule and the virtual pipeline; Mixtral, Megatron GPT, the alignment "
                     "strategies and LoRA; engineered overlap (bucketed ZeRO-1 gathers, "
                     "prefetch, the pipeline's double buffer); the profile window and the W&B "
-                    "and MLflow sinks; of the telemetry planes spans, mfu, the census, "
+                    "and MLflow sinks; the launch planner, the elastic replan and the graph "
+                    "audit; of the telemetry planes spans, mfu, the census, "
                     "goodput, device memory, batch stats, health, tensorstats, trace, fleet, "
                     "alerts, control and memory run): %s",
                     ", ".join(fresh))
@@ -998,10 +1006,35 @@ class Trainer:
     #: the ZeRO-1 bucket plan of ``distributed_strategy.overlap``
     #: (``optim/overlap.py``; None: per-leaf gathers)
     bucket_plan: Optional[Any] = None
+    #: the restart-time replan record (``trainer/elastic.py::maybe_replan``,
+    #: set by the CLI or the drill before the fit): its wall time is the
+    #: fit's ``replan`` span and it lands in run_summary.json's elastic section
+    replan_record: Optional[dict] = None
+    #: the discovery-time integrity trail (what maybe_replan walked back or
+    #: quarantined before this trainer existed), merged into the summary
+    discovery_integrity_trail: Optional[dict] = None
+    #: the drill's ``trainer/elastic.py::FaultInjector`` (None: no faults)
+    fault_injector: Optional[Any] = None
+    #: a sigterm-mode injection that fired outside the loop (mid-save or
+    #: mid-restore): the loop honors it as a SIGTERM at its next step
+    preemption_notice: Optional[str] = None
+    #: built by ``--compile-only``: assembled, never fitted
+    compile_only: bool = False
 
     @property
     def is_rank0(self) -> bool:
         return self.rank == 0
+
+    @property
+    def mesh_axes(self) -> dict[str, int]:
+        """``{axis: size}`` in JAX's mesh names and order (``parallel/
+        mesh.py::AXES``): the expert axis carves the data axis, as JAX's
+        ``DATA_AXES`` do.  The checkpoint manifest records it."""
+        sizes = {"pipe": self.pp, "data": self.dp, "expert": self.ep, "context": self.cp,
+                 "model": self.tp}
+        out = {a: int(getattr(sizes.get(a), "size", 1) or 1) for a in AXES}
+        out["data"] = max(out["data"] // out["expert"], 1)
+        return out
 
     @classmethod
     def from_config(cls, cfg: ConfigDict, *, device=None,
@@ -1296,6 +1329,10 @@ class Trainer:
             logger.info("resume: checkpoint predates telemetry %s — restored without the "
                         "subtree(s), counters start fresh at step %d", "tensorstats",
                         int(state.step))
+        if (self.fault_injector is not None
+                and self.fault_injector.maybe_fire("restore", int(state.step))):
+            # a preemption notice landing mid-restore
+            self.preemption_notice = "injected preemption notice (mid-restore)"
         self.params, self.opt_state, self.step = state.params, state.opt_state, state.step
         self.data_module.sampler.consumed_samples = state.consumed_samples
         if self.is_rank0:
@@ -1426,7 +1463,11 @@ class Trainer:
         max_time = parse_max_time(cfg_t.get("max_time"))
         gbs = int(self.sched["global_batch_size"])
         tokens = gbs * self.seq_len
-        stop: dict[str, Optional[str]] = {"reason": None}
+        stop: dict[str, Any] = {"reason": None, "deadline": None}
+        # the SIGTERM grace window (exp_manager.elastic.grace_period_seconds)
+        # starts at the notice, not at the boundary that saves
+        grace = ElasticConfig.from_config(
+            dict(self.cfg.get("exp_manager", {}) or {}).get("elastic")).grace_period_seconds
         # spans power both the per-boundary decomposition and goodput
         spans = SpanTimer(enabled=tel.spans or tel.goodput)
         detector = RecompileDetector()
@@ -1468,6 +1509,8 @@ class Trainer:
             # under the control plane the condition's bit folds at the next
             # boundary, so every rank stops at the same step
             stop["reason"] = reason
+            if stop["deadline"] is None and grace > 0:
+                stop["deadline"] = time.monotonic() + grace
             if control is not None and condition is not None:
                 control.request(condition, reason)
 
@@ -1485,7 +1528,13 @@ class Trainer:
         resumed = False
         record: dict = {}
         fit_exc: Optional[BaseException] = None
+        live_audit = None
         try:
+            if self.replan_record:
+                # the CLI's (or the drill's) restart-time replan ran before
+                # this trainer existed: goodput sees the whole restart
+                spans.add_preexisting(
+                    "replan", float(self.replan_record.get("replan_seconds", 0.0) or 0.0))
             # the reference pass before the resume: its columns come from the
             # initial weights, never from trained ones; both are restart time
             with spans.span("restart"):
@@ -1517,6 +1566,16 @@ class Trainer:
                 # step's dispatch; steps outside them are untouched
                 self.exp.maybe_profile(self.step)
                 self.exp.maybe_trace(self.step)
+                if self.preemption_notice is not None:
+                    # a sigterm-mode injection fired mid-save or mid-restore
+                    request_stop(self.preemption_notice, "preemption")
+                    self.preemption_notice = None
+                if (self.fault_injector is not None
+                        and self.fault_injector.maybe_fire("step", self.step)):
+                    # a preemption notice: the step still runs, then the
+                    # boundary takes the grace-window emergency checkpoint
+                    # (kill mode raised out of maybe_fire instead)
+                    request_stop("injected preemption notice", "preemption")
                 with spans.span("data_wait"):
                     try:
                         host_batch = next(batches)
@@ -1538,6 +1597,10 @@ class Trainer:
                         stack.enter_context(guard("first_step"))
                         if census is None:
                             span = "compile"  # the kernels build inside the first step
+                        if tel.graph_audit:
+                            live_audit = self._live_audit()
+                            if live_audit is not None:
+                                stack.enter_context(live_audit.observe())
                     if census is not None and census.stage < 2:
                         stack.enter_context(census.step())
                     if self.exp.trace_active or self.exp.profile_active:
@@ -1552,6 +1615,9 @@ class Trainer:
                                    spans=spans.snapshot() if spans.enabled else None)
                 window.append((index, metrics))
                 self.step += 1
+                if live_audit is not None:
+                    self._write_graph_audit(live_audit)
+                    live_audit = None
                 if census is not None and census.stage == 2:
                     seconds = census.write(spans)
                     if seconds and not any(i == census.first_index for i, _ in window):
@@ -1575,6 +1641,10 @@ class Trainer:
                 n_since = len(window)
                 # the boundary's fetch: the loop's one read of the card
                 with spans.span("host_sync"), guard("host_sync"):
+                    if self.fault_injector is not None:
+                        # a dead peer mid-collective: mode "hang" blocks here
+                        # and the armed watchdog must escape the process
+                        self.fault_injector.maybe_fire("sync", self.step)
                     fetched = _fetch_window(window)
                 window = []
                 # the tensorstats vectors go to tensorstats.jsonl, not the
@@ -1705,7 +1775,7 @@ class Trainer:
                         logger.warning("stopping at step %d: %s; checkpointing for resume",
                                        self.step, reason)
                     with spans.span("checkpoint"):
-                        self.save_checkpoint(record, emergency=True)
+                        self.save_checkpoint(record, emergency=True, deadline=stop["deadline"])
                     break
             if census is not None and census.stage == 1:
                 census.write(spans)  # a one-step run: no second step to time
@@ -1739,9 +1809,23 @@ class Trainer:
                     "stop_reason": stop["reason"],
                     "checkpoint": None if ck is None else {
                         "last_save": ck.last_save, "last_restore": ck.last_restore,
-                        "integrity": ck.integrity_trail,
+                        "integrity": self._merged_integrity_trail(),
                         "process_group_mode": ck.process_group_mode},
                 }
+                if resumed or self.replan_record is not None or stop["reason"] is not None:
+                    # the elastic trail (JAX's section): the restart's cost,
+                    # the replan (old plan -> new plan), why this run stopped
+                    snap = spans.snapshot()
+                    elastic = {"resumed": bool(resumed),
+                               "restart_seconds": round(snap.get("restart", 0.0), 3),
+                               "replan_seconds": round(snap.get("replan", 0.0), 3)}
+                    if stop["reason"] is not None:
+                        elastic["stop_reason"] = stop["reason"]
+                    if self.stop_class is not None:
+                        elastic["stop_class"] = self.stop_class
+                    if self.replan_record is not None:
+                        elastic["replan"] = self.replan_record
+                    summary["elastic"] = elastic
                 if tel.goodput:
                     summary["goodput"] = spans.goodput_summary()
                 if detector.events:
@@ -1779,7 +1863,9 @@ class Trainer:
                     mcfg, self.exp.log_dir, devices=[self.device],
                     tree_bytes_fn=lambda: tree_bytes_by_subsystem(self.params, self.opt_state),
                     state_fn=lambda: (self.params, self.opt_state), run_facts=self.run_facts,
-                    write_run_summary=self.exp.write_run_summary)
+                    write_run_summary=self.exp.write_run_summary,
+                    # the planner's breakdown for this config's plan (JAX's)
+                    predicted=predicted_breakdown_for_config(self.cfg, self.world))
             except Exception as e:  # noqa: BLE001 — observability must not kill the run
                 logger.warning("memory plane unavailable: %s", e)
         if tel.control.enabled:
@@ -1901,13 +1987,74 @@ class Trainer:
                     flat[n].copy_(t)
 
     def save_checkpoint(self, metrics: Optional[dict[str, float]] = None, *,
-                        emergency: bool = False) -> None:
-        """One checkpoint save with transient-error retry; ``emergency`` (a
-        stop) drains the async write inside the retry loop."""
+                        emergency: bool = False, deadline: Optional[float] = None) -> None:
+        """One checkpoint save with transient-error retry and the
+        topology/plan manifest (``trainer/elastic.py``); ``emergency`` (a
+        stop) drains the async write inside the retry loop, bounded by the
+        grace window's ``deadline``."""
         if self.checkpointer is None:
             return
+        from neuronx_distributed_training_torch.trainer.elastic import build_manifest
+
+        try:
+            manifest = build_manifest(
+                self.cfg, self.mesh_axes, step=self.step, schedule=self.pipeline_schedule,
+                model_family=self.run_facts.get("model_family", type(self.model_cfg).__name__),
+                save_bf16=self.checkpointer.config.save_bf16)
+        except Exception as e:  # noqa: BLE001 — the save itself must not fail on it
+            logger.warning("manifest build failed (saving without): %s", e)
+            manifest = None
         self.checkpointer.save_with_retry(
             TrainState(params=self.params, opt_state=self.opt_state, step=self.step,
                        consumed_samples=self.consumed_samples),
             metrics={k: v for k, v in (metrics or {}).items() if k != "step"},
-            force=emergency, drain=emergency)
+            force=emergency, drain=emergency, manifest=manifest, deadline=deadline)
+        if (self.fault_injector is not None
+                and self.fault_injector.maybe_fire("save", self.step)):
+            # a preemption notice landing mid-save (the async write in flight)
+            self.preemption_notice = "injected preemption notice (mid-save)"
+
+    def _merged_integrity_trail(self) -> dict:
+        """The discovery-time trail (``maybe_replan``'s walk-back) and the
+        checkpointer's own, JAX's union: walk-backs add, quarantined steps
+        union, the restore's verified step wins."""
+        disc = dict(self.discovery_integrity_trail or {})
+        own = dict(getattr(self.checkpointer, "integrity_trail", None) or {})
+        if not disc or not own:
+            return disc or own
+        merged = {**disc, **own}
+        merged["walk_back_count"] = (int(disc.get("walk_back_count", 0))
+                                     + int(own.get("walk_back_count", 0)))
+        merged["quarantined_steps"] = list(dict.fromkeys(
+            list(disc.get("quarantined_steps") or []) + list(own.get("quarantined_steps") or [])))
+        merged["verify_seconds"] = round(float(disc.get("verify_seconds", 0.0))
+                                         + float(own.get("verify_seconds", 0.0)), 3)
+        return merged
+
+    def _live_audit(self):
+        """``telemetry.graph_audit``: the audit rules over the trainer's own
+        first step (``analysis/graph_audit.py::LiveAudit``); None (and a
+        warning) when it cannot start: it observes, it never stops a run."""
+        try:
+            from neuronx_distributed_training_torch.analysis.graph_audit import LiveAudit
+
+            return LiveAudit(self)
+        except Exception as e:  # noqa: BLE001 — observability must not kill the run
+            logger.warning("graph audit unavailable: %s", e)
+            return None
+
+    def _write_graph_audit(self, live) -> None:
+        """Log each finding and write run_summary.json's ``graph_audit``
+        section (JAX's: the report's dict)."""
+        try:
+            rep = live.report(config_name=str(self.cfg.get("name", "") or ""))
+            for f in rep.findings:
+                logger.warning(f.format())
+            logger.info("graph audit: %s (in place %.1f%%, collectives %s)",
+                        rep.worst() or "clean",
+                        100 * rep.stats.get("inplace_coverage", 0.0),
+                        rep.stats.get("collectives"))
+            if self.is_rank0:
+                self.exp.write_run_summary({"graph_audit": rep.to_dict()})
+        except Exception as e:  # noqa: BLE001 — observability must not kill the run
+            logger.warning("graph audit failed: %s", e)

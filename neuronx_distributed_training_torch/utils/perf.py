@@ -186,6 +186,36 @@ def _gpt_flops_per_token(gc, seq_len: int) -> float:
     return float(sum(breakdown.values()))
 
 
+def flops_breakdown_for_model(model_cfg, seq_len: int) -> dict[str, float]:
+    """Per-component forward FLOPs per token, ``{attention, mlp, router,
+    head}`` (JAX's ``flops_breakdown_for_model``, its terms in its order):
+    what ``autotune/cost_model.py`` prices, since each component scales
+    differently under tp, cp and remat."""
+    gpt_like = hasattr(model_cfg, "transformer_block_type")
+    lc = model_cfg if gpt_like else getattr(model_cfg, "llama", model_cfg)
+    h = lc.hidden_size
+    attn = lc.num_layers * llama_flops_per_token(
+        num_layers=1, hidden_size=h, intermediate_size=0,
+        num_attention_heads=lc.num_attention_heads,
+        num_kv_heads=lc.kv_heads if gpt_like else lc.num_kv_heads, vocab_size=0,
+        seq_len=seq_len, head_dim=lc.head_size if gpt_like else lc.head_dim)
+    head = 2.0 * h * lc.vocab_size
+    if gpt_like:
+        mlp = 2 * h * (3 if model_cfg.is_glu else 2) * model_cfg.ffn_size
+    else:
+        mlp = 2 * h * 3 * lc.intermediate_size
+    moe = getattr(model_cfg, "moe", None)
+    if moe is None or lc is model_cfg and not gpt_like:
+        return {"attention": attn, "mlp": float(lc.num_layers * mlp), "router": 0.0,
+                "head": head}
+    from neuronx_distributed_training_torch.models import gpt, mixtral
+
+    n_moe = (gpt if gpt_like else mixtral).num_moe_layers(model_cfg)
+    return {"attention": attn,
+            "mlp": (lc.num_layers - n_moe) * mlp + n_moe * moe.top_k * mlp,
+            "router": float(n_moe * 2 * h * moe.num_experts), "head": head}
+
+
 def train_step_flops_per_token(fwd_flops_per_token: float) -> float:
     """fwd + bwd, bwd = 2 x fwd."""
     return 3.0 * fwd_flops_per_token

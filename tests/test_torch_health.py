@@ -301,19 +301,22 @@ def test_recorder_knobs_are_logged_as_ignored(caplog):
     """The flight recorder's knobs, the spans plane and (since the planes
     of ``tiny_smoke_config.yaml`` were ported) tensorstats and (since the
     trace slice) the trace plane are acted on, so they leave the ignored
-    log; a block that is not ported (``exp_manager.elastic``) stays in it."""
+    log, and so (since the planner slice) does ``exp_manager.elastic``; a
+    knob the port does not act on (a TPU generation as the planner's
+    topology) stays in it."""
     cfg = t_loader.load_config({
         "exp_manager": {"telemetry": {"spans": True, "tensorstats": {"enabled": True},
                                       "trace": {"enabled": True},
                                       "health": {"enabled": True, "policy": "skip_update",
                                                  "ring_buffer_steps": 4}},
                         "elastic": {}},
+        "autotune": {"topology": "v5e"},
         "data": {"global_batch_size": 8, "micro_batch_size": 1}})
     t_loop._logged_ignored.clear()
     with caplog.at_level("INFO", logger="nxdt.torch.train"):
         t_loop._log_ignored(cfg)
     (msg,) = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
-    assert "exp_manager.elastic" in msg
+    assert "autotune.topology (v5e)" in msg and "exp_manager.elastic" not in msg
     assert "exp_manager.telemetry.trace" not in msg
     assert "exp_manager.telemetry.tensorstats" not in msg
     assert "exp_manager.telemetry.spans" not in msg

@@ -289,9 +289,11 @@ def test_telemetry_config_matches_jax():
         assert t.to_dict() == j.to_dict(), block
     assert t_loader.did_you_mean({"spanz", "zzz"}, t_tel.TELEMETRY_KNOBS) == \
         j_loader.did_you_mean({"spanz", "zzz"}, j_tel.TELEMETRY_KNOBS)
-    cfg = t_loader.load_config(_base(**{"exp_manager.telemetry.graph_audit": True}))
-    assert t_tel.TelemetryConfig.from_config(cfg.exp_manager.telemetry).unported() == \
-        ["graph_audit"]
+    # graph_audit runs (analysis/graph_audit.py on the first step), parsed as JAX parses it
+    over = {"exp_manager.telemetry.graph_audit": True}
+    t = t_tel.TelemetryConfig.from_config(t_loader.load_config(_base(**over)).exp_manager.telemetry)
+    j = j_tel.TelemetryConfig.from_config(j_loader.load_config(_base(**over)).exp_manager.telemetry)
+    assert t.graph_audit is True and t.to_dict() == j.to_dict()
 
 
 # ---------------------------------------------------------------------------

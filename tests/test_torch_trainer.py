@@ -57,7 +57,10 @@ NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "telemetry.alerts", "telemetry.fleet", "telemetry.memory", "telemetry.tensorstats",
     "telemetry.quant_readiness", "trainer.control", "tools.checkpoint_converter",
     "tools.ckpt_verify", "tools.prepare_dataset", "models.generate", "models.decode",
-    "tools.evaluate", "tools.run_sft_evaluation", "tools.bench_decode"))
+    "tools.evaluate", "tools.run_sft_evaluation", "tools.bench_decode", "autotune",
+    "autotune.topology", "autotune.space", "autotune.cost_model", "autotune.planner",
+    "analysis", "analysis.report", "analysis.graph_audit", "trainer.elastic", "tools.plan",
+    "tools.preflight_audit", "tools.elastic_drill"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
@@ -225,13 +228,14 @@ def test_ignored_blocks_are_logged_once(caplog):
     # block are acted on: nothing of tiny_smoke is ignored
     msgs = [r.getMessage() for r in caplog.records if "ignored" in r.getMessage()]
     assert msgs == []
-    # the queue-1 blocks still not ported are named, once: elastic and
-    # autotune; the trace plane, the W&B / MLflow sinks and the profiling
-    # window are acted on now
+    # what is still ignored is named, once: a TPU generation as the
+    # planner's topology (the port prices the detected card); the trace
+    # plane, the W&B / MLflow sinks, the profiling window, the elastic block
+    # and autotune are acted on now
     rest = t_loader.load_config(TINY, {
         "exp_manager.telemetry.trace": {"enabled": True}, "exp_manager.elastic": {},
         "exp_manager.create_wandb_logger": True, "exp_manager.create_mlflow_logger": True,
-        "exp_manager.profile_start_step": 2, "autotune": {}})
+        "exp_manager.profile_start_step": 2, "autotune": {"topology": "v5e"}})
     t_loop._logged_ignored.clear()
     caplog.clear()
     with caplog.at_level("INFO", logger="nxdt.torch.train"):
@@ -241,7 +245,7 @@ def test_ignored_blocks_are_logged_once(caplog):
     assert len(msgs) == 1
     assert "data and tensor parallelism" in msgs[0] and "data parallelism only" not in msgs[0]
     assert "engineered overlap" in msgs[0] and "trace, fleet" in msgs[0]
-    assert set(msgs[0].split(": ", 1)[1].split(", ")) == {"exp_manager.elastic", "autotune"}
+    assert set(msgs[0].split(": ", 1)[1].split(", ")) == {"autotune.topology (v5e)"}
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
