@@ -379,14 +379,39 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       under torchrun resumed on one card through the replan (its record
       printed), on one card a line says why not.
 
+21. the comms plane and the contracts, riding the runs above:
+   a. the perf contract (``analysis/perf_contract.py``) on 18a's run dir
+      (Llama-3-8B width, the trace window): a write-then-check round trip in
+      a temporary baselines dir, clean; the same facts with the step time x
+      1.5 give PC101 as an error, and ``tools/perf_contract.py --check``
+      exits 1 on them; PC502 on 20a's ``memory_summary.json`` and the
+      ``residual_report`` of 20a's predicted step against its window's,
+      printed; 18a's facts checked against the committed card baseline
+      (``analysis/perf_baselines/<card>_run.json``): a PC000, PC101 or PC501
+      error fails the phase;
+   b. the graph contract on the card: tiny_smoke's step at world 1 audited
+      on the card, and the flagship's selective structure from 20a's audits,
+      each fingerprint checked clean against its config's committed ``cuda``
+      section; 18a runs with ``telemetry.graph_audit``: its run_summary's
+      ``contract`` section with 0 unattributed collectives;
+   c. with two or more cards, ``tools/comms_bench.py`` under torchrun over
+      dp = the cards (and dp 2 x tp 2 with four), 1 MiB to 256 MiB: the
+      fitted NVLink bandwidth and latency against the ``h100`` prior, the
+      skew findings, and ``tools/plan.py --calibrate-from`` the summary; 18b's
+      dp runs carry the ``comms`` section (each class's achieved_gbps and
+      efficiency).  With one card it prints why it did not run;
+   d. ``tools/quant_readiness.py`` over 17b's run dir (tensorstats on) with
+      the flagship's config: every class sized.
+
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
 ``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``, ``19``, ``20``,
-``20a``, ``20c``) runs the kernels' build and those phases alone (13e, 16 and 17 after phase
-4, 17 after 16a, 18 after phase 3; 14a and 14b are one function; 20c is phase 5) and prints
-no result: a partial check while developing.
+``20a``, ``20c``, ``21``, ``21c``) runs the kernels' build and those phases alone (13e, 16
+and 17 after phase 4, 17 after 16a, 18 after phase 3; 14a and 14b are one function; 20c is
+phase 5; 21 after 3, 4, 16a, 17b, 18a and 20a; 21c with 18b) and prints no result: a
+partial check while developing.
 """
 
 from __future__ import annotations
@@ -4791,6 +4816,7 @@ def phase_planes(torch, fa, cell, cadence: dict, card: str) -> dict:
         tree = tree_bytes_by_subsystem(trainer.params, trainer.opt_state)
         summary = json.loads((run / "run_summary.json").read_text())
         fleet = sorted(p.name for p in (run / "fleet").iterdir())
+        keep_run(run, "17b")  # 21d's run dir
         committed = list(trainer.checkpointer.committed_steps)
         cost = tensorstats_cost(torch, trainer, card)
         del trainer
@@ -5111,7 +5137,9 @@ def phase_trace(torch, fa, kt, cell, times: dict, card: str) -> dict:
         "--set", "exp_manager.telemetry.trace={enabled: true, start_step: %d, num_steps: %d}"
         % (t["start_step"], t["num_steps"]),
         "--set", f"exp_manager.profile_start_step={p['start']}",
-        "--set", f"exp_manager.profile_num_steps={p['steps']}"]
+        "--set", f"exp_manager.profile_num_steps={p['steps']}",
+        # 21b: the live first-step audit with its collectives' attribution
+        "--set", "exp_manager.telemetry.graph_audit=true"]
     fa.reset_counters()
     try:
         with SyncWatch(torch, first=2) as watch, KernelProbe(torch, fa) as probe, \
@@ -5128,6 +5156,7 @@ def phase_trace(torch, fa, kt, cell, times: dict, card: str) -> dict:
         raw_left = (log_dir / "trace").exists()
         profiles = sorted(x.name for x in (log_dir / "profile").glob("*.pt.trace.json")) \
             if (log_dir / "profile").exists() else []
+        keep_run(log_dir, "18a")  # 21a's run dir
         report = subprocess.run([sys.executable, str(REPO / "tools" / "trace_report.py"),
                                  str(log_dir)], capture_output=True, text=True, timeout=120)
         del trainer
@@ -5228,7 +5257,7 @@ def phase_trace(torch, fa, kt, cell, times: dict, card: str) -> dict:
     if outside:
         fail(f"trace 18a: host syncs inside a dispatch outside the windows: {outside[:12]}")
     out = {"launches": launches, "per_launch_ms": per_launch, "events_ms": events_ms,
-           "busy_share": busy, "fidelity": fidelity,
+           "busy_share": busy, "fidelity": fidelity, "graph_audit": run.get("graph_audit"),
            "steps": summary["steps"], "step_time": step_time,
            "top_ops": summary["top_ops"][:10], "phase_seconds": time.perf_counter() - t_phase}
     log(f"trace 18a: phase wall time {out['phase_seconds']:.1f} s [{card}]")
@@ -5269,6 +5298,12 @@ def multi_trace(cell, nproc: int, name: str, *extra: str) -> dict:
     log(f"trace 18b {name}: losses {rep['loss']} grad norms {rep['grad_norm']} steps "
         f"{rep['step_seconds']}")
     tr = rep["trace"] or {}
+    comms = tr.get("comms") or {}
+    log(f"comms 21c {name}: the trace window's bandwidth join {json.dumps(comms)}")
+    if name.startswith("dp") and not any(
+            c.get("achieved_gbps") and c.get("efficiency") is not None
+            for c in (comms.get("classes") or {}).values()):
+        fail(f"comms 21c {name}: the dp run's trace summary carries no comms class: {comms}")
     if not tr or not any(d.startswith("GPU") for d in tr.get("devices", [])):
         fail(f"trace 18b {name}: no trace summary with device lanes: {tr.get('devices')}")
     if not rep["trace_steady"]:
@@ -5986,6 +6021,7 @@ def phase_autotune(torch, fa, cell, card: str) -> dict:
         run = Path(trainer.exp.log_dir)
         summary = json.loads((run / "run_summary.json").read_text())
         mem_doc = json.loads((run / "memory_summary.json").read_text())
+        keep_run(run, "20a")  # 21a's run dir
         del trainer
     finally:
         shutil.rmtree(exp, ignore_errors=True)
@@ -6009,7 +6045,8 @@ def phase_autotune(torch, fa, cell, card: str) -> dict:
                summary_predicted=mem.get("predicted_hbm_bytes"),
                summary_peak=mem.get("peak_hbm_bytes"),
                memory_summary_predicted=(mem_doc.get("predicted") or {}).get("total"),
-               n_plans=rep["n_plans"], n_fit=rep["n_fit"], topology=rep["topology"])
+               n_plans=rep["n_plans"], n_fit=rep["n_fit"], topology=rep["topology"],
+               estimate=est, candidates=rep["candidates"])
     log(f"autotune 20a: {rep['n_plans']} plans, {rep['n_fit']} inside the budget, topology "
         f"{rep['topology']}; audits (rank, verdict, device, discarded) {audits}; winner "
         f"{out['winner']} [{card}]")
@@ -6128,6 +6165,286 @@ def phase_elastic_multi(torch, cell, card: str) -> dict | None:
     return {"record": record}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the comms plane and the contracts
+# ---------------------------------------------------------------------------
+
+#: the run-dir files phase 21 reads after an earlier phase's exp dir is gone
+KEEP_FILES = ("run_summary.json", "metrics.jsonl", "trace_summary.json", "memory_summary.json",
+              "tensorstats.jsonl")
+#: 21a: the planted regression's step-time factor
+PLANTED_STEP_FACTOR = 1.5
+#: 21a: the committed baseline's rules that fail the phase
+PERF_GATES = ("PC000", "PC101", "PC501")
+#: 21c: the sweep's message sizes, 1 MiB to 256 MiB
+COMMS_SIZES = ",".join(str(1 << k) for k in (20, 22, 24, 26, 28))
+FLAGSHIP = REPO / "examples" / "conf" / "hf_llama3_8B_config.yaml"
+TINY_CONF = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
+
+
+def keep_dir(tag: str) -> Path:
+    from neuronx_distributed_training_torch.tools import step_times as cell
+
+    return cell.WORK / f"keep_{tag}"
+
+
+def keep_run(run: Path, tag: str) -> None:
+    """Copy the run dir's summaries for phase 21 (the phase deletes its exp
+    dir)."""
+    dest = keep_dir(tag)
+    shutil.rmtree(dest, ignore_errors=True)
+    dest.mkdir(parents=True)
+    for name in KEEP_FILES:
+        if (Path(run) / name).exists():
+            shutil.copy2(Path(run) / name, dest / name)
+
+
+def out_dir() -> Path:
+    path = REPO / "chiprun_out" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def run_tool(main_fn, argv: list) -> tuple:
+    """A tool's ``main`` in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = main_fn(argv) or 0
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, buf.getvalue()
+
+
+def phase_perf_contract(torch, auto: dict, card: str, deferred: list) -> dict:
+    """21a: the perf contract on 18a's run dir and 20a's (the module
+    docstring).  The check against the committed baseline adds its failure
+    to ``deferred`` (phase 21 fails on it after its other parts ran)."""
+    import tempfile
+
+    from neuronx_distributed_training_torch.analysis import perf_contract as pc
+    from neuronx_distributed_training_torch.analysis.report import AuditReport
+    from neuronx_distributed_training_torch.tools import perf_contract as pc_tool
+
+    t_phase = time.perf_counter()
+    facts = pc.perf_facts_from_run(keep_dir("18a"))
+    key = pc.default_key(facts, torch.cuda.get_device_name(0))
+    (out_dir() / f"{key}_facts.json").write_text(json.dumps(facts, indent=1, sort_keys=True))
+    log(f"perf 21a: 18a's facts [{key}]: step {facts['step_time_ms']} ms, tokens/s "
+        f"{facts['tokens_per_sec']}, mfu {facts['mfu']}, overlap {facts['achieved_overlap']}, "
+        f"peak {facts['peak_hbm_bytes']} [{card}]")
+    with tempfile.TemporaryDirectory(prefix="perf_baselines_") as tmp:
+        pc.write_baseline(key, facts, justifications=["round trip"], baselines_dir=Path(tmp))
+        trip = pc.check_perf(key, facts, baselines_dir=Path(tmp))
+        planted = dict(facts, step_time_ms=facts["step_time_ms"] * PLANTED_STEP_FACTOR)
+        plant = pc.check_perf(key, planted, baselines_dir=Path(tmp))
+        planted_path = Path(tmp) / "planted_facts.json"
+        planted_path.write_text(json.dumps(planted))
+        code, text = run_tool(pc_tool.main, [str(planted_path), "--check", "--key", key,
+                                             "--baselines-dir", tmp])
+    log(f"perf 21a: round trip {pc.verdict_of(trip)} ({trip.by_severity()}); step x "
+        f"{PLANTED_STEP_FACTOR}: {[(f.rule, f.severity) for f in plant.findings]}; "
+        f"tools/perf_contract.py --check exit {code} [{card}]")
+    for line in text.strip().splitlines()[:6]:
+        log(f"perf 21a: tool: {line}")
+    if pc.verdict_of(trip) != "clean":
+        fail(f"perf 21a: the round trip is not clean:\n{trip.format()}")
+    if ("PC101", "error") not in [(f.rule, f.severity) for f in plant.findings] or code != 1:
+        fail(f"perf 21a: the planted regression gave {plant.format()}; the tool exited {code}")
+    # PC502 and the residuals on 20a's run
+    facts20 = pc.perf_facts_from_run(keep_dir("20a"))
+    cal = AuditReport(config="20a")
+    pc.calibration_findings(facts20, pc.DEFAULT_NOISE, cal)
+    resid = pc.residual_report(auto["estimate"], {"step_seconds": auto["step_seconds"]})
+    log(f"perf 21a: 20a's peak {facts20['peak_hbm_bytes']} bytes against the predicted "
+        f"{facts20['predicted_hbm_bytes']} (memory_summary.json): "
+        f"{[(f.rule, f.severity, f.message) for f in cal.findings] or 'no PC502 finding'} "
+        f"[{card}]")
+    log(f"perf 21a: residual_report of 20a's plan against its window: {json.dumps(resid)} "
+        f"[{card}]")
+    # 18a against the committed card baseline
+    rep = pc.check_perf(key, facts)
+    log(f"perf 21a: 18a against the committed baseline {key}: {pc.verdict_of(rep)} "
+        f"{[(f.rule, f.severity, f.message) for f in rep.findings]} [{card}]")
+    gate = [f for f in rep.findings if f.rule in PERF_GATES and f.severity == "error"]
+    if gate:
+        deferred.append(f"perf 21a: 18a's facts fail the committed baseline {key}:\n"
+                        f"{rep.format()}")
+    out = {"key": key, "verdict": pc.verdict_of(rep), "residuals": resid,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log(f"perf 21a: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def check_fingerprint(config: Path, fp: dict, what: str, card: str, deferred: list) -> dict:
+    """Check one card fingerprint against its config's committed ``cuda``
+    section (the fingerprint is kept under chiprun_out/)."""
+    from neuronx_distributed_training_torch.analysis import graph_contract as gc
+
+    fp = dict(fp, config=config.name, shrunk=True)
+    (out_dir() / f"fingerprint_{config.stem}.json").write_text(
+        json.dumps(fp, indent=1, sort_keys=True))
+    rep = gc.check_contract(str(config), fp)
+    log(f"contract 21b: {what} ({fp.get('device')}, mesh {fp.get('mesh')}): "
+        f"{rep.worst() or 'clean'}; collectives {fp.get('collectives')}, in place "
+        f"{fp.get('donation', {}).get('coverage')}, matmuls "
+        f"{(fp.get('matmul_dtypes') or {}).get('counts')}, memory {fp.get('memory')} [{card}]")
+    if fp.get("device") != "cuda":
+        fail(f"contract 21b: {what} was not fingerprinted on the card: {fp.get('device')}")
+    if rep.failed("error"):
+        deferred.append(f"contract 21b: {what} against its committed cuda section:\n"
+                        f"{rep.format()}")
+    return {"verdict": rep.worst() or "clean"}
+
+
+def phase_graph_contract(torch, auto: dict, trace: dict, card: str, deferred: list) -> dict:
+    """21b: the card fingerprints against the committed ``cuda`` sections
+    (a failure goes to ``deferred``), and 18a's live attribution."""
+    from neuronx_distributed_training_torch.analysis.graph_audit import audit_config
+
+    t_phase = time.perf_counter()
+    out = {}
+    rep = audit_config(str(TINY_CONF), max_devices=1)
+    if rep.failed("error") or not rep.stats.get("fingerprint"):
+        fail(f"contract 21b: tiny_smoke's audit on the card:\n{rep.format()}")
+    out["tiny_smoke"] = check_fingerprint(TINY_CONF, rep.stats["fingerprint"],
+                                          "tiny_smoke at world 1", card, deferred)
+    declared = load_remat(FLAGSHIP)
+    flag = next((c for c in auto["candidates"]
+                 if c["plan"].get("remat") == declared and (c.get("audit") or {}).get(
+                     "fingerprint")), None)
+    if flag is None:
+        fail(f"contract 21b: 20a audited no {declared} structure of the flagship: "
+             f"{[(c['plan'].get('remat'), (c.get('audit') or {}).get('verdict')) for c in auto['candidates']]}")
+    out["flagship"] = check_fingerprint(FLAGSHIP, flag["audit"]["fingerprint"],
+                                        f"the flagship's {declared} structure (20a's audit)", card,
+                                        deferred)
+    ga = trace.get("graph_audit") or {}
+    contract = ga.get("contract") or {}
+    log(f"contract 21b: 18a's live first-step audit: {ga.get('verdict')}, "
+        f"{ga.get('counts')}; contract {json.dumps(contract)} [{card}]")
+    if not contract or contract.get("collectives_unattributed") != 0 or \
+            ga.get("verdict") == "error":
+        fail(f"contract 21b: 18a's run_summary graph_audit: {json.dumps(ga)[:2000]}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"contract 21b: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def load_remat(config: Path) -> str:
+    from neuronx_distributed_training_torch.config.loader import load_config
+
+    return str((load_config(str(config)).get("model") or {}).get(
+        "activations_checkpoint_granularity") or "none")
+
+
+def phase_comms_multi(torch, card: str) -> dict | None:
+    """21c (two or more cards): ``tools/comms_bench.py`` under torchrun over
+    dp = the cards (and dp 2 x tp 2 with four), then ``tools/plan.py
+    --calibrate-from`` its summary; one card prints why it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"comms 21c: the sweep needs two or more cards; this machine has {n} and it did "
+            f"not run [{card}]")
+        return None
+    from neuronx_distributed_training_torch.tools import plan as plan_tool
+
+    t_phase = time.perf_counter()
+    out = {}
+    meshes = [("dp", ["--tp", "1"])] + ([("dp2_tp2", ["--tp", "2"])] if n >= 4 else [])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    for tag, extra in meshes:
+        summary = out_dir() / f"comms_summary_{tag}.json"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(n if tag == "dp" else 4), "-m",
+               "neuronx_distributed_training_torch.tools.comms_bench", *extra, "--pp", "1",
+               "--sizes", COMMS_SIZES, "--reps", "5", "--warmup", "2", "--out", str(summary),
+               "--json", "-"]
+        done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=900)
+        for line in done.stdout.splitlines()[:-1]:
+            if line.strip():
+                log(f"comms 21c {tag}: {line}")
+        if done.returncode != 0:
+            fail(f"comms 21c {tag}: comms_bench exited {done.returncode}:\n"
+                 f"{(done.stdout + done.stderr)[-3000:]}")
+        line = json.loads(done.stdout.strip().splitlines()[-1])
+        doc = json.loads(summary.read_text())
+        fits = {a: (e.get("fit"), e.get("bandwidth_ratio"), e.get("latency_ratio"))
+                for a, e in doc["axes"].items()}
+        log(f"comms 21c {tag}: fitted (bandwidth B/s, latency s) against the prior "
+            f"{doc['prior']}: {json.dumps(fits)}; findings {doc['findings']}; skew "
+            f"{json.dumps(doc.get('device_skew'))}; perf contract {line.get('perf_contract')} "
+            f"[{card}]")
+        if not doc["axes"] or any(not e.get("fit") for e in doc["axes"].values()):
+            fail(f"comms 21c {tag}: an axis without a fit: {doc['axes']}")
+        out[tag] = {"fits": fits, "findings": doc["findings"]}
+    # the widest sweep prices both the dp and the tp axes of the winner
+    widest = out_dir() / f"comms_summary_{meshes[-1][0]}.json"
+    for calibrated in (False, True):
+        argv = ["--config", str(FLAGSHIP), "--chips", "8", "--topology", "h100", "--no-audit",
+                "--top-k", "1", "--json", "-"]
+        if calibrated:
+            argv += ["--calibrate-from", str(widest)]
+        code, text = run_tool(plan_tool.main, argv)
+        rep = json.loads(text.strip().splitlines()[-1])["reports"][0]
+        est = (rep.get("candidates") or [{}])[0].get("estimate") or {}
+        log(f"comms 21c: plan.py at 8 cards {'calibrated' if calibrated else 'prior'}: exit "
+            f"{code}, winner {rep.get('winner')}, step {est.get('step_seconds')} s, comms "
+            f"{est.get('comms_seconds')} s; comms calibration "
+            f"{json.dumps(rep.get('comms_calibration'))} "
+            f"[{card}]")
+        if code != 0:
+            fail(f"comms 21c: plan.py exited {code}: {rep.get('error')}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"comms 21c: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_quant(card: str) -> dict:
+    """21d: ``tools/quant_readiness.py`` over 17b's run dir with the
+    flagship's config: every class sized."""
+    from neuronx_distributed_training_torch.tools import quant_readiness as qr
+
+    t_phase = time.perf_counter()
+    code, text = run_tool(qr.main, [str(keep_dir("17b")), "--config", str(FLAGSHIP),
+                                    "--json", "-"])
+    rep = json.loads(text.strip().splitlines()[-1])
+    for line in text.strip().splitlines()[:-1][:12]:
+        log(f"quant 21d: {line}")
+    classes = rep.get("classes") or {}
+    unsized = [k for k, e in classes.items() if e.get("bytes_per_step") is None]
+    if code != 0 or not rep.get("ok") or not classes or unsized:
+        fail(f"quant 21d: exit {code}, report {json.dumps(rep)[:1500]}; unsized {unsized}")
+    out = {"ranking": rep.get("ranking"), "phase_seconds": time.perf_counter() - t_phase}
+    log(f"quant 21d: ranking {out['ranking']}; phase wall time {out['phase_seconds']:.1f} s "
+        f"[{card}]")
+    return out
+
+
+def phase_contracts(torch, auto: dict, trace: dict, card: str) -> dict:
+    """Phase 21, 21a-21d."""
+    t_phase = time.perf_counter()
+    deferred: list = []
+    out = {"graph": phase_graph_contract(torch, auto, trace, card, deferred)}
+    free_cuda(torch)
+    out["comms"] = phase_comms_multi(torch, card)
+    out["quant"] = phase_quant(card)
+    out["perf"] = phase_perf_contract(torch, auto, card, deferred)
+    for tag in ("17b", "18a", "20a"):
+        shutil.rmtree(keep_dir(tag), ignore_errors=True)
+    if deferred:
+        fail("\n".join(deferred))
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"contracts 21a-21d: phase wall time {out['phase_seconds']:.1f} s [{card}]")
+    return out
+
+
 def ptxas_report(log_text: str) -> dict:
     """{(kernel, head_dim): {"registers": n, "spill_stores": n, "spill_loads": n}}
     from nvcc's ``-Xptxas -v`` output, for the flash kernels."""
@@ -6230,6 +6547,22 @@ def main() -> None:
             phase_plan_cards(card)
         if "18b" in only:
             phase_trace_multi(torch, cell, card)
+        if "21c" in only:
+            phase_comms_multi(torch, card)
+            phase_trace_multi(torch, cell, card)
+        if "21" in only:
+            times = phase_times(torch, fa, kt, card, peaks)
+            try:
+                _, history4 = phase_trainer(torch, fa, cell, card)
+            finally:
+                shutil.rmtree(cell.WORK / "exp_synthetic", ignore_errors=True)
+            free_cuda(torch)
+            phase_planes(torch, fa, cell, phase_cadence(torch, fa, cell, history4, card), card)
+            free_cuda(torch)
+            trace = phase_trace(torch, fa, kt, cell, times, card)
+            free_cuda(torch)
+            auto = phase_autotune(torch, fa, cell, card)
+            phase_contracts(torch, auto, trace, card)
         if "18" in only:
             times = phase_times(torch, fa, kt, card, peaks)
             free_cuda(torch)
@@ -6312,6 +6645,8 @@ def main() -> None:
     auto = phase_autotune(torch, fa, cell, card)
     phase_plan_cards(card)
     phase_elastic_multi(torch, cell, card)
+    free_cuda(torch)
+    phase_contracts(torch, auto, trace, card)
 
     replaces = {
         "flash_fwd": ("neuronx_distributed_training_torch/csrc/flash_fwd.cu",

@@ -38,7 +38,11 @@ a structural check at toy size: the trainer's own run never falls back.
 ``stats["collectives"]`` (``{kind: count}`` of rank 0) and
 ``stats["memory_bytes"]`` (``torch.cuda.max_memory_allocated`` on the card;
 on the CPU the state's bytes plus the step's peak of live bytes the
-dispatch mode saw) feed the planner as JAX's do.
+dispatch mode saw) feed the planner as JAX's do.  ``stats["fingerprint"]``
+is the same step's graph-contract fingerprint (``analysis/graph_contract.py``:
+the census by mesh axes with each call's source, the in-place map, the
+matmul dtype census, the memory), so a contract check never runs a second
+step.
 
 Large configs audit through :func:`shrink_overrides` (JAX's, with one
 deliberate change: where flash attention is on, head_dim is 64, not JAX's
@@ -192,6 +196,15 @@ def _describe(t) -> str:
     return f"{str(t.dtype).replace('torch.', '')}{list(t.shape)}"
 
 
+#: torch dtype name -> the short spelling of JAX's dtype census
+_SHORT_DTYPES = {"bfloat16": "bf16", "float16": "f16", "float32": "f32", "float64": "f64"}
+
+
+def _short_dtype(t) -> str:
+    name = str(_local(t).dtype).replace("torch.", "")
+    return _SHORT_DTYPES.get(name, name)
+
+
 @dataclasses.dataclass
 class StepObservation:
     """What one observed step did."""
@@ -204,6 +217,11 @@ class StepObservation:
     f32_matmuls: list = dataclasses.field(default_factory=list)
     #: the peak of the bytes the step's own ops held alive at once
     peak_live_bytes: int = 0
+    #: every matmul's ``lhs x rhs`` dtype pair (``bf16xbf16``, JAX's
+    #: spelling) -> its count, and one sample call of each pair (the
+    #: graph contract's dtype census)
+    matmul_dtypes: dict = dataclasses.field(default_factory=dict)
+    matmul_samples: dict = dataclasses.field(default_factory=dict)
 
 
 class StepObserver:
@@ -292,6 +310,12 @@ class StepObserver:
                     self._widened.add(self._storage_key(t))
         if name in MATMUL_OPS:
             mats = ins[-2:]
+            if len(mats) == 2:
+                pair = f"{_short_dtype(mats[0])}x{_short_dtype(mats[1])}"
+                census = self.obs.matmul_dtypes
+                census[pair] = census.get(pair, 0) + 1
+                self.obs.matmul_samples.setdefault(
+                    pair, f"{name}: {_describe(mats[0])} x {_describe(mats[1])}")
             if len(mats) == 2 and all(m.dtype == torch.float32 for m in mats):
                 if any(self._storage_key(m) in self._widened for m in mats):
                     return  # the policy's own promotion of bf16 values
@@ -580,7 +604,9 @@ def _n_experts(ctx: AuditContext) -> int:
 class LiveAudit:
     """The rules over one step of a live trainer: :meth:`observe` wraps the
     step (census, dispatch mode, storage pointers), :meth:`report` judges
-    it.  ``telemetry.graph_audit`` runs it on the trainer's first step."""
+    it and carries the step's contract fingerprint in ``stats``
+    (``analysis/graph_contract.py``).  ``telemetry.graph_audit`` runs it on
+    the trainer's first step."""
 
     def __init__(self, trainer: Any, *, replication_slack: float = 8.0):
         self.trainer = trainer
@@ -591,6 +617,8 @@ class LiveAudit:
             threshold_bytes=int(expected_max_device_bytes(self.ctx) * replication_slack),
             n_experts=_n_experts(self.ctx))
         self.census: dict = {}
+        #: each collective call of the step (``telemetry/census.py``)
+        self.calls: list = []
         self.memory_bytes: Optional[int] = None
 
     def observe(self):
@@ -608,7 +636,7 @@ class LiveAudit:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
-            with count_collectives() as counts, audit.observer:
+            with count_collectives(audit.calls) as counts, audit.observer:
                 yield
             audit.census = counts
             if dev.type == "cuda":
@@ -623,13 +651,25 @@ class LiveAudit:
         return cm()
 
     def report(self, *, config_name: str = "") -> AuditReport:
+        from neuronx_distributed_training_torch.analysis.graph_contract import (
+            fingerprint_observation,
+        )
+
         ctx = AuditContext.from_trainer(self.trainer)  # the leaves after the step
+        after = storage_pointers(ctx.leaves)
         rep = audit_observation(ctx, self.observer.obs, collective_counts(self.census),
-                                self.before, storage_pointers(ctx.leaves),
+                                self.before, after,
                                 replication_slack=self.slack, config_name=config_name)
         if self.memory_bytes is not None:
             rep.stats["memory_bytes"] = self.memory_bytes
         rep.stats["peak_live_bytes"] = self.observer.obs.peak_live_bytes
+        missing = sorted(n for n in self.before if after.get(n) != self.before[n])
+        inplace = {"aliased": len(self.before) - len(missing), "expected": len(self.before),
+                   "coverage": rep.stats["inplace_coverage"], "missing": missing}
+        rep.stats["fingerprint"] = fingerprint_observation(
+            ctx, self.observer.obs, self.calls, inplace=inplace,
+            memory_bytes=self.memory_bytes, device=self.trainer.device.type,
+            config_name=config_name)
         return rep
 
 

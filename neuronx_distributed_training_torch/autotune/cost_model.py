@@ -472,46 +472,6 @@ def _clamp_comms_ratio(v: Any) -> float:
     return min(max(float(v), lo), hi)
 
 
-#: the comms plane's summary file (``telemetry/comms.py`` in the JAX
-#: package, ROADMAP entry 13b in the port): its loader and content sniff are
-#: copied here, the calibration's only use of that module
-COMMS_SUMMARY_NAME = "comms_summary.json"
-
-
-def is_comms_summary(doc: Any) -> bool:
-    """Content sniff for ``plan.py --calibrate-from``: the explicit ``kind``
-    marker, or the axes+prior pair no other summary carries."""
-    if not isinstance(doc, Mapping):
-        return False
-    if doc.get("kind") == "comms_summary":
-        return True
-    return isinstance(doc.get("axes"), Mapping) \
-        and isinstance(doc.get("prior"), Mapping)
-
-
-def load_comms_summary(source: Any) -> dict:
-    """Tolerant loader: a summary dict passes through; a file path is
-    parsed; a run directory resolves ``comms_summary.json`` inside it.
-    Raises ``ValueError`` on anything unusable."""
-    import json
-    from pathlib import Path
-
-    if isinstance(source, Mapping):
-        return dict(source)
-    path = Path(source)
-    if path.is_dir():
-        path = path / COMMS_SUMMARY_NAME
-    if not path.is_file():
-        raise ValueError(f"no comms summary at {path}")
-    try:
-        doc = json.loads(path.read_text())
-    except (OSError, ValueError) as e:
-        raise ValueError(f"unreadable comms summary {path}: {e}")
-    if not isinstance(doc, Mapping):
-        raise ValueError(f"comms summary {path} is not a JSON object")
-    return dict(doc)
-
-
 def comms_calibration_from_summary(summary: Any) -> dict[str, float]:
     """Measured/prior per-axis bandwidth ratios out of a
     ``comms_summary.json`` payload (the dict, its file path, or a run dir
@@ -526,6 +486,8 @@ def comms_calibration_from_summary(summary: Any) -> dict[str, float]:
     ratio — calibration never pretends.  Raises ``ValueError`` when the
     summary carries no usable axis (the planner turns that into a report
     error)."""
+    from neuronx_distributed_training_torch.telemetry.comms import load_comms_summary
+
     summary = load_comms_summary(summary)
     prior = (summary.get("prior") or {}).get("ici_bandwidth_bytes")
     try:

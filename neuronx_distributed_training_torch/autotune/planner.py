@@ -77,6 +77,8 @@ class PlanCandidate:
     discarded: Optional[str] = None          # reason, when audit rejected it
     #: where the audit's step ran ("cuda" or "cpu", analysis/graph_audit.py)
     audit_device: Optional[str] = None
+    #: the audited step's graph-contract fingerprint (analysis/graph_contract.py)
+    audit_fingerprint: Optional[dict] = None
 
     def to_dict(self) -> dict[str, Any]:
         d = {
@@ -89,6 +91,8 @@ class PlanCandidate:
                           "counts": self.audit_counts}
             if self.audit_device is not None:
                 d["audit"]["device"] = self.audit_device
+            if self.audit_fingerprint is not None:
+                d["audit"]["fingerprint"] = self.audit_fingerprint
         if self.measured_collectives is not None:
             d["measured_collectives"] = self.measured_collectives
         if self.measured_memory_bytes is not None:
@@ -355,6 +359,7 @@ def _audit_structure(source: Any, facts: ModelFacts, plan: Plan,
                              if f.severity == "error"), None),
         "collectives": rep.stats.get("collectives"),
         "memory_bytes": rep.stats.get("memory_bytes"),
+        "fingerprint": rep.stats.get("fingerprint"),
     }
     if out["memory_bytes"]:
         try:
@@ -396,15 +401,15 @@ def audit_candidates(
                                   device=device)
             box[0] = [(c.rank, c.audit_verdict, c.audit_counts, c.measured_collectives,
                        c.measured_memory_bytes, c.memory_calibration, c.discarded,
-                       c.audit_device) for c in audited]
+                       c.audit_device, c.audit_fingerprint) for c in audited]
         dist.broadcast_object_list(box, src=0)
         by_rank = {c.rank: c for c in candidates}
         out = []
-        for (rank, verdict, counts, colls, mem, cal, discarded, dev) in box[0]:
+        for (rank, verdict, counts, colls, mem, cal, discarded, dev, fp) in box[0]:
             c = by_rank[rank]
             (c.audit_verdict, c.audit_counts, c.measured_collectives, c.measured_memory_bytes,
-             c.memory_calibration, c.discarded, c.audit_device) = (
-                verdict, counts, colls, mem, cal, discarded, dev)
+             c.memory_calibration, c.discarded, c.audit_device, c.audit_fingerprint) = (
+                verdict, counts, colls, mem, cal, discarded, dev, fp)
             out.append(c)
         return out
     return _audit_walk(source, facts, candidates, top_k, max_devices=max_devices,
@@ -450,6 +455,7 @@ def _audit_walk(source: Any, facts: ModelFacts, candidates: list[PlanCandidate],
         cand.measured_memory_bytes = res.get("memory_bytes")
         cand.memory_calibration = res.get("calibration")
         cand.audit_device = res.get("audit_device")
+        cand.audit_fingerprint = res.get("fingerprint")
         if res.get("failed"):
             cand.discarded = (res.get("exception")
                               or "graph audit reached error severity"
@@ -635,9 +641,7 @@ def _resolve_calibration(source: Any) -> tuple[Optional[dict],
     summary)."""
     import json
 
-    from neuronx_distributed_training_torch.autotune.cost_model import (
-        is_comms_summary,
-    )
+    from neuronx_distributed_training_torch.telemetry.comms import is_comms_summary
     from neuronx_distributed_training_torch.telemetry.memory import (
         is_memory_summary,
     )

@@ -13,10 +13,10 @@ The ``h100`` entry is an H100 SXM (80 GB HBM3, NVLink 4 through NVSwitch).
 Its NVLink bandwidth and latency are **data-sheet priors**, not
 measurements: 18 NVLink 4 links give 450 GB/s a direction, derated to 80%
 usable as JAX derates ICI; the hop latency is a few microseconds of NCCL's
-launch and handshake.  The comms plane (``telemetry/comms.py``, ROADMAP
-entry 13b) replaces them with measured wire rates through
-``--calibrate-from comms_summary.json``.  The inter-node figure is one
-400 Gb/s NDR InfiniBand port a card.  When a card is present
+launch and handshake.  ``tools/comms_bench.py`` measures them on two or
+more cards (``comms_summary.json``), and ``tools/plan.py --calibrate-from
+comms_summary.json`` prices the comms term from the measured wire rates.
+The inter-node figure is one 400 Gb/s NDR InfiniBand port a card.  When a card is present
 :func:`resolve_topology` takes its memory from
 ``torch.cuda.get_device_properties`` and its peak from ``CARD_PEAKS`` by
 its name.

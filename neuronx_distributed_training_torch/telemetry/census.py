@@ -25,6 +25,15 @@ into ``run_summary.json``:
   first step issues, counted by :func:`count_collectives` (JAX's kinds:
   ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute`` for the point-to-point pairs, and ``broadcast``).
+
+Given a list, :func:`count_collectives` also records each call: its kind,
+the world ranks of its group (for a point-to-point op, this rank and its
+peer) and its **source**, the first frame outside ``torch`` as
+``module.qualname`` (the counterpart of the ``op_name`` metadata XLA keeps
+on an HLO collective).  :func:`collectives_by_axes` names the mesh axes of
+each call's group from the ranks (the counterpart of JAX's
+``graph_contract._axes_of_op``): at dp 2 x tp 2 both groups have size 2, and
+only their ranks tell the ``data`` axis from the ``model`` axis.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import inspect
-from typing import Any, Iterator, Optional
+import math
+import sys
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 #: ``torch.distributed`` function -> JAX's collective kind
 _COLLECTIVE_KINDS = {
@@ -57,21 +68,46 @@ def _group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+def _group_ranks(group) -> list[int]:
+    import torch.distributed as dist
+
+    return [int(r) for r in dist.get_process_group_ranks(group or dist.group.WORLD)]
+
+
+def call_source(skip: int) -> str:
+    """``module.qualname`` of the first frame outside ``torch`` above the
+    caller (``skip`` frames up): the port's code that issued the call."""
+    frame = sys._getframe(skip)
+    while frame is not None:
+        mod = frame.f_globals.get("__name__", "")
+        if mod != __name__ and mod != "torch" and not mod.startswith("torch."):
+            code = frame.f_code
+            return f"{mod}.{getattr(code, 'co_qualname', code.co_name)}"
+        frame = frame.f_back
+    return "<unknown>"
+
+
 @contextlib.contextmanager
-def count_collectives() -> Iterator[dict[str, dict[str, int]]]:
+def count_collectives(calls: Optional[list] = None
+                      ) -> Iterator[dict[str, dict[str, int]]]:
     """Count, while the block runs, the collectives this process issues
     through ``torch.distributed`` (every call site of the port goes through
     the module's functions): ``{kind: {str(group size): count}}``; a
     ``batch_isend_irecv`` counts each of its sends and receives as one
-    ``collective-permute``.  The functions are restored on exit."""
+    ``collective-permute``.  With ``calls`` given, each call is appended to
+    it as ``{"kind", "ranks", "source"}`` (the module docstring).  The
+    functions are restored on exit."""
     import torch.distributed as dist
 
     counts: dict[str, dict[str, int]] = {}
 
-    def add(kind: str, group) -> None:
+    def add(kind: str, group, ranks=None) -> None:
         size = str(_group_size(group))
         by_size = counts.setdefault(kind, {})
         by_size[size] = by_size.get(size, 0) + 1
+        if calls is not None:
+            calls.append({"kind": kind, "ranks": ranks or _group_ranks(group),
+                          "source": call_source(3)})
 
     saved = {}
 
@@ -87,13 +123,20 @@ def count_collectives() -> Iterator[dict[str, dict[str, int]]]:
         saved[name] = fn
         setattr(dist, name, counted)
 
+    def peer_of(op) -> list[int]:
+        peer = getattr(op, "peer", None)
+        if peer is None:
+            peer = dist.get_global_rank(op.group or dist.group.WORLD, op.group_peer)
+        return sorted({dist.get_rank(), int(peer)})
+
     def wrap_p2p():
         fn = dist.batch_isend_irecv
 
         @functools.wraps(fn)
         def counted(p2p_op_list):
             for op in p2p_op_list:
-                add("collective-permute", op.group)
+                add("collective-permute", op.group,
+                    peer_of(op) if calls is not None else None)
             return fn(p2p_op_list)
 
         saved["batch_isend_irecv"] = fn
@@ -108,6 +151,48 @@ def count_collectives() -> Iterator[dict[str, dict[str, int]]]:
     finally:
         for name, fn in saved.items():
             setattr(dist, name, fn)
+
+
+def axes_of_ranks(ranks: Sequence[int], axes: Mapping[str, int]) -> Optional[tuple[str, ...]]:
+    """The mesh axes a group of world ``ranks`` spans, over the mesh whose
+    axis sizes are ``axes`` (``parallel/mesh.py``'s ``AXES`` order, ranks
+    row-major as ``init_device_mesh`` lays them out): the axes on which the
+    group's ranks differ, in mesh order (a group inside part of an axis,
+    such as the replicated kv heads' sum, is that axis's traffic, as JAX's
+    covering rule has it); ``()`` for a one-rank group; None when a rank
+    lies outside the mesh."""
+    from neuronx_distributed_training_torch.parallel.mesh import AXES
+
+    import numpy as np
+
+    names = [a for a in AXES if a in axes] + [a for a in axes if a not in AXES]
+    shape = [int(axes[a]) for a in names]
+    ranks = sorted({int(r) for r in ranks})
+    if len(ranks) <= 1:
+        return ()
+    if ranks[-1] >= math.prod(shape):
+        return None
+    coords = np.unravel_index(ranks, shape)
+    return tuple(n for n, c in zip(names, coords) if len(set(c.tolist())) > 1)
+
+
+def collectives_by_axes(calls: Sequence[Mapping[str, Any]], axes: Mapping[str, int]
+                        ) -> dict[str, dict[str, Any]]:
+    """The recorded calls grouped JAX's way, ``"kind|axis+axis"`` (``?``
+    when the ranks match no axis set; one-rank groups, which move nothing,
+    left out) -> ``{"count", "sources"}``, the sources in first-seen
+    order."""
+    out: dict[str, dict[str, Any]] = {}
+    for c in calls:
+        ax = axes_of_ranks(c["ranks"], axes)
+        if ax == ():
+            continue
+        key = f"{c['kind']}|{'+'.join(ax) if ax is not None else '?'}"
+        g = out.setdefault(key, {"kind": c["kind"], "axes": ax, "count": 0, "sources": []})
+        g["count"] += 1
+        if c.get("source") and c["source"] not in g["sources"]:
+            g["sources"].append(c["source"])
+    return dict(sorted(out.items()))
 
 
 def memory_section(device) -> dict[str, int]:

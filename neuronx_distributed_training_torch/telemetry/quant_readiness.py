@@ -1,10 +1,9 @@
 """Quantization-readiness analysis over tensorstats dynamic-range telemetry.
 
 The PyTorch port's copy of the JAX package's
-``telemetry/quant_readiness.py``.  The repo's ``tools/quant_readiness.py``
-imports JAX's ``autotune`` for the byte volumes; its port waits for ROADMAP
-queue 1 entry 13, and ``build_report(**load_run_dir(run_dir))`` reads a
-port run dir meanwhile.
+``telemetry/quant_readiness.py``.  The port's
+``tools/quant_readiness.py`` runs ``build_report(**load_run_dir(run_dir))``
+with the port's cost model's byte volumes.
 
 Host-side and stdlib-only: takes the cumulative per-layer-group statistics
 the in-graph plane (``telemetry.tensorstats``) streamed into a run's

@@ -227,6 +227,10 @@ class TraceCapture:
         # trainer sets them once the schedule resolves; pp > 1 turns the
         # analyzed summary's "pipeline" section on
         self.pipeline = dict(pipeline) if pipeline else None
+        # interconnect facts (telemetry/comms.py::comms_section's inputs):
+        # the trainer sets them once the plan resolves; they turn the
+        # summary's "comms" section (achieved_gbps, efficiency) on
+        self.comms: Optional[dict[str, Any]] = None
         self.cuda, self.rank, self.world, self.writer = cuda, rank, world, writer
         self.active = False
         self.done = False
@@ -279,6 +283,17 @@ class TraceCapture:
                 "start_step": self.cfg.start_step,
                 "num_steps": self.cfg.num_steps,
             }
+            if self.comms:
+                try:
+                    from neuronx_distributed_training_torch.telemetry.comms import comms_section
+
+                    section = comms_section(self.comms,
+                                            self.summary.get("overlap_by_class") or {},
+                                            window_steps=self.cfg.num_steps)
+                    if section:
+                        self.summary["comms"] = section
+                except Exception as e:  # noqa: BLE001 — telemetry only
+                    logger.warning("comms bandwidth join failed: %s", e)
             # atomic (temp + rename): a kill mid-write must not leave torn
             # JSON for the report tools to choke on
             atomic_write_json(self.summary_path, self.summary)

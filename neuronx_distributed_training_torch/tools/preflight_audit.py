@@ -15,9 +15,11 @@ the CPU.  ``--no-shrink`` audits at the config's true size.  Exit code 1
 when a finding reaches ``--fail-on`` (default ``error``); with ``--json -``
 the last stdout line is the JSON report.
 
-``--lint`` and ``--contracts`` reach JAX's ``jaxlint`` and
-``graph_contract``, which inspect JAX source and HLO and are not ported
-(ROADMAP queue 1 entry 13b): they are refused with that text.
+``--contracts`` also checks each config's step against its committed
+graph contract (``analysis/graph_contract.py``), from the fingerprint the
+same audit step took: no second step.  ``--lint`` is refused: JAX's
+``jaxlint`` lints JAX source for traced-program pitfalls the port does not
+have, and was left out of the port by decision (ROADMAP entry 13).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from pathlib import Path
 from typing import Optional
 
 REPO = Path(__file__).resolve().parents[2]
-UNPORTED = ("is not ported: JAX's {what} inspects JAX source and HLO, which the port does "
-            "not have (ROADMAP queue 1 entry 13b)")
+UNPORTED = ("is not ported: JAX's jaxlint lints JAX source for traced-program pitfalls the "
+            "port does not have; it was left out by decision (ROADMAP entry 13)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -40,9 +42,10 @@ def parser() -> argparse.ArgumentParser:
                     help="YAML config to audit (repeatable)")
     ap.add_argument("--all-examples", action="store_true",
                     help="audit every examples/conf/*.yaml")
-    ap.add_argument("--lint", action="store_true", help="JAX's source lint (not ported)")
+    ap.add_argument("--lint", action="store_true", help="JAX's source lint (left out)")
     ap.add_argument("--contracts", action="store_true",
-                    help="JAX's graph contracts (not ported)")
+                    help="also check each config against its committed graph contract "
+                         "(analysis/contracts/)")
     ap.add_argument("--fail-on", choices=["warn", "error"], default="error",
                     help="severity that fails the run (default: error)")
     ap.add_argument("--no-shrink", dest="shrink", action="store_false",
@@ -60,10 +63,8 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    for flag, what in (("lint", "jaxlint (--lint)"), ("contracts", "graph_contract "
-                                                                  "(--contracts)")):
-        if getattr(args, flag):
-            ap.error(f"--{flag} " + UNPORTED.format(what=what))
+    if args.lint:
+        ap.error("--lint " + UNPORTED)
     configs = list(args.config)
     if args.all_examples:
         configs += sorted(glob.glob(str(REPO / "examples" / "conf" / "*.yaml")))
@@ -73,6 +74,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         audit_config,
         audit_devices,
     )
+    from neuronx_distributed_training_torch.analysis.graph_contract import check_contract
     from neuronx_distributed_training_torch.tools.ckpt_verify import write_json
 
     try:
@@ -85,11 +87,26 @@ def main(argv: Optional[list[str]] = None) -> int:
     for path in configs:
         rep = audit_config(path, shrink=args.shrink, replication_slack=args.replication_slack,
                            device=args.device)
+        fp = rep.stats.pop("fingerprint", None)
         print(rep.format())
         print(f"audit device: {rep.stats.get('audit_device')} x {rep.stats.get('audit_world')}")
-        print()
-        out["reports"].append(rep.to_dict())
+        rep_dict = rep.to_dict()
         failed |= rep.failed(args.fail_on)
+        if args.contracts:
+            name = Path(path).name
+            if fp:
+                crep = check_contract(path, dict(fp, config=name, shrunk=bool(args.shrink)))
+                rep_dict["contract"] = crep.to_dict()
+                print(f"contract [{name}] ({fp['device']}): {crep.worst() or 'clean'}"
+                      + ("\n" + crep.format() if crep.findings else ""))
+                failed |= crep.failed(args.fail_on)
+            else:
+                rep_dict["contract"] = {"verdict": "error",
+                                        "skipped": "no fingerprint (the audit's step failed)"}
+                print(f"contract [{name}]: skipped (the audit's step failed)")
+                failed = True
+        print()
+        out["reports"].append(rep_dict)
     if args.json:
         write_json(out, args.json)
     return 1 if failed else 0

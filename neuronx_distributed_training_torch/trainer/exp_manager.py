@@ -291,6 +291,18 @@ class ExpManager:
         if self._trace is not None:
             self._trace.pipeline = dict(facts) if facts else None
 
+    def set_comms_facts(self, facts: Optional[dict[str, Any]]) -> None:
+        """Arm the trace capture's interconnect join with the cost model's
+        per-axis byte volumes and the topology's peak
+        (``telemetry/comms.py::comms_section``'s inputs): the next closed
+        trace window joins the measured wire seconds of each collective
+        class with its priced bytes into a ``"comms"`` section (each class's
+        achieved_gbps and efficiency) in ``trace_summary.json`` and
+        ``run_summary.json``, and the ``comms/*`` scalars through the
+        sinks."""
+        if self._trace is not None:
+            self._trace.comms = dict(facts) if facts else None
+
     def maybe_trace(self, step: int) -> None:
         """Advance the ``telemetry.trace`` capture window (a no-op when the
         knob is off).  When the window closes, the analyzed summary is in
@@ -339,6 +351,23 @@ class ExpManager:
                           "bubble_residual", "straggler_stage", "lane_resolution", "num_lanes")
                 if pipe.get(k) is not None
             }
+        comms = summary.get("comms")
+        if isinstance(comms, dict):
+            # the achieved-bandwidth join is a run fact: its classes at the
+            # top level (the perf contract's PC204 reads them) and comms/*
+            # scalars through every sink
+            section["comms"] = comms
+            try:
+                from neuronx_distributed_training_torch.telemetry.comms import comms_metrics
+
+                scalars = comms_metrics(comms)
+                if scalars:
+                    window = summary.get("window") or {}
+                    step = int(window.get("start_step", 0) or 0) + int(
+                        window.get("num_steps", 0) or 0)
+                    self.log_metrics(step, scalars, force=True)
+            except Exception as e:  # noqa: BLE001 — telemetry only
+                logger.warning("comms metric emission failed: %s", e)
         self.write_run_summary(section)
 
     def step_timed(self, num_steps: int = 1, exclude_seconds: float = 0.0) -> float:

@@ -1262,6 +1262,32 @@ class Trainer:
         exp.set_pipeline_facts(pipeline_facts(
             pp_schedule, pp_size, nm, vp, facts.get("bubble_fraction_predicted"),
             ticks_per_step=facts.get("pipeline_ticks_per_step")))
+        # arm the interconnect join (telemetry/comms.py): the cost model's
+        # per-axis bytes and the topology's peak turn a closed trace
+        # window's wire seconds into each class's achieved_gbps and
+        # efficiency (host arithmetic at the window's close)
+        try:
+            from neuronx_distributed_training_torch.autotune.cost_model import (
+                ModelFacts,
+                collective_byte_volumes,
+            )
+            from neuronx_distributed_training_torch.autotune.topology import resolve_topology
+            from neuronx_distributed_training_torch.telemetry.comms import MESH_TO_AXIS
+
+            plan_facts = ModelFacts.from_config(cfg)
+            declared = plan_facts.declared_plan_for(world)
+            if declared is not None:
+                topo = resolve_topology(device=dev)
+                exp.set_comms_facts({
+                    "byte_volumes": collective_byte_volumes(plan_facts, declared),
+                    "axis_sizes": {MESH_TO_AXIS[k]: int(v)
+                                   for k, v in mesh_cfg.shape(world).items()
+                                   if k in MESH_TO_AXIS},
+                    "peak_bandwidth_bytes": topo.ici_bandwidth_bytes,
+                    "topology": topo.name,
+                })
+        except Exception as e:  # noqa: BLE001 — observability, not load-bearing
+            logger.warning("comms telemetry arming unavailable: %s", e)
         fwd_flops = perf.flops_for_model(mc, seq)
         facts["fwd_flops_per_token"] = fwd_flops
         facts["peak_tflops_per_chip"] = perf.detect_peak_tflops(dev)
@@ -2045,9 +2071,28 @@ class Trainer:
 
     def _write_graph_audit(self, live) -> None:
         """Log each finding and write run_summary.json's ``graph_audit``
-        section (JAX's: the report's dict)."""
+        section (JAX's): the report's dict and its ``contract``, each
+        collective of the step attributed to its declared source
+        (``analysis/graph_contract.py``; an unattributed one is a GC201
+        error and flips the verdict)."""
         try:
+            from neuronx_distributed_training_torch.analysis.graph_contract import (
+                attribution_report,
+            )
+
             rep = live.report(config_name=str(self.cfg.get("name", "") or ""))
+            fp = rep.stats.pop("fingerprint", None)
+            contract: dict = {}
+            if fp:
+                prov = attribution_report(fp)
+                rep.extend(prov)
+                contract = {"contract": {
+                    "collectives": {k: {"count": v["count"], "source": v["source"]}
+                                    for k, v in fp["collectives"].items()},
+                    "collectives_total": prov.stats["collectives_total"],
+                    "collectives_unattributed": prov.stats["collectives_unattributed"],
+                    "matmul_dtypes": (fp.get("matmul_dtypes") or {}).get("counts"),
+                }}
             for f in rep.findings:
                 logger.warning(f.format())
             logger.info("graph audit: %s (in place %.1f%%, collectives %s)",
@@ -2055,6 +2100,6 @@ class Trainer:
                         100 * rep.stats.get("inplace_coverage", 0.0),
                         rep.stats.get("collectives"))
             if self.is_rank0:
-                self.exp.write_run_summary({"graph_audit": rep.to_dict()})
+                self.exp.write_run_summary({"graph_audit": {**rep.to_dict(), **contract}})
         except Exception as e:  # noqa: BLE001 — observability must not kill the run
             logger.warning("graph audit failed: %s", e)

@@ -13,8 +13,14 @@ against the JAX package's.
   the verdict is JAX's, and so are the collective classes, except at tp 2,
   where GSPMD's resharding permutes and all-to-alls have no counterpart
   (the port's sequence parallelism issues its reduce-scatters itself).
-- ``--audit-only`` through the port's CLI, and the live first-step audit
-  (``telemetry.graph_audit``) writing run_summary.json's section.
+- The same audits' contract fingerprints (``analysis/graph_contract.py``):
+  each attributed ``kind|axes`` class carries the source label JAX's
+  fingerprint of the same structure gives it (tp 2 aside, as above), and
+  tiny_smoke's checks clean against its committed ``cpu`` contract.
+- ``--audit-only`` through the port's CLI, the pre-flight tool's
+  ``--contracts`` and refused ``--lint``, and the live first-step audit
+  (``telemetry.graph_audit``) writing run_summary.json's section with its
+  collectives attributed.
 """
 
 import concurrent.futures
@@ -27,9 +33,11 @@ import pytest
 import torch
 
 from neuronx_distributed_training_tpu.analysis import graph_audit as j_ga
+from neuronx_distributed_training_tpu.analysis import graph_contract as j_gc
 from neuronx_distributed_training_tpu.config.loader import load_config as j_load
 
 from neuronx_distributed_training_torch.analysis import graph_audit as t_ga
+from neuronx_distributed_training_torch.analysis import graph_contract as t_gc
 from neuronx_distributed_training_torch.analysis.report import AuditReport
 from neuronx_distributed_training_torch.config.loader import load_config as t_load
 from neuronx_distributed_training_torch.parallel.sharding import LeafLayout
@@ -228,13 +236,20 @@ def test_ga401_layouts_against_the_mesh():
 
 @pytest.fixture(scope="module")
 def structures():
-    """The port's audits (spawned gloo ranks, in threads) beside JAX's."""
+    """The port's audits (spawned gloo ranks, in threads) beside JAX's, and
+    JAX's contract fingerprint of each structure (from the same lowering)."""
     with concurrent.futures.ThreadPoolExecutor(len(STRUCTURES)) as pool:
         futs = {name: pool.submit(t_ga.audit_config, str(TINY), device="cpu", overrides=ov)
                 for name, ov in STRUCTURES.items()}
-        jax_reps = {name: j_ga.audit_config(str(TINY), shrink=True, overrides=ov)
-                    for name, ov in STRUCTURES.items()}
-        return {name: (futs[name].result(), jax_reps[name]) for name in STRUCTURES}
+        jax_reps, jax_fps = {}, {}
+        for name, ov in STRUCTURES.items():
+            arts: dict = {}
+            jax_reps[name] = j_ga.audit_config(str(TINY), shrink=True, overrides=ov,
+                                               artifacts_out=arts)
+            jax_fps[name] = j_gc.fingerprint_artifacts(arts["ctx"], arts["compiled"],
+                                                       arts["stablehlo"])
+        return {name: (futs[name].result(), jax_reps[name], jax_fps[name])
+                for name in STRUCTURES}
 
 
 def classes(counts):
@@ -243,7 +258,7 @@ def classes(counts):
 
 @pytest.mark.parametrize("name", list(STRUCTURES))
 def test_shrunk_structures_agree_with_jax(structures, name):
-    t, j = structures[name]
+    t, j, jfp = structures[name]
     assert t.worst() == j.worst() and t.by_severity() == j.by_severity(), \
         (name, t.format(), j.format())
     assert t.stats["audit_device"] == "cpu" and t.stats["audit_backend"] == "gloo"
@@ -260,6 +275,19 @@ def test_shrunk_structures_agree_with_jax(structures, name):
     else:
         assert tc == jc, (name, t.stats["collectives"], j.stats["collectives"])
     assert t.stats["memory_bytes"] > 0 and t.stats["inplace_coverage"] == 1.0
+    # the contract fingerprint: every collective attributed, with JAX's label
+    # where both packages issue the class
+    fp = t.stats["fingerprint"]
+    assert fp["device"] == "cpu" and not t_gc.unattributed_entries(fp), fp["collectives"]
+    assert fp["mesh"] == {a: int(jfp["mesh"][a]) for a in fp["mesh"]}
+    shared = set(fp["collectives"]) & set(jfp["collectives"])
+    assert shared or name == "tp2", (fp["collectives"], jfp["collectives"])
+    if name != "tp2":
+        assert {k: fp["collectives"][k]["source"] for k in shared} == \
+            {k: jfp["collectives"][k]["source"] for k in shared}
+    if name == "tiny":
+        rep = t_gc.check_contract(str(TINY), dict(fp, config=TINY.name, shrunk=True))
+        assert rep.worst() is None, rep.format()
 
 
 def test_assembly_failure_is_ga000():
@@ -285,17 +313,31 @@ def test_audit_only_cli(capsys):
     assert "audit device: cpu x 1" in out
 
 
-def test_preflight_tool_refuses_lint_and_contracts(capsys):
+def test_preflight_tool_refuses_lint_and_contracts(capsys, monkeypatch):
     from neuronx_distributed_training_torch.tools import preflight_audit as t_pf
 
-    for flag in ("--lint", "--contracts"):
-        with pytest.raises(SystemExit):
-            t_pf.main(["--config", str(TINY), flag])
-        assert "ROADMAP queue 1 entry 13b" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        t_pf.main(["--config", str(TINY), "--lint"])
+    assert "jaxlint" in capsys.readouterr().err and "left out by decision" in t_pf.UNPORTED
     assert t_pf.main(["--config", str(TINY), "--device", "cpu", "--no-shrink", "--json",
                       "-"]) == 0
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["reports"][0]
     assert rep["verdict"] == "clean" and rep["stats"]["audit_world"] == 1
+    assert "fingerprint" not in rep["stats"] and "contract" not in rep
+    # --contracts checks the audit's own fingerprint against the committed
+    # contract: the committed one itself (its step is the structures'
+    # fixture's, checked live above) is clean; a grown one fails
+    fp = t_gc.load_contract(TINY.name)["devices"]["cpu"]["fingerprint"]
+    for grow, code, verdict in ((0, 0, "clean"), (3, 1, "error")):
+        fresh = json.loads(json.dumps(fp))
+        fresh["collectives"]["all-reduce|data"]["count"] += grow
+        monkeypatch.setattr(t_ga, "audit_config", lambda *a, **kw: AuditReport(
+            config=TINY.name, stats={"audit_device": "cpu", "audit_world": 2,
+                                     "fingerprint": fresh}))
+        assert t_pf.main(["--config", str(TINY), "--device", "cpu", "--contracts", "--json",
+                          "-"]) == code
+        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["reports"][0]
+        assert rep["contract"]["verdict"] == verdict
 
 
 def test_live_first_step_audit_writes_its_section(tmp_path):
@@ -310,3 +352,8 @@ def test_live_first_step_audit_writes_its_section(tmp_path):
     ga = run["graph_audit"]
     assert ga["verdict"] == "clean" and ga["stats"]["inplace_coverage"] == 1.0
     assert set(ga["stats"]["collectives"]) >= set(t_ga.COLLECTIVE_KINDS)
+    # JAX's contract section: one process, no collective, every matmul bf16
+    # or the core attention's fp32 products
+    assert ga["contract"]["collectives_total"] == ga["contract"]["collectives_unattributed"] == 0
+    assert ga["contract"]["collectives"] == {} and ga["contract"]["matmul_dtypes"]["bf16xbf16"]
+    assert "fingerprint" not in ga["stats"]

@@ -60,7 +60,10 @@ NEW_MODULES = tuple(f"neuronx_distributed_training_torch.{m}" for m in (
     "tools.evaluate", "tools.run_sft_evaluation", "tools.bench_decode", "autotune",
     "autotune.topology", "autotune.space", "autotune.cost_model", "autotune.planner",
     "analysis", "analysis.report", "analysis.graph_audit", "trainer.elastic", "tools.plan",
-    "tools.preflight_audit", "tools.elastic_drill"))
+    "tools.preflight_audit", "tools.elastic_drill", "telemetry.comms",
+    "analysis.perf_contract", "analysis.graph_contract", "tools.comms_bench",
+    "tools.comms_report", "tools.perf_contract", "tools.graph_contract",
+    "tools.quant_readiness"))
 TINY = REPO / "examples" / "conf" / "tiny_smoke_config.yaml"
 
 
