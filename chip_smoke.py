@@ -402,13 +402,31 @@ nkv 8, d 128, s 4096) on the segment ids of the first packed row of phase
       efficiency).  With one card it prints why it did not run;
    d. ``tools/quant_readiness.py`` over 17b's run dir (tensorstats on) with
       the flagship's config: every class sized.
+22. the trainer's last combinations (run after 15):
+   a. LoRA (rank 16, the default targets) on ``hf_mixtral_8x7b_config.yaml``
+      through the CLI's trainer at full width (hidden 4096, 32 / 8 heads, 8
+      experts of ffn 14336 top 2, vocab 32000), seq 4096, 4 layers, 4
+      microbatches of 1 row, 3 steps, flash: step 0's ``lm_loss`` near ln
+      32000, finite losses and grad norms, every ``lora_b`` zero after step 0
+      (lr 0) and changed after step 1, every adapter moved, every frozen
+      leaf (the router and the experts included) bit for bit by an on-card
+      digest, each kernel launched layers x microbatches a step with no
+      fallback; the step seconds, tokens/s, MFU (activated experts) and
+      peak printed;
+   b. the same on ``megatron_gpt_config.yaml`` (hidden 4096, ffn 16384, 32
+      heads, vocab 50257), seq 2048, 4 layers, 4 microbatches of 2 rows;
+   c. with two or more cards, GPT (4 layers) and the dropped Mixtral (2
+      layers) under torchrun at cp 2 (ring) against cp 1, within the
+      ``mixed_precision`` tolerance of one card, each rank's ring launches
+      as reckoned; with one card a line says why it did not run.
 
 The script prints each phase's wall time and, before its result lines, its
 own.  The line before the last holds the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or without the package,
 it exits non-zero and prints no result.  ``--only 13`` (or ``13a,13c``,
 ``13e``, ``14``, ``14a,14c``, ``14d``, ``15``, ``15f``, ``16``, ``17``, ``18``, ``19``, ``20``,
-``20a``, ``20c``, ``21``, ``21c``) runs the kernels' build and those phases alone (13e, 16
+``20a``, ``20c``, ``21``, ``21c``, ``22``, ``22a``, ``22c``) runs the kernels' build and those
+phases alone (22a and 22b are one function; 13e, 16
 and 17 after phase 4, 17 after 16a, 18 after phase 3; 14a and 14b are one function; 20c is
 phase 5; 21 after 3, 4, 16a, 17b, 18a and 20a; 21c with 18b) and prints no result: a
 partial check while developing.
@@ -4178,6 +4196,140 @@ def phase_gpt(torch, fa, kt, card: str, peaks) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: LoRA on Mixtral and on GPT; GPT and the dropped MoE path under cp
+# ---------------------------------------------------------------------------
+
+#: 22a / 22b: the adapters' rank (the default targets), the layers of both
+#: runs (4 microbatches of ``SFT_MICRO`` a step, ``SFT_STEPS`` steps), and
+#: 22b's rows a microbatch (the GPT config's own mbs)
+LORA_RANK, LORA_LAYERS, LORA_GPT_MBS = 16, 4, 2
+#: 22c: each family's cut at cp 2 against cp 1 (two cards): the config,
+#: its layers and what else it sets (the cell's gbs 4 at mbs 1)
+CP_FAMILIES = {
+    "gpt_cp2": ("megatron_gpt_config.yaml", 4, ()),
+    "mixtral_dropped_cp2": ("hf_mixtral_8x7b_dropped_config.yaml", 2,
+                            ("--set", "distributed_strategy.expert_model_parallel_size=1")),
+}
+
+
+def lora_args(config: str, exp: Path, *extra: str) -> list:
+    """A shipped config through the CLI on one card with a ``model.lora``
+    block (rank 16, the default targets): ``LORA_LAYERS`` layers, tp / ep
+    1, synthetic rows, ``SFT_STEPS`` steps, no checkpoint."""
+    return ["--config", str(REPO / "examples" / "conf" / config),
+            "--set", f"model.num_layers={LORA_LAYERS}",
+            "--set", "distributed_strategy.tensor_model_parallel_size=1",
+            "--set", "distributed_strategy.expert_model_parallel_size=1",
+            "--set", "distributed_strategy.pipeline_model_parallel_size=1",
+            "--set", "distributed_strategy.sequence_parallel=false",
+            "--set", f"model.lora={{lora_rank: {LORA_RANK}}}",
+            "--set", "data.synthetic=true",
+            "--set", "data.train_dir=null",
+            "--set", f"trainer.max_steps={SFT_STEPS}",
+            "--set", "trainer.log_every_n_steps=1",
+            "--set", f"exp_manager.exp_dir={exp}",
+            "--set", "exp_manager.resume_if_exists=false",
+            "--set", "exp_manager.create_tensorboard_logger=false",
+            "--set", "exp_manager.checkpoint_callback_params.every_n_train_steps=0",
+            *extra]
+
+
+def phase_lora_families(torch, fa, card: str) -> dict:
+    """22a and 22b, one card: LoRA through the CLI's trainer on the shipped
+    Mixtral (hidden 4096, 32 / 8 heads, 8 experts of ffn 14336 top 2, vocab
+    32000, seq 4096, 4 microbatches of 1 row) and GPT (hidden 4096, ffn
+    16384, 32 heads, vocab 50257, seq 2048, 4 microbatches of 2 rows)
+    configs at full width, 4 layers, flash, 3 steps each, with
+    ``run_sft``'s gates (every ``lora_b`` zero after step 0, lr 0 there, and
+    changed after step 1; every adapter moved; every frozen leaf bit for
+    bit; each kernel launched layers x microbatches a step, no fallback);
+    step 0's LM loss near ln V, and the Mixtral's router and experts among
+    the frozen leaves.  Prints the step seconds, tokens/s, MFU (a
+    Mixtral's activated experts) and peak."""
+    from neuronx_distributed_training_torch.models import llama
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke" / "exp_lora"
+    runs = {"mixtral": ("22a", "hf_mixtral_8x7b_config.yaml", "lm_loss",
+                        math.log(32000) + HIDDEN * (0.02 * 0.879626) ** 2 / 2,
+                        ("--set", f"data.global_batch_size={SFT_MICRO}")),
+            "gpt": ("22b", "megatron_gpt_config.yaml", "loss", gpt_expected_loss0(GPT_VOCAB),
+                    ("--set", f"data.micro_batch_size={LORA_GPT_MBS}",
+                     "--set", f"data.global_batch_size={LORA_GPT_MBS * SFT_MICRO}"))}
+    out = {}
+    try:
+        for name, (tag, config, key, loss0, extra) in runs.items():
+            rep = run_sft(torch, fa, name, lora_args(config, work / name, *extra), card,
+                          layers=LORA_LAYERS, check_b=True, tag=f"lora {tag}")
+            t = rep.pop("trainer")
+            if abs(rep["history"][0][key] - loss0) > 0.5:
+                fail(f"lora {tag}: step-0 {key} {rep['history'][0][key]} (expected "
+                     f"{loss0:.4f}: ln V + sigma^2/2)")
+            frozen = [n for n in llama.named_params(t.params) if n not in t.trainable]
+            if name == "mixtral" and (
+                    sum(".mlp.router." in n for n in frozen) != LORA_LAYERS
+                    or sum(".mlp.experts." in n for n in frozen) != 2 * LORA_LAYERS):
+                fail(f"lora {tag}: the router and both expert stacks of every layer should be "
+                     f"frozen: {[n for n in frozen if '.mlp.' in n]}")
+            rep["trainable"], rep["frozen"] = len(t.trainable), len(frozen)
+            del t
+            free_cuda(torch)
+            out[name] = rep
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lora 22a/22b: phase wall time {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_cp_families(torch, cell, card: str) -> dict | None:
+    """22c, with two or more cards: GPT (``megatron_gpt``, 4 layers; its
+    attention through the ring body) and the dropped Mixtral
+    (``hf_mixtral_8x7b_dropped``, 2 layers, seq 4096; the capacity queue
+    over both context ranks' tokens) under torchrun at cp 2 (ring) against
+    cp 1, each at full width, 4 microbatches of 1 row, within the
+    ``mixed_precision`` tolerance of one card (loss 1e-4, grad norm 2e-3),
+    every rank launching its ring's kernels as reckoned.  With one card it
+    says why it did not run and returns None."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"cp families: phase 22c (GPT and the dropped Mixtral at cp 2 against cp 1) not "
+            f"run: this machine shows {n_cards} card, and cp 2 needs two ranks, one a card")
+        return None
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (config, layers, extra) in CP_FAMILIES.items():
+        base = ("--config", str(REPO / "examples" / "conf" / config),
+                "--set", f"model.num_layers={layers}", "--set", "data.micro_batch_size=1",
+                "--set", "exp_manager.create_tensorboard_logger=false", *extra)
+        ref = torchrun_cell(cell, 1, cell.WORK / f"exp_{name}_cp1", 900, *base)
+        rep = torchrun_cell(cell, 2, cell.WORK / f"exp_{name}", 900, *base,
+                            "--set", "distributed_strategy.context_parallel_size=2",
+                            "--set", "model.fusions.ring_attention=true")
+        log(f"cp families {name}: losses {rep['loss']} grad norms {rep['grad_norm']} step "
+            f"seconds {rep['step_seconds']}; cp 1: {ref['loss']} / {ref['grad_norm']} / "
+            f"{ref['step_seconds']}; peak per rank {[r['peak_bytes'] for r in rep['ranks']]} "
+            f"bytes; launches per rank {[r['launches'] for r in rep['ranks']]} [{card}]")
+        for r in rep["ranks"]:
+            want = cp_run_launches("ring_attention", r["rank"], layers, cell.MICROBATCHES,
+                                   cell.STEPS)
+            if any(n != want for n in r["launches"].values()) or any(r["fallbacks"].values()):
+                fail(f"cp families {name}: rank {r['rank']} launches {r['launches']} (fallbacks "
+                     f"{r['fallbacks']}), expected {want} each")
+        if rep["cp"] != 2 or \
+                not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+                        for a, b in zip(rep["loss"], ref["loss"])) or \
+                not all(math.isclose(a, b, rel_tol=TP_GRAD_NORM_RTOL)
+                        for a, b in zip(rep["grad_norm"], ref["grad_norm"])):
+            fail(f"cp families {name}: losses {rep['loss']} / grad norms {rep['grad_norm']} "
+                 f"against cp 1's {ref['loss']} / {ref['grad_norm']}")
+        out[name] = {"cp1": ref, "cp2": rep}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"cp families 22c: phase wall time {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the fit loop as shipped (cadence, telemetry, recorder, EMA, warm start)
 # ---------------------------------------------------------------------------
 
@@ -6547,6 +6699,11 @@ def main() -> None:
             phase_plan_cards(card)
         if "18b" in only:
             phase_trace_multi(torch, cell, card)
+        if {"22", "22a", "22b"} & set(only):
+            phase_lora_families(torch, fa, card)
+            free_cuda(torch)
+        if {"22", "22c"} & set(only):
+            phase_cp_families(torch, cell, card)
         if "21c" in only:
             phase_comms_multi(torch, card)
             phase_trace_multi(torch, cell, card)
@@ -6632,6 +6789,9 @@ def main() -> None:
     free_cuda(torch)
     gpt_tp = phase_gpt_tp(torch, cell, card)
     free_cuda(torch)
+    lora_fam = phase_lora_families(torch, fa, card)
+    cp_fam = phase_cp_families(torch, cell, card)
+    free_cuda(torch)
     fit = phase_fit(torch, fa, cell, history4, card)
     free_cuda(torch)
     conv = phase_convert_planes(torch, fa, cell, fit["cadence"], card)
@@ -6711,6 +6871,12 @@ def main() -> None:
                                  **({} if gpt_tp is None else
                                     {"gpt_tp2": [r["launches"][kname]
                                                  for r in gpt_tp["tp2"]["ranks"]]}),
+                                 **{f"lora_{k}": lora_fam[k]["launches"][kname]
+                                    for k in ("mixtral", "gpt")},
+                                 **({} if cp_fam is None else
+                                    {name: [r["launches"][kname]
+                                            for r in cp_fam[name]["cp2"]["ranks"]]
+                                     for name in CP_FAMILIES}),
                                  "fit_cadence": fit["cadence"]["launches"][kname],
                                  "convert_warm_start": conv["convert"]["runs"]["warm"][
                                      "launches"][kname],

@@ -525,9 +525,10 @@ def calibration_findings(facts: Mapping[str, Any],
     """Baseline-independent gates: measured vs the planner's OWN prediction.
 
     PC302 — the measured bubble fraction must stay within the calibration
-    band of the predicted fill/drain price (ROADMAP item 1's success metric
-    as a gate).  PC502 — the measured peak HBM must stay within the
-    calibration band of the planner's predicted per-device total: a
+    band of the predicted fill/drain price (the success metric of the JAX
+    package's pipeline-schedule work, as a gate).  PC502 — the measured
+    peak HBM must stay within the calibration band of the planner's
+    predicted per-device total: a
     workload whose real residency outruns the HBM model's pricing fails
     here even on a freshly baselined topology (the model's OOM pruning is
     lying about this workload)."""

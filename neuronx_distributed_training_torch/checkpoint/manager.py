@@ -294,13 +294,13 @@ def saved_pieces(name: str, t: torch.Tensor, layouts: Optional[dict] = None, tp=
 
 def _on_state_mesh(saved: torch.Tensor, layout, part, tp, zdim):
     """A part's real entries as a DTensor of its global tensor: on the
-    ``(data, model)`` mesh; a kv head several ranks hold on the ``(data,
-    kv, replica)`` mesh, replicated over ``replica`` (DCP writes it once);
-    a padded vocab slice with the unpadded global shape (``torch.chunk``'s
-    blocks are the real rows)."""
-    if part is not None and part.replicas(tp.size) > 1:
-        return dtensor_on(saved, tp.kv_mesh, (zdim, layout.dim, None))
+    ``(data[, expert], model)`` mesh; a kv head several ranks hold on the
+    ``(data[, expert], kv, replica)`` mesh, replicated over ``replica``
+    (DCP writes it once); a padded vocab slice with the unpadded global
+    shape (``torch.chunk``'s blocks are the real rows)."""
     dims = state_dims(tp.state_mesh, layout, zdim)
+    if part is not None and part.replicas(tp.size) > 1:
+        return dtensor_on(saved, tp.kv_mesh, dims[:-1] + (layout.dim, None))
     shape = None
     if part is not None and part.padded and part.size % tp.size:
         shape = list(saved.shape)

@@ -1,9 +1,8 @@
-"""Knob schema of a block whose subsystem is not ported yet (a copy of the
-JAX package's parser, with its texts): ``exp_manager.elastic``
-(``trainer/elastic.py::ElasticConfig``: replan-on-resume, the SIGTERM grace
-window, save retries).  ``config/loader.py::validate_config`` runs it, so a
-typo'd knob dies at load as in JAX; the trainer logs the block as ignored
-(ROADMAP queue 1, beside entry 13).
+"""Knob schema of ``exp_manager.elastic`` (a copy of the JAX package's
+parser, with its texts; ``trainer/elastic.py`` acts on the block:
+replan-on-resume, the SIGTERM grace window, save retries).
+``config/loader.py::validate_config`` runs it, so a typo'd knob dies at
+load as in JAX.
 """
 
 from __future__ import annotations

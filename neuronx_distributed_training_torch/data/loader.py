@@ -339,7 +339,9 @@ def context_parallel_batch(batch: dict, cp_rank: int, cp_size: int, *, positions
       followed by the slice.
 
     The key mask (``attention_mask``) travels with its slice: the ring
-    rotates it with K/V, Ulysses all-gathers it.
+    rotates it with K/V, Ulysses all-gathers it.  A GPT's ``tokentype_ids``
+    are cut with the chunk; segment ids are left out (both packages'
+    loaders refuse ``sft.segment_mask`` under cp).
 
     A preference batch (DPO / ORPO pairs, KTO rows) is split side by side
     (``sides``, e.g. :data:`PREFERENCE_SIDES`): each ``<side>input_ids``
@@ -384,6 +386,8 @@ def _split_rows(batch: dict, cp_rank: int, cp_size: int, *, positions, shift_lab
         out["loss_mask"] = mask
     if am is not None:
         out["attention_mask"] = am
+    if batch.get("tokentype_ids") is not None:
+        out["tokentype_ids"] = batch["tokentype_ids"]
     if zigzag:
         from neuronx_distributed_training_torch.parallel.ring_attention import zigzag_positions
 

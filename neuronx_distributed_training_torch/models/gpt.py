@@ -43,6 +43,13 @@ cross-entropy are Llama's (``llama.head_loss``: a tied head takes the
 rank's padded vocab rows and masks the pad columns out, as an untied one).
 Attention goes through ``ops/attention.py``, so the flash kernels run at
 GPT's head dims as at Llama's.
+
+Context parallelism (``cp``): each context rank runs its chunk of every row
+(``data/loader.py::context_parallel_batch``, which carries the chunk's
+global positions and tokentype ids), its attention through the ring body
+whatever the cp fusion (JAX's GPT attends over the whole, GSPMD-sharded
+sequence and reads no cp fusion), and every dropout mask as its slice of
+the whole sequence's (:func:`_seq_slice`).
 """
 
 from __future__ import annotations
@@ -326,17 +333,22 @@ def _activation(cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _seq_slice(x: torch.Tensor, tp) -> tuple:
+def _seq_slice(x: torch.Tensor, tp, cp=None) -> tuple:
     """``(seq_len, positions)`` of the residual-stream activation ``x``: the
-    whole sequence, or under SP the rank's slice of it."""
+    whole sequence, or the rank's slice of it: under cp its context
+    chunk, and under SP its ``1/tp`` of that (JAX's ``seq_axes``: context
+    before model)."""
     s = x.shape[1]
+    start, n = 0, s
     if tp_ops.active(tp) and tp.sequence_parallel:
-        return s * tp.size, slice(tp.rank * s, (tp.rank + 1) * s)
-    return s, None
+        start, n = tp.rank * s, s * tp.size
+    if cp is not None:
+        start, n = cp.rank * n + start, n * cp.size
+    return (s, None) if n == s else (n, slice(start, start + s))
 
 
-def _dropout(x: torch.Tensor, rate: float, key, tp) -> torch.Tensor:
-    seq_len, positions = _seq_slice(x, tp)
+def _dropout(x: torch.Tensor, rate: float, key, tp, cp=None) -> torch.Tensor:
+    seq_len, positions = _seq_slice(x, tp, cp)
     return prng.dropout(x, rate, key, seq_len=seq_len, positions=positions)
 
 
@@ -348,10 +360,15 @@ def _rotate(cfg: GPTConfig, x: torch.Tensor, cos, sin) -> torch.Tensor:
 
 
 def _attention_block(cfg: GPTConfig, lp, x, cos, sin, policy: DtypePolicy,
-                     attention_mask=None, segment_ids=None, tp=None, attend=None):
+                     attention_mask=None, segment_ids=None, tp=None, attend=None, cp=None):
     """The attention sublayer; ``attend`` as in ``models/llama.py::
     _attention_block`` (k rotated on its first ``int(d p) // 2 * 2`` dims
-    under partial rotary)."""
+    under partial rotary).  Under ``cp`` the rank holds its context chunk
+    and attends through the ring body (``parallel/ring_attention.py``:
+    per chunk pair the flash kernels where they tile, the key mask rotating
+    with K/V), whatever the cp fusions say: JAX's GPT reads none of them
+    and attends over the whole sequence, which the ring's merged chunks
+    are."""
     x = tp_ops.enter_column(x, tp)
     b, s, _ = x.shape
     size = tp.size if tp_ops.active(tp) else 1
@@ -365,13 +382,14 @@ def _attention_block(cfg: GPTConfig, lp, x, cos, sin, policy: DtypePolicy,
 
     def attention(q, k, v):
         return attn_ops.attention(
-            q, k, v, impl=cfg.attention_impl, causal=True, sliding_window=cfg.sliding_window,
-            softmax_dtype=policy.softmax_dtype, attention_mask=attention_mask,
-            segment_ids=segment_ids, tp_size=size)
+            q, k, v, impl=cfg.attention_impl if cp is None else "ring", causal=True,
+            sliding_window=cfg.sliding_window, softmax_dtype=policy.softmax_dtype,
+            attention_mask=attention_mask, segment_ids=segment_ids, cp=cp, tp_size=size)
 
     if attend is not None:
         out = attend(q, k, v, attention)
-    elif cfg.attention_impl == "core" and cfg.activations_checkpoint_granularity == "selective":
+    elif (cp is None and cfg.attention_impl == "core"
+          and cfg.activations_checkpoint_granularity == "selective"):
         out = checkpoint(attention, q, k, v, use_reentrant=False)
     else:
         out = attention(q, k, v)
@@ -391,7 +409,8 @@ def _mlp_block(cfg: GPTConfig, lp, x, policy: DtypePolicy, tp=None, ep=None, mid
 
 
 def _decoder_layer(lp, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, key=None,
-                   attention_mask=None, segment_ids=None, tp=None, ep=None, attend=None):
+                   attention_mask=None, segment_ids=None, tp=None, ep=None, attend=None,
+                   cp=None):
     """One block in the configured layout -> ``(x, share, value)``
     (``attend`` as in :func:`_attention_block`):
 
@@ -409,30 +428,30 @@ def _decoder_layer(lp, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, key=Non
 
     def attn(h):
         return _attention_block(cfg, lp["attn"], h, cos, sin, policy, attention_mask,
-                                segment_ids, tp, attend)
+                                segment_ids, tp, attend, cp)
 
     if bt == "gpt_j":
         a = attn(apply_norm(cfg, lp["input_norm"], x))
         m, share, value = _mlp_block(cfg, lp["mlp"], apply_norm(cfg, lp["post_attn_norm"], x),
                                      policy, tp, ep)
-        return x + _dropout(a, rate, k1, tp) + _dropout(m, rate, k2, tp), share, value
+        return x + _dropout(a, rate, k1, tp, cp) + _dropout(m, rate, k2, tp, cp), share, value
     hidden = attn(x if bt == "post_ln" else apply_norm(cfg, lp["input_norm"], x))
     if bt == "normformer":
         hidden = apply_norm(cfg, lp["nf_attn_norm"], hidden)
-    x = x + _dropout(hidden, rate, k1, tp)
+    x = x + _dropout(hidden, rate, k1, tp, cp)
     if bt == "post_ln":
         x = apply_norm(cfg, lp["input_norm"], x)
     hidden, share, value = _mlp_block(
         cfg, lp["mlp"], x if bt == "post_ln" else apply_norm(cfg, lp["post_attn_norm"], x),
         policy, tp, ep, mid_norm=lp.get("nf_mlp_norm") if bt == "normformer" else None)
-    x = x + _dropout(hidden, rate, k2, tp)
+    x = x + _dropout(hidden, rate, k2, tp, cp)
     if bt == "post_ln":
         x = apply_norm(cfg, lp["post_attn_norm"], x)
     return x, share, value
 
 
 def _run_layers(layers, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, keys=None,
-                attention_mask=None, segment_ids=None, tp=None, ep=None) -> tuple:
+                attention_mask=None, segment_ids=None, tp=None, ep=None, cp=None) -> tuple:
     """``(x, share, value)``: the layers in order (``keys[j]``, if given,
     layer ``j``'s dropout key), and the sums of the MoE layers' router-loss
     shares and values (zeros for a dense model)."""
@@ -440,7 +459,7 @@ def _run_layers(layers, x, cos, sin, cfg: GPTConfig, policy: DtypePolicy, keys=N
     share = value = None
     for j, lp in enumerate(layers):
         args = (lp, x, cos, sin, cfg, policy, None if keys is None else keys[j],
-                attention_mask, segment_ids, tp, ep)
+                attention_mask, segment_ids, tp, ep, None, cp)
         x, s, v = (checkpoint(_decoder_layer, *args, use_reentrant=False) if full
                    else _decoder_layer(*args))
         if s is not None:
@@ -473,10 +492,13 @@ def _add_tokentype(cfg: GPTConfig, params, x, tokentype_ids):
 
 
 def embed(params, input_ids, positions, cfg: GPTConfig, policy: DtypePolicy, *,
-          tokentype_ids=None, key=None, tp=None) -> torch.Tensor:
+          tokentype_ids=None, key=None, tp=None, cp=None) -> torch.Tensor:
     """The (vocab-parallel) embedding, the learned positions and tokentypes
-    at the positions the rank holds (its sequence slice under SP) and the
-    embedding dropout (``key`` folded with ``prng.EMBED_TAG``)."""
+    at the positions the rank holds (its sequence slice under SP; under cp
+    ``input_ids``, ``positions`` and ``tokentype_ids`` are the context
+    chunk's, so the table rows are the chunk's global positions) and the
+    embedding dropout (``key`` folded with ``prng.EMBED_TAG``), the rank's
+    slice of the whole sequence's mask."""
     x = linear_ops.apply_embedding(params["embed"], input_ids,
                                    compute_dtype=policy.compute_dtype, tp=tp)
     _, held = _seq_slice(x, tp)
@@ -486,7 +508,7 @@ def embed(params, input_ids, positions, cfg: GPTConfig, policy: DtypePolicy, *,
                             params["pos_embed"]["embedding"]).to(x.dtype)
     x = _add_tokentype(cfg, params, x, None if tokentype_ids is None else tokentype_ids[:, held])
     if key is not None:
-        x = _dropout(x, cfg.embedding_dropout, key.fold(prng.EMBED_TAG), tp)
+        x = _dropout(x, cfg.embedding_dropout, key.fold(prng.EMBED_TAG), tp, cp)
     return x
 
 
@@ -503,26 +525,32 @@ def layer_keys(key, n: int):
 
 def forward(params, batch: dict[str, torch.Tensor], cfg: GPTConfig, policy: DtypePolicy, *,
             rng=None, positions=None, shift_labels: bool = True, return_logits: bool = False,
-            loss_denominator: Optional[torch.Tensor] = None, tp=None, ep=None):
+            loss_denominator: Optional[torch.Tensor] = None, tp=None, ep=None, cp=None):
     """Causal-LM forward -> ``(loss, aux)``; without labels ``(logits,
     aux)``.  ``rng`` (a ``utils/prng.py::Key``, None: no dropout) is the
     step's key.  The loss is ``models/llama.py::head_loss``'s (the attention
-    mask folded into the loss mask; ``loss_denominator`` and ``tp`` as
-    there), plus, with MoE layers, the router loss averaged over them (this
-    rank's share under ``ep``), as ``models/mixtral.py::forward``: ``aux``
-    then holds ``router_aux_loss`` and ``lm_loss``, and without labels
-    ``router_aux_share``."""
+    mask folded into the loss mask; ``loss_denominator``, ``tp`` and ``cp``
+    as there), plus, with MoE layers, the router loss averaged over them
+    (this rank's share under ``ep``), as ``models/mixtral.py::forward``:
+    ``aux`` then holds ``router_aux_loss`` and ``lm_loss``, and without
+    labels ``router_aux_share``.  With ``cp`` the batch is a context rank's
+    chunk from ``data/loader.py::context_parallel_batch`` (its global
+    ``positions``, next-token targets and loss mask), the attention runs the
+    ring body and each dropout mask is the rank's slice of the one global
+    mask, so the masks per position are cp 1's."""
     ids, am, seg = batch["input_ids"], batch.get("attention_mask"), batch.get("segment_ids")
+    if cp is not None:
+        positions = batch["positions"]
     if positions is None:
         positions = llama.positions_for(ids, am, seg)
     x = embed(params, ids, positions, cfg, policy, tokentype_ids=batch.get("tokentype_ids"),
-              key=rng, tp=tp)
+              key=rng, tp=tp, cp=cp)
     cos, sin = _rope_for(cfg, positions)
     x, share, value = _run_layers(params["layers"], x, cos, sin, cfg, policy,
-                                  layer_keys(rng, len(params["layers"])), am, seg, tp, ep)
+                                  layer_keys(rng, len(params["layers"])), am, seg, tp, ep, cp)
     out, aux = llama.head_loss(params, final_hidden(params, x, cfg), batch, cfg, policy,
                                shift_labels=shift_labels, return_logits=return_logits,
-                               loss_denominator=loss_denominator, tp=tp)
+                               loss_denominator=loss_denominator, tp=tp, cp=cp)
     if cfg.moe is None:
         return out, aux
     n = num_moe_layers(cfg)
@@ -542,7 +570,7 @@ def logits_of(params, y: torch.Tensor, cfg: GPTConfig, policy: DtypePolicy, tp=N
 
 
 def pipeline_hooks(cfg: GPTConfig, policy: DtypePolicy, *, shift_labels: bool = True,
-                   tp=None, ep=None):
+                   tp=None, ep=None, cp=None):
     """``(embed_fn, stage_fn, loss_fn, act_shape)`` for
     ``parallel/pipeline.py``, as ``models/llama.py::pipeline_hooks``, with
     GPT's embedding, layers, final norm (none under ``post_ln``) and head.
@@ -552,8 +580,11 @@ def pipeline_hooks(cfg: GPTConfig, policy: DtypePolicy, *, shift_labels: bool = 
     folded with the pipe rank (``_pipe``) and the chunk (``_chunk``, both
     set by ``bind_stage``), the stage's layers (JAX's stage fold).  With MoE
     layers the stage returns ``(x, aux)``, ``aux`` the sum of their
-    router-loss shares (JAX's ``stage_aux``)."""
+    router-loss shares (JAX's ``stage_aux``).  Under ``cp`` each
+    microbatch is the context rank's chunk, as :func:`forward` takes it
+    (nothing shifted or masked again)."""
     sp = tp.size if tp_ops.active(tp) and tp.sequence_parallel else 1
+    shift = shift_labels and cp is None
 
     def positions_of(mb):
         pos = mb.get("positions")
@@ -564,7 +595,7 @@ def pipeline_hooks(cfg: GPTConfig, policy: DtypePolicy, *, shift_labels: bool = 
 
     def embed_fn(params, mb):
         return embed(params, mb["input_ids"], positions_of(mb), cfg, policy,
-                     tokentype_ids=mb.get("tokentype_ids"), key=mb.get("_rng"), tp=tp)
+                     tokentype_ids=mb.get("tokentype_ids"), key=mb.get("_rng"), tp=tp, cp=cp)
 
     def stage_fn(layers, x, mb):
         cos, sin = _rope_for(cfg, positions_of(mb))
@@ -572,14 +603,14 @@ def pipeline_hooks(cfg: GPTConfig, policy: DtypePolicy, *, shift_labels: bool = 
         if key is not None:
             key = prng.stage_key(key, mb.get("_pipe", 0), mb.get("_chunk", 0))
         x, share, _ = _run_layers(layers, x, cos, sin, cfg, policy, layer_keys(key, len(layers)),
-                                  mb.get("attention_mask"), mb.get("segment_ids"), tp, ep)
+                                  mb.get("attention_mask"), mb.get("segment_ids"), tp, ep, cp)
         return (x, share) if cfg.moe is not None else x
 
     def loss_fn(params, y, mb):
         logits = logits_of(params, y, cfg, policy, tp)
         labels = mb["labels"]
-        loss_mask = llama._loss_mask(mb)
-        if shift_labels:
+        loss_mask = mb.get("loss_mask") if cp is not None else llama._loss_mask(mb)
+        if shift:
             logits, labels, loss_mask = ce_ops.shift_for_next_token(logits, labels, loss_mask)
         loss_sum = ce_ops.cross_entropy_loss(logits, labels, loss_mask=loss_mask,
                                              reduction="sum", tp=tp)

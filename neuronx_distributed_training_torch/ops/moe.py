@@ -34,8 +34,9 @@ here: the router loss is a product of means over every token of the
 microbatch (:func:`router_loss_share` all-reduces the per-expert counts and
 sums first), and the dropped path's capacity and queue order are those of
 the whole microbatch (``tokens``, a ``parallel/mesh.py::ExpertParallel``,
-gathers the small ``[T_local, k]`` expert indices over the data ranks in
-JAX's row order, and every rank computes the same keep mask).
+gathers the small ``[T_local, k]`` expert indices over the data ranks, and
+under cp the context ranks, in JAX's token order, and every rank computes
+the same keep mask).
 
 SwiGLU experts: ``gate_up [E, h, 2 ffn]`` (``[gate | up]``), ``down [E,
 ffn, h]``.  Under tensor parallelism a rank holds ``[gate_r | up_r]`` and
@@ -365,20 +366,22 @@ def keep_mask(idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
 
 
 def moe_dropped(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
-                compute_dtype=torch.bfloat16, tokens=None):
-    """Capacity-factor MoE: ``x [T, h]`` -> ``(y, (probs, idx, logits))``,
-    a route over its expert's capacity adding nothing.  ``tokens`` (a
+                compute_dtype=torch.bfloat16, tokens=None, rows: int = 1):
+    """Capacity-factor MoE: ``x [T, h]`` (``rows`` rows of ``T / rows``
+    positions, row after row) -> ``(y, (probs, idx, logits))``, a route
+    over its expert's capacity adding nothing.  ``tokens`` (a
     ``parallel/mesh.py::ExpertParallel``, or None when ``x`` is the whole
-    microbatch) gathers every data rank's expert indices in JAX's row
-    order, so the capacity and the queues are the whole microbatch's."""
+    microbatch) gathers every rank's expert indices in JAX's token order
+    (the data ranks' rows, and under cp each row's context chunks), so the
+    capacity and the queues are the whole microbatch's; every rank computes
+    the same keep mask and takes its own tokens' part of it."""
     t, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
     probs, idx, logits = route(params["router"], x, cfg)
     if tokens is None or tokens.token_size == 1:
         keep = keep_mask(idx, cfg)
     else:
-        start = tokens.token_rank * t
-        keep = keep_mask(tokens.gather_tokens(idx), cfg)[start:start + t]
+        keep = tokens.own_tokens(keep_mask(tokens.gather_tokens(idx, rows), cfg), rows)
     flat = torch.where(keep, idx, torch.full_like(idx, e)).reshape(-1)  # dropped: group E
     order, sizes, position = _sorted_rows(flat, e)
     kept = sum(sizes)
@@ -406,5 +409,5 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig, *, compute_dtype=to
         y, (_, idx, logits) = moe_dropless(params, flat, cfg, compute_dtype=compute_dtype)
     else:
         y, (_, idx, logits) = moe_dropped(params, flat, cfg, compute_dtype=compute_dtype,
-                                          tokens=tokens)
+                                          tokens=tokens, rows=b)
     return y.reshape(b, s, h), {"router_logits": logits, "expert_idx": idx}

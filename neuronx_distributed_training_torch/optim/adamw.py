@@ -286,7 +286,7 @@ def state_dims(mesh, layout, zdim: Optional[int]) -> tuple:
 
 def dtensor_on(local_t: torch.Tensor, mesh, dims: tuple, shape=None) -> torch.Tensor:
     """``local_t`` as this rank's block of a DTensor on ``mesh`` (1-D
-    ``data``, 2-D ``(data, model)`` or 3-D ``(data, kv, replica)``), sharded
+    ``data``, ``(data[, expert], model)`` or ``(data[, expert], kv, replica)``), sharded
     on ``dims[i]`` over mesh dim ``i`` (None: replicated); the global shape
     is ``shape``, by default the local one times the mesh dims' sizes on the
     sharded dims (an uneven split gives ``shape``: the blocks are

@@ -212,7 +212,8 @@ class TensorParallel:
     above 1 (tp above the kv heads) the model axis also splits into
     ``("kv", "replica")``: the ranks of a ``replica`` group hold the same kv
     head (``parallel/sharding.py``), sum their gradients of it over
-    ``kv_group``, and a checkpoint writes it once from ``kv_mesh``."""
+    ``kv_group``, and a checkpoint writes it once from ``kv_mesh`` (the
+    state mesh with ``model`` split so, ``expert`` kept at ep > 1)."""
 
     rank: int
     size: int
@@ -222,7 +223,7 @@ class TensorParallel:
     sequence_parallel: bool = False
     kv_replicas: int = 1
     kv_group: Any = None  # the ranks that share this rank's kv head
-    kv_mesh: Any = None  # the 3-D ("data", "kv", "replica") DeviceMesh
+    kv_mesh: Any = None  # ("data"[, "expert"], "kv", "replica"): the state mesh, model split
 
     @classmethod
     def from_mesh(cls, mesh, *, sequence_parallel: bool = False,
@@ -238,8 +239,9 @@ class TensorParallel:
                                mesh.mesh.reshape(*shape[:-1], shape[-1] // kv_replicas,
                                                  kv_replicas),
                                mesh_dim_names=names[:-1] + ("kv", "replica"))
-            kv_group, kv_mesh = split["replica"].get_group(), split["data", "kv", "replica"]
-        # at ep > 1 the state's data-parallel dims are (data, expert)
+            # at ep > 1 the state's data-parallel dims are (data, expert)
+            dims = (("data", "expert") if mesh_axis_size(mesh, "expert") > 1 else ("data",))
+            kv_group, kv_mesh = split["replica"].get_group(), split[dims + ("kv", "replica")]
         state = (mesh["data", "expert", "model"] if mesh_axis_size(mesh, "expert") > 1
                  else mesh["data", "model"])
         return cls(rank=mm.get_local_rank(), size=mm.size(), group=mm.get_group(), mesh=mm,
@@ -422,12 +424,13 @@ class ExpertParallel:
     - ``grad_group``: ``(data, context)``, over which the expert leaves'
       gradients are summed (the gather's backward sums them over
       ``expert``);
-    - ``token_rank`` / ``token_size`` / ``token_group``: the true
-      data-parallel axis ``(data, expert)``, whose ranks hold a
-      microbatch's rows in JAX's order (the dropped path's keep mask);
-    - ``stats_group``: ``(data, expert, context)``, over which a
-      microbatch's tokens are split (the router loss's statistics and the
-      logged losses).
+    - ``token_rank`` / ``token_size`` / ``token_group``: the ranks that
+      split a microbatch's tokens, ``(data, expert[, context])``: the
+      true data-parallel ranks hold its rows in JAX's order, and under cp
+      (``context_size`` above 1) each context rank holds ``s/cp`` positions
+      of each of them: the dropped path's keep mask (:meth:`gather_tokens`),
+      and the router loss's statistics and the logged losses, summed over
+      them (:meth:`sum_stats_`).
 
     At ep 1 the expert axis has one rank and the gather is the identity;
     the other groups are still the data (and context) ones."""
@@ -440,18 +443,25 @@ class ExpertParallel:
     token_rank: int
     token_size: int
     token_group: Any
-    stats_group: Any
+    context_size: int = 1
 
     @classmethod
     def from_mesh(cls, mesh, *, context: bool = False) -> "ExpertParallel":
+        import torch.distributed as dist
+
         em = mesh["expert"]
         tokens = DataParallel.from_mesh(mesh)
-        stats = axes_group(mesh, ("data", "expert", "context")) if context else tokens.group
         grad = axes_group(mesh, ("data", "context")) if context else mesh["data"].get_group()
+        group, rank, size, cp = tokens.group, tokens.rank, tokens.size, 1
+        if context:
+            # (data, expert, context): the group's ranks are sorted world
+            # ranks, so its order is the mesh's, context innermost
+            group = axes_group(mesh, ("data", "expert", "context"))
+            rank, size = dist.get_group_rank(group, dist.get_rank()), dist.get_world_size(group)
+            cp = mesh_axis_size(mesh, "context")
         return cls(rank=em.get_local_rank(), size=em.size(), group=em.get_group(),
                    data=DataParallel.from_mesh(mesh, data_only=True), grad_group=grad,
-                   token_rank=tokens.rank, token_size=tokens.size, token_group=tokens.group,
-                   stats_group=stats)
+                   token_rank=rank, token_size=size, token_group=group, context_size=cp)
 
     def grad_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """SUM of an expert leaf's gradient over ``(data[, context])``, in
@@ -465,16 +475,51 @@ class ExpertParallel:
         """SUM over the ranks that split a microbatch's tokens, in place."""
         import torch.distributed as dist
 
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.stats_group)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.token_group)
         return t
 
-    def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
-        """``[n, ...]`` -> ``[token_size n, ...]``: every data rank's, in
-        JAX's row order."""
+    def gather_tokens(self, t: torch.Tensor, rows: int = 1) -> torch.Tensor:
+        """``[n, ...]``, this rank's ``rows`` rows of ``n / rows`` positions
+        each, row after row -> ``[token_size n, ...]``: every rank's, in
+        JAX's token order over the whole microbatch (row after row, the
+        data ranks' rows in turn; under cp a row's context chunks in
+        order, chunk 0 first)."""
         import torch.distributed as dist
 
         t = t.contiguous()
         out = torch.empty((self.token_size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=t.device)
         dist.all_gather_into_tensor(out, t, group=self.token_group)
-        return out
+        return tokens_in_order(out, self.token_size, self.context_size, rows)
+
+    def own_tokens(self, full: torch.Tensor, rows: int = 1) -> torch.Tensor:
+        """This rank's ``[n, ...]`` of :meth:`gather_tokens`' output (its
+        rows' positions, in its own order)."""
+        return own_tokens(full, self.token_rank, self.token_size, self.context_size, rows)
+
+
+def tokens_in_order(gathered: torch.Tensor, size: int, context: int,
+                    rows: int) -> torch.Tensor:
+    """A token group's gather (``[size n, ...]``: its ``size`` ranks' in
+    ``(data, expert, context)`` order, each rank's ``rows`` rows of ``n /
+    rows`` positions) in JAX's token order over the microbatch: row after
+    row, the data ranks' rows in turn, and within a row its ``context``
+    chunks in order."""
+    if context == 1:
+        return gathered
+    tail = tuple(gathered.shape[1:])
+    # [data, context, row, position] -> [data, row, context, position]
+    return gathered.reshape((size // context, context, rows, -1) + tail).transpose(
+        1, 2).reshape((-1,) + tail)
+
+
+def own_tokens(full: torch.Tensor, rank: int, size: int, context: int,
+               rows: int) -> torch.Tensor:
+    """Rank ``rank``'s ``[n, ...]`` of :func:`tokens_in_order`'s output."""
+    n = full.shape[0] // size
+    if context == 1:
+        return full[rank * n:(rank + 1) * n]
+    d, c = divmod(rank, context)
+    tail = tuple(full.shape[1:])
+    return full.reshape((size // context, rows, context, -1) + tail)[d, :, c].reshape(
+        (n,) + tail)

@@ -54,7 +54,10 @@ experts (dim 0, :func:`shard_expert`), and of each its tp slice of the
 ffn, ``gate_up``'s ``[gate_r | up_r]`` as the dense ``gate_up``'s.  The
 router ``[h, E]`` is replicated, and ``partial`` under tp: the ranks of a
 tp group route the same gathered tokens, and each one's gradient of the
-combine weights is its ffn slice's part of the sum.
+combine weights is its ffn slice's part of the sum (so are a router
+adapter's, when LoRA names ``router``).  An untied head's adapter, when
+LoRA names ``lm_head``, follows the column rule: ``lora_b`` holds the
+rank's padded vocab columns, ``lora_a`` is partial.
 
 GPT (``models/gpt.py``, JAX's ``gpt.param_specs``): ``attn.qkv`` is the
 fused q / k / v column layer above, its ``bias`` cut into the same parts
@@ -186,8 +189,10 @@ def leaf_layout(name: str, cfg, *, sequence_parallel: bool = False) -> LeafLayou
         return LeafLayout(partial=True)
     if name == "embed.embedding":
         return LeafLayout(dim=0, parts=vocab)
-    if name == "lm_head.w":
+    if name in ("lm_head.w", "lm_head.lora_b"):
         return LeafLayout(dim=1, parts=vocab)
+    if name == "lm_head.lora_a":
+        return LeafLayout(partial=True)
     if name in ("pos_embed.embedding", "tokentype_embed.embedding"):
         # added on the rank's sequence slice under SP
         return LeafLayout(partial=bool(sequence_parallel))

@@ -22,7 +22,7 @@ all-reduces.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -63,7 +63,7 @@ def _is_linear(v) -> bool:
 
 
 def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_rank: int = 0,
-             tp_size: int = 1) -> Any:
+             tp_size: int = 1, layer_kinds: Optional[Sequence] = None) -> Any:
     """The tree with adapters beside every target linear's ``w``: A is 0.02
     times a normal truncated at +-2, drawn from ``generator`` in tree order
     (the trainer seeds it with ``seed + 1``, as the JAX trainer keys its
@@ -72,13 +72,27 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_ran
     holds the rank's slices: A is drawn whole and a row layer's keeps the
     rank's rows, so every tp draws the same numbers.  A None layer (another
     pipeline stage's, ``models/llama.py::init_params``) draws its A's at the
-    shapes of the list's first layer and stays None, so every pp draws the
-    same numbers too."""
+    shapes of the list's first layer of its kind (``layer_kinds[i]``: a
+    Mixtral's or a GPT's MoE and dense layers adapt different linears; one
+    kind without it) and stays None, so every pp draws the same numbers
+    too.
+
+    Which linears: JAX's rule, a dict holding a ``w`` of rank 2 or more
+    under a key in ``target_modules``.  So the bare expert stacks of a MoE
+    block (``experts.gate_up`` / ``down``) get none, a router ``{"w"}`` one
+    only when ``router`` is named, GPT's ``attn.qkv``, ``attn.o`` and
+    ``mlp.down`` by default (its ``mlp.up`` and an untied ``lm_head`` only
+    when named), and a tied head, which has no linear dict, none."""
 
     def visit(node):
         if isinstance(node, list):
-            shapes = next((v for v in node if v is not None), None)
-            return [visit(v) if v is not None else _absent(shapes) for v in node]
+            kinds = list(layer_kinds) if layer_kinds is not None else [0] * len(node)
+            first: dict = {}
+            for v, kind in zip(node, kinds):
+                if v is not None:
+                    first.setdefault(kind, v)
+            return [visit(v) if v is not None else _absent(first.get(kind))
+                    for v, kind in zip(node, kinds)]
         if not isinstance(node, dict):
             return node
         out = {}
@@ -104,6 +118,8 @@ def add_lora(params: Any, cfg: LoraConfig, generator: torch.Generator, *, tp_ran
         return out
 
     def _absent(shapes):
+        if shapes is None:
+            raise ValueError("a pipeline stage holds no layer of another stage's layer kind")
         visit(_meta(shapes))  # another stage's layer: its A's are drawn, kept by none
         return None
 

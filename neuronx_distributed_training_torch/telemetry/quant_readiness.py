@@ -8,8 +8,9 @@ with the port's cost model's byte volumes.
 Host-side and stdlib-only: takes the cumulative per-layer-group statistics
 the in-graph plane (``telemetry.tensorstats``) streamed into a run's
 artifacts and SIMULATES block-scaled int8 quantization of each collective
-class's payload — the study ROADMAP item 2 (int8/block-scaled compressed
-collectives per EQuARX) needs before committing graph changes:
+class's payload — the study that int8 / block-scaled compressed
+collectives (per EQuARX; an item of the JAX package's roadmap, not yet
+this port's) need before committing graph changes:
 
 * **what compression would buy** — wire bytes saved per class (a pure
   function of the block size and scale width), joined with the planner's

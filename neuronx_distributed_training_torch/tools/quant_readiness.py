@@ -7,7 +7,8 @@ quantization per collective class: predicted SQNR / RMS relative error per
 layer-group at configurable block sizes, wire bytes saved, and — when the
 run also captured a device trace (``trace_summary.json``) — the measured
 exposed seconds each class would claw back.  The decision artifact for
-ROADMAP item 2 (int8/block-scaled compressed collectives per EQuARX).
+int8 / block-scaled compressed collectives (per EQuARX), an item of the
+JAX package's roadmap that the port has not taken up.
 
     python -m neuronx_distributed_training_torch.tools.quant_readiness run_dir
     python -m neuronx_distributed_training_torch.tools.quant_readiness run_dir \

@@ -145,7 +145,12 @@ data-parallel axis is ``(data, expert)``, a rank holds ``E / ep`` experts
 ``(data, expert)`` and the expert leaves' span ``data`` (``trainer/
 step.py``, ``optim/adamw.py``); ``router_aux_loss`` and ``lm_loss`` are
 logged beside the loss, and MFU counts the activated experts alone
-(``utils/perf.py``).  Under pp the stages return their router losses
+(``utils/perf.py``).  tp may exceed the kv heads under ep too: the kv
+replicas' state and checkpoint mesh keeps the expert axis
+(``TensorParallel.kv_mesh``).  The dropped path's capacity queue is the
+whole microbatch's under cp as under dp: the expert indices are gathered
+over ``(data, expert, context)`` and put back in JAX's token order
+(``ExpertParallel.gather_tokens``).  Under pp the stages return their router losses
 (``parallel/pipeline.py``, JAX's ``stage_aux``), scaled by ``1 /
 (num_microbatches num_moe_layers)``, and not under a preference strategy,
 whose unpipelined losses add ``0.5 (reg_chosen + reg_rejected)`` (KTO: the
@@ -156,9 +161,15 @@ Megatron GPT (``model.architecture: gpt``, or ``model_source: megatron``
 on an architecture that is not Llama, Mistral or Mixtral, JAX's
 ``build_model`` dispatch; ``models/gpt.py``) trains under dp, tp (SP, kv
 replication, padded vocab slices), pp (the wavefront, as JAX's gate keeps
-it) and, with MoE layers, ep; its dropout draws from the step's key
+it), cp (each context rank its chunk, the learned positions at its
+global positions, attention through the ring body whatever the cp fusion,
+logged once; JAX's GPT attends over the whole sequence) and, with MoE
+layers, ep; its dropout draws from the step's key
 ``utils/prng.py::step_key(step)``, so a resume redraws the straight run's
-masks.  Its preference forwards take the key, the reference pass none.
+masks, and a context or SP rank takes its slice of the global mask.
+LoRA adapts a Mixtral's or a GPT's linears by JAX's rule
+(``peft/lora.py``: no expert stack, the router or the head only when
+named).  Its preference forwards take the key, the reference pass none.
 
 The planes ``tiny_smoke_config.yaml`` turns on run as JAX's, built in its
 order (fleet, alerts, memory, control, then the watchdog) and fed at each
@@ -194,10 +205,9 @@ waits for each stage hop at its first read (``parallel/pipeline.py::
 drive``), and ``xla_lhs`` logs JAX's no-op text; every lever is bit for
 bit the run without it.
 
-Knobs this slice does not implement (LoRA on Mixtral or GPT, the dropped
-MoE path under context parallelism, GPT under context parallelism) are
-rejected with the ROADMAP item that ports them; config blocks it does not
-act on are logged once as ignored: a TPU generation named as
+The trainer refuses only what the JAX trainer refuses, with its texts
+(``check_supported``); config blocks it does not act on are logged once
+as ignored: a TPU generation named as
 ``autotune.topology`` (the planner prices the detected card) and the
 Pallas tiles ``fusions.flash_block_q`` / ``flash_block_kv`` (the Hopper
 kernels' tiles are fixed).
@@ -320,32 +330,23 @@ def parse_max_time(value: Any) -> Optional[float]:
     return float(((d * 24 + h) * 60 + m) * 60 + s)
 
 
-def _unsupported(reasons: list) -> NotImplementedError:
-    """One error naming each ``(what, entry, item)``: the ROADMAP queue 1
-    entry that ports it and its bracketed item number."""
-    return NotImplementedError("; ".join(
-        f"{what} is not ported yet (ROADMAP queue 1 entry {entry} [item {item}])"
-        for what, entry, item in reasons))
-
-
 def check_supported(cfg: ConfigDict) -> None:
-    """Reject what this slice of the port does not implement, naming the
-    ROADMAP queue entry (and item) that ports each; a config with several
-    such knobs gets them all in one message.  Pipeline parallelism runs
-    every schedule the JAX package's gate picks (``1f1b``,
-    ``1f1b-interleaved`` at vp > 1, ``1f1b-zb``, the wavefront at any vp),
-    with the chunked head, cp and preference alignment; Mixtral, expert
-    parallelism and Megatron GPT are ported (all 24 shipped configs pass).
-    Zig-zag under pp, with preference alignment or on Mixtral is refused
-    with the JAX trainer's texts, a pp split of ``moe_frequency > 1`` groups
-    that cuts a group too, GPT's block-layout rules with JAX's texts, and a
-    schedule forced on a combination it does not support (an explicit
-    ``1f1b`` on GPT) raises the JAX package's ``resolve_schedule`` text."""
+    """Refuse what the JAX trainer refuses, with its texts; the port refuses
+    nothing more.  Pipeline parallelism runs every schedule the JAX
+    package's gate picks (``1f1b``, ``1f1b-interleaved`` at vp > 1,
+    ``1f1b-zb``, the wavefront at any vp), with the chunked head, cp and
+    preference alignment; Mixtral, expert parallelism (tp above the kv
+    heads too) and Megatron GPT (under cp too) are ported, each with LoRA
+    (all 24 shipped configs pass).  Zig-zag under pp, with preference
+    alignment or on Mixtral is refused with the JAX trainer's texts, a pp
+    split of ``moe_frequency > 1`` groups that cuts a group too, GPT's
+    block-layout rules with JAX's texts, and a schedule forced on a
+    combination it does not support (an explicit ``1f1b`` on GPT) raises
+    the JAX package's ``resolve_schedule`` text."""
     ds = dict(cfg.get("distributed_strategy", {}) or {})
     model = dict(cfg.get("model", {}) or {})
     fusions = dict(model.get("fusions", {}) or {})
     _check_tensor_parallel(cfg, ds, model)
-    reasons = []
     pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
     strategy, _ = alignment_strategy(cfg)
     if fusions.get("zigzag_ring_attention"):
@@ -359,13 +360,11 @@ def check_supported(cfg: ConfigDict) -> None:
                                       "fusions.ring_attention")
     arch = _architecture(cfg)
     if _is_gpt(cfg):
-        _check_gpt(cfg, ds, model, reasons)
+        _check_gpt(ds, model)
     elif arch not in ("llama", "mistral", "mixtral"):
         raise ValueError(f"unknown architecture {arch!r}")
     if arch == "mixtral":
-        _check_moe(cfg, ds, model, reasons)
-    if reasons:
-        raise _unsupported(reasons)
+        _check_moe(ds, model)
     if pp > 1:
         # a forced schedule the gate blocks: the JAX package's text
         schedule = str(dict(ds.get("pipeline", {}) or {}).get("schedule", "auto")).lower()
@@ -402,37 +401,26 @@ def model_config(cfg: ConfigDict):
     return llama.LlamaConfig.from_config(model, ds)
 
 
-def _check_moe(cfg: ConfigDict, ds: dict, model: dict, reasons: list) -> None:
+def _check_moe(ds: dict, model: dict) -> None:
     """Mixtral's rules: the JAX trainer's (zig-zag is Llama-only; a pipeline
-    slices whole MoE + dense groups), the expert axis's (it divides the
-    experts), and the port's refusals, added to ``reasons``."""
+    slices whole MoE + dense groups) and the expert axis's (it divides the
+    experts)."""
     xc = mixtral.MixtralConfig.from_config(model, ds)
     if xc.llama.attention_impl == "zigzag_ring":
         raise NotImplementedError("zigzag_ring_attention is llama/mistral-only; use "
                                   "fusions.ring_attention for mixtral")
-    _check_experts(ds, xc, mixtral.num_moe_layers(xc), xc.llama.kv_heads)
-    if dict(model.get("lora", {}) or {}):
-        reasons.append(("LoRA on a Mixtral model", "10", "13"))
-    if not xc.moe.dropless and int(ds.get("context_parallel_size", 1) or 1) > 1:
-        reasons.append(("the dropped (capacity-factor) MoE path under context parallelism",
-                        "10", "13"))
+    _check_experts(ds, xc, mixtral.num_moe_layers(xc))
 
 
-def _check_experts(ds: dict, mc, groups: int, kv_heads: int) -> None:
+def _check_experts(ds: dict, mc, groups: int) -> None:
     """The rules of a model with MoE layers (``mc``: its ``moe`` and
     ``moe_frequency``; ``groups``: its MoE layer count): the expert axis
-    divides the experts, ep is not ported above the kv heads, and a
-    pipeline slices whole MoE + dense groups (JAX's text)."""
+    divides the experts, and a pipeline slices whole MoE + dense groups
+    (JAX's text)."""
     ep = int(ds.get("expert_model_parallel_size", 1) or 1)
     if mc.moe.num_experts % ep:
         raise ValueError(f"moe.num_experts {mc.moe.num_experts} not divisible by "
                          f"expert_model_parallel_size {ep}")
-    tp = int(ds.get("tensor_model_parallel_size", 1) or 1)
-    if ep > 1 and tp > kv_heads:
-        raise NotImplementedError(f"expert parallelism with tensor_model_parallel_size {tp} "
-                                  f"above the {kv_heads} kv heads (each kv head "
-                                  f"replicated) is not ported yet (ROADMAP queue 1 entry 10 "
-                                  f"[item 13])")
     pp = int(ds.get("pipeline_model_parallel_size", 1) or 1)
     vp = int(ds.get("virtual_pipeline_model_parallel_size", 1) or 1)
     if pp > 1 and mc.moe_frequency != 1 and groups % (pp * vp) != 0:
@@ -440,19 +428,13 @@ def _check_experts(ds: dict, mc, groups: int, kv_heads: int) -> None:
                          f"= {groups} groups, not divisible by pp*vp = {pp}*{vp}")
 
 
-def _check_gpt(cfg: ConfigDict, ds: dict, model: dict, reasons: list) -> None:
-    """A Megatron GPT's rules: JAX's block-layout refusals (its texts), the
-    MoE rules of :func:`_check_experts` for GPT-MoE, and the port's
-    refusals, added to ``reasons``: GPT under context parallelism and LoRA
-    on GPT (no shipped config asks for either)."""
+def _check_gpt(ds: dict, model: dict) -> None:
+    """A Megatron GPT's rules: JAX's block-layout refusals (its texts) and
+    the MoE rules of :func:`_check_experts` for GPT-MoE."""
     gc = gpt.GPTConfig.from_config(model, ds)
     gpt.check_config(gc)
     if gc.moe is not None:
-        _check_experts(ds, gc, gpt.num_moe_layers(gc), gc.kv_heads)
-    if int(ds.get("context_parallel_size", 1) or 1) > 1:
-        reasons.append(("a GPT model under context parallelism", "11", "14"))
-    if dict(model.get("lora", {}) or {}):
-        reasons.append(("LoRA on a GPT model", "11", "14"))
+        _check_experts(ds, gc, gpt.num_moe_layers(gc))
 
 
 def _check_tensor_parallel(cfg: ConfigDict, ds: dict, model: dict) -> None:
@@ -627,7 +609,7 @@ def _base_pipeline_hooks(mc, policy, *, shift_labels=True, tp=None, cp=None, ep=
     """The model's pipeline hooks: ``models/mixtral.py::pipeline_hooks``
     (its stage returns ``(x, aux)``) or ``models/llama.py``'s."""
     if isinstance(mc, gpt.GPTConfig):
-        return gpt.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, ep=ep)
+        return gpt.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, ep=ep, cp=cp)
     if isinstance(mc, mixtral.MixtralConfig):
         return mixtral.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp, ep=ep)
     return llama.pipeline_hooks(mc, policy, shift_labels=shift_labels, tp=tp, cp=cp)
@@ -665,8 +647,8 @@ def _pipeline_microbatches(strategy, nm: int, dp, cp, shift_labels: bool) -> Cal
         out = []
         rows_of = _row_count if strategy == "kto" and dp is not None else None
         for m, (mb, rows) in enumerate(step_mod._microbatches(batch, nm, dp, rows_of)):
-            if key is not None:
-                mb["_rng"] = key.fold(m).with_rows(step_mod.microbatch_rows(mb, dp))
+            rng = None if key is None else key.fold(m).with_rows(
+                step_mod.microbatch_rows(mb, dp))
             if cp is not None and strategy in PREFERENCE:
                 mb = context_parallel_batch(mb, cp.rank, cp.size, sides=PREFERENCE_SIDES)
             elif cp is not None:
@@ -674,6 +656,8 @@ def _pipeline_microbatches(strategy, nm: int, dp, cp, shift_labels: bool) -> Cal
                                           mb.get("segment_ids"))
                 mb = context_parallel_batch(mb, cp.rank, cp.size, positions=pos,
                                             shift_labels=shift_labels)
+            if rng is not None:  # after the cut, which keeps only the arrays
+                mb["_rng"] = rng
             if rows is not None:
                 mb["_rows"] = rows
             out.append(mb)
@@ -701,7 +685,7 @@ def _preference_objective(strategy: str, params: dict, model_block: dict, mc, po
         if positions is not None:
             batch["positions"] = positions
         if isinstance(mc, gpt.GPTConfig):
-            logits, aux = gpt.forward(p, batch, mc, policy, rng=key, tp=tp, ep=ep)
+            logits, aux = gpt.forward(p, batch, mc, policy, rng=key, tp=tp, ep=ep, cp=cp)
             return (logits, aux["router_aux_share"]) if mc.moe is not None else logits
         if isinstance(mc, mixtral.MixtralConfig):
             logits, aux = mixtral.forward(p, batch, mc, policy, tp=tp, cp=cp, ep=ep)
@@ -780,6 +764,17 @@ def _aux_scale(mc, nm: int, strategy) -> Optional[float]:
     if strategy in PREFERENCE:
         return 0.0
     return 1.0 / (nm * n)
+
+
+def _layer_kinds(mc) -> Optional[list]:
+    """Each layer's kind for ``peft/lora.py::add_lora`` (a MoE layer of a
+    Mixtral or a GPT-MoE adapts other linears than a dense one); None for
+    a dense model."""
+    if isinstance(mc, mixtral.MixtralConfig):
+        return [i % mc.moe_frequency == 0 for i in range(mc.llama.num_layers)]
+    if isinstance(mc, gpt.GPTConfig) and mc.moe is not None:
+        return [gpt.is_moe_layer(mc, i) for i in range(mc.num_layers)]
+    return None
 
 
 def _moe_layers(mc) -> Optional[int]:
@@ -1068,8 +1063,14 @@ class Trainer:
             dp, dp_size = DataParallel.from_mesh(mesh), dp_degree(mesh)
             tp = TensorParallel.from_mesh(mesh, sequence_parallel=mesh_cfg.sequence_parallel,
                                           kv_replicas=max(mesh_cfg.tp // lc.kv_heads, 1))
-            if lc.context_parallel:
+            if lc.context_parallel or (is_gpt and mesh_cfg.cp > 1):
                 cp = ContextParallel.from_mesh(mesh)
+                if is_gpt and rank == 0 and "gpt_cp_body" not in _logged_ignored:
+                    _logged_ignored.add("gpt_cp_body")
+                    logger.info("GPT under context parallelism (cp %d): attention runs the "
+                                "ring body (parallel/ring_attention.py; the flash kernels on "
+                                "each chunk pair that tiles), whatever the cp fusions say",
+                                cp.size)
             if mesh_cfg.pp > 1:
                 pp = PipelineParallel.from_mesh(mesh)
             if moe:
@@ -1122,7 +1123,8 @@ class Trainer:
             lora_cfg = LoraConfig.from_config(lora_block)
             params = add_lora(params, lora_cfg,
                               torch.Generator(device=dev).manual_seed(seed + 1),
-                              tp_rank=tp_rank, tp_size=tp_size)
+                              tp_rank=tp_rank, tp_size=tp_size,
+                              layer_kinds=_layer_kinds(mc))
             trainable = {n for n, m in trainable_mask(llama.named_params(params)).items() if m}
             if lora_cfg.dropout and "model.lora.lora_dropout" not in _logged_ignored:
                 _logged_ignored.add("model.lora.lora_dropout")
@@ -1182,15 +1184,15 @@ class Trainer:
             token_count_fn = _row_count
         else:
             def loss_fn(p, batch, denominator=None, key=None):
-                if is_gpt:
-                    return gpt.forward(p, batch, mc, policy, rng=key, shift_labels=shift_labels,
-                                       loss_denominator=denominator, tp=tp, ep=ep)
                 if cp is not None:
                     # the rank's slice, cut after what needs the whole row
                     pos = llama.positions_for(batch["input_ids"], batch.get("attention_mask"),
                                               batch.get("segment_ids"))
                     batch = context_parallel_batch(batch, cp.rank, cp.size, positions=pos,
                                                    shift_labels=shift_labels, zigzag=zigzag)
+                if is_gpt:
+                    return gpt.forward(p, batch, mc, policy, rng=key, shift_labels=shift_labels,
+                                       loss_denominator=denominator, tp=tp, ep=ep, cp=cp)
                 if moe:
                     return mixtral.forward(p, batch, mc, policy, shift_labels=shift_labels,
                                            loss_denominator=denominator, tp=tp, cp=cp, ep=ep)

@@ -90,18 +90,19 @@ def test_analytic_plans_equal_jax(config):
 
 
 def test_refused_plans_are_discarded_with_the_trainer_text():
-    """A LoRA Mixtral: JAX's lattice ranks it, the port's trainer refuses
-    it (ROADMAP entry 10), so every candidate is discarded with that text
-    and the ranking is still JAX's."""
+    """A LoRA Mixtral: the port's trainer once refused it (ROADMAP entry
+    10), and the planner discarded every candidate with that text; LoRA on
+    Mixtral is ported, so no candidate is discarded, the ranking is JAX's
+    and the port's planner picks JAX's winner."""
     ov = {"model.lora": {"rank": 8}, "model.num_layers": 2}
     src = str(CONF / "hf_mixtral_8x7b_config.yaml")
     t = t_planner.plan_config(src, chips=8, topology="cpu", audit=False, overrides=ov)
     j = j_planner.plan_config(src, chips=8, topology="cpu", audit=False, overrides=ov)
     assert [dataclass_tuple(c.plan) for c in t.candidates] == \
         [dataclass_tuple(c.plan) for c in j.candidates]
-    assert t.winner is None and j.winner is not None
-    assert all("LoRA on a Mixtral model is not ported yet (ROADMAP queue 1 entry 10"
-               in c.discarded for c in t.candidates)
+    assert not any(c.discarded for c in t.candidates)
+    assert j.winner is not None and dataclass_tuple(t.winner.plan) == \
+        dataclass_tuple(j.winner.plan)
 
 
 @pytest.mark.parametrize("config,chips", [("hf_llama3_8B_config.yaml", 32),

@@ -466,8 +466,9 @@ def test_block_layout_rules_match_jax(override, text):
 
 def test_trainer_rules_for_gpt():
     """``auto`` resolves to the wavefront at pp 2 and an explicit ``1f1b`` is
-    refused with JAX's gate text; cp and LoRA on GPT are refused naming
-    entry 11 [item 14]; an unknown block type raises JAX's init text."""
+    refused with JAX's gate text; cp and LoRA on GPT pass (once refused
+    naming entry 11 [item 14], now ported); an unknown block type raises
+    JAX's init text."""
     over = {"distributed_strategy.pipeline_model_parallel_size": 2,
             "distributed_strategy.tensor_model_parallel_size": 1,
             "distributed_strategy.sequence_parallel": False}
@@ -480,13 +481,9 @@ def test_trainer_rules_for_gpt():
     with pytest.raises(ValueError, match="GPTConfig: head not wired for the manual-vjp 1f1b "
                                          r"schedule \(supported families: llama/mistral\)"):
         t_loop.check_supported(forced)
-    for extra, what in (({"distributed_strategy.context_parallel_size": 2,
-                          "model.fusions.ring_attention": True},
-                         "a GPT model under context parallelism"),
-                        ({"model.lora": {"r": 4}}, "LoRA on a GPT model")):
-        bad = t_loader.load_config(CONF / "megatron_gpt_config.yaml", extra)
-        with pytest.raises(NotImplementedError, match=what + r".*entry 11 \[item 14\]"):
-            t_loop.check_supported(bad)
+    for extra in ({"distributed_strategy.context_parallel_size": 2,
+                   "model.fusions.ring_attention": True}, {"model.lora": {"r": 4}}):
+        t_loop.check_supported(t_loader.load_config(CONF / "megatron_gpt_config.yaml", extra))
     with pytest.raises(ValueError, match="unknown activation"):
         t_gpt.check_config(t_gpt.GPTConfig(activation="squared_relu"))
 

@@ -232,9 +232,13 @@ class _Tokens:
     def __init__(self, rank, every):
         self.token_rank, self.token_size, self.every = rank, len(every), every
 
-    def gather_tokens(self, idx):
+    def gather_tokens(self, idx, rows=1):
         assert torch.equal(idx, self.every[self.token_rank])
         return torch.cat(self.every)
+
+    def own_tokens(self, full, rows=1):
+        n = full.shape[0] // self.token_size
+        return full[self.token_rank * n:(self.token_rank + 1) * n]
 
 
 @pytest.mark.parametrize("shuffle", [0, 4])
